@@ -1,0 +1,169 @@
+"""Synchronous serving driver (port of ``photon_tpu/serve/driver.py``).
+
+The driver is the load generator and the client: it pushes requests
+through a ``MicroBatchQueue`` from the calling thread, timestamps each
+completion with a done-callback on the worker thread, and reports
+p50/p99 latency, QPS, batch fill and the cold-entity rate.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+
+from photon_tpu_torch.serve.programs import ScorePrograms
+from photon_tpu_torch.serve.queue import MicroBatchQueue
+from photon_tpu_torch.serve.tables import CoefficientTables
+
+
+def synthetic_requests(
+    tables: CoefficientTables,
+    programs: ScorePrograms,
+    n: int,
+    *,
+    cold_fraction: float = 0.05,
+    seed: int = 0,
+) -> list[tuple[dict, dict]]:
+    """``n`` synthetic ``(features, entity_ids)`` requests: features
+    N(0, 1) per shard spec, entity ids drawn from each random table's
+    vocabulary with ``cold_fraction`` of lookups replaced by keys the
+    model never trained."""
+    rng = np.random.default_rng(seed)
+    vocab = {
+        rt: next(
+            t.entity_keys
+            for t in tables.random.values()
+            if t.random_effect_type == rt
+        )
+        for rt in programs.retype_order
+    }
+    reqs: list[tuple[dict, dict]] = []
+    for i in range(n):
+        feats = {}
+        for s in programs.shard_order:
+            spec = programs.specs[s]
+            if spec.kind == "dense":
+                feats[s] = rng.normal(size=spec.d).astype(programs.dtype)
+            else:
+                feats[s] = (
+                    rng.integers(0, spec.d, size=spec.k).astype(np.int32),
+                    rng.normal(size=spec.k).astype(programs.dtype),
+                )
+        ids = {}
+        for rt, keys in vocab.items():
+            if keys and rng.uniform() >= cold_fraction:
+                ids[rt] = keys[int(rng.integers(0, len(keys)))]
+            else:
+                ids[rt] = f"__cold_{i}"
+        reqs.append((feats, ids))
+    return reqs
+
+
+def drive(
+    queue: MicroBatchQueue,
+    requests: list[tuple[dict, dict]],
+    *,
+    warmup: int | None = None,
+    rate: float | None = None,
+) -> dict:
+    """Push ``requests`` through ``queue``; return the serving summary.
+
+    A warmup prefix (default: one max batch per rung, at most a quarter
+    of the requests) runs to completion before the measured window.
+    ``rate=None`` floods (QPS is the ceiling and latency includes
+    queueing); a requests/s ``rate`` paces submission on a fixed
+    schedule.
+    """
+    ladder = queue.programs.ladder
+    if warmup is None:
+        warmup = min(len(requests) // 4, sum(ladder.rungs))
+    warm, measured = requests[:warmup], requests[warmup:]
+    if not measured:
+        raise ValueError(
+            f"{len(requests)} requests leave nothing to measure after "
+            f"a {warmup}-request warmup"
+        )
+    for fut in [queue.submit(feats, ids) for feats, ids in warm]:
+        fut.result()
+    warm_stats = queue.stats()
+
+    # (submit time, completion time, future), appended only from the
+    # worker thread, read only after every future resolved.
+    completions: list[tuple[float, float, object]] = []
+
+    def on_done(t0: float):
+        def cb(fut):
+            completions.append((t0, time.perf_counter(), fut))
+
+        return cb
+
+    futures = []
+    t_start = time.perf_counter()
+    for i, (feats, ids) in enumerate(measured):
+        if rate:
+            delay = t_start + i / rate - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+        t0 = time.perf_counter()
+        fut = queue.submit(feats, ids)
+        fut.add_done_callback(on_done(t0))
+        futures.append(fut)
+    errors = 0
+    first_error: BaseException | None = None
+    for fut in futures:
+        exc = fut.exception()
+        if exc is not None:
+            errors += 1
+            first_error = first_error or exc
+    if errors == len(futures) and first_error is not None:
+        raise first_error  # nothing scored: surface the real failure
+    # Latency and QPS describe served requests only.
+    ok = [(t0, td) for t0, td, f in completions if f.exception() is None]
+    lat_arr = np.asarray(sorted(td - t0 for t0, td in ok))
+    t_end = max(td for _, td in ok)
+    wall = max(t_end - t_start, 1e-9)
+    out = {
+        "requests": len(measured),
+        "warmup_requests": len(warm),
+        "errors": errors,
+        "p50_ms": round(float(np.percentile(lat_arr, 50)) * 1e3, 3),
+        "p90_ms": round(float(np.percentile(lat_arr, 90)) * 1e3, 3),
+        "p99_ms": round(float(np.percentile(lat_arr, 99)) * 1e3, 3),
+        "max_ms": round(float(lat_arr[-1]) * 1e3, 3),
+        "qps": round(len(lat_arr) / wall, 1),
+        "wall_seconds": round(wall, 4),
+        "offered_rate": rate,
+    }
+    qstats = queue.stats()
+
+    def delta(key):
+        return qstats[key] - warm_stats[key]
+
+    batches = delta("batches")
+    batched = delta("batched_requests")
+    lookups = delta("entity_lookups")
+    out["batch_fill_fraction"] = (
+        round(batched / (batches * queue.max_batch), 4) if batches else None
+    )
+    out["mean_batch_size"] = round(batched / batches, 2) if batches else None
+    out["cold_entity_rate"] = (
+        round(delta("cold_lookups") / lookups, 4) if lookups else None
+    )
+    out["cold_entity_rate_by_coordinate"] = {}
+    for nm, cs in qstats["per_coordinate"].items():
+        warm_cs = warm_stats["per_coordinate"][nm]
+        lk = cs["entity_lookups"] - warm_cs["entity_lookups"]
+        cd = cs["cold_lookups"] - warm_cs["cold_lookups"]
+        out["cold_entity_rate_by_coordinate"][nm] = (
+            round(cd / lk, 4) if lk else None
+        )
+    out["batches"] = batches
+    out["dispatch_errors"] = delta("dispatch_errors")
+    stage_s = delta("staging_seconds")
+    out["staged_batches"] = delta("staged_batches")
+    out["staging_overlap_fraction"] = (
+        round(delta("staging_overlapped_seconds") / stage_s, 4)
+        if stage_s > 0 else None
+    )
+    return out

@@ -1,0 +1,214 @@
+"""Device-resident coefficient tables for online scoring (port of
+``photon_tpu/serve/tables.py``).
+
+A ``GameModel`` becomes lookup tables: one [d] weight vector per fixed
+coordinate and, per random coordinate, the padded [E, S] coefficient
+matrix beside its [E, S] int32 projector on the device, plus a host map
+entity key -> row. An entity missing from the map gets code -1 and
+scores through the fixed effects only.
+
+``reload`` with unchanged structure copies the new values into the live
+tensors in place (torch has no buffer donation), so the score ladder
+keeps serving the same tensors; a structure change rebuilds the tables
+and returns False, and the caller builds new ``ScorePrograms``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from photon_tpu_torch import device as device_mod
+from photon_tpu_torch.models.game import (
+    FixedEffectModel,
+    GameModel,
+    RandomEffectModel,
+)
+from photon_tpu_torch.ops import precision as precision_mod
+from photon_tpu_torch.types import TaskType
+
+
+@dataclasses.dataclass
+class FixedTable:
+    """One fixed-effect coordinate: the dense [d] weight vector."""
+
+    name: str
+    feature_shard_id: str
+    task: TaskType
+    weights: torch.Tensor  # [d]
+
+    @property
+    def num_features(self) -> int:
+        return int(self.weights.shape[0])
+
+
+@dataclasses.dataclass
+class RandomTable:
+    """One random-effect coordinate: padded per-entity coefficients."""
+
+    name: str
+    random_effect_type: str
+    feature_shard_id: str
+    task: TaskType
+    weights: torch.Tensor  # [E, S]
+    proj: torch.Tensor  # [E, S] int32, -1 pad
+    entity_keys: tuple  # row i <-> entity_keys[i]
+    entity_rows: dict  # str key -> row index
+    # Widest feature id the projector names + 1, taken on the host at
+    # build: the model alone does not record the shard width.
+    num_features: int = 1
+
+    @property
+    def num_entities(self) -> int:
+        return int(self.weights.shape[0])
+
+    def code_for(self, key) -> int:
+        """Row index for an entity key; -1 = cold (fixed-effect-only)."""
+        row = self.entity_rows.get(str(key))
+        return -1 if row is None else row
+
+
+@dataclasses.dataclass
+class CoefficientTables:
+    """Device-resident serving state for one GameModel."""
+
+    fixed: dict[str, FixedTable]
+    random: dict[str, RandomTable]
+    task: TaskType
+    device: torch.device
+    # +1 per reload, in place or rebuilt.
+    generation: int = 0
+    precision: str = precision_mod.FLOAT32
+
+    def coordinate_stats(self) -> dict:
+        return {
+            "generation": self.generation,
+            "fixed": {
+                n: {"features": t.num_features}
+                for n, t in self.fixed.items()
+            },
+            "random": {
+                n: {
+                    "entities": t.num_entities,
+                    "re_type": t.random_effect_type,
+                    "sub_dim": int(t.weights.shape[1]),
+                }
+                for n, t in self.random.items()
+            },
+        }
+
+    def codes_for(self, entity_ids: dict) -> dict[str, int]:
+        """Per-coordinate row codes for one request (-1 = cold); the
+        request's entity id is keyed by the coordinate's re_type."""
+        return {
+            name: t.code_for(entity_ids.get(t.random_effect_type, ""))
+            for name, t in self.random.items()
+        }
+
+    @staticmethod
+    def from_game_model(
+        model: GameModel, precision: str | None = None, device=None
+    ) -> "CoefficientTables":
+        dev = device_mod.resolve(device)
+        resolved = precision_mod.resolve(precision)
+
+        def put(t: torch.Tensor) -> torch.Tensor:
+            t = torch.as_tensor(t)
+            if not t.is_floating_point():
+                raise TypeError(f"coefficients must be float, not {t.dtype}")
+            return precision_mod.in_storage(t.to(dev), resolved).contiguous()
+
+        fixed: dict[str, FixedTable] = {}
+        random: dict[str, RandomTable] = {}
+        for name, sub in model.items():
+            if isinstance(sub, FixedEffectModel):
+                fixed[name] = FixedTable(
+                    name=name,
+                    feature_shard_id=sub.feature_shard_id,
+                    task=sub.task,
+                    weights=put(sub.model.coefficients.means),
+                )
+            elif isinstance(sub, RandomEffectModel):
+                keys = tuple(str(k) for k in sub.entity_keys)
+                proj = np.asarray(sub.proj_all).astype(np.int32)
+                random[name] = RandomTable(
+                    name=name,
+                    random_effect_type=sub.random_effect_type,
+                    feature_shard_id=sub.feature_shard_id,
+                    task=sub.task,
+                    weights=put(sub.coefficients),
+                    proj=torch.from_numpy(
+                        np.ascontiguousarray(proj)).to(dev),
+                    entity_keys=keys,
+                    entity_rows={k: i for i, k in enumerate(keys)},
+                    num_features=(
+                        int(proj.max(initial=-1)) + 1 if proj.size else 1
+                    ),
+                )
+            else:
+                raise TypeError(f"unknown sub-model type for {name!r}")
+        return CoefficientTables(
+            fixed=fixed, random=random, task=model.task, device=dev,
+            precision=resolved,
+        )
+
+    def structure_key(self) -> tuple:
+        """What the score ladder specializes on: coordinate names,
+        shard wiring, and table shapes and dtypes."""
+        fe = tuple(
+            (n, t.feature_shard_id, tuple(t.weights.shape),
+             str(t.weights.dtype))
+            for n, t in self.fixed.items()
+        )
+        re = tuple(
+            (n, t.random_effect_type, t.feature_shard_id,
+             tuple(t.weights.shape), str(t.weights.dtype))
+            for n, t in self.random.items()
+        )
+        return (fe, re)
+
+    def _values_only_delta(self, new: "CoefficientTables") -> bool:
+        """True when ``new`` differs from the live tables only in
+        coefficient values: same structure, projectors and entity
+        vocabularies, so every row code keeps its meaning."""
+        if new.structure_key() != self.structure_key():
+            return False
+        for name, t in self.random.items():
+            src = new.random[name]
+            if src.entity_keys != t.entity_keys:
+                return False
+            if not torch.equal(src.proj, t.proj):
+                return False
+        return True
+
+    def reload(self, model: GameModel) -> bool:
+        """Bring a refreshed model's coefficients into the live tables.
+
+        Returns True for a values-only refresh: the new values are
+        copied in place into the tensors the score ladder reads, on the
+        current stream, so a later dispatch sees them and an earlier one
+        has read the old ones. Returns False for a structure change
+        (coordinates, shapes, dtype, projectors or vocabularies moved):
+        the tables are rebuilt, which is not safe under live dispatch,
+        and the caller must build new ``ScorePrograms``.
+        """
+        new = CoefficientTables.from_game_model(
+            model, self.precision, self.device
+        )
+        self.generation += 1
+        if not self._values_only_delta(new):
+            self.fixed = new.fixed
+            self.random = new.random
+            self.task = new.task
+            return False
+        with torch.no_grad():
+            for name, t in self.fixed.items():
+                t.weights.copy_(new.fixed[name].weights)
+                t.task = new.fixed[name].task
+            for name, t in self.random.items():
+                t.weights.copy_(new.random[name].weights)
+                t.task = new.random[name].task
+        self.task = new.task
+        return True

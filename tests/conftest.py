@@ -32,6 +32,14 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); the "
+        "test skips without one",
+    )
+
+
 @pytest.fixture(scope="session")
 def devices():
     devs = jax.devices()
