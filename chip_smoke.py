@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of photon_tpu_torch's serving path on one NVIDIA GPU.
+"""Smoke run of photon_tpu_torch's serving and training paths on one
+NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs
 one CUDA device and ``nvcc``; without a GPU, or without the package
@@ -32,6 +33,42 @@ JSON lines:
              fetch), and the bound;
 6. paced   - a second drive at a fixed offered load, whose p50/p99 are
              service latency rather than queueing behind a flood.
+
+Then the training group, on the bench's logistic GLMix at full width in
+float32 (``bench.py`` ``build_estimator("logistic")`` and
+``_synth_arrays``, seed 20260729: 4,000,000 rows, fixed effect d = 64,
+``per-user`` 100,000 entities x 17 slots, ``per-movie`` 20,000 x 9,
+4 coordinate-descent iterations; nothing cut):
+
+7.  train_data     - numpy data, the copy to the card, the host planner;
+8.  newton_parity  - three Newton steps on the largest user and movie
+                     buckets: the CUDA kernel, ``newton_step_plain`` in
+                     f32 and in float64, on the card. The kernel's
+                     largest error against float64 is at most twice the
+                     f32 plain version's (+1e-5) in w, f and g, and its
+                     ``improved`` equals the plain version's; their
+                     difference and the count outside rtol 1e-4 /
+                     atol 1e-5 are reported (entities whose objective
+                     moved only by f32 round-off on both sides are
+                     counted and left out);
+9.  fit            - ``GameEstimator.fit`` with the Newton-kernel launch,
+                     plain-route and host-sync counts zeroed just before:
+                     launches > 0 and no bucket on the plain route;
+10. optimality     - each entity's gradient at the fitted model against
+                     the cascade's tolerance, else its convergence reason;
+11. quality        - train AUC beside the generating weights' AUC;
+12. train_serve    - the trained model through save_checkpoint,
+                     load_checkpoint and ScorePrograms on 512 training
+                     rows: equal to the trainer's scores within 1e-5;
+13. newton_timing  - device ms per Newton step at every bucket shape
+                     (CUDA-graph replay), the plain version's at the
+                     largest buckets, and the bound;
+14. route_agreement - the same fit at a tenth of the rows and entities
+                     with the kernel route and with the batch-minor plain
+                     route: fixed effect within rtol 1e-3 / atol 1e-4,
+                     random effects within rtol 1e-3 / atol 2e-3 (the
+                     f32 resolution of an entity's optimum, see
+                     RE_FIT_ATOL), training losses within 1e-4.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -408,6 +445,637 @@ def phase_timing(torch, model) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: the bench's logistic GLMix at full width, float32
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 20260729
+TRAIN_ROWS, TRAIN_FEATURES = 4_000_000, 64
+USER_FEATURES, MOVIE_FEATURES = 16, 8  # + the bias slot each
+REDUCED = dict(n_rows=400_000, n_users=10_000, n_movies=2_000)
+CD_ITERATIONS = 4
+# The kernel against its plain version on the card, both f32: the same
+# arithmetic with the sums taken in another order. Over a whole bucket
+# (1.7 million user coefficients) the f32 plain version itself is up to
+# 1.6e-4 from a float64 step in g, so the two are held against the
+# float64 step, and rtol 1e-4 / atol 1e-5 between them is reported.
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+# An objective change within this relative size is f32 round-off.
+ROUND_OFF = 1e-5
+# The kernel-route fit against the plain-route fit: the fixed effect
+# within rtol 1e-3 / atol 1e-4. A per-entity solve in f32 stops where
+# its objective F no longer resolves an improvement, about 4 eps F; with
+# F ~ 0.6 R (logistic, R rows) and curvature h ~ 0.2 R + l2, two f32
+# solves of one entity can end sqrt(2 * 4 eps F / h) ~ sqrt(24 eps)
+# ~ 1.2e-3 apart in any coefficient, whichever route they take. The
+# random effects are held at twice that; how many coefficients are
+# outside rtol 1e-3 / atol 1e-4 is reported beside it.
+FIT_RTOL, FIT_ATOL = 1e-3, 1e-4
+RE_FIT_ATOL = 2e-3
+NEWTON_STEPS = 3
+SERVE_ROWS = 512
+# H100 special-function units: 16 results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) x 132 SMs x 1.98 GHz boost clock.
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+NEWTON_REPLACES = "photon_tpu/ops/newton_kernel.py:225"
+
+
+def synth_arrays(n_rows=TRAIN_ROWS, n_users=N_USERS, n_movies=N_MOVIES,
+                 seed=TRAIN_SEED):
+    """The bench's MovieLens-shaped logistic workload as numpy, drawn in
+    the bench's order (``bench.py:_synth_arrays``), plus the generating
+    margin (the Bayes-optimal score)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_rows, TRAIN_FEATURES)).astype(np.float32)
+    x[:, -1] = 1.0
+    xu = rng.normal(size=(n_rows, USER_FEATURES + 1)).astype(np.float32)
+    xu[:, -1] = 1.0
+    xm = rng.normal(size=(n_rows, MOVIE_FEATURES + 1)).astype(np.float32)
+    xm[:, -1] = 1.0
+    users = rng.integers(0, n_users, size=n_rows)
+    movies = rng.integers(0, n_movies, size=n_rows)
+    w = rng.normal(size=TRAIN_FEATURES).astype(np.float32) * 0.3
+    wu = rng.normal(size=(n_users, USER_FEATURES + 1)).astype(
+        np.float32) * 0.3
+    wm = rng.normal(size=(n_movies, MOVIE_FEATURES + 1)).astype(
+        np.float32) * 0.2
+    z = (x @ w + np.einsum("nd,nd->n", xu, wu[users])
+         + np.einsum("nd,nd->n", xm, wm[movies]))
+    y = (rng.uniform(size=n_rows) < 1.0 / (1.0 + np.exp(-0.5 * z))).astype(
+        np.float32)
+    return dict(x=x, xu=xu, xm=xm, users=users, movies=movies, y=y, z=z)
+
+
+def train_dataset(arrays):
+    from photon_tpu_torch.data.dataset import DenseFeatures
+    from photon_tpu_torch.data.game_data import make_game_dataset
+
+    return make_game_dataset(
+        arrays["y"],
+        {"global": DenseFeatures(arrays["x"]),
+         "userShard": DenseFeatures(arrays["xu"]),
+         "movieShard": DenseFeatures(arrays["xm"])},
+        id_tags={"userId": arrays["users"], "movieId": arrays["movies"]},
+        device="cuda",
+    )
+
+
+def build_estimator():
+    """The bench's ``build_estimator("logistic")`` in float32."""
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.algorithm.problems import (
+        GLMOptimizationConfiguration,
+    )
+    from photon_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+    )
+    from photon_tpu_torch.estimators.game_estimator import (
+        FixedEffectCoordinateConfiguration,
+        GameEstimator,
+        RandomEffectCoordinateConfiguration,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    def l2(weight):
+        return GLMOptimizationConfiguration(
+            regularization=optim.RegularizationContext(
+                optim.RegularizationType.L2),
+            regularization_weight=weight)
+
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {
+            "global": FixedEffectCoordinateConfiguration("global", l2(1e-3)),
+            "per-user": RandomEffectCoordinateConfiguration(
+                RandomEffectDataConfiguration(
+                    "userId", "userShard", active_data_upper_bound=512,
+                    min_bucket_entities=128),
+                l2(1.0)),
+            "per-movie": RandomEffectCoordinateConfiguration(
+                RandomEffectDataConfiguration(
+                    "movieId", "movieShard", active_data_upper_bound=2048,
+                    min_bucket_entities=128),
+                l2(1.0)),
+        },
+        intercept_indices={"global": TRAIN_FEATURES - 1,
+                           "userShard": USER_FEATURES,
+                           "movieShard": MOVIE_FEATURES},
+        num_iterations=CD_ITERATIONS,
+        precision="float32",
+    )
+
+
+RE_IDS = ("per-user", "per-movie")
+
+
+def l2_weight(est, cid) -> float:
+    return est.coordinate_configs[cid].optimization.l2_weight
+
+
+def newton_operands(torch, eb, l2w: float) -> dict:
+    """The Newton step's operands for one cached bucket as the solver
+    forms them at its start: w = 0, no residuals, no normalization, no
+    prior."""
+    from photon_tpu_torch.ops import losses
+
+    x = eb.x_values.contiguous()
+    off = eb.offsets
+    b, _, s = x.shape
+    w = torch.zeros((b, s), dtype=x.dtype, device=x.device)
+    l2 = (l2w * eb.penalty_mask).contiguous()
+    z = torch.einsum("brs,bs->br", x, w) + off
+    f = torch.sum(eb.weights * losses.LOGISTIC.loss(z, eb.labels), dim=-1)
+    return dict(x=x, w=w, y=eb.labels.contiguous(),
+                wt=eb.weights.contiguous(), off=off.contiguous(), l2=l2,
+                mt=torch.zeros_like(w), vm=eb.valid_mask.contiguous(),
+                f=f.contiguous())
+
+
+def step_args(ops):
+    return tuple(ops[k] for k in ("x", "w", "y", "wt", "off", "l2", "mt",
+                                  "vm", "f"))
+
+
+def max_or_zero(t) -> float:
+    return float(t.max()) if t.numel() else 0.0
+
+
+def phase_newton_parity(torch, datasets, est) -> dict:
+    """Three Newton steps on the largest user bucket and the largest
+    movie bucket: the CUDA kernel, the plain version in f32 and the
+    plain version in float64, all from the same state on the card (each
+    step starts from the f32 plain version's iterate).
+
+    The kernel must be as accurate as the plain version: its largest
+    error against the float64 step at most twice the f32 plain
+    version's, plus STEP_ATOL, for w, f and g; and ``improved`` equal
+    to the plain version's. How far kernel and plain are apart, and how
+    many values lie outside rtol STEP_RTOL / atol STEP_ATOL of each
+    other, is reported. An entity whose objective moved by no more than
+    f32 round-off on both sides is near its optimum, where the order of
+    the sums decides whether and how far it steps; such entities are
+    counted and left out (none may be on the first step).
+    """
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    worst = 0.0
+    rows = []
+    for cid in RE_IDS:
+        blocks = datasets[cid].device_blocks()
+        eb = max(blocks, key=lambda b: b.num_entities)
+        ops = newton_operands(torch, eb, l2_weight(est, cid))
+        for k in range(NEWTON_STEPS):
+            args = step_args(ops)
+            got = nk.newton_step(*args, task=task)
+            torch.cuda.synchronize()
+            want = nk.newton_step_plain(*args, task=task)
+            ref = nk.newton_step_plain(*(a.double() for a in args),
+                                       task=task)
+            torch.cuda.synchronize()
+            f_prev = ops["f"]
+
+            def moved(f_new):
+                return ((f_new - f_prev).abs()
+                        > ROUND_OFF * (f_prev.abs() + 1.0))
+
+            keep = moved(got[1]) | moved(want[1])
+            imp_agree = (float((got[3] == want[3])[keep].float().mean())
+                         if bool(keep.any()) else 1.0)
+            row = {"phase": "newton_parity", "coordinate": cid,
+                   "bucket": list(eb.x_values.shape), "step": k + 1,
+                   "near_optimum_entities": int((~keep).sum()),
+                   "improved_agreement": imp_agree,
+                   "improved_fraction": float(want[3].float().mean())}
+            ok = imp_agree == 1.0
+            for name, a, b, c in zip(("w", "f", "g"), got[:3], want[:3],
+                                     ref[:3]):
+                a, b, c = a[keep], b[keep], c[keep]
+                diff = (a - b).abs()
+                k_err = max_or_zero((a.double() - c).abs())
+                p_err = max_or_zero((b.double() - c).abs())
+                row[f"max_abs_diff_{name}"] = max_or_zero(diff)
+                row[f"outside_tol_{name}"] = int(
+                    (diff > STEP_ATOL + STEP_RTOL * b.abs()).sum())
+                row[f"kernel_err_f64_{name}"] = k_err
+                row[f"plain_err_f64_{name}"] = p_err
+                worst = max(worst, row[f"max_abs_diff_{name}"])
+                ok = (ok and bool(a.isfinite().all())
+                      and k_err <= 2.0 * p_err + STEP_ATOL)
+            row["values"] = int(want[0][keep].numel())
+            emit(row)
+            rows.append(row)
+            if not ok:
+                fail(f"the Newton kernel is less accurate than its plain "
+                     f"version against float64 ({cid}, step {k + 1})")
+            if k == 0 and row["near_optimum_entities"]:
+                fail(f"{cid}: entities at round-off on the first step")
+            ops = dict(ops, w=want[0], f=want[1])
+    return {"max_abs_err": worst, "rows": rows}
+
+
+def bucket_launches(stats_history, datasets) -> dict:
+    """Newton-step launches per bucket shape over a fit: each RE solve
+    runs one launch per iteration of its slowest entity in the bucket."""
+    out: dict = {}
+    for rec in stats_history:
+        if rec.coordinate_id not in RE_IDS:
+            continue
+        it = rec.diagnostics.iterations
+        start = 0
+        for eb in datasets[rec.coordinate_id].device_blocks():
+            n = eb.num_entities
+            key = (rec.coordinate_id, tuple(eb.x_values.shape))
+            out[key] = out.get(key, 0) + int(it[start:start + n].max())
+            start += n
+    return out
+
+
+def total_scores(torch, model, datasets, data):
+    """The trainer's own score of every row: fixed effect plus each
+    random effect, with its per-coordinate parts."""
+    parts = {"global": model["global"].model.coefficients.compute_score(
+        data.feature_shards["global"])}
+    for cid in RE_IDS:
+        parts[cid] = model[cid].score_dataset(datasets[cid])
+    total = sum(parts.values())
+    return total, parts
+
+
+def auc(score: np.ndarray, y: np.ndarray) -> float:
+    order = np.argsort(score, kind="stable")
+    ranks = np.empty(score.shape[0], dtype=np.float64)
+    ranks[order] = np.arange(1, score.shape[0] + 1)
+    pos = y > 0.5
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
+
+
+def phase_fit(torch, arrays, data, est) -> dict:
+    """GameEstimator.fit at full width, counts zeroed just before."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.optim import lbfgs
+
+    nk.launches = 0
+    ra.host_syncs = ra.plain_route_solves = 0
+    lbfgs.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = est.fit(data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, plain_solves = nk.launches, ra.plain_route_solves
+    newton_syncs, lbfgs_syncs = ra.host_syncs, lbfgs.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    res = results[0]
+    hist = res.descent.history
+    per_iter = [sum(r.seconds for r in hist if r.iteration == i)
+                for i in range(CD_ITERATIONS)]
+    per_coord = {cid: sum(r.seconds for r in hist if r.coordinate_id == cid)
+                 for cid in est.update_sequence}
+    fe_iters = [int(r.diagnostics.iterations) for r in hist
+                if r.coordinate_id == "global"]
+    re_iters = {cid: [r.diagnostics.iterations_max for r in hist
+                      if r.coordinate_id == cid] for cid in RE_IDS}
+    row = {
+        "phase": "fit", "rows": int(arrays["y"].shape[0]),
+        "fit_seconds": fit_s, "seconds_per_cd_iteration": per_iter,
+        "seconds_per_coordinate": per_coord,
+        "fe_lbfgs_iterations": fe_iters,
+        "re_newton_iterations_max": re_iters,
+        "newton_kernel_launches": launches,
+        "plain_route_solves": plain_solves,
+        "newton_host_syncs": newton_syncs, "lbfgs_host_syncs": lbfgs_syncs,
+        "max_memory_allocated_bytes": peak,
+    }
+    emit(row)
+    if launches <= 0:
+        fail("the fit launched the Newton kernel no time")
+    if plain_solves != 0:
+        fail(f"{plain_solves} bucket solves took the plain route")
+    return {"row": row, "result": res}
+
+
+def phase_optimality(torch, model, datasets, data, stats) -> dict:
+    """Each entity's regularized gradient at the fitted model (float64,
+    against the final scores of every other coordinate) against the
+    cascade's gradient tolerance; where it is above, the entity's last
+    convergence code says why."""
+    from photon_tpu_torch.optim import ConvergenceReason
+
+    total, parts = total_scores(torch, model, datasets, data)
+    out = {}
+    for cid in RE_IDS:
+        ds = datasets[cid]
+        residuals = (total - parts[cid]).double()
+        w_all = model[cid].coefficients.double()
+        l2w = stats["l2"][cid]
+        reasons = stats["reasons"][cid]
+        gn, g0n = [], []
+        for eb in ds.device_blocks():
+            x = eb.x_values.double()
+            rows = eb.row_ids.long()
+            wt = eb.weights.double()
+            off = eb.offsets.double() + torch.where(
+                eb.weights > 0, residuals[rows], torch.zeros_like(wt))
+            ind = (eb.labels > 0.5).double()
+            w = w_all[eb.entity_codes.long()][:, :x.shape[-1]]
+            pen = l2w * eb.penalty_mask.double()
+            vm = eb.valid_mask.double()
+            for ww, sink in ((w, gn), (torch.zeros_like(w), g0n)):
+                z = torch.einsum("brs,bs->br", x, ww) + off
+                g = (torch.einsum("brs,br->bs", x,
+                                  wt * (torch.sigmoid(z) - ind))
+                     + pen * ww) * vm
+                sink.append(torch.linalg.vector_norm(g, dim=-1))
+        gn = torch.cat(gn).cpu().numpy()
+        g0n = torch.cat(g0n).cpu().numpy()
+        tol = g0n * 1e-7
+        converged = gn <= tol
+        counts = {"GRADIENT_BELOW_TOLERANCE": int(converged.sum())}
+        for code in np.unique(reasons[~converged]):
+            counts[ConvergenceReason(int(code)).name] = int(
+                (reasons[~converged] == code).sum())
+        rel = gn / np.maximum(g0n, 1e-30)
+        row = {"phase": "optimality", "coordinate": cid,
+               "entities": int(gn.size), "counts": counts,
+               "rel_grad_median": float(np.median(rel)),
+               "rel_grad_p99": float(np.quantile(rel, 0.99)),
+               "rel_grad_max": float(rel.max())}
+        emit(row)
+        out[cid] = row
+        if not np.isfinite(gn).all():
+            fail(f"{cid}: non-finite gradient at the fitted model")
+        if (reasons[~converged] == int(ConvergenceReason.NOT_CONVERGED)).any():
+            fail(f"{cid}: an entity is above the gradient tolerance with no "
+                 "convergence reason")
+    return out
+
+
+def phase_quality(torch, arrays, model, datasets, data) -> dict:
+    total, _ = total_scores(torch, model, datasets, data)
+    score = total.double().cpu().numpy()
+    row = {"phase": "quality", "train_auc": auc(score, arrays["y"]),
+           "bayes_auc": auc(arrays["z"], arrays["y"]),
+           "scores_finite": bool(np.isfinite(score).all())}
+    emit(row)
+    if not row["scores_finite"] or not row["train_auc"] > 0.5:
+        fail(f"trained model scores: {row}")
+    return {"row": row, "total": total}
+
+
+def phase_train_serve(torch, arrays, model, total) -> dict:
+    """The trained model through save_checkpoint -> load_checkpoint ->
+    ScorePrograms, scoring training rows as requests."""
+    from photon_tpu_torch.io.model_io import load_checkpoint, save_checkpoint
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.programs import ScorePrograms
+    from photon_tpu_torch.serve.tables import CoefficientTables
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    path = save_checkpoint(model, os.path.join(out_dir, "trained_model.npz"))
+    programs = ScorePrograms(CoefficientTables.from_game_model(
+        load_checkpoint(path), "float32"))
+    rows = np.random.default_rng(3).choice(
+        arrays["y"].shape[0], size=SERVE_ROWS, replace=False)
+    requests = [
+        ({"global": arrays["x"][i], "userShard": arrays["xu"][i],
+          "movieShard": arrays["xm"][i]},
+         {"userId": str(arrays["users"][i]),
+          "movieId": str(arrays["movies"][i])})
+        for i in rows
+    ]
+    feats, codes, rung = programs.pack_requests(requests)
+    serve_kernel.launches = 0
+    served = programs.score_padded(feats, codes, len(requests))
+    launches = serve_kernel.launches
+    trainer = total[torch.from_numpy(rows).to(total.device)].cpu().numpy()
+    err = float(np.abs(served - trainer).max())
+    row = {"phase": "train_serve", "requests": len(requests), "rung": rung,
+           "serve_kernel_launches": launches, "max_abs_err": err,
+           "tol": TOL["float32"], "checkpoint": path}
+    emit(row)
+    if launches != 1 or not err <= TOL["float32"]:
+        fail(f"served scores of the trained model differ from the "
+             f"trainer's by {err} ({launches} launches)")
+    return row
+
+
+def newton_bound(shape, trials=16) -> dict:
+    """Least time for one Newton step on a [B, R, S] bucket: bytes (the
+    slab, each [B, R] and [B, S] operand and output, f read and written,
+    the improved byte, each once) at 3.35 TB/s; f32 operations (margins,
+    Hessian, gradient, CG, trial margins and losses, the refresh) at
+    67 TFLOP/s; and the exp and log1p of every row in every trial, plus
+    those of the margins and the refresh, at the special-function rate.
+    ``bound_ms`` is the largest."""
+    b, r, s = shape
+    nbytes = 4.0 * b * (r * s + 3 * r + 4 * s + 2 * s + 2) + b
+    per_entity = (
+        2 * r * s                      # margins
+        + r * s * (s + 1) + r * s      # Hessian, lower triangle + x * c
+        + 2 * r * s + 4 * s            # gradient + penalty
+        + s * (2 * s * s + 10 * s)     # CG
+        + 2 * r * s                    # trial margins x d
+        + trials * (r * 12 + 4 * s)    # trial losses + penalties
+        + 4 * r * s + 12 * r           # refresh: margins, gradient, loss
+    )
+    flops = float(b) * per_entity
+    transcendental = float(b) * r * (2 * trials + 6)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": flops / F32_FLOPS,
+             "transcendentals": transcendental / SFU_OPS_PER_S}
+    name = max(times, key=times.get)
+    return {"bound_ms": times[name] * 1e3,
+            "bound_by": "bytes" if name == "bytes" else "operations",
+            "bound_detail": name,
+            "bytes_ms": times["bytes"] * 1e3,
+            "flops_ms": times["operations"] * 1e3,
+            "transcendentals_ms": times["transcendentals"] * 1e3,
+            "bytes": nbytes, "flops": flops,
+            "transcendental_ops": transcendental}
+
+
+def phase_newton_timing(torch, datasets, est, launches_by_bucket) -> list:
+    """Device ms per Newton step at every bucket shape of the fit (CUDA
+    graph replay); the plain version at the largest user and movie
+    buckets."""
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    rows = []
+    for cid in RE_IDS:
+        blocks = datasets[cid].device_blocks()
+        biggest = max(blocks, key=lambda b: b.num_entities)
+        for eb in blocks:
+            args = step_args(newton_operands(torch, eb, l2_weight(est, cid)))
+            shape = tuple(eb.x_values.shape)
+
+            def kernel():
+                return nk.newton_step(*args, task=task)
+
+            def plain():
+                return nk.newton_step_plain(*args, task=task)
+
+            row = {"phase": "newton_timing", "coordinate": cid,
+                   "bucket": list(shape),
+                   "fit_launches": launches_by_bucket.get((cid, shape), 0),
+                   "ms": device_ms(torch, kernel, 5),
+                   "eager_ms": eager_ms(torch, kernel, 5),
+                   **newton_bound(shape)}
+            if eb is biggest:
+                row["plain_ms"] = device_ms(torch, plain, 1)
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def fit_objective(torch, total, data) -> float:
+    """Sum of the logistic loss of every row at the fit's scores
+    (float64), the data term of the training objective."""
+    from photon_tpu_torch.ops import losses
+
+    return float(torch.sum(losses.LOGISTIC.loss(total.double(),
+                                                data.labels.double())))
+
+
+def phase_route_agreement(torch) -> dict:
+    """The same fit at a tenth of the rows, users and movies (the
+    per-entity shapes stay the bench's) with the kernel route and with
+    the batch-minor plain route that the solver takes for buckets the
+    kernel does not serve; both on the card in float32."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import newton_kernel as nk
+
+    arrays = synth_arrays(**REDUCED)
+    data = train_dataset(arrays)
+    fits = {}
+    supported = nk.kernel_supported
+    for route in ("kernel", "plain"):
+        est = build_estimator()
+        nk.launches = ra.plain_route_solves = 0
+        if route == "plain":
+            nk.kernel_supported = lambda *a, **k: False
+        try:
+            t0 = time.perf_counter()
+            model = est.fit(data)[0].model
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            nk.kernel_supported = supported
+        datasets = est.prepare(data)
+        total, _ = total_scores(torch, model, datasets, data)
+        fits[route] = dict(model=model, seconds=secs, launches=nk.launches,
+                           plain_solves=ra.plain_route_solves,
+                           objective=fit_objective(torch, total, data))
+    k, p = fits["kernel"], fits["plain"]
+    row = {"phase": "route_agreement", **REDUCED,
+           "rtol": FIT_RTOL,
+           "kernel_fit_seconds": k["seconds"],
+           "plain_fit_seconds": p["seconds"],
+           "kernel_launches": [k["launches"], p["launches"]],
+           "plain_route_solves": [k["plain_solves"], p["plain_solves"]],
+           "objective_kernel": k["objective"],
+           "objective_plain": p["objective"],
+           "objective_rel_diff": abs(k["objective"] - p["objective"])
+           / abs(p["objective"])}
+    ok = True
+    for cid in ("global",) + RE_IDS:
+        a = (k["model"][cid].model.coefficients.means if cid == "global"
+             else k["model"][cid].coefficients)
+        b = (p["model"][cid].model.coefficients.means if cid == "global"
+             else p["model"][cid].coefficients)
+        diff = (a - b).abs()
+        excess = diff - (FIT_ATOL + FIT_RTOL * b.abs())
+        atol = FIT_ATOL if cid == "global" else RE_FIT_ATOL
+        gate = diff - (atol + FIT_RTOL * b.abs())
+        row[f"{cid}_max_abs_diff"] = float(diff.max())
+        row[f"{cid}_outside_1e-3_1e-4"] = int((excess > 0).sum())
+        row[f"{cid}_atol"] = atol
+        row[f"{cid}_max_excess"] = float(gate.max())
+        row[f"{cid}_coefficients"] = int(diff.numel())
+        ok = ok and float(gate.max()) <= 0.0
+    emit(row)
+    if k["launches"] <= 0 or p["launches"] != 0 or p["plain_solves"] <= 0:
+        fail(f"the two fits did not take their routes: {row}")
+    if not ok:
+        fail(f"kernel-route and plain-route fits differ beyond rtol "
+             f"{FIT_RTOL} / atol {FIT_ATOL} (fixed effect), "
+             f"{RE_FIT_ATOL} (random effects)")
+    if not row["objective_rel_diff"] <= 1e-4:
+        fail(f"the two fits' training losses differ: {row}")
+    return row
+
+
+def phase_train(torch) -> dict:
+    from photon_tpu_torch.ops import newton_kernel as nk
+
+    t0 = time.perf_counter()
+    arrays = synth_arrays()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = train_dataset(arrays)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    est = build_estimator()
+    t0 = time.perf_counter()
+    datasets = est.prepare(data)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buckets = {cid: [list(b.x_values.shape)
+                     for b in datasets[cid].device_blocks()]
+               for cid in RE_IDS}
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    emit({"phase": "train_data", "rows": int(arrays["y"].shape[0]),
+          "generate_seconds": gen_s, "to_device_seconds": put_s,
+          "planner_host_seconds": plan_s, "slab_gather_seconds": gather_s,
+          "buckets": buckets})
+    parity = phase_newton_parity(torch, datasets, est)
+
+    fit = phase_fit(torch, arrays, data, est)
+    model = fit["result"].model
+    hist = fit["result"].descent.history
+    last = {r.coordinate_id: r for r in hist if r.iteration == CD_ITERATIONS - 1}
+    stats = {"l2": {cid: l2_weight(est, cid) for cid in RE_IDS},
+             "reasons": {cid: last[cid].diagnostics.reasons for cid in RE_IDS}}
+    t0 = time.perf_counter()
+    total, parts = total_scores(torch, model, datasets, data)
+    torch.cuda.synchronize()
+    emit({"phase": "score", "seconds": time.perf_counter() - t0})
+    phase_optimality(torch, model, datasets, data, stats)
+    quality = phase_quality(torch, arrays, model, datasets, data)
+    phase_train_serve(torch, arrays, model, quality["total"])
+    by_bucket = bucket_launches(hist, datasets)
+    if sum(by_bucket.values()) != fit["row"]["newton_kernel_launches"]:
+        fail(f"per-bucket launches {by_bucket} do not add up to the count")
+    timing = phase_newton_timing(torch, datasets, est, by_bucket)
+    del datasets, data, total, parts, quality
+    phase_route_agreement(torch)
+    user = max((r for r in timing if r["coordinate"] == "per-user"),
+               key=lambda r: r["bucket"][0])
+    return {
+        "name": "newton_step",
+        "route": "cuda",
+        "source": nk.SOURCE,
+        "replaces": NEWTON_REPLACES,
+        "launches": fit["row"]["newton_kernel_launches"],
+        "max_abs_err": parity["max_abs_err"],
+        "ms": user["ms"],
+        "plain_ms": user["plain_ms"],
+        "bound_ms": user["bound_ms"],
+        "bound_by": user["bound_by"],
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -420,7 +1088,7 @@ def main() -> int:
             game_model_from_numpy,
             save_checkpoint,
         )
-        from photon_tpu_torch.ops import _build, serve_kernel
+        from photon_tpu_torch.ops import _build, newton_kernel, serve_kernel
     except ImportError as exc:
         fail(f"photon_tpu_torch is not importable beside this script: {exc}")
     # The plain versions use no matmul, but a reference states TF32 off.
@@ -437,8 +1105,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     serve_kernel.load()
+    newton_kernel.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_seconds, "library": str(lib)})
+          "nvcc_seconds": _build.build_seconds, "library": str(lib),
+          "sources": [str(p.name) for p in _build.sources()]})
 
     t0 = time.perf_counter()
     arrays, manifest = serving_arrays()
@@ -455,10 +1125,11 @@ def main() -> int:
     worst = phase_parity(torch, model)
     serve = phase_serve(torch, ckpt, arrays)
     rows = phase_timing(torch, model)
+    newton = phase_train(torch)
 
     top = next(r for r in rows
                if r["precision"] == SERVE_PRECISION and r["rung"] == 512)
-    emit({"kernels": [{
+    kernels = [{
         "name": "serve_score",
         "route": "cuda",
         "source": serve_kernel.SOURCE,
@@ -470,9 +1141,13 @@ def main() -> int:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
-    }]})
-    if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
+    }, newton]
+    if not all(math.isfinite(k["ms"]) and k["ms"] > 0
+               and math.isfinite(k["bound_ms"]) and k["bound_ms"] > 0
+               for k in kernels) or not all(
+            math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
         fail("a kernel timing is not a positive number")
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,50 @@
+"""The fixed-effect coordinate (port of
+``photon_tpu/algorithm/coordinate.py``).
+
+A coordinate trains against its batch's base offsets plus the residual
+scores of every other coordinate (Coordinate.scala:52-53), and its
+``score`` is the pure model contribution per row, with no offset.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from photon_tpu_torch import optim
+from photon_tpu_torch.algorithm.problems import (
+    GLMOptimizationConfiguration,
+    GLMOptimizationProblem,
+)
+from photon_tpu_torch.data.dataset import GLMBatch
+from photon_tpu_torch.models.glm import GeneralizedLinearModel
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectCoordinate:
+    """Global GLM coordinate over one feature shard
+    (FixedEffectCoordinate.scala:33)."""
+
+    batch: GLMBatch
+    problem: GLMOptimizationProblem
+
+    @property
+    def config(self) -> GLMOptimizationConfiguration:
+        return self.problem.config
+
+    def train(self, residuals: torch.Tensor | None = None,
+              initial_model: GeneralizedLinearModel | None = None, *,
+              seed: int = 0):
+        if 0.0 < self.config.down_sampling_rate < 1.0:
+            raise optim.not_ported("fixed-effect down-sampling")
+        batch = self.batch
+        if residuals is not None:
+            batch = batch.with_offsets(batch.offsets + residuals)
+        initial = (initial_model.coefficients if initial_model is not None
+                   else None)
+        solution = self.problem.run(batch, initial)
+        return solution.model, solution.result
+
+    def score(self, model: GeneralizedLinearModel) -> torch.Tensor:
+        return model.coefficients.compute_score(self.batch.features)

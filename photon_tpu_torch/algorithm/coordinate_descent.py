@@ -1,0 +1,167 @@
+"""CoordinateDescent: the GAME outer loop with residual-score bookkeeping
+(port of ``photon_tpu/algorithm/coordinate_descent.py``, without
+validation).
+
+Coordinate k trains against the base offsets plus the sum of every
+other coordinate's scores; its new scores then replace its old ones in
+the running total, ``total - old + new`` (CoordinateDescent.scala:442,
+583). Every coordinate's scores are one [n] tensor in canonical row
+order. Locked coordinates contribute scores and are never retrained.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any
+
+import torch
+
+from photon_tpu_torch.models.game import GameModel
+
+logger = logging.getLogger(__name__)
+
+
+class NonFiniteUpdateError(RuntimeError):
+    """A coordinate's first update produced NaN or inf: there is no
+    previous iterate to roll back to."""
+
+
+def _sub_add(total: torch.Tensor, old: torch.Tensor,
+             new: torch.Tensor) -> torch.Tensor:
+    """summedScores - oldScores + previousScores."""
+    return total - old + new
+
+
+def _model_weight_tensors(model) -> list:
+    glm = getattr(model, "model", model)
+    coefs = getattr(glm, "coefficients", None)
+    if coefs is None:
+        return []
+    means = getattr(coefs, "means", None)
+    if means is not None:
+        return [means]
+    return [coefs] if isinstance(coefs, torch.Tensor) else []
+
+
+def _update_is_finite(model, scores: torch.Tensor) -> bool:
+    """One host sync: are the update's scores and weights all finite?"""
+    return all(bool(torch.isfinite(t).all())
+               for t in [scores, *_model_weight_tensors(model)])
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateUpdateRecord:
+    """One coordinate update: solver diagnostics and the host time the
+    update took (training is asynchronous on the card, so this is the
+    time to issue it plus any sync the solver made)."""
+
+    iteration: int
+    coordinate_id: str
+    seconds: float
+    diagnostics: Any
+    evaluation: None = None
+    # True when the update was non-finite and the previous iterate kept.
+    rolled_back: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateDescentResult:
+    model: GameModel
+    best_model: GameModel
+    best_evaluation: None
+    history: tuple
+
+
+class CoordinateDescent:
+    """Reference: algorithm/CoordinateDescent.scala:43. ``update_sequence``
+    lists coordinate ids in update order; ids in ``locked_coordinates``
+    need a model in ``initial_models`` and only score."""
+
+    def __init__(self, update_sequence: list, num_iterations: int, *,
+                 locked_coordinates: set | None = None,
+                 non_finite_guard: bool = False):
+        if num_iterations < 1:
+            raise ValueError(f"num_iterations must be >= 1: {num_iterations}")
+        if len(set(update_sequence)) != len(update_sequence):
+            raise ValueError(f"duplicate coordinate id in {update_sequence}")
+        self.update_sequence = list(update_sequence)
+        self.num_iterations = num_iterations
+        self.locked_coordinates = set(locked_coordinates or ())
+        self.non_finite_guard = bool(non_finite_guard)
+        if not [c for c in update_sequence
+                if c not in self.locked_coordinates]:
+            raise ValueError(
+                "update sequence contains no trainable coordinates "
+                "(CoordinateDescent.scala:71 checkInvariants)")
+
+    def run(self, coordinates: dict, initial_models: dict | None = None, *,
+            seed: int = 0) -> CoordinateDescentResult:
+        for cid in self.update_sequence:
+            if cid not in coordinates:
+                raise KeyError(f"no coordinate for id {cid!r}")
+        initial_models = dict(initial_models or {})
+        for cid in self.locked_coordinates:
+            if cid not in initial_models:
+                raise ValueError(
+                    f"locked coordinate {cid!r} needs an initial model "
+                    "(partialRetrainLockedCoordinates invariant)")
+        models: dict = {}
+        scores: dict = {}
+        total = None
+        for cid in self.update_sequence:
+            if cid in initial_models:
+                models[cid] = initial_models[cid]
+                s = coordinates[cid].score(models[cid])
+                scores[cid] = s
+                total = s if total is None else total + s
+
+        history = []
+        for it in range(self.num_iterations):
+            for cid in self.update_sequence:
+                if cid in self.locked_coordinates:
+                    continue
+                coord = coordinates[cid]
+                t0 = time.perf_counter()
+                residuals = None
+                if total is not None:
+                    residuals = total
+                    if cid in scores:
+                        residuals = residuals - scores[cid]
+                model, diag = coord.train(residuals=residuals,
+                                          initial_model=models.get(cid),
+                                          seed=seed + it)
+                new_scores = coord.score(model)
+                if self.non_finite_guard and not _update_is_finite(
+                        model, new_scores):
+                    if cid not in models:
+                        raise NonFiniteUpdateError(
+                            f"coordinate {cid!r} produced non-finite "
+                            f"loss/weights on its first update (CD "
+                            f"iteration {it}): no previous iterate to roll "
+                            "back to")
+                    logger.warning(
+                        "CD iter %d coordinate %s: non-finite update "
+                        "rolled back to the previous iterate", it, cid)
+                    history.append(CoordinateUpdateRecord(
+                        it, cid, time.perf_counter() - t0, diag,
+                        rolled_back=True))
+                    continue
+                if total is None:
+                    total = new_scores
+                elif cid in scores:
+                    total = _sub_add(total, scores[cid], new_scores)
+                else:
+                    total = total + new_scores
+                models[cid] = model
+                scores[cid] = new_scores
+                seconds = time.perf_counter() - t0
+                logger.info("CD iter %d coordinate %s (%.2fs)", it, cid,
+                            seconds)
+                history.append(CoordinateUpdateRecord(it, cid, seconds,
+                                                      diag))
+        final = GameModel(dict(models))
+        return CoordinateDescentResult(model=final, best_model=final,
+                                       best_evaluation=None,
+                                       history=tuple(history))

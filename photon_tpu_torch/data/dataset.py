@@ -1,0 +1,93 @@
+"""Dense and padded-sparse (ELL) feature matrices and the GLM batch
+(port of ``photon_tpu/data/dataset.py``).
+
+A dataset is a struct of tensors on one device. ELL padding slots point
+at a valid column with value 0, so the matvec is a gather plus a
+multiply-reduce and the transposed matvec an ``index_add_``. Rows carry
+(label, offset, weight); weight 0 removes a row from every sum.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseFeatures:
+    x: torch.Tensor  # [n, d]
+
+    @property
+    def num_features(self) -> int:
+        return self.x.shape[-1]
+
+    @property
+    def num_rows(self) -> int:
+        return self.x.shape[0]
+
+    def matvec(self, w: torch.Tensor) -> torch.Tensor:
+        return self.x @ w
+
+    def rmatvec(self, g: torch.Tensor) -> torch.Tensor:
+        return self.x.T @ g
+
+    def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
+        return (self.x * self.x).T @ g
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseFeatures:
+    """ELL layout: per-row id/value slabs of a fixed width ``k``."""
+
+    indices: torch.Tensor  # [n, k] int32
+    values: torch.Tensor  # [n, k]
+    d: int
+
+    @property
+    def num_features(self) -> int:
+        return self.d
+
+    @property
+    def num_rows(self) -> int:
+        return self.indices.shape[0]
+
+    def matvec(self, w: torch.Tensor) -> torch.Tensor:
+        return torch.sum(self.values * w[self.indices.long()], dim=-1)
+
+    def _scatter(self, contrib: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(self.d, dtype=contrib.dtype, device=contrib.device)
+        return out.index_add_(0, self.indices.reshape(-1).long(),
+                              contrib.reshape(-1))
+
+    def rmatvec(self, g: torch.Tensor) -> torch.Tensor:
+        return self._scatter(self.values * g[:, None])
+
+    def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
+        return self._scatter(self.values * self.values * g[:, None])
+
+
+Features = Union[DenseFeatures, SparseFeatures]
+
+
+@dataclasses.dataclass(frozen=True)
+class GLMBatch:
+    """One coordinate's training rows: features plus (label, offset,
+    weight)."""
+
+    features: Features
+    labels: torch.Tensor  # [n]
+    offsets: torch.Tensor  # [n]
+    weights: torch.Tensor  # [n]
+
+    @property
+    def num_samples(self) -> int:
+        return self.labels.shape[-1]
+
+    @property
+    def num_features(self) -> int:
+        return self.features.num_features
+
+    def with_offsets(self, offsets: torch.Tensor) -> "GLMBatch":
+        return dataclasses.replace(self, offsets=offsets)

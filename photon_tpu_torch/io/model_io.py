@@ -6,9 +6,9 @@ One ``.npz`` file: per fixed coordinate ``<name>/means`` (and
 ``<name>/proj_all`` (and ``<name>/variances``), plus a ``__manifest__``
 entry holding the JSON manifest as uint8 bytes. The format is the JAX
 package's own, byte for byte in layout, so a checkpoint written by
-either package loads in the other. ``game_model_from_numpy`` is the
-bridge that carries weights across: it builds the port's ``GameModel``
-from the arrays as the checkpoint keys them.
+either package loads in the other. ``game_model_to_numpy`` and
+``game_model_from_numpy`` are the bridge that carries weights across:
+the arrays and manifest as the checkpoint keys them, and back.
 """
 
 from __future__ import annotations
@@ -68,12 +68,10 @@ def _atomic_write(path: str, data) -> None:
         raise
 
 
-def save_checkpoint(
-    model: GameModel, path: str, *, extra_meta: dict | None = None
-) -> str:
-    """Write ``model`` as one ``.npz`` checkpoint; returns the path."""
-    path = _ckpt_path(path)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+def game_model_to_numpy(model: GameModel) -> tuple[dict, dict]:
+    """(arrays, manifest) of ``model``, keyed as the checkpoint keys them;
+    ``game_model_from_numpy`` inverts it. This is the bridge that carries
+    a trained model between the two packages."""
     arrays: dict[str, np.ndarray] = {}
     manifest: dict[str, dict] = {}
     for name, sub in model.items():
@@ -101,6 +99,16 @@ def save_checkpoint(
             }
         else:
             raise TypeError(f"unknown sub-model type for {name!r}")
+    return arrays, manifest
+
+
+def save_checkpoint(
+    model: GameModel, path: str, *, extra_meta: dict | None = None
+) -> str:
+    """Write ``model`` as one ``.npz`` checkpoint; returns the path."""
+    path = _ckpt_path(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays, manifest = game_model_to_numpy(model)
     if _META_KEY in manifest:
         raise ValueError(
             f"model coordinate name {_META_KEY!r} collides with the "

@@ -7,6 +7,12 @@ entity ``e``'s coefficient for its subspace slot ``s`` sits at
 id of that slot (-1 pad). Scoring a row gathers its entity's weight row
 and projector row by the row's entity code; code -1 (an entity the model
 never trained) contributes nothing.
+
+On a training dataset (``RandomEffectModel.score_dataset``) the rows
+kept into buckets score from the cached bucket slabs, one batched
+product per bucket, and the passive rest from the raw features; one
+gather through the dataset's inverse score map puts every score in
+canonical row order.
 """
 
 from __future__ import annotations
@@ -16,6 +22,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
+from photon_tpu_torch.data.random_effect import (
+    EntityBlocks,
+    RandomEffectDataset,
+)
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.ops import precision as precision_mod
 from photon_tpu_torch.types import TaskType
@@ -47,6 +58,18 @@ class RandomEffectModel:
     variances: torch.Tensor | None = None  # [E, S]
     entity_keys: tuple = ()
 
+    @property
+    def num_entities(self) -> int:
+        return self.coefficients.shape[0]
+
+    def score_dataset(self, dataset: RandomEffectDataset) -> torch.Tensor:
+        """Model contribution per canonical row of ``dataset``."""
+        z = _score_via_buckets(self.coefficients, dataset)
+        if z is not None:
+            return z
+        return score_raw_features(self.coefficients, dataset.score_codes,
+                                  dataset.raw, dataset.proj_device())
+
 
 @dataclasses.dataclass(frozen=True)
 class GameModel:
@@ -59,14 +82,27 @@ class GameModel:
     def __getitem__(self, coordinate_id: str):
         return self.models[coordinate_id]
 
+    def __contains__(self, coordinate_id: str) -> bool:
+        return coordinate_id in self.models
+
     def items(self):
         return self.models.items()
+
+    def updated(self, coordinate_id: str, model) -> "GameModel":
+        new = dict(self.models)
+        new[coordinate_id] = model
+        return GameModel(new)
 
     @property
     def task(self) -> TaskType:
         for m in self.models.values():
             return m.task
         raise ValueError("empty GAME model")
+
+
+def _score_dtype(w: torch.Tensor) -> torch.dtype:
+    """Scores are f32 for f32 and bf16 tables, f64 for f64 tables."""
+    return torch.promote_types(w.dtype, torch.float32)
 
 
 def _gather_rows(w: torch.Tensor, proj: torch.Tensor, codes: torch.Tensor):
@@ -84,18 +120,18 @@ def _score_raw_dense(
     ``sum_s w[code, s] * x[proj[code, s]]``, slots whose projector falls
     outside ``[0, d)`` giving 0. ``x[proj]`` is rounded to the table
     dtype after the exact gather, the product is formed in the table
-    dtype and summed in f32. Returns [n] f32."""
+    dtype and summed in f32. Returns [n] f32 (f64 for an f64 table)."""
     n, d = x.shape
     if w.shape[0] == 0:
-        return torch.zeros(n, dtype=torch.float32, device=x.device)
+        return torch.zeros(n, dtype=_score_dtype(w), device=x.device)
     wrow, prow, known = _gather_rows(w, proj, codes)
     inside = (prow >= 0) & (prow < d)
     xg = torch.gather(x, 1, prow.clamp(0, max(d - 1, 0)))
     xg = torch.where(inside, xg, torch.zeros_like(xg))
     z = precision_mod.acc_sum(
         precision_mod.like_storage(xg, wrow) * wrow, dim=-1
-    ).float()
-    return z * known.float()
+    ).to(_score_dtype(w))
+    return z * known.to(z.dtype)
 
 
 def _score_raw_sparse(
@@ -109,16 +145,123 @@ def _score_raw_sparse(
     ``contrib[s] = sum_k values[k] * [indices[k] == proj[code, s]]`` in
     f32 (duplicate ids add up, pad slots match nothing), rounded to the
     table dtype, then multiplied by the weight in f32 and summed.
-    Returns [n] f32."""
+    Returns [n] f32 (f64 for an f64 table)."""
     n = indices.shape[0]
     if w.shape[0] == 0:
-        return torch.zeros(n, dtype=torch.float32, device=indices.device)
+        return torch.zeros(n, dtype=_score_dtype(w), device=indices.device)
     wrow, prow, known = _gather_rows(w, proj, codes)
     match = (indices.long()[:, :, None] == prow[:, None, :]) & (
         prow[:, None, :] >= 0
     )
-    contrib = (values.float()[:, :, None] * match).sum(dim=1)
+    dt = _score_dtype(w)
+    contrib = (values.to(dt)[:, :, None] * match).sum(dim=1)
     z = (
-        precision_mod.like_storage(contrib, wrow).float() * wrow.float()
+        precision_mod.like_storage(contrib, wrow).to(dt) * wrow.to(dt)
     ).sum(dim=-1)
-    return z * known.float()
+    return z * known.to(dt)
+
+
+def score_raw_features(w: torch.Tensor, codes: torch.Tensor, feats,
+                       proj_dev: torch.Tensor) -> torch.Tensor:
+    """Scores straight off the raw feature tensors (every row)."""
+    if isinstance(feats, DenseFeatures):
+        return _score_raw_dense(w, codes, feats.x, proj_dev)
+    if isinstance(feats, SparseFeatures):
+        return _score_raw_sparse(w, codes, feats.indices, feats.values,
+                                 proj_dev)
+    raise TypeError(f"lazy scoring expects Dense or Sparse features, got "
+                    f"{type(feats).__name__}")
+
+
+def bucket_score_parts(w: torch.Tensor, slabs, codes) -> list:
+    """Per bucket, the flat [B * cap] scores of its slab rows."""
+    parts = []
+    for xv, cd in zip(slabs, codes):
+        idx = cd.long().clamp(0, w.shape[0] - 1)
+        we = w[idx][:, :xv.shape[-1]].to(xv.dtype)
+        parts.append(
+            precision_mod.acc_einsum("brs,bs->br", xv, we).reshape(-1))
+    return parts
+
+
+def passive_raw_scores(w, pr, score_codes, feats, proj_dev) -> torch.Tensor:
+    """Raw-feature scores of the passive row subset ``pr``, in the
+    coefficients' dtype."""
+    codes_p = score_codes[pr]
+    if isinstance(feats, DenseFeatures):
+        sub = DenseFeatures(feats.x[pr])
+    else:
+        sub = SparseFeatures(feats.indices[pr], feats.values[pr], feats.d)
+    return score_raw_features(w, codes_p, sub, proj_dev).to(w.dtype)
+
+
+def _gather_score(w, slabs, codes, inv, pr, score_codes, feats, proj_dev):
+    """One gather puts the concatenated bucket and passive scores in
+    canonical row order."""
+    parts = bucket_score_parts(w, slabs, codes)
+    if pr is not None:
+        parts.append(passive_raw_scores(w, pr, score_codes, feats, proj_dev))
+    return torch.cat(parts)[inv].to(w.dtype)
+
+
+def _score_via_buckets(w: torch.Tensor, ds: RandomEffectDataset):
+    """Bucket-slab scoring, or None when a bucket's slab is not cached
+    (then every row scores from the raw features)."""
+    blocks = ds.device_blocks()
+    if not all(isinstance(eb, EntityBlocks) for eb in blocks):
+        return None
+    _, passive = ds.covered_row_partition()
+    if not blocks and not passive.size:
+        return torch.zeros(ds.num_rows, dtype=w.dtype, device=w.device)
+    pr = (torch.from_numpy(passive.astype(np.int64)).to(w.device)
+          if passive.size else None)
+    return _gather_score(
+        w, tuple(eb.x_values for eb in blocks),
+        tuple(p.entity_codes for p in ds.device_plans()),
+        ds.score_inv_device(), pr, ds.score_codes, ds.raw,
+        ds.proj_device())
+
+
+def remap_random_effect_model(model: RandomEffectModel, *,
+                              entity_keys: tuple,
+                              proj_all: np.ndarray) -> RandomEffectModel:
+    """Re-lay a model onto another dataset's entity vocabulary and slot
+    order, routing each coefficient by (entity key, feature id); what the
+    new layout lacks is dropped and what it adds starts at zero
+    (RandomEffectCoordinate.scala:200 warm-start semantics)."""
+    e_new, s_new = proj_all.shape
+    dev = model.coefficients.device
+    w_old = model.coefficients.detach().cpu().numpy()
+    v_old = (None if model.variances is None
+             else model.variances.detach().cpu().numpy())
+    w = np.zeros((e_new, s_new), dtype=w_old.dtype)
+    v = None if v_old is None else np.zeros((e_new, s_new), w_old.dtype)
+    old_vocab = {str(k): i for i, k in enumerate(model.entity_keys)}
+    max_feat = 0
+    for p in (proj_all, model.proj_all):
+        if p.size:
+            max_feat = max(max_feat, int(p.max(initial=0)))
+    lut = np.full(max_feat + 1, -1, dtype=np.int64)
+    for en, key in enumerate(entity_keys):
+        eo = old_vocab.get(str(key))
+        if eo is None:
+            continue
+        old_p = model.proj_all[eo]
+        old_valid = old_p >= 0
+        lut[old_p[old_valid]] = np.nonzero(old_valid)[0]
+        new_p = proj_all[en]
+        new_valid = new_p >= 0
+        src = lut[new_p[new_valid]]
+        dst = np.nonzero(new_valid)[0]
+        hit = src >= 0
+        w[en, dst[hit]] = w_old[eo, src[hit]]
+        if v is not None:
+            v[en, dst[hit]] = v_old[eo, src[hit]]
+        lut[old_p[old_valid]] = -1
+    return dataclasses.replace(
+        model,
+        coefficients=torch.from_numpy(w).to(dev),
+        variances=None if v is None else torch.from_numpy(v).to(dev),
+        proj_all=proj_all,
+        entity_keys=entity_keys,
+    )

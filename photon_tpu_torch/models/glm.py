@@ -1,9 +1,5 @@
-"""GLM data holders (port of ``photon_tpu/models/glm.py``).
-
-Serving reads only the coefficients and the task, so here the two
-classes carry tensors and nothing else; scoring and the link functions
-come with the training slice.
-"""
+"""GLM model objects (port of ``photon_tpu/models/glm.py``): the
+coefficients and a task-typed GLM whose score is the linear margin."""
 
 from __future__ import annotations
 
@@ -22,6 +18,10 @@ class Coefficients:
     means: torch.Tensor  # [d]
     variances: torch.Tensor | None = None  # [d]
 
+    def compute_score(self, features) -> torch.Tensor:
+        """x . w per row (Coefficients.computeScore :51)."""
+        return features.matvec(self.means)
+
 
 @dataclasses.dataclass(frozen=True)
 class GeneralizedLinearModel:
@@ -29,3 +29,7 @@ class GeneralizedLinearModel:
 
     coefficients: Coefficients
     task: TaskType
+
+    def compute_score(self, features, offsets=None) -> torch.Tensor:
+        z = self.coefficients.compute_score(features)
+        return z if offsets is None else z + offsets

@@ -1,0 +1,82 @@
+"""The GLM objective: value, gradient, Hessian-vector product and
+Hessian diagonal as matvecs (port of ``photon_tpu/ops/glm.py``).
+
+    z     = X @ ew - es + offset
+    value = sum(weight * l(z, y))
+    grad  = f * (X^T c - shift * sum(c)),  c = weight * dl/dz
+    Hv    = f * (X^T h - shift * sum(h)),  h = weight * d2l/dz2 * (X @ ev - es_v)
+
+with (ew, es) the normalization's effective coefficients, so the raw
+data is never transformed in memory.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from photon_tpu_torch.data.dataset import GLMBatch
+from photon_tpu_torch.ops.losses import PointwiseLoss
+from photon_tpu_torch.ops.normalization import NormalizationContext
+
+ValueAndGrad = Callable[[torch.Tensor], tuple]
+HessianVectorProduct = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def margins(batch: GLMBatch, coef: torch.Tensor,
+            norm: NormalizationContext) -> torch.Tensor:
+    ew, es = norm.effective_coefficients(coef)
+    return batch.features.matvec(ew) - es + batch.offsets
+
+
+def make_value_and_grad(batch: GLMBatch, loss: PointwiseLoss,
+                        norm: NormalizationContext | None = None
+                        ) -> ValueAndGrad:
+    """fun(w) -> (value, grad) over the batch in the transformed space."""
+    norm = norm or NormalizationContext()
+
+    def fun(w: torch.Tensor):
+        z = margins(batch, w, norm)
+        value = torch.sum(batch.weights * loss.loss(z, batch.labels))
+        c = batch.weights * loss.dz(z, batch.labels)
+        grad = norm.effective_gradient(batch.features.rmatvec(c),
+                                       torch.sum(c))
+        return value, grad
+
+    return fun
+
+
+def make_hvp(batch: GLMBatch, loss: PointwiseLoss,
+             norm: NormalizationContext | None = None
+             ) -> HessianVectorProduct:
+    """hvp(w, v) -> H(w) @ v, the Gauss-Newton Hessian of the loss."""
+    norm = norm or NormalizationContext()
+
+    def hvp(w: torch.Tensor, v: torch.Tensor):
+        z = margins(batch, w, norm)
+        ev, es_v = norm.effective_coefficients(v)
+        zv = batch.features.matvec(ev) - es_v
+        h = batch.weights * loss.dzz(z, batch.labels) * zv
+        return norm.effective_gradient(batch.features.rmatvec(h),
+                                       torch.sum(h))
+
+    return hvp
+
+
+def hessian_diagonal(batch: GLMBatch, loss: PointwiseLoss,
+                     coef: torch.Tensor,
+                     norm: NormalizationContext | None = None
+                     ) -> torch.Tensor:
+    """diag(H) in the transformed space:
+    f^2 (sum c x^2 - 2 s sum c x + s^2 sum c), c = weight * dzz."""
+    norm = norm or NormalizationContext()
+    z = margins(batch, coef, norm)
+    c = batch.weights * loss.dzz(z, batch.labels)
+    d_sq = batch.features.rmatvec_sq(c)
+    if norm.is_identity:
+        return d_sq
+    d1 = batch.features.rmatvec(c)
+    s = norm.shifts if norm.shifts is not None else torch.zeros_like(d_sq)
+    f = norm.factors if norm.factors is not None else torch.ones_like(d_sq)
+    return f * f * (d_sq - 2.0 * s * d1 + s * s * torch.sum(c))

@@ -35,8 +35,12 @@ def resolve(name: str | None) -> str:
     return _ALIASES[key]
 
 
+def is_mixed(name: str | None) -> bool:
+    return resolve(name) == BFLOAT16
+
+
 def storage_dtype(name: str | None) -> torch.dtype:
-    return torch.bfloat16 if resolve(name) == BFLOAT16 else torch.float32
+    return torch.bfloat16 if is_mixed(name) else torch.float32
 
 
 def in_storage(x: torch.Tensor, name: str | None) -> torch.Tensor:
@@ -45,6 +49,15 @@ def in_storage(x: torch.Tensor, name: str | None) -> torch.Tensor:
     if x.is_floating_point():
         return x.to(storage_dtype(name))
     return x
+
+
+def acc_einsum(spec: str, *ops: torch.Tensor) -> torch.Tensor:
+    """einsum whose accumulator is f32 whenever an operand is bf16 (the
+    operands are read as f32; the result is f32). On f32 or f64 operands
+    it is the plain ``torch.einsum``."""
+    if any(o.dtype == torch.bfloat16 for o in ops):
+        ops = tuple(o.float() for o in ops)
+    return torch.einsum(spec, *ops)
 
 
 def acc_sum(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:

@@ -56,7 +56,8 @@ def _imported_names(tree: ast.AST):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO))
+    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_file_imports_jax_or_photon_tpu(path):
     names = list(_imported_names(ast.parse(path.read_text())))
@@ -78,3 +79,16 @@ def test_device_resolve_defaults_to_cuda_and_never_falls_back():
 def test_device_resolve_rejects_other_devices():
     with pytest.raises(ValueError):
         device_mod.resolve("meta")
+
+
+def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
+    """Without the package beside it (and here, without a GPU too) the
+    smoke script exits non-zero and prints no ``ok`` line."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (REPO / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
