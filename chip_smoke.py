@@ -70,6 +70,58 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      f32 resolution of an entity's optimum, see
                      RE_FIT_ATOL), training losses within 1e-4.
 
+Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
+GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
+1 / (m + 20); each owns 192 of 100,000 tag ids; a row carries 2-8 of
+its movie's tags and the intercept id), whose subspaces are wider than
+128 slots, so the planner lays it out materialized (ELL blocks, a score
+table capped at 6 entries a row with a COO tail); 4,000,000 rows,
+``per-user`` 100,000 x 17 as above, 4 coordinate-descent iterations,
+nothing cut:
+
+15. wide_data        - generation, the copy to the card, the planner's
+                       host seconds, every bucket's shape, S, route and
+                       gram bounds, the tail's size and multiplicity;
+16. segment_parity   - the segment-sum kernel against its plain version
+                       on integer fixtures (exact: duplicates, empty
+                       segments, dropped ids, one long run), random f32
+                       and bf16 values, and the inputs of every site at
+                       its full-width shape (gram, slots, each densify
+                       bucket, score tail, a multiplicity-1
+                       scatter_add_rows over the user bucket's 4M rows):
+                       |diff| <= 1e-6 (1 + sum |v| of the segment), and
+                       two kernel runs bit-identical;
+17. segment_timing   - per site: the kernel's and the plain version's
+                       device ms (CUDA-graph replay), the whole wrapper's
+                       ms, one ``index_add_`` on the same ids (a yardstick,
+                       never called by the port) and the bound;
+18. wide_fit         - ``GameEstimator.fit`` with the segment counts
+                       zeroed just before: launches at the gram, slots,
+                       densify and score-tail sites, every direct solve
+                       one iteration and GRADIENT_CONVERGED; then each
+                       update timed alone;
+19. wide_optimality  - for 256 sampled entities of every random-effect
+                       bucket, the float64 normal equations at the
+                       residuals of the entity's last solve: fitted
+                       coefficients within rtol 1e-3 / atol 1e-4;
+20. wide_route_agreement - per-movie solved as built and with the gram
+                       route's pair budget at 0 (densify everywhere):
+                       within rtol 1e-4 / atol 1e-5;
+21. wide_train_serve - the wide model through save_checkpoint,
+                       load_checkpoint and ScorePrograms (the tag shard
+                       as ELL rows) on 512 rows: the trainer's scores
+                       within 1e-5;
+22. wide_profile     - one per-movie update under torch.profiler: device
+                       ms by operator and the device's busy share;
+23. wide_logistic    - the same generator at a tenth of the rows and
+                       entities, logistic: densify launches; the wide
+                       buckets within the Newton gate (R * S <= 16384,
+                       S > 128) on the Newton kernel's wide design, the
+                       rest on the batch-minor Newton loop; the optimality
+                       check of phase 10; then newton_parity's three-step
+                       check and newton_timing's columns at the widest
+                       bucket on the kernel.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 """
@@ -521,8 +573,11 @@ def train_dataset(arrays):
     )
 
 
-def build_estimator():
-    """The bench's ``build_estimator("logistic")`` in float32."""
+def build_estimator(task_name="logistic", movie=None, intercepts=None,
+                    device=None):
+    """The bench's ``build_estimator(task_name)`` in float32. ``movie``
+    replaces the per-movie data configuration and ``intercepts`` the
+    intercept indices."""
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
@@ -544,7 +599,8 @@ def build_estimator():
             regularization_weight=weight)
 
     return GameEstimator(
-        TaskType.LOGISTIC_REGRESSION,
+        TaskType.LOGISTIC_REGRESSION if task_name == "logistic"
+        else TaskType.LINEAR_REGRESSION,
         {
             "global": FixedEffectCoordinateConfiguration("global", l2(1e-3)),
             "per-user": RandomEffectCoordinateConfiguration(
@@ -553,16 +609,17 @@ def build_estimator():
                     min_bucket_entities=128),
                 l2(1.0)),
             "per-movie": RandomEffectCoordinateConfiguration(
-                RandomEffectDataConfiguration(
+                movie or RandomEffectDataConfiguration(
                     "movieId", "movieShard", active_data_upper_bound=2048,
                     min_bucket_entities=128),
                 l2(1.0)),
         },
-        intercept_indices={"global": TRAIN_FEATURES - 1,
-                           "userShard": USER_FEATURES,
-                           "movieShard": MOVIE_FEATURES},
+        intercept_indices=intercepts or {"global": TRAIN_FEATURES - 1,
+                                         "userShard": USER_FEATURES,
+                                         "movieShard": MOVIE_FEATURES},
         num_iterations=CD_ITERATIONS,
         precision="float32",
+        device=device,
     )
 
 
@@ -617,63 +674,74 @@ def phase_newton_parity(torch, datasets, est) -> dict:
     the sums decides whether and how far it steps; such entities are
     counted and left out (none may be on the first step).
     """
+    worst = 0.0
+    rows = []
+    for cid in RE_IDS:
+        blocks = datasets[cid].device_blocks()
+        eb = max(blocks, key=lambda b: b.num_entities)
+        w, r = newton_parity_steps(torch, cid, eb, l2_weight(est, cid))
+        worst = max(worst, w)
+        rows += r
+    return {"max_abs_err": worst, "rows": rows}
+
+
+def newton_parity_steps(torch, cid, eb, l2w, phase="newton_parity"):
+    """Three Newton steps on one dense bucket, as ``phase_newton_parity``
+    checks them; returns (largest kernel-plain difference, rows)."""
     from photon_tpu_torch.ops import newton_kernel as nk
     from photon_tpu_torch.types import TaskType
 
     task = TaskType.LOGISTIC_REGRESSION
     worst = 0.0
     rows = []
-    for cid in RE_IDS:
-        blocks = datasets[cid].device_blocks()
-        eb = max(blocks, key=lambda b: b.num_entities)
-        ops = newton_operands(torch, eb, l2_weight(est, cid))
-        for k in range(NEWTON_STEPS):
-            args = step_args(ops)
-            got = nk.newton_step(*args, task=task)
-            torch.cuda.synchronize()
-            want = nk.newton_step_plain(*args, task=task)
-            ref = nk.newton_step_plain(*(a.double() for a in args),
-                                       task=task)
-            torch.cuda.synchronize()
-            f_prev = ops["f"]
+    ops = newton_operands(torch, eb, l2w)
+    for k in range(NEWTON_STEPS):
+        args = step_args(ops)
+        got = nk.newton_step(*args, task=task)
+        torch.cuda.synchronize()
+        want = nk.newton_step_plain(*args, task=task)
+        ref = nk.newton_step_plain(*(a.double() for a in args),
+                                   task=task)
+        torch.cuda.synchronize()
+        f_prev = ops["f"]
 
-            def moved(f_new):
-                return ((f_new - f_prev).abs()
-                        > ROUND_OFF * (f_prev.abs() + 1.0))
+        def moved(f_new):
+            return ((f_new - f_prev).abs()
+                    > ROUND_OFF * (f_prev.abs() + 1.0))
 
-            keep = moved(got[1]) | moved(want[1])
-            imp_agree = (float((got[3] == want[3])[keep].float().mean())
-                         if bool(keep.any()) else 1.0)
-            row = {"phase": "newton_parity", "coordinate": cid,
-                   "bucket": list(eb.x_values.shape), "step": k + 1,
-                   "near_optimum_entities": int((~keep).sum()),
-                   "improved_agreement": imp_agree,
-                   "improved_fraction": float(want[3].float().mean())}
-            ok = imp_agree == 1.0
-            for name, a, b, c in zip(("w", "f", "g"), got[:3], want[:3],
-                                     ref[:3]):
-                a, b, c = a[keep], b[keep], c[keep]
-                diff = (a - b).abs()
-                k_err = max_or_zero((a.double() - c).abs())
-                p_err = max_or_zero((b.double() - c).abs())
-                row[f"max_abs_diff_{name}"] = max_or_zero(diff)
-                row[f"outside_tol_{name}"] = int(
-                    (diff > STEP_ATOL + STEP_RTOL * b.abs()).sum())
-                row[f"kernel_err_f64_{name}"] = k_err
-                row[f"plain_err_f64_{name}"] = p_err
-                worst = max(worst, row[f"max_abs_diff_{name}"])
-                ok = (ok and bool(a.isfinite().all())
-                      and k_err <= 2.0 * p_err + STEP_ATOL)
-            row["values"] = int(want[0][keep].numel())
-            emit(row)
-            rows.append(row)
-            if not ok:
-                fail(f"the Newton kernel is less accurate than its plain "
-                     f"version against float64 ({cid}, step {k + 1})")
-            if k == 0 and row["near_optimum_entities"]:
-                fail(f"{cid}: entities at round-off on the first step")
-            ops = dict(ops, w=want[0], f=want[1])
-    return {"max_abs_err": worst, "rows": rows}
+        keep = moved(got[1]) | moved(want[1])
+        imp_agree = (float((got[3] == want[3])[keep].float().mean())
+                     if bool(keep.any()) else 1.0)
+        row = {"phase": phase, "coordinate": cid,
+               "bucket": list(eb.x_values.shape), "step": k + 1,
+               "near_optimum_entities": int((~keep).sum()),
+               "improved_agreement": imp_agree,
+               "improved_fraction": float(want[3].float().mean())}
+        ok = imp_agree == 1.0
+        for name, a, b, c in zip(("w", "f", "g"), got[:3], want[:3],
+                                 ref[:3]):
+            a, b, c = a[keep], b[keep], c[keep]
+            diff = (a - b).abs()
+            k_err = max_or_zero((a.double() - c).abs())
+            p_err = max_or_zero((b.double() - c).abs())
+            row[f"max_abs_diff_{name}"] = max_or_zero(diff)
+            row[f"outside_tol_{name}"] = int(
+                (diff > STEP_ATOL + STEP_RTOL * b.abs()).sum())
+            row[f"kernel_err_f64_{name}"] = k_err
+            row[f"plain_err_f64_{name}"] = p_err
+            worst = max(worst, row[f"max_abs_diff_{name}"])
+            ok = (ok and bool(a.isfinite().all())
+                  and k_err <= 2.0 * p_err + STEP_ATOL)
+        row["values"] = int(want[0][keep].numel())
+        emit(row)
+        rows.append(row)
+        if not ok:
+            fail(f"the Newton kernel is less accurate than its plain "
+                 f"version against float64 ({cid}, step {k + 1})")
+        if k == 0 and row["near_optimum_entities"]:
+            fail(f"{cid}: entities at round-off on the first step")
+        ops = dict(ops, w=want[0], f=want[1])
+    return worst, rows
 
 
 def bucket_launches(stats_history, datasets) -> dict:
@@ -761,7 +829,19 @@ def phase_fit(torch, arrays, data, est) -> dict:
     return {"row": row, "result": res}
 
 
-def phase_optimality(torch, model, datasets, data, stats) -> dict:
+def dense_x(torch, eb):
+    """A bucket's design as a float64 [B, R, S] slab: the dense slab as
+    it is, an ELL block scattered out (duplicate slots add)."""
+    if eb.x_indices is None:
+        return eb.x_values.double()
+    b, r, _ = eb.x_indices.shape
+    x = torch.zeros((b, r, eb.sub_dim), dtype=torch.float64,
+                    device=eb.x_values.device)
+    return x.scatter_add_(2, eb.x_indices.long(), eb.x_values.double())
+
+
+def phase_optimality(torch, model, datasets, data, stats,
+                     phase="optimality") -> dict:
     """Each entity's regularized gradient at the fitted model (float64,
     against the final scores of every other coordinate) against the
     cascade's gradient tolerance; where it is above, the entity's last
@@ -778,7 +858,7 @@ def phase_optimality(torch, model, datasets, data, stats) -> dict:
         reasons = stats["reasons"][cid]
         gn, g0n = [], []
         for eb in ds.device_blocks():
-            x = eb.x_values.double()
+            x = dense_x(torch, eb)
             rows = eb.row_ids.long()
             wt = eb.weights.double()
             off = eb.offsets.double() + torch.where(
@@ -802,7 +882,7 @@ def phase_optimality(torch, model, datasets, data, stats) -> dict:
             counts[ConvergenceReason(int(code)).name] = int(
                 (reasons[~converged] == code).sum())
         rel = gn / np.maximum(g0n, 1e-30)
-        row = {"phase": "optimality", "coordinate": cid,
+        row = {"phase": phase, "coordinate": cid,
                "entities": int(gn.size), "counts": counts,
                "rel_grad_median": float(np.median(rel)),
                "rel_grad_p99": float(np.quantile(rel, 0.99)),
@@ -871,17 +951,19 @@ def newton_bound(shape, trials=16) -> dict:
     """Least time for one Newton step on a [B, R, S] bucket: bytes (the
     slab, each [B, R] and [B, S] operand and output, f read and written,
     the improved byte, each once) at 3.35 TB/s; f32 operations (margins,
-    Hessian, gradient, CG, trial margins and losses, the refresh) at
-    67 TFLOP/s; and the exp and log1p of every row in every trial, plus
-    those of the margins and the refresh, at the special-function rate.
-    ``bound_ms`` is the largest."""
+    gradient, the S CG steps, trial margins and losses, the refresh) at
+    67 TFLOP/s, the CG taken the cheaper of two ways: on a formed H, or
+    applying H from the slab; and the exp and log1p of every row in every
+    trial, plus those of the margins and the refresh, at the
+    special-function rate. ``bound_ms`` is the largest."""
     b, r, s = shape
     nbytes = 4.0 * b * (r * s + 3 * r + 4 * s + 2 * s + 2) + b
+    cg = min(r * s * (s + 1) + r * s + s * (2 * s * s + 10 * s),
+             s * (4 * r * s + r + 12 * s))
     per_entity = (
         2 * r * s                      # margins
-        + r * s * (s + 1) + r * s      # Hessian, lower triangle + x * c
+        + cg                           # H (formed or not) and the CG
         + 2 * r * s + 4 * s            # gradient + penalty
-        + s * (2 * s * s + 10 * s)     # CG
         + 2 * r * s                    # trial margins x d
         + trials * (r * 12 + 4 * s)    # trial losses + penalties
         + 4 * r * s + 12 * r           # refresh: margins, gradient, loss
@@ -1076,6 +1158,771 @@ def phase_train(torch) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# the wide-subspace squared-loss GLMix at full width, float32
+# ---------------------------------------------------------------------------
+
+WIDE_DEVICE = "cuda"  # "cpu" runs the logic with the plain versions
+WIDE_MOVIES = 20_000
+WIDE_POOL, WIDE_TAGS = 192, 100_000  # tag pool per movie, tag ids
+WIDE_K = 9  # 2-8 tags and the intercept id per row
+WIDE_ZIPF_OFFSET = 20  # movie popularity p(m) ~ 1 / (m + 20)
+WIDE_TABLE_CAP = 6
+WIDE_SHARD = "tagShard"
+WIDE_REDUCED = dict(n_rows=400_000, n_users=10_000, n_movies=2_000)
+SEGMENT_REPLACES = "photon_tpu/ops/segment_reduce.py:230"
+FIT_SITES = ("segment_reduce/gram", "segment_reduce/slots",
+             "segment_reduce/densify", "segment_reduce/score_tail")
+# Kernel against plain, f32: |diff| <= 1e-6 (1 + sum |v| of the segment).
+SEGMENT_REL = 1e-6
+# Fitted coefficients against a float64 solve of the normal equations:
+# f32 normal equations solved by CG with one refinement pass.
+OPT_RTOL, OPT_ATOL = 1e-3, 1e-4
+OPT_SAMPLE = 256
+# The gram route against densify (the reference's own gate,
+# tests/test_random_effect.py:700).
+WIDE_ROUTE_RTOL, WIDE_ROUTE_ATOL = 1e-4, 1e-5
+SEGMENT_INNER = 5
+
+
+def wide_arrays(n_rows=TRAIN_ROWS, n_users=N_USERS, n_movies=WIDE_MOVIES,
+                seed=TRAIN_SEED, task="linear"):
+    """The bench's GLMix (``bench.py:_synth_arrays``) with ``per-movie``
+    on a sparse tag shard: each movie owns a pool of WIDE_POOL tag ids
+    drawn from WIDE_TAGS; each row carries 2-8 distinct tags of its
+    movie's pool with N(0, 1) values, then the intercept id WIDE_TAGS at
+    1. Movies are drawn with p(m) ~ 1 / (m + WIDE_ZIPF_OFFSET). The
+    label is the bench's, with the movie term the row's tag values times
+    per-movie weights N(0, 0.2) over its pool and intercept."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_rows, TRAIN_FEATURES)).astype(np.float32)
+    x[:, -1] = 1.0
+    xu = rng.normal(size=(n_rows, USER_FEATURES + 1)).astype(np.float32)
+    xu[:, -1] = 1.0
+    users = rng.integers(0, n_users, size=n_rows)
+    pm = 1.0 / (np.arange(n_movies) + WIDE_ZIPF_OFFSET)
+    movies = rng.choice(n_movies, size=n_rows, p=pm / pm.sum())
+    pools = np.stack([rng.choice(WIDE_TAGS, size=WIDE_POOL, replace=False)
+                      for _ in range(n_movies)]).astype(np.int32)
+    counts = rng.integers(2, WIDE_K, size=n_rows)
+    pos = rng.integers(0, WIDE_POOL, size=(n_rows, WIDE_K - 1))
+    while True:  # redraw rows whose pool positions repeat
+        srt = np.sort(pos, axis=1)
+        dup = (srt[:, 1:] == srt[:, :-1]).any(axis=1)
+        if not dup.any():
+            break
+        pos[dup] = rng.integers(0, WIDE_POOL, size=(int(dup.sum()),
+                                                    WIDE_K - 1))
+    live = np.arange(WIDE_K - 1)[None, :] < counts[:, None]
+    idx = np.zeros((n_rows, WIDE_K), np.int32)
+    val = np.zeros((n_rows, WIDE_K), np.float32)
+    idx[:, :-1] = np.where(live, pools[movies[:, None], pos], 0)
+    val[:, :-1] = np.where(live, rng.normal(size=(n_rows, WIDE_K - 1)), 0.0)
+    rows = np.arange(n_rows)
+    idx[rows, counts] = WIDE_TAGS
+    val[rows, counts] = 1.0
+    w = rng.normal(size=TRAIN_FEATURES).astype(np.float32) * 0.3
+    wu = rng.normal(size=(n_users, USER_FEATURES + 1)).astype(
+        np.float32) * 0.3
+    wm = rng.normal(size=(n_movies, WIDE_POOL + 1)).astype(np.float32) * 0.2
+    z = (x @ w + np.einsum("nd,nd->n", xu, wu[users])
+         + np.sum(np.where(live, val[:, :-1] * wm[movies[:, None], pos], 0.0),
+                  axis=1)
+         + wm[movies, WIDE_POOL])
+    if task == "logistic":
+        y = (rng.uniform(size=n_rows) < 1.0 / (1.0 + np.exp(-0.5 * z)))
+    else:
+        y = z + 0.2 * rng.normal(size=n_rows)
+    return dict(x=x, xu=xu, users=users, movies=movies, idx=idx, val=val,
+                y=y.astype(np.float32), z=z)
+
+
+def wide_dataset(arrays):
+    from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
+    from photon_tpu_torch.data.game_data import make_game_dataset
+
+    return make_game_dataset(
+        arrays["y"],
+        {"global": DenseFeatures(arrays["x"]),
+         "userShard": DenseFeatures(arrays["xu"]),
+         WIDE_SHARD: SparseFeatures(arrays["idx"], arrays["val"],
+                                    WIDE_TAGS + 1)},
+        id_tags={"userId": arrays["users"], "movieId": arrays["movies"]},
+        device=WIDE_DEVICE,
+    )
+
+
+def wide_estimator(task_name="linear"):
+    """``wide-linear``: the bench's estimator with ``per-movie`` on the
+    tag shard, its score table capped at WIDE_TABLE_CAP entries a row."""
+    from photon_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+    )
+
+    return build_estimator(
+        task_name,
+        movie=RandomEffectDataConfiguration(
+            "movieId", WIDE_SHARD, active_data_upper_bound=2048,
+            score_table_width_cap=WIDE_TABLE_CAP, min_bucket_entities=128),
+        intercepts={"global": TRAIN_FEATURES - 1, "userShard": USER_FEATURES,
+                    WIDE_SHARD: WIDE_TAGS},
+        device=WIDE_DEVICE)
+
+
+def bucket_routes(datasets, direct=True) -> list:
+    """(coordinate, bucket index, block, gram bounds, route) of every
+    random-effect bucket, the route as the solver picks it."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+
+    out = []
+    for cid in RE_IDS:
+        ds = datasets[cid]
+        for i, eb in enumerate(ds.device_blocks()):
+            gm = (ds.block_gram_mults[i] if i < len(ds.block_gram_mults)
+                  else None)
+            route = ra.block_route(eb, eb.sub_dim, direct=direct,
+                                   newton=not direct, gram_mults=gm,
+                                   shifts=False, variances=False)
+            out.append((cid, i, eb, gm, route))
+    return out
+
+
+def phase_wide_data(torch) -> dict:
+    t0 = time.perf_counter()
+    arrays = wide_arrays()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = wide_dataset(arrays)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    est = wide_estimator()
+    t0 = time.perf_counter()
+    datasets = est.prepare(data)
+    plan_s = time.perf_counter() - t0
+    movie = datasets["per-movie"]
+    buckets = [{"coordinate": cid, "shape": list(eb.x_values.shape),
+                "sub_dim": eb.sub_dim, "route": route,
+                "gram_mults": None if gm is None else list(gm)}
+               for cid, _, eb, gm, route in bucket_routes(datasets)]
+    row = {"phase": "wide_data", "rows": int(arrays["y"].shape[0]),
+           "generate_seconds": gen_s, "to_device_seconds": put_s,
+           "planner_host_seconds": plan_s,
+           "movie_layout": "lazy" if movie.is_lazy else "materialized",
+           "movie_max_sub_dim": movie.max_sub_dim,
+           "movie_kept_rows": int(movie.covered_np.sum()),
+           "movie_passive_rows": int((~movie.covered_np).sum()),
+           "score_table_width": int(movie.score_indices.shape[1]),
+           "tail_entries": int(movie.score_tail_rows.shape[0]),
+           "tail_mult": movie.score_tail_mult,
+           "buckets": buckets}
+    emit(row)
+    routes = {b["route"] for b in buckets if b["coordinate"] == "per-movie"}
+    if movie.is_lazy or not {"gram", "densify"} <= routes:
+        fail(f"per-movie buckets took the routes {sorted(routes)}; the "
+             "configuration must exercise both gram and densify")
+    return dict(arrays=arrays, data=data, est=est, datasets=datasets,
+                row=row)
+
+
+def site_operands(torch, datasets) -> list:
+    """The sorted (values, ids, segments) each segment-reduce site of the
+    fit reduces, at its full-width shape, with the call that builds and
+    reduces them (the whole wrapper). Values are the fit's own inputs
+    where it has them (design values, unit weights, labels as the
+    weighted targets) and N(0, 1) coefficients for the score tail."""
+    from photon_tpu_torch.models import game as pt_game
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    out = []
+    gen = torch.Generator(device=WIDE_DEVICE).manual_seed(7)
+    for cid, _, eb, gm, route in bucket_routes(datasets):
+        s = eb.sub_dim
+        shape = list(eb.x_values.shape)
+        if route == "gram":
+            y_eff = (eb.labels - eb.offsets) * eb.weights
+
+            def gram(eb=eb, s=s, m=gm[1]):
+                return sr.ell_gram_blocks(eb.x_indices, eb.x_values,
+                                          eb.weights, s, multiplicity=m)
+
+            def slots(eb=eb, s=s, m=gm[0], y_eff=y_eff):
+                return sr.ell_segment_slots(eb.x_indices, eb.x_values, y_eff,
+                                            s, multiplicity=m)
+
+            out.append(("segment_reduce/gram", shape, *sr.gram_operands(
+                eb.x_indices, eb.x_values, eb.weights, s), gram))
+            out.append(("segment_reduce/slots", shape, *sr.slot_operands(
+                eb.x_indices, eb.x_values, y_eff, s), slots))
+        elif route == "densify":
+            def densify(eb=eb, s=s):
+                return sr.densify_ell_blocks(eb.x_indices, eb.x_values, s)
+
+            out.append(("segment_reduce/densify", shape, *sr.densify_operands(
+                eb.x_indices, eb.x_values, s), densify))
+    movie = datasets["per-movie"]
+    w = torch.randn((movie.num_entities, movie.max_sub_dim), device=WIDE_DEVICE,
+                    generator=gen)
+    tail = (movie.score_tail_rows, movie.score_tail_indices,
+            movie.score_tail_values)
+    tr, ti, tv = tail
+    contrib = tv * w.reshape(-1)[movie.score_codes[tr.long()].long()
+                                 * w.shape[1] + ti.long()]
+
+    def tail_scores():
+        return pt_game.score_tail(w, movie.score_codes, tail, movie.num_rows,
+                                  movie.score_tail_mult)
+
+    out.append(("segment_reduce/score_tail", [int(tr.shape[0])], contrib,
+                tr, movie.num_rows, tail_scores))
+    # The bucket scorer's multiplicity-1 scatter over the largest user
+    # bucket's rows (every row of the table).
+    user = max(datasets["per-user"].device_plans(),
+               key=lambda p: p.row_ids.numel())
+    r = user.row_ids.shape[1]
+    valid = (torch.arange(r, device=WIDE_DEVICE)[None, :]
+             < user.row_counts[:, None])
+    zb = torch.randn(user.row_ids.shape, device=WIDE_DEVICE, generator=gen)
+    z = torch.zeros(movie.num_rows, device=WIDE_DEVICE)
+
+    def rows_scatter():
+        return sr.scatter_add_rows(z, user.row_ids, zb, valid)
+
+    out.append(("segment_reduce/score", list(user.row_ids.shape),
+                *sr.row_operands(movie.num_rows, user.row_ids, zb, valid),
+                movie.num_rows, rows_scatter))
+    return out
+
+
+def _segment_check(torch, sr, name, vals, ids, n) -> dict:
+    """The kernel twice against the plain version on one input."""
+    got = sr.segment_sum(vals, ids, n, site="parity")
+    again = sr.segment_sum(vals, ids, n, site="parity")
+    torch.cuda.synchronize()
+    plain = sr.sorted_segment_sum_plain(vals, ids, n)
+    mag = sr.sorted_segment_sum_plain(vals.float().abs(), ids, n)
+    diff = (got - plain).abs()
+    row = {"phase": "segment_parity", "input": name,
+           "values": int(vals.shape[0]), "segments": int(n),
+           "dtype": str(vals.dtype).replace("torch.", ""),
+           "max_abs_err": float(diff.max()),
+           "max_err_over_bound": float(
+               (diff / (SEGMENT_REL * (1.0 + mag))).max()),
+           "bit_identical_runs": bool(torch.equal(got, again)),
+           "finite": bool(got.isfinite().all())}
+    emit(row)
+    if not (row["max_err_over_bound"] <= 1.0 and row["bit_identical_runs"]
+            and row["finite"]):
+        fail(f"the segment-sum kernel disagrees with its plain version or "
+             f"with itself: {row}")
+    return row
+
+
+def phase_segment_parity(torch, ops) -> float:
+    """The kernel against ``sorted_segment_sum_plain`` on the card."""
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    dev = WIDE_DEVICE
+    rng = np.random.default_rng(11)
+    worst = 0.0
+
+    def ints(size):
+        return torch.from_numpy(rng.integers(-3, 4, size=size).astype(
+            np.float32)).to(dev)
+
+    def ids_of(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    n = 250_003
+    dup = np.repeat(np.arange(n), rng.integers(0, 4, n))
+    fixtures = [
+        ("integer_duplicates", ints(dup.size), ids_of(dup), n),
+        ("empty_segments", ints(4), ids_of([5, 5, 2_049, 4_098]), 4_099),
+        ("dropped_ids", ints(6), ids_of([0, 1, 7, 1_283, 1_283, 1_290]),
+         1_283),
+        ("one_long_run", ints(1_000_002),
+         ids_of(np.r_[0, np.full(1_000_000, 11), 36]), 37),
+    ]
+    for name, vals, ids, n_seg in fixtures:
+        got = sr.segment_sum(vals, ids, n_seg, site="parity")
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, sr.sorted_segment_sum_plain(
+            vals, ids, n_seg)))
+        emit({"phase": "segment_parity", "input": name,
+              "values": int(vals.shape[0]), "segments": n_seg,
+              "exact": exact})
+        if not exact:
+            fail(f"the segment-sum kernel is not exact on {name}")
+    ids = ids_of(np.sort(rng.integers(0, 1_000_000, 3_000_000)))
+    for dtype in (torch.float32, torch.bfloat16):
+        vals = torch.from_numpy(rng.normal(size=ids.shape[0]).astype(
+            np.float32)).to(dev, dtype)
+        worst = max(worst, _segment_check(
+            torch, sr, f"random_{str(dtype)[6:]}", vals, ids,
+            1_000_000)["max_abs_err"])
+    for site, shape, vals, ids, n_seg, _ in ops:
+        row = _segment_check(torch, sr, f"{site} {shape}", vals, ids, n_seg)
+        worst = max(worst, row["max_abs_err"])
+    # The whole multiplicity-1 scatter_add_rows over the table's rows.
+    site, shape, vals, ids, n_seg, rows_scatter = next(
+        op for op in ops if op[0] == "segment_reduce/score")
+    got = rows_scatter()
+    torch.cuda.synchronize()
+    want = sr.sorted_segment_sum_plain(vals, ids, n_seg)
+    err = float((got - want).abs().max())
+    emit({"phase": "segment_parity", "input": f"scatter_add_rows {shape}",
+          "values": int(vals.shape[0]), "max_abs_err": err})
+    if not err <= SEGMENT_REL * (1.0 + float(vals.abs().max())):
+        fail(f"scatter_add_rows differs from its plain version by {err}")
+    return worst
+
+
+def segment_bound(vals, n) -> dict:
+    """Least time for one reduce: each value and id read once and each
+    output written once, at 3.35 TB/s."""
+    nbytes = float(vals.shape[0] * (4 + vals.element_size()) + n * 4)
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def phase_segment_timing(torch, ops) -> list:
+    """Per site at its full-width shape: the kernel's and the plain
+    version's device ms (CUDA-graph replay, median of 50), the whole
+    wrapper's ms (operands, sort and kernel, issued back to back), one
+    ``index_add_`` on the same ids (a yardstick only) and the bound."""
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    rows = []
+    for site, shape, vals, ids, n, wrapper in ops:
+        idx64 = torch.where(ids < n, ids.long(), torch.full_like(
+            ids, n, dtype=torch.int64))
+        vals32 = vals.float()
+
+        def kernel():
+            return sr.segment_sum(vals, ids, n, site="timing")
+
+        def plain():
+            return sr.sorted_segment_sum_plain(vals, ids, n)
+
+        def library():
+            out = torch.zeros(n + 1, device=vals.device)
+            return out.index_add_(0, idx64, vals32)
+
+        row = {"phase": "segment_timing", "site": site, "shape": shape,
+               "values": int(vals.shape[0]), "segments": int(n),
+               "ms": device_ms(torch, kernel, SEGMENT_INNER),
+               "plain_ms": device_ms(torch, plain, SEGMENT_INNER),
+               "library_ms": device_ms(torch, library, SEGMENT_INNER),
+               "wrapper_ms": eager_ms(torch, wrapper, SEGMENT_INNER),
+               **segment_bound(vals, n)}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+class _Residuals:
+    """Records the residuals of each random-effect solve, keyed by its
+    dataset, so a check can rebuild the problem the last solve saw."""
+
+    def __init__(self):
+        self.last = {}
+
+    def __enter__(self):
+        from photon_tpu_torch.algorithm import random_effect as ra
+
+        self._train = train = ra.RandomEffectCoordinate.train
+        last = self.last
+
+        def recording(coord, residuals=None, *a, **k):
+            last[id(coord.dataset)] = residuals
+            return train(coord, residuals, *a, **k)
+
+        ra.RandomEffectCoordinate.train = recording
+        return self
+
+    def __exit__(self, *exc):
+        from photon_tpu_torch.algorithm import random_effect as ra
+
+        ra.RandomEffectCoordinate.train = self._train
+
+
+def phase_wide_fit(torch, wide) -> dict:
+    """GameEstimator.fit with the segment counts zeroed just before; then
+    each coordinate's update timed alone at its final inputs."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.optim import ConvergenceReason, lbfgs
+
+    est, data = wide["est"], wide["data"]
+    sr.reset_counts()
+    ra.route_solves.clear()
+    nk.launches = 0
+    lbfgs.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with _Residuals() as rec:
+        t0 = time.perf_counter()
+        results = est.fit(data)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    by_site = dict(sr.launches_by_site)
+    routes = dict(ra.route_solves)
+    peak = torch.cuda.max_memory_allocated()
+    res = results[0]
+    hist = res.descent.history
+    converged = int(ConvergenceReason.GRADIENT_CONVERGED)
+    direct_ok = all(
+        bool((r.diagnostics.iterations == 1).all())
+        and bool((r.diagnostics.reasons == converged).all())
+        for r in hist if r.coordinate_id in RE_IDS)
+    # Each coordinate's update alone (train and score, synchronised) at
+    # the inputs of its last update in the fit.
+    datasets = wide["datasets"]
+    coords = est._build_coordinates(datasets, {}, {})
+    total, parts = total_scores(torch, res.model, datasets, data)
+    alone = {}
+    for cid in est.update_sequence:
+        residuals = (rec.last[id(datasets[cid])] if cid in RE_IDS
+                     else total - parts[cid])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, _ = coords[cid].train(residuals)
+        coords[cid].score(model)
+        torch.cuda.synchronize()
+        alone[cid] = time.perf_counter() - t0
+    row = {"phase": "wide_fit", "rows": int(data.num_samples),
+           "fit_seconds": fit_s,
+           "seconds_per_cd_iteration": [
+               sum(r.seconds for r in hist if r.iteration == i)
+               for i in range(CD_ITERATIONS)],
+           "host_seconds_per_coordinate": {
+               cid: sum(r.seconds for r in hist if r.coordinate_id == cid)
+               for cid in est.update_sequence},
+           "update_seconds_alone": alone,
+           "fe_lbfgs_iterations": [int(r.diagnostics.iterations)
+                                   for r in hist
+                                   if r.coordinate_id == "global"],
+           "segment_launches_by_site": by_site,
+           "route_solves": routes, "newton_kernel_launches": nk.launches,
+           "lbfgs_host_syncs": lbfgs.host_syncs,
+           "direct_solves_one_iteration_converged": direct_ok,
+           "max_memory_allocated_bytes": peak}
+    emit(row)
+    missing = [s for s in FIT_SITES if by_site.get(s, 0) <= 0]
+    if missing:
+        fail(f"the fit launched the segment-sum kernel at no {missing}")
+    if not direct_ok:
+        fail("a direct solve did not report one iteration and "
+             "GRADIENT_CONVERGED")
+    return dict(row=row, model=res.model, residuals=rec.last, coords=coords,
+                total=total, parts=parts)
+
+
+def phase_wide_optimality(torch, wide, fit) -> list:
+    """For OPT_SAMPLE sampled entities of every random-effect bucket, the
+    normal equations in float64 numpy at the residuals of the entity's
+    last solve (for ``per-movie``, last in the sequence, the final
+    residuals); the fitted coefficients must agree within rtol OPT_RTOL /
+    atol OPT_ATOL."""
+    rows = []
+    rng = np.random.default_rng(17)
+    for cid, i, eb, _, route in bucket_routes(wide["datasets"]):
+        est = wide["est"]
+        l2w = l2_weight(est, cid)
+        residuals = fit["residuals"][id(wide["datasets"][cid])]
+        b = eb.num_entities
+        sel_np = np.sort(rng.choice(b, size=min(OPT_SAMPLE, b),
+                                    replace=False))
+        sel = torch.from_numpy(sel_np).to(WIDE_DEVICE)
+        sub = type(eb)(**{
+            f: (getattr(eb, f)[sel] if getattr(eb, f) is not None else None)
+            for f in ("entity_codes", "x_indices", "x_values", "labels",
+                      "offsets", "weights", "row_ids", "proj",
+                      "penalty_mask", "valid_mask", "intercept_slots")})
+        x = dense_x(torch, sub).cpu().numpy()
+        wt = sub.weights.double().cpu().numpy()
+        off = (sub.offsets.double() + torch.where(
+            sub.weights > 0, residuals[sub.row_ids.long()].double(),
+            torch.zeros((), dtype=torch.float64, device=WIDE_DEVICE))).cpu().numpy()
+        y = sub.labels.double().cpu().numpy()
+        pen = sub.penalty_mask.double().cpu().numpy()
+        vm = sub.valid_mask.double().cpu().numpy()
+        h = np.einsum("brs,br,brt->bst", x, wt, x)
+        h += np.einsum("bs,st->bst", l2w * pen + (1.0 - vm),
+                       np.eye(x.shape[-1]))
+        rhs = np.einsum("brs,br->bs", x, wt * (y - off))
+        w64 = np.linalg.solve(h, rhs[..., None])[..., 0] * vm
+        codes = sub.entity_codes.long()
+        w_fit = fit["model"][cid].coefficients[codes][:, :x.shape[-1]]
+        w_fit = w_fit.double().cpu().numpy()
+        diff = np.abs(w_fit - w64)
+        excess = diff - (OPT_ATOL + OPT_RTOL * np.abs(w64))
+        row = {"phase": "wide_optimality", "coordinate": cid, "bucket": i,
+               "shape": list(eb.x_values.shape), "route": route,
+               "entities": int(sel_np.size),
+               "max_abs_diff": float(diff.max()),
+               "max_rel_diff": float((diff / np.maximum(np.abs(w64), 1e-3)
+                                      ).max()),
+               "max_excess": float(excess.max()),
+               "max_abs_coefficient": float(np.abs(w64).max())}
+        emit(row)
+        rows.append(row)
+        if not row["max_excess"] <= 0.0:
+            fail(f"fitted coefficients differ from the float64 normal "
+                 f"equations beyond rtol {OPT_RTOL} / atol {OPT_ATOL}: {row}")
+    return rows
+
+
+def phase_wide_route_agreement(torch, wide, fit) -> dict:
+    """The per-movie coordinate solved as built (its narrow bucket on the
+    gram route) and with ``GRAM_ELEMENT_BUDGET`` 0 (every bucket on
+    densify), at the residuals of its last solve."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    coord = fit["coords"]["per-movie"]
+    residuals = fit["residuals"][id(wide["datasets"]["per-movie"])]
+    out = {}
+    budget = sr.GRAM_ELEMENT_BUDGET
+    for name, cap in (("gram", budget), ("densify", 0)):
+        ra.route_solves.clear()
+        sr.GRAM_ELEMENT_BUDGET = cap
+        try:
+            model, _ = coord.train(residuals)
+            torch.cuda.synchronize()
+        finally:
+            sr.GRAM_ELEMENT_BUDGET = budget
+        out[name] = (model.coefficients, dict(ra.route_solves))
+    a, b = out["gram"][0], out["densify"][0]
+    diff = (a - b).abs()
+    excess = diff - (WIDE_ROUTE_ATOL + WIDE_ROUTE_RTOL * b.abs())
+    row = {"phase": "wide_route_agreement",
+           "routes": [out["gram"][1], out["densify"][1]],
+           "max_abs_diff": float(diff.max()),
+           "max_excess": float(excess.max()),
+           "outside": int((excess > 0).sum()),
+           "coefficients": int(diff.numel()),
+           "rtol": WIDE_ROUTE_RTOL, "atol": WIDE_ROUTE_ATOL}
+    emit(row)
+    if out["gram"][1].get("gram", 0) < 1 or "gram" in out["densify"][1]:
+        fail(f"the two solves did not take their routes: {row}")
+    if not row["max_excess"] <= 0.0:
+        fail(f"the gram and densify routes disagree: {row}")
+    return row
+
+
+def phase_wide_train_serve(torch, wide, fit) -> dict:
+    """The trained wide model through save_checkpoint -> load_checkpoint
+    -> ScorePrograms (the tag shard served as ELL rows) on 512 training
+    rows, against the trainer's scores (score table plus tail)."""
+    from photon_tpu_torch.io.model_io import load_checkpoint, save_checkpoint
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.programs import FeatureSpec, ScorePrograms
+    from photon_tpu_torch.serve.tables import CoefficientTables
+
+    arrays = wide["arrays"]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    path = save_checkpoint(fit["model"], os.path.join(
+        out_dir, "wide_model.npz"))
+    specs = {"global": FeatureSpec("dense", TRAIN_FEATURES),
+             "userShard": FeatureSpec("dense", USER_FEATURES + 1),
+             WIDE_SHARD: FeatureSpec("sparse", WIDE_TAGS + 1, k=WIDE_K)}
+    programs = ScorePrograms(CoefficientTables.from_game_model(
+        load_checkpoint(path, WIDE_DEVICE), "float32", device=WIDE_DEVICE),
+        specs=specs)
+    rows = np.random.default_rng(3).choice(
+        arrays["y"].shape[0], size=SERVE_ROWS, replace=False)
+    requests = [
+        ({"global": arrays["x"][i], "userShard": arrays["xu"][i],
+          WIDE_SHARD: (arrays["idx"][i], arrays["val"][i])},
+         {"userId": str(arrays["users"][i]),
+          "movieId": str(arrays["movies"][i])})
+        for i in rows
+    ]
+    feats, codes, rung = programs.pack_requests(requests)
+    serve_kernel.launches = 0
+    served = programs.score_padded(feats, codes, len(requests))
+    launches = serve_kernel.launches
+    trainer = fit["total"][torch.from_numpy(rows).to(WIDE_DEVICE)].cpu().numpy()
+    err = float(np.abs(served - trainer).max())
+    row = {"phase": "wide_train_serve", "requests": len(requests),
+           "rung": rung, "serve_kernel_launches": launches,
+           "max_abs_err": err, "tol": TOL["float32"], "checkpoint": path}
+    emit(row)
+    if launches != 1 or not err <= TOL["float32"]:
+        fail(f"served scores of the wide model differ from the trainer's "
+             f"by {err} ({launches} launches)")
+    return row
+
+
+def phase_wide_logistic(torch) -> dict:
+    """The same generator at a tenth of the rows and entities, logistic:
+    every per-movie bucket is densified; those within the Newton gate
+    (R * S <= 16384, here the 64-row buckets of S > 128) take the Newton
+    kernel's wide design, the rest the batch-minor Newton loop; then the
+    logistic optimality check of phase 10, and the wide design's parity
+    and timing at its widest bucket."""
+    import dataclasses
+
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    arrays = wide_arrays(**WIDE_REDUCED, task="logistic")
+    data = wide_dataset(arrays)
+    est = wide_estimator("logistic")
+    datasets = est.prepare(data)
+    buckets = bucket_routes(datasets, direct=False)
+    wide = [(cid, eb) for cid, _, eb, _, _ in buckets
+            if eb.sub_dim > nk.NARROW_SUB_DIM
+            and eb.x_values.shape[1] * eb.sub_dim <= nk.MAX_RS]
+    past_gate = sum(1 for _, _, eb, _, _ in buckets
+                    if eb.x_values.shape[1] * eb.sub_dim > nk.MAX_RS)
+    sr.reset_counts()
+    ra.route_solves.clear()
+    nk.launches = nk.wide_launches = ra.plain_route_solves = 0
+    t0 = time.perf_counter()
+    res = est.fit(data)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    row = {"phase": "wide_logistic", **WIDE_REDUCED, "fit_seconds": fit_s,
+           "segment_launches_by_site": dict(sr.launches_by_site),
+           "route_solves": dict(ra.route_solves),
+           "newton_kernel_launches": nk.launches,
+           "newton_wide_launches": nk.wide_launches,
+           "plain_route_solves": ra.plain_route_solves,
+           "wide_kernel_buckets": [list(eb.x_values.shape) + [eb.sub_dim]
+                                   for _, eb in wide],
+           "past_gate_bucket_solves": past_gate * CD_ITERATIONS}
+    emit(row)
+    if sr.launches_by_site.get("segment_reduce/densify", 0) <= 0:
+        fail("the wide logistic fit launched no densify")
+    if not wide or nk.wide_launches <= 0:
+        fail(f"no wide bucket took the Newton kernel: {row}")
+    if ra.plain_route_solves != past_gate * CD_ITERATIONS:
+        fail(f"buckets past the Newton gate and the Newton loop's plain "
+             f"route disagree: {row}")
+    if nk.launches <= nk.wide_launches:
+        fail("the narrow buckets did not take the Newton kernel")
+    hist = res.descent.history
+    last = {r.coordinate_id: r for r in hist
+            if r.iteration == CD_ITERATIONS - 1}
+    stats = {"l2": {cid: l2_weight(est, cid) for cid in RE_IDS},
+             "reasons": {cid: last[cid].diagnostics.reasons
+                         for cid in RE_IDS}}
+    phase_optimality(torch, res.model, datasets, data, stats,
+                     phase="wide_logistic_optimality")
+    # The wide design against its plain version, and its timing, at the
+    # widest bucket it serves, densified as the solver densifies it.
+    cid, eb = max(wide, key=lambda w: w[1].sub_dim)
+    eb = dataclasses.replace(eb, x_indices=None, x_values=(
+        sr.densify_ell_blocks(eb.x_indices, eb.x_values, eb.sub_dim)))
+    l2w = l2_weight(est, cid)
+    worst, _ = newton_parity_steps(torch, cid, eb, l2w,
+                                   phase="wide_newton_parity")
+    args = step_args(newton_operands(torch, eb, l2w))
+    task = est.task
+    shape = tuple(eb.x_values.shape)
+    timing = {"phase": "wide_newton_timing", "coordinate": cid,
+              "bucket": list(shape), "max_abs_err": worst,
+              "ms": device_ms(torch, lambda: nk.newton_step(
+                  *args, task=task), 5),
+              "plain_ms": device_ms(torch, lambda: nk.newton_step_plain(
+                  *args, task=task), 1),
+              **newton_bound(shape)}
+    emit(timing)
+    return dict(row, timing=timing)
+
+
+def phase_wide_profile(torch, wide, fit) -> dict:
+    """One per-movie update (train and score at the residuals of its last
+    solve) under ``torch.profiler``: device time by operator, and the
+    device's busy share of the update's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    coord = fit["coords"]["per-movie"]
+    residuals = fit["residuals"][id(wide["datasets"]["per-movie"])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, _ = coord.train(residuals)
+        coord.score(model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def self_device_us(evt):
+        return float(getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0)))
+
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # Device time is the sum over the kernels (CUDA events); each
+    # operator's self device time is that of the kernels it launched.
+    kernels = [e for e in events if e.device_type == cuda]
+    device_ms = sum(self_device_us(e) for e in kernels) / 1e3
+
+    def top(evts):
+        ranked = sorted(((self_device_us(e), e.key[:90], e.count)
+                         for e in evts), reverse=True)
+        return [{"name": k, "device_ms": us / 1e3, "calls": c}
+                for us, k, c in ranked[:10] if us > 0]
+
+    row = {"phase": "wide_profile", "coordinate": "per-movie",
+           "wall_ms": wall * 1e3, "device_ms": device_ms,
+           "device_busy_share": device_ms / (wall * 1e3),
+           "top_operators": top(e for e in events if e.device_type != cuda),
+           "top_kernels": top(kernels)}
+    emit(row)
+    return row
+
+
+def phase_wide(torch) -> dict:
+    """The wide-linear group; returns the segment-sum kernel's entry of
+    the ``kernels`` line."""
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    wide = phase_wide_data(torch)
+    ops = site_operands(torch, wide["datasets"])
+    worst = phase_segment_parity(torch, ops)
+    timing = phase_segment_timing(torch, ops)
+    del ops
+    torch.cuda.empty_cache()
+    fit = phase_wide_fit(torch, wide)
+    phase_wide_optimality(torch, wide, fit)
+    phase_wide_route_agreement(torch, wide, fit)
+    phase_wide_train_serve(torch, wide, fit)
+    phase_wide_profile(torch, wide, fit)
+    launches = fit["row"]["segment_launches_by_site"]
+    # The entry reports the site whose launches took the most device
+    # time in the fit.
+    by_site = {}
+    for r in timing:
+        by_site.setdefault(r["site"], []).append(r)
+    top = max((r for r in timing if r["site"] in FIT_SITES),
+              key=lambda r: launches.get(r["site"], 0) * r["ms"]
+              / len(by_site[r["site"]]))
+    del wide, fit
+    torch.cuda.empty_cache()
+    phase_wide_logistic(torch)
+    return {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": sr.SOURCE,
+        "replaces": SEGMENT_REPLACES,
+        "launches": sum(launches.values()),
+        "max_abs_err": worst,
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"],
+        "site": top["site"],
+        "shape": top["shape"],
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1088,7 +1935,12 @@ def main() -> int:
             game_model_from_numpy,
             save_checkpoint,
         )
-        from photon_tpu_torch.ops import _build, newton_kernel, serve_kernel
+        from photon_tpu_torch.ops import (
+            _build,
+            newton_kernel,
+            segment_reduce,
+            serve_kernel,
+        )
     except ImportError as exc:
         fail(f"photon_tpu_torch is not importable beside this script: {exc}")
     # The plain versions use no matmul, but a reference states TF32 off.
@@ -1106,6 +1958,7 @@ def main() -> int:
     lib = _build.build()
     serve_kernel.load()
     newton_kernel.load()
+    segment_reduce.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(lib),
           "sources": [str(p.name) for p in _build.sources()]})
@@ -1126,6 +1979,8 @@ def main() -> int:
     serve = phase_serve(torch, ckpt, arrays)
     rows = phase_timing(torch, model)
     newton = phase_train(torch)
+    torch.cuda.empty_cache()
+    segment = phase_wide(torch)
 
     top = next(r for r in rows
                if r["precision"] == SERVE_PRECISION and r["rung"] == 512)
@@ -1141,7 +1996,7 @@ def main() -> int:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
-    }, newton]
+    }, newton, segment]
     if not all(math.isfinite(k["ms"]) and k["ms"] > 0
                and math.isfinite(k["bound_ms"]) and k["bound_ms"] > 0
                for k in kernels) or not all(

@@ -19,8 +19,14 @@ Scoring is scatter-free: ``score_inv`` maps each canonical row to its
 position in the concatenation of every bucket's ``[B, cap]`` score block
 followed by the passive rows' scores, so one gather distributes them.
 
-The materialized layout (score table with COO tail) and the ELL slab
-route for wide subspaces are not ported (ROADMAP Queue A); they raise
+``build_random_effect_dataset`` picks the **materialized** layout by
+itself when a subspace is wider than ``DENSE_SUB_DIM_MAX`` or the
+configuration sets ``score_table_width_cap`` (as the reference does):
+every bucket is built on the host as ELL blocks ``[B, R, k]`` of subspace
+slots, with the gram route's window bounds (``block_gram_mults``), and
+every row scores through a remapped ``[n, k]`` score table whose rows
+past the width cap spill into a COO tail. The lazy layout's ELL slab for
+wide subspaces is not ported: a wide lazy bucket raises
 ``NotImplementedError``.
 """
 
@@ -38,6 +44,7 @@ from photon_tpu_torch.data.dataset import (
     SparseFeatures,
 )
 from photon_tpu_torch.data.game_data import GameDataset
+from photon_tpu_torch.ops import segment_reduce
 
 DEFAULT_BUCKET_CAPS = (16, 64, 256, 1024, 4096)
 # Up to this subspace width a bucket's slab is subspace-dense [B, R, S].
@@ -72,12 +79,14 @@ class RandomEffectDataConfiguration:
 
 @dataclasses.dataclass(frozen=True)
 class EntityBlocks:
-    """One size bucket with its design slab gathered: ``x_values`` is the
-    subspace-dense [B, R, S] slab. Padding rows carry weight 0; padded
-    slots have ``proj == -1``."""
+    """One size bucket with its design slab on the device. Padding rows
+    carry weight 0; padded slots have ``proj == -1``."""
 
     entity_codes: torch.Tensor  # [B] int32
-    x_values: torch.Tensor  # [B, R, S]
+    # ELL: x_indices [B, R, k] int32 subspace slots with x_values
+    # [B, R, k]; subspace-dense: x_indices is None, x_values [B, R, S].
+    x_indices: torch.Tensor | None
+    x_values: torch.Tensor  # [B, R, k] or [B, R, S]
     labels: torch.Tensor  # [B, R]
     offsets: torch.Tensor  # [B, R] (residuals included)
     weights: torch.Tensor  # [B, R]; 0 for padding rows
@@ -94,6 +103,10 @@ class EntityBlocks:
     @property
     def sub_dim(self) -> int:
         return self.proj.shape[-1]
+
+    @property
+    def is_dense(self) -> bool:
+        return self.x_indices is None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +181,7 @@ class BlockPlan:
             x_values = torch.einsum("brk,brks->brs", val, onehot)
         return EntityBlocks(
             entity_codes=self.entity_codes,
+            x_indices=None,
             x_values=x_values,
             labels=labels,
             offsets=offs,
@@ -187,9 +201,11 @@ _PLAN_FIELDS = ("entity_codes", "row_ids", "row_counts", "proj",
 
 @dataclasses.dataclass(frozen=True)
 class RandomEffectDataset:
-    """All state of one random-effect coordinate. ``blocks`` holds the
-    host plan; the ``*_device``/``device_*`` accessors place what they
-    return on ``score_codes.device`` once and cache it."""
+    """All state of one random-effect coordinate. Lazy: ``blocks`` holds
+    the host plan; the ``*_device``/``device_*`` accessors place what
+    they return on ``score_codes.device`` once and cache it.
+    Materialized: ``blocks`` are ``EntityBlocks`` on the device and rows
+    score through ``score_indices``/``score_values`` plus the tail."""
 
     config: RandomEffectDataConfiguration
     num_entities: int
@@ -201,11 +217,24 @@ class RandomEffectDataset:
     num_features: int
     dtype: torch.dtype
     score_codes: torch.Tensor  # [n] int32 owning-entity code per row
-    raw: Features
+    raw: Features | None  # lazy: the raw shard the slabs gather from
     block_codes_np: tuple  # per bucket [B] int32
     block_intercepts_np: tuple  # per bucket [B] int32
     covered_np: np.ndarray  # [n] bool: row kept into some bucket
-    score_inv_np: np.ndarray  # [n] int32 flat score position per row
+    score_inv_np: np.ndarray | None  # lazy: [n] int32 flat score position
+    # Materialized scoring table: [n, k] subspace slots and values (0
+    # outside the subspace), then the COO tail of rows wider than
+    # ``score_table_width_cap`` (rows ascending; None when uncapped).
+    score_indices: torch.Tensor | None = None
+    score_values: torch.Tensor | None = None
+    score_tail_rows: torch.Tensor | None = None  # [t] int32
+    score_tail_indices: torch.Tensor | None = None  # [t] int32
+    score_tail_values: torch.Tensor | None = None  # [t]
+    # Most tail entries of one row: the tail reduce's multiplicity bound.
+    score_tail_mult: int | None = None
+    # Per bucket the gram route's (grad_mult, hess_mult) window bounds,
+    # or None where the route cannot engage; empty for lazy datasets.
+    block_gram_mults: tuple = ()
 
     @property
     def num_rows(self) -> int:
@@ -215,6 +244,10 @@ class RandomEffectDataset:
     def device(self) -> torch.device:
         return self.score_codes.device
 
+    @property
+    def is_lazy(self) -> bool:
+        return self.score_indices is None
+
     def _cached(self, name: str, build):
         value = self.__dict__.get(name)
         if value is None:
@@ -223,7 +256,10 @@ class RandomEffectDataset:
         return value
 
     def device_plans(self) -> tuple:
-        """``blocks`` with device plan tensors (cached)."""
+        """``blocks`` with device plan tensors (cached); a materialized
+        dataset's blocks as they are."""
+        if not self.is_lazy:
+            return self.blocks
         dev = self.device
 
         def build():
@@ -240,7 +276,10 @@ class RandomEffectDataset:
     def device_blocks(self) -> tuple:
         """Training blocks with their slabs gathered once on the device
         (cached) while the total stays within the slab budget; a bucket
-        past it stays a ``BlockPlan`` and gathers inside every solve."""
+        past it stays a ``BlockPlan`` and gathers inside every solve.
+        A materialized dataset's blocks are already on the device."""
+        if not self.is_lazy:
+            return self.blocks
 
         def build():
             out, spent = [], 0
@@ -274,7 +313,11 @@ class RandomEffectDataset:
                 self.proj_all.astype(np.int32)).to(self.device))
 
     def covered_row_partition(self):
-        """(covered [n] bool, passive rows int32), both host arrays."""
+        """(covered [n] bool, passive rows int32), both host arrays, of a
+        lazy dataset."""
+        if not self.is_lazy:
+            raise ValueError("the row partition is defined for lazy "
+                             "datasets")
         return self._cached(
             "_covered", lambda: (
                 self.covered_np,
@@ -587,78 +630,256 @@ def _bucket_rows(plan: _Plan, members: np.ndarray):
     return rows_flat, t_of, r_of, m_counts
 
 
+def _compact_left(slot: np.ndarray, val: np.ndarray, found: np.ndarray,
+                  k_out: int):
+    """Left-compact each row's found ELL entries; truncate or pad to
+    ``k_out`` columns."""
+    order = np.argsort(~found, axis=1, kind="stable")
+    slot_c = np.take_along_axis(np.where(found, slot, 0), order, axis=1)
+    val_c = np.take_along_axis(np.where(found, val, 0.0), order, axis=1)
+    k = slot_c.shape[1]
+    if k_out > k:
+        slot_c = np.pad(slot_c, ((0, 0), (0, k_out - k)))
+        val_c = np.pad(val_c, ((0, 0), (0, k_out - k)))
+    return slot_c[:, :k_out].astype(np.int32), val_c[:, :k_out]
+
+
+def _score_table_arrays(codes: np.ndarray, ell_idx: np.ndarray,
+                        ell_val: np.ndarray, table: _ProjectorTable,
+                        width_cap: int | None):
+    """The materialized score table of every row: (si, sv, tail). Each
+    row's entries inside its entity's subspace, remapped to slots and
+    left-compacted; with ``width_cap`` the entries past the cap go to a
+    COO tail ``(rows, slots, values)`` sorted by row (None when
+    uncapped)."""
+    slot, found = table.lookup(codes[:, None], ell_idx)
+    found = found & (ell_val != 0.0)
+    k_comp = max(int(found.sum(axis=1).max(initial=0)), 1)
+    if width_cap is None:
+        si, sv = _compact_left(slot, ell_val, found, k_comp)
+        return si, sv, None
+    k_slab = max(min(width_cap, k_comp), 1)
+    si_f, sv_f = _compact_left(slot, ell_val, found, k_comp)
+    si, sv = si_f[:, :k_slab], sv_f[:, :k_slab]
+    over_i, over_v = si_f[:, k_slab:], sv_f[:, k_slab:]
+    mask = over_v != 0.0
+    if mask.any():
+        row_of = np.broadcast_to(
+            np.arange(codes.shape[0], dtype=np.int64)[:, None], mask.shape)
+        tr = row_of[mask]
+        ti = over_i[mask].astype(np.int64)
+        tv = over_v[mask]
+        o = np.argsort(tr, kind="stable")  # the tail reduce wants sorted rows
+        tail = (tr[o], ti[o], tv[o])
+    else:
+        tail = (np.empty(0, np.int64), np.empty(0, np.int64),
+                np.empty(0, ell_val.dtype))
+    return si, sv, tail
+
+
+def _gram_window_bounds(bi: np.ndarray, bv: np.ndarray, sub_dim: int):
+    """HOST (grad_mult, hess_mult) window bounds of one bucket's ELL
+    slabs for the gram route, or None when the route can never engage
+    there (the bucket densifies up front, or its pair pass is over
+    budget). Only nonzero entries count: the device side sends zero
+    products to the drop segment."""
+    b, cap, k = bi.shape
+    s = int(sub_dim)
+    if s <= DENSE_SUB_DIM_MAX and b * cap * k * s <= ONE_HOT_ELEMENT_BUDGET:
+        return None
+    if b * cap * k * k > segment_reduce.GRAM_ELEMENT_BUDGET:
+        return None
+    nz = bv != 0.0
+    grad_counts = hess_counts = None
+    # Entity chunks bound the [chunk, cap, k, k] int64 pair ids.
+    step = max(1, (1 << 22) // max(cap * k * k, 1))
+    for lo in range(0, b, step):
+        hi = min(lo + step, b)
+        ent = np.arange(lo, hi, dtype=np.int64)[:, None, None]
+        nzc = nz[lo:hi]
+        bic = bi[lo:hi].astype(np.int64)
+        gids = (ent * s + bic)[nzc]
+        gc = segment_reduce.window_counts_np(gids, b * s)
+        grad_counts = gc if grad_counts is None else grad_counts + gc
+        pair_nz = nzc[:, :, :, None] & nzc[:, :, None, :]
+        pids = (ent[..., None] * (s * s) + bic[:, :, :, None] * s
+                + bic[:, :, None, :])[pair_nz]
+        hc = segment_reduce.window_counts_np(pids, b * s * s)
+        hess_counts = hc if hess_counts is None else hess_counts + hc
+    return (segment_reduce.window_bound_from_counts(grad_counts.max()),
+            segment_reduce.window_bound_from_counts(hess_counts.max()))
+
+
 def build_random_effect_dataset(
     game_data: GameDataset,
     config: RandomEffectDataConfiguration,
     *,
     intercept_index: int | None = None,
     extra_features: dict | None = None,
+    lazy: bool | None = None,
 ) -> RandomEffectDataset:
-    """Plan one random-effect coordinate on the host and build its lazy
+    """Plan one random-effect coordinate on the host and build its
     dataset on ``game_data``'s device. ``extra_features`` maps an entity
     code to feature ids that must stay in its subspace (a warm-start
-    model's support, RandomEffectDataset.scala:390-426)."""
+    model's support, RandomEffectDataset.scala:390-426). ``lazy`` picks
+    the layout; by default it is lazy unless the configuration sets
+    ``score_table_width_cap`` or a subspace is wider than
+    ``DENSE_SUB_DIM_MAX``."""
     feats = game_data.feature_shards[config.feature_shard_id]
     plan = _plan_random_effect(game_data, config,
                                intercept_index=intercept_index,
                                extra_features=extra_features)
-    if (config.score_table_width_cap is not None
-            or plan.max_sub_dim > DENSE_SUB_DIM_MAX):
-        raise _not_ported("the materialized random-effect layout (score "
-                          "table width cap or sub_dim > "
-                          f"{DENSE_SUB_DIM_MAX})")
+    if lazy is None:
+        # A width cap says heavy entities dominate max_sub_dim: the lazy
+        # scorer's [n, S] gathers would bring back what the cap bounds.
+        # Wide subspaces stay materialized too.
+        lazy = (config.score_table_width_cap is None
+                and plan.max_sub_dim <= DENSE_SUB_DIM_MAX)
     tag = game_data.id_tags[config.random_effect_type]
     n = plan.codes.shape[0]
 
-    blocks, codes_np, ints_np = [], [], []
+    bucket_host = []
     covered = np.zeros(n, dtype=bool)
-    score_inv = np.empty(n, dtype=np.int32)
-    base = 0
     for cap in sorted(plan.bucket_members):
         members = plan.bucket_members[cap]
         rows_flat, t_of, r_of, counts_b = _bucket_rows(plan, members)
-        b = members.size
-        brow = np.zeros((b, cap), dtype=np.int32)
+        brow = np.zeros((members.size, cap), dtype=np.int32)
         brow[t_of, r_of] = rows_flat
         s = max(int(plan.sub_dims[members].max(initial=0)), 1)
-        intercepts = plan.intercept_slots_all[members]
-        blocks.append(BlockPlan(
-            entity_codes=members.astype(np.int32),
-            row_ids=brow,
-            row_counts=counts_b.astype(np.int32),
+        bucket_host.append(dict(
+            members=members.astype(np.int32), brow=brow,
+            counts=counts_b.astype(np.int32),
             proj=plan.proj_all[members][:, :s].astype(np.int32),
-            intercept_slots=intercepts,
-            raw=feats,
-            raw_labels=game_data.labels,
-            raw_offsets=game_data.offsets,
-            raw_weights=game_data.weights,
-        ))
-        codes_np.append(members.astype(np.int32))
-        ints_np.append(intercepts)
+            intercepts=plan.intercept_slots_all[members],
+            rows_flat=rows_flat, t_of=t_of, r_of=r_of))
         covered[rows_flat] = True
-        score_inv[rows_flat] = (base + t_of * cap + r_of).astype(np.int32)
-        base += brow.size
+    common = dict(
+        config=config,
+        num_entities=tag.num_groups,
+        entity_keys=tag.inverse,
+        max_sub_dim=plan.max_sub_dim,
+        sub_dims=plan.sub_dims,
+        proj_all=plan.proj_all,
+        num_features=plan.num_features,
+        dtype=game_data.dtype,
+        block_codes_np=tuple(bh["members"] for bh in bucket_host),
+        block_intercepts_np=tuple(bh["intercepts"] for bh in bucket_host),
+        covered_np=covered,
+    )
+    if not lazy:
+        return _build_materialized(game_data, config, plan, bucket_host,
+                                   common)
+
+    score_inv = np.empty(n, dtype=np.int32)
+    base = 0
+    for bh in bucket_host:
+        cap = bh["brow"].shape[1]
+        score_inv[bh["rows_flat"]] = (
+            base + bh["t_of"] * cap + bh["r_of"]).astype(np.int32)
+        base += bh["brow"].size
     passive = np.nonzero(~covered)[0]
     if base + passive.size >= 2**31:
         raise OverflowError(
             f"flat score layout has {base + passive.size} elements, which "
             "overflows the int32 inverse score map")
     score_inv[passive] = base + np.arange(passive.size, dtype=np.int32)
+    blocks = tuple(
+        BlockPlan(
+            entity_codes=bh["members"],
+            row_ids=bh["brow"],
+            row_counts=bh["counts"],
+            proj=bh["proj"],
+            intercept_slots=bh["intercepts"],
+            raw=feats,
+            raw_labels=game_data.labels,
+            raw_offsets=game_data.offsets,
+            raw_weights=game_data.weights,
+        )
+        for bh in bucket_host)
+    return RandomEffectDataset(blocks=blocks, score_codes=tag.codes,
+                               raw=feats, score_inv_np=score_inv, **common)
 
+
+def _build_materialized(game_data: GameDataset,
+                        config: RandomEffectDataConfiguration, plan: _Plan,
+                        bucket_host: list, common: dict
+                        ) -> RandomEffectDataset:
+    """The materialized layout: each bucket's ELL blocks remapped to
+    subspace slots on the host and copied to the device, and the score
+    table with its tail."""
+    dev, dtype = game_data.device, game_data.dtype
+    ell_idx, ell_val, _ = game_data.host_shard_coo(config.feature_shard_id)
+    labels_np = game_data.host_column("labels")
+    offsets_np = game_data.host_column("offsets")
+    weights_np = game_data.host_column("weights")
+
+    def put(a: np.ndarray, to=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, to)
+
+    blocks, gram_mults = [], []
+    for bh in bucket_host:
+        members = bh["members"]
+        b, cap = bh["brow"].shape
+        rows_flat, t_of, r_of = bh["rows_flat"], bh["t_of"], bh["r_of"]
+        s = bh["proj"].shape[1]
+        wi, wv = ell_idx[rows_flat], ell_val[rows_flat]
+        slot, found = plan.table.lookup(plan.codes[rows_flat][:, None], wi)
+        found = found & (wv != 0.0)
+        k = max(int(found.sum(axis=1).max(initial=0)), 1)
+        ri, rv = _compact_left(slot, wv, found, k)
+        bi = np.zeros((b, cap, k), dtype=np.int32)
+        bv = np.zeros((b, cap, k), dtype=ell_val.dtype)
+        bi[t_of, r_of] = ri
+        bv[t_of, r_of] = rv
+        gram_mults.append(_gram_window_bounds(bi, bv, s))
+        bl = np.zeros((b, cap), dtype=labels_np.dtype)
+        bo = np.zeros((b, cap), dtype=offsets_np.dtype)
+        bw = np.zeros((b, cap), dtype=weights_np.dtype)
+        bl[t_of, r_of] = labels_np[rows_flat]
+        bo[t_of, r_of] = offsets_np[rows_flat]
+        bw[t_of, r_of] = weights_np[rows_flat]
+        bint = bh["intercepts"]
+        valid = (np.arange(s)[None, :]
+                 < plan.sub_dims[members][:, None]).astype(np.float32)
+        penalty = valid.copy()
+        has_int = bint >= 0
+        penalty[has_int, bint[has_int]] = 0.0
+        blocks.append(EntityBlocks(
+            entity_codes=put(members),
+            x_indices=put(bi),
+            x_values=put(bv, dtype),
+            labels=put(bl, dtype),
+            offsets=put(bo, dtype),
+            weights=put(bw, dtype),
+            row_ids=put(bh["brow"]),
+            proj=put(bh["proj"]),
+            penalty_mask=put(penalty, dtype),
+            valid_mask=put(valid, dtype),
+            intercept_slots=put(bint),
+        ))
+
+    si, sv, tail = _score_table_arrays(
+        plan.codes, ell_idx, ell_val, plan.table,
+        config.score_table_width_cap)
+    tail_arrays = dict(score_tail_rows=None, score_tail_indices=None,
+                       score_tail_values=None, score_tail_mult=None)
+    if tail is not None:
+        tail_arrays = dict(
+            score_tail_rows=put(tail[0].astype(np.int32)),
+            score_tail_indices=put(tail[1].astype(np.int32)),
+            score_tail_values=put(tail[2], dtype),
+            # Tail rows are sorted: one bincount prices the widest row.
+            score_tail_mult=(int(np.bincount(tail[0]).max())
+                             if tail[0].size else 1),
+        )
     return RandomEffectDataset(
-        config=config,
-        num_entities=tag.num_groups,
-        entity_keys=tag.inverse,
         blocks=tuple(blocks),
-        max_sub_dim=plan.max_sub_dim,
-        sub_dims=plan.sub_dims,
-        proj_all=plan.proj_all,
-        num_features=plan.num_features,
-        dtype=game_data.dtype,
-        score_codes=tag.codes,
-        raw=feats,
-        block_codes_np=tuple(codes_np),
-        block_intercepts_np=tuple(ints_np),
-        covered_np=covered,
-        score_inv_np=score_inv,
+        score_codes=put(plan.codes.astype(np.int32)),
+        raw=None,
+        score_inv_np=None,
+        score_indices=put(si),
+        score_values=put(sv, dtype),
+        block_gram_mults=tuple(gram_mults),
+        **tail_arrays,
+        **common,
     )

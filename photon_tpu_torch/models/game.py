@@ -8,11 +8,14 @@ id of that slot (-1 pad). Scoring a row gathers its entity's weight row
 and projector row by the row's entity code; code -1 (an entity the model
 never trained) contributes nothing.
 
-On a training dataset (``RandomEffectModel.score_dataset``) the rows
-kept into buckets score from the cached bucket slabs, one batched
+On a lazy training dataset (``RandomEffectModel.score_dataset``) the
+rows kept into buckets score from the cached bucket slabs, one batched
 product per bucket, and the passive rest from the raw features; one
 gather through the dataset's inverse score map puts every score in
-canonical row order.
+canonical row order. On a materialized dataset every row scores through
+its remapped score table, and the rows past the table's width cap add
+their COO tail through the segment-sum kernel
+(``score_entity_table_with_tail``).
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ import torch
 
 from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
 from photon_tpu_torch.data.random_effect import (
+    DENSE_SUB_DIM_MAX,
     EntityBlocks,
     RandomEffectDataset,
 )
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.ops import precision as precision_mod
+from photon_tpu_torch.ops import segment_reduce
 from photon_tpu_torch.types import TaskType
 
 
@@ -64,6 +69,15 @@ class RandomEffectModel:
 
     def score_dataset(self, dataset: RandomEffectDataset) -> torch.Tensor:
         """Model contribution per canonical row of ``dataset``."""
+        if not dataset.is_lazy:
+            tail = None
+            if dataset.score_tail_rows is not None:
+                tail = (dataset.score_tail_rows, dataset.score_tail_indices,
+                        dataset.score_tail_values)
+            return score_entity_table_with_tail(
+                self.coefficients, dataset.score_codes,
+                dataset.score_indices, dataset.score_values, tail,
+                tail_multiplicity=dataset.score_tail_mult)
         z = _score_via_buckets(self.coefficients, dataset)
         if z is not None:
             return z
@@ -171,6 +185,65 @@ def score_raw_features(w: torch.Tensor, codes: torch.Tensor, feats,
                                  proj_dev)
     raise TypeError(f"lazy scoring expects Dense or Sparse features, got "
                     f"{type(feats).__name__}")
+
+
+# Element bound of the one-hot operand in ``score_entity_table``.
+_SCORE_ONE_HOT_BUDGET = 1 << 28
+
+
+def score_entity_table(w: torch.Tensor, codes: torch.Tensor,
+                       indices: torch.Tensor,
+                       values: torch.Tensor) -> torch.Tensor:
+    """Scores of rows given subspace-remapped ELL arrays:
+    ``z_i = sum_j values[i, j] * w[codes[i], indices[i, j]]``, each
+    product in the table dtype, summed with an f32 accumulator for a
+    bf16 table. Up to ``DENSE_SUB_DIM_MAX`` slots (and a bounded operand)
+    the weights are picked by a one-hot contraction, as the reference
+    picks them; above, by one gather. Both pick the same values."""
+    n, k = indices.shape
+    if w.shape[0] == 0:
+        return torch.zeros(n, dtype=values.dtype, device=values.device)
+    s = w.shape[1]
+    if s <= DENSE_SUB_DIM_MAX and n * k * s <= _SCORE_ONE_HOT_BUDGET:
+        rows = w[codes.long()]  # [n, S]
+        onehot = (indices.long()[:, :, None]
+                  == torch.arange(s, device=w.device)).to(rows.dtype)
+        picked = torch.einsum("nks,ns->nk", onehot, rows)
+    else:
+        # rows[i, indices[i, j]] as one flat gather: no [n, S] rows.
+        flat = codes.long()[:, None] * s + indices.long()
+        picked = w.reshape(-1)[flat]
+    return precision_mod.acc_sum(
+        precision_mod.like_storage(values, picked) * picked, dim=-1)
+
+
+def score_tail(w: torch.Tensor, codes: torch.Tensor, tail, num_rows: int,
+               tail_multiplicity: int | None = None) -> torch.Tensor:
+    """The [num_rows] scores of a width-capped table's COO tail
+    ``(rows, slots, values)``, rows sorted ascending, summed by
+    ``sorted_segment_sum`` (the kernel on the card; f32 sums for f32 and
+    bf16 values). ``tail_multiplicity`` is the most tail entries of one
+    row."""
+    tr, ti, tv = tail
+    flat = codes[tr.long()].long() * w.shape[1] + ti.long()
+    picked = w.reshape(-1)[flat]
+    contrib = precision_mod.like_storage(tv, picked) * picked
+    return segment_reduce.sorted_segment_sum(
+        contrib, tr, num_rows, multiplicity=tail_multiplicity or 1,
+        site="segment_reduce/score_tail")
+
+
+def score_entity_table_with_tail(w: torch.Tensor, codes: torch.Tensor,
+                                 indices: torch.Tensor, values: torch.Tensor,
+                                 tail, tail_multiplicity: int | None = None
+                                 ) -> torch.Tensor:
+    """``score_entity_table`` plus the scores of a width-capped table's
+    COO tail (``score_tail``); ``tail`` is None for an uncapped table."""
+    base = score_entity_table(w, codes, indices, values)
+    if tail is None or w.shape[0] == 0:
+        return base
+    summed = score_tail(w, codes, tail, base.shape[0], tail_multiplicity)
+    return base + summed.to(base.dtype)
 
 
 def bucket_score_parts(w: torch.Tensor, slabs, codes) -> list:

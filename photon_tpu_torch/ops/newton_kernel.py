@@ -8,16 +8,17 @@ plain PyTorch. Nothing falls back from one to the other.
 The CUDA kernel replaces the Pallas TPU kernel
 ``photon_tpu/ops/newton_kernel.py:newton_step_lanes``. It takes the
 bucket as x [B, R, S] (entity-major, the port's natural layout); the TPU
-kernel's 128-lane entity transpose is not carried over. It is bound by
-bytes: at the bench's user bucket (~100,000 entities x 64 rows x 17
-slots, f32) one step must read the 435 MB slab once, ~0.16 ms at
-3.35 TB/s. One warp per entity stages its slab in shared memory, so the
-slab is read once per step however many passes the step makes over it.
+kernel's 128-lane entity transpose is not carried over. Up to
+``NARROW_SUB_DIM`` slots one warp per entity stages its slab in shared
+memory and forms H there; it is bound by bytes: at the bench's user
+bucket (~100,000 entities x 64 rows x 17 slots, f32) one step must read
+the 435 MB slab once, ~0.16 ms at 3.35 TB/s. A wider bucket (a wide
+materialized bucket densified for its solve) takes one block per entity
+and a CG that applies H from the slab without forming it; it is bound
+by operations.
 
 ``kernel_supported`` is the reference's gate: f32, logistic or Poisson
-loss, R * S <= 16384. The port's lazy layout keeps S <= 128
-(``data/random_effect.DENSE_SUB_DIM_MAX``), which the kernel's shared
-memory plan relies on.
+loss, R * S <= 16384.
 """
 
 from __future__ import annotations
@@ -33,37 +34,42 @@ from photon_tpu_torch.types import TaskType
 SOURCE = "photon_tpu_torch/csrc/newton_step.cu"
 REPLACES = "photon_tpu/ops/newton_kernel.py:225"
 MAX_RS = 16_384
-MAX_SUB_DIM = 128
+NARROW_SUB_DIM = 128  # the widest S of the one-warp-per-entity design
 MAX_TRIALS = 16
 _TASK_CODE = {TaskType.LOGISTIC_REGRESSION: 0, TaskType.POISSON_REGRESSION: 1}
 
-# Kernel launches made by ``newton_step`` (never by the plain version).
+# Kernel launches made by ``newton_step`` (never by the plain version),
+# and those of them on a bucket wider than NARROW_SUB_DIM.
 launches = 0
+wide_launches = 0
 
 _launch_fn = None
+_workspace_fn = None
 
 
 def kernel_supported(task: TaskType, dtype: torch.dtype, r: int,
                      s: int) -> bool:
     """Whether a bucket takes the Newton-step route (kernel on CUDA,
     plain version on the CPU) rather than the batch-minor plain loop."""
-    return (dtype == torch.float32 and task in _TASK_CODE
-            and r * s <= MAX_RS)
+    return dtype == torch.float32 and task in _TASK_CODE and r * s <= MAX_RS
 
 
 def load() -> None:
     """Build (first time only) and bind the kernel library."""
-    global _launch_fn
+    global _launch_fn, _workspace_fn
     if _launch_fn is not None:
         return
     lib = _build.library()
     fn = lib.photon_newton_step
     fn.argtypes = [ctypes.c_void_p] * 13 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    _launch_fn = fn
+    ws = lib.photon_newton_step_workspace_floats
+    ws.argtypes = [ctypes.c_int, ctypes.c_int]
+    ws.restype = ctypes.c_longlong
+    _launch_fn, _workspace_fn = fn, ws
 
 
 def _loss_terms(task: TaskType, z: torch.Tensor, y: torch.Tensor):
@@ -145,16 +151,16 @@ def newton_step(x, w, y, wt, off, l2, mt, vm, f, *, task: TaskType,
 
 
 def _launch(x, w, y, wt, off, l2, mt, vm, f, *, task, trials):
-    global launches
+    global launches, wide_launches
     if task not in _TASK_CODE:
         raise ValueError(f"the Newton kernel takes logistic or Poisson loss, "
                          f"not {task}")
     if x.dim() != 3:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected [B, R, S]")
     b, r, s = (int(v) for v in x.shape)
-    if b < 1 or r * s > MAX_RS or s > MAX_SUB_DIM:
-        raise ValueError(f"the Newton kernel takes 1 <= B, R * S <= {MAX_RS} "
-                         f"and S <= {MAX_SUB_DIM}; got [{b}, {r}, {s}]")
+    if b < 1 or r * s > MAX_RS:
+        raise ValueError(f"the Newton kernel takes 1 <= B and R * S <= "
+                         f"{MAX_RS}; got [{b}, {r}, {s}]")
     if not 1 <= trials <= MAX_TRIALS:
         raise ValueError(f"trials must be in [1, {MAX_TRIALS}], got {trials}")
     dev = x.device
@@ -177,14 +183,22 @@ def _launch(x, w, y, wt, off, l2, mt, vm, f, *, task, trials):
     g_out = torch.empty((b, s), dtype=torch.float32, device=dev)
     f_out = torch.empty(b, dtype=torch.float32, device=dev)
     imp = torch.empty(b, dtype=torch.bool, device=dev)
+    # A wide bucket whose S vectors do not fit in shared memory keeps
+    # them in global memory.
+    ws_floats = int(_workspace_fn(r, s))
+    ws = (torch.empty(b * ws_floats, dtype=torch.float32, device=dev)
+          if ws_floats else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launch_fn(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), wt.data_ptr(),
         off.data_ptr(), l2.data_ptr(), mt.data_ptr(), vm.data_ptr(),
         f.data_ptr(), w_out.data_ptr(), f_out.data_ptr(), g_out.data_ptr(),
-        imp.data_ptr(), b, r, s, _TASK_CODE[task], trials, stream,
+        imp.data_ptr(), b, r, s, _TASK_CODE[task], trials,
+        None if ws is None else ws.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"newton_step launch failed with CUDA error {rc}")
     launches += 1
+    if s > NARROW_SUB_DIM:
+        wide_launches += 1
     return w_out, f_out, g_out, imp

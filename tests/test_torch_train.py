@@ -40,6 +40,7 @@ from photon_tpu.io import model_io as jax_model_io
 from photon_tpu.ops.normalization import NormalizationContext as JaxNorm
 from photon_tpu.types import TaskType as JaxTask
 from photon_tpu_torch import optim
+from photon_tpu_torch.algorithm import random_effect as pt_re_alg
 from photon_tpu_torch.algorithm.problems import (
     GLMOptimizationConfiguration,
     VarianceComputationType,
@@ -520,7 +521,13 @@ def test_unported_routes_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="bf16"):
         pt_est.GameEstimator(TaskType.LOGISTIC_REGRESSION, {}, device=CPU,
                              precision="bfloat16")
-    with pytest.raises(NotImplementedError, match="materialized"):
-        pt_re.build_random_effect_dataset(
-            pdata, pt_re.RandomEffectDataConfiguration(
-                "userId", "userShard", score_table_width_cap=2))
+    # The materialized layout is ported; the per-entity quasi-Newton
+    # solve (here for the smoothed hinge loss) is not.
+    ds = pt_re.build_random_effect_dataset(
+        pdata, pt_re.RandomEffectDataConfiguration(
+            "userId", "userShard", score_table_width_cap=2))
+    assert not ds.is_lazy
+    coord = pt_re_alg.RandomEffectCoordinate(
+        ds, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM, l2(1.0)["pt"])
+    with pytest.raises(NotImplementedError, match="quasi-Newton"):
+        coord.train()

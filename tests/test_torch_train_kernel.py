@@ -127,7 +127,9 @@ def step_inputs(task: TaskType, b: int, r: int, s: int, seed: int,
     w = (rng.normal(size=(b, s)) * 0.1).astype(np.float32)
     if task == TaskType.POISSON_REGRESSION:
         y = rng.poisson(1.0, size=(b, r)).astype(np.float32)
-        x *= 0.5  # keep margins far below the clamp at 30
+        # Margins of order one at any width: far below the clamp at 30,
+        # and a curvature e^z that keeps H well conditioned in f32.
+        x *= 0.5 * min(1.0, np.sqrt(128.0 / s))
     elif labels == "pm1":
         y = np.where(rng.random((b, r)) > 0.5, 1.0, -1.0).astype(np.float32)
     else:
@@ -399,10 +401,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (B, R, S): tiny, the bench's user and movie buckets, and the edges of
-# the gate (one slot with the most rows; the widest subspace).
+# (B, R, S): tiny, the bench's user and movie buckets, the edges of the
+# gate (one slot with the most rows; the widest one-warp subspace), and
+# the wide design: a densified wide bucket, the narrowest wide S, and a
+# subspace whose S vectors live in the global workspace.
 CUDA_SHAPES = [(5, 3, 2), (300, 64, 17), (200, 256, 9), (40, 1024, 9),
-               (8, 16384, 1), (6, 128, 128)]
+               (8, 16384, 1), (6, 128, 128), (40, 64, 193), (12, 127, 129),
+               (4, 2, 6000)]
 
 
 @pytest.mark.cuda
@@ -425,3 +430,5 @@ def test_cuda_kernel_matches_plain_version(cuda_device, shape, task):
         assert k > 0 or ties == (3 if s == 1 else 2)
         ops = dict(ops, w=want[0], f=want[1])
     assert nk.launches == before + 3
+    if s > nk.NARROW_SUB_DIM:
+        assert nk.wide_launches >= 3
