@@ -112,7 +112,11 @@ nothing cut:
                        as ELL rows) on 512 rows: the trainer's scores
                        within 1e-5;
 22. wide_profile     - one per-movie update under torch.profiler: device
-                       ms by operator and the device's busy share;
+                       ms by operator and the device's busy share; then
+                       the Newton kernel's wide design on the per-movie
+                       gram bucket densified (logistic operands over the
+                       same data): newton_parity's three-step check and
+                       newton_timing's columns;
 23. wide_logistic    - the same generator at a tenth of the rows and
                        entities, logistic: densify launches; the wide
                        buckets within the Newton gate (R * S <= 16384,
@@ -1763,8 +1767,6 @@ def phase_wide_logistic(torch) -> dict:
     kernel's wide design, the rest the batch-minor Newton loop; then the
     logistic optimality check of phase 10, and the wide design's parity
     and timing at its widest bucket."""
-    import dataclasses
-
     from photon_tpu_torch.algorithm import random_effect as ra
     from photon_tpu_torch.ops import newton_kernel as nk
     from photon_tpu_torch.ops import segment_reduce as sr
@@ -1814,25 +1816,44 @@ def phase_wide_logistic(torch) -> dict:
     phase_optimality(torch, res.model, datasets, data, stats,
                      phase="wide_logistic_optimality")
     # The wide design against its plain version, and its timing, at the
-    # widest bucket it serves, densified as the solver densifies it.
+    # widest bucket it serves.
     cid, eb = max(wide, key=lambda w: w[1].sub_dim)
+    timing = wide_newton_check(torch, "wide_logistic", cid, eb,
+                               l2_weight(est, cid))
+    return dict(row, timing=timing)
+
+
+def wide_newton_check(torch, group, cid, eb, l2w) -> dict:
+    """newton_parity's three-step check and newton_timing's columns for
+    one wide ELL bucket, densified as the solver densifies it, on the
+    logistic operands ``newton_operands`` builds (the Newton kernel's
+    wide design)."""
+    import dataclasses
+
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    r = eb.x_values.shape[1]
+    if not nk.kernel_supported(task, eb.x_values.dtype, r, eb.sub_dim):
+        fail(f"{group}: the bucket [{r} x {eb.sub_dim}] is outside the "
+             "Newton kernel's gate")
     eb = dataclasses.replace(eb, x_indices=None, x_values=(
         sr.densify_ell_blocks(eb.x_indices, eb.x_values, eb.sub_dim)))
-    l2w = l2_weight(est, cid)
     worst, _ = newton_parity_steps(torch, cid, eb, l2w,
                                    phase="wide_newton_parity")
     args = step_args(newton_operands(torch, eb, l2w))
-    task = est.task
     shape = tuple(eb.x_values.shape)
-    timing = {"phase": "wide_newton_timing", "coordinate": cid,
-              "bucket": list(shape), "max_abs_err": worst,
+    timing = {"phase": "wide_newton_timing", "group": group,
+              "coordinate": cid, "bucket": list(shape), "max_abs_err": worst,
               "ms": device_ms(torch, lambda: nk.newton_step(
                   *args, task=task), 5),
               "plain_ms": device_ms(torch, lambda: nk.newton_step_plain(
                   *args, task=task), 1),
               **newton_bound(shape)}
     emit(timing)
-    return dict(row, timing=timing)
+    return timing
 
 
 def phase_wide_profile(torch, wide, fit) -> dict:
@@ -1894,6 +1915,12 @@ def phase_wide(torch) -> dict:
     phase_wide_route_agreement(torch, wide, fit)
     phase_wide_train_serve(torch, wide, fit)
     phase_wide_profile(torch, wide, fit)
+    # The Newton kernel's wide design at full width: the per-movie gram
+    # bucket, on logistic operands over the same data.
+    cid, _, eb, _, _ = next(b for b in bucket_routes(wide["datasets"])
+                            if b[0] == "per-movie" and b[4] == "gram")
+    wide_newton_check(torch, "wide-linear", cid, eb,
+                      l2_weight(wide["est"], cid))
     launches = fit["row"]["segment_launches_by_site"]
     # The entry reports the site whose launches took the most device
     # time in the fit.

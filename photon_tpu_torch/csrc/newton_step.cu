@@ -17,670 +17,624 @@
 // Denominators in CG are floored at 1e-30, as in the TPU kernel. Logistic
 // loss terms are written as _loss_terms writes them; Poisson uses the
 // clamped objective of ops/losses.py (margin capped at 30), as the port's
-// plain version does.
+// plain version does. Everything is f32 FMA arithmetic; no tensor cores.
 //
 // Two designs share the gate R * S <= 16384 (the reference's), chosen by S.
+// This file holds the narrow one (S <= 128) and the entry point; the wide
+// one (S > 128) is in newton_step_wide.cu.
 //
-// S <= 128 (newton_step_kernel): one warp per entity, up to four entities
-// per block, and no barrier wider than the warp. The entity's [R, S] slab
-// is staged in the warp's part of shared memory once and read from there
-// by every pass (margins, Hessian, gradient, trial margins, refresh), so
-// device memory sees each slab byte once. The slab, H [S, S], two row
-// vectors and the S vectors fit within 200 KB; the launcher puts as many
-// entities in a block as fit. Lanes go across rows for the margins and the
-// trials. For R <= 256 each Hessian and gradient entry is one lane's sum
-// over the rows; for longer entities, one warp reduction each. The lanes
-// run the S-step CG together, each owning slots lane, lane + 32, ....
-// Every lane accumulates all trials of its rows in registers; after one
-// warp reduction per trial every lane holds every trial's objective and
-// makes the same Armijo choice, so the line search needs no shared state.
+// Narrow design (newton_narrow_kernel): one warp per entity, one warp per
+// block, persistent. The launcher starts as many blocks as the card holds
+// at once (24 per SM at most: registers are capped at 85 a thread) and
+// each walks over entities b, b + W, ... The entity's slab (rows padded to
+// an odd stride), its y, wt, off and its w, l2, mt, vm, f are staged into
+// shared memory with cp.async, 16-byte copies where the rows need no
+// padding. Where a second buffer costs no resident warps (small R * S),
+// the warp stages entity k + 1 while it computes entity k; at the bench's
+// buckets it would cost a third of the warps, and the launcher keeps one
+// buffer and leaves the overlap to the other warps. No barrier is wider
+// than the warp.
 //
-// S > 128 (newton_step_wide_kernel, a wide bucket densified for its solve,
-// so R < 128): one block of 256 threads per entity. H [S, S] would not fit
-// in shared memory (S = 256 alone is 256 KB), so the CG never forms it:
-// each of its S steps applies H p = x^T (c * (x p)) + (l2 + 1 - vm) p from
-// the staged slab, 4 R S flops against the 2 S^2 of a formed H. The slab
-// (at most 64 KB by the gate) and the row vectors are always in shared
-// memory; the ten S vectors are too where they fit, else (S above ~4,800,
-// R <= 3) in a global workspace the wrapper allocates. Row dot products go
-// one warp per row, column sums one thread per slot; every reduction over
-// the block is summed in the same order by every thread, so all threads
-// take the same CG scalars and the same Armijo choice.
+// What replaces what, against the first port of this kernel (one warp per
+// entity, four per block, one entry of H per lane at a time, H and every
+// S vector in shared memory, y, wt, off re-read from global memory in
+// every pass, all trials evaluated):
+// - Hessian: a lane owns a 4 x 4 tile of H's lower triangle and keeps its
+//   16 sums in registers; per row it reads 8 slab values and c for 16
+//   FMAs (one entry per lane read 3 values for 2). Where the triangle has
+//   fewer tiles than lanes (S = 9: 6 tiles, S = 17: 15), the lanes split
+//   the rows into groups and add the groups' tiles by a shuffle tree, so 30
+//   of 32 lanes work. Lanes that walk rows (margins, trial margins) read
+//   the odd-stride rows from distinct banks.
+// - CG: for S <= 32 lane i holds row i of H in registers (templated on
+//   ceil(S / 4) quads) and reads p as 16-byte broadcasts from a double
+//   buffer, one warp barrier per step; the row product runs in four partial
+//   sums. For 32 < S <= 128 H stays in shared memory, read as 16-byte
+//   vectors at a stride whose quad count is odd. The S steps and both dot
+//   products per step stay: they are the function.
+// - Line search: trials are evaluated in order and the loop stops at the
+//   first passing one. Taking the first passing trial is the contract, so
+//   the result is the same as evaluating all T; the common case costs one
+//   trial's exp and log1p per row instead of sixteen.
+// - z and c (then x d, then wt dz) stay in shared memory, two [R] vectors.
+//   Only where R is in the thousands and S tiny (16384 x 1) do y, wt, off
+//   stay in global memory, so that one warp still fits.
 //
-// What bounds it: bytes. At the bench's user bucket (~100,000 entities x
-// 64 rows x 17 slots) a step must read the 435 MB slab plus ~0.1 GB of row
-// and slot vectors: ~0.17 ms at 3.35 TB/s; its f32 operations (Hessian
-// ~R S^2, trials ~16 R) and transcendentals (two per row per trial) take
-// less at the card's peaks. The warp's serial CG (S dependent steps, two
-// warp reductions each) and the accurate expf/log1pf of 16 trials per row
-// keep it above that bound.
+// What bounds it: bytes in principle. At the bench's user bucket (~100,000
+// entities x 64 rows x 17 slots) a step must read the 435 MB slab plus the
+// row and slot vectors once: ~0.17 ms at the H100's 3.35 TB/s. The warp
+// issues some 3,500 instructions per entity there (Hessian ~1,000, CG
+// ~1,250, the passes over the rows, the losses' exp and log1p), and the
+// CG's S steps are a serial chain of two warp reductions and two
+// divisions each, so the issue rate and that chain keep the kernel above
+// the byte bound.
 //
 // The kernel allocates nothing and does not synchronise. The launcher returns
 // cudaGetLastError() and the Python wrapper raises when it is not 0.
 
-#include <cuda_runtime.h>
+#include <algorithm>
 
+#include "newton_common.cuh"
+
+namespace photon_newton {
 namespace {
 
-constexpr int kMaxWarpsPerBlock = 4;
-constexpr int kMaxTrials = 16;
-constexpr int kMaxSub = 128;
-constexpr int kMaxRS = 16384;
-constexpr int kVectors = 10;
-constexpr int kLaneRowsMax = 256;  // up to this R, one lane sums an entry
-constexpr size_t kSmemPerBlock = 232448;  // H100: 227 KB opt-in per block
-constexpr int kWideThreads = 256;
-constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kLogistic = 0;
-constexpr int kPoisson = 1;
+constexpr int kNarrowWarpsPerSM = 24;  // register cap: 85 per thread
+constexpr size_t kSmemPerSM = 233472;  // H100: 228 KB per SM
+constexpr size_t kSmemPerBlockReserved = 1024;
 
-// Shared floats for one entity: slab, two row vectors, H, the S vectors and
-// the trials' penalties, rounded up to 16 bytes so each entity's slab starts
-// aligned for 16-byte stores.
-__host__ __device__ long long entity_floats(int r, int s) {
-  const long long n = static_cast<long long>(r) * s + 2LL * r +
-                      static_cast<long long>(s) * s +
-                      static_cast<long long>(kVectors) * s + kMaxTrials;
-  return (n + 3) / 4 * 4;
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Shared floats of one warp (one block) for an [R, S] bucket.
+struct NarrowLayout {
+  int sp;    // slab row stride: S rounded up to odd
+  int sv;    // S rounded up to a multiple of 4
+  int r4;    // R rounded up to a multiple of 4
+  int slab;  // R * sp + 4 (a tile reads up to 3 floats past a row), rounded
+  bool rows; // y, wt, off staged too (all but the longest entities)
+  int vo;    // offset of w, l2, mt, vm [sv] each, then f
+  int buf;   // one entity's staged operands
+  int hst;   // H's row stride
+  int hs;    // H's floats
+  __host__ __device__ NarrowLayout(int r, int s, bool reg_h, bool rows_staged) {
+    sp = s | 1;
+    sv = round4(s);
+    r4 = round4(r);
+    slab = round4(r * sp + 4);
+    rows = rows_staged;
+    vo = slab + (rows ? 3 * r4 : 0);
+    buf = vo + 4 * sv + 4;
+    // Register design: H goes through shared memory once, at an odd stride.
+    // Shared design: rows of whole quads, an odd number of them.
+    hst = reg_h ? (s | 1) : (((s + 3) / 4) | 1) * 4;
+    hs = round4(s * hst);
+  }
+  // stages buffers, z and c [R], p twice and g [S], H.
+  __host__ __device__ int warp_floats(int stages) const {
+    return stages * buf + 2 * r4 + 3 * sv + hs;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
-// Shared floats of the wide kernel's block: slab, three row vectors, the
-// per-warp partial sums and the trials' penalties, then, when
-// `vectors_shared`, the S vectors.
-__host__ __device__ long long wide_floats(int r, int s, bool vectors_shared) {
-  long long n = static_cast<long long>(r) * s + 3LL * r + kWideWarps + kMaxTrials;
-  n = (n + 3) / 4 * 4;
-  return vectors_shared ? n + static_cast<long long>(kVectors) * s : n;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
-bool wide_vectors_shared(int r, int s) {
-  return sizeof(float) * static_cast<size_t>(wide_floats(r, s, true)) <= kSmemPerBlock;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int TASK>
-__device__ __forceinline__ void loss_terms(float z, float y, float& loss, float& dz,
-                                           float& dzz) {
-  if (TASK == kLogistic) {
-    const float ind = y > 0.5f ? 1.f : 0.f;
-    const float p = 1.f / (1.f + expf(-z));
-    loss = log1pf(expf(-fabsf(z))) + fmaxf(z, 0.f) - z * ind;
-    dz = p - ind;
-    dzz = p * (1.f - p);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of entity b's slab (rows padded to L.sp), its y, wt,
+// off where L.rows, and its w, l2, mt, vm and f into `buf`. vec16: the
+// slab needs no padding and every entity's slab is 16-byte aligned.
+__device__ __forceinline__ void stage(const StepArgs& a, long long b, float* buf,
+                                      const NarrowLayout& L, bool vec16, int lane) {
+  const int R = a.r, S = a.s;
+  const int n = R * S;
+  const float* xg = a.x + b * n;
+  if (vec16) {
+#pragma unroll 4
+    for (int i = lane; i < n / 4; i += 32) cp_async16(buf + 4 * i, xg + 4 * i);
+  } else if (L.sp == S) {
+#pragma unroll 4
+    for (int i = lane; i < n; i += 32) cp_async4(buf + i, xg + i);
   } else {
-    const float zc = fminf(z, 30.f);
-    const float ez = expf(zc);
-    loss = ez - y * zc;
-    dz = ez - y;
-    dzz = ez;
+    // Element i of the slab goes to row i / S, column i % S.
+    int r = lane / S, c = lane % S;
+    const int dr = 32 / S, dc = 32 % S;
+    for (int i = lane; i < n; i += 32) {
+      cp_async4(buf + r * L.sp + c, xg + i);
+      c += dc;
+      r += dr;
+      if (c >= S) {
+        c -= S;
+        ++r;
+      }
+    }
+  }
+  if (L.rows) {
+    float* rv = buf + L.slab;
+    for (int r = lane; r < R; r += 32) {
+      const long long o = b * R + r;
+      cp_async4(rv + r, a.y + o);
+      cp_async4(rv + L.r4 + r, a.wt + o);
+      cp_async4(rv + 2 * L.r4 + r, a.off + o);
+    }
+  }
+  float* v = buf + L.vo;
+  for (int i = lane; i < S; i += 32) {
+    const long long o = b * S + i;
+    cp_async4(v + i, a.w + o);
+    cp_async4(v + L.sv + i, a.l2 + o);
+    cp_async4(v + 2 * L.sv + i, a.mt + o);
+    cp_async4(v + 3 * L.sv + i, a.vm + o);
+  }
+  if (lane == 0) cp_async4(v + 4 * L.sv, a.f + b);
+}
+
+// x[r, :] . v over S slots: v in registers (NQ quads) or in shared memory.
+template <int NQ>
+__device__ __forceinline__ float row_dot(const float* xr, const float* vreg,
+                                         const float* vs, int S) {
+  float a0 = 0.f, a1 = 0.f;
+  if constexpr (NQ > 0) {
+#pragma unroll
+    for (int t = 0; t < 4 * NQ; t += 2) {
+      if (t < S) a0 = fmaf(xr[t], vreg[t], a0);
+      if (t + 1 < S) a1 = fmaf(xr[t + 1], vreg[t + 1], a1);
+    }
+  } else {
+    int t = 0;
+    for (; t + 1 < S; t += 2) {
+      a0 = fmaf(xr[t], vs[t], a0);
+      a1 = fmaf(xr[t + 1], vs[t + 1], a1);
+    }
+    if (t < S) a0 = fmaf(xr[t], vs[t], a0);
+  }
+  return a0 + a1;
+}
+
+// The masked gradient (x^T q + l2 (w - mt)) vm into out[S] (global): lanes
+// split the slots into quads and the rows into groups, and add the groups
+// with shuffles. `wv` is w in shared memory.
+__device__ __forceinline__ void gradient(const float* xs, const float* q, int R, int S,
+                                         int sp, const float* wv, const float* l2v,
+                                         const float* mtv, const float* vmv, float* out,
+                                         int lane) {
+  const int nq = (S + 3) / 4;
+  const int groups = 32 / nq;  // nq <= 32
+  const int quad = lane % nq, grp = lane / nq;
+  const int c0 = 4 * quad;
+  float ga[4] = {0.f, 0.f, 0.f, 0.f};
+  if (grp < groups) {
+    for (int r = grp; r < R; r += groups) {
+      const float* xr = xs + r * sp + c0;
+      const float qr = q[r];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ga[k] = fmaf(xr[k], qr, ga[k]);
+    }
+  }
+  // Tree over the groups; group 0 ends with the sum.
+  for (int off = 1; off < groups; off *= 2) {
+    const int src = (lane + off * nq) & 31;
+    const bool take = grp % (2 * off) == 0 && grp + off < groups;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float other = __shfl_sync(kFull, ga[k], src);
+      if (take) ga[k] += other;
+    }
+  }
+  if (lane < nq) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = c0 + k;
+      if (i < S) out[i] = (ga[k] + l2v[i] * (wv[i] - mtv[i])) * vmv[i];
+    }
   }
 }
 
-template <int TASK>
-__device__ __forceinline__ float loss_only(float z, float y) {
-  if (TASK == kLogistic) {
-    const float ind = y > 0.5f ? 1.f : 0.f;
-    return log1pf(expf(-fabsf(z))) + fmaxf(z, 0.f) - z * ind;
+// H = x^T diag(c) x + diag(l2 + 1 - vm) into hs[S, hst], both triangles.
+// Lane tiles of 4 x 4 over the lower triangle of nq x nq quads; with fewer
+// tiles than lanes, groups of lanes split the rows.
+template <int NQ>
+__device__ __forceinline__ void hessian(const float* xs, const float* c, int R, int S,
+                                        int sp, const float* l2v, const float* vmv,
+                                        float* hs, int hst, int lane) {
+  const int nq = NQ > 0 ? NQ : (S + 3) / 4;
+  const int nt = nq * (nq + 1) / 2;
+  const int groups = nt < 32 ? 32 / nt : 1;
+  const int grp = groups > 1 ? lane / nt : 0;
+  for (int tl = groups > 1 ? lane % nt : lane; tl < nt; tl += 32) {
+    int I = 0;
+    while ((I + 1) * (I + 2) / 2 <= tl) ++I;
+    const int T = tl - I * (I + 1) / 2;
+    const int i0 = 4 * I, t0 = 4 * T;
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+    if (grp < groups) {
+#pragma unroll 2
+      for (int r = grp; r < R; r += groups) {
+        const float* xr = xs + r * sp;
+        const float cr = c[r];
+        float xi[4], xt[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          xi[k] = xr[i0 + k];
+          xt[k] = xr[t0 + k];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float ci = xi[u] * cr;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(ci, xt[v], acc[u][v]);
+        }
+      }
+    }
+    // Tree over the groups, group 0 ending with the sum. Uniform across
+    // the warp: with groups > 1 every lane has one tile.
+    for (int off = 1; off < groups; off *= 2) {
+      const int src = (lane + off * nt) & 31;
+      const bool take = grp % (2 * off) == 0 && grp + off < groups;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const float other = __shfl_sync(kFull, acc[u][v], src);
+          if (take) acc[u][v] += other;
+        }
+      }
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int i = i0 + u, t = t0 + v;
+          if (i < S && t <= i) {
+            float h = acc[u][v];
+            if (i == t) h += l2v[i] + (1.f - vmv[i]);
+            hs[i * hst + t] = h;
+            hs[t * hst + i] = h;
+          }
+        }
+      }
+    }
   }
-  const float zc = fminf(z, 30.f);
-  return expf(zc) - y * zc;
 }
 
-// Sum over the warp; every lane gets the result.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+template <int TASK, int NQ>
+__global__ void __launch_bounds__(32, kNarrowWarpsPerSM)
+newton_narrow_kernel(StepArgs a, int stages, bool rows_staged) {
+  constexpr bool kRegH = NQ > 0;
+  constexpr int kSlots = kRegH ? 1 : kMaxSub / 32;  // slots a lane owns
+  constexpr int kV = kRegH ? 4 * NQ : 1;             // broadcast vector in registers
+  extern __shared__ float4 sm4[];  // float4: 16-byte aligned
+  const int lane = threadIdx.x;
+  const int R = a.r, S = a.s;
+  const NarrowLayout L(R, S, kRegH, rows_staged);
+  float* base = reinterpret_cast<float*>(sm4);
+  float* zb = base + stages * L.buf;  // [R] margins
+  float* cb = zb + L.r4;             // [R] curvature, then x d, then wt dz
+  float* pv = cb + L.r4;             // [2][sv] CG p; w, d, w_new broadcasts
+  float* gv = pv + 2 * L.sv;         // [sv] gradient
+  float* hs = gv + L.sv;             // H
+  const long long W = gridDim.x;
+  long long b = blockIdx.x;  // the grid never exceeds B
+  const bool vec16 = L.sp == S && (R * S) % 4 == 0 &&
+                     (reinterpret_cast<unsigned long long>(a.x) % 16) == 0;
+  stage(a, b, base, L, vec16, lane);
+  cp_async_commit();
 
-// Lower-triangle entry p of an [S, S] matrix, row-major: (i, t), t <= i.
-__device__ __forceinline__ void pair_index(int p, int& i, int& t) {
-  i = static_cast<int>((sqrtf(8.f * p + 1.f) - 1.f) * 0.5f);
-  while (i * (i + 1) / 2 > p) --i;
-  while ((i + 1) * (i + 2) / 2 <= p) ++i;
-  t = p - i * (i + 1) / 2;
-}
-
-// sum_r xs[r, i] * c[r] * xs[r, t] (t = -1: sum_r xs[r, i] * c[r]), by one
-// lane over all rows or by the warp when the entity is long.
-__device__ __forceinline__ float row_sum(const float* xs, const float* c, int R, int S,
-                                         int i, int t, int lane, bool by_lane) {
-  float acc = 0.f;
-  if (by_lane) {
-    if (t < 0) {
-      for (int r = 0; r < R; ++r) acc += xs[r * S + i] * c[r];
+  for (int k = 0; b < a.b; b += W, ++k) {
+    const float* xs = base + (stages == 2 ? (k & 1) * L.buf : 0);
+    if (stages == 2) {
+      if (b + W < a.b) stage(a, b + W, base + ((k + 1) & 1) * L.buf, L, vec16, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      for (int r = 0; r < R; ++r) acc += xs[r * S + i] * c[r] * xs[r * S + t];
+      cp_async_wait<0>();
     }
-    return acc;
-  }
-  if (t < 0) {
-    for (int r = lane; r < R; r += 32) acc += xs[r * S + i] * c[r];
-  } else {
-    for (int r = lane; r < R; r += 32) acc += xs[r * S + i] * c[r] * xs[r * S + t];
-  }
-  return warp_sum(acc);
-}
-
-// x^T c + l2 (w - mt), masked, into out[S] (shared or global).
-__device__ __forceinline__ void gradient(const float* xs, const float* c, int R, int S,
-                                         const float* w_s, const float* l2_s,
-                                         const float* mt_s, const float* vm_s, float* out,
-                                         int lane, bool by_lane) {
-  if (by_lane) {
-    for (int i = lane; i < S; i += 32) {
-      const float acc = row_sum(xs, c, R, S, i, -1, lane, true);
-      out[i] = (acc + l2_s[i] * (w_s[i] - mt_s[i])) * vm_s[i];
-    }
-  } else {
-    for (int i = 0; i < S; ++i) {
-      const float acc = row_sum(xs, c, R, S, i, -1, lane, false);
-      if (lane == 0) out[i] = (acc + l2_s[i] * (w_s[i] - mt_s[i])) * vm_s[i];
-    }
-  }
-}
-
-template <int TASK>
-__global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
-newton_step_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ y, const float* __restrict__ wt,
-                   const float* __restrict__ off, const float* __restrict__ l2,
-                   const float* __restrict__ mt, const float* __restrict__ vm,
-                   const float* __restrict__ f, float* __restrict__ w_out,
-                   float* __restrict__ f_out, float* __restrict__ g_out,
-                   unsigned char* __restrict__ imp_out, long long B, int R, int S,
-                   int trials) {
-  extern __shared__ float4 sm4[];  // float4: 16-byte aligned
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int lane = threadIdx.x % 32;
-  const int slot = threadIdx.x / 32;
-  const long long b = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + slot;
-  // A whole warp leaves together; no barrier spans warps.
-  if (b >= B) return;
-
-  float* xs = sm + slot * entity_floats(R, S);  // [R, S]
-  float* zb = xs + R * S;                       // [R] margins
-  float* cb = zb + R;                           // [R] curvature, then wt * dz
-  float* H = cb + R;                            // [S, S]
-  float* w_s = H + S * S;                       // the S vectors
-  float* l2_s = w_s + S;
-  float* mt_s = l2_s + S;
-  float* vm_s = mt_s + S;
-  float* g_s = vm_s + S;
-  float* d_s = g_s + S;
-  float* p_s = d_s + S;
-  float* r_s = p_s + S;
-  float* hp_s = r_s + S;
-  float* x_cg = hp_s + S;
-  float* pen = x_cg + S;                        // [kMaxTrials]
-
-  const bool by_lane = R <= kLaneRowsMax;
-  const float* xg = x + b * R * S;
-  const float* yb = y + b * R;
-  const float* wtb = wt + b * R;
-  const float* offb = off + b * R;
-
-  // Stage the slab: 16-byte loads when the entity's slab is aligned for
-  // them, several in flight per lane.
-  const int n = R * S;
-  if ((n % 4) == 0 && (reinterpret_cast<unsigned long long>(xg) % 16) == 0) {
-    const float4* src = reinterpret_cast<const float4*>(xg);
-    float4* dst = reinterpret_cast<float4*>(xs);
-#pragma unroll 4
-    for (int i = lane; i < n / 4; i += 32) dst[i] = src[i];
-  } else {
-#pragma unroll 4
-    for (int i = lane; i < n; i += 32) xs[i] = xg[i];
-  }
-  for (int i = lane; i < S; i += 32) {
-    w_s[i] = w[b * S + i];
-    l2_s[i] = l2[b * S + i];
-    mt_s[i] = mt[b * S + i];
-    vm_s[i] = vm[b * S + i];
-  }
-  __syncwarp();
-
-  // Margins and curvature.
-  for (int r = lane; r < R; r += 32) {
-    float z = offb[r];
-    for (int s = 0; s < S; ++s) z += xs[r * S + s] * w_s[s];
-    float loss, dz, dzz;
-    loss_terms<TASK>(z, yb[r], loss, dz, dzz);
-    zb[r] = z;
-    cb[r] = wtb[r] * dzz;
-  }
-  __syncwarp();
-
-  // Hessian, lower triangle mirrored.
-  const int npairs = S * (S + 1) / 2;
-  for (int p = by_lane ? lane : 0; p < npairs; p += by_lane ? 32 : 1) {
-    int i, t;
-    pair_index(p, i, t);
-    float acc = row_sum(xs, cb, R, S, i, t, lane, by_lane);
-    if (by_lane || lane == 0) {
-      if (i == t) acc = acc + l2_s[i] + (1.f - vm_s[i]);
-      H[i * S + t] = acc;
-      H[t * S + i] = acc;
-    }
-  }
-  __syncwarp();
-
-  for (int r = lane; r < R; r += 32) {
-    float loss, dz, dzz;
-    loss_terms<TASK>(zb[r], yb[r], loss, dz, dzz);
-    cb[r] = wtb[r] * dz;
-  }
-  __syncwarp();
-  gradient(xs, cb, R, S, w_s, l2_s, mt_s, vm_s, g_s, lane, by_lane);
-  __syncwarp();
-
-  // S-step CG on H d = -g; each lane owns slots lane, lane + 32, ...
-  float rr = 0.f;
-  for (int i = lane; i < S; i += 32) {
-    x_cg[i] = 0.f;
-    r_s[i] = -g_s[i];
-    p_s[i] = -g_s[i];
-    rr += r_s[i] * r_s[i];
-  }
-  float rs = warp_sum(rr);
-  __syncwarp();
-  for (int step = 0; step < S; ++step) {
-    float ph = 0.f;
-    for (int i = lane; i < S; i += 32) {
-      float acc = H[i * S] * p_s[0];
-      for (int t = 1; t < S; ++t) acc += H[i * S + t] * p_s[t];
-      hp_s[i] = acc;
-      ph += p_s[i] * acc;
-    }
-    const float denom = warp_sum(ph);
-    const float alpha = rs / fmaxf(denom, 1e-30f);
-    float r2 = 0.f;
-    for (int i = lane; i < S; i += 32) {
-      x_cg[i] += alpha * p_s[i];
-      r_s[i] -= alpha * hp_s[i];
-      r2 += r_s[i] * r_s[i];
-    }
-    const float rs2 = warp_sum(r2);
-    const float beta = rs2 / fmaxf(rs, 1e-30f);
     __syncwarp();
-    for (int i = lane; i < S; i += 32) p_s[i] = r_s[i] + beta * p_s[i];
-    rs = rs2;
+    const float* wv = xs + L.vo;  // w, l2, mt, vm [sv] each, then f
+    const float* l2v = wv + L.sv;
+    const float* mtv = l2v + L.sv;
+    const float* vmv = mtv + L.sv;
+    const float f_prev = vmv[L.sv];
+    // Row vectors: staged, or (the longest entities) read from L2.
+    const float* yb = L.rows ? xs + L.slab : a.y + b * R;
+    const float* wtb = L.rows ? yb + L.r4 : a.wt + b * R;
+    const float* offb = L.rows ? yb + 2 * L.r4 : a.off + b * R;
+
+    // Margins and curvature, one lane per row.
+    float vreg[kV];
+    if constexpr (kRegH) {
+#pragma unroll
+      for (int t = 0; t < kV; ++t) vreg[t] = t < S ? wv[t] : 0.f;
+    }
+    for (int r = lane; r < R; r += 32) {
+      const float z = row_dot<NQ>(xs + r * L.sp, vreg, wv, S) + offb[r];
+      float loss, dz, dzz;
+      loss_terms<TASK>(z, yb[r], loss, dz, dzz);
+      zb[r] = z;
+      cb[r] = wtb[r] * dzz;
+    }
     __syncwarp();
-  }
-  float gd = 0.f;
-  for (int i = lane; i < S; i += 32) {
-    d_s[i] = x_cg[i] * vm_s[i];
-    gd += g_s[i] * d_s[i];
-  }
-  gd = warp_sum(gd);
-  if (gd >= 0.f) {
-    float gg = 0.f;
-    for (int i = lane; i < S; i += 32) {
-      d_s[i] = -g_s[i];
-      gg += g_s[i] * g_s[i];
-    }
-    gd = -warp_sum(gg);
-  }
-  __syncwarp();
-
-  // The L2 penalty of every trial point, one lane per trial.
-  for (int k = lane; k < trials; k += 32) {
-    const float tk = ldexpf(1.f, -k);
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float dw = w_s[s] + tk * d_s[s] - mt_s[s];
-      acc += l2_s[s] * dw * dw;
-    }
-    pen[k] = acc;
-  }
-
-  // Every trial of this lane's rows, in registers.
-  float part[kMaxTrials];
-#pragma unroll
-  for (int k = 0; k < kMaxTrials; ++k) part[k] = 0.f;
-  for (int r = lane; r < R; r += 32) {
-    float zd = 0.f;
-    for (int s = 0; s < S; ++s) zd += xs[r * S + s] * d_s[s];
-    const float z = zb[r];
-    const float yr = yb[r];
-    const float wr = wtb[r];
-    float tk = 1.f;
-#pragma unroll
-    for (int k = 0; k < kMaxTrials; ++k) {
-      if (k < trials) part[k] += wr * loss_only<TASK>(z + tk * zd, yr);
-      tk *= 0.5f;
-    }
-  }
-  __syncwarp();
-  // Every lane reduces every trial and makes the same choice.
-  const float f_prev = f[b];
-  float t_sel = 0.f, f_sel = f_prev, tk = 1.f;
-#pragma unroll
-  for (int k = 0; k < kMaxTrials; ++k) {
-    const float loss_k = warp_sum(part[k]);
-    if (k < trials) {
-      const float fk = loss_k + 0.5f * pen[k];
-      if (fk <= f_prev + 1e-4f * tk * gd && t_sel == 0.f) {
-        t_sel = tk;
-        f_sel = fk;
+    hessian<NQ>(xs, cb, R, S, L.sp, l2v, vmv, hs, L.hst, lane);
+    if constexpr (!kRegH) {
+      // The CG reads whole quads of a row: zero the columns past S.
+      for (int i = lane; i < S; i += 32) {
+        for (int t = S; t < L.sv; ++t) hs[i * L.hst + t] = 0.f;
       }
     }
-    tk *= 0.5f;
-  }
-  const bool improved = t_sel > 0.f && f_sel < f_prev;
-  if (lane == 0) imp_out[b] = improved ? 1 : 0;
-  for (int i = lane; i < S; i += 32) {
-    const float wn = improved ? w_s[i] + t_sel * d_s[i] : w_s[i];
-    w_s[i] = wn;
-    w_out[b * S + i] = wn;
-  }
-  __syncwarp();
+    __syncwarp();
+    for (int r = lane; r < R; r += 32) {
+      float loss, dz, dzz;
+      loss_terms<TASK>(zb[r], yb[r], loss, dz, dzz);
+      cb[r] = wtb[r] * dz;
+    }
+    __syncwarp();
+    gradient(xs, cb, R, S, L.sp, wv, l2v, mtv, vmv, gv, lane);
+    __syncwarp();
 
-  // Objective and gradient at the accepted point.
-  float lsum = 0.f;
-  for (int r = lane; r < R; r += 32) {
-    float z = offb[r];
-    for (int s = 0; s < S; ++s) z += xs[r * S + s] * w_s[s];
-    float loss, dz, dzz;
-    loss_terms<TASK>(z, yb[r], loss, dz, dzz);
-    lsum += wtb[r] * loss;
-    cb[r] = wtb[r] * dz;
-  }
-  const float total = warp_sum(lsum);
-  float pen0 = 0.f;
-  for (int s = lane; s < S; s += 32) {
-    const float dw = w_s[s] - mt_s[s];
-    pen0 += l2_s[s] * dw * dw;
-  }
-  pen0 = warp_sum(pen0);
-  __syncwarp();
-  gradient(xs, cb, R, S, w_s, l2_s, mt_s, vm_s, g_out + b * S, lane, by_lane);
-  if (lane == 0) f_out[b] = total + 0.5f * pen0;
-}
-
-// Sum over the block (kWideThreads threads); every thread gets the same
-// value, the per-warp partials added in one order.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = 0.f;
+    // S-step CG on H d = -g; lane owns slots lane, lane + 32, ...
+    float g[kSlots], xc[kSlots], rr[kSlots], p[kSlots];
+    float part = 0.f;
 #pragma unroll
-  for (int k = 0; k < kWideWarps; ++k) t += red[k];
-  __syncthreads();  // red is written again by the next call
-  return t;
-}
+    for (int j = 0; j < kSlots; ++j) {
+      const int i = lane + 32 * j;
+      g[j] = i < S ? gv[i] : 0.f;
+      xc[j] = 0.f;
+      rr[j] = -g[j];
+      p[j] = -g[j];
+      part += rr[j] * rr[j];
+    }
+    float rs = warp_sum(part);
+    float hrow[kV];
+    if constexpr (kRegH) {
+#pragma unroll
+      for (int t = 0; t < kV; ++t) hrow[t] = (lane < S && t < S) ? hs[lane * L.hst + t] : 0.f;
+    }
+    const int nq = (S + 3) / 4;
+    for (int step = 0; step < S; ++step) {
+      float* pb = pv + (step & 1) * L.sv;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        const int i = lane + 32 * j;
+        if (i < L.sv) pb[i] = p[j];
+      }
+      __syncwarp();
+      const float4* p4 = reinterpret_cast<const float4*>(pb);
+      float hp[kSlots];
+      if constexpr (kRegH) {
+        float h0 = 0.f, h1 = 0.f, h2 = 0.f, h3 = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 pq = p4[q];
+          h0 = fmaf(hrow[4 * q], pq.x, h0);
+          h1 = fmaf(hrow[4 * q + 1], pq.y, h1);
+          h2 = fmaf(hrow[4 * q + 2], pq.z, h2);
+          h3 = fmaf(hrow[4 * q + 3], pq.w, h3);
+        }
+        hp[0] = (h0 + h1) + (h2 + h3);
+      } else {
+        const float4* rows[kSlots];
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+          hp[j] = 0.f;
+          rows[j] = reinterpret_cast<const float4*>(hs + min(lane + 32 * j, S - 1) * L.hst);
+        }
+        for (int q = 0; q < nq; ++q) {
+          const float4 pq = p4[q];
+#pragma unroll
+          for (int j = 0; j < kSlots; ++j) {
+            if (32 * j < S) {
+              const float4 hq = rows[j][q];
+              hp[j] = fmaf(hq.x, pq.x, hp[j]);
+              hp[j] = fmaf(hq.y, pq.y, hp[j]);
+              hp[j] = fmaf(hq.z, pq.z, hp[j]);
+              hp[j] = fmaf(hq.w, pq.w, hp[j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) {
+          if (lane + 32 * j >= S) hp[j] = 0.f;
+        }
+      }
+      part = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) part += p[j] * hp[j];
+      const float alpha = rs / fmaxf(warp_sum(part), 1e-30f);
+      part = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        xc[j] = fmaf(alpha, p[j], xc[j]);
+        rr[j] = fmaf(-alpha, hp[j], rr[j]);
+        part += rr[j] * rr[j];
+      }
+      const float rs2 = warp_sum(part);
+      const float beta = rs2 / fmaxf(rs, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) p[j] = fmaf(beta, p[j], rr[j]);
+      rs = rs2;
+    }
 
-// out[r] = x[r, :] . v (times scale[r] when given), one warp per row.
-__device__ __forceinline__ void row_dots(const float* xs, const float* v,
-                                         const float* scale, int R, int S,
-                                         float* out) {
-  const int lane = threadIdx.x % 32;
-  for (int r = threadIdx.x / 32; r < R; r += kWideWarps) {
-    float acc = 0.f;
-    for (int s = lane; s < S; s += 32) acc += xs[r * S + s] * v[s];
-    acc = warp_sum(acc);
-    if (lane == 0) out[r] = scale == nullptr ? acc : scale[r] * acc;
-  }
-}
-
-// sum_r x[r, i] * c[r], by the thread that owns slot i.
-__device__ __forceinline__ float col_sum(const float* xs, const float* c, int R,
-                                         int S, int i) {
-  float acc = 0.f;
-  for (int r = 0; r < R; ++r) acc += xs[r * S + i] * c[r];
-  return acc;
-}
-
-template <int TASK>
-__global__ void __launch_bounds__(kWideThreads)
-newton_step_wide_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        const float* __restrict__ y, const float* __restrict__ wt,
-                        const float* __restrict__ off, const float* __restrict__ l2,
-                        const float* __restrict__ mt, const float* __restrict__ vm,
-                        const float* __restrict__ f, float* __restrict__ w_out,
-                        float* __restrict__ f_out, float* __restrict__ g_out,
-                        unsigned char* __restrict__ imp_out, int R, int S,
-                        int trials, float* __restrict__ ws) {
-  extern __shared__ float4 sm4[];  // float4: 16-byte aligned
-  float* sm = reinterpret_cast<float*>(sm4);
-  const int tid = threadIdx.x;
-  const long long b = blockIdx.x;
-
-  float* xs = sm;        // [R, S]
-  float* zb = xs + R * S;  // [R] margins
-  float* cb = zb + R;    // [R] curvature wt * dzz
-  float* qb = cb + R;    // [R] row products (c * x p, x d, wt * dz)
-  float* red = qb + R;   // [kWideWarps] partial sums
-  float* pen = red + kWideWarps;  // [kMaxTrials]
-  float* vec = ws != nullptr ? ws + b * kVectors * S : sm + wide_floats(R, S, false);
-  float* w_s = vec;      // the S vectors
-  float* l2_s = w_s + S;
-  float* mt_s = l2_s + S;
-  float* vm_s = mt_s + S;
-  float* g_s = vm_s + S;
-  float* d_s = g_s + S;
-  float* p_s = d_s + S;
-  float* r_s = p_s + S;
-  float* hp_s = r_s + S;
-  float* x_cg = hp_s + S;
-
-  const float* xg = x + b * R * S;
-  const float* yb = y + b * R;
-  const float* wtb = wt + b * R;
-  const float* offb = off + b * R;
-
-  // Stage the slab, 16-byte loads where it is aligned for them.
-  const int n = R * S;
-  if ((n % 4) == 0 && (reinterpret_cast<unsigned long long>(xg) % 16) == 0) {
-    const float4* src = reinterpret_cast<const float4*>(xg);
-    float4* dst = reinterpret_cast<float4*>(xs);
-#pragma unroll 4
-    for (int i = tid; i < n / 4; i += kWideThreads) dst[i] = src[i];
-  } else {
-#pragma unroll 4
-    for (int i = tid; i < n; i += kWideThreads) xs[i] = xg[i];
-  }
-  for (int i = tid; i < S; i += kWideThreads) {
-    w_s[i] = w[b * S + i];
-    l2_s[i] = l2[b * S + i];
-    mt_s[i] = mt[b * S + i];
-    vm_s[i] = vm[b * S + i];
-  }
-  __syncthreads();
-
-  // Margins, curvature and the gradient's row weights.
-  row_dots(xs, w_s, nullptr, R, S, zb);
-  __syncthreads();
-  for (int r = tid; r < R; r += kWideThreads) {
-    const float z = offb[r] + zb[r];
-    float loss, dz, dzz;
-    loss_terms<TASK>(z, yb[r], loss, dz, dzz);
-    zb[r] = z;
-    cb[r] = wtb[r] * dzz;
-    qb[r] = wtb[r] * dz;
-  }
-  __syncthreads();
-
-  // Gradient, and CG on H d = -g from d = 0. Each thread owns slots tid,
-  // tid + kWideThreads, ... of every S vector.
-  float part = 0.f;
-  for (int i = tid; i < S; i += kWideThreads) {
-    const float g = (col_sum(xs, qb, R, S, i) + l2_s[i] * (w_s[i] - mt_s[i])) * vm_s[i];
-    g_s[i] = g;
-    x_cg[i] = 0.f;
-    r_s[i] = -g;
-    p_s[i] = -g;
-    part += g * g;
-  }
-  float rs = block_sum(part, red);
-  for (int step = 0; step < S; ++step) {
-    row_dots(xs, p_s, cb, R, S, qb);  // c * (x p)
-    __syncthreads();
+    // Direction, with the -g fallback when it is not a descent.
+    float d[kSlots], wl[kSlots], l2l[kSlots], mtl[kSlots];
     part = 0.f;
-    for (int i = tid; i < S; i += kWideThreads) {
-      const float hp = col_sum(xs, qb, R, S, i) + (l2_s[i] + (1.f - vm_s[i])) * p_s[i];
-      hp_s[i] = hp;
-      part += p_s[i] * hp;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int i = lane + 32 * j;
+      const bool live = i < S;
+      d[j] = live ? xc[j] * vmv[i] : 0.f;
+      wl[j] = live ? wv[i] : 0.f;
+      l2l[j] = live ? l2v[i] : 0.f;
+      mtl[j] = live ? mtv[i] : 0.f;
+      part += g[j] * d[j];
     }
-    const float alpha = rs / fmaxf(block_sum(part, red), 1e-30f);
-    part = 0.f;
-    for (int i = tid; i < S; i += kWideThreads) {
-      x_cg[i] += alpha * p_s[i];
-      r_s[i] -= alpha * hp_s[i];
-      part += r_s[i] * r_s[i];
+    float gd = warp_sum(part);
+    if (gd >= 0.f) {
+      part = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        d[j] = -g[j];
+        part += g[j] * g[j];
+      }
+      gd = -warp_sum(part);
     }
-    const float rs2 = block_sum(part, red);
-    const float beta = rs2 / fmaxf(rs, 1e-30f);
-    for (int i = tid; i < S; i += kWideThreads) p_s[i] = r_s[i] + beta * p_s[i];
-    rs = rs2;
-    __syncthreads();
-  }
-  part = 0.f;
-  for (int i = tid; i < S; i += kWideThreads) {
-    d_s[i] = x_cg[i] * vm_s[i];
-    part += g_s[i] * d_s[i];
-  }
-  float gd = block_sum(part, red);
-  if (gd >= 0.f) {
-    part = 0.f;
-    for (int i = tid; i < S; i += kWideThreads) {
-      d_s[i] = -g_s[i];
-      part += g_s[i] * g_s[i];
+    // Broadcast d (buffer 0; the CG's last step wrote buffer (S - 1) & 1,
+    // and every lane has passed that step's barrier).
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int i = lane + 32 * j;
+      if (i < L.sv) pv[i] = d[j];
     }
-    gd = -block_sum(part, red);
-  }
+    __syncwarp();
+    if constexpr (kRegH) {
+#pragma unroll
+      for (int t = 0; t < kV; ++t) vreg[t] = pv[t];
+    }
+    for (int r = lane; r < R; r += 32) cb[r] = row_dot<NQ>(xs + r * L.sp, vreg, pv, S);
 
-  // The L2 penalty of every trial point, one warp per trial, and the
-  // direction's row products.
-  const int lane = tid % 32;
-  for (int k = tid / 32; k < trials; k += kWideWarps) {
-    const float tk = ldexpf(1.f, -k);
-    float acc = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float dw = w_s[s] + tk * d_s[s] - mt_s[s];
-      acc += l2_s[s] * dw * dw;
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) pen[k] = acc;
-  }
-  row_dots(xs, d_s, nullptr, R, S, qb);
-  __syncthreads();
-
-  // Every trial of this thread's rows in registers, then one block sum
-  // per trial; every thread makes the same choice.
-  float part_t[kMaxTrials];
+    // Trials in order; the first that passes Armijo is taken, as when every
+    // trial is evaluated. fk is the same in every lane.
+    float t_sel = 0.f, f_sel = f_prev, tk = 1.f;
+    for (int kt = 0; kt < a.trials; ++kt, tk *= 0.5f) {
+      float lp = 0.f;
+      for (int r = lane; r < R; r += 32) {
+        lp += wtb[r] * loss_only<TASK>(fmaf(tk, cb[r], zb[r]), yb[r]);
+      }
+      float pp = 0.f;
 #pragma unroll
-  for (int k = 0; k < kMaxTrials; ++k) part_t[k] = 0.f;
-  for (int r = tid; r < R; r += kWideThreads) {
-    const float zd = qb[r];
-    const float z = zb[r];
-    const float yr = yb[r];
-    const float wr = wtb[r];
-    float tk = 1.f;
-#pragma unroll
-    for (int k = 0; k < kMaxTrials; ++k) {
-      if (k < trials) part_t[k] += wr * loss_only<TASK>(z + tk * zd, yr);
-      tk *= 0.5f;
-    }
-  }
-  const float f_prev = f[b];
-  float t_sel = 0.f, f_sel = f_prev, tk = 1.f;
-#pragma unroll
-  for (int k = 0; k < kMaxTrials; ++k) {
-    if (k < trials) {  // the same for every thread
-      const float fk = block_sum(part_t[k], red) + 0.5f * pen[k];
-      if (fk <= f_prev + 1e-4f * tk * gd && t_sel == 0.f) {
+      for (int j = 0; j < kSlots; ++j) {
+        const float dw = fmaf(tk, d[j], wl[j]) - mtl[j];
+        pp += l2l[j] * (dw * dw);
+      }
+      const float fk = warp_sum(lp) + 0.5f * warp_sum(pp);
+      if (fk <= __fadd_rn(f_prev, __fmul_rn(__fmul_rn(1e-4f, tk), gd))) {
         t_sel = tk;
         f_sel = fk;
+        break;
       }
     }
-    tk *= 0.5f;
-  }
-  const bool improved = t_sel > 0.f && f_sel < f_prev;
-  if (tid == 0) imp_out[b] = improved ? 1 : 0;
-  for (int i = tid; i < S; i += kWideThreads) {
-    const float wn = improved ? w_s[i] + t_sel * d_s[i] : w_s[i];
-    w_s[i] = wn;
-    w_out[b * S + i] = wn;
-  }
-  __syncthreads();
+    const bool improved = t_sel > 0.f && f_sel < f_prev;
+    if (lane == 0) a.imp_out[b] = improved ? 1 : 0;
+    float* wn_s = pv + L.sv;  // w_new, broadcast
+    float pen = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int i = lane + 32 * j;
+      const float wn = improved ? fmaf(t_sel, d[j], wl[j]) : wl[j];
+      const float dw = wn - mtl[j];
+      pen += l2l[j] * (dw * dw);
+      if (i < S) a.w_out[b * S + i] = wn;
+      if (i < L.sv) wn_s[i] = wn;
+    }
+    __syncwarp();
 
-  // Objective and gradient at the accepted point.
-  row_dots(xs, w_s, nullptr, R, S, zb);
-  __syncthreads();
-  part = 0.f;
-  for (int r = tid; r < R; r += kWideThreads) {
-    float loss, dz, dzz;
-    loss_terms<TASK>(offb[r] + zb[r], yb[r], loss, dz, dzz);
-    part += wtb[r] * loss;
-    qb[r] = wtb[r] * dz;
+    // Objective and gradient at the accepted point.
+    if constexpr (kRegH) {
+#pragma unroll
+      for (int t = 0; t < kV; ++t) vreg[t] = wn_s[t];
+    }
+    float lsum = 0.f;
+    for (int r = lane; r < R; r += 32) {
+      const float z = row_dot<NQ>(xs + r * L.sp, vreg, wn_s, S) + offb[r];
+      float loss, dz, dzz;
+      loss_terms<TASK>(z, yb[r], loss, dz, dzz);
+      const float wr = wtb[r];
+      lsum += wr * loss;
+      cb[r] = wr * dz;
+    }
+    const float total = warp_sum(lsum) + 0.5f * warp_sum(pen);
+    __syncwarp();
+    gradient(xs, cb, R, S, L.sp, wn_s, l2v, mtv, vmv, a.g_out + b * S, lane);
+    if (lane == 0) a.f_out[b] = total;
+    __syncwarp();
+    if (stages == 1 && b + W < a.b) {
+      stage(a, b + W, base, L, vec16, lane);
+      cp_async_commit();
+    }
   }
-  const float total = block_sum(part, red);
-  part = 0.f;
-  for (int i = tid; i < S; i += kWideThreads) {
-    const float dw = w_s[i] - mt_s[i];
-    part += l2_s[i] * dw * dw;
-  }
-  const float pen0 = block_sum(part, red);
-  for (int i = tid; i < S; i += kWideThreads) {
-    g_out[b * S + i] =
-        (col_sum(xs, qb, R, S, i) + l2_s[i] * (w_s[i] - mt_s[i])) * vm_s[i];
-  }
-  if (tid == 0) f_out[b] = total + 0.5f * pen0;
 }
 
-// Raise a kernel's dynamic shared memory opt-in above 48 KB once, to the
-// largest size asked for, so a launch inside a CUDA-graph capture makes no
-// attribute call.
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t bytes, size_t& opted_in) {
-  if (bytes <= opted_in) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e == cudaSuccess) opted_in = bytes;
-  return e;
+
+// Bytes of one warp's shared memory.
+size_t narrow_bytes(int r, int s, bool reg_h, bool rows, int stages) {
+  return sizeof(float) * static_cast<size_t>(NarrowLayout(r, s, reg_h, rows).warp_floats(stages));
 }
 
-template <int TASK>
-int launch(const float* x, const float* w, const float* y, const float* wt,
-           const float* off, const float* l2, const float* mt, const float* vm,
-           const float* f, float* w_out, float* f_out, float* g_out,
-           unsigned char* imp_out, long long b, int r, int s, int trials,
-           float* ws, cudaStream_t stream) {
-  if (s > kMaxSub) {
-    const bool shared = wide_vectors_shared(r, s);
-    if (!shared && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t bytes = sizeof(float) * static_cast<size_t>(wide_floats(r, s, shared));
-    static size_t wide_opted_in = 48 * 1024;
-    const cudaError_t e = opt_in(newton_step_wide_kernel<TASK>, bytes, wide_opted_in);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    newton_step_wide_kernel<TASK><<<static_cast<unsigned>(b), kWideThreads, bytes, stream>>>(
-        x, w, y, wt, off, l2, mt, vm, f, w_out, f_out, g_out, imp_out, r, s, trials,
-        shared ? nullptr : ws);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t per_entity = sizeof(float) * static_cast<size_t>(entity_floats(r, s));
-  int warps = kMaxWarpsPerBlock;
-  while (warps > 1 && warps * per_entity > kSmemPerBlock) warps /= 2;
-  const size_t bytes = warps * per_entity;
+// Warps an SM holds at `bytes` each, up to the register cap.
+size_t narrow_warps_per_sm(size_t bytes) {
+  return std::min(static_cast<size_t>(kNarrowWarpsPerSM),
+                  kSmemPerSM / (bytes + kSmemPerBlockReserved));
+}
+
+template <int TASK, int NQ>
+int launch_narrow(const StepArgs& a, cudaStream_t stream) {
+  constexpr bool reg_h = NQ > 0;
+  // One warp per block, so the SM packs as many as fit. The row vectors are
+  // staged unless that leaves no room (R in the thousands, S tiny); two
+  // buffers unless they cost resident warps.
+  const bool rows = narrow_bytes(a.r, a.s, reg_h, true, 1) <= kSmemPerBlock;
+  const size_t per1 = narrow_bytes(a.r, a.s, reg_h, rows, 1);
+  const size_t per2 = narrow_bytes(a.r, a.s, reg_h, rows, 2);
+  const int stages =
+      per2 <= kSmemPerBlock && narrow_warps_per_sm(per2) >= narrow_warps_per_sm(per1) ? 2 : 1;
+  const size_t bytes = stages == 2 ? per2 : per1;
+  auto kernel = newton_narrow_kernel<TASK, NQ>;
   static size_t opted_in = 48 * 1024;
-  const cudaError_t e = opt_in(newton_step_kernel<TASK>, bytes, opted_in);
+  const cudaError_t e = opt_in(kernel, bytes, opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = (b + warps - 1) / warps;
-  newton_step_kernel<TASK><<<static_cast<unsigned>(blocks), warps * 32, bytes, stream>>>(
-      x, w, y, wt, off, l2, mt, vm, f, w_out, f_out, g_out, imp_out, b, r, s, trials);
+  static BlocksPerSM occupancy;
+  const long long resident =
+      static_cast<long long>(occupancy.get(kernel, 32, bytes)) * sm_count();
+  const long long blocks = std::min(a.b, resident);
+  kernel<<<static_cast<unsigned>(blocks), 32, bytes, stream>>>(a, stages, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int TASK>
+int launch(const StepArgs& a, float* ws, cudaStream_t stream) {
+  if (a.s > kMaxSub) return launch_wide<TASK>(a, ws, stream);
+  switch ((a.s + 3) / 4) {
+    case 1: return launch_narrow<TASK, 1>(a, stream);
+    case 2: return launch_narrow<TASK, 2>(a, stream);
+    case 3: return launch_narrow<TASK, 3>(a, stream);
+    case 4: return launch_narrow<TASK, 4>(a, stream);
+    case 5: return launch_narrow<TASK, 5>(a, stream);
+    case 6: return launch_narrow<TASK, 6>(a, stream);
+    case 7: return launch_narrow<TASK, 7>(a, stream);
+    case 8: return launch_narrow<TASK, 8>(a, stream);
+    default: return launch_narrow<TASK, 0>(a, stream);
+  }
+}
+
 }  // namespace
+}  // namespace photon_newton
 
 extern "C" {
 
 // Floats of global workspace per entity that photon_newton_step needs for
-// an [R, S] bucket: 0 unless the wide kernel's S vectors do not fit in
+// an [R, S] bucket: 0 unless the wide design's S vectors do not fit in
 // shared memory.
 long long photon_newton_step_workspace_floats(int r, int s) {
-  if (s <= kMaxSub || wide_vectors_shared(r, s)) return 0;
-  return static_cast<long long>(kVectors) * s;
+  if (s <= photon_newton::kMaxSub) return 0;
+  return photon_newton::wide_workspace_floats(r, s);
 }
 
 // One Newton step for b entities on `stream`; task 0 logistic, 1 Poisson.
@@ -692,19 +646,16 @@ int photon_newton_step(const float* x, const float* w, const float* y,
                        float* w_out, float* f_out, float* g_out,
                        unsigned char* imp_out, long long b, int r, int s, int task,
                        int trials, float* ws, void* stream) {
+  using namespace photon_newton;
   if (b <= 0 || b > 0x7fffffffLL || r <= 0 || s <= 0 ||
       static_cast<long long>(r) * s > kMaxRS || trials < 1 || trials > kMaxTrials) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const StepArgs a{x, w, y, wt, off, l2, mt, vm, f, w_out, f_out, g_out, imp_out,
+                   b, r, s, trials};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (task == kLogistic) {
-    return launch<kLogistic>(x, w, y, wt, off, l2, mt, vm, f, w_out, f_out, g_out,
-                             imp_out, b, r, s, trials, ws, st);
-  }
-  if (task == kPoisson) {
-    return launch<kPoisson>(x, w, y, wt, off, l2, mt, vm, f, w_out, f_out, g_out,
-                            imp_out, b, r, s, trials, ws, st);
-  }
+  if (task == kLogistic) return launch<kLogistic>(a, ws, st);
+  if (task == kPoisson) return launch<kPoisson>(a, ws, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,13 +9,18 @@ The CUDA kernel replaces the Pallas TPU kernel
 ``photon_tpu/ops/newton_kernel.py:newton_step_lanes``. It takes the
 bucket as x [B, R, S] (entity-major, the port's natural layout); the TPU
 kernel's 128-lane entity transpose is not carried over. Up to
-``NARROW_SUB_DIM`` slots one warp per entity stages its slab in shared
-memory and forms H there; it is bound by bytes: at the bench's user
-bucket (~100,000 entities x 64 rows x 17 slots, f32) one step must read
-the 435 MB slab once, ~0.16 ms at 3.35 TB/s. A wider bucket (a wide
-materialized bucket densified for its solve) takes one block per entity
-and a CG that applies H from the slab without forming it; it is bound
-by operations.
+``NARROW_SUB_DIM`` slots (``csrc/newton_step.cu``) persistent warps walk
+over the entities, one at a time each, staging each slab into shared
+memory with ``cp.async`` (the next one while they compute the current,
+where that costs no resident warps); H is built in register tiles and,
+up to 32 slots, solved with each lane holding a row of it. It is bound
+by bytes: at the bench's user bucket (~100,000 entities x 64 rows x 17
+slots, f32) one step must read the 435 MB slab once, ~0.16 ms at
+3.35 TB/s. A wider bucket (a wide materialized bucket densified for its
+solve, ``csrc/newton_step_wide.cu``) takes one block per entity, the
+slab in registers as a tile per thread where R <= 64 and S <= 256, and
+a CG that applies H from the slab without forming it; it is bound by
+operations.
 
 ``kernel_supported`` is the reference's gate: f32, logistic or Poisson
 loss, R * S <= 16384.

@@ -247,6 +247,30 @@ def test_plain_step_matches_pallas_body_at_the_bench_bucket_shape():
     assert ties == 2  # the padding and the zero-gradient entity
 
 
+# (B, R, S) at the edges of the CUDA kernel's narrow design that the
+# reference's Pallas body traces in a few seconds: S at and past a quad
+# of slots (4, 5; 8, 9; 16), R past one row per lane (40) and past the
+# first port's one-lane row sums (300).
+PALLAS_EDGE_SHAPES = [(6, 8, 4), (6, 8, 5), (6, 40, 8), (6, 40, 9),
+                      (5, 12, 16), (5, 300, 3)]
+
+
+@pytest.mark.parametrize("shape", PALLAS_EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plain_step_matches_pallas_body_at_edge_shapes(shape):
+    """The plain version against the reference's Pallas body, three
+    steps of the trajectory, tolerances as ``assert_steps_close``."""
+    task = TaskType.LOGISTIC_REGRESSION
+    b, r, s = shape
+    ops = step_inputs(task, b=b, r=r, s=s, seed=b + r + s)
+    for k in range(3):
+        got = port_step(ops, task)
+        want = pallas_step(ops, task)
+        ties = assert_steps_close(got, want, ops["f"])
+        assert k > 0 or ties == 2  # the padding and zero-gradient entity
+        ops = dict(ops, w=want[0], f=want[1])
+
+
 def test_kernel_supported_is_the_reference_gate():
     lr, po = TaskType.LOGISTIC_REGRESSION, TaskType.POISSON_REGRESSION
     assert nk.kernel_supported(lr, torch.float32, 64, 17)
@@ -404,10 +428,20 @@ def cuda_device():
 # (B, R, S): tiny, the bench's user and movie buckets, the edges of the
 # gate (one slot with the most rows; the widest one-warp subspace), and
 # the wide design: a densified wide bucket, the narrowest wide S, and a
-# subspace whose S vectors live in the global workspace.
+# subspace whose S vectors live in the global workspace. Then the edges
+# of the designs: S at and past a quad (4, 5) and the register-H limit
+# (31, 32, 33), the narrow limit (127, 128, 129), R above 256 with H in
+# registers and in shared memory, the wide tile's limits (S 256 and 257,
+# R 64 and 65, S > 256 with few rows), and buckets far larger than the
+# warps (narrow) and blocks (wide) the card holds at once, so that each
+# walks over many entities.
 CUDA_SHAPES = [(5, 3, 2), (300, 64, 17), (200, 256, 9), (40, 1024, 9),
                (8, 16384, 1), (6, 128, 128), (40, 64, 193), (12, 127, 129),
-               (4, 2, 6000)]
+               (4, 2, 6000),
+               (7, 40, 4), (7, 40, 5), (33, 64, 31), (33, 64, 32),
+               (33, 64, 33), (10, 128, 127), (20, 512, 32), (10, 300, 33),
+               (16, 64, 256), (8, 63, 257), (8, 65, 200), (6, 16, 1000),
+               (30_000, 64, 17), (2_000, 64, 173)]
 
 
 @pytest.mark.cuda
