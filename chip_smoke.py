@@ -128,10 +128,22 @@ nothing cut:
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
+
+``python3 chip_smoke.py --fits N`` runs only the device and build phases
+and then the full-width fits and the Newton kernel's timing, for
+comparing two trees on one card: the logistic fit N + 1 times on the
+kernel route (the first, cold, marked), once on the plain route in
+float32 and once in float64, each with its trajectory (Newton and L-BFGS
+iterations, launches, host syncs) and training loss; newton_timing; the
+``wide-linear`` fit N + 1 times; the wide design's check and timing on
+its per-movie gram bucket. It prints no ``ok`` line. To compare a parent
+commit, unpack its package into a git-ignored directory, copy this
+script beside it, and run parent, change, change, parent in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -563,17 +575,20 @@ def synth_arrays(n_rows=TRAIN_ROWS, n_users=N_USERS, n_movies=N_MOVIES,
     return dict(x=x, xu=xu, xm=xm, users=users, movies=movies, y=y, z=z)
 
 
-def train_dataset(arrays):
+def train_dataset(arrays, dtype=None):
+    """The arrays on the card, in float32 unless ``dtype`` says otherwise
+    (a float64 dataset trains in float64, on the plain route)."""
     from photon_tpu_torch.data.dataset import DenseFeatures
     from photon_tpu_torch.data.game_data import make_game_dataset
 
+    extra = {} if dtype is None else {"dtype": dtype}
     return make_game_dataset(
         arrays["y"],
         {"global": DenseFeatures(arrays["x"]),
          "userShard": DenseFeatures(arrays["xu"]),
          "movieShard": DenseFeatures(arrays["xm"])},
         id_tags={"userId": arrays["users"], "movieId": arrays["movies"]},
-        device="cuda",
+        device="cuda", **extra,
     )
 
 
@@ -786,8 +801,11 @@ def auc(score: np.ndarray, y: np.ndarray) -> float:
                  / (n_pos * n_neg))
 
 
-def phase_fit(torch, arrays, data, est) -> dict:
-    """GameEstimator.fit at full width, counts zeroed just before."""
+def fit_trajectory(torch, est, data) -> tuple[dict, object]:
+    """One ``GameEstimator.fit`` with the counts zeroed just before: its
+    wall seconds (ending in a sync), per CD iteration and coordinate, and
+    its trajectory: L-BFGS and Newton iterations, Newton-kernel launches,
+    plain-route solves, host syncs."""
     from photon_tpu_torch.algorithm import random_effect as ra
     from photon_tpu_torch.ops import newton_kernel as nk
     from photon_tpu_torch.optim import lbfgs
@@ -801,35 +819,39 @@ def phase_fit(torch, arrays, data, est) -> dict:
     results = est.fit(data)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches, plain_solves = nk.launches, ra.plain_route_solves
-    newton_syncs, lbfgs_syncs = ra.host_syncs, lbfgs.host_syncs
-    peak = torch.cuda.max_memory_allocated()
     res = results[0]
     hist = res.descent.history
-    per_iter = [sum(r.seconds for r in hist if r.iteration == i)
-                for i in range(CD_ITERATIONS)]
-    per_coord = {cid: sum(r.seconds for r in hist if r.coordinate_id == cid)
-                 for cid in est.update_sequence}
-    fe_iters = [int(r.diagnostics.iterations) for r in hist
-                if r.coordinate_id == "global"]
-    re_iters = {cid: [r.diagnostics.iterations_max for r in hist
-                      if r.coordinate_id == cid] for cid in RE_IDS}
     row = {
-        "phase": "fit", "rows": int(arrays["y"].shape[0]),
-        "fit_seconds": fit_s, "seconds_per_cd_iteration": per_iter,
-        "seconds_per_coordinate": per_coord,
-        "fe_lbfgs_iterations": fe_iters,
-        "re_newton_iterations_max": re_iters,
-        "newton_kernel_launches": launches,
-        "plain_route_solves": plain_solves,
-        "newton_host_syncs": newton_syncs, "lbfgs_host_syncs": lbfgs_syncs,
-        "max_memory_allocated_bytes": peak,
+        "fit_seconds": fit_s,
+        "seconds_per_cd_iteration": [
+            sum(r.seconds for r in hist if r.iteration == i)
+            for i in range(CD_ITERATIONS)],
+        "seconds_per_coordinate": {
+            cid: sum(r.seconds for r in hist if r.coordinate_id == cid)
+            for cid in est.update_sequence},
+        "fe_lbfgs_iterations": [int(r.diagnostics.iterations) for r in hist
+                                if r.coordinate_id == "global"],
+        "re_newton_iterations_max": {
+            cid: [r.diagnostics.iterations_max for r in hist
+                  if r.coordinate_id == cid] for cid in RE_IDS},
+        "newton_kernel_launches": nk.launches,
+        "plain_route_solves": ra.plain_route_solves,
+        "newton_host_syncs": ra.host_syncs,
+        "lbfgs_host_syncs": lbfgs.host_syncs,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
+    return row, res
+
+
+def phase_fit(torch, arrays, data, est) -> dict:
+    """GameEstimator.fit at full width, counts zeroed just before."""
+    traj, res = fit_trajectory(torch, est, data)
+    row = {"phase": "fit", "rows": int(arrays["y"].shape[0]), **traj}
     emit(row)
-    if launches <= 0:
+    if row["newton_kernel_launches"] <= 0:
         fail("the fit launched the Newton kernel no time")
-    if plain_solves != 0:
-        fail(f"{plain_solves} bucket solves took the plain route")
+    if row["plain_route_solves"] != 0:
+        fail(f"{row['plain_route_solves']} bucket solves took the plain route")
     return {"row": row, "result": res}
 
 
@@ -1950,7 +1972,56 @@ def phase_wide(torch) -> dict:
     }
 
 
+def fits_only(torch, n: int) -> int:
+    """``--fits N``: the full-width fits alone (module docstring)."""
+    from photon_tpu_torch.ops import newton_kernel as nk
+
+    arrays = synth_arrays()
+    for route, dtype in (("kernel", torch.float32), ("plain", torch.float32),
+                         ("float64", torch.float64)):
+        data = train_dataset(arrays, dtype)
+        est = build_estimator()
+        datasets = est.prepare(data)
+        supported = nk.kernel_supported
+        if route == "plain":
+            nk.kernel_supported = lambda *a, **k: False
+        try:
+            for k in range(n + 1 if route == "kernel" else 1):
+                traj, res = fit_trajectory(torch, est, data)
+                total, _ = total_scores(torch, res.model, datasets, data)
+                emit({"phase": "fits", "route": route, "fit": k,
+                      "cold": k == 0, **traj,
+                      "training_loss": fit_objective(torch, total, data)})
+        finally:
+            nk.kernel_supported = supported
+        if route == "kernel":
+            phase_newton_timing(torch, datasets, est, bucket_launches(
+                res.descent.history, datasets))
+        del data, est, datasets, res, total
+        torch.cuda.empty_cache()
+    del arrays
+    wide = phase_wide_data(torch)
+    for k in range(n + 1):
+        traj, _ = fit_trajectory(torch, wide["est"], wide["data"])
+        emit({"phase": "wide_fits", "fit": k, "cold": k == 0,
+              "fit_seconds": traj["fit_seconds"],
+              "seconds_per_coordinate": traj["seconds_per_coordinate"],
+              "fe_lbfgs_iterations": traj["fe_lbfgs_iterations"],
+              "lbfgs_host_syncs": traj["lbfgs_host_syncs"]})
+    cid, _, eb, _, _ = next(b for b in bucket_routes(wide["datasets"])
+                            if b[0] == "per-movie" and b[4] == "gram")
+    wide_newton_check(torch, "wide-linear", cid, eb,
+                      l2_weight(wide["est"], cid))
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(
+        description="Smoke run of photon_tpu_torch on one NVIDIA GPU.")
+    ap.add_argument("--fits", type=int, default=0, metavar="N",
+                    help="run only the full-width fits, N warm times each")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError as exc:
@@ -1989,6 +2060,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(lib),
           "sources": [str(p.name) for p in _build.sources()]})
+    if args.fits > 0:
+        return fits_only(torch, args.fits)
 
     t0 = time.perf_counter()
     arrays, manifest = serving_arrays()

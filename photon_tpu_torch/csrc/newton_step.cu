@@ -25,15 +25,15 @@
 //
 // Narrow design (newton_narrow_kernel): one warp per entity, one warp per
 // block, persistent. The launcher starts as many blocks as the card holds
-// at once (24 per SM at most: registers are capped at 85 a thread) and
+// at once (24 per SM at most: registers are capped at 80 a thread) and
 // each walks over entities b, b + W, ... The entity's slab (rows padded to
 // an odd stride), its y, wt, off and its w, l2, mt, vm, f are staged into
 // shared memory with cp.async, 16-byte copies where the rows need no
-// padding. Where a second buffer costs no resident warps (small R * S),
-// the warp stages entity k + 1 while it computes entity k; at the bench's
-// buckets it would cost a third of the warps, and the launcher keeps one
-// buffer and leaves the overlap to the other warps. No barrier is wider
-// than the warp.
+// padding. One buffer: a warp stages entity b + W once it has finished
+// entity b, and the other resident warps' compute covers the copy. A
+// second buffer, staged while the warp computes, costs a third of the
+// resident warps at the bench's buckets and was measured slower there on
+// an H100. No barrier is wider than the warp.
 //
 // What replaces what, against the first port of this kernel (one warp per
 // entity, four per block, one entry of H per lane at a time, H and every
@@ -79,9 +79,7 @@
 namespace photon_newton {
 namespace {
 
-constexpr int kNarrowWarpsPerSM = 24;  // register cap: 85 per thread
-constexpr size_t kSmemPerSM = 233472;  // H100: 228 KB per SM
-constexpr size_t kSmemPerBlockReserved = 1024;
+constexpr int kNarrowWarpsPerSM = 24;  // register cap: 80 per thread
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
 
@@ -93,7 +91,7 @@ struct NarrowLayout {
   int slab;  // R * sp + 4 (a tile reads up to 3 floats past a row), rounded
   bool rows; // y, wt, off staged too (all but the longest entities)
   int vo;    // offset of w, l2, mt, vm [sv] each, then f
-  int buf;   // one entity's staged operands
+  int buf;   // the entity's staged operands
   int hst;   // H's row stride
   int hs;    // H's floats
   __host__ __device__ NarrowLayout(int r, int s, bool reg_h, bool rows_staged) {
@@ -109,10 +107,8 @@ struct NarrowLayout {
     hst = reg_h ? (s | 1) : (((s + 3) / 4) | 1) * 4;
     hs = round4(s * hst);
   }
-  // stages buffers, z and c [R], p twice and g [S], H.
-  __host__ __device__ int warp_floats(int stages) const {
-    return stages * buf + 2 * r4 + 3 * sv + hs;
-  }
+  // The staged operands, z and c [R], p twice and g [S], H.
+  __host__ __device__ int warp_floats() const { return buf + 2 * r4 + 3 * sv + hs; }
 };
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -129,9 +125,8 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Issue the copies of entity b's slab (rows padded to L.sp), its y, wt,
@@ -317,7 +312,7 @@ __device__ __forceinline__ void hessian(const float* xs, const float* c, int R, 
 
 template <int TASK, int NQ>
 __global__ void __launch_bounds__(32, kNarrowWarpsPerSM)
-newton_narrow_kernel(StepArgs a, int stages, bool rows_staged) {
+newton_narrow_kernel(StepArgs a, bool rows_staged) {
   constexpr bool kRegH = NQ > 0;
   constexpr int kSlots = kRegH ? 1 : kMaxSub / 32;  // slots a lane owns
   constexpr int kV = kRegH ? 4 * NQ : 1;             // broadcast vector in registers
@@ -325,28 +320,21 @@ newton_narrow_kernel(StepArgs a, int stages, bool rows_staged) {
   const int lane = threadIdx.x;
   const int R = a.r, S = a.s;
   const NarrowLayout L(R, S, kRegH, rows_staged);
-  float* base = reinterpret_cast<float*>(sm4);
-  float* zb = base + stages * L.buf;  // [R] margins
-  float* cb = zb + L.r4;             // [R] curvature, then x d, then wt dz
-  float* pv = cb + L.r4;             // [2][sv] CG p; w, d, w_new broadcasts
-  float* gv = pv + 2 * L.sv;         // [sv] gradient
-  float* hs = gv + L.sv;             // H
+  float* xs = reinterpret_cast<float*>(sm4);  // the staged operands
+  float* zb = xs + L.buf;      // [R] margins
+  float* cb = zb + L.r4;       // [R] curvature, then x d, then wt dz
+  float* pv = cb + L.r4;       // [2][sv] CG p; w, d, w_new broadcasts
+  float* gv = pv + 2 * L.sv;   // [sv] gradient
+  float* hs = gv + L.sv;       // H
   const long long W = gridDim.x;
   long long b = blockIdx.x;  // the grid never exceeds B
   const bool vec16 = L.sp == S && (R * S) % 4 == 0 &&
                      (reinterpret_cast<unsigned long long>(a.x) % 16) == 0;
-  stage(a, b, base, L, vec16, lane);
+  stage(a, b, xs, L, vec16, lane);
   cp_async_commit();
 
-  for (int k = 0; b < a.b; b += W, ++k) {
-    const float* xs = base + (stages == 2 ? (k & 1) * L.buf : 0);
-    if (stages == 2) {
-      if (b + W < a.b) stage(a, b + W, base + ((k + 1) & 1) * L.buf, L, vec16, lane);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (; b < a.b; b += W) {
+    cp_async_wait_all();
     __syncwarp();
     const float* wv = xs + L.vo;  // w, l2, mt, vm [sv] each, then f
     const float* l2v = wv + L.sv;
@@ -565,8 +553,8 @@ newton_narrow_kernel(StepArgs a, int stages, bool rows_staged) {
     gradient(xs, cb, R, S, L.sp, wn_s, l2v, mtv, vmv, a.g_out + b * S, lane);
     if (lane == 0) a.f_out[b] = total;
     __syncwarp();
-    if (stages == 1 && b + W < a.b) {
-      stage(a, b + W, base, L, vec16, lane);
+    if (b + W < a.b) {
+      stage(a, b + W, xs, L, vec16, lane);
       cp_async_commit();
     }
   }
@@ -574,28 +562,17 @@ newton_narrow_kernel(StepArgs a, int stages, bool rows_staged) {
 
 
 // Bytes of one warp's shared memory.
-size_t narrow_bytes(int r, int s, bool reg_h, bool rows, int stages) {
-  return sizeof(float) * static_cast<size_t>(NarrowLayout(r, s, reg_h, rows).warp_floats(stages));
-}
-
-// Warps an SM holds at `bytes` each, up to the register cap.
-size_t narrow_warps_per_sm(size_t bytes) {
-  return std::min(static_cast<size_t>(kNarrowWarpsPerSM),
-                  kSmemPerSM / (bytes + kSmemPerBlockReserved));
+size_t narrow_bytes(int r, int s, bool reg_h, bool rows) {
+  return sizeof(float) * static_cast<size_t>(NarrowLayout(r, s, reg_h, rows).warp_floats());
 }
 
 template <int TASK, int NQ>
 int launch_narrow(const StepArgs& a, cudaStream_t stream) {
   constexpr bool reg_h = NQ > 0;
   // One warp per block, so the SM packs as many as fit. The row vectors are
-  // staged unless that leaves no room (R in the thousands, S tiny); two
-  // buffers unless they cost resident warps.
-  const bool rows = narrow_bytes(a.r, a.s, reg_h, true, 1) <= kSmemPerBlock;
-  const size_t per1 = narrow_bytes(a.r, a.s, reg_h, rows, 1);
-  const size_t per2 = narrow_bytes(a.r, a.s, reg_h, rows, 2);
-  const int stages =
-      per2 <= kSmemPerBlock && narrow_warps_per_sm(per2) >= narrow_warps_per_sm(per1) ? 2 : 1;
-  const size_t bytes = stages == 2 ? per2 : per1;
+  // staged unless that leaves no room (R in the thousands, S tiny).
+  const bool rows = narrow_bytes(a.r, a.s, reg_h, true) <= kSmemPerBlock;
+  const size_t bytes = narrow_bytes(a.r, a.s, reg_h, rows);
   auto kernel = newton_narrow_kernel<TASK, NQ>;
   static size_t opted_in = 48 * 1024;
   const cudaError_t e = opt_in(kernel, bytes, opted_in);
@@ -604,7 +581,7 @@ int launch_narrow(const StepArgs& a, cudaStream_t stream) {
   const long long resident =
       static_cast<long long>(occupancy.get(kernel, 32, bytes)) * sm_count();
   const long long blocks = std::min(a.b, resident);
-  kernel<<<static_cast<unsigned>(blocks), 32, bytes, stream>>>(a, stages, rows);
+  kernel<<<static_cast<unsigned>(blocks), 32, bytes, stream>>>(a, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,9 +11,10 @@ bucket as x [B, R, S] (entity-major, the port's natural layout); the TPU
 kernel's 128-lane entity transpose is not carried over. Up to
 ``NARROW_SUB_DIM`` slots (``csrc/newton_step.cu``) persistent warps walk
 over the entities, one at a time each, staging each slab into shared
-memory with ``cp.async`` (the next one while they compute the current,
-where that costs no resident warps); H is built in register tiles and,
-up to 32 slots, solved with each lane holding a row of it. It is bound
+memory with ``cp.async`` (the next one once the current is done, the
+other resident warps computing meanwhile); H is built in register
+tiles and, up to 32 slots, solved with each lane holding a row of it.
+It is bound
 by bytes: at the bench's user bucket (~100,000 entities x 64 rows x 17
 slots, f32) one step must read the 435 MB slab once, ~0.16 ms at
 3.35 TB/s. A wider bucket (a wide materialized bucket densified for its

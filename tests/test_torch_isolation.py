@@ -56,8 +56,7 @@ def _imported_names(tree: ast.AST):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "newton_ab.py"],
+    "path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_file_imports_jax_or_photon_tpu(path):
