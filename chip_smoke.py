@@ -27,10 +27,11 @@ JSON lines:
              numpy score taken straight from the checkpoint arrays;
 5. timing  - per rung and table dtype, median of 50 runs after warm-up
              with CUDA events: the kernel's and the plain version's device
-             time (calls captured in a CUDA graph and replayed), the same
-             calls issued eagerly from Python, the host time to issue one
-             kernel call, a whole host dispatch (copies + launch +
-             fetch), and the bound;
+             time (calls captured in a CUDA graph and replayed) beside
+             the launch floor (``torch.zeros(1)`` timed the same way),
+             the same calls issued eagerly from Python, the host time to
+             issue one kernel call, a whole host dispatch (copies +
+             launch + fetch), and the bound;
 6. paced   - a second drive at a fixed offered load, whose p50/p99 are
              service latency rather than queueing behind a flood.
 
@@ -483,6 +484,10 @@ def phase_timing(torch, model) -> list[dict]:
     from photon_tpu_torch.serve.tables import CoefficientTables
 
     rows = []
+    # The smallest launch the card makes, timed as ``ms`` is: a yardstick
+    # for a kernel whose bytes take less time than a launch.
+    floor_ms = device_ms(
+        torch, lambda: torch.zeros(1, device="cuda"), TIMING_INNER)
     for precision in ("float32", "bfloat16"):
         tables = CoefficientTables.from_game_model(model, precision)
         programs = ScorePrograms(tables)
@@ -501,6 +506,7 @@ def phase_timing(torch, model) -> list[dict]:
             row = {
                 "phase": "timing", "precision": precision, "rung": rung,
                 "ms": device_ms(torch, kernel, TIMING_INNER),
+                "launch_floor_ms": floor_ms,
                 "plain_ms": device_ms(torch, plain, PLAIN_INNER),
                 "eager_ms": eager_ms(torch, kernel, TIMING_INNER),
                 "plain_eager_ms": eager_ms(torch, plain, PLAIN_INNER),
@@ -2096,6 +2102,7 @@ def main() -> int:
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
+        "launch_floor_ms": top["launch_floor_ms"],
     }, newton, segment]
     if not all(math.isfinite(k["ms"]) and k["ms"] > 0
                and math.isfinite(k["bound_ms"]) and k["bound_ms"] > 0

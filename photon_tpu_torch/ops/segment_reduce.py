@@ -10,9 +10,12 @@ The CUDA kernel replaces the Pallas TPU kernel
 ``photon_tpu/ops/segment_reduce.py:_windowed_sum``: an f32 sum per
 segment over sorted int32 ids, ids at or past ``num_segments`` dropped,
 values f32 or bf16. The TPU kernel is a windowed one-hot contraction on
-its matrix unit; the CUDA kernel is a segmented run reduction (one
-thread per run, no atomics, bit-identical from run to run). It is bound
-by bytes: each id and value read once, each output written once.
+its matrix unit; the CUDA kernel tiles the output: each resident block
+owns a run of output tiles, finds where its first tile's input starts by
+one search, sums each tile's runs cooperatively in a fixed order (no
+atomics, bit-identical from run to run) and writes every output of the
+tile once, zeros included. It is bound by bytes: each id and value read
+once, each output written once.
 
 The ELL wrappers keep the reference's gates: ``multiplicity`` and the
 ``_MAX_K_TILES`` coverage tests, the gram route's pair budget and
@@ -190,7 +193,7 @@ def _launch(values, ids, n: int, site: str) -> torch.Tensor:
         raise ValueError(f"the segment-sum kernel takes 1 <= m, n < 2**31; "
                          f"got m={m}, n={n}")
     load()
-    out = torch.zeros(n, dtype=torch.float32, device=values.device)
+    out = torch.empty(n, dtype=torch.float32, device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     rc = _launch_fn(values.data_ptr(), _VALUE_KIND[values.dtype],
                     ids.data_ptr(), m, n, out.data_ptr(), stream)

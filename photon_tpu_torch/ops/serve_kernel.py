@@ -6,13 +6,15 @@ raises); on CPU tensors it runs ``fused_score_reference``, the same
 function in plain PyTorch. Nothing falls back from one to the other.
 
 The CUDA kernel replaces the Pallas TPU kernel
-``photon_tpu/ops/serve_kernel.py:fused_score``. It is bound by bytes:
-at rung 512 on the serving model (d = 64 fixed features, 17 + 9 random
-slots) a launch reads about 0.3 MB, the 64 + 17 + 9 f32 features of each
-row plus 26 gathered (weight, projector) slots of 4 + 4 bytes per row.
-That is ~0.1 us at 3.35 TB/s, so the kernel is launch-bound; it answers
-with one launch per rung for all coordinates together and no
-intermediate in device memory.
+``photon_tpu/ops/serve_kernel.py:fused_score``. At rung 512 on the
+serving model (d = 64 fixed features, 17 + 9 random slots) a launch
+reads about 0.3 MB, ~0.1 us at 3.35 TB/s, so what bounds it is latency:
+a row's chain of dependent loads (code, then projector and weight, then
+feature). The kernel puts every independent load of a row in flight
+together, one lane per (coordinate, slot) pair, so a row waits on three
+memory round trips whatever its number of coordinates; one launch
+scores a rung for all coordinates together, with no intermediate in
+device memory.
 
 Operands follow ``ScorePrograms``: ``feats`` holds one leaf per feature
 shard in shard order (dense: [rung, d] f32; ELL: ([rung, k] int32,
@@ -54,7 +56,6 @@ class _Coord(ctypes.Structure):
         ("k", ctypes.c_longlong),
         ("s", ctypes.c_longlong),
         ("e", ctypes.c_longlong),
-        ("random", ctypes.c_longlong),
     ]
 
 
@@ -63,7 +64,10 @@ class _Params(ctypes.Structure):
 
     _fields_ = [
         ("c", _Coord * MAX_COORDS),
+        ("pair_base", ctypes.c_longlong * MAX_COORDS),
         ("n_coords", ctypes.c_longlong),
+        ("n_fixed", ctypes.c_longlong),
+        ("n_pairs", ctypes.c_longlong),
         ("rung", ctypes.c_longlong),
         ("out", ctypes.c_void_p),
     ]
@@ -210,6 +214,7 @@ def _launch(
 
     params = _Params()
     params.n_coords = n_coords
+    params.n_fixed = len(fe_ws)
     params.rung = rung
     ci = 0
     for w, fi in zip(fe_ws, fe_feat):
@@ -220,7 +225,7 @@ def _launch(
             raise ValueError(f"fixed weights {ci} have {d} entries but "
                              f"shard {fi} is {width} wide")
         c = params.c[ci]
-        c.w, c.x, c.idx, c.d, c.k, c.random = w.data_ptr(), x_ptr, idx_ptr, d, k, 0
+        c.w, c.x, c.idx, c.d, c.k = w.data_ptr(), x_ptr, idx_ptr, d, k
         ci += 1
     for ri, (w, proj, fi, code) in enumerate(
         zip(re_ws, re_projs, re_feat, codes)
@@ -240,8 +245,12 @@ def _launch(
         c.w, c.proj, c.codes = w.data_ptr(), proj.data_ptr(), code.data_ptr()
         c.x, c.idx, c.k = x_ptr, idx_ptr, k
         c.d = 0 if width is None else width
-        c.e, c.s, c.random = int(w.shape[0]), int(w.shape[1]), 1
+        c.e, c.s = int(w.shape[0]), int(w.shape[1])
+        params.pair_base[ri] = params.n_pairs
+        params.n_pairs += c.s
         ci += 1
+    for ri in range(len(re_ws), MAX_COORDS):
+        params.pair_base[ri] = params.n_pairs  # no pair reaches it
 
     load()
     out = torch.empty(rung, dtype=torch.float32, device=dev)

@@ -487,3 +487,81 @@ def test_cuda_ungated_reduces_launch_the_kernel(cuda_device):
     with pytest.raises(ValueError, match="dtype"):
         sr.densify_ell(_t(xi).to(cuda_device),
                        _t(xv).to(cuda_device, torch.float64), s)
+
+
+def _tiling_fixture(kind: str, rng):
+    """(ids, n) of one edge of the kernel's output tiling: tiles of 1,024
+    to 16,384 segments, a block owning several once there are more tiles
+    than resident blocks, input streamed 1,024 elements a step."""
+    if kind == "long_runs":
+        # Runs longer than a step and than a tile, around step-sized ones.
+        lens = [20_000, 1_023, 1_024, 1_025, 2_048, 2_049, 1, 9_000, 3]
+        return np.repeat(np.arange(len(lens)) * 3, lens), 40
+    if kind == "runs_across_tiles":
+        # 586 tiles of 1,024: more than the resident blocks of an H100.
+        n = 600_000
+        return np.repeat(np.arange(n), rng.integers(0, 6, n)), n
+    if kind == "gaps_and_empty_tiles":
+        # Nothing in the first and last tiles, long stretches of empty
+        # tiles between clusters, and n not a multiple of 4 or of a tile.
+        ids = np.r_[np.sort(rng.integers(40_000, 41_000, 5_000)),
+                    np.sort(rng.integers(1_700_000, 1_700_010, 300)),
+                    np.sort(rng.integers(2_500_000, 2_900_000, 20_000))]
+        return ids, 3_000_007
+    if kind == "all_dropped_high":
+        return np.full(5_000, 7), 7
+    if kind == "all_dropped_low":
+        return np.full(5_000, -4), 7
+    if kind == "dropped_both_ends":
+        return np.r_[np.full(3_000, -1), np.arange(10).repeat(300),
+                     np.full(3_000, 12)], 11
+    if kind == "one_value":
+        return np.array([9_999_990]), 10_000_000
+    if kind == "dense":
+        # Many elements per segment: the launcher's smallest tile.
+        return np.sort(rng.integers(0, 3_000, 300_000)), 3_000
+    raise ValueError(kind)
+
+
+TILING_CASES = ["long_runs", "runs_across_tiles", "gaps_and_empty_tiles",
+                "all_dropped_high", "all_dropped_low", "dropped_both_ends",
+                "one_value", "dense"]
+
+
+def _launch_into(out, vals, ids):
+    """The C launcher straight into ``out``, with no fill of its own."""
+    import ctypes
+
+    sr.load()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = sr._launch_fn(vals.data_ptr(), sr._VALUE_KIND[vals.dtype],
+                       ids.data_ptr(), int(vals.shape[0]), int(out.shape[0]),
+                       ctypes.c_void_p(out.data_ptr()), stream)
+    assert rc == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", TILING_CASES)
+def test_cuda_kernel_tiling_edges_exact(cuda_device, kind, dtype):
+    """Integer values (exact in bf16 and in any f32 order): the kernel
+    equals the plain version bit for bit, twice over, and writes every
+    output of a NaN-filled buffer, aligned and not 16-byte aligned."""
+    rng = np.random.default_rng(21)
+    ids, n = _tiling_fixture(kind, rng)
+    ids = np.sort(ids).astype(np.int32)
+    vals = _int_values(rng, ids.size)
+    v = _t(vals).to(cuda_device, getattr(torch, dtype))
+    i = _t(ids).to(cuda_device)
+    before = sr.launches
+    a = sr.segment_sum(v, i, n)
+    b = sr.segment_sum(v, i, n)
+    torch.cuda.synchronize()
+    assert sr.launches == before + 2
+    want = sr.sorted_segment_sum_plain(v, i, n)
+    assert torch.equal(a, want) and torch.equal(a, b)
+    for shift in (0, 1):
+        buf = torch.full((n + shift,), float("nan"), device=cuda_device)
+        _launch_into(buf[shift:], v, i)
+        torch.cuda.synchronize()
+        assert torch.equal(buf[shift:], want)

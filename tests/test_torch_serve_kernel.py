@@ -405,3 +405,144 @@ def test_cuda_kernel_matches_plain_version(cuda_device, rung, wdtype, sparse):
     tol = 1e-5 if wdtype == torch.float32 else 5e-2
     assert got.shape == (rung,) and got.dtype == torch.float32
     assert float((got - ref).abs().max()) <= tol
+
+
+# Edges of the kernel's design: (kind, layout, d, slots, k, shard) per
+# coordinate, each on the named shard. Lane l takes the row's (coordinate,
+# slot) pairs l, l + 32, ..., so 17 + 9 + 40 + 70 pairs take five rounds,
+# with a coordinate split across rounds; two random coordinates may share
+# a shard.
+DESIGN_CASES = {
+    **{f"coords-{n}": [("fixed", "dense", 20, 0, 0, 0)] + [
+        ("random", "dense" if i % 2 else "ell", 24, 6 + i, 5, i + 1)
+        for i in range(n - 1)] for n in range(1, 9)},
+    "random-only": [("random", "ell", 30, 9, 4, 0)],
+    "wide-slots": [("fixed", "ell", 64, 0, 8, 0),
+                   ("random", "dense", 17, 17, 0, 1),
+                   ("random", "ell", 90, 9, 6, 2),
+                   ("random", "dense", 80, 40, 0, 3),
+                   ("random", "ell", 200, 70, 12, 4)],
+    "wide-ell": [("fixed", "ell", 300, 0, 40, 0),
+                 ("random", "ell", 300, 50, 40, 0),
+                 ("random", "ell", 60, 33, 37, 1)],
+    "wide-dense": [("fixed", "dense", 64, 0, 0, 0),
+                   ("random", "dense", 300, 17, 0, 1),
+                   ("random", "dense", 9, 9, 0, 2)],
+    "many-shards": [("random", "dense", 250, 5 + i, 0, i) for i in range(5)]
+    + [("random", "ell", 100, 7, 60, 5)],
+    "shared-shard": [("random", "dense", 40, 17, 0, 0),
+                     ("random", "dense", 40, 9, 0, 0),
+                     ("fixed", "dense", 40, 0, 0, 0)],
+}
+
+
+def _design_operands(rng, rung, coords, *, wdtype, device, entities=50):
+    """fused_score operands for DESIGN_CASES: weights and features
+    N(0, 0.3); projector rows distinct feature ids with -1 pads; ELL ids
+    in [-1, d]; codes cold (-1) or past the table a fifth of the time
+    each."""
+    shards = {}
+    for _, layout, d, _, k, si in coords:
+        if si in shards:
+            continue
+        if layout == "dense":
+            shards[si] = ("dense", torch.from_numpy(
+                rng.normal(size=(rung, d)).astype(np.float32) * 0.3))
+        else:
+            shards[si] = ("sparse", (
+                torch.from_numpy(rng.integers(-1, d + 1, size=(rung, k))
+                                 .astype(np.int32)),
+                torch.from_numpy(rng.normal(size=(rung, k))
+                                 .astype(np.float32) * 0.3)))
+    order = sorted(shards)
+    fe_ws, fe_feat, re_ws, re_projs, re_feat, codes = [], [], [], [], [], []
+    for kind, _, d, s, _, si in coords:
+        if kind == "fixed":
+            fe_ws.append(torch.from_numpy(
+                rng.normal(size=d).astype(np.float32) * 0.3).to(wdtype))
+            fe_feat.append(order.index(si))
+            continue
+        proj = np.full((entities, s), -1, np.int32)
+        for e in range(entities):
+            live = min(s, d) - int(rng.integers(0, 2))
+            proj[e, :live] = rng.choice(d, size=live, replace=False)
+        re_ws.append(torch.from_numpy(
+            rng.normal(size=(entities, s)).astype(np.float32) * 0.3).to(
+                wdtype))
+        re_projs.append(torch.from_numpy(proj))
+        re_feat.append(order.index(si))
+        code = rng.integers(0, entities, size=rung).astype(np.int32)
+        u = rng.uniform(size=rung)
+        code[u < 0.2] = -1
+        code[(u >= 0.2) & (u < 0.4)] = entities + 3
+        codes.append(torch.from_numpy(code))
+
+    def to(t):
+        return t.to(device)
+
+    feats = tuple(tuple(map(to, shards[si][1])) if shards[si][0] == "sparse"
+                  else to(shards[si][1]) for si in order)
+    return dict(fe_ws=tuple(map(to, fe_ws)), re_ws=tuple(map(to, re_ws)),
+                re_projs=tuple(map(to, re_projs)), feats=feats,
+                codes=tuple(map(to, codes)),
+                spec_kinds=tuple(shards[si][0] for si in order),
+                fe_feat=tuple(fe_feat), re_feat=tuple(re_feat))
+
+
+def test_design_operands_are_valid_fused_score_inputs():
+    """The CUDA cases' operands run through the plain version here."""
+    rng = np.random.default_rng(0)
+    for name, coords in DESIGN_CASES.items():
+        ops = _design_operands(rng, 8, coords, wdtype=torch.float32,
+                               device="cpu")
+        z = serve_kernel.fused_score(**ops)
+        assert z.shape == (8,) and bool(z.isfinite().all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", [1, 8, 64, 512])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DESIGN_CASES))
+def test_cuda_kernel_at_its_design_edges(cuda_device, case, wdtype, rung):
+    """f32: within 1e-5 (1 + the row's sum of |products|), the same
+    products summed in another order; bf16: the serving gate 5e-2.
+    Cold and past-the-table codes contribute exactly 0: a model whose
+    only coordinate is random scores such rows 0."""
+    rng = np.random.default_rng(rung)
+    ops = _design_operands(rng, rung, DESIGN_CASES[case], wdtype=wdtype,
+                           device=cuda_device)
+    before = serve_kernel.launches
+    got = serve_kernel.fused_score(**ops)
+    torch.cuda.synchronize()
+    assert serve_kernel.launches == before + 1
+    ref = serve_kernel.fused_score_reference(**ops)
+    assert got.shape == (rung,) and got.dtype == torch.float32
+    if wdtype == torch.float32:
+        mag = serve_kernel.fused_score_reference(**{
+            **ops, "fe_ws": tuple(w.abs() for w in ops["fe_ws"]),
+            "re_ws": tuple(w.abs() for w in ops["re_ws"]),
+            "feats": tuple(tuple((f[0], f[1].abs())) if isinstance(f, tuple)
+                           else f.abs() for f in ops["feats"])})
+        assert bool(((got - ref).abs() <= 1e-5 * (1.0 + mag)).all())
+    else:
+        assert float((got - ref).abs().max()) <= 5e-2
+    if case == "random-only":
+        code = ops["codes"][0]
+        cold = (code < 0) | (code >= ops["re_ws"][0].shape[0])
+        assert bool((got[cold] == 0).all())
+
+
+def test_params_mirror_matches_the_cuda_source():
+    """The ctypes mirrors name the CUDA structs' fields in their order
+    (the loader also checks the size against the built library)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(serve_kernel.__file__).resolve().parents[2]
+           / serve_kernel.SOURCE).read_text()
+    for struct, mirror in (("Coord", serve_kernel._Coord),
+                           ("ServeParams", serve_kernel._Params)):
+        body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S)[1]
+        body = re.sub(r"//[^\n]*", "", body)
+        names = re.findall(r"(\w+)(?:\[\w+\])?;", body)
+        assert names == [f[0] for f in mirror._fields_], struct
