@@ -33,7 +33,28 @@ JSON lines:
              issue one kernel call, a whole host dispatch (copies +
              launch + fetch), and the bound;
 6. paced   - a second drive at a fixed offered load, whose p50/p99 are
-             service latency rather than queueing behind a flood.
+             service latency rather than queueing behind a flood;
+6a. coords - the serving model plus 9 small random coordinates (12
+             active, two launches a rung: groups of 8 and 4): the kernel
+             against its plain version at rungs 1 and 512, f32 and bf16
+             (the parity gates), and rung 512's device time beside the
+             3-coordinate model's;
+6b. score_cli - batch scoring from Avro: the serving model written as an
+             Avro GAME model directory (``save_game_model``, float32) and
+             107,496 TrainingExampleAvro rows (``write_training_examples``;
+             features / userFeatures / movieFeatures bags of 8 / 6 / 4
+             features, 5% cold user and movie ids, logistic labels,
+             weights and offsets), then ``cli.score.main`` with
+             ``--evaluators AUC RMSE AUC:userId``, once on the kernel and
+             once with ``PHOTON_SERVE_KERNEL=off``. Gates: the native Avro
+             decoder ran; one kernel launch per chunk of the 1024/8192
+             ladder (13 x 8192 + 1 x 1024) and none with the switch off;
+             the output scores within 1e-5 (relative to 1 + |score|) of
+             a float64 numpy score of the same rows and of the plain
+             run; ``evaluation.json`` within 1e-6 of numpy's metrics of
+             the written scores. It prints each stage's seconds, rows/s,
+             and the kernel's device ms at rungs 1024 and 8192 on the
+             CLI's ELL operands beside the bound and the launch floor.
 
 Then the training group, on the bench's logistic GLMix at full width in
 float32 (``bench.py`` ``build_estimator("logistic")`` and
@@ -66,7 +87,8 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      largest buckets, and the bound;
 14. route_agreement - the same fit at a tenth of the rows and entities
                      with the kernel route and with the batch-minor plain
-                     route: fixed effect within rtol 1e-3 / atol 1e-4,
+                     route (``PHOTON_NEWTON_KERNEL=off``): fixed effect
+                     within rtol 1e-3 / atol 1e-4,
                      random effects within rtol 1e-3 / atol 2e-3 (the
                      f32 resolution of an entity's optimum, see
                      RE_FIT_ATOL), training losses within 1e-4.
@@ -140,11 +162,18 @@ iterations, launches, host syncs) and training loss; newton_timing; the
 its per-movie gram bucket. It prints no ``ok`` line. To compare a parent
 commit, unpack its package into a git-ignored directory, copy this
 script beside it, and run parent, change, change, parent in one call.
+
+``python3 chip_smoke.py --timing N`` runs only the device and build
+phases and then the serve kernel's timing phase (phase 5) N times on the
+serving model, printing no ``ok`` line: the A/B of the serve kernel
+across two trees, in the same way.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -517,6 +546,354 @@ def phase_timing(torch, model) -> list[dict]:
             emit(row)
             rows.append(row)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# more than eight coordinates, and batch scoring from Avro
+# ---------------------------------------------------------------------------
+
+EXTRA_COORDS = 9  # random coordinates added: 12 active in all
+EXTRA_ENTITIES, EXTRA_SLOTS = 2_000, 5
+COORD_RUNGS = (1, 512)
+SCORE_ROWS = 13 * 8192 + 1_000  # chunk plan: 13 x 8192, then rung 1024
+SCORE_RUNGS = (1024, 8192)
+SCORE_EVALUATORS = ("AUC", "RMSE", "AUC:userId")
+SCORE_SHARDS = {"global": ("features", "g", N_FEATURES),
+                "userShard": ("userFeatures", "u", USER_SLOTS),
+                "movieShard": ("movieFeatures", "m", MOVIE_SLOTS)}
+EVAL_TOL = 1e-6
+
+
+def coords_arrays(arrays, manifest, seed: int = SEED + 1):
+    """The serving model plus EXTRA_COORDS small random coordinates,
+    alternating between the user and movie shards and id types, each
+    with its own entity vocabulary (12 active coordinates)."""
+    rng = np.random.default_rng(seed)
+    arrays, manifest = dict(arrays), dict(manifest)
+    for i in range(EXTRA_COORDS):
+        user = i % 2 == 0
+        width = USER_SLOTS if user else MOVIE_SLOTS
+        name = f"extra-{i}"
+        arrays[f"{name}/coefficients"] = (rng.normal(
+            size=(EXTRA_ENTITIES, EXTRA_SLOTS)) * 0.3).astype(np.float32)
+        arrays[f"{name}/proj_all"] = np.stack([
+            np.sort(rng.choice(width, size=EXTRA_SLOTS, replace=False))
+            for _ in range(EXTRA_ENTITIES)]).astype(np.int64)
+        manifest[name] = {
+            "kind": "random", "re_type": "userId" if user else "movieId",
+            "shard": "userShard" if user else "movieShard",
+            "task": "LOGISTIC_REGRESSION",
+            "entity_keys": [str(e) for e in rng.permutation(
+                N_USERS if user else N_MOVIES)[:EXTRA_ENTITIES]],
+        }
+    return arrays, manifest
+
+
+def phase_coords(torch, arrays, manifest, timing_rows) -> dict:
+    """A model of 12 active coordinates through one ScorePrograms: the
+    kernel (two launches a rung, groups of 8 and 4) against its plain
+    version at rungs 1 and 512, and rung 512's device time beside the
+    3-coordinate serving model's from the timing phase."""
+    from photon_tpu_torch.io.model_io import game_model_from_numpy
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.programs import ScorePrograms
+    from photon_tpu_torch.serve.tables import CoefficientTables
+
+    big_arrays, big_manifest = coords_arrays(arrays, manifest)
+    model = game_model_from_numpy(big_arrays, big_manifest, "cuda")
+    out = {}
+    for precision in ("float32", "bfloat16"):
+        tables = CoefficientTables.from_game_model(model, precision)
+        programs = ScorePrograms(tables)
+        n_coords = len(programs._fe_names) + len(programs._re_names)
+        for rung in COORD_RUNGS:
+            ops = packed_operands(programs, max(1, rung - 1), rung_seed=rung)
+            before = serve_kernel.launches
+            got = serve_kernel.fused_score(**ops)
+            torch.cuda.synchronize()
+            launched = serve_kernel.launches - before
+            ref = serve_kernel.fused_score_reference(**ops)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            row = {"phase": "coords", "precision": precision, "rung": rung,
+                   "coordinates": n_coords, "launches_per_rung": launched,
+                   "max_abs_err": err, "tol": TOL[precision]}
+            if rung == COORD_RUNGS[-1]:
+                three = next(r for r in timing_rows
+                             if r["precision"] == precision
+                             and r["rung"] == rung)
+                row.update(
+                    ms=device_ms(torch,
+                                 lambda: serve_kernel.fused_score(**ops),
+                                 TIMING_INNER),
+                    plain_ms=device_ms(
+                        torch, lambda: serve_kernel.fused_score_reference(
+                            **ops), PLAIN_INNER),
+                    three_coordinate_ms=three["ms"],
+                    launch_floor_ms=three["launch_floor_ms"],
+                    **bound(ops, precision))
+                out[precision] = row
+            emit(row)
+            if n_coords != 12 or launched != 2:
+                fail(f"coords: {n_coords} coordinates in {launched} "
+                     "launches, expected 12 in 2")
+            if not bool(got.isfinite().all()) or not err <= TOL[precision]:
+                fail(f"coords: kernel and plain version differ by {err} "
+                     f"({precision}, rung {rung})")
+    return out
+
+
+def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
+                seed: int = SEED + 2) -> dict:
+    """The serving model as an Avro GAME model directory (float32
+    coefficients, written by the port's ``save_game_model``) and ``n``
+    TrainingExampleAvro rows with the features, userFeatures and
+    movieFeatures bags (ELL_K features each, values N(0, 1)), userId and
+    movieId in the metadata with COLD_FRACTION cold ids each, logistic
+    labels, weights and offsets. Returns the paths and the arrays the
+    numpy reference scores from."""
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.io import avro_data
+    from photon_tpu_torch.io.model_io import (
+        game_model_from_numpy,
+        save_game_model,
+    )
+    from photon_tpu_torch.types import make_feature_key
+
+    rng = np.random.default_rng(seed)
+    model_dir = os.path.join(root, "model")
+    data_path = os.path.join(root, "data.avro")
+    keys = {s: [make_feature_key(f"{p}{j}") for j in range(d)]
+            for s, (_, p, d) in SCORE_SHARDS.items()}
+    t0 = time.perf_counter()
+    save_game_model(
+        game_model_from_numpy(arrays, manifest, "cpu"), model_dir,
+        {s: IndexMap({k: i for i, k in enumerate(ks)})
+         for s, ks in keys.items()})
+    model_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = {}
+    for s, (_, _, d) in SCORE_SHARDS.items():
+        k = ELL_K[s]
+        idx = np.argsort(rng.random((n, d)), axis=1)[:, :k]
+        # Stored as f32, as the reader keeps them.
+        val = rng.normal(size=(n, k)).astype(np.float32).astype(np.float64)
+        feats[s] = (idx, val)
+    users = rng.integers(0, N_USERS, size=n)
+    movies = rng.integers(0, N_MOVIES, size=n)
+    cold_u = rng.uniform(size=n) < COLD_FRACTION
+    cold_m = rng.uniform(size=n) < COLD_FRACTION
+    weights = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    offsets = (rng.normal(size=n) * 0.1).astype(np.float32)
+    exact = numpy_batch_scores(arrays, feats, np.where(cold_u, -1, users),
+                               np.where(cold_m, -1, movies))
+    labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(
+        -(exact + offsets)))).astype(np.float64)
+
+    def rows(s):
+        idx, val = feats[s]
+        ks = keys[s]
+        return [list(zip([ks[j] for j in r], v))
+                for r, v in zip(idx.tolist(), val.tolist())]
+
+    meta = [{"userId": f"cold-{i}" if cu else str(u),
+             "movieId": f"cold-{i}" if cm else str(m)}
+            for i, (u, m, cu, cm) in enumerate(zip(
+                users.tolist(), movies.tolist(), cold_u, cold_m))]
+    avro_data.write_training_examples(
+        data_path, labels, rows("global"), offsets=offsets,
+        weights=weights, metadata=meta, uids=np.arange(n),
+        bags={SCORE_SHARDS[s][0]: rows(s)
+              for s in ("userShard", "movieShard")})
+    data_s = time.perf_counter() - t0
+    return dict(model_dir=model_dir, data=data_path, exact=exact,
+                labels=labels, weights=weights.astype(np.float64),
+                offsets=offsets.astype(np.float64),
+                users=np.where(cold_u, -1, users), model_seconds=model_s,
+                data_seconds=data_s, data_bytes=os.path.getsize(data_path))
+
+
+def numpy_batch_scores(arrays, feats, users, movies) -> np.ndarray:
+    """float64 scores of the batch rows straight from the model arrays:
+    the global dot plus, for a known user (movie), the sum of its
+    coefficients at the row's user (movie) features (the serving model's
+    projector row is 0..S-1, so feature j is slot j)."""
+    gi, gv = feats["global"]
+    z = np.sum(gv * arrays["global/means"].astype(np.float64)[gi], axis=1)
+    for name, shard, codes in (("per-user", "userShard", users),
+                               ("per-movie", "movieShard", movies)):
+        idx, val = feats[shard]
+        w = arrays[f"{name}/coefficients"].astype(np.float64)
+        known = codes >= 0
+        z[known] += np.sum(val[known] * w[codes[known][:, None],
+                                          idx[known]], axis=1)
+    return z
+
+
+def numpy_auc(z, y, w) -> float:
+    """Weighted tie-aware AUC: each positive's weight times the negative
+    weight scored below it plus half that scored equal, over W+ W-."""
+    pos = y > 0.5
+    neg_s = z[~pos]
+    order = np.argsort(neg_s, kind="stable")
+    neg_s, neg_w = neg_s[order], w[~pos][order]
+    cum = np.concatenate([[0.0], np.cumsum(neg_w)])
+    below = cum[np.searchsorted(neg_s, z[pos], side="left")]
+    upto = cum[np.searchsorted(neg_s, z[pos], side="right")]
+    credit = np.sum(w[pos] * (below + 0.5 * (upto - below)))
+    return float(credit / (np.sum(w[pos]) * np.sum(neg_w)))
+
+
+def numpy_metrics(scores, files) -> dict:
+    """AUC, RMSE and AUC:userId of the scores plus offsets, in float64:
+    RMSE = sqrt(sum w (z - y)^2 / n); the grouped AUC is the mean over
+    the users (cold ids included, each its own group) whose rows hold
+    both classes."""
+    z = scores.astype(np.float64) + files["offsets"]
+    y, w = files["labels"], files["weights"]
+    groups = {}
+    ids = np.where(files["users"] >= 0, files["users"],
+                   -1 - np.arange(len(z)))
+    order = np.argsort(ids, kind="stable")
+    bounds = np.flatnonzero(np.diff(ids[order])) + 1
+    for rows in np.split(order, bounds):
+        yy = y[rows]
+        if yy.min() < 0.5 < yy.max():
+            groups[int(ids[rows[0]])] = numpy_auc(z[rows], yy, w[rows])
+    return {"AUC": numpy_auc(z, y, w),
+            "RMSE": float(np.sqrt(np.sum(w * (z - y) ** 2) / len(z))),
+            "AUC:userId": float(np.mean(list(groups.values())))}
+
+
+def run_score_cli(files, out_dir, *extra) -> dict:
+    """One ``cli.score.main`` run in this process; its JSON line."""
+    from photon_tpu_torch.cli import score as score_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = score_cli.main([
+            "--model-dir", files["model_dir"], "--input", files["data"],
+            "--output", out_dir, "--feature-shards",
+            *[f"{s}={SCORE_SHARDS[s][0]}" for s in SCORE_SHARDS],
+            "--id-tags", "userId", "movieId",
+            "--evaluators", *SCORE_EVALUATORS, *extra])
+    if rc != 0:
+        fail(f"cli.score exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
+    """Batch scoring from Avro at full width through the CLI (module
+    docstring); returns the rung-8192 timing row."""
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.io.avro_data import read_merged
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.native import get_avro_decoder
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.programs import (
+        ScorePrograms,
+        ShapeLadder,
+        specs_from_dataset,
+    )
+    from photon_tpu_torch.data.random_effect import scoring_codes
+    from photon_tpu_torch.serve.tables import CoefficientTables
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke", "score")
+    files = score_files(arrays, manifest, root)
+    decoder = "native" if get_avro_decoder() is not None else "python"
+    plan = ShapeLadder(SCORE_RUNGS).chunk_plan(SCORE_ROWS)
+    serve_kernel.launches = 0
+    line = run_score_cli(files, os.path.join(root, "out"))
+    launches = serve_kernel.launches
+    with env_switch("PHOTON_SERVE_KERNEL", "off"):
+        serve_kernel.launches = 0
+        plain_line = run_score_cli(files, os.path.join(root, "out_plain"))
+        plain_launches = serve_kernel.launches
+    recs = avro.read_container_dir(os.path.join(root, "out",
+                                                "part-00000.avro"))
+    scores = np.array([r["predictionScore"] for r in recs])
+    plain = np.array([r["predictionScore"] for r in avro.read_container_dir(
+        os.path.join(root, "out_plain", "part-00000.avro"))])
+    rel = 1.0 + np.abs(files["exact"])
+    err_numpy = float(np.max(np.abs(scores - files["exact"]) / rel))
+    err_plain = float(np.max(np.abs(scores - plain) / rel))
+    with open(os.path.join(root, "out", "evaluation.json")) as f:
+        evaluation = json.load(f)
+    want = numpy_metrics(scores, files)
+    eval_err = {k: abs(evaluation[k] - want[k]) for k in want}
+
+    # The kernel at rungs 1024 and 8192 on the CLI's own operands: the
+    # dataset and tables rebuilt as the CLI builds them, the first rows.
+    data, maps = read_merged(
+        files["data"],
+        feature_shards={s: [SCORE_SHARDS[s][0]] for s in SCORE_SHARDS},
+        id_tag_names=["userId", "movieId"], device="cuda")
+    model, _ = load_game_model(files["model_dir"], maps, device="cuda")
+    programs = ScorePrograms(
+        CoefficientTables.from_game_model(model, "float32"),
+        ladder=ShapeLadder(SCORE_RUNGS), specs=specs_from_dataset(data))
+    codes_all = [torch.from_numpy(scoring_codes(
+        data, programs.tables.random[nm].random_effect_type,
+        programs.tables.random[nm].entity_keys).astype(np.int32)).cuda()
+        for nm in programs._re_names]
+    timing = []
+    for rung in SCORE_RUNGS:
+        feats = tuple(programs.specs[s].slice_rows(
+            (data.feature_shards[s].indices, data.feature_shards[s].values),
+            0, rung, rung) for s in programs.shard_order)
+        ops = programs._device_operands(
+            feats, tuple(c[:rung].contiguous() for c in codes_all))
+        row = {"phase": "score_cli_timing", "rung": rung,
+               "layout": "ell", "precision": "float32",
+               "k": {s: programs.specs[s].k for s in programs.shard_order},
+               "ms": device_ms(torch,
+                               lambda: serve_kernel.fused_score(**ops),
+                               TIMING_INNER),
+               "plain_ms": device_ms(
+                   torch, lambda: serve_kernel.fused_score_reference(**ops),
+                   PLAIN_INNER),
+               "launch_floor_ms": floor_ms, **bound(ops, "float32")}
+        emit(row)
+        timing.append(row)
+    del data, model, programs, codes_all
+    torch.cuda.empty_cache()
+
+    sec = line["seconds"]
+    row = {
+        "phase": "score_cli", "rows": SCORE_ROWS, "decoder": decoder,
+        "decoded_blocks": line["decoded_blocks"],
+        "write_data_seconds": files["data_seconds"],
+        "write_model_seconds": files["model_seconds"],
+        "data_bytes": files["data_bytes"],
+        "seconds": sec, "rows_per_second": line["rows_per_second"],
+        "chunks": len(plan), "kernel_launches": launches,
+        "plain_run_launches": plain_launches,
+        "serve_kernel": [line["serve_kernel"], plain_line["serve_kernel"]],
+        "dispatches": line["dispatches"],
+        "max_rel_err_numpy_f64": err_numpy,
+        "max_rel_err_plain": err_plain,
+        "evaluation": evaluation, "evaluation_numpy": want,
+        "evaluation_max_abs_err": max(eval_err.values()),
+        "plain_run_seconds": plain_line["seconds"],
+    }
+    emit(row)
+    if decoder != "native" or line["decoded_blocks"]["python"]:
+        fail(f"score_cli: the Avro decoder was {decoder} "
+             f"({line['decoded_blocks']})")
+    if launches != len(plan) or line["chunks"] != len(plan):
+        fail(f"score_cli: {launches} kernel launches for {len(plan)} chunks")
+    if plain_launches != 0 or plain_line["serve_kernel"] != "plain":
+        fail("score_cli: PHOTON_SERVE_KERNEL=off still launched the kernel")
+    if len(scores) != SCORE_ROWS or not np.isfinite(scores).all():
+        fail("score_cli: the output scores are not finite or not one a row")
+    if not err_numpy <= 1e-5:
+        fail(f"score_cli: scores differ from the numpy score by {err_numpy}")
+    if not err_plain <= 1e-5:
+        fail(f"score_cli: kernel and plain runs differ by {err_plain}")
+    if not max(eval_err.values()) <= EVAL_TOL:
+        fail(f"score_cli: evaluation.json differs from numpy: {eval_err}")
+    return {**timing[-1], "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1060,6 +1437,28 @@ def fit_objective(torch, total, data) -> float:
                                                 data.labels.double())))
 
 
+@contextlib.contextmanager
+def env_switch(name: str, value: str | None):
+    """Set the kernel switch ``name`` to ``value`` (None: leave it as it
+    is) for the block, then restore it."""
+    before = os.environ.get(name)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
+
+
+def newton_switch(value: str | None):
+    """``PHOTON_NEWTON_KERNEL=off`` sends every bucket to the batch-minor
+    plain route (the switch is read at each route choice)."""
+    return env_switch("PHOTON_NEWTON_KERNEL", value)
+
+
 def phase_route_agreement(torch) -> dict:
     """The same fit at a tenth of the rows, users and movies (the
     per-entity shapes stay the bench's) with the kernel route and with
@@ -1071,19 +1470,14 @@ def phase_route_agreement(torch) -> dict:
     arrays = synth_arrays(**REDUCED)
     data = train_dataset(arrays)
     fits = {}
-    supported = nk.kernel_supported
     for route in ("kernel", "plain"):
         est = build_estimator()
         nk.launches = ra.plain_route_solves = 0
-        if route == "plain":
-            nk.kernel_supported = lambda *a, **k: False
-        try:
+        with newton_switch("off" if route == "plain" else None):
             t0 = time.perf_counter()
             model = est.fit(data)[0].model
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        finally:
-            nk.kernel_supported = supported
         datasets = est.prepare(data)
         total, _ = total_scores(torch, model, datasets, data)
         fits[route] = dict(model=model, seconds=secs, launches=nk.launches,
@@ -1988,18 +2382,13 @@ def fits_only(torch, n: int) -> int:
         data = train_dataset(arrays, dtype)
         est = build_estimator()
         datasets = est.prepare(data)
-        supported = nk.kernel_supported
-        if route == "plain":
-            nk.kernel_supported = lambda *a, **k: False
-        try:
+        with newton_switch("off" if route == "plain" else None):
             for k in range(n + 1 if route == "kernel" else 1):
                 traj, res = fit_trajectory(torch, est, data)
                 total, _ = total_scores(torch, res.model, datasets, data)
                 emit({"phase": "fits", "route": route, "fit": k,
                       "cold": k == 0, **traj,
                       "training_loss": fit_objective(torch, total, data)})
-        finally:
-            nk.kernel_supported = supported
         if route == "kernel":
             phase_newton_timing(torch, datasets, est, bucket_launches(
                 res.descent.history, datasets))
@@ -2025,6 +2414,8 @@ def fits_only(torch, n: int) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of photon_tpu_torch on one NVIDIA GPU.")
+    ap.add_argument("--timing", type=int, default=0, metavar="N",
+                    help="run only the serve kernel's timing, N times")
     ap.add_argument("--fits", type=int, default=0, metavar="N",
                     help="run only the full-width fits, N warm times each")
     args = ap.parse_args()
@@ -2068,6 +2459,12 @@ def main() -> int:
           "sources": [str(p.name) for p in _build.sources()]})
     if args.fits > 0:
         return fits_only(torch, args.fits)
+    if args.timing > 0:
+        model = game_model_from_numpy(*serving_arrays(), "cuda")
+        for _ in range(args.timing):
+            phase_timing(torch, model)
+        print(smi, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     arrays, manifest = serving_arrays()
@@ -2084,6 +2481,11 @@ def main() -> int:
     worst = phase_parity(torch, model)
     serve = phase_serve(torch, ckpt, arrays)
     rows = phase_timing(torch, model)
+    coords = phase_coords(torch, arrays, manifest, rows)
+    del model
+    batch = phase_score_cli(torch, arrays, manifest,
+                            rows[0]["launch_floor_ms"])
+    torch.cuda.empty_cache()
     newton = phase_train(torch)
     torch.cuda.empty_cache()
     segment = phase_wide(torch)
@@ -2095,14 +2497,20 @@ def main() -> int:
         "route": "cuda",
         "source": serve_kernel.SOURCE,
         "replaces": REPLACES,
-        "launches": serve["kernel_launches"],
-        "max_abs_err": worst,
+        # Both of its main paths: the served requests and the batch CLI.
+        "launches": serve["kernel_launches"] + batch["launches"],
+        "launches_by_path": {"serve": serve["kernel_launches"],
+                             "score_cli": batch["launches"]},
+        "max_abs_err": max(worst, coords["float32"]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
         "launch_floor_ms": top["launch_floor_ms"],
+        "score_cli_rung_8192_ms": batch["ms"],
+        "score_cli_rung_8192_bound_ms": batch["bound_ms"],
+        "coords_12_rung_512_bf16_ms": coords["bfloat16"]["ms"],
     }, newton, segment]
     if not all(math.isfinite(k["ms"]) and k["ms"] > 0
                and math.isfinite(k["bound_ms"]) and k["bound_ms"] > 0

@@ -1,14 +1,17 @@
-"""Online scoring on the GPU: load a checkpoint, serve synthetic traffic.
+"""Online scoring on the GPU: load a model, serve synthetic traffic.
 
-Loads a native ``.npz`` checkpoint into device-resident coefficient
-tables, builds the score ladder (loading the fused serve kernel), starts
-the micro-batch queue, drives synthetic requests through it and prints
-one JSON line: p50/p99 latency, QPS, batch fill, cold-entity rate,
-dispatches per rung and the kernel launches the run made.
+Loads a native ``.npz`` checkpoint, or an Avro GAME model directory
+keyed by its own records' feature index maps, into device-resident
+coefficient tables, builds the score ladder (loading the fused serve
+kernel), starts the micro-batch queue, drives synthetic requests through
+it and prints one JSON line: p50/p99 latency, QPS, batch fill,
+cold-entity rate, dispatches per rung and the kernel launches the run
+made.
 
 Usage:
-    python -m photon_tpu_torch.cli.serve --checkpoint model.npz \
-        --synthetic 20000 [--batch-sizes 1,8,64,512] [--max-linger-ms 2] \
+    python -m photon_tpu_torch.cli.serve (--checkpoint model.npz | \
+        --model-dir out/models/best) --synthetic 20000 \
+        [--batch-sizes 1,8,64,512] [--max-linger-ms 2] \
         [--precision float32|bfloat16] [--target-qps Q] [--device cuda|cpu]
 """
 
@@ -19,14 +22,28 @@ import json
 import sys
 
 
-def build_server(checkpoint: str, *, precision: str = "float32",
-                 rungs=(1, 8, 64, 512), device=None):
-    """Checkpoint -> (tables, programs) on ``device`` (default cuda)."""
-    from photon_tpu_torch.io.model_io import load_checkpoint
+def build_server(checkpoint: str | None = None, *,
+                 precision: str = "float32", rungs=(1, 8, 64, 512),
+                 device=None, model_dir: str | None = None):
+    """A checkpoint or an Avro model directory -> (tables, programs) on
+    ``device`` (default cuda)."""
+    from photon_tpu_torch.io.model_io import load_checkpoint, load_game_model
     from photon_tpu_torch.serve.programs import ScorePrograms, ShapeLadder
-    from photon_tpu_torch.serve.tables import CoefficientTables
+    from photon_tpu_torch.serve.tables import (
+        CoefficientTables,
+        build_index_maps_from_model,
+    )
 
-    model = load_checkpoint(checkpoint, device)
+    if (checkpoint is None) == (model_dir is None):
+        raise ValueError("give exactly one of a checkpoint and a model "
+                         "directory")
+    if checkpoint is not None:
+        model = load_checkpoint(checkpoint, device)
+    else:
+        # Standalone serving: the model directory's own records define
+        # the feature space.
+        model, _ = load_game_model(
+            model_dir, build_index_maps_from_model(model_dir), device=device)
     tables = CoefficientTables.from_game_model(model, precision, device)
     return tables, ScorePrograms(tables, ladder=ShapeLadder(rungs))
 
@@ -39,7 +56,7 @@ def run(args) -> dict:
     rungs = tuple(int(r) for r in args.batch_sizes.split(",") if r.strip())
     tables, programs = build_server(
         args.checkpoint, precision=args.precision, rungs=rungs,
-        device=args.device,
+        device=args.device, model_dir=args.model_dir,
     )
     requests = synthetic_requests(
         tables, programs, args.synthetic,
@@ -55,7 +72,7 @@ def run(args) -> dict:
         summary = drive(queue, requests, rate=args.target_qps)
     out = {
         "metric": "serving",
-        "model": args.checkpoint,
+        "model": args.checkpoint or args.model_dir,
         "device": str(programs.device),
         "precision": tables.precision,
         "rungs": list(programs.ladder.rungs),
@@ -64,6 +81,7 @@ def run(args) -> dict:
         "library_load_seconds": round(
             programs.stats["library_load_seconds"], 4),
         "dispatches": programs.stats["dispatches"],
+        "serve_kernel": programs.stats["serve_kernel"],
         # Nothing is built after ScorePrograms.__init__ loaded the
         # kernel library, so the request loop builds nothing.
         "compile_events_during_serving": 0,
@@ -79,8 +97,10 @@ def main(argv=None) -> int:
         prog="photon_tpu_torch.cli.serve", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    parser.add_argument("--checkpoint", required=True,
-                        help="native .npz checkpoint")
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint", help="native .npz checkpoint")
+    src.add_argument("--model-dir",
+                     help="GAME model directory (Avro layout)")
     parser.add_argument("--synthetic", type=int, default=1000, metavar="N",
                         help="number of synthetic requests to drive")
     parser.add_argument("--cold-fraction", type=float, default=0.05,

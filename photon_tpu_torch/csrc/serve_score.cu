@@ -38,13 +38,21 @@
 // latency, and instruction fetch is part of it. At rung 512 the grid is 256
 // blocks of 2 rows, all resident at once.
 //
+// One launch takes up to kGroupCoords coordinates, whose constants travel in
+// the kernel's parameters (read through the constant cache, no extra memory
+// round trip). A model with more coordinates is scored by one launch per
+// group of kGroupCoords, in stream order: the first writes the rung's scores,
+// each later one adds its group's sum to them (accumulate = 1). There is no
+// cap on the number of coordinates; a model of up to kGroupCoords pays one
+// launch, as before.
+//
 // The kernel allocates nothing and does not synchronise. The launcher returns
 // cudaGetLastError() and the Python wrapper raises when it is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-constexpr int kMaxCoords = 8;
+constexpr int kGroupCoords = 8;  // coordinates per launch
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 2;
 
@@ -63,16 +71,18 @@ struct Coord {
   long long e;         // random: entities
 };
 
-// The fixed coordinates come first in c, then the random ones.
+// One launch's group of coordinates: its fixed ones first in c, then its
+// random ones.
 struct ServeParams {
-  Coord c[kMaxCoords];
-  long long pair_base[kMaxCoords];  // first pair of random coordinate r;
-                                    // past n_pairs for absent ones
+  Coord c[kGroupCoords];
+  long long pair_base[kGroupCoords];  // first pair of random coordinate r;
+                                      // past n_pairs for absent ones
   long long n_coords;
   long long n_fixed;
-  long long n_pairs;   // slots over all random coordinates
+  long long n_pairs;     // slots over the group's random coordinates
   long long rung;
-  float* out;          // [rung] f32 scores
+  long long accumulate;  // 0: out = sum; 1: out += sum (a later group)
+  float* out;            // [rung] f32 scores
 };
 
 template <typename T>
@@ -125,7 +135,7 @@ __device__ __forceinline__ Pair pair_of(const ServeParams& p, long long pi) {
   if (pi >= p.n_pairs) return out;
   int r = 0;
 #pragma unroll
-  for (int j = 1; j < kMaxCoords; ++j) r += pi >= p.pair_base[j];
+  for (int j = 1; j < kGroupCoords; ++j) r += pi >= p.pair_base[j];
   out.ci = static_cast<int>(p.n_fixed) + r;
   out.s = pi - p.pair_base[r];
   return out;
@@ -189,7 +199,7 @@ serve_score_kernel(const __grid_constant__ ServeParams p) {
   for (int off = kWarp / 2; off > 0; off /= 2) {
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   }
-  if (lane == 0) p.out[row] = acc;
+  if (lane == 0) p.out[row] = p.accumulate ? p.out[row] + acc : acc;
 }
 
 extern "C" {
@@ -200,7 +210,7 @@ long long photon_serve_params_size() { return sizeof(ServeParams); }
 // Launch one rung on `stream`. bf16 != 0 selects bf16 tables, else f32.
 int photon_serve_score(const ServeParams* params, int bf16, void* stream) {
   const ServeParams& p = *params;
-  if (p.rung <= 0 || p.n_coords < 1 || p.n_coords > kMaxCoords ||
+  if (p.rung <= 0 || p.n_coords < 1 || p.n_coords > kGroupCoords ||
       p.n_fixed < 0 || p.n_fixed > p.n_coords || p.n_pairs < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -89,9 +89,23 @@ class GameDataset:
         feature shard (a dense shard broadcasts ``arange(d)``)."""
         return self.host[("shard", shard_id)]
 
+    def host_shard_tail(self, shard_id: str):
+        """COO overflow of a shard past its ELL width: None, as every
+        shard the port builds is rectangular (the dual-ELL layout is not
+        ported, ROADMAP Queue A)."""
+        if shard_id not in self.feature_shards:
+            raise KeyError(shard_id)
+        return None
+
     def shard_batch(self, shard_id: str) -> GLMBatch:
         return GLMBatch(self.feature_shards[shard_id], self.labels,
                         self.offsets, self.weights)
+
+    def tag_codes(self, tag: str) -> tuple[torch.Tensor, int]:
+        """(the [n] int32 group codes of id tag ``tag``, its number of
+        groups)."""
+        t = self.id_tags[tag]
+        return t.codes, t.num_groups
 
 
 def make_game_dataset(

@@ -883,3 +883,72 @@ def _build_materialized(game_data: GameDataset,
         **tail_arrays,
         **common,
     )
+
+
+def scoring_codes(game_data: GameDataset, re_type: str,
+                  entity_keys: tuple) -> np.ndarray:
+    """[n] trained-entity code per row of ``game_data`` (-1 = an entity
+    the model never trained)."""
+    tag = game_data.id_tags[re_type]
+    vocab = {str(k): i for i, k in enumerate(entity_keys)}
+    code_map = np.array([vocab.get(str(k), -1) for k in tag.inverse],
+                        dtype=np.int64)
+    if len(tag.inverse) and len(entity_keys) and (code_map < 0).all():
+        import warnings
+
+        warnings.warn(
+            f"scoring remap({re_type!r}): none of {len(tag.inverse)} "
+            f"dataset entities match the {len(entity_keys)} model entities "
+            "- every random-effect score will be 0",
+            stacklevel=2,
+        )
+    return code_map[tag.host_codes()]
+
+
+def projector_table_from_proj_all(proj_all: np.ndarray,
+                                  num_features: int) -> _ProjectorTable:
+    """The flat projector table of a [E, S] projector matrix. A trained
+    model's projectors may name feature ids past a new dataset's shard
+    width; the stride covers both, so unknown features drop."""
+    e = proj_all.shape[0] if proj_all.ndim == 2 else 0
+    stride = num_features
+    if proj_all.size:
+        stride = max(stride, int(proj_all.max(initial=0)) + 1)
+    return _ProjectorTable.from_lists(
+        [row[row >= 0] for row in proj_all[:e]], stride)
+
+
+def remap_for_scoring(game_data: GameDataset, *, re_type: str,
+                      feature_shard_id: str, entity_keys: tuple,
+                      proj_all: np.ndarray, dtype=None,
+                      width_cap: int | None = None):
+    """Remap any GameDataset's rows into trained entity subspaces:
+    (codes, indices, values, tail) for ``score_entity_table_with_tail``,
+    on the dataset's device. Rows of entities the model never trained
+    score 0 (RandomEffectModel.score :70's left join); ``tail`` is None
+    unless ``width_cap`` is set, else the capped table's COO overflow
+    (rows, slots, values)."""
+    dev = game_data.device
+    if dtype is None:
+        dtype = game_data.dtype
+    codes = scoring_codes(game_data, re_type, entity_keys)
+    ell_idx, ell_val, num_features = game_data.host_shard_coo(
+        feature_shard_id)
+    table = projector_table_from_proj_all(proj_all, num_features)
+    si, sv, tail = _score_table_arrays(codes, ell_idx, ell_val, table,
+                                       width_cap)
+    unseen = codes < 0
+    sv = np.array(sv)
+    sv[unseen] = 0.0
+    codes_safe = np.maximum(codes, 0)
+
+    def put(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    tail_out = None
+    if tail is not None:
+        tr, ti, tv = tail
+        tail_out = (put(tr, torch.int32), put(ti, torch.int32),
+                    put(tv, dtype))
+    return (put(codes_safe, torch.int32), put(si, torch.int32),
+            put(sv, dtype), tail_out)

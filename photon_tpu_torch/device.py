@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+# Every entry point runs on one device; a mesh raises with this.
+MESH_NOT_PORTED = "multi-device scoring: ROADMAP Queue A item 12"
+
 
 def resolve(device: str | torch.device | None = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)

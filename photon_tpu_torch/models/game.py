@@ -338,3 +338,40 @@ def remap_random_effect_model(model: RandomEffectModel, *,
         proj_all=proj_all,
         entity_keys=entity_keys,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseEntityCoefficients:
+    """One entity's model in original-space sparse form: parallel arrays
+    of (original feature id, mean[, variance]), the shape of one
+    per-entity BayesianLinearModelAvro record."""
+
+    feature_indices: np.ndarray  # [nnz] original feature ids
+    means: np.ndarray  # [nnz]
+    variances: np.ndarray | None  # [nnz]
+
+
+def random_effect_model_to_glms(
+    model: RandomEffectModel,
+) -> dict[str, SparseEntityCoefficients]:
+    """Expand the padded matrix into per-entity original-space sparse
+    coefficients, in entity order; entities with no valid slot are
+    left out (the model export of the reference's per-entity records)."""
+    out: dict[str, SparseEntityCoefficients] = {}
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    w = host(model.coefficients)
+    v = None if model.variances is None else host(model.variances)
+    for e in range(model.num_entities):
+        valid = model.proj_all[e] >= 0
+        if not valid.any():
+            continue
+        key = model.entity_keys[e] if model.entity_keys else str(e)
+        out[str(key)] = SparseEntityCoefficients(
+            feature_indices=model.proj_all[e, valid].astype(np.int64),
+            means=w[e, valid],
+            variances=None if v is None else v[e, valid],
+        )
+    return out

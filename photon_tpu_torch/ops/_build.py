@@ -11,12 +11,17 @@ A failed build raises with nvcc's stderr: there is no fallback.
 The library is loaded with ``ctypes``; each kernel module declares the
 ``argtypes`` of the functions it calls (every pointer and the stream as
 ``c_void_p``).
+
+``kernel_off`` reads a kernel's environment switch
+(``PHOTON_SERVE_KERNEL``, ``PHOTON_NEWTON_KERNEL``,
+``PHOTON_SEGMENT_KERNEL``) with the JAX package's spellings.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -37,6 +42,25 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None
+_logged_switches: set = set()
+log = logging.getLogger(__name__)
+
+
+def kernel_off(name: str) -> bool:
+    """Whether the environment switch ``name`` turns its kernel off:
+    ``off``/``0``/``false`` do, and then a CUDA tensor takes the plain
+    PyTorch version; ``force``/``on``/``1``, anything else and unset
+    leave the hand-written kernel on CUDA tensors. On the CPU every value
+    runs the plain version (there is no kernel to force). Each choice is
+    logged once per process."""
+    off = os.environ.get(name, "auto").strip().lower() in ("0", "off",
+                                                           "false")
+    if (name, off) not in _logged_switches:
+        _logged_switches.add((name, off))
+        log.info("%s: %s", name,
+                 "plain PyTorch version" if off
+                 else "hand-written kernel on CUDA tensors")
+    return off
 
 
 def sources() -> list[Path]:

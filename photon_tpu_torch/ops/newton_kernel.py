@@ -24,7 +24,9 @@ a CG that applies H from the slab without forming it; it is bound by
 operations.
 
 ``kernel_supported`` is the reference's gate: f32, logistic or Poisson
-loss, R * S <= 16384.
+loss, R * S <= 16384, and the switch ``PHOTON_NEWTON_KERNEL`` not
+``off`` (``off`` sends every bucket to the batch-minor plain loop; on
+the CPU ``force`` runs the plain version, as ``auto`` does).
 """
 
 from __future__ import annotations
@@ -56,7 +58,10 @@ _workspace_fn = None
 def kernel_supported(task: TaskType, dtype: torch.dtype, r: int,
                      s: int) -> bool:
     """Whether a bucket takes the Newton-step route (kernel on CUDA,
-    plain version on the CPU) rather than the batch-minor plain loop."""
+    plain version on the CPU) rather than the batch-minor plain loop;
+    ``PHOTON_NEWTON_KERNEL=off`` sends every bucket to the loop."""
+    if _build.kernel_off("PHOTON_NEWTON_KERNEL"):
+        return False
     return dtype == torch.float32 and task in _TASK_CODE and r * s <= MAX_RS
 
 

@@ -28,6 +28,13 @@ rule. The run reduction itself needs no coverage window, so
 ``multiplicity``, and ``densify_ell`` densifies the buckets the route
 gates leave on ELL through it too.
 
+``PHOTON_SEGMENT_KERNEL=off`` turns the kernel off: ``kernel_supported``
+is then False, so the ELL wrappers' gates send every bucket to the
+routes without a reduce, as the reference's XLA fallback does, and the
+sums that remain (``segment_sum`` and the wrappers over it) run the
+plain version on CUDA tensors too. Any other value keeps the kernel on
+CUDA tensors; the CPU always runs the plain version.
+
 The sorts in front of the reduces are plain PyTorch, as the reference's
 ``argsort`` is XLA outside its Pallas call.
 """
@@ -73,7 +80,9 @@ def reset_counts() -> None:
 def kernel_supported(num_values: int, num_segments: int, dtype) -> bool:
     """Whether the kernel route serves this reduce: f32 or bf16 values,
     at least one value and one segment, both counts below 2**31 (the
-    ids are int32)."""
+    ids are int32), and ``PHOTON_SEGMENT_KERNEL`` not ``off``."""
+    if _build.kernel_off("PHOTON_SEGMENT_KERNEL"):
+        return False
     return (dtype in _VALUE_KIND
             and 1 <= int(num_values) < 2**31
             and 1 <= int(num_segments) < 2**31)
@@ -159,9 +168,11 @@ def sorted_segment_sum_plain(values: torch.Tensor, ids: torch.Tensor,
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int,
                 *, site: str = "segment_reduce") -> torch.Tensor:
     """Segment sum over sorted int32 ids: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. An empty reduce is
+    tensors, the plain version for CPU tensors (and for CUDA tensors
+    when ``PHOTON_SEGMENT_KERNEL=off``). An empty reduce is
     ``num_segments`` zeros, with nothing to launch."""
-    if values.device.type == "cpu":
+    if (values.device.type == "cpu"
+            or _build.kernel_off("PHOTON_SEGMENT_KERNEL")):
         return sorted_segment_sum_plain(values, ids, num_segments)
     if values.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {values.device}")
@@ -372,8 +383,9 @@ def densify_ell(x_indices: torch.Tensor, x_values: torch.Tensor,
                 site: str = "segment_reduce/densify_ell") -> torch.Tensor:
     """[B, R, k] slot-ELL to [B, R, S] dense for a bucket the route gates
     leave on ELL: on CUDA tensors through the kernel, which takes any
-    width (and raises for values it does not take); on CPU tensors by
-    ``densify_ell_plain``."""
-    if x_values.device.type == "cpu":
+    width (and raises for values it does not take); on CPU tensors, or
+    with ``PHOTON_SEGMENT_KERNEL=off``, by ``densify_ell_plain``."""
+    if (x_values.device.type == "cpu"
+            or _build.kernel_off("PHOTON_SEGMENT_KERNEL")):
         return densify_ell_plain(x_indices, x_values, sub_dim)
     return _densify_by_reduce(x_indices, x_values, sub_dim, site)

@@ -13,8 +13,10 @@ a row's chain of dependent loads (code, then projector and weight, then
 feature). The kernel puts every independent load of a row in flight
 together, one lane per (coordinate, slot) pair, so a row waits on three
 memory round trips whatever its number of coordinates; one launch
-scores a rung for all coordinates together, with no intermediate in
-device memory.
+scores a rung for up to ``GROUP_COORDS`` coordinates together, with no
+intermediate in device memory. A model with more coordinates takes one
+launch per group of ``GROUP_COORDS``, each later one adding into the
+first one's output: any number of coordinates is served.
 
 Operands follow ``ScorePrograms``: ``feats`` holds one leaf per feature
 shard in shard order (dense: [rung, d] f32; ELL: ([rung, k] int32,
@@ -36,7 +38,9 @@ from photon_tpu_torch.models.game import _score_raw_dense, _score_raw_sparse
 from photon_tpu_torch.ops import _build
 from photon_tpu_torch.ops import precision as precision_mod
 
-MAX_COORDS = 8
+# Coordinates per launch: ``ServeParams`` in csrc/serve_score.cu holds
+# this many; a model with more takes one launch per group.
+GROUP_COORDS = 8
 SOURCE = "photon_tpu_torch/csrc/serve_score.cu"
 
 # Kernel launches made by ``fused_score`` (never by the plain version).
@@ -63,17 +67,25 @@ class _Params(ctypes.Structure):
     """Mirror of ``ServeParams`` in csrc/serve_score.cu."""
 
     _fields_ = [
-        ("c", _Coord * MAX_COORDS),
-        ("pair_base", ctypes.c_longlong * MAX_COORDS),
+        ("c", _Coord * GROUP_COORDS),
+        ("pair_base", ctypes.c_longlong * GROUP_COORDS),
         ("n_coords", ctypes.c_longlong),
         ("n_fixed", ctypes.c_longlong),
         ("n_pairs", ctypes.c_longlong),
         ("rung", ctypes.c_longlong),
+        ("accumulate", ctypes.c_longlong),
         ("out", ctypes.c_void_p),
     ]
 
 
 _launch_fn = None
+
+
+def kernel_supported() -> bool:
+    """Whether a score program on the card takes the kernel: True unless
+    ``PHOTON_SERVE_KERNEL`` is ``off`` (then it takes the plain version).
+    ``ScorePrograms`` asks once, at construction."""
+    return not _build.kernel_off("PHOTON_SERVE_KERNEL")
 
 
 def load() -> None:
@@ -176,10 +188,8 @@ def _launch(
 ) -> torch.Tensor:
     global launches
     n_coords = len(fe_ws) + len(re_ws)
-    if not 1 <= n_coords <= MAX_COORDS:
-        raise ValueError(
-            f"the serve kernel takes 1..{MAX_COORDS} coordinates, got "
-            f"{n_coords}")
+    if n_coords < 1:
+        raise ValueError("the serve kernel needs at least one coordinate")
     if len(re_projs) != len(re_ws) or len(codes) != len(re_ws):
         raise ValueError("one projector and one code vector per random "
                          "coordinate")
@@ -212,21 +222,19 @@ def _launch(
                 (val.data_ptr(), idx.data_ptr(), None, int(idx.shape[1]))
             )
 
-    params = _Params()
-    params.n_coords = n_coords
-    params.n_fixed = len(fe_ws)
-    params.rung = rung
-    ci = 0
-    for w, fi in zip(fe_ws, fe_feat):
+    # One filled _Coord per coordinate, fixed ones first, and for each
+    # random one its slot count.
+    coords: list[tuple[_Coord, int | None]] = []
+    for ci, (w, fi) in enumerate(zip(fe_ws, fe_feat)):
         _check(w, f"fixed weights {ci}", dev, (wdtype,), 1)
         x_ptr, idx_ptr, width, k = shard_ptrs[fi]
         d = int(w.shape[0])
         if width is not None and width != d:
             raise ValueError(f"fixed weights {ci} have {d} entries but "
                              f"shard {fi} is {width} wide")
-        c = params.c[ci]
+        c = _Coord()
         c.w, c.x, c.idx, c.d, c.k = w.data_ptr(), x_ptr, idx_ptr, d, k
-        ci += 1
+        coords.append((c, None))
     for ri, (w, proj, fi, code) in enumerate(
         zip(re_ws, re_projs, re_feat, codes)
     ):
@@ -241,25 +249,38 @@ def _launch(
             raise ValueError(f"codes {ri} have {code.shape[0]} rows, "
                              f"expected {rung}")
         x_ptr, idx_ptr, width, k = shard_ptrs[fi]
-        c = params.c[ci]
+        c = _Coord()
         c.w, c.proj, c.codes = w.data_ptr(), proj.data_ptr(), code.data_ptr()
         c.x, c.idx, c.k = x_ptr, idx_ptr, k
         c.d = 0 if width is None else width
         c.e, c.s = int(w.shape[0]), int(w.shape[1])
-        params.pair_base[ri] = params.n_pairs
-        params.n_pairs += c.s
-        ci += 1
-    for ri in range(len(re_ws), MAX_COORDS):
-        params.pair_base[ri] = params.n_pairs  # no pair reaches it
+        coords.append((c, c.s))
 
     load()
     out = torch.empty(rung, dtype=torch.float32, device=dev)
-    params.out = out.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launch_fn(
-        ctypes.byref(params), int(wdtype == torch.bfloat16), stream
-    )
-    if rc != 0:
-        raise RuntimeError(f"serve_score launch failed with CUDA error {rc}")
-    launches += 1
+    for g0 in range(0, n_coords, GROUP_COORDS):
+        params = _Params()
+        params.rung = rung
+        params.accumulate = int(g0 > 0)
+        params.out = out.data_ptr()
+        ri = 0
+        for gi, (c, slots) in enumerate(coords[g0:g0 + GROUP_COORDS]):
+            params.c[gi] = c
+            params.n_coords += 1
+            if slots is None:
+                params.n_fixed += 1
+            else:
+                params.pair_base[ri] = params.n_pairs
+                params.n_pairs += slots
+                ri += 1
+        for r in range(ri, GROUP_COORDS):
+            params.pair_base[r] = params.n_pairs  # no pair reaches it
+        rc = _launch_fn(
+            ctypes.byref(params), int(wdtype == torch.bfloat16), stream
+        )
+        if rc != 0:
+            raise RuntimeError(
+                f"serve_score launch failed with CUDA error {rc}")
+        launches += 1
     return out

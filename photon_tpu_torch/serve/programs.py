@@ -6,10 +6,19 @@ of requests is padded up to the nearest rung, padded rows carrying zero
 features and code -1 so they score 0 and are sliced away.
 
 On the GPU every rung is scored by one launch of the fused serve kernel
-(``ops/serve_kernel.py``); there is no other path on the card. The kernel
-library is built and loaded when ``ScorePrograms`` is constructed, so
-the request loop never builds anything. On the CPU the same call runs
-the kernel's plain PyTorch version.
+(``ops/serve_kernel.py``; one per group of ``GROUP_COORDS`` coordinates
+for a larger model). The kernel library is built and loaded when
+``ScorePrograms`` is constructed, so the request loop never builds
+anything. ``PHOTON_SERVE_KERNEL=off`` (read once, at construction)
+scores on the card with the kernel's plain PyTorch version instead; the
+choice is logged and kept in ``stats["serve_kernel"]``. On the CPU every
+call runs the plain version.
+
+``score_dataset`` chunks a whole ``GameDataset`` through the ladder
+(``ShapeLadder.chunk_plan``), the batch-scoring route of
+``cli/score.py``: each chunk is one kernel launch on rows sliced from
+the dataset's own device tensors, so no chunk is staged through the
+host.
 
 The tables are read at every dispatch, so a values-only
 ``CoefficientTables.reload`` (an in-place copy) is served by the next
@@ -19,13 +28,17 @@ dispatch with nothing rebuilt.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
 import torch
 
+from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
 from photon_tpu_torch.ops import serve_kernel
 from photon_tpu_torch.serve.tables import CoefficientTables
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +68,18 @@ class ShapeLadder:
             f"batch of {n} exceeds the ladder max {self.max_batch}; "
             "split it (the queue's max_batch is clamped to the ladder)"
         )
+
+    def chunk_plan(self, n: int) -> list[tuple[int, int, int]]:
+        """(lo, hi, rung) chunks covering ``n`` rows: full max-batch
+        chunks plus one padded tail rung."""
+        plan: list[tuple[int, int, int]] = []
+        lo = 0
+        while n - lo > self.max_batch:
+            plan.append((lo, lo + self.max_batch, self.max_batch))
+            lo += self.max_batch
+        if n - lo > 0:
+            plan.append((lo, n, self.rung_for(n - lo)))
+        return plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +113,31 @@ class FeatureSpec:
             val[i] = rv
         return idx, val
 
+    def slice_rows(self, leaf, lo: int, hi: int, batch: int):
+        """Padded [batch, ...] chunk of rows ``lo:hi`` of a whole
+        shard's tensors (dense: [n, d]; ELL: ([n, k] ids, [n, k]
+        values)), on their device, features as f32. A full chunk is a
+        view of the rows; a short one is padded with zero rows."""
+        if self.kind == "dense":
+            return pad_rows(leaf, lo, hi, batch, torch.float32)
+        idx, val = leaf
+        return (pad_rows(idx, lo, hi, batch, torch.int32),
+                pad_rows(val, lo, hi, batch, torch.float32))
+
+
+def pad_rows(t: torch.Tensor, lo: int, hi: int, batch: int, dtype,
+             fill=0) -> torch.Tensor:
+    """Rows ``lo:hi`` of ``t`` as a [batch, ...] ``dtype`` tensor on its
+    device: a view when the rows fill the batch, else padded with
+    ``fill`` (0 for features, -1, the cold code, for entity codes)."""
+    part = t[lo:hi].to(dtype)
+    if hi - lo == batch:
+        return part.contiguous()
+    out = torch.full((batch,) + tuple(t.shape[1:]), fill, dtype=dtype,
+                     device=t.device)
+    out[: hi - lo] = part
+    return out
+
 
 def default_specs(tables: CoefficientTables) -> dict[str, FeatureSpec]:
     """Dense request layout per shard, as wide as its widest consumer
@@ -103,6 +153,25 @@ def default_specs(tables: CoefficientTables) -> dict[str, FeatureSpec]:
                 dims.get(t.feature_shard_id, 1), t.num_features
             )
     return {s: FeatureSpec("dense", d) for s, d in dims.items()}
+
+
+def specs_from_dataset(data) -> dict[str, FeatureSpec]:
+    """Request layout matching a GameDataset's shards (batch path)."""
+    specs: dict[str, FeatureSpec] = {}
+    for name, feats in data.feature_shards.items():
+        if isinstance(feats, DenseFeatures):
+            specs[name] = FeatureSpec("dense", int(feats.x.shape[1]))
+        elif isinstance(feats, SparseFeatures):
+            specs[name] = FeatureSpec(
+                "sparse", int(feats.d), k=int(feats.indices.shape[1])
+            )
+        else:
+            raise NotImplementedError(
+                f"shard {name!r}: {type(feats).__name__} has no fixed "
+                "per-row serving layout (DualEllFeatures scoring: ROADMAP "
+                "Queue A item 6)"
+            )
+    return specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,11 +225,6 @@ class ScorePrograms:
             raise ValueError(f"no FeatureSpec for shard(s) {missing}")
         if not self._fe_names and not self._re_names:
             raise ValueError("model has no active coordinates to serve")
-        n_coords = len(self._fe_names) + len(self._re_names)
-        if n_coords > serve_kernel.MAX_COORDS:
-            raise ValueError(
-                f"{n_coords} active coordinates; the serve kernel takes "
-                f"at most {serve_kernel.MAX_COORDS}")
         # Request payloads are always f32: bf16 tables narrow the
         # coefficients, not the features.
         self.dtype = np.dtype(np.float32)
@@ -170,11 +234,20 @@ class ScorePrograms:
             fe_feat=tuple(shard_idx[s] for s in fe_shards),
             re_feat=tuple(shard_idx[s] for s in re_shards),
         )
+        # The route is chosen once, here: on the card the kernel unless
+        # PHOTON_SERVE_KERNEL is off; on the CPU the plain version.
+        self.use_kernel = (self.device.type == "cuda"
+                           and serve_kernel.kernel_supported())
+        self._score = (serve_kernel.fused_score if self.use_kernel
+                       else serve_kernel.fused_score_reference)
         self.stats = {
+            "serve_kernel": "cuda" if self.use_kernel else "plain",
             "library_load_seconds": 0.0,
             "dispatches": {int(r): 0 for r in self.ladder.rungs},
         }
-        if self.device.type == "cuda":
+        log.info("ScorePrograms on %s: serve kernel route %s", self.device,
+                 self.stats["serve_kernel"])
+        if self.use_kernel:
             t0 = time.perf_counter()
             serve_kernel.load()
             self.stats["library_load_seconds"] = time.perf_counter() - t0
@@ -186,8 +259,6 @@ class ScorePrograms:
         the shard wiring. Pinned host buffers are appended to
         ``staged``; keep them until the scores are fetched."""
         staged = [] if staged is None else staged
-        t = self.tables
-        rand = [t.random[n] for n in self._re_names]
         f = []
         for s in self.shard_order:
             leaf = feats[s]
@@ -195,16 +266,22 @@ class ScorePrograms:
                 f.append(self._to_device(leaf, staged))
             else:
                 f.append(tuple(self._to_device(a, staged) for a in leaf))
+        return self._device_operands(tuple(f), tuple(
+            self._to_device(np.asarray(codes[nm], dtype=np.int32), staged)
+            for nm in self._re_names
+        ))
+
+    def _device_operands(self, feats: tuple, codes: tuple) -> dict:
+        """``fused_score``'s keyword operands from features and codes
+        already on the device (shard and coordinate order)."""
+        t = self.tables
+        rand = [t.random[n] for n in self._re_names]
         return dict(
             fe_ws=tuple(t.fixed[n].weights for n in self._fe_names),
             re_ws=tuple(x.weights for x in rand),
             re_projs=tuple(x.proj for x in rand),
-            feats=tuple(f),
-            codes=tuple(
-                self._to_device(
-                    np.asarray(codes[nm], dtype=np.int32), staged)
-                for nm in self._re_names
-            ),
+            feats=feats,
+            codes=codes,
             **self._kernel_args,
         )
 
@@ -238,7 +315,7 @@ class ScorePrograms:
                 "pad with pack_requests first"
             )
         staged: list = []
-        out = serve_kernel.fused_score(**self.operands(feats, codes, staged))
+        out = self._score(**self.operands(feats, codes, staged))
         self.stats["dispatches"][batch] += 1
         return _Inflight(out=out, staged=tuple(staged), batch=batch, n=n)
 
@@ -274,3 +351,40 @@ class ScorePrograms:
                 vec[i] = table.code_for(ids.get(rt, ""))
             codes[nm] = vec
         return feats, codes, rung
+
+    def score_dataset(self, data) -> np.ndarray:
+        """Score a whole GameDataset through the ladder: [n] f32 scores
+        as numpy. Each chunk of ``ladder.chunk_plan`` is one call of the
+        route chosen at construction (one kernel launch on the card),
+        on rows sliced from the dataset's device tensors and entity
+        codes uploaded once per coordinate; the scores come back to the
+        host once, at the end."""
+        from photon_tpu_torch.data.random_effect import scoring_codes
+
+        if data.device != self.device:
+            raise ValueError(f"dataset is on {data.device}, the tables on "
+                             f"{self.device}")
+        n = data.num_samples
+        leaves = {}
+        for s in self.shard_order:
+            feats = data.feature_shards[s]
+            leaves[s] = (feats.x if isinstance(feats, DenseFeatures)
+                         else (feats.indices, feats.values))
+        full_codes = []
+        for nm in self._re_names:
+            table = self.tables.random[nm]
+            codes = scoring_codes(data, table.random_effect_type,
+                                  table.entity_keys).astype(np.int32)
+            full_codes.append(torch.from_numpy(codes).to(self.device))
+        out = torch.empty(n, dtype=torch.float32, device=self.device)
+        for lo, hi, rung in self.ladder.chunk_plan(n):
+            feats = tuple(
+                self.specs[s].slice_rows(leaves[s], lo, hi, rung)
+                for s in self.shard_order
+            )
+            codes = tuple(pad_rows(fc, lo, hi, rung, torch.int32, fill=-1)
+                          for fc in full_codes)
+            z = self._score(**self._device_operands(feats, codes))
+            self.stats["dispatches"][rung] += 1
+            out[lo:hi] = z[: hi - lo]
+        return out.cpu().numpy()

@@ -10,24 +10,29 @@ scores through the fixed effects only.
 ``reload`` with unchanged structure copies the new values into the live
 tensors in place (torch has no buffer donation), so the score ladder
 keeps serving the same tensors; a structure change rebuilds the tables
-and returns False, and the caller builds new ``ScorePrograms``.
+and returns False, and the caller builds new ``ScorePrograms``
+(``rebuild_from`` does both steps). ``build_index_maps_from_model``
+gives a standalone server the feature index maps of an Avro model
+directory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from photon_tpu_torch import device as device_mod
+from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.models.game import (
     FixedEffectModel,
     GameModel,
     RandomEffectModel,
 )
 from photon_tpu_torch.ops import precision as precision_mod
-from photon_tpu_torch.types import TaskType
+from photon_tpu_torch.types import TaskType, make_feature_key
 
 
 @dataclasses.dataclass
@@ -194,9 +199,11 @@ class CoefficientTables:
         the tables are rebuilt, which is not safe under live dispatch,
         and the caller must build new ``ScorePrograms``.
         """
-        new = CoefficientTables.from_game_model(
-            model, self.precision, self.device
-        )
+        return self._reload_built(CoefficientTables.from_game_model(
+            model, self.precision, self.device))
+
+    def _reload_built(self, new: "CoefficientTables") -> bool:
+        """``reload`` against an already built new generation."""
         self.generation += 1
         if not self._values_only_delta(new):
             self.fixed = new.fixed
@@ -212,3 +219,61 @@ class CoefficientTables:
                 t.task = new.random[name].task
         self.task = new.task
         return True
+
+    def rebuild_from(self, model: GameModel, *, programs=None, adopt=None):
+        """A reload of any kind, with the score ladder rebuilt when the
+        structure changed.
+
+        A values-only delta is copied in place (``reload``) and returns
+        None. A structure change swaps the new generation's tables in
+        (the caller guarantees no live dispatch) and, when ``programs``
+        (the live ``ScorePrograms``) is given, builds a new ladder with
+        the same rungs over them; ``adopt``, when given, receives it.
+        Returns the new ``ScorePrograms`` (None without ``programs``).
+        """
+        from photon_tpu_torch.serve.programs import ScorePrograms
+
+        if self.reload(model):
+            return None
+        new_programs = None
+        if programs is not None:
+            new_programs = ScorePrograms(self, ladder=programs.ladder)
+        if adopt is not None:
+            adopt(new_programs)
+        return new_programs
+
+
+def build_index_maps_from_model(model_dir: str) -> dict[str, IndexMap]:
+    """Per-shard index maps recovered from a saved model's own records.
+
+    A standalone server has no dataset to build index maps from; the
+    model directory names every feature the model can use (each
+    BayesianLinearModelAvro record keys its coefficients by (name,
+    term)). The union of keys per feature shard, sorted, is a complete
+    and deterministic serving map: a feature the model never weighted is
+    absent, and its coefficient is zero either way.
+    """
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.io.model_io import COEFFICIENTS, ID_INFO
+
+    shard_keys: dict[str, set] = {}
+    for kind in ("fixed-effect", "random-effect"):
+        base = os.path.join(model_dir, kind)
+        if not os.path.isdir(base):
+            continue
+        for name in sorted(os.listdir(base)):
+            with open(os.path.join(base, name, ID_INFO)) as f:
+                shard = f.read().strip().splitlines()[-1]
+            keys = shard_keys.setdefault(shard, set())
+            coef_dir = os.path.join(base, name, COEFFICIENTS)
+            if not os.path.isdir(coef_dir):
+                continue
+            for rec in avro.read_container_dir(coef_dir):
+                for ntv in rec["means"]:
+                    keys.add(make_feature_key(ntv["name"], ntv["term"]))
+                for ntv in rec.get("variances") or ():
+                    keys.add(make_feature_key(ntv["name"], ntv["term"]))
+    return {
+        shard: IndexMap({k: i for i, k in enumerate(sorted(keys))})
+        for shard, keys in shard_keys.items()
+    }

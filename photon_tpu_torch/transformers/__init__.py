@@ -1,0 +1,150 @@
+"""GameTransformer: score new data with a trained GAME model (port of
+``photon_tpu/transformers/__init__.py``).
+
+Counterpart of photon-api transformers/GameTransformer.scala:150: model
+plus dataset to per-row scores, optionally evaluated. The fixed effects
+score by a gather-dot against the dataset's feature tensors; a random
+effect joins its entities by key (rows of unseen entities score 0) and
+scores straight off the raw shard (dense and ELL shards, subspaces up to
+``DENSE_SUB_DIM_MAX`` slots) or through a remapped score table. All on
+the dataset's one device: multi-device scoring is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
+from photon_tpu_torch.device import MESH_NOT_PORTED
+from photon_tpu_torch.data.game_data import GameDataset
+from photon_tpu_torch.data.random_effect import (
+    DENSE_SUB_DIM_MAX,
+    remap_for_scoring,
+    scoring_codes,
+)
+from photon_tpu_torch.evaluation.suite import EvaluationResults, make_suite
+from photon_tpu_torch.models.game import (
+    FixedEffectModel,
+    GameModel,
+    RandomEffectModel,
+    score_entity_table_with_tail,
+    score_raw_features,
+)
+
+
+def fixed_effect_scorer(data: GameDataset, feature_shard_id: str):
+    """model -> per-row scores of a fixed-effect sub-model on ``data``."""
+    feats = data.feature_shards[feature_shard_id]
+
+    def scorer(m: FixedEffectModel) -> torch.Tensor:
+        return m.model.coefficients.compute_score(feats)
+
+    return scorer
+
+
+def random_effect_scorer(data: GameDataset, *, re_type: str,
+                         feature_shard_id: str, entity_keys: tuple,
+                         proj_all, width_cap: int | None = None):
+    """model -> per-row scores of a random-effect sub-model on ``data``:
+    the lazy path (only the [n] entity codes and the [E, S] projector go
+    to the device) for dense and ELL shards up to ``DENSE_SUB_DIM_MAX``
+    slots without a width cap, else the remapped score table."""
+    feats = data.feature_shards[feature_shard_id]
+    proj_all = np.asarray(proj_all)
+    sub_dim = proj_all.shape[1] if proj_all.ndim == 2 else 0
+    if (width_cap is None and sub_dim <= DENSE_SUB_DIM_MAX
+            and isinstance(feats, (DenseFeatures, SparseFeatures))):
+        codes = torch.from_numpy(scoring_codes(
+            data, re_type, entity_keys).astype(np.int32)).to(data.device)
+        proj_dev = torch.from_numpy(
+            proj_all.astype(np.int32)).to(data.device)
+
+        def lazy(m: RandomEffectModel) -> torch.Tensor:
+            return score_raw_features(m.coefficients, codes, feats, proj_dev)
+
+        return lazy
+
+    codes, idx, vals, tail = remap_for_scoring(
+        data, re_type=re_type, feature_shard_id=feature_shard_id,
+        entity_keys=entity_keys, proj_all=proj_all, width_cap=width_cap)
+
+    def table(m: RandomEffectModel) -> torch.Tensor:
+        return score_entity_table_with_tail(m.coefficients, codes, idx,
+                                            vals, tail)
+
+    return table
+
+
+def make_submodel_scorer(sub_model, data: GameDataset,
+                         width_cap: int | None = None):
+    """A scorer for one trained sub-model (GameModel.score's arms)."""
+    if isinstance(sub_model, RandomEffectModel):
+        return random_effect_scorer(
+            data,
+            re_type=sub_model.random_effect_type,
+            feature_shard_id=sub_model.feature_shard_id,
+            entity_keys=sub_model.entity_keys,
+            proj_all=sub_model.proj_all,
+            width_cap=width_cap,
+        )
+    if isinstance(sub_model, FixedEffectModel):
+        return fixed_effect_scorer(data, sub_model.feature_shard_id)
+    raise TypeError(f"unknown sub-model type: {sub_model}")
+
+
+def evaluate_scores(data: GameDataset, scores, evaluators
+                    ) -> EvaluationResults | None:
+    """Evaluate raw model scores against a dataset's labels (the
+    GameTransformer validation path :186-192), shared with the batch
+    scorer of ``cli/score.py``. The sums run in float64 on the
+    dataset's device: over 100,000 rows an f32 AUC's sums round at
+    ~1e-6, the size of the differences the checks look for."""
+    if not evaluators:
+        return None
+    suite = make_suite(
+        evaluators,
+        data.labels,
+        offsets=data.offsets,
+        weights=data.weights,
+        group_ids={
+            name: (tag.codes, tag.num_groups)
+            for name, tag in data.id_tags.items()
+        },
+        dtype=torch.float64,
+    )
+    return suite.evaluate(torch.as_tensor(scores))
+
+
+@dataclasses.dataclass(frozen=True)
+class GameTransformer:
+    """Reference: transformers/GameTransformer.scala (transform
+    :150-197). ``mesh`` must be None: multi-device scoring is not
+    ported."""
+
+    model: GameModel
+    mesh: object = None
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(MESH_NOT_PORTED)
+
+    def score(self, data: GameDataset) -> torch.Tensor:
+        """Summed sub-model scores per row: the raw model contribution,
+        without the offset (GameModel.score semantics)."""
+        total = None
+        for _, m in self.model.items():
+            s = make_submodel_scorer(m, data)(m)
+            total = s if total is None else total + s
+        if total is None:
+            raise ValueError("empty GAME model")
+        return total
+
+    def transform(self, data: GameDataset, evaluators=None
+                  ) -> tuple[torch.Tensor, EvaluationResults | None]:
+        """Score, and evaluate against the dataset's labels when
+        ``evaluators`` are given."""
+        scores = self.score(data)
+        return scores, evaluate_scores(data, scores, evaluators)

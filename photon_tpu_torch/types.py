@@ -6,6 +6,11 @@ from __future__ import annotations
 import enum
 
 DELIMITER = "\x01"
+INTERCEPT_NAME = "(INTERCEPT)"
+INTERCEPT_TERM = ""
+# The delimiter-joined (name, term) pair of the intercept, "(INTERCEPT)\x01"
+# (photon-client Constants.scala:40-42).
+INTERCEPT_KEY = f"{INTERCEPT_NAME}{DELIMITER}{INTERCEPT_TERM}"
 
 
 class TaskType(enum.Enum):

@@ -341,7 +341,7 @@ def test_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("bad", ["int64-codes", "f64-features",
                                  "mixed-table-dtypes", "strided-features",
-                                 "short-codes", "too-many-coordinates"])
+                                 "short-codes", "no-coordinates"])
 def test_kernel_path_rejects_bad_operands(bad):
     """The CUDA path checks its operands before it launches; the checks
     need no GPU, so they run here through the launch path directly."""
@@ -358,8 +358,8 @@ def test_kernel_path_rejects_bad_operands(bad):
     elif bad == "short-codes":
         ops["codes"] = (ops["codes"][0][:4],)
     else:
-        ops["fe_ws"] = ops["fe_ws"] * 9
-        ops["fe_feat"] = (0,) * 9
+        ops.update(fe_ws=(), fe_feat=(), re_ws=(), re_projs=(), re_feat=(),
+                   codes=())
     with pytest.raises(ValueError):
         serve_kernel._launch(**ops)
 
