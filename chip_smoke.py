@@ -51,8 +51,15 @@ JSON lines:
              ladder (13 x 8192 + 1 x 1024) and none with the switch off;
              the output scores within 1e-5 (relative to 1 + |score|) of
              a float64 numpy score of the same rows and of the plain
-             run; ``evaluation.json`` within 1e-6 of numpy's metrics of
-             the written scores. It prints each stage's seconds, rows/s,
+             run; ``evaluation.json`` (f32, the labels' dtype) within
+             the f32 rounding bound of numpy's float64 metrics of the
+             written scores (``f32_metric_tolerances``: sqrt(n) 2**-24
+             relative for AUC and RMSE, the cancellation of the running
+             sums for AUC:userId, whose premise, the depth of the card's
+             f32 scan, is measured and held: ``scan_premise``), and
+             within twice that of ``evaluate_scores`` run in this process
+             on them (the card's f32 ``index_add_`` and ``cumsum`` take
+             another order each run). It prints each stage's seconds, rows/s,
              and the kernel's device ms at rungs 1024 and 8192 on the
              CLI's ELL operands beside the bound and the launch floor.
 
@@ -92,6 +99,46 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      random effects within rtol 1e-3 / atol 2e-3 (the
                      f32 resolution of an entity's optimum, see
                      RE_FIT_ATOL), training losses within 1e-4.
+14a. train_cli     - GAME training from the command line at the
+                     logistic configuration's widths: the serving
+                     model's arrays (fixed effect ``global`` on the
+                     features bag's 63 ids plus the intercept, d = 64;
+                     ``per-user`` on userFeatures, 17 slots; ``per-movie``
+                     on movieFeatures, 9 slots) draw logistic labels for
+                     262,144 train and 32,768 validation rows
+                     (``score_files``: ELL_K features a bag, users with a
+                     long tail of activity, p(u) ~ 1 / (u + 20), which is
+                     synthetic; 5% cold ids in validation).
+                     Cut: rows only, against the 4,000,000 above, because
+                     the pure-Python Avro writer makes the files. A JSON
+                     config (``train_cli_config``: global L2 1e-3,
+                     per-user L2 [1, 10] capped at 512 rows as above
+                     (its longest users in a [B, 1024, 17] bucket, past
+                     the reference's R * S <= 16384), per-movie L2 1, two
+                     iterations, AUC and AUC:userId, EXPLICIT output,
+                     feature stats, a checkpoint directory) runs through
+                     ``cli.train.main`` twice: on the kernel, under
+                     ``torch.profiler`` (device time only), and with
+                     ``PHOTON_NEWTON_KERNEL=off``; then ``cli.score.main``
+                     scores the validation file with the kernel run's
+                     best model. Gates: (a) both exit 0, the output
+                     layout, the checkpoint at its last iteration; (b)
+                     Newton launches on the kernel run and no bucket on
+                     the plain route, none with the switch off, and the
+                     kernel held against its plain version as
+                     newton_parity holds it, on a synthetic bucket of the
+                     run's longest shape (``long_bucket``); (c) the
+                     same best configuration, best models within the
+                     route_agreement tolerances (entities whose rows hold
+                     one label, which have no finite optimum, counted and
+                     left out), validation AUCs within 1e-4; (d) the
+                     trained AUC recovers at least half of the generating
+                     model's lift over 0.5; (e) the scores within 1e-5
+                     (relative to 1 + |score|) of a float64 numpy score
+                     from the best model's arrays, ``evaluation.json``'s
+                     AUC within 1e-4 of the summary's, one serve launch a
+                     chunk; (f) the global shard's feature stats within
+                     1e-6 of numpy float64 over the written rows.
 
 Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
 GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
@@ -162,6 +209,9 @@ iterations, launches, host syncs) and training loss; newton_timing; the
 its per-movie gram bucket. It prints no ``ok`` line. To compare a parent
 commit, unpack its package into a git-ignored directory, copy this
 script beside it, and run parent, change, change, parent in one call.
+
+``python3 chip_smoke.py --train-cli`` runs only the device and build
+phases and then phase 14a, printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -561,7 +611,7 @@ SCORE_EVALUATORS = ("AUC", "RMSE", "AUC:userId")
 SCORE_SHARDS = {"global": ("features", "g", N_FEATURES),
                 "userShard": ("userFeatures", "u", USER_SLOTS),
                 "movieShard": ("movieFeatures", "m", MOVIE_SLOTS)}
-EVAL_TOL = 1e-6
+F32_U = 2.0 ** -24
 
 
 def coords_arrays(arrays, manifest, seed: int = SEED + 1):
@@ -644,14 +694,23 @@ def phase_coords(torch, arrays, manifest, timing_rows) -> dict:
 
 
 def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
-                seed: int = SEED + 2) -> dict:
+                seed: int = SEED + 2, *, cold: float = COLD_FRACTION,
+                intercept: bool = False, model: bool = True,
+                name: str = "data.avro",
+                user_skew: int | None = None) -> dict:
     """The serving model as an Avro GAME model directory (float32
-    coefficients, written by the port's ``save_game_model``) and ``n``
-    TrainingExampleAvro rows with the features, userFeatures and
-    movieFeatures bags (ELL_K features each, values N(0, 1)), userId and
-    movieId in the metadata with COLD_FRACTION cold ids each, logistic
-    labels, weights and offsets. Returns the paths and the arrays the
-    numpy reference scores from."""
+    coefficients, written by the port's ``save_game_model``; left out
+    without ``model``) and ``n`` TrainingExampleAvro rows with the
+    features, userFeatures and movieFeatures bags (ELL_K features each,
+    values N(0, 1)), userId and movieId in the metadata with a ``cold``
+    fraction of ids unseen anywhere else, logistic labels drawn from the
+    model, weights and offsets. Users are uniform, or with
+    ``user_skew`` = c drawn with p(u) ~ 1 / (u + c), a long tail of
+    activity. With ``intercept`` each shard's last
+    slot is the intercept: the bags draw from the other ids, every
+    row's margin adds the last coefficient (the reader appends the
+    intercept column). Returns the paths and the arrays the numpy
+    reference scores from."""
     from photon_tpu_torch.data.index_map import IndexMap
     from photon_tpu_torch.io import avro_data
     from photon_tpu_torch.io.model_io import (
@@ -661,32 +720,39 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
     from photon_tpu_torch.types import make_feature_key
 
     rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
     model_dir = os.path.join(root, "model")
-    data_path = os.path.join(root, "data.avro")
-    keys = {s: [make_feature_key(f"{p}{j}") for j in range(d)]
-            for s, (_, p, d) in SCORE_SHARDS.items()}
+    data_path = os.path.join(root, name)
+    ids = {s: d - intercept for s, (_, _, d) in SCORE_SHARDS.items()}
+    keys = {s: [make_feature_key(f"{p}{j}") for j in range(ids[s])]
+            for s, (_, p, _) in SCORE_SHARDS.items()}
     t0 = time.perf_counter()
-    save_game_model(
-        game_model_from_numpy(arrays, manifest, "cpu"), model_dir,
-        {s: IndexMap({k: i for i, k in enumerate(ks)})
-         for s, ks in keys.items()})
+    if model:
+        save_game_model(
+            game_model_from_numpy(arrays, manifest, "cpu"), model_dir,
+            {s: IndexMap({k: i for i, k in enumerate(ks)})
+             for s, ks in keys.items()})
     model_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     feats = {}
-    for s, (_, _, d) in SCORE_SHARDS.items():
+    for s in SCORE_SHARDS:
         k = ELL_K[s]
-        idx = np.argsort(rng.random((n, d)), axis=1)[:, :k]
+        idx = np.argsort(rng.random((n, ids[s])), axis=1)[:, :k]
         # Stored as f32, as the reader keeps them.
         val = rng.normal(size=(n, k)).astype(np.float32).astype(np.float64)
         feats[s] = (idx, val)
-    users = rng.integers(0, N_USERS, size=n)
+    if user_skew is None:
+        users = rng.integers(0, N_USERS, size=n)
+    else:
+        p = 1.0 / (np.arange(N_USERS) + user_skew)
+        users = rng.choice(N_USERS, size=n, p=p / p.sum())
     movies = rng.integers(0, N_MOVIES, size=n)
-    cold_u = rng.uniform(size=n) < COLD_FRACTION
-    cold_m = rng.uniform(size=n) < COLD_FRACTION
+    cold_u = rng.uniform(size=n) < cold
+    cold_m = rng.uniform(size=n) < cold
     weights = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
     offsets = (rng.normal(size=n) * 0.1).astype(np.float32)
     exact = numpy_batch_scores(arrays, feats, np.where(cold_u, -1, users),
-                               np.where(cold_m, -1, movies))
+                               np.where(cold_m, -1, movies), intercept)
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(
         -(exact + offsets)))).astype(np.float64)
 
@@ -696,8 +762,9 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
         return [list(zip([ks[j] for j in r], v))
                 for r, v in zip(idx.tolist(), val.tolist())]
 
-    meta = [{"userId": f"cold-{i}" if cu else str(u),
-             "movieId": f"cold-{i}" if cm else str(m)}
+    tag = os.path.splitext(name)[0]
+    meta = [{"userId": f"cold-{tag}-{i}" if cu else str(u),
+             "movieId": f"cold-{tag}-{i}" if cm else str(m)}
             for i, (u, m, cu, cm) in enumerate(zip(
                 users.tolist(), movies.tolist(), cold_u, cold_m))]
     avro_data.write_training_examples(
@@ -708,18 +775,24 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
     data_s = time.perf_counter() - t0
     return dict(model_dir=model_dir, data=data_path, exact=exact,
                 labels=labels, weights=weights.astype(np.float64),
-                offsets=offsets.astype(np.float64),
-                users=np.where(cold_u, -1, users), model_seconds=model_s,
-                data_seconds=data_s, data_bytes=os.path.getsize(data_path))
+                offsets=offsets.astype(np.float64), feats=feats,
+                keys=keys, users=np.where(cold_u, -1, users),
+                movies=np.where(cold_m, -1, movies),
+                model_seconds=model_s, data_seconds=data_s,
+                data_bytes=os.path.getsize(data_path))
 
 
-def numpy_batch_scores(arrays, feats, users, movies) -> np.ndarray:
+def numpy_batch_scores(arrays, feats, users, movies,
+                       intercept: bool = False) -> np.ndarray:
     """float64 scores of the batch rows straight from the model arrays:
     the global dot plus, for a known user (movie), the sum of its
     coefficients at the row's user (movie) features (the serving model's
-    projector row is 0..S-1, so feature j is slot j)."""
+    projector row is 0..S-1, so feature j is slot j); with
+    ``intercept``, each coordinate's last slot adds for every row (of a
+    known entity)."""
     gi, gv = feats["global"]
-    z = np.sum(gv * arrays["global/means"].astype(np.float64)[gi], axis=1)
+    w = arrays["global/means"].astype(np.float64)
+    z = np.sum(gv * w[gi], axis=1) + (w[-1] if intercept else 0.0)
     for name, shard, codes in (("per-user", "userShard", users),
                                ("per-movie", "movieShard", movies)):
         idx, val = feats[shard]
@@ -727,6 +800,8 @@ def numpy_batch_scores(arrays, feats, users, movies) -> np.ndarray:
         known = codes >= 0
         z[known] += np.sum(val[known] * w[codes[known][:, None],
                                           idx[known]], axis=1)
+        if intercept:
+            z[known] += w[codes[known], -1]
     return z
 
 
@@ -744,6 +819,15 @@ def numpy_auc(z, y, w) -> float:
     return float(credit / (np.sum(w[pos]) * np.sum(neg_w)))
 
 
+def user_groups(files) -> list:
+    """The row indices of each user's rows (a cold row is its own
+    group)."""
+    ids = np.where(files["users"] >= 0, files["users"],
+                   -1 - np.arange(len(files["users"])))
+    order = np.argsort(ids, kind="stable")
+    return np.split(order, np.flatnonzero(np.diff(ids[order])) + 1)
+
+
 def numpy_metrics(scores, files) -> dict:
     """AUC, RMSE and AUC:userId of the scores plus offsets, in float64:
     RMSE = sqrt(sum w (z - y)^2 / n); the grouped AUC is the mean over
@@ -751,18 +835,73 @@ def numpy_metrics(scores, files) -> dict:
     both classes."""
     z = scores.astype(np.float64) + files["offsets"]
     y, w = files["labels"], files["weights"]
-    groups = {}
-    ids = np.where(files["users"] >= 0, files["users"],
-                   -1 - np.arange(len(z)))
-    order = np.argsort(ids, kind="stable")
-    bounds = np.flatnonzero(np.diff(ids[order])) + 1
-    for rows in np.split(order, bounds):
-        yy = y[rows]
-        if yy.min() < 0.5 < yy.max():
-            groups[int(ids[rows[0]])] = numpy_auc(z[rows], yy, w[rows])
+    groups = [numpy_auc(z[r], y[r], w[r]) for r in user_groups(files)
+              if y[r].min() < 0.5 < y[r].max()]
     return {"AUC": numpy_auc(z, y, w),
             "RMSE": float(np.sqrt(np.sum(w * (z - y) ** 2) / len(z))),
-            "AUC:userId": float(np.mean(list(groups.values())))}
+            "AUC:userId": float(np.mean(groups))}
+
+
+def f32_metric_tolerances(files, want: dict) -> dict:
+    """How far an f32 evaluation (the CLI's: the labels' dtype, as the
+    reference's) may be from the float64 metrics ``want``, relative.
+
+    AUC and RMSE are ratios of sums over the n rows (a running sum of
+    negative weight times each positive's weight; the weighted squared
+    residuals). An f32 sum of n terms, in whatever order the card takes
+    them, adds a rounding error of at most u = 2**-24 of the running
+    total at each step: a random walk whose size is about sqrt(n) u of
+    the sum, 1.95e-5 for 107,496 rows.
+
+    AUC:userId is the mean over the G users holding both classes of
+    each user's AUC. A user's credit is a difference of two running sums
+    of negative weight over all the rows in (group, score) order
+    (``torch.cumsum`` of the whole column, less the group's offset),
+    each up to the total negative weight W-: cancellation, not the
+    user's own few rows, sets its error. The premise: on the card
+    ``torch.cumsum`` of a 1-D f32 tensor is a tiled parallel scan, which
+    reaches a running sum through about ceil(log2 n) additions, each
+    rounding by up to u W-, not through the n of a sequential sum; so a
+    running sum's error is a random walk of standard deviation at most
+    sqrt(ceil(log2 n)) u W-, and ``scan_premise`` measures it in the
+    same run. A credit carries two of them, sqrt(2 ceil(log2 n)) u W-,
+    and that user's AUC the same over N_g, its negative weight. The
+    users' errors are independent, so the mean's standard deviation is
+    sqrt(2 ceil(log2 n)) u W- sqrt(sum 1 / N_g^2) / G; the bound is three
+    of them."""
+    y, w = files["labels"], files["weights"]
+    neg = np.where(y < 0.5, w, 0.0)
+    n_g = np.array([neg[r].sum() for r in user_groups(files)
+                    if y[r].min() < 0.5 < y[r].max()])
+    depth = math.ceil(math.log2(len(y)))
+    grouped = (3.0 * math.sqrt(2 * depth) * F32_U * neg.sum()
+               * np.sqrt(np.sum(1.0 / n_g ** 2)) / len(n_g))
+    flat = math.sqrt(len(y)) * F32_U
+    return {"AUC": flat, "RMSE": flat,
+            "AUC:userId": grouped / abs(want["AUC:userId"])}
+
+
+def scan_premise(torch, scores, files) -> dict:
+    """The premise of ``f32_metric_tolerances``'s AUC:userId bound,
+    measured: the negative weights in (user, score) order, as the grouped
+    AUC orders its rows, summed by ``torch.cumsum`` in f32 on the card
+    against float64. Returns the running sums' largest and root-mean-square
+    error over W-, beside the premise's standard deviation
+    sqrt(ceil(log2 n)) u and a sequential f32 sum's, about sqrt(n) u / 3
+    at the end."""
+    users = files["users"]
+    ids = np.where(users >= 0, users, -1 - np.arange(len(users)))
+    order = np.lexsort((scores + files["offsets"], ids))
+    y, w = files["labels"][order], files["weights"][order]
+    neg = np.where(y < 0.5, w, 0.0).astype(np.float32)
+    got = torch.cumsum(torch.from_numpy(neg).cuda(), 0).double().cpu()
+    err = np.abs(got.numpy() - np.cumsum(neg.astype(np.float64)))
+    total = float(neg.astype(np.float64).sum())
+    n = len(neg)
+    return {"n": n, "max_err_over_w": float(err.max()) / total,
+            "rms_err_over_w": float(np.sqrt(np.mean(err ** 2))) / total,
+            "premise_sd_over_w": math.sqrt(math.ceil(math.log2(n))) * F32_U,
+            "sequential_sd_over_w": math.sqrt(n) * F32_U / 3.0}
 
 
 def run_score_cli(files, out_dir, *extra) -> dict:
@@ -797,6 +936,7 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
     )
     from photon_tpu_torch.data.random_effect import scoring_codes
     from photon_tpu_torch.serve.tables import CoefficientTables
+    from photon_tpu_torch.transformers import evaluate_scores
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "smoke", "score")
@@ -821,7 +961,9 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
     with open(os.path.join(root, "out", "evaluation.json")) as f:
         evaluation = json.load(f)
     want = numpy_metrics(scores, files)
-    eval_err = {k: abs(evaluation[k] - want[k]) for k in want}
+    eval_tol = f32_metric_tolerances(files, want)
+    eval_err = {k: abs(evaluation[k] - want[k]) / abs(want[k])
+                for k in want}
 
     # The kernel at rungs 1024 and 8192 on the CLI's own operands: the
     # dataset and tables rebuilt as the CLI builds them, the first rows.
@@ -829,6 +971,14 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         files["data"],
         feature_shards={s: [SCORE_SHARDS[s][0]] for s in SCORE_SHARDS},
         id_tag_names=["userId", "movieId"], device="cuda")
+    # evaluation.json against evaluate_scores run here on the written
+    # scores (the same f32 values) and the same dataset.
+    in_process = evaluate_scores(
+        data, torch.from_numpy(scores.astype(np.float32)).cuda(),
+        list(SCORE_EVALUATORS)).evaluations
+    in_process_err = {k: abs(evaluation[k] - v) / abs(v)
+                      for k, v in in_process.items()}
+    premise = scan_premise(torch, scores, files)
     model, _ = load_game_model(files["model_dir"], maps, device="cuda")
     programs = ScorePrograms(
         CoefficientTables.from_game_model(model, "float32"),
@@ -874,7 +1024,10 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         "max_rel_err_numpy_f64": err_numpy,
         "max_rel_err_plain": err_plain,
         "evaluation": evaluation, "evaluation_numpy": want,
-        "evaluation_max_abs_err": max(eval_err.values()),
+        "evaluation_rel_err": eval_err, "evaluation_rel_tol": eval_tol,
+        "evaluation_in_process": in_process,
+        "evaluation_in_process_rel_err": in_process_err,
+        "scan_premise": premise,
         "plain_run_seconds": plain_line["seconds"],
     }
     emit(row)
@@ -891,8 +1044,19 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         fail(f"score_cli: scores differ from the numpy score by {err_numpy}")
     if not err_plain <= 1e-5:
         fail(f"score_cli: kernel and plain runs differ by {err_plain}")
-    if not max(eval_err.values()) <= EVAL_TOL:
+    if not premise["rms_err_over_w"] <= premise["premise_sd_over_w"]:
+        fail(f"score_cli: the card's f32 running sums are further from "
+             f"float64 than the AUC:userId bound assumes: {premise}")
+    if not all(eval_err[k] <= eval_tol[k] for k in want):
         fail(f"score_cli: evaluation.json differs from numpy: {eval_err}")
+    # Two f32 evaluations of the same scores cannot be held equal: on the
+    # card ``index_add_`` and ``torch.cumsum`` of f32 are not deterministic
+    # (torch.use_deterministic_algorithms lists both), so the sums take
+    # another order each time. Each is within its bound of float64, so
+    # the two are within twice it of each other.
+    if not all(in_process_err[k] <= 2.0 * eval_tol[k] for k in want):
+        fail(f"score_cli: evaluation.json differs from evaluate_scores on "
+             f"the written scores: {in_process_err}")
     return {**timing[-1], "launches": launches}
 
 
@@ -1478,7 +1642,7 @@ def phase_route_agreement(torch) -> dict:
             model = est.fit(data)[0].model
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        datasets = est.prepare(data)
+        datasets, _ = est.prepare(data)
         total, _ = total_scores(torch, model, datasets, data)
         fits[route] = dict(model=model, seconds=secs, launches=nk.launches,
                            plain_solves=ra.plain_route_solves,
@@ -1534,7 +1698,7 @@ def phase_train(torch) -> dict:
     put_s = time.perf_counter() - t0
     est = build_estimator()
     t0 = time.perf_counter()
-    datasets = est.prepare(data)
+    datasets, _ = est.prepare(data)
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     buckets = {cid: [list(b.x_values.shape)
@@ -1582,6 +1746,415 @@ def phase_train(torch) -> dict:
         "bound_by": user["bound_by"],
         "library_ms": None,
     }
+
+
+# ---------------------------------------------------------------------------
+# the training CLI: Avro files in, a directory of GAME models out
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_ROWS = 32 * 8192
+CLI_VALIDATION_ROWS = 4 * 8192
+CLI_EVALUATORS = ["AUC", "AUC:userId"]
+CLI_SHARDS = {s: [bag] for s, (bag, _, _) in SCORE_SHARDS.items()}
+# User activity p(u) ~ 1 / (u + 20), the form of the wide group's movie
+# popularity: a long tail over the 100,000 users whose head has the rows
+# to train on. It is synthetic, taken from no published trace.
+CLI_USER_SKEW = 20
+# An entity trains with at least this many rows: below it, too many
+# entities hold rows of one label only, and then the intercept, which
+# L2 leaves unpenalized, has no finite optimum.
+CLI_MIN_ROWS = 8
+# At most this many rows a user (a reservoir sample past it), the logistic
+# configuration's per-user cap (``build_estimator``). A user of 257-512
+# rows lands in the 1024-row bucket: 1024 x 17 slots is past the
+# reference's R * S <= 16384 and takes the narrow design's long layout.
+CLI_MAX_ROWS = 512
+
+
+def train_cli_config(files, root: str) -> dict:
+    """The logistic training configuration's coordinates over the three
+    bags: ``global`` L2 1e-3, ``per-user`` L2 [1, 10] (a two-point grid)
+    capped at CLI_MAX_ROWS rows, ``per-movie`` L2 1, each random effect
+    active from CLI_MIN_ROWS rows; two CD iterations; EXPLICIT output,
+    feature stats, AUC and AUC:userId."""
+    def l2(*weights):
+        return {"type": "L2", "weights": list(weights)}
+
+    return {
+        "task": "LOGISTIC_REGRESSION",
+        "input": {"format": "avro", "train_path": files["train"]["data"],
+                  "validation_path": files["validation"]["data"],
+                  "feature_shards": CLI_SHARDS,
+                  "id_tags": ["userId", "movieId"]},
+        "coordinates": {
+            "global": {"type": "fixed", "feature_shard": "global",
+                       "regularization": l2(1e-3)},
+            "per-user": {"type": "random", "random_effect_type": "userId",
+                         "feature_shard": "userShard",
+                         "active_data_upper_bound": CLI_MAX_ROWS,
+                         "active_data_lower_bound": CLI_MIN_ROWS,
+                         "regularization": l2(1.0, 10.0)},
+            "per-movie": {"type": "random", "random_effect_type": "movieId",
+                          "feature_shard": "movieShard",
+                          "active_data_lower_bound": CLI_MIN_ROWS,
+                          "regularization": l2(1.0)},
+        },
+        "num_iterations": 2,
+        "evaluators": CLI_EVALUATORS,
+        "model_output_mode": "EXPLICIT",
+        "data_summary_dir": os.path.join(root, "summary"),
+        "output_dir": os.path.join(root, "out"),
+    }
+
+
+def run_train_cli(torch, cfg: dict, root: str, profiled: bool) -> dict:
+    """One in-process ``cli.train.main`` run into ``root`` (counts zeroed
+    just before): exit code, last line, summary, Newton launches (and by
+    bucket shape), plain-route solves, peak device memory, wall seconds,
+    and, when
+    ``profiled``, the Newton kernel's device ms from ``torch.profiler``
+    (CUDA activity only) with the device's busy share of the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.cli import train as train_cli
+    from photon_tpu_torch.ops import newton_kernel as nk
+
+    cfg = dict(cfg, output_dir=os.path.join(root, "out"),
+               data_summary_dir=os.path.join(root, "summary"))
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    nk.launches = ra.plain_route_solves = 0
+    nk.launches_by_shape.clear()
+    t0 = time.perf_counter()
+    with prof, contextlib.redirect_stdout(buf):
+        rc = train_cli.main(["--config", path, "--device", "cuda",
+                             "--checkpoint-dir",
+                             os.path.join(root, "ckpt")])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rc": rc, "wall_seconds": wall, "launches": nk.launches,
+           "launches_by_shape": dict(nk.launches_by_shape),
+           "plain_route_solves": ra.plain_route_solves,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "line": json.loads(buf.getvalue().strip().splitlines()[-1]),
+           "root": root, "out": cfg["output_dir"]}
+    if rc != 0:
+        fail(f"train_cli: cli.train exited {rc}")
+    with open(os.path.join(cfg["output_dir"],
+                          "training-summary.json")) as f:
+        out["summary"] = json.load(f)
+    if profiled:
+        def device_us(e):
+            return float(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0)))
+
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        newton = [e for e in kernels if "newton" in e.key.lower()]
+        out["newton_device_ms"] = sum(map(device_us, newton)) / 1e3
+        out["newton_profiled_launches"] = sum(e.count for e in newton)
+        out["device_ms"] = sum(map(device_us, kernels)) / 1e3
+        out["device_busy_share"] = out["device_ms"] / (wall * 1e3)
+    return out
+
+
+def checkpoint_arrays(path: str):
+    """(arrays, manifest) of a native checkpoint, in numpy."""
+    from photon_tpu_torch.io.model_io import (
+        game_model_to_numpy,
+        load_checkpoint,
+    )
+
+    return game_model_to_numpy(load_checkpoint(path, "cpu"))
+
+
+def numpy_model_scores(model_dir: str, data_path: str) -> np.ndarray:
+    """float64 scores of the rows of ``data_path`` from the arrays of the
+    Avro model in ``model_dir``, in the index space ``cli.score`` builds
+    from that data: each row's dot with the fixed effect, plus, for an
+    entity the model knows, its coefficients at the row's features."""
+    from photon_tpu_torch.data.random_effect import scoring_codes
+    from photon_tpu_torch.io.avro_data import read_merged
+    from photon_tpu_torch.io.model_io import load_game_model
+
+    data, maps = read_merged(data_path, feature_shards=CLI_SHARDS,
+                             id_tag_names=["userId", "movieId"],
+                             device="cpu")
+    model, _ = load_game_model(model_dir, maps, device="cpu")
+    z = np.zeros(data.num_samples)
+    for name, sub in model.items():
+        idx, val, d = data.host_shard_coo(sub.feature_shard_id)
+        val = val.astype(np.float64)
+        if name == "global":
+            w = sub.model.coefficients.means.double().numpy()
+            z += np.sum(val * w[idx], axis=1)
+            continue
+        coefs = sub.coefficients.double().numpy()
+        dense = np.zeros((coefs.shape[0] + 1, d))
+        rows, slots = np.nonzero(sub.proj_all >= 0)
+        dense[rows, sub.proj_all[rows, slots]] = coefs[rows, slots]
+        codes = scoring_codes(data, sub.random_effect_type,
+                              sub.entity_keys)
+        z += np.sum(val * dense[np.where(codes >= 0, codes, -1)[:, None],
+                                idx], axis=1)
+    return z
+
+
+def numpy_weighted_moments(files, shard: str, d: int):
+    """The weighted mean and unbiased variance of every feature id of
+    ``shard`` over the written training rows, in float64 (implicit zeros
+    counted, as FeatureDataStatistics counts them)."""
+    idx, val = files["feats"][shard]
+    w = files["weights"]
+    s1 = np.bincount(idx.ravel(), (val * w[:, None]).ravel(), minlength=d)
+    s2 = np.bincount(idx.ravel(), (val * val * w[:, None]).ravel(),
+                     minlength=d)
+    sw = w.sum()
+    mean = s1 / sw
+    return mean, (sw / (sw - 1.0)) * (s2 / sw - mean * mean)
+
+
+def long_bucket(torch, shape, seed: int):
+    """A synthetic random-effect bucket of ``shape`` [B, R, S] as the
+    planner lays out the CLI's longest entities, for the Newton kernel's
+    parity there: each entity holds R/4 + 1 .. R/2 live rows (the rest
+    padding of weight 0), ELL_K["userShard"] of its S - 1 feature slots
+    drawn N(0, 1) a row plus the intercept slot (last, unpenalized), and
+    logistic labels from N(0, 1 / k) coefficients."""
+    from types import SimpleNamespace
+
+    b, r, s = shape
+    k = min(ELL_K["userShard"], s - 1)
+    rng = np.random.default_rng(seed)
+    live = np.arange(r)[None, :] < rng.integers(r // 4 + 1, r // 2 + 1,
+                                                size=b)[:, None]
+    x = np.zeros((b, r, s))
+    cols = np.argsort(rng.random((b, r, s - 1)), axis=2)[:, :, :k]
+    np.put_along_axis(x, cols, rng.normal(size=(b, r, k)), axis=2)
+    x[:, :, s - 1] = 1.0
+    x *= live[:, :, None]
+    z = np.einsum("brs,bs->br", x, rng.normal(size=(b, s)) / math.sqrt(k))
+    y = (rng.uniform(size=(b, r)) < 1.0 / (1.0 + np.exp(-z))) & live
+    penalty = np.ones((b, s))
+    penalty[:, s - 1] = 0.0
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    return SimpleNamespace(
+        x_values=dev(x), offsets=dev(np.zeros((b, r))), labels=dev(y),
+        weights=dev(live), penalty_mask=dev(penalty),
+        valid_mask=dev(np.ones((b, s))), num_entities=b)
+
+
+def phase_train_cli(torch, arrays, manifest) -> dict:
+    """``cli.train`` at the logistic configuration's widths, through the
+    CLI (module docstring, phase 14a). Cut: rows only, 262,144 train and
+    32,768 validation against the in-memory phase's 4,000,000, because
+    the pure-Python Avro writer makes the files (it took 13.9-14.7 s for
+    107,496 rows on the H100 host, so 4M rows would be ~9 minutes of
+    set-up). Returns the launch counts and the kernel run's row."""
+    import resource
+
+    from photon_tpu_torch.cli import score as score_cli
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.io.model_io import load_feature_stats
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.resilience import load_training_checkpoint
+    from photon_tpu_torch.serve.programs import ShapeLadder
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke", "train_cli")
+    t0 = time.perf_counter()
+    files = {
+        "train": score_files(arrays, manifest, root, CLI_TRAIN_ROWS,
+                             SEED + 3, cold=0.0, intercept=True,
+                             model=False, name="train.avro",
+                             user_skew=CLI_USER_SKEW),
+        "validation": score_files(arrays, manifest, root,
+                                  CLI_VALIDATION_ROWS, SEED + 4,
+                                  intercept=True, model=False,
+                                  name="validation.avro",
+                                  user_skew=CLI_USER_SKEW),
+    }
+    write_s = time.perf_counter() - t0
+    cfg = train_cli_config(files, root)
+    kernel = run_train_cli(torch, cfg, os.path.join(root, "kernel"), True)
+    with newton_switch("off"):
+        plain = run_train_cli(torch, cfg, os.path.join(root, "plain"),
+                              False)
+
+    # (a) layout and the checkpoint chain.
+    ks, ps = kernel["summary"], plain["summary"]
+    best = ks["best_configuration_index"]
+    other = 1 - best
+    layout = ["training-summary.json", "models/best/model-metadata.json",
+              "models/best/checkpoint.npz",
+              "models/best/fixed-effect/global/id-info",
+              "models/best/random-effect/per-user/id-info",
+              "models/best/random-effect/per-movie/id-info",
+              f"models/config_{other}/checkpoint.npz",
+              "group-evaluation/0/AUC_userId.json"]
+    missing = [f for f in layout
+               if not os.path.exists(os.path.join(kernel["out"], f))]
+    ckpt = load_training_checkpoint(os.path.join(kernel["root"], "ckpt"),
+                                    "cuda")
+    # (c) route agreement of the best models and their validation AUCs.
+    ka, kman = checkpoint_arrays(os.path.join(kernel["out"], "models",
+                                              "best", "checkpoint.npz"))
+    pa, pman = checkpoint_arrays(os.path.join(plain["out"], "models",
+                                              "best", "checkpoint.npz"))
+    # An entity whose training rows hold one label has no finite
+    # optimum (its intercept runs off), so each route stops it where its
+    # iterations end: such entities are counted and left out.
+    agreement, one_label = {}, {}
+    train = files["train"]
+    for key, a in ka.items():
+        if key.endswith("/proj_all"):
+            agreement[key] = bool(np.array_equal(a, pa[key]))
+            continue
+        b = pa[key].astype(np.float64)
+        diff = np.abs(a.astype(np.float64) - b)
+        atol = FIT_ATOL if key.startswith("global/") else RE_FIT_ATOL
+        excess = diff - (atol + FIT_RTOL * np.abs(b))
+        if not key.startswith("global/"):
+            cid = key.split("/")[0]
+            ids = train["users" if cid == "per-user" else "movies"]
+            pos = np.bincount(ids, weights=train["labels"])
+            mixed = (pos > 0) & (pos < np.bincount(ids))
+            ent = np.array([int(k) for k in kman[cid]["entity_keys"]])
+            keep = mixed[ent]
+            one_label[cid] = int((~keep).sum())
+            excess = excess[keep]
+        agreement[key] = float(np.max(excess))
+    k_auc = ks["configurations"][best]["evaluation"]["AUC"]
+    p_auc = ps["configurations"][ps["best_configuration_index"]][
+        "evaluation"]["AUC"]
+    # The Newton kernel against its plain version at the kernel run's
+    # longest bucket shape, on a synthetic bucket of that shape.
+    shapes = kernel["launches_by_shape"]
+    longest = max(shapes, key=lambda sh: (sh[1] * sh[2], sh[0]))
+    parity_err, _ = newton_parity_steps(
+        torch, "longest", long_bucket(torch, longest, SEED + 5), 1.0,
+        phase="train_cli_newton_parity")
+    # (d) the generating model's validation AUC in float64.
+    val = files["validation"]
+    gen_auc = numpy_auc(val["exact"] + val["offsets"], val["labels"],
+                        val["weights"])
+    # (e) train -> score on the validation file.
+    score_out = os.path.join(root, "scores")
+    best_dir = os.path.join(kernel["out"], "models", "best")
+    serve_kernel.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = score_cli.main([
+            "--model-dir", best_dir, "--input", val["data"],
+            "--output", score_out, "--feature-shards",
+            *[f"{s}={b[0]}" for s, b in CLI_SHARDS.items()],
+            "--id-tags", "userId", "movieId", "--device", "cuda",
+            "--evaluators", *CLI_EVALUATORS])
+    score_launches = serve_kernel.launches
+    chunks = len(ShapeLadder(SCORE_RUNGS).chunk_plan(CLI_VALIDATION_ROWS))
+    scores = np.array([r["predictionScore"] for r in avro.read_container_dir(
+        os.path.join(score_out, "part-00000.avro"))])
+    exact = numpy_model_scores(best_dir, val["data"])
+    score_err = float(np.max(np.abs(scores - exact) / (1.0 + np.abs(exact))))
+    with open(os.path.join(score_out, "evaluation.json")) as f:
+        score_auc = json.load(f)["AUC"]
+    # (f) the global shard's feature stats against numpy.
+    stats = load_feature_stats(os.path.join(kernel["root"], "summary",
+                                            "global"))
+    n_ids = N_FEATURES - 1
+    mean, var = numpy_weighted_moments(files["train"], "global", n_ids)
+    keys = files["train"]["keys"]["global"]
+    stats_err = max(max(abs(stats[keys[j]]["mean"] - mean[j]),
+                        abs(stats[keys[j]]["variance"] - var[j]))
+                    for j in range(n_ids))
+
+    row = {
+        "phase": "train_cli", "rows": CLI_TRAIN_ROWS,
+        "validation_rows": CLI_VALIDATION_ROWS,
+        "write_files_seconds": write_s,
+        "data_bytes": [f["data_bytes"] for f in files.values()],
+        "seconds": ks["seconds"], "wall_seconds": kernel["wall_seconds"],
+        "plain_run_seconds": ps["seconds"],
+        "plain_run_wall_seconds": plain["wall_seconds"],
+        "newton_launches": [kernel["launches"], plain["launches"]],
+        "newton_launches_by_shape": [
+            [list(sh), n] for sh, n in sorted(shapes.items())],
+        "newton_parity_shape": list(longest),
+        "newton_parity_max_abs_diff": parity_err,
+        "plain_route_solves": [kernel["plain_route_solves"],
+                               plain["plain_route_solves"]],
+        "newton_device_ms": kernel.get("newton_device_ms"),
+        "newton_profiled_launches": kernel.get("newton_profiled_launches"),
+        "device_ms": kernel.get("device_ms"),
+        "device_busy_share": kernel.get("device_busy_share"),
+        "peak_device_bytes": [kernel["peak_device_bytes"],
+                              plain["peak_device_bytes"]],
+        "peak_host_rss_bytes": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "best_configuration": [best, ps["best_configuration_index"]],
+        "configurations": [c["evaluation"] for c in ks["configurations"]],
+        "validation_auc": [k_auc, p_auc], "generating_auc": gen_auc,
+        "checkpoint": [ckpt.config_index, ckpt.iteration,
+                       ckpt.interrupted],
+        "model_agreement_max_excess": agreement,
+        "one_label_entities_left_out": one_label,
+        "score_launches": score_launches, "score_chunks": chunks,
+        "score_max_rel_err_numpy_f64": score_err,
+        "score_auc": score_auc,
+        "stats_max_abs_err": stats_err,
+        "last_line": kernel["line"],
+    }
+    emit(row)
+    print(f"train_cli: validation AUC {k_auc:.6f} (generating model "
+          f"{gen_auc:.6f}); Newton launches {kernel['launches']} "
+          f"({kernel.get('newton_device_ms')} device ms) on the kernel, "
+          f"{plain['launches']} with the switch off", flush=True)
+    if missing:
+        fail(f"train_cli: missing outputs {missing}")
+    if (ckpt.config_index, ckpt.iteration, ckpt.interrupted) != (1, 1,
+                                                                  False):
+        fail(f"train_cli: the checkpoint holds {row['checkpoint']}")
+    if kernel["launches"] <= 0 or kernel["plain_route_solves"] != 0:
+        fail("train_cli: the kernel run did not take the Newton kernel on "
+             "every bucket")
+    if plain["launches"] != 0:
+        fail("train_cli: PHOTON_NEWTON_KERNEL=off still launched the kernel")
+    if best != ps["best_configuration_index"]:
+        fail("train_cli: the two runs chose different configurations")
+    if not all(v is True or (not isinstance(v, bool) and v <= 0.0)
+               for v in agreement.values()) or kman != pman:
+        fail(f"train_cli: the best models differ: {agreement}")
+    if not abs(k_auc - p_auc) <= 1e-4:
+        fail(f"train_cli: validation AUCs differ: {k_auc} vs {p_auc}")
+    if not k_auc - 0.5 >= 0.5 * (gen_auc - 0.5):
+        fail(f"train_cli: AUC {k_auc} recovers under half the generating "
+             f"model's lift ({gen_auc})")
+    if rc != 0 or len(scores) != CLI_VALIDATION_ROWS or not np.isfinite(
+            scores).all():
+        fail("train_cli: cli.score did not score every validation row")
+    if not score_err <= 1e-5:
+        fail(f"train_cli: scores differ from the numpy score by {score_err}")
+    if not abs(score_auc - k_auc) <= 1e-4:
+        fail(f"train_cli: evaluation.json AUC {score_auc} against "
+             f"training-summary.json's {k_auc}")
+    if score_launches != chunks:
+        fail(f"train_cli: {score_launches} serve launches for {chunks} "
+             "chunks")
+    if not stats_err <= 1e-6 or len(stats) != n_ids:
+        fail(f"train_cli: feature stats differ from numpy by {stats_err}")
+    return {"newton_launches": kernel["launches"],
+            "newton_parity_max_abs_diff": parity_err,
+            "serve_launches": score_launches, "row": row}
 
 
 # ---------------------------------------------------------------------------
@@ -1723,7 +2296,7 @@ def phase_wide_data(torch) -> dict:
     put_s = time.perf_counter() - t0
     est = wide_estimator()
     t0 = time.perf_counter()
-    datasets = est.prepare(data)
+    datasets, _ = est.prepare(data)
     plan_s = time.perf_counter() - t0
     movie = datasets["per-movie"]
     buckets = [{"coordinate": cid, "shape": list(eb.x_values.shape),
@@ -2196,7 +2769,7 @@ def phase_wide_logistic(torch) -> dict:
     arrays = wide_arrays(**WIDE_REDUCED, task="logistic")
     data = wide_dataset(arrays)
     est = wide_estimator("logistic")
-    datasets = est.prepare(data)
+    datasets, _ = est.prepare(data)
     buckets = bucket_routes(datasets, direct=False)
     wide = [(cid, eb) for cid, _, eb, _, _ in buckets
             if eb.sub_dim > nk.NARROW_SUB_DIM
@@ -2381,7 +2954,7 @@ def fits_only(torch, n: int) -> int:
                          ("float64", torch.float64)):
         data = train_dataset(arrays, dtype)
         est = build_estimator()
-        datasets = est.prepare(data)
+        datasets, _ = est.prepare(data)
         with newton_switch("off" if route == "plain" else None):
             for k in range(n + 1 if route == "kernel" else 1):
                 traj, res = fit_trajectory(torch, est, data)
@@ -2418,6 +2991,8 @@ def main() -> int:
                     help="run only the serve kernel's timing, N times")
     ap.add_argument("--fits", type=int, default=0, metavar="N",
                     help="run only the full-width fits, N warm times each")
+    ap.add_argument("--train-cli", action="store_true",
+                    help="run only the training CLI phase")
     args = ap.parse_args()
     try:
         import torch
@@ -2459,6 +3034,10 @@ def main() -> int:
           "sources": [str(p.name) for p in _build.sources()]})
     if args.fits > 0:
         return fits_only(torch, args.fits)
+    if args.train_cli:
+        phase_train_cli(torch, *serving_arrays())
+        print(smi, flush=True)
+        return 0
     if args.timing > 0:
         model = game_model_from_numpy(*serving_arrays(), "cuda")
         for _ in range(args.timing):
@@ -2488,6 +3067,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     newton = phase_train(torch)
     torch.cuda.empty_cache()
+    train_cli = phase_train_cli(torch, arrays, manifest)
+    newton["launches_by_path"] = {"fit": newton["launches"],
+                                  "train_cli": train_cli["newton_launches"]}
+    newton["launches"] += train_cli["newton_launches"]
+    newton["max_abs_err"] = max(newton["max_abs_err"],
+                                train_cli["newton_parity_max_abs_diff"])
+    torch.cuda.empty_cache()
     segment = phase_wide(torch)
 
     top = next(r for r in rows
@@ -2497,10 +3083,13 @@ def main() -> int:
         "route": "cuda",
         "source": serve_kernel.SOURCE,
         "replaces": REPLACES,
-        # Both of its main paths: the served requests and the batch CLI.
-        "launches": serve["kernel_launches"] + batch["launches"],
+        # Its main paths: the served requests, the batch CLI and the
+        # training CLI's train -> score round trip.
+        "launches": (serve["kernel_launches"] + batch["launches"]
+                     + train_cli["serve_launches"]),
         "launches_by_path": {"serve": serve["kernel_launches"],
-                             "score_cli": batch["launches"]},
+                             "score_cli": batch["launches"],
+                             "train_cli": train_cli["serve_launches"]},
         "max_abs_err": max(worst, coords["float32"]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

@@ -1,12 +1,17 @@
 """CoordinateDescent: the GAME outer loop with residual-score bookkeeping
-(port of ``photon_tpu/algorithm/coordinate_descent.py``, without
-validation).
+(port of ``photon_tpu/algorithm/coordinate_descent.py``).
 
 Coordinate k trains against the base offsets plus the sum of every
 other coordinate's scores; its new scores then replace its old ones in
 the running total, ``total - old + new`` (CoordinateDescent.scala:442,
 583). Every coordinate's scores are one [n] tensor in canonical row
 order. Locked coordinates contribute scores and are never retrained.
+
+With a ``ValidationContext`` the validation scores are kept the same
+way, one [n_val] tensor per coordinate, and after every update only the
+updated coordinate's are swapped into their total; the suite then
+evaluates the total, and the best full model by the primary evaluator
+is kept (descendWithValidation, :493 and :312-333).
 """
 
 from __future__ import annotations
@@ -14,18 +19,19 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
+from photon_tpu_torch.evaluation.suite import (
+    EvaluationResults,
+    EvaluationSuite,
+)
 from photon_tpu_torch.models.game import GameModel
+from photon_tpu_torch.resilience import faults
+from photon_tpu_torch.resilience.errors import NonFiniteUpdateError
 
 logger = logging.getLogger(__name__)
-
-
-class NonFiniteUpdateError(RuntimeError):
-    """A coordinate's first update produced NaN or inf: there is no
-    previous iterate to roll back to."""
 
 
 def _sub_add(total: torch.Tensor, old: torch.Tensor,
@@ -52,6 +58,16 @@ def _update_is_finite(model, scores: torch.Tensor) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
+class ValidationContext:
+    """The validation suite and one scorer per coordinate:
+    ``scorers[k](model)`` is coordinate k's score of every validation
+    row."""
+
+    suite: EvaluationSuite
+    scorers: dict[str, Callable[[Any], torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
 class CoordinateUpdateRecord:
     """One coordinate update: solver diagnostics and the host time the
     update took (training is asynchronous on the card, so this is the
@@ -61,16 +77,16 @@ class CoordinateUpdateRecord:
     coordinate_id: str
     seconds: float
     diagnostics: Any
-    evaluation: None = None
+    evaluation: EvaluationResults | None = None
     # True when the update was non-finite and the previous iterate kept.
     rolled_back: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class CoordinateDescentResult:
-    model: GameModel
-    best_model: GameModel
-    best_evaluation: None
+    model: GameModel  # after the last iteration
+    best_model: GameModel  # best by validation (``model`` without it)
+    best_evaluation: EvaluationResults | None
     history: tuple
 
 
@@ -96,8 +112,24 @@ class CoordinateDescent:
                 "update sequence contains no trainable coordinates "
                 "(CoordinateDescent.scala:71 checkInvariants)")
 
-    def run(self, coordinates: dict, initial_models: dict | None = None, *,
-            seed: int = 0) -> CoordinateDescentResult:
+    def run(self, coordinates: dict, initial_models: dict | None = None,
+            validation: ValidationContext | None = None, *,
+            seed: int = 0, start_iteration: int = 0, on_iteration=None,
+            initial_best=None) -> CoordinateDescentResult:
+        """Train every coordinate by block coordinate descent.
+
+        ``start_iteration`` resumes mid-descent: iterations before it
+        are baked into ``initial_models``, and the rest run with the
+        seeds the uninterrupted run would have used. ``initial_best``,
+        a ``(model, evaluation)`` pair, seeds the best-by-validation
+        tracking on resume. ``on_iteration(it, model, best_model)``
+        runs after each outer iteration (the checkpointer's hook), and
+        the ``cd.iteration`` fault point right after it.
+        """
+        if not 0 <= start_iteration <= self.num_iterations:
+            raise ValueError(
+                f"start_iteration {start_iteration} outside "
+                f"[0, {self.num_iterations}]")
         for cid in self.update_sequence:
             if cid not in coordinates:
                 raise KeyError(f"no coordinate for id {cid!r}")
@@ -118,7 +150,11 @@ class CoordinateDescent:
                 total = s if total is None else total + s
 
         history = []
-        for it in range(self.num_iterations):
+        best_model, best_eval = initial_best or (None, None)
+        all_ids = set(self.update_sequence)
+        val_scores: dict = {}
+        val_total = None
+        for it in range(start_iteration, self.num_iterations):
             for cid in self.update_sequence:
                 if cid in self.locked_coordinates:
                     continue
@@ -157,11 +193,46 @@ class CoordinateDescent:
                 models[cid] = model
                 scores[cid] = new_scores
                 seconds = time.perf_counter() - t0
-                logger.info("CD iter %d coordinate %s (%.2fs)", it, cid,
-                            seconds)
-                history.append(CoordinateUpdateRecord(it, cid, seconds,
-                                                      diag))
+                evaluation = None
+                if validation is not None:
+                    # Only the updated coordinate is rescored; warm-start
+                    # and locked models enter on their first appearance.
+                    for vid, m in models.items():
+                        if vid == cid or vid not in val_scores:
+                            vs = validation.scorers[vid](m)
+                            old = val_scores.get(vid)
+                            if val_total is None:
+                                val_total = vs
+                            elif old is None:
+                                val_total = val_total + vs
+                            else:
+                                val_total = _sub_add(val_total, old, vs)
+                            val_scores[vid] = vs
+                    evaluation = validation.suite.evaluate(val_total)
+                    primary = validation.suite.primary
+                    # Only a full model (every coordinate trained or
+                    # seeded) may be the best.
+                    if set(models) == all_ids and (
+                            best_eval is None or primary.better_than(
+                                evaluation.primary_evaluation,
+                                best_eval.primary_evaluation)):
+                        best_eval = evaluation
+                        best_model = GameModel(dict(models))
+                    logger.info("CD iter %d coordinate %s: %s (%.2fs)", it,
+                                cid, evaluation.evaluations, seconds)
+                else:
+                    logger.info("CD iter %d coordinate %s (%.2fs)", it, cid,
+                                seconds)
+                history.append(CoordinateUpdateRecord(
+                    it, cid, seconds, diag, evaluation))
+            # The end of an outer iteration is the recovery point: the
+            # checkpoint commits, then the kill-and-resume fault point.
+            if on_iteration is not None:
+                on_iteration(it, GameModel(dict(models)), best_model)
+            faults.check("cd.iteration")
         final = GameModel(dict(models))
-        return CoordinateDescentResult(model=final, best_model=final,
-                                       best_evaluation=None,
-                                       history=tuple(history))
+        return CoordinateDescentResult(
+            model=final,
+            best_model=final if best_model is None else best_model,
+            best_evaluation=best_eval,
+            history=tuple(history))

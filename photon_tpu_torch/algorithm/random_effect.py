@@ -14,8 +14,9 @@ For logistic or Poisson loss the bucket runs damped Newton/IRLS
 convergence through the reference's cascade:
 
 - the Newton-step route, taken when ``newton_kernel.kernel_supported``
-  holds (f32, R * S <= 16384): one ``newton_step`` per iteration, the
-  CUDA kernel on the card;
+  holds (f32; R * S <= 16384, or up to S = 128 slots any bucket whose
+  slab fits in the kernel's shared memory): one ``newton_step`` per
+  iteration, the CUDA kernel on the card;
 - the plain route otherwise (f64, larger buckets): the same iteration as
   PyTorch tensor code with an S-step CG per entity (``_spd_solve_cg_sb``).
 

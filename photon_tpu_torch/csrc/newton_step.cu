@@ -19,9 +19,13 @@
 // clamped objective of ops/losses.py (margin capped at 30), as the port's
 // plain version does. Everything is f32 FMA arithmetic; no tensor cores.
 //
-// Two designs share the gate R * S <= 16384 (the reference's), chosen by S.
-// This file holds the narrow one (S <= 128) and the entry point; the wide
-// one (S > 128) is in newton_step_wide.cu.
+// Two designs, chosen by S. This file holds the narrow one (S <= 128) and
+// the entry point; the wide one (S > 128) is in newton_step_wide.cu. The
+// wide design keeps the reference's gate, R * S <= 16384. The narrow design
+// takes any [R, S] whose warp's shared memory (below) fits in a block's
+// 227 KB with the row vectors left in global memory: every bucket of the
+// reference's gate, and longer ones past it, such as the 1024-row bucket
+// at 17 slots (R * S = 17408) that a 512-row cap on an entity's rows gives.
 //
 // Narrow design (newton_narrow_kernel): one warp per entity, one warp per
 // block, persistent. The launcher starts as many blocks as the card holds
@@ -57,8 +61,11 @@
 //   the result is the same as evaluating all T; the common case costs one
 //   trial's exp and log1p per row instead of sixteen.
 // - z and c (then x d, then wt dz) stay in shared memory, two [R] vectors.
-//   Only where R is in the thousands and S tiny (16384 x 1) do y, wt, off
-//   stay in global memory, so that one warp still fits.
+//   Only where staging them would not fit (R in the thousands: 16384 x 1,
+//   or 2048 x 17) do y, wt, off stay in global memory, so that one warp
+//   still fits. A long bucket's warp takes up to the whole 227 KB, so as
+//   few as one warp an SM runs; such buckets hold the few most active
+//   entities.
 //
 // What bounds it: bytes in principle. At the bench's user bucket (~100,000
 // entities x 64 rows x 17 slots) a step must read the 435 MB slab plus the
@@ -566,6 +573,15 @@ size_t narrow_bytes(int r, int s, bool reg_h, bool rows) {
   return sizeof(float) * static_cast<size_t>(NarrowLayout(r, s, reg_h, rows).warp_floats());
 }
 
+// Whether the kernel takes an [R, S] bucket (the gate at the top of this
+// file; ops/newton_kernel.py's kernel_supported computes the same).
+bool shape_supported(int r, int s) {
+  if (s > kMaxSub) return static_cast<long long>(r) * s <= kMaxRS;
+  // The slab alone is R * S floats: rule out what would overflow the layout.
+  if (static_cast<long long>(r) * s * sizeof(float) > kSmemPerBlock) return false;
+  return narrow_bytes(r, s, s <= 32, false) <= kSmemPerBlock;
+}
+
 template <int TASK, int NQ>
 int launch_narrow(const StepArgs& a, cudaStream_t stream) {
   constexpr bool reg_h = NQ > 0;
@@ -624,8 +640,8 @@ int photon_newton_step(const float* x, const float* w, const float* y,
                        unsigned char* imp_out, long long b, int r, int s, int task,
                        int trials, float* ws, void* stream) {
   using namespace photon_newton;
-  if (b <= 0 || b > 0x7fffffffLL || r <= 0 || s <= 0 ||
-      static_cast<long long>(r) * s > kMaxRS || trials < 1 || trials > kMaxTrials) {
+  if (b <= 0 || b > 0x7fffffffLL || r <= 0 || s <= 0 || !shape_supported(r, s) ||
+      trials < 1 || trials > kMaxTrials) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const StepArgs a{x, w, y, wt, off, l2, mt, vm, f, w_out, f_out, g_out, imp_out,

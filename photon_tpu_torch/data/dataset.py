@@ -12,7 +12,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Union
 
+import numpy as np
 import torch
+
+from photon_tpu_torch import device as device_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +94,52 @@ class GLMBatch:
 
     def with_offsets(self, offsets: torch.Tensor) -> "GLMBatch":
         return dataclasses.replace(self, offsets=offsets)
+
+
+def rows_to_ell(rows: list, num_features: int, *, capacity: int | None = None,
+                dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row (index, value) lists packed into ELL index/value slabs
+    of width ``capacity`` (default: the longest row)."""
+    k = capacity if capacity is not None else max(
+        (len(r) for r in rows), default=1)
+    k = max(k, 1)
+    n = len(rows)
+    indices = np.zeros((n, k), dtype=np.int32)
+    values = np.zeros((n, k), dtype=dtype)
+    for i, row in enumerate(rows):
+        if len(row) > k:
+            raise ValueError(f"row {i} has {len(row)} nnz > capacity {k}")
+        for j, (idx, val) in enumerate(row):
+            if not 0 <= idx < num_features:
+                raise ValueError(f"feature index {idx} out of range "
+                                 f"[0, {num_features})")
+            indices[i, j] = idx
+            values[i, j] = val
+    return indices, values
+
+
+def make_sparse_batch(rows: list, num_features: int, labels, offsets=None,
+                      weights=None, capacity: int | None = None,
+                      dtype: torch.dtype = torch.float32,
+                      device=None) -> GLMBatch:
+    """A GLMBatch of ELL features from per-row (index, value) lists, on
+    ``device`` (default ``cuda``)."""
+    dev = device_mod.resolve(device)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    indices, values = rows_to_ell(rows, num_features, capacity=capacity,
+                                  dtype=np_dtype)
+    n = len(rows)
+
+    def put(a, fill=None):
+        if a is None:
+            return torch.full((n,), fill, dtype=dtype, device=dev)
+        return torch.as_tensor(np.asarray(a, dtype=np_dtype)).to(dev)
+
+    return GLMBatch(
+        features=SparseFeatures(torch.from_numpy(indices).to(dev),
+                                torch.from_numpy(values).to(dev),
+                                num_features),
+        labels=put(labels),
+        offsets=put(offsets, 0.0),
+        weights=put(weights, 1.0),
+    )

@@ -8,16 +8,23 @@ warm-started from the previous one's model (GameEstimator.scala:452-468).
 The first is seeded by ``initial_model``, remapped onto this data's
 entity vocabulary and subspaces.
 
-Waiting (ROADMAP Queue A): mesh execution, checkpoint/resume,
-validation and evaluation, streaming ingest, the event emitter, and the
-whole-fit fused program (its torch counterpart is a CUDA-graph capture
-of a fit).
+With validation data every update is evaluated and each configuration
+returns its best model by the primary evaluator; ``select_best`` picks
+across configurations (GameTrainingDriver.scala:753-793). A
+``TrainingCheckpointer`` commits a recovery point after every outer
+iteration, and ``resume`` restarts from one.
+
+Waiting (ROADMAP Queue A): mesh execution (item 12), streaming ingest
+(item 9), the event emitter (item 10), and the whole-fit fused program
+(item 8; its torch counterpart is a CUDA-graph capture of a fit).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import time
 from typing import Union
 
 from photon_tpu_torch import device as device_mod
@@ -26,6 +33,7 @@ from photon_tpu_torch.algorithm.coordinate import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
     CoordinateDescentResult,
+    ValidationContext,
 )
 from photon_tpu_torch.algorithm.problems import (
     GLMOptimizationConfiguration,
@@ -37,6 +45,8 @@ from photon_tpu_torch.data.random_effect import (
     RandomEffectDataConfiguration,
     build_random_effect_dataset,
 )
+from photon_tpu_torch.evaluation.evaluators import EvaluatorSpec
+from photon_tpu_torch.evaluation.suite import EvaluationResults
 from photon_tpu_torch.models.game import (
     FixedEffectModel,
     GameModel,
@@ -45,9 +55,25 @@ from photon_tpu_torch.models.game import (
 )
 from photon_tpu_torch.ops import precision as precision_mod
 from photon_tpu_torch.ops.normalization import NormalizationContext
+from photon_tpu_torch.resilience import checkpoint as ckpt_mod
+from photon_tpu_torch.resilience.errors import ResumeMismatchError
+from photon_tpu_torch.transformers import (
+    evaluation_suite,
+    fixed_effect_scorer,
+    random_effect_scorer,
+)
 from photon_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
+
+# The primary evaluator of each task when none is configured
+# (GameEstimator.scala:673 prepareValidationEvaluators).
+_DEFAULT_EVALUATOR = {
+    TaskType.LOGISTIC_REGRESSION: "AUC",
+    TaskType.LINEAR_REGRESSION: "RMSE",
+    TaskType.POISSON_REGRESSION: "POISSON_LOSS",
+    TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM: "AUC",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,12 +117,16 @@ class _FixedEffectModelAdapter:
 
 @dataclasses.dataclass(frozen=True)
 class GameFitResult:
-    """One (configuration, trained model) pair of the config sequence."""
+    """One (configuration, trained model) pair of the config sequence.
+    ``descent`` and ``seconds`` are None for a configuration rebuilt from
+    its checkpoint on resume."""
 
-    model: GameModel
+    model: GameModel  # the best-by-validation model of the descent
     config: dict
-    evaluation: None
-    descent: CoordinateDescentResult
+    evaluation: EvaluationResults | None
+    descent: CoordinateDescentResult | None
+    # Host seconds of the descent (it syncs at every validation).
+    seconds: float | None = None
 
 
 class GameEstimator:
@@ -114,6 +144,7 @@ class GameEstimator:
         num_iterations: int = 1,
         normalization: dict | None = None,
         intercept_indices: dict | None = None,
+        evaluators: list[str | EvaluatorSpec] | None = None,
         locked_coordinates: set | None = None,
         incremental_training: bool = False,
         non_finite_guard: bool = False,
@@ -132,6 +163,7 @@ class GameEstimator:
         self.num_iterations = num_iterations
         self.normalization = dict(normalization or {})
         self.intercept_indices = dict(intercept_indices or {})
+        self.evaluators = list(evaluators or [])
         self.locked_coordinates = set(locked_coordinates or ())
         self.incremental_training = incremental_training
         self.non_finite_guard = bool(non_finite_guard)
@@ -196,21 +228,111 @@ class GameEstimator:
                     cfg.feature_shard_id)
         return coords
 
+    def _build_validation(self, datasets: dict,
+                          validation: GameDataset) -> ValidationContext:
+        """The validation suite in the labels' dtype and one scorer per
+        coordinate over the training datasets' entity layouts
+        (prepareValidationDatasetAndEvaluators, :649-673)."""
+        suite = evaluation_suite(
+            validation, self.evaluators or [_DEFAULT_EVALUATOR[self.task]])
+        scorers = {}
+        for cid, cfg in self.coordinate_configs.items():
+            if isinstance(cfg, RandomEffectCoordinateConfiguration):
+                ds = datasets[cid]
+                scorers[cid] = random_effect_scorer(
+                    validation,
+                    re_type=cfg.data.random_effect_type,
+                    feature_shard_id=cfg.data.feature_shard_id,
+                    entity_keys=ds.entity_keys,
+                    proj_all=ds.proj_all,
+                    width_cap=cfg.data.score_table_width_cap,
+                )
+            else:
+                scorers[cid] = fixed_effect_scorer(validation,
+                                                   cfg.feature_shard_id)
+        return ValidationContext(suite=suite, scorers=scorers)
+
+    @staticmethod
+    def _score_with_validation(val_ctx: ValidationContext,
+                               model: GameModel) -> EvaluationResults:
+        """Evaluate a (re)loaded model on the validation data."""
+        total = None
+        for cid, m in model.items():
+            vs = val_ctx.scorers[cid](m)
+            total = vs if total is None else total + vs
+        return val_ctx.suite.evaluate(total)
+
+    def _full_config(self, opt_configs: dict) -> dict:
+        return {cid: opt_configs.get(
+            cid, self.coordinate_configs[cid].optimization)
+            for cid in self.update_sequence}
+
+    def _rebuild_completed_config(self, checkpointer, resume, i,
+                                  opt_configs, val_ctx) -> GameFitResult:
+        """A configuration completed before the interruption: its best
+        model from the retained config-final checkpoint, its evaluation
+        by rescoring that model."""
+        model = ckpt_mod.load_config_final(
+            self._checkpoint_directory(checkpointer, resume), i,
+            resume.static_key, self.device)
+        return GameFitResult(
+            model=model, config=self._full_config(opt_configs),
+            evaluation=(self._score_with_validation(val_ctx, model)
+                        if val_ctx is not None else None),
+            descent=None)
+
+    def _finalize_from_checkpoint(self, checkpointer, resume, i,
+                                  opt_configs, val_ctx) -> GameFitResult:
+        """The crash window after a configuration's last-iteration
+        checkpoint but before its config-final artifact: the descent
+        finished, so the result comes from the chain (the retained best,
+        else the checkpoint's model), and the missing config-final is
+        written so later resumes take the normal path."""
+        best_model = None
+        if val_ctx is not None:
+            best_model = ckpt_mod.load_config_best(
+                self._checkpoint_directory(checkpointer, resume), i,
+                resume.static_key, self.device)
+        if best_model is None:
+            best_model = resume.model
+        logger.info(
+            "GameEstimator: config %d completed its descent before the "
+            "interruption but never retained its final artifact; "
+            "finalizing it from the checkpoint chain", i)
+        result = GameFitResult(
+            model=best_model, config=self._full_config(opt_configs),
+            evaluation=(self._score_with_validation(val_ctx, best_model)
+                        if val_ctx is not None else None),
+            descent=None)
+        if checkpointer is not None:
+            checkpointer.save_config_final(best_model, config_index=i)
+        return result
+
+    @staticmethod
+    def _checkpoint_directory(checkpointer, resume) -> str:
+        return (checkpointer.directory if checkpointer is not None
+                else os.path.dirname(resume.path))
+
     def prepare(self, data: GameDataset,
-                initial_model: GameModel | None = None) -> dict:
+                validation: GameDataset | None = None,
+                initial_model: GameModel | None = None):
         """Build (or reuse, for the same objects) the per-coordinate
-        datasets of ``data``."""
-        if data.device != self.device:
-            raise ValueError(f"the dataset is on {data.device} but the "
-                             f"estimator trains on {self.device}")
-        key = (data, initial_model)
+        datasets of ``data`` and the validation context; returns
+        ``(datasets, val_ctx)``, ``val_ctx`` None without validation."""
+        for ds in (data, validation):
+            if ds is not None and ds.device != self.device:
+                raise ValueError(f"the dataset is on {ds.device} but the "
+                                 f"estimator trains on {self.device}")
+        key = (data, initial_model, validation)
         if self._fit_cache is not None and all(
                 a is b for a, b in zip(self._fit_cache[0], key)):
             return self._fit_cache[1]
         self._fit_cache = None
         datasets = self._build_datasets(data, initial_model)
-        self._fit_cache = (key, datasets)
-        return datasets
+        val_ctx = (self._build_validation(datasets, validation)
+                   if validation is not None else None)
+        self._fit_cache = (key, (datasets, val_ctx))
+        return datasets, val_ctx
 
     def _on_layout(self, model, ds):
         """``model`` re-laid onto ``ds`` unless it already shares its
@@ -224,15 +346,69 @@ class GameEstimator:
             model, entity_keys=ds.entity_keys, proj_all=ds.proj_all)
 
     def fit(self, data: GameDataset,
+            validation: GameDataset | None = None,
             opt_config_sequence: list | None = None,
-            initial_model: GameModel | None = None) -> list:
+            initial_model: GameModel | None = None, *,
+            init_model=None, checkpointer=None, resume=None) -> list:
         """Train one GAME model per optimization configuration; each
-        config warm-starts from the previous config's model."""
+        config warm-starts from the previous config's model.
+
+        ``init_model`` is the day-over-day form of ``initial_model``: a
+        ``GameModel`` or the path of a native ``.npz`` checkpoint; pass
+        at most one of the two. ``checkpointer`` (a
+        ``TrainingCheckpointer``) commits a recovery point after every
+        outer iteration; ``resume`` (a loaded ``TrainingCheckpoint``)
+        restarts from one. Its static key must match this estimator and
+        config sequence (``ResumeMismatchError``); completed configs are
+        rebuilt from their retained artifacts and the interrupted one
+        continues at its next iteration with the same seeds.
+        """
+        if init_model is not None:
+            if initial_model is not None:
+                raise ValueError(
+                    "pass exactly one of initial_model / init_model")
+            if isinstance(init_model, str):
+                from photon_tpu_torch.io.model_io import load_initial_model
+
+                init_model, digest = load_initial_model(
+                    init_model, device=self.device)
+                logger.info("warm start from init model (digest %s...)",
+                            digest[:12])
+            initial_model = init_model
         if self.incremental_training:
             self._validate_incremental(initial_model)
-        datasets = self.prepare(data, initial_model)
+        datasets, val_ctx = self.prepare(data, validation, initial_model)
         if opt_config_sequence is None:
             opt_config_sequence = [{}]
+
+        start_config = 0
+        resume_iteration = 0
+        if resume is not None:
+            expected = ckpt_mod.training_static_key(self,
+                                                    opt_config_sequence)
+            if resume.static_key != expected:
+                raise ResumeMismatchError(
+                    "checkpoint was written by a different training "
+                    f"configuration (manifest static key "
+                    f"{resume.static_key[:12]}..., this run "
+                    f"{expected[:12]}...): change the config back, or "
+                    "start fresh / warm-start instead of resuming")
+            start_config = resume.config_index
+            resume_iteration = resume.iteration + 1
+            if resume_iteration >= self.num_iterations:
+                start_config += 1
+                resume_iteration = 0
+            if start_config >= len(opt_config_sequence) and (
+                    ckpt_mod.has_config_final(
+                        self._checkpoint_directory(checkpointer, resume),
+                        len(opt_config_sequence) - 1)):
+                raise ValueError(
+                    "checkpoint records the final configuration's last "
+                    "iteration: training already completed; nothing to "
+                    "resume")
+            # The checkpoint holds the whole mid-descent state.
+            initial_model = resume.model
+
         if initial_model is not None:
             for cid in self.update_sequence:
                 if cid in initial_model:
@@ -250,6 +426,18 @@ class GameEstimator:
         results = []
         prev_model = initial_model
         for i, opt_configs in enumerate(opt_config_sequence):
+            if i < start_config:
+                if (i == resume.config_index
+                        and resume.iteration + 1 >= self.num_iterations
+                        and not ckpt_mod.has_config_final(
+                            self._checkpoint_directory(checkpointer,
+                                                       resume), i)):
+                    results.append(self._finalize_from_checkpoint(
+                        checkpointer, resume, i, opt_configs, val_ctx))
+                else:
+                    results.append(self._rebuild_completed_config(
+                        checkpointer, resume, i, opt_configs, val_ctx))
+                continue
             coords = self._build_coordinates(datasets, opt_configs, priors)
             cd = CoordinateDescent(
                 self.update_sequence, self.num_iterations,
@@ -263,18 +451,61 @@ class GameEstimator:
                             prev_model[cid], datasets[cid])
             logger.info("GameEstimator: config %d/%d", i + 1,
                         len(opt_config_sequence))
-            descent = cd.run(coords, initial_models or None,
-                             seed=i * self.num_iterations)
+            # Resuming mid-config with validation: the retained best
+            # seeds the tracking, so a pre-crash best is not lost.
+            initial_best = None
+            if (resume is not None and i == start_config
+                    and resume_iteration > 0 and val_ctx is not None):
+                best = ckpt_mod.load_config_best(
+                    self._checkpoint_directory(checkpointer, resume), i,
+                    resume.static_key, self.device)
+                if best is not None:
+                    initial_best = (
+                        best, self._score_with_validation(val_ctx, best))
+            on_iteration = None
+            if checkpointer is not None:
+                # The best commits before the iteration's manifest; it is
+                # rewritten only when it changed.
+                saved_best = [initial_best[0] if initial_best else None]
+
+                def on_iteration(it, model, best, _ci=i):
+                    if best is not None and best is not saved_best[0]:
+                        checkpointer.save_best(best, config_index=_ci)
+                        saved_best[0] = best
+                    checkpointer.save(model, config_index=_ci,
+                                      iteration=it)
+            t0 = time.perf_counter()
+            descent = cd.run(
+                coords, initial_models or None, val_ctx,
+                seed=i * self.num_iterations,
+                start_iteration=resume_iteration if i == start_config else 0,
+                on_iteration=on_iteration, initial_best=initial_best)
             results.append(GameFitResult(
                 model=descent.best_model,
-                config={cid: opt_configs.get(
-                    cid, self.coordinate_configs[cid].optimization)
-                    for cid in self.update_sequence},
-                evaluation=None,
+                config=self._full_config(opt_configs),
+                evaluation=descent.best_evaluation,
                 descent=descent,
+                seconds=time.perf_counter() - t0,
             ))
+            if checkpointer is not None:
+                checkpointer.save_config_final(descent.best_model,
+                                               config_index=i)
             prev_model = descent.model
         return results
+
+    def select_best(self, results: list) -> GameFitResult:
+        """The best config by the validation primary metric
+        (selectBestModel, GameTrainingDriver.scala:753-793); the first
+        config without validation."""
+        best = results[0]
+        for r in results[1:]:
+            if r.evaluation is not None and (
+                    best.evaluation is None
+                    or best.evaluation.primary_evaluator.better_than(
+                        r.evaluation.primary_evaluation,
+                        best.evaluation.primary_evaluation)):
+                best = r
+        return best
 
     def _validate_incremental(self, initial_model: GameModel | None) -> None:
         """Incremental-training invariants (GameEstimator.scala:241-382)."""

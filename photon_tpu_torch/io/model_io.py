@@ -49,6 +49,7 @@ from photon_tpu_torch.models.game import (
     random_effect_model_to_glms,
 )
 from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
+from photon_tpu_torch.resilience import faults
 from photon_tpu_torch.resilience.errors import CorruptModelError
 from photon_tpu_torch.types import (
     TaskType,
@@ -426,6 +427,63 @@ def save_scores(
     )
 
 
+FEATURE_SUMMARIZATION_SCHEMA = {
+    "name": "FeatureSummarizationResultAvro",
+    "namespace": "com.linkedin.photon.avro.generated",
+    "type": "record",
+    "fields": [
+        {"name": "featureName", "type": "string"},
+        {"name": "featureTerm", "type": "string"},
+        {"name": "metrics", "type": {"type": "map", "values": "double"}},
+    ],
+}
+
+
+def save_feature_stats(path: str, stats, index_map: IndexMap) -> None:
+    """The per-feature summary artifact: one record per feature but the
+    intercept, its metrics map holding max/min/mean/normL1/normL2/
+    numNonzeros/variance (ModelProcessingUtils.writeBasicStatistics,
+    ModelProcessingUtils.scala:514-560), as ``<path>/part-00000.avro``."""
+    os.makedirs(path, exist_ok=True)
+    zeros = np.zeros(stats.dim)
+    l1 = zeros if stats.norm_l1 is None else stats.norm_l1
+    l2 = zeros if stats.norm_l2 is None else stats.norm_l2
+
+    def records():
+        for idx in range(stats.dim):
+            if idx == stats.intercept_index:
+                continue
+            key = index_map.get_feature_name(idx)
+            if key is None:
+                continue
+            name, term = split_feature_key(key)
+            yield {
+                "featureName": name,
+                "featureTerm": term,
+                "metrics": {
+                    "max": float(stats.max[idx]),
+                    "min": float(stats.min[idx]),
+                    "mean": float(stats.mean[idx]),
+                    "normL1": float(l1[idx]),
+                    "normL2": float(l2[idx]),
+                    "numNonzeros": float(stats.num_nonzeros[idx]),
+                    "variance": float(stats.variance[idx]),
+                },
+            }
+
+    avro.write_container(os.path.join(path, "part-00000.avro"),
+                         FEATURE_SUMMARIZATION_SCHEMA, records())
+
+
+def load_feature_stats(path: str) -> dict[str, dict[str, float]]:
+    """A stats artifact read back: feature key -> metrics map."""
+    return {
+        make_feature_key(rec["featureName"], rec["featureTerm"]): {
+            k: float(v) for k, v in rec["metrics"].items()}
+        for rec in avro.read_container_dir(path)
+    }
+
+
 def artifact_digest(path: str) -> str:
     """sha256 identity of a model artifact: a checkpoint's content
     hash, or for an Avro model directory the hash of every file's
@@ -489,20 +547,42 @@ def _to_numpy(t) -> np.ndarray:
     return np.asarray(t)
 
 
-def _atomic_write(path: str, data) -> None:
-    """Write to an fsynced temp sibling, then rename over ``path``: a
-    crash leaves the old file or the new one, never a torn write."""
+def fsync_dir(path: str) -> None:
+    """Make a rename durable: fsync the directory that holds it."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def atomic_write_bytes(path: str, data, *,
+                       fault_point: str | None = None) -> None:
+    """Write to an fsynced temp sibling, rename it over ``path`` and
+    fsync the directory: a crash leaves the old file or the new one,
+    never a torn write. ``fault_point`` names the injection point fired
+    between the write and the rename (the mid-write crash window)."""
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
             f.write(data)
             f.flush()
             os.fsync(f.fileno())
+        if fault_point is not None:
+            faults.check(fault_point)
         os.replace(tmp, path)
     except BaseException:
-        if os.path.exists(tmp):
+        try:
             os.remove(tmp)
+        except OSError:
+            pass
         raise
+    fsync_dir(os.path.dirname(path) or ".")
 
 
 def game_model_to_numpy(model: GameModel) -> tuple[dict, dict]:
@@ -539,12 +619,10 @@ def game_model_to_numpy(model: GameModel) -> tuple[dict, dict]:
     return arrays, manifest
 
 
-def save_checkpoint(
-    model: GameModel, path: str, *, extra_meta: dict | None = None
-) -> str:
-    """Write ``model`` as one ``.npz`` checkpoint; returns the path."""
-    path = _ckpt_path(path)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+def checkpoint_bytes(model: GameModel, extra_meta: dict | None = None
+                     ) -> memoryview:
+    """The ``.npz`` bytes of ``model``'s checkpoint; ``extra_meta``
+    rides in the manifest under a reserved key."""
     arrays, manifest = game_model_to_numpy(model)
     if _META_KEY in manifest:
         raise ValueError(
@@ -557,7 +635,19 @@ def save_checkpoint(
     )
     buf = io.BytesIO()
     np.savez_compressed(buf, **arrays)
-    _atomic_write(path, buf.getbuffer())
+    return buf.getbuffer()
+
+
+def save_checkpoint(
+    model: GameModel, path: str, *, extra_meta: dict | None = None,
+    fault_point: str | None = "checkpoint.write",
+) -> str:
+    """Write ``model`` as one ``.npz`` checkpoint, atomically; returns
+    the path."""
+    path = _ckpt_path(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    atomic_write_bytes(path, checkpoint_bytes(model, extra_meta),
+                       fault_point=fault_point)
     return path
 
 

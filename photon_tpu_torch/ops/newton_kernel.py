@@ -23,10 +23,15 @@ slab in registers as a tile per thread where R <= 64 and S <= 256, and
 a CG that applies H from the slab without forming it; it is bound by
 operations.
 
-``kernel_supported`` is the reference's gate: f32, logistic or Poisson
-loss, R * S <= 16384, and the switch ``PHOTON_NEWTON_KERNEL`` not
-``off`` (``off`` sends every bucket to the batch-minor plain loop; on
-the CPU ``force`` runs the plain version, as ``auto`` does).
+``kernel_supported`` is the reference's gate, f32, logistic or Poisson
+loss and the switch ``PHOTON_NEWTON_KERNEL`` not ``off`` (``off`` sends
+every bucket to the batch-minor plain loop; on the CPU ``force`` runs
+the plain version, as ``auto`` does), with its shape rule widened for
+the narrow design: the wide design keeps R * S <= 16384, the narrow one
+takes every [R, S] whose warp's shared memory fits in a block
+(``narrow_fits``). So a 512-row cap on an entity's rows, whose longest
+entities land in the 1024-row bucket (1024 x 17 = 17408), still takes
+the kernel, where the reference sends that bucket to its plain loop.
 """
 
 from __future__ import annotations
@@ -41,18 +46,45 @@ from photon_tpu_torch.types import TaskType
 
 SOURCE = "photon_tpu_torch/csrc/newton_step.cu"
 REPLACES = "photon_tpu/ops/newton_kernel.py:225"
-MAX_RS = 16_384
+MAX_RS = 16_384  # the reference's gate, kept by the wide design
 NARROW_SUB_DIM = 128  # the widest S of the one-warp-per-entity design
+SMEM_FLOATS = 232_448 // 4  # H100: 227 KB of shared memory per block
 MAX_TRIALS = 16
 _TASK_CODE = {TaskType.LOGISTIC_REGRESSION: 0, TaskType.POISSON_REGRESSION: 1}
 
 # Kernel launches made by ``newton_step`` (never by the plain version),
-# and those of them on a bucket wider than NARROW_SUB_DIM.
+# those of them on a bucket wider than NARROW_SUB_DIM, and all of them by
+# bucket shape (B, R, S).
 launches = 0
 wide_launches = 0
+launches_by_shape: dict = {}
 
 _launch_fn = None
 _workspace_fn = None
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def narrow_fits(r: int, s: int) -> bool:
+    """Whether one warp's shared memory for an [R, S] bucket in the
+    narrow design fits in a block: ``NarrowLayout::warp_floats`` of
+    ``csrc/newton_step.cu`` with the row vectors left in global memory
+    (the slab, w/l2/mt/vm/f, margins and curvature, three S vectors, H)."""
+    sv, r4 = _round4(s), _round4(r)
+    h_stride = s | 1 if s <= 32 else (((s + 3) // 4) | 1) * 4
+    floats = (_round4(r * (s | 1) + 4) + 4 * sv + 4 + 2 * r4 + 3 * sv
+              + _round4(s * h_stride))
+    return floats <= SMEM_FLOATS
+
+
+def shape_supported(r: int, s: int) -> bool:
+    """The kernel's shape rule: R * S <= MAX_RS for the wide design,
+    ``narrow_fits`` for the narrow one."""
+    if s > NARROW_SUB_DIM:
+        return r * s <= MAX_RS
+    return narrow_fits(r, s)
 
 
 def kernel_supported(task: TaskType, dtype: torch.dtype, r: int,
@@ -62,7 +94,8 @@ def kernel_supported(task: TaskType, dtype: torch.dtype, r: int,
     ``PHOTON_NEWTON_KERNEL=off`` sends every bucket to the loop."""
     if _build.kernel_off("PHOTON_NEWTON_KERNEL"):
         return False
-    return dtype == torch.float32 and task in _TASK_CODE and r * s <= MAX_RS
+    return (dtype == torch.float32 and task in _TASK_CODE
+            and shape_supported(r, s))
 
 
 def load() -> None:
@@ -169,9 +202,9 @@ def _launch(x, w, y, wt, off, l2, mt, vm, f, *, task, trials):
     if x.dim() != 3:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected [B, R, S]")
     b, r, s = (int(v) for v in x.shape)
-    if b < 1 or r * s > MAX_RS:
-        raise ValueError(f"the Newton kernel takes 1 <= B and R * S <= "
-                         f"{MAX_RS}; got [{b}, {r}, {s}]")
+    if b < 1 or not shape_supported(r, s):
+        raise ValueError(f"the Newton kernel takes 1 <= B and the shapes "
+                         f"of shape_supported; got [{b}, {r}, {s}]")
     if not 1 <= trials <= MAX_TRIALS:
         raise ValueError(f"trials must be in [1, {MAX_TRIALS}], got {trials}")
     dev = x.device
@@ -210,6 +243,7 @@ def _launch(x, w, y, wt, off, l2, mt, vm, f, *, task, trials):
     if rc != 0:
         raise RuntimeError(f"newton_step launch failed with CUDA error {rc}")
     launches += 1
+    launches_by_shape[(b, r, s)] = launches_by_shape.get((b, r, s), 0) + 1
     if s > NARROW_SUB_DIM:
         wide_launches += 1
     return w_out, f_out, g_out, imp

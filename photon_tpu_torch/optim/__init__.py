@@ -52,9 +52,10 @@ __all__ = [
 ]
 
 
-def not_ported(what: str) -> NotImplementedError:
+def not_ported(what: str, item: int | None = None) -> NotImplementedError:
+    where = "ROADMAP Queue A" + ("" if item is None else f" item {item}")
     return NotImplementedError(
-        f"{what} is not ported to photon_tpu_torch yet (ROADMAP Queue A)")
+        f"{what} is not ported to photon_tpu_torch yet ({where})")
 
 
 def solve(fun, w0, config: OptimizerConfig | None = None, *,

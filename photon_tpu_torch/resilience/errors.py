@@ -1,12 +1,27 @@
-"""Typed failures of the artifact and data readers (the part of
-``photon_tpu/resilience/errors.py`` the scoring path raises).
+"""Typed failures of the port (from ``photon_tpu/resilience/errors.py``).
 
-A corrupt artifact is neither transient nor the caller's fault: it is
-not retried, and its message names the file so an operator can replace
-exactly that one.
+The taxonomy the training and scoring paths raise and the fault
+injector fires: a ``TransientError`` is expected to clear on retry, a
+``PoisonError`` never does; corrupt artifacts, checkpoint mismatches
+and an interrupted run are neither, and reach the caller with enough
+context to act on. Stdlib only, so every layer can import it.
 """
 
 from __future__ import annotations
+
+
+class TransientError(RuntimeError):
+    """A failure expected to clear on retry (preemption, flaky RPC)."""
+
+
+class PoisonError(RuntimeError):
+    """A deterministic failure: retrying the same input cannot help."""
+
+
+class InjectedCrash(RuntimeError):
+    """A fault-injection stand-in for a hard process death: raised where
+    a real crash would kill the process, so a test can catch it and
+    check what a crash would leave on disk."""
 
 
 class CorruptModelError(RuntimeError):
@@ -25,3 +40,28 @@ class CorruptShardError(RuntimeError):
     data readers when a part file's container does not decode; the
     message names the file.
     """
+
+
+class CheckpointError(RuntimeError):
+    """A training checkpoint could not be written or loaded."""
+
+
+class ResumeMismatchError(CheckpointError):
+    """``--resume`` against a checkpoint whose static key does not match
+    this run's training configuration: resuming would continue a
+    different optimization than the one that wrote it."""
+
+
+class NonFiniteUpdateError(RuntimeError):
+    """A coordinate's first update produced NaN or inf: there is no
+    previous iterate to roll back to."""
+
+
+class TrainingInterrupted(BaseException):
+    """Raised by the training CLI's SIGINT/SIGTERM handler to unwind the
+    fit. A ``BaseException``, as ``KeyboardInterrupt`` is, so no
+    ``except Exception`` on the way up swallows a shutdown request."""
+
+    def __init__(self, signum: int):
+        super().__init__(f"training interrupted by signal {signum}")
+        self.signum = signum

@@ -1,0 +1,256 @@
+"""Deterministic fault injection at the runtime's named boundaries
+(port of ``photon_tpu/resilience/faults.py``).
+
+A failing run is only useful if it can be replayed: every injection is
+driven by a seeded ``FaultPlan``, so the same faults fire at the same
+call indices on any machine. Production code carries one
+``faults.check(point)`` at each boundary, a single module-global read
+when nothing is armed. ``PHOTON_TPU_FAULT_PLAN`` arms a plan in a CLI
+process (``arm_from_env``), with the reference's spelling.
+
+The points the port reaches:
+
+==================  ======================================================
+point               boundary
+==================  ======================================================
+``checkpoint.write``a checkpoint write, AFTER the temp file but BEFORE
+                    the atomic rename (the mid-write crash window)
+``cd.iteration``    end of one outer coordinate-descent iteration, AFTER
+                    its checkpoint was written (the kill-and-resume
+                    window)
+==================  ======================================================
+
+The reference's other points (ingest, compile, transfer, the fused fit,
+serving, streaming and the pilot) are accepted in a plan, so one plan
+serves both packages, and fire where the port grows those boundaries.
+
+Fault kinds (``FaultSpec.error``): ``"transient"`` raises
+``TransientError``, ``"poison"`` raises ``PoisonError``, ``"crash"``
+raises ``InjectedCrash`` (a simulated process death), ``"delay"`` sleeps
+``seconds``, ``"sigterm"`` sends SIGTERM to this process. Triggers are
+``nth`` (the Nth call to the point, 1-based, once) or ``probability``
+(a seeded draw per call from a per-point stream keyed by
+``(seed, crc32(point))``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import threading
+import time
+import zlib
+
+import numpy as np
+
+from photon_tpu_torch.resilience.errors import (
+    InjectedCrash,
+    PoisonError,
+    TransientError,
+)
+
+INJECTION_POINTS = (
+    "ingest.plan",
+    "ingest.chunk",
+    "compile.aot",
+    "transfer.packed",
+    "fit.dispatch",
+    "serve.dispatch",
+    "checkpoint.write",
+    "cd.iteration",
+    "io.shard_read",
+    "io.shard_decode",
+    "pilot.ingest",
+    "pilot.train",
+    "pilot.validate",
+    "pilot.promote",
+    "pilot.rollback",
+)
+
+_KINDS = ("transient", "poison", "crash", "delay", "sigterm")
+
+ENV_VAR = "PHOTON_TPU_FAULT_PLAN"
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """One injected fault: where, when, and what."""
+
+    point: str
+    error: str = "transient"  # transient | poison | crash | delay | sigterm
+    nth: int | None = None  # fire on the Nth call (1-based), once
+    probability: float | None = None  # else: seeded per-call draw
+    seconds: float = 0.0  # delay kind: how long to stall
+    message: str = ""
+
+    def __post_init__(self):
+        if self.point not in INJECTION_POINTS:
+            raise ValueError(
+                f"unknown injection point {self.point!r} "
+                f"(known: {', '.join(INJECTION_POINTS)})")
+        if self.error not in _KINDS:
+            raise ValueError(
+                f"unknown fault kind {self.error!r} (known: "
+                f"{', '.join(_KINDS)})")
+        if (self.nth is None) == (self.probability is None):
+            raise ValueError(
+                "exactly one of nth / probability must be set "
+                f"({self.point!r})")
+        if self.nth is not None and self.nth < 1:
+            raise ValueError(f"nth is 1-based, got {self.nth}")
+        if self.probability is not None and not (
+            0.0 < self.probability <= 1.0
+        ):
+            raise ValueError(
+                f"probability must be in (0, 1], got {self.probability}")
+
+
+class FaultPlan:
+    """A seeded, replayable set of fault specs.
+
+    Determinism contract: for a fixed (specs, seed) and a fixed
+    per-point call sequence, the same calls trigger the same faults —
+    per-point RNG substreams are keyed by ``(seed, crc32(point))`` so
+    points never perturb each other, and nth-call counters are advanced
+    under the module lock so concurrent callers count exactly.
+    """
+
+    def __init__(self, specs, *, seed: int = 0):
+        self.specs = tuple(
+            s if isinstance(s, FaultSpec) else FaultSpec(**s)
+            for s in specs
+        )
+        self.seed = int(seed)
+        self._by_point: dict[str, list[FaultSpec]] = {}
+        for s in self.specs:
+            self._by_point.setdefault(s.point, []).append(s)
+        self._counts = {p: 0 for p in self._by_point}
+        self._rngs = {
+            p: np.random.default_rng(
+                [self.seed, zlib.crc32(p.encode("utf-8"))]
+            )
+            for p in self._by_point
+        }
+        self._armed_nth: set[tuple[str, int]] = set()
+        self._fired: list[dict] = []
+
+    @staticmethod
+    def from_json(blob: str | dict) -> "FaultPlan":
+        """Build a plan from its JSON form:
+        ``{"seed": 7, "faults": [{"point": ..., "nth": 1, ...}, ...]}``."""
+        raw = json.loads(blob) if isinstance(blob, str) else dict(blob)
+        return FaultPlan(raw.get("faults", ()), seed=raw.get("seed", 0))
+
+    def _advance(self, point: str) -> FaultSpec | None:
+        """Count one call to ``point`` and return the triggered spec, if
+        any. Takes the module lock itself: counters and the fired log
+        stay exact under concurrent callers from every pool."""
+        with _lock:
+            specs = self._by_point.get(point)
+            if not specs:
+                return None
+            self._counts[point] += 1
+            call = self._counts[point]
+            rng = self._rngs[point]
+            for idx, s in enumerate(specs):
+                if s.nth is not None:
+                    if (
+                        call == s.nth
+                        and (point, idx) not in self._armed_nth
+                    ):
+                        self._armed_nth.add((point, idx))
+                        self._fired.append({
+                            "point": point, "call": call,
+                            "error": s.error,
+                        })
+                        return s
+                elif rng.random() < s.probability:
+                    self._fired.append({
+                        "point": point, "call": call, "error": s.error,
+                    })
+                    return s
+            return None
+
+
+_lock = threading.Lock()
+_active: FaultPlan | None = None
+
+
+def arm(plan: FaultPlan) -> None:
+    """Make ``plan`` the process's active fault plan."""
+    global _active
+    with _lock:
+        _active = plan
+
+
+def disarm() -> None:
+    global _active
+    with _lock:
+        _active = None
+
+
+@contextlib.contextmanager
+def injected(plan: FaultPlan):
+    """Scope guard: arm ``plan`` for the block, disarm after."""
+    arm(plan)
+    try:
+        yield plan
+    finally:
+        disarm()
+
+
+def arm_from_env(env_var: str = ENV_VAR) -> FaultPlan | None:
+    """Arm a plan from ``PHOTON_TPU_FAULT_PLAN`` (JSON, or ``@path`` to
+    a JSON file): how a test reaches into a CLI process.
+    Returns the armed plan, or None when the variable is unset."""
+    raw = os.environ.get(env_var)
+    if not raw:
+        return None
+    if raw.startswith("@"):
+        with open(raw[1:]) as f:
+            raw = f.read()
+    plan = FaultPlan.from_json(raw)
+    arm(plan)
+    return plan
+
+
+def fired() -> list[dict]:
+    """Snapshot of the active plan's fired-fault log (empty when no
+    plan is armed or nothing fired)."""
+    with _lock:
+        return list(_active._fired) if _active is not None else []
+
+
+def check(point: str) -> None:
+    """The injection hook production code calls at each boundary.
+
+    Disarmed (the production default): ONE module-global read, no lock,
+    no allocation. Armed: counts the call and executes any triggered
+    spec — raising for transient/poison/crash kinds, stalling for
+    delay, signalling for sigterm — with the stall/raise OUTSIDE the
+    module lock.
+    """
+    if _active is None:
+        return
+    plan = _active
+    spec = plan._advance(point) if plan is not None else None
+    if spec is None:
+        return
+    msg = spec.message or f"injected {spec.error} fault at {point}"
+    if spec.error == "transient":
+        raise TransientError(msg)
+    if spec.error == "poison":
+        raise PoisonError(msg)
+    if spec.error == "crash":
+        raise InjectedCrash(msg)
+    if spec.error == "sigterm":
+        import signal
+
+        os.kill(os.getpid(), signal.SIGTERM)
+        # Give the interpreter a beat to run the handler on the main
+        # thread (delivery is asynchronous when called off-main-thread).
+        time.sleep(0.05)
+        return
+    time.sleep(spec.seconds)

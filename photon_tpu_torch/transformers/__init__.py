@@ -25,7 +25,11 @@ from photon_tpu_torch.data.random_effect import (
     remap_for_scoring,
     scoring_codes,
 )
-from photon_tpu_torch.evaluation.suite import EvaluationResults, make_suite
+from photon_tpu_torch.evaluation.suite import (
+    EvaluationResults,
+    EvaluationSuite,
+    make_suite,
+)
 from photon_tpu_torch.models.game import (
     FixedEffectModel,
     GameModel,
@@ -95,16 +99,12 @@ def make_submodel_scorer(sub_model, data: GameDataset,
     raise TypeError(f"unknown sub-model type: {sub_model}")
 
 
-def evaluate_scores(data: GameDataset, scores, evaluators
-                    ) -> EvaluationResults | None:
-    """Evaluate raw model scores against a dataset's labels (the
-    GameTransformer validation path :186-192), shared with the batch
-    scorer of ``cli/score.py``. The sums run in float64 on the
-    dataset's device: over 100,000 rows an f32 AUC's sums round at
-    ~1e-6, the size of the differences the checks look for."""
-    if not evaluators:
-        return None
-    suite = make_suite(
+def evaluation_suite(data: GameDataset, evaluators) -> EvaluationSuite:
+    """The suite of ``evaluators`` over a dataset's labels, offsets,
+    weights and id tags. It runs in the labels' dtype, as the
+    reference's does (f32 from the Avro readers), so a metric matches
+    the reference's sums, not exact float64 ones."""
+    return make_suite(
         evaluators,
         data.labels,
         offsets=data.offsets,
@@ -113,9 +113,19 @@ def evaluate_scores(data: GameDataset, scores, evaluators
             name: (tag.codes, tag.num_groups)
             for name, tag in data.id_tags.items()
         },
-        dtype=torch.float64,
+        dtype=data.labels.dtype,
     )
-    return suite.evaluate(torch.as_tensor(scores))
+
+
+def evaluate_scores(data: GameDataset, scores, evaluators
+                    ) -> EvaluationResults | None:
+    """Evaluate raw model scores against a dataset's labels (the
+    GameTransformer validation path :186-192), shared with the batch
+    scorer of ``cli/score.py``."""
+    if not evaluators:
+        return None
+    return evaluation_suite(data, evaluators).evaluate(
+        torch.as_tensor(scores))
 
 
 @dataclasses.dataclass(frozen=True)

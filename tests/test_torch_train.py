@@ -397,7 +397,7 @@ def test_fit_without_cached_slabs_matches_cached(monkeypatch):
     want = cached.fit(pdata)[0].model
     monkeypatch.setattr(pt_re, "_DEVICE_SLAB_BUDGET_BYTES", 0)
     _, lazy = both_estimators("logistic", FE_2RE)
-    datasets = lazy.prepare(pdata)
+    datasets, _ = lazy.prepare(pdata)
     assert not any(isinstance(b, pt_re.EntityBlocks)
                    for cid in ("per-user", "per-movie")
                    for b in datasets[cid].device_blocks())
@@ -482,7 +482,7 @@ def test_port_checkpoint_loads_in_jax_and_scores_identically(tmp_path):
         assert pa[cid].tobytes() == ja[cid].tobytes()
     # Scores of the training rows: the port's own scorers against the
     # JAX package's, each on its own dataset.
-    pds = pest.prepare(pdata)
+    pds, _ = pest.prepare(pdata)
     jest, _ = both_estimators("logistic", FE_2RE)
     jds = jest.prepare(jdata)[0]
     pz = pmodel["global"].model.coefficients.compute_score(
@@ -531,3 +531,64 @@ def test_unported_routes_raise_not_implemented():
         ds, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM, l2(1.0)["pt"])
     with pytest.raises(NotImplementedError, match="quasi-Newton"):
         coord.train()
+
+
+@pytest.mark.parametrize("task", ["logistic", "poisson"])
+def test_fit_with_validation_matches_reference_f64(task):
+    """``fit(validation=...)`` on a two-config sequence: every update's
+    evaluation, each config's best model and best evaluation, and
+    ``select_best`` equal the reference's unfused loop (float64)."""
+    arrays = synth(seed=51, task=task)
+    jdata, pdata = both_datasets(arrays)
+    jval, pval = both_datasets(synth(seed=52, task=task, n=900))
+    jest, pest = both_estimators(task, FE_2RE, num_iterations=3)
+    metric = "AUC" if task == "logistic" else "POISSON_LOSS"
+    jest.evaluators = pest.evaluators = [metric, "AUC:userId", "RMSE"]
+    seq = [{"per-user": l2(w)["jax"]} for w in (30.0, 0.3)]
+    pseq = [{"per-user": l2(w)["pt"]} for w in (30.0, 0.3)]
+    jres = jest.fit(jdata, jval, seq)
+    pres = pest.fit(pdata, pval, pseq)
+    assert len(pres) == len(jres) == 2
+    for p, j in zip(pres, jres):
+        assert_models_close(p.model, j.model, 1e-6, 1e-8)
+        assert_history_matches(p, j)
+        for ph, jh in zip(p.descent.history, j.descent.history,
+                          strict=True):
+            assert ph.evaluation.evaluations.keys() == (
+                jh.evaluation.evaluations.keys())
+            for k, v in jh.evaluation.evaluations.items():
+                assert ph.evaluation.evaluations[k] == pytest.approx(
+                    v, rel=1e-9), k
+        assert p.evaluation.evaluations == pytest.approx(
+            j.evaluation.evaluations, rel=1e-9)
+        # Only a full model may be the best.
+        assert {cid for cid, _ in p.model.items()} == {
+            "global", "per-user", "per-movie"}
+    assert pres.index(pest.select_best(pres)) == jres.index(
+        jest.select_best(jres))
+
+
+def test_fit_init_model_path_matches_reference_f64(tmp_path):
+    """``fit(init_model=PATH)`` warm-starts from a native checkpoint as
+    the reference's does: the port's one-config model, saved by the
+    port's ``save_checkpoint``, seeds both packages' fits (float64), and
+    the port's equals its own ``fit(initial_model=...)`` of the loaded
+    model. Giving both forms raises in both packages."""
+    arrays = synth(seed=61)
+    jdata, pdata = both_datasets(arrays)
+    jest, pest = both_estimators("logistic", FE_2RE, num_iterations=1)
+    path = pt_model_io.save_checkpoint(pest.fit(pdata)[0].model,
+                                       str(tmp_path / "day0.npz"))
+    jres = jest.fit(jdata, init_model=path)
+    pres = pest.fit(pdata, init_model=path)
+    assert_models_close(pres[0].model, jres[0].model, 1e-6, 1e-8)
+    assert_history_matches(pres[0], jres[0])
+    same = pest.fit(pdata,
+                    initial_model=pt_model_io.load_checkpoint(path, CPU))
+    assert_models_close(pres[0].model, same[0].model, 0, 0)
+    seed_model = pt_model_io.load_checkpoint(path, CPU)
+    with pytest.raises(ValueError, match="exactly one"):
+        pest.fit(pdata, initial_model=seed_model, init_model=path)
+    with pytest.raises(ValueError, match="exactly one"):
+        jest.fit(jdata, initial_model=jax_model_io.load_checkpoint(path),
+                 init_model=path)

@@ -284,10 +284,23 @@ def test_plain_step_matches_pallas_body_at_edge_shapes(shape):
 
 
 def test_kernel_supported_is_the_reference_gate():
+    """The reference's gate, with the narrow design's shape rule
+    widened to what fits in its shared memory."""
     lr, po = TaskType.LOGISTIC_REGRESSION, TaskType.POISSON_REGRESSION
     assert nk.kernel_supported(lr, torch.float32, 64, 17)
     assert nk.kernel_supported(po, torch.float32, 1024, 16)
-    assert not nk.kernel_supported(lr, torch.float32, 1024, 17)
+    # Every narrow shape of the reference's R * S <= 16384 ...
+    for s in range(1, nk.NARROW_SUB_DIM + 1):
+        assert nk.kernel_supported(lr, torch.float32, nk.MAX_RS // s, s), s
+    # ... and past it, while the warp's shared memory fits: 1024 x 17
+    # (17,408) is in, 4096 x 17 and 315 x 128 are out.
+    assert nk.kernel_supported(lr, torch.float32, 1024, 17)
+    assert nk.kernel_supported(lr, torch.float32, 2048, 17)
+    assert not nk.kernel_supported(lr, torch.float32, 4096, 17)
+    assert not nk.kernel_supported(lr, torch.float32, 315, 128)
+    # The wide design keeps R * S <= 16384.
+    assert nk.kernel_supported(lr, torch.float32, 64, 256)
+    assert not nk.kernel_supported(lr, torch.float32, 64, 257)
     assert not nk.kernel_supported(lr, torch.float64, 64, 17)
     assert not nk.kernel_supported(lr, torch.bfloat16, 64, 17)
     assert not nk.kernel_supported(TaskType.LINEAR_REGRESSION, torch.float32,
@@ -467,14 +480,18 @@ def cuda_device():
 # registers and in shared memory, the wide tile's limits (S 256 and 257,
 # R 64 and 65, S > 256 with few rows), and buckets far larger than the
 # warps (narrow) and blocks (wide) the card holds at once, so that each
-# walks over many entities.
+# walks over many entities. Last, narrow buckets past the reference's
+# R * S <= 16384: the 1024-row user bucket of a 512-row cap (row vectors
+# staged), 2048 rows (row vectors left in global memory), and H in
+# shared memory over 300 rows.
 CUDA_SHAPES = [(5, 3, 2), (300, 64, 17), (200, 256, 9), (40, 1024, 9),
                (8, 16384, 1), (6, 128, 128), (40, 64, 193), (12, 127, 129),
                (4, 2, 6000),
                (7, 40, 4), (7, 40, 5), (33, 64, 31), (33, 64, 32),
                (33, 64, 33), (10, 128, 127), (20, 512, 32), (10, 300, 33),
                (16, 64, 256), (8, 63, 257), (8, 65, 200), (6, 16, 1000),
-               (30_000, 64, 17), (2_000, 64, 173)]
+               (30_000, 64, 17), (2_000, 64, 173),
+               (100, 1024, 17), (6, 2048, 17), (5, 300, 100)]
 
 
 @pytest.mark.cuda

@@ -679,7 +679,7 @@ def test_linear_game_estimator_fit_matches_reference(dtype, forced):
     sr.reset_counts()
     pres = pest.fit(pdata)
     assert sr.launches == 0  # CPU tensors launch nothing
-    pds = pest.prepare(pdata)
+    pds, _ = pest.prepare(pdata)
     assert pds["per-user"].is_lazy and not pds["per-movie"].is_lazy
     n_movie = len(pds["per-movie"].blocks)
     n_user = len(pds["per-user"].blocks)
@@ -712,7 +712,8 @@ def test_linear_game_estimator_fit_matches_reference(dtype, forced):
     _, pest64 = both_estimators(torch.float64)
     res64 = pest64.fit(pdata64)
     w64 = fit_coefficients(res64)
-    z64 = total_scores(res64[0].model, pest64.prepare(pdata64), pdata64)
+    z64 = total_scores(res64[0].model, pest64.prepare(pdata64)[0],
+                       pdata64)
     atol = {"global": FE_FIT_ATOL, "per-user": RE_FIT_ATOL,
             "per-movie": RE_FIT_ATOL}
     for what, (w, z) in sides.items():
