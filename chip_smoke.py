@@ -57,11 +57,21 @@ JSON lines:
              relative for AUC and RMSE, the cancellation of the running
              sums for AUC:userId, whose premise, the depth of the card's
              f32 scan, is measured and held: ``scan_premise``), and
-             within twice that of ``evaluate_scores`` run in this process
-             on them (the card's f32 ``index_add_`` and ``cumsum`` take
-             another order each run). It prints each stage's seconds, rows/s,
-             and the kernel's device ms at rungs 1024 and 8192 on the
-             CLI's ELL operands beside the bound and the launch floor.
+             equal, bit for bit, to ``evaluate_scores`` run twice in this
+             process on them (determinism: the evaluation's segment sums
+             launch the segment-sum kernel, counted at its
+             ``evaluation`` site, and its running sums take the
+             evaluators' fixed-order float64 blocked scan). The
+             segment-sum kernel is held, run twice, on each of the
+             in-process evaluation's own segment sums against its plain
+             version in float64, within the rounding of the kernel's
+             order of additions (``evaluation_segment_check``), and the
+             card's 1-D ``torch.cumsum`` is run 100 times on each of its
+             running-sum operands, f32 and float64, to count the runs
+             that differ (``scan_stability``). It prints
+             each stage's seconds, rows/s, and the kernel's device ms
+             at rungs 1024 and 8192 on the CLI's ELL operands beside the
+             bound and the launch floor.
 
 Then the training group, on the bench's logistic GLMix at full width in
 float32 (``bench.py`` ``build_estimator("logistic")`` and
@@ -83,6 +93,10 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
 9.  fit            - ``GameEstimator.fit`` with the Newton-kernel launch,
                      plain-route and host-sync counts zeroed just before:
                      launches > 0 and no bucket on the plain route;
+                     then the fit's last fixed-effect L-BFGS solve
+                     replayed by the port's two L-BFGS designs, host
+                     branching and a batch of one, alternating
+                     (``fe_lbfgs_designs``: seconds, syncs, iterations);
 10. optimality     - each entity's gradient at the fitted model against
                      the cascade's tolerance, else its convergence reason;
 11. quality        - train AUC beside the generating weights' AUC;
@@ -139,6 +153,57 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      AUC within 1e-4 of the summary's, one serve launch a
                      chunk; (f) the global shard's feature stats within
                      1e-6 of numpy float64 over the written rows.
+
+14b. train_cli_routes - phase 14a's files through ``cli.train`` on the
+                     optimizer routes (``train_cli_routes_config``:
+                     ``global`` TRON with FULL variances and
+                     down-sampling 0.5, ``per-user`` L2 [1, 10] with
+                     SIMPLE variances, ``per-movie`` L1 1 with SIMPLE
+                     variances), then a second ``cli.train`` with
+                     ``incremental_training`` and ``--init-model`` on the
+                     first run's best checkpoint, then ``cli.score`` of
+                     the validation file with the second run's best
+                     model. Gates: both runs exit 0; every coordinate's
+                     variances in the written Avro models read back
+                     equal to the run's native checkpoint (by entity and
+                     feature); Newton launches on both runs and no
+                     plain-route solve; validation AUC at least half the
+                     generating model's lift; scores within 1e-5
+                     (relative to 1 + |score|) of a float64 numpy score,
+                     one serve launch a chunk.
+14c. train_routes  - the logistic training configuration at full width
+                     (``synth_arrays``: 4,000,000 rows, ``per-user``
+                     100,000 x 17, ``per-movie`` 20,000 x 9, float32) on
+                     the slice's routes (``routes_estimator``): ``global``
+                     TRON, L2 1e-3, FULL variances; ``per-user`` L2 1,
+                     SIMPLE variances, on the Newton kernel;
+                     ``per-movie`` elastic net (alpha 0.5, weight 1) on
+                     the batched OWL-QN route, with SIMPLE variances so
+                     that the refit has a prior for every coordinate; 2
+                     CD iterations; then one incremental iteration from
+                     that model. Per update: seconds, batched and Newton
+                     host syncs, iterations (max and mean) and Newton
+                     launches. Gates: (a) Newton launches on both fits
+                     and no plain-route solve; (b) every per-movie
+                     entity's minimum-norm subgradient (float64, at its
+                     last update's residuals) under the cascade's
+                     tolerance, else a convergence reason, with the
+                     count of exact zeros; (c) the fixed effect's TRON
+                     stop confirmed in float64 for the reason it
+                     reports: GRADIENT_CONVERGED, the gradient under
+                     TRON's tolerance; FUNCTION_VALUES_CONVERGED, the
+                     last step's decrease (its start replayed) under
+                     the loss tolerance; OBJECTIVE_NOT_IMPROVING, the
+                     gradient under the f32 resolution
+                     sqrt(8 u F lambda_max); (d) the FULL variances
+                     within 3 (sqrt(n) + d) u cond(H) of float64, and
+                     for 256 sampled entities of every random-effect
+                     bucket the SIMPLE variances within (R + S M + 4) u
+                     of float64 1 / diag; (e) the first fit at a tenth
+                     of the rows
+                     and entities on the card and on the CPU
+                     (``device="cpu"``) within route_agreement's
+                     tolerances, training losses within 1e-4.
 
 Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
 GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
@@ -211,7 +276,8 @@ commit, unpack its package into a git-ignored directory, copy this
 script beside it, and run parent, change, change, parent in one call.
 
 ``python3 chip_smoke.py --train-cli`` runs only the device and build
-phases and then phase 14a, printing no ``ok`` line.
+phases and then phases 14a and 14b, and ``--train-routes`` phase 14c,
+printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -223,6 +289,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -856,19 +923,19 @@ def f32_metric_tolerances(files, want: dict) -> dict:
     AUC:userId is the mean over the G users holding both classes of
     each user's AUC. A user's credit is a difference of two running sums
     of negative weight over all the rows in (group, score) order
-    (``torch.cumsum`` of the whole column, less the group's offset),
+    (``running_sum`` of the whole column, less the group's offset),
     each up to the total negative weight W-: cancellation, not the
-    user's own few rows, sets its error. The premise: on the card
-    ``torch.cumsum`` of a 1-D f32 tensor is a tiled parallel scan, which
-    reaches a running sum through about ceil(log2 n) additions, each
-    rounding by up to u W-, not through the n of a sequential sum; so a
-    running sum's error is a random walk of standard deviation at most
-    sqrt(ceil(log2 n)) u W-, and ``scan_premise`` measures it in the
-    same run. A credit carries two of them, sqrt(2 ceil(log2 n)) u W-,
-    and that user's AUC the same over N_g, its negative weight. The
-    users' errors are independent, so the mean's standard deviation is
-    sqrt(2 ceil(log2 n)) u W- sqrt(sum 1 / N_g^2) / G; the bound is three
-    of them."""
+    user's own few rows, sets its error. The premise: a running sum's
+    error is a random walk of standard deviation at most
+    sqrt(ceil(log2 n)) u W-, what a tiled f32 scan of depth
+    ceil(log2 n) gives; on the card ``running_sum`` accumulates in
+    float64 in a fixed order and rounds each running sum once to f32
+    (at most u/2 of W-), well inside it, and ``scan_premise`` measures
+    it in the same run. A credit carries two of them,
+    sqrt(2 ceil(log2 n)) u W-, and that user's AUC the same over N_g,
+    its negative weight. The users' errors are independent, so the
+    mean's standard deviation is sqrt(2 ceil(log2 n)) u W- sqrt(sum 1 /
+    N_g^2) / G; the bound is three of them."""
     y, w = files["labels"], files["weights"]
     neg = np.where(y < 0.5, w, 0.0)
     n_g = np.array([neg[r].sum() for r in user_groups(files)
@@ -884,8 +951,10 @@ def f32_metric_tolerances(files, want: dict) -> dict:
 def scan_premise(torch, scores, files) -> dict:
     """The premise of ``f32_metric_tolerances``'s AUC:userId bound,
     measured: the negative weights in (user, score) order, as the grouped
-    AUC orders its rows, summed by ``torch.cumsum`` in f32 on the card
-    against float64. Returns the running sums' largest and root-mean-square
+    AUC orders its rows, summed by the evaluators' ``running_sum`` (the
+    fixed-order blocked scan in float64, rounded to f32) on the card
+    against float64.
+    Returns the running sums' largest and root-mean-square
     error over W-, beside the premise's standard deviation
     sqrt(ceil(log2 n)) u and a sequential f32 sum's, about sqrt(n) u / 3
     at the end."""
@@ -894,7 +963,9 @@ def scan_premise(torch, scores, files) -> dict:
     order = np.lexsort((scores + files["offsets"], ids))
     y, w = files["labels"][order], files["weights"][order]
     neg = np.where(y < 0.5, w, 0.0).astype(np.float32)
-    got = torch.cumsum(torch.from_numpy(neg).cuda(), 0).double().cpu()
+    from photon_tpu_torch.evaluation.evaluators import running_sum
+
+    got = running_sum(torch.from_numpy(neg).cuda()).double().cpu()
     err = np.abs(got.numpy() - np.cumsum(neg.astype(np.float64)))
     total = float(neg.astype(np.float64).sum())
     n = len(neg)
@@ -935,6 +1006,7 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         specs_from_dataset,
     )
     from photon_tpu_torch.data.random_effect import scoring_codes
+    from photon_tpu_torch.ops import segment_reduce
     from photon_tpu_torch.serve.tables import CoefficientTables
     from photon_tpu_torch.transformers import evaluate_scores
 
@@ -944,8 +1016,10 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
     decoder = "native" if get_avro_decoder() is not None else "python"
     plan = ShapeLadder(SCORE_RUNGS).chunk_plan(SCORE_ROWS)
     serve_kernel.launches = 0
+    segment_reduce.reset_counts()
     line = run_score_cli(files, os.path.join(root, "out"))
     launches = serve_kernel.launches
+    eval_launches = segment_reduce.launches_by_site.get("evaluation", 0)
     with env_switch("PHOTON_SERVE_KERNEL", "off"):
         serve_kernel.launches = 0
         plain_line = run_score_cli(files, os.path.join(root, "out_plain"))
@@ -971,11 +1045,20 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         files["data"],
         feature_shards={s: [SCORE_SHARDS[s][0]] for s in SCORE_SHARDS},
         id_tag_names=["userId", "movieId"], device="cuda")
-    # evaluation.json against evaluate_scores run here on the written
-    # scores (the same f32 values) and the same dataset.
-    in_process = evaluate_scores(
-        data, torch.from_numpy(scores.astype(np.float32)).cuda(),
-        list(SCORE_EVALUATORS)).evaluations
+    # evaluation.json against evaluate_scores run here, twice, on the
+    # written scores (the same f32 values) and the same dataset.
+    written = torch.from_numpy(scores.astype(np.float32)).cuda()
+    with _EvaluationInputs() as seen:
+        in_process = evaluate_scores(data, written,
+                                     list(SCORE_EVALUATORS)).evaluations
+    # The segment-sum kernel against its plain version on the
+    # evaluation's own operands (tie blocks and users of the grouped AUC).
+    eval_parity = [evaluation_segment_check(
+        torch, segment_reduce, f"evaluation {i} n={n}", vals, ids, n)
+        for i, (vals, ids, n) in enumerate(seen.segments)]
+    stability = scan_stability(torch, seen.scans)
+    again = evaluate_scores(data, written,
+                            list(SCORE_EVALUATORS)).evaluations
     in_process_err = {k: abs(evaluation[k] - v) / abs(v)
                       for k, v in in_process.items()}
     premise = scan_premise(torch, scores, files)
@@ -1026,8 +1109,13 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         "evaluation": evaluation, "evaluation_numpy": want,
         "evaluation_rel_err": eval_err, "evaluation_rel_tol": eval_tol,
         "evaluation_in_process": in_process,
+        "evaluation_in_process_again": again,
         "evaluation_in_process_rel_err": in_process_err,
+        "evaluation_segment_launches": eval_launches,
+        "evaluation_segment_parity_max_abs_err": max(
+            (r["max_abs_err"] for r in eval_parity), default=None),
         "scan_premise": premise,
+        "scan_stability": stability,
         "plain_run_seconds": plain_line["seconds"],
     }
     emit(row)
@@ -1049,15 +1137,148 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
              f"float64 than the AUC:userId bound assumes: {premise}")
     if not all(eval_err[k] <= eval_tol[k] for k in want):
         fail(f"score_cli: evaluation.json differs from numpy: {eval_err}")
-    # Two f32 evaluations of the same scores cannot be held equal: on the
-    # card ``index_add_`` and ``torch.cumsum`` of f32 are not deterministic
-    # (torch.use_deterministic_algorithms lists both), so the sums take
-    # another order each time. Each is within its bound of float64, so
-    # the two are within twice it of each other.
-    if not all(in_process_err[k] <= 2.0 * eval_tol[k] for k in want):
-        fail(f"score_cli: evaluation.json differs from evaluate_scores on "
-             f"the written scores: {in_process_err}")
-    return {**timing[-1], "launches": launches}
+    # The evaluation's f32 sums run in a fixed order on the card (the
+    # segment-sum kernel and the blocked running sum), so the CLI's
+    # evaluation and two in-process ones of the same scores are equal,
+    # bit for bit.
+    if eval_launches <= 0 or not eval_parity:
+        fail("score_cli: the evaluation did not take the segment-sum kernel")
+    if evaluation != in_process or in_process != again:
+        fail(f"score_cli: evaluation.json {evaluation} and evaluate_scores "
+             f"on the written scores {in_process}, {again} are not equal")
+    return {**timing[-1], "launches": launches,
+            "evaluation_launches": eval_launches,
+            "evaluation_max_abs_err": row[
+                "evaluation_segment_parity_max_abs_err"]}
+
+
+# The segment-sum kernel's order of additions (``csrc/segment_sum.cu``):
+# a thread's 4 elements in sequence, a 32-lane shuffle scan, the 8 warp
+# totals in order, then one add into the segment's slot per chunk of
+# 1,024 elements; a segment of L elements meets at most
+# 3 + 5 + 7 + ceil(L / 1024) + 1 additions on any path.
+SEGMENT_ORDER_DEPTH = 16
+SEGMENT_CHUNK = 1024
+
+
+def evaluation_segment_check(torch, sr, name, vals, ids, n) -> dict:
+    """The kernel twice against its plain version on one of the
+    evaluation's inputs. The plain version runs in float64 (its f32
+    ``index_add_`` rounds at each of a segment's L atomic adds, in an
+    order that changes from run to run), and the kernel is held within
+    the rounding of its own order of additions:
+    |got - exact| <= (SEGMENT_ORDER_DEPTH + ceil(L / 1024)) u sum |v|."""
+    got = sr.segment_sum(vals, ids, n, site="parity")
+    again = sr.segment_sum(vals, ids, n, site="parity")
+    torch.cuda.synchronize()
+    exact = sr.sorted_segment_sum_plain(vals.double(), ids, n)
+    mag = sr.sorted_segment_sum_plain(vals.double().abs(), ids, n)
+    length = sr.sorted_segment_sum_plain(
+        torch.ones_like(vals, dtype=torch.float64), ids, n)
+    bound = (SEGMENT_ORDER_DEPTH + torch.ceil(length / SEGMENT_CHUNK)) \
+        * F32_U * mag
+    diff = (got.double() - exact).abs()
+    plain_diff = (sr.sorted_segment_sum_plain(vals, ids, n).double()
+                  - exact).abs()
+    row = {"phase": "segment_parity", "input": name,
+           "values": int(vals.shape[0]), "segments": int(n),
+           "longest_segment": int(length.max()),
+           "max_abs_err": float(diff.max()),
+           "max_err_over_bound": float(torch.where(
+               diff == 0, 0.0, diff / bound).max()),
+           "plain_f32_max_abs_err": float(plain_diff.max()),
+           "bit_identical_runs": bool(torch.equal(got, again)),
+           "finite": bool(got.isfinite().all())}
+    emit(row)
+    if not (row["max_err_over_bound"] <= 1.0 and row["bit_identical_runs"]
+            and row["finite"]):
+        fail(f"the segment-sum kernel disagrees with its plain version or "
+             f"with itself on the evaluation's input: {row}")
+    return row
+
+
+class _EvaluationInputs:
+    """Records the operands of every segment sum (``segments``: values,
+    int32 ids, n) and running sum (``scans``) the evaluators take while
+    active."""
+
+    def __enter__(self):
+        import torch
+        from photon_tpu_torch.evaluation import evaluators
+
+        self.segments, self.scans = [], []
+        self._mod = evaluators
+        self._real = (evaluators._segment_sum, evaluators.running_sum)
+        segment_sum, running_sum = self._real
+
+        def segment_spy(values, ids, n):
+            self.segments.append((values.contiguous(),
+                                  ids.to(torch.int32).contiguous(), int(n)))
+            return segment_sum(values, ids, n)
+
+        def scan_spy(x):
+            self.scans.append(x.clone())
+            return running_sum(x)
+
+        evaluators._segment_sum, evaluators.running_sum = (segment_spy,
+                                                           scan_spy)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._segment_sum, self._mod.running_sum = self._real
+        return False
+
+
+SCAN_RUNS = 100
+
+
+def scan_stability(torch, scans) -> list:
+    """Whether the card's 1-D ``torch.cumsum`` repeats itself bit for bit
+    on the evaluation's running-sum operands: per operand, SCAN_RUNS runs
+    each of the f32 cumsum, the float64 cumsum (its float64 bits, and
+    rounded to f32) and the evaluators' ``blocked_running_sum``, every
+    other run beside a matmul on a second stream (to move the scan's
+    timing); the count of runs that differ from the first of their
+    kind, and the largest difference. An f32 operand's float64 sums are
+    exact while its values span fewer than 53 - log2(n) bits, whatever
+    the order; the ``_wide`` kinds scale it by a fixed factor in [1, 2)
+    drawn in float64, so that its values carry 53 bits, as a float64
+    evaluation's do."""
+    from photon_tpu_torch.evaluation.evaluators import blocked_running_sum
+
+    side = torch.cuda.Stream()
+    big = torch.randn(4096, 4096, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kinds = {"cumsum_f32": lambda x: torch.cumsum(x, 0),
+             "cumsum_f64": lambda x: torch.cumsum(x.double(), 0),
+             "cumsum_f64_to_f32": lambda x: torch.cumsum(
+                 x.double(), 0).to(x.dtype),
+             "blocked_f64": lambda x: blocked_running_sum(x.double()),
+             "cumsum_f64_wide": lambda x: torch.cumsum(wide, 0),
+             "blocked_f64_wide": lambda x: blocked_running_sum(wide)}
+    out = []
+    for x in scans:
+        wide = x.double() * (1.0 + torch.rand(
+            x.shape, generator=gen, dtype=torch.float64, device=x.device))
+        row = {"n": int(x.shape[0]), "dtype": str(x.dtype)[6:],
+               "runs": SCAN_RUNS}
+        for name, fn in kinds.items():
+            first, differ, worst = fn(x), 0, 0.0
+            for r in range(1, SCAN_RUNS):
+                if r % 2:
+                    side.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(side):
+                        big @ big
+                got = fn(x)
+                if not torch.equal(got, first):
+                    differ += 1
+                    worst = max(worst, float((got.double() - first.double())
+                                             .abs().max()))
+            torch.cuda.synchronize()
+            row[name] = {"runs_differing": differ, "max_abs_diff": worst}
+        out.append(row)
+    emit({"phase": "score_cli_scan_stability", "operands": out})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1122,9 +1343,10 @@ def synth_arrays(n_rows=TRAIN_ROWS, n_users=N_USERS, n_movies=N_MOVIES,
     return dict(x=x, xu=xu, xm=xm, users=users, movies=movies, y=y, z=z)
 
 
-def train_dataset(arrays, dtype=None):
-    """The arrays on the card, in float32 unless ``dtype`` says otherwise
-    (a float64 dataset trains in float64, on the plain route)."""
+def train_dataset(arrays, dtype=None, device="cuda"):
+    """The arrays on the card (or ``device``), in float32 unless
+    ``dtype`` says otherwise (a float64 dataset trains in float64, on the
+    plain route)."""
     from photon_tpu_torch.data.dataset import DenseFeatures
     from photon_tpu_torch.data.game_data import make_game_dataset
 
@@ -1135,7 +1357,7 @@ def train_dataset(arrays, dtype=None):
          "userShard": DenseFeatures(arrays["xu"]),
          "movieShard": DenseFeatures(arrays["xm"])},
         id_tags={"userId": arrays["users"], "movieId": arrays["movies"]},
-        device="cuda", **extra,
+        device=device, **extra,
     )
 
 
@@ -1391,15 +1613,52 @@ def fit_trajectory(torch, est, data) -> tuple[dict, object]:
 
 
 def phase_fit(torch, arrays, data, est) -> dict:
-    """GameEstimator.fit at full width, counts zeroed just before."""
-    traj, res = fit_trajectory(torch, est, data)
+    """GameEstimator.fit at full width, counts zeroed just before; then
+    the fixed effect's last L-BFGS solve replayed by both designs."""
+    with _LastSolve("lbfgs_solve") as fe:
+        traj, res = fit_trajectory(torch, est, data)
     row = {"phase": "fit", "rows": int(arrays["y"].shape[0]), **traj}
     emit(row)
     if row["newton_kernel_launches"] <= 0:
         fail("the fit launched the Newton kernel no time")
     if row["plain_route_solves"] != 0:
         fail(f"{row['plain_route_solves']} bucket solves took the plain route")
+    lbfgs_designs(torch, fe.call)
     return {"row": row, "result": res}
+
+
+def lbfgs_designs(torch, call) -> dict:
+    """The port's two L-BFGS designs on one recorded fixed-effect solve,
+    alternating (host, batched, batched, host) twice:
+    ``optim.lbfgs_solve`` (branches on the host: one sync a line-search
+    probe, two an iteration) and ``batched.lbfgs`` with one lane
+    (``batched.single``; every branch a ``torch.where``, the per-entity
+    route's solver). Each one's seconds (ending in a sync), host syncs,
+    iterations and reason, and their largest coefficient difference."""
+    from photon_tpu_torch.optim import batched, lbfgs
+
+    args, kw, _ = call
+    designs = {"host": (lbfgs, lambda: lbfgs.lbfgs_solve(*args, **kw)),
+               "batched": (batched, lambda: batched.single(
+                   batched.lbfgs, *args, **kw))}
+    row = {"phase": "fe_lbfgs_designs"}
+    got = {}
+    for name in ("host", "batched", "batched", "host") * 2:
+        counter, solve = designs[name]
+        before = counter.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = solve()
+        torch.cuda.synchronize()
+        r = row.setdefault(name, {"seconds": []})
+        r["seconds"].append(time.perf_counter() - t0)
+        r["host_syncs"] = counter.host_syncs - before
+        r["iterations"] = int(got[name].iterations)
+        r["reason"] = int(got[name].convergence_reason)
+    row["max_abs_coefficient_diff"] = float(
+        (got["host"].coefficients - got["batched"].coefficients).abs().max())
+    emit(row)
+    return row
 
 
 def dense_x(torch, eb):
@@ -1419,55 +1678,78 @@ def phase_optimality(torch, model, datasets, data, stats,
     against the final scores of every other coordinate) against the
     cascade's gradient tolerance; where it is above, the entity's last
     convergence code says why."""
+    total, parts = total_scores(torch, model, datasets, data)
+    return {cid: entity_optimality(
+        torch, datasets[cid], total - parts[cid], model[cid],
+        stats["reasons"][cid], stats["l2"][cid], phase=phase, cid=cid)
+        for cid in RE_IDS}
+
+
+def coordinate_offsets(eb, residuals):
+    """A bucket's offsets plus the residual scores on its live rows, in
+    float64."""
+    off = eb.offsets.double()
+    if residuals is None:
+        return off
+    return off + residuals.double()[eb.row_ids.long()] * (eb.weights > 0)
+
+
+def pseudo_gradient(torch, w, g, l1):
+    """Minimum-norm subgradient of f(w) + l1 |w|_1 (g where l1 = 0)."""
+    right, left = g + l1, g - l1
+    zero = torch.zeros_like(g)
+    at_zero = torch.where(right < 0, right, torch.where(left > 0, left, zero))
+    return torch.where(w > 0, right, torch.where(w < 0, left, at_zero))
+
+
+def entity_optimality(torch, ds, residuals, model, reasons, l2, *, phase,
+                      cid, l1=0.0) -> dict:
+    """Each entity's logistic objective (L2 ``l2`` on the penalized
+    slots, L1 ``l1`` on every slot) in float64 at its fitted
+    coefficients, its rows' offsets plus ``residuals``: the norm of its
+    minimum-norm subgradient (the gradient when l1 = 0) against the
+    cascade's tolerance, 1e-7 of that norm at zero; where it is above,
+    the entity's convergence code (``reasons``, in bucket order) must
+    say why. Emits the row, with the count of exact zeros."""
     from photon_tpu_torch.optim import ConvergenceReason
 
-    total, parts = total_scores(torch, model, datasets, data)
-    out = {}
-    for cid in RE_IDS:
-        ds = datasets[cid]
-        residuals = (total - parts[cid]).double()
-        w_all = model[cid].coefficients.double()
-        l2w = stats["l2"][cid]
-        reasons = stats["reasons"][cid]
-        gn, g0n = [], []
-        for eb in ds.device_blocks():
-            x = dense_x(torch, eb)
-            rows = eb.row_ids.long()
-            wt = eb.weights.double()
-            off = eb.offsets.double() + torch.where(
-                eb.weights > 0, residuals[rows], torch.zeros_like(wt))
-            ind = (eb.labels > 0.5).double()
-            w = w_all[eb.entity_codes.long()][:, :x.shape[-1]]
-            pen = l2w * eb.penalty_mask.double()
-            vm = eb.valid_mask.double()
-            for ww, sink in ((w, gn), (torch.zeros_like(w), g0n)):
-                z = torch.einsum("brs,bs->br", x, ww) + off
-                g = (torch.einsum("brs,br->bs", x,
-                                  wt * (torch.sigmoid(z) - ind))
-                     + pen * ww) * vm
-                sink.append(torch.linalg.vector_norm(g, dim=-1))
-        gn = torch.cat(gn).cpu().numpy()
-        g0n = torch.cat(g0n).cpu().numpy()
-        tol = g0n * 1e-7
-        converged = gn <= tol
-        counts = {"GRADIENT_BELOW_TOLERANCE": int(converged.sum())}
-        for code in np.unique(reasons[~converged]):
-            counts[ConvergenceReason(int(code)).name] = int(
-                (reasons[~converged] == code).sum())
-        rel = gn / np.maximum(g0n, 1e-30)
-        row = {"phase": phase, "coordinate": cid,
-               "entities": int(gn.size), "counts": counts,
-               "rel_grad_median": float(np.median(rel)),
-               "rel_grad_p99": float(np.quantile(rel, 0.99)),
-               "rel_grad_max": float(rel.max())}
-        emit(row)
-        out[cid] = row
-        if not np.isfinite(gn).all():
-            fail(f"{cid}: non-finite gradient at the fitted model")
-        if (reasons[~converged] == int(ConvergenceReason.NOT_CONVERGED)).any():
-            fail(f"{cid}: an entity is above the gradient tolerance with no "
-                 "convergence reason")
-    return out
+    w_all = model.coefficients.double()
+    gn, g0n, zeros = [], [], 0
+    for eb in ds.device_blocks():
+        x = dense_x(torch, eb)
+        off = coordinate_offsets(eb, residuals)
+        wt = eb.weights.double()
+        ind = (eb.labels > 0.5).double()
+        w = w_all[eb.entity_codes.long()][:, :x.shape[-1]]
+        pen = l2 * eb.penalty_mask.double()
+        vm = eb.valid_mask.double()
+        for ww, sink in ((w, gn), (torch.zeros_like(w), g0n)):
+            z = torch.einsum("brs,bs->br", x, ww) + off
+            g = (torch.einsum("brs,br->bs", x, wt * (torch.sigmoid(z) - ind))
+                 + pen * ww)
+            sink.append(torch.linalg.vector_norm(
+                pseudo_gradient(torch, ww, g, l1) * vm, dim=-1))
+        zeros += int(((w == 0) & (vm > 0)).sum())
+    gn = torch.cat(gn).cpu().numpy()
+    g0n = torch.cat(g0n).cpu().numpy()
+    converged = gn <= g0n * 1e-7
+    counts = {"GRADIENT_BELOW_TOLERANCE": int(converged.sum())}
+    for code in np.unique(reasons[~converged]):
+        counts[ConvergenceReason(int(code)).name] = int(
+            (reasons[~converged] == code).sum())
+    rel = gn / np.maximum(g0n, 1e-30)
+    row = {"phase": phase, "coordinate": cid, "entities": int(gn.size),
+           "counts": counts, "exact_zeros": zeros,
+           "rel_grad_median": float(np.median(rel)),
+           "rel_grad_p99": float(np.quantile(rel, 0.99)),
+           "rel_grad_max": float(rel.max())}
+    emit(row)
+    if not np.isfinite(gn).all():
+        fail(f"{cid}: non-finite gradient at the fitted model")
+    if (reasons[~converged] == int(ConvergenceReason.NOT_CONVERGED)).any():
+        fail(f"{cid}: an entity is above the gradient tolerance with no "
+             "convergence reason")
+    return row
 
 
 def phase_quality(torch, arrays, model, datasets, data) -> dict:
@@ -1807,7 +2089,8 @@ def train_cli_config(files, root: str) -> dict:
     }
 
 
-def run_train_cli(torch, cfg: dict, root: str, profiled: bool) -> dict:
+def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
+                  *extra: str) -> dict:
     """One in-process ``cli.train.main`` run into ``root`` (counts zeroed
     just before): exit code, last line, summary, Newton launches (and by
     bucket shape), plain-route solves, peak device memory, wall seconds,
@@ -1836,7 +2119,7 @@ def run_train_cli(torch, cfg: dict, root: str, profiled: bool) -> dict:
     with prof, contextlib.redirect_stdout(buf):
         rc = train_cli.main(["--config", path, "--device", "cuda",
                              "--checkpoint-dir",
-                             os.path.join(root, "ckpt")])
+                             os.path.join(root, "ckpt"), *extra])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {"rc": rc, "wall_seconds": wall, "launches": nk.launches,
@@ -2154,7 +2437,584 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
         fail(f"train_cli: feature stats differ from numpy by {stats_err}")
     return {"newton_launches": kernel["launches"],
             "newton_parity_max_abs_diff": parity_err,
-            "serve_launches": score_launches, "row": row}
+            "serve_launches": score_launches, "row": row,
+            "files": files, "cfg": cfg, "root": root,
+            "generating_auc": gen_auc}
+
+
+# ---------------------------------------------------------------------------
+# the optimizer routes: TRON, OWL-QN, variances and an incremental refit
+# ---------------------------------------------------------------------------
+
+ROUTES_CD_ITERATIONS = 2
+VARIANCE_SAMPLE = 256
+F32_EPS = 2.0 ** -24
+
+
+def routes_estimator(device=None, incremental: bool = False,
+                     num_iterations: int = ROUTES_CD_ITERATIONS):
+    """The logistic training configuration (``build_estimator``'s data
+    configurations and intercepts) on the slice's routes: ``global`` TRON
+    with L2 1e-3 and FULL variances; ``per-user`` L2 1 with SIMPLE
+    variances (the Newton kernel); ``per-movie`` elastic net, alpha 0.5
+    and weight 1 (L1 0.5 + L2 0.5: the batched OWL-QN route), with SIMPLE
+    variances so that the refit has a prior for every coordinate."""
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.algorithm.problems import (
+        GLMOptimizationConfiguration,
+        VarianceComputationType,
+    )
+
+    base = build_estimator(device=device)
+
+    def cfg(reg, weight, variance, opt=None, alpha=None):
+        return GLMOptimizationConfiguration(
+            optimizer=opt or optim.OptimizerConfig(),
+            regularization=optim.RegularizationContext(reg, alpha),
+            regularization_weight=weight,
+            variance_computation=VarianceComputationType[variance])
+
+    opts = {
+        "global": cfg(optim.RegularizationType.L2, 1e-3, "FULL",
+                      optim.OptimizerConfig.tron()),
+        "per-user": cfg(optim.RegularizationType.L2, 1.0, "SIMPLE"),
+        "per-movie": cfg(optim.RegularizationType.ELASTIC_NET, 1.0,
+                         "SIMPLE", alpha=0.5),
+    }
+    base.coordinate_configs = {
+        cid: dataclasses.replace(c, optimization=opts[cid])
+        for cid, c in base.coordinate_configs.items()}
+    base.num_iterations = num_iterations
+    base.incremental_training = incremental
+    return base
+
+
+@contextlib.contextmanager
+def update_recorder(torch, device):
+    """Record each coordinate update of the fits run in the block: its
+    seconds (ending in a sync), Newton launches, the batched route's and
+    the Newton loop's host syncs, iterations, and the residuals and model
+    of each coordinate's last update (for the optimality checks)."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.estimators import game_estimator as ge
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.optim import batched
+
+    rows, last = [], {}
+
+    def wrap(cls, name_of):
+        orig = cls.train
+
+        def train(self, residuals=None, initial_model=None, *, seed=0):
+            before = (nk.launches, batched.host_syncs, ra.host_syncs)
+            sync(torch, device)
+            t0 = time.perf_counter()
+            model, diag = orig(self, residuals, initial_model, seed=seed)
+            sync(torch, device)
+            cid = name_of(self)
+            if hasattr(diag, "iterations_max"):
+                its = {"iterations_max": diag.iterations_max,
+                       "iterations_mean": diag.iterations_mean,
+                       "reasons": diag.convergence_reason_counts}
+            else:
+                its = {"iterations": int(diag.iterations),
+                       "reason": int(diag.convergence_reason)}
+            rows.append({"coordinate": cid,
+                         "seconds": time.perf_counter() - t0,
+                         "newton_launches": nk.launches - before[0],
+                         "batched_host_syncs":
+                             batched.host_syncs - before[1],
+                         "newton_host_syncs": ra.host_syncs - before[2],
+                         **its})
+            last[cid] = (residuals, model, diag)
+            return model, diag
+
+        cls.train = train
+        return orig
+
+    saved = {ra.RandomEffectCoordinate: wrap(
+                 ra.RandomEffectCoordinate,
+                 lambda c: {"userId": "per-user", "movieId": "per-movie"}[
+                     c.dataset.config.random_effect_type]),
+             ge._FixedEffectModelAdapter: wrap(
+                 ge._FixedEffectModelAdapter, lambda c: "global")}
+    try:
+        yield rows, last
+    finally:
+        for cls, orig in saved.items():
+            cls.train = orig
+
+
+def sync(torch, device) -> None:
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def routes_fit(torch, data, est, device, **fit_kw):
+    """One fit with every count zeroed just before; (row, result, last)."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.optim import batched
+
+    nk.launches = 0
+    ra.host_syncs = ra.plain_route_solves = ra.quasi_newton_solves = 0
+    batched.host_syncs = 0
+    with update_recorder(torch, device) as (rows, last):
+        t0 = time.perf_counter()
+        res = est.fit(data, **fit_kw)[0]
+        sync(torch, device)
+        secs = time.perf_counter() - t0
+    row = {"fit_seconds": secs, "newton_launches": nk.launches,
+           "plain_route_solves": ra.plain_route_solves,
+           "quasi_newton_solves": ra.quasi_newton_solves,
+           "batched_host_syncs": batched.host_syncs,
+           "newton_host_syncs": ra.host_syncs, "updates": rows}
+    return row, res, last
+
+
+def fe_hessian_parts(torch, data, residuals, w, l2, icpt):
+    """(gradient, Hessian) of the fixed effect's L2 objective in float64
+    at ``w`` with the update's residual offsets; intercept unpenalized."""
+    x = data.feature_shards["global"].x.double()
+    z = x @ w + data.offsets.double() + (
+        0.0 if residuals is None else residuals.double())
+    p = torch.sigmoid(z)
+    wt = data.weights.double()
+    pen = torch.full_like(w, l2)
+    pen[icpt] = 0.0
+    g = x.T @ (wt * (p - data.labels.double())) + pen * w
+    h = x.T @ ((wt * p * (1 - p))[:, None] * x) + torch.diag(pen)
+    return g, h
+
+
+def fe_objective(torch, data, residuals, w, l2, icpt) -> float:
+    """The fixed effect's L2 objective in float64 at ``w`` with the
+    update's residual offsets; intercept unpenalized."""
+    from photon_tpu_torch.ops import losses
+
+    x = data.feature_shards["global"].x.double()
+    z = x @ w + data.offsets.double() + (
+        0.0 if residuals is None else residuals.double())
+    pen = torch.full_like(w, l2)
+    pen[icpt] = 0.0
+    return float(torch.sum(data.weights.double() * losses.LOGISTIC.loss(
+        z, data.labels.double())) + 0.5 * torch.sum(pen * w * w))
+
+
+class _LastSolve:
+    """Records the last call of ``optim.<name>`` made while active: its
+    arguments and result, so that a check can replay the solve."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        from photon_tpu_torch import optim
+
+        self._real = real = getattr(optim, self.name)
+        self.call = None
+
+        def spy(*args, **kw):
+            result = real(*args, **kw)
+            self.call = (args, kw, result)
+            return result
+
+        setattr(optim, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from photon_tpu_torch import optim
+
+        setattr(optim, self.name, self._real)
+        return False
+
+
+def phase_routes_fixed_effect(torch, data, residuals, glm, diag, l2, icpt,
+                              tron_call) -> dict:
+    """Gate (c): the fixed effect's TRON stopped for the reason it
+    reports, as float64 sees it at the fitted coefficients (no
+    normalization, so the solver's space is the model's):
+    GRADIENT_CONVERGED, the float64 gradient under TRON's tolerance
+    (1e-5 of its norm at zero); FUNCTION_VALUES_CONVERGED, the float64
+    decrease of the last accepted step under the cascade's loss
+    tolerance (1e-5 of F at zero), the step's start replayed by the same
+    solve cut one iteration short (its loss history must equal the
+    fit's); OBJECTIVE_NOT_IMPROVING, where the f32 objective no
+    longer resolves an improvement, F - F* <= 4 u F, so |g| <=
+    sqrt(2 lambda_max (F - F*)) = sqrt(8 u F lambda_max), lambda_max the
+    Hessian's largest eigenvalue. Any other reason fails. Gate (d) for
+    FULL: its variances within the f32 bound of the float64 diagonal of
+    the inverse Hessian."""
+    from photon_tpu_torch.optim import ConvergenceReason as R
+
+    w = glm.coefficients.means.double()
+    g, h = fe_hessian_parts(torch, data, residuals, w, l2, icpt)
+    g0, _ = fe_hessian_parts(torch, data, residuals, torch.zeros_like(w),
+                             l2, icpt)
+    gn, g0n = float(torch.linalg.vector_norm(g)), float(
+        torch.linalg.vector_norm(g0))
+    f = fe_objective(torch, data, residuals, w, l2, icpt)
+    f_zero = fe_objective(torch, data, residuals, torch.zeros_like(w), l2,
+                          icpt)
+    eig = torch.linalg.eigvalsh(h)
+    resolution = math.sqrt(8.0 * F32_EPS * f * float(eig[-1]))
+    reason, k = R(int(diag.convergence_reason)), int(diag.iterations)
+    (fun, hvp, w0, config), kw, result = tron_call
+    if not torch.equal(result.coefficients.double(), w):
+        fail("train_routes: the recorded TRON solve is not the fixed "
+             "effect's last update")
+    # The last accepted step's start: the same solve cut one short.
+    if k > 1:
+        prev = tron_call_replay(fun, hvp, w0, config, kw, k - 1)
+        replayed = bool(torch.equal(prev.loss_history[:k],
+                                    result.loss_history[:k]))
+        w_prev = prev.coefficients.double()
+    else:
+        replayed, w_prev = True, w0.double()
+    f_prev = fe_objective(torch, data, residuals, w_prev, l2, icpt)
+    step_decrease = f_prev - f
+    f32_decrease = float(result.loss_history[k - 1] - result.loss_history[k])
+    want = torch.diagonal(torch.linalg.inv(h)).cpu().numpy()
+    got = glm.coefficients.variances.double().cpu().numpy()
+    cond = float(eig[-1] / eig[0])
+    n, d = data.num_samples, w.shape[0]
+    # f32 Hessian entries summed over n rows: a random walk of about
+    # sqrt(n) u relative; Cholesky and its solve add about d u; the
+    # inverse carries both times cond(H). Three standard deviations.
+    bound = 3.0 * (math.sqrt(n) + d) * F32_EPS * cond
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    row = {"phase": "train_routes_fixed_effect",
+           "iterations": k, "reason": reason.name,
+           "gradient_norm": gn, "tron_tolerance": 1e-5 * g0n,
+           "last_step_decrease": step_decrease,
+           "last_step_decrease_f32": f32_decrease,
+           "loss_tolerance": 1e-5 * abs(f_zero),
+           "replay_loss_history_equal": replayed,
+           "f32_resolution": resolution,
+           "variance_max_rel_err": rel, "variance_rel_bound": bound,
+           "hessian_cond": cond}
+    emit(row)
+    if reason == R.GRADIENT_CONVERGED:
+        ok = gn <= 1e-5 * g0n
+    elif reason == R.FUNCTION_VALUES_CONVERGED:
+        ok = replayed and abs(step_decrease) <= row["loss_tolerance"]
+    elif reason == R.OBJECTIVE_NOT_IMPROVING:
+        ok = gn <= resolution
+    else:
+        ok = False
+    if not ok:
+        fail(f"train_routes: the fixed effect's TRON stopped by "
+             f"{reason.name}, which float64 does not confirm: {row}")
+    if not rel <= bound:
+        fail(f"train_routes: fixed-effect FULL variances {rel} from float64 "
+             f"(bound {bound})")
+    return row
+
+
+def tron_call_replay(fun, hvp, w0, config, kw, iterations: int):
+    """A recorded TRON solve again, stopped after ``iterations``
+    accepted steps."""
+    from photon_tpu_torch import optim
+
+    return optim.tron_solve(fun, hvp, w0, dataclasses.replace(
+        config, max_iterations=iterations), **kw)
+
+
+def phase_routes_variances(torch, datasets, last, l2s) -> dict:
+    """Gate (d) for the random effects: SIMPLE variances of
+    VARIANCE_SAMPLE sampled entities of every bucket against float64
+    1 / (sum c x^2 + l2 pen) at the fitted coefficients and the
+    update's residuals. The f32 bound: the diagonal sums R nonnegative
+    terms (at most (R - 1) u of it) and each curvature comes from an f32
+    margin of S products (at most S u M of the margin, M its largest
+    sum |x w|, moving c by as much relative): (R + S M + 4) u."""
+    rng = np.random.default_rng(SEED + 9)
+    out = {}
+    for cid in RE_IDS:
+        residuals, model, _ = last[cid]
+        w_all = model.coefficients.double()
+        v_all = model.variances.double()
+        worst = worst_ratio = 0.0
+        for eb in datasets[cid].device_blocks():
+            b = eb.num_entities
+            pick = torch.from_numpy(np.sort(rng.choice(
+                b, size=min(b, VARIANCE_SAMPLE), replace=False))).to(
+                eb.labels.device)
+            sub = type("S", (), {})()
+            for f in ("x_values", "x_indices", "offsets", "weights",
+                      "labels", "row_ids", "penalty_mask", "valid_mask",
+                      "entity_codes"):
+                v = getattr(eb, f)
+                setattr(sub, f, None if v is None else v[pick])
+            sub.sub_dim = eb.sub_dim
+            x = dense_x(torch, sub)
+            off = coordinate_offsets(sub, residuals)
+            codes = sub.entity_codes.long()
+            w = w_all[codes][:, :x.shape[-1]]
+            z = torch.einsum("brs,bs->br", x, w) + off
+            p = torch.sigmoid(z)
+            c = sub.weights.double() * p * (1 - p)
+            diag = (torch.einsum("brs,br->bs", x * x, c)
+                    + l2s[cid] * sub.penalty_mask.double())
+            vm = sub.valid_mask > 0
+            want = torch.where(diag == 0, torch.inf, 1.0 / diag)
+            got = v_all[codes][:, :x.shape[-1]]
+            m = float(torch.einsum("brs,bs->br", x.abs(), w.abs()).max())
+            r, s = x.shape[1], x.shape[2]
+            bound = (r + s * m + 4) * F32_EPS
+            ok = vm & torch.isfinite(want)
+            rel = ((got - want).abs() / want.abs())[ok]
+            err = float(rel.max()) if rel.numel() else 0.0
+            if not bool((torch.isinf(got) == torch.isinf(want))[vm].all()):
+                fail(f"train_routes: {cid} variances disagree on which "
+                     "slots have no curvature")
+            worst = max(worst, err)
+            worst_ratio = max(worst_ratio, err / bound)
+        out[cid] = {"max_rel_err": worst, "max_err_over_bound": worst_ratio}
+    row = {"phase": "train_routes_variances", "sample": VARIANCE_SAMPLE,
+           **out}
+    emit(row)
+    if not all(v["max_err_over_bound"] <= 1.0 for v in out.values()):
+        fail(f"train_routes: random-effect variances outside their f32 "
+             f"bound: {out}")
+    return row
+
+
+def routes_agreement(torch, devices=("cuda", "cpu")) -> dict:
+    """Gate (e): the first fit at a tenth of the rows, users and movies
+    on the card and on the CPU (``device="cpu"``), both f32, within
+    route_agreement's tolerances; training losses within 1e-4."""
+    arrays = synth_arrays(**REDUCED)
+    fits = {}
+    for device in devices:
+        data = train_dataset(arrays, device=device)
+        est = routes_estimator(device=device)
+        row, res, _ = routes_fit(torch, data, est, device)
+        datasets, _ = est.prepare(data)
+        total, _ = total_scores(torch, res.model, datasets, data)
+        fits[device] = dict(model=res.model, seconds=row["fit_seconds"],
+                            objective=fit_objective(torch, total, data),
+                            launches=row["newton_launches"])
+        del data, datasets, total
+    k, p = (fits[d] for d in devices)
+    row = {"phase": "train_routes_agreement", **REDUCED,
+           "card_fit_seconds": k["seconds"], "cpu_fit_seconds": p["seconds"],
+           "newton_launches": [k["launches"], p["launches"]],
+           "objective_rel_diff": abs(k["objective"] - p["objective"])
+           / abs(p["objective"])}
+    ok = True
+    for cid in ("global",) + RE_IDS:
+        a = (k["model"][cid].model.coefficients.means if cid == "global"
+             else k["model"][cid].coefficients).double().cpu()
+        b = (p["model"][cid].model.coefficients.means if cid == "global"
+             else p["model"][cid].coefficients).double()
+        atol = FIT_ATOL if cid == "global" else RE_FIT_ATOL
+        gate = (a - b).abs() - (atol + FIT_RTOL * b.abs())
+        row[f"{cid}_max_abs_diff"] = float((a - b).abs().max())
+        row[f"{cid}_max_excess"] = float(gate.max())
+        ok = ok and float(gate.max()) <= 0.0
+    emit(row)
+    if k["launches"] <= 0 or p["launches"] != 0:
+        fail(f"train_routes: the card and CPU fits did not take their "
+             f"routes: {row}")
+    if not ok or not row["objective_rel_diff"] <= 1e-4:
+        fail(f"train_routes: the card's fit and the CPU's differ: {row}")
+    return row
+
+
+def phase_train_routes(torch, device="cuda") -> dict:
+    """The logistic training configuration at full width on the slice's
+    routes (module docstring, phase 14c); returns the Newton launches of
+    both fits. ``device="cpu"`` runs its logic on the plain versions."""
+    t0 = time.perf_counter()
+    arrays = synth_arrays()
+    data = train_dataset(arrays, device=device)
+    sync(torch, device)
+    setup_s = time.perf_counter() - t0
+    est = routes_estimator(device=device)
+    t0 = time.perf_counter()
+    datasets, _ = est.prepare(data)
+    plan_s = time.perf_counter() - t0
+    del arrays
+    with _LastSolve("tron_solve") as tron:
+        first, res, last = routes_fit(torch, data, est, device)
+    emit({"phase": "train_routes_fit", "fit": "first",
+          "setup_seconds": setup_s, "planner_host_seconds": plan_s,
+          **first})
+    # (a) the Newton kernel took every per-user bucket.
+    if first["newton_launches"] <= 0 or first["plain_route_solves"] != 0:
+        fail(f"train_routes: per-user did not take the Newton kernel on "
+             f"every bucket: {first['newton_launches']} launches, "
+             f"{first['plain_route_solves']} plain-route solves")
+    if first["quasi_newton_solves"] <= 0:
+        fail("train_routes: per-movie did not take the quasi-Newton route")
+    opt = {cid: est.coordinate_configs[cid].optimization for cid in
+           est.coordinate_configs}
+    # (b) OWL-QN's optimality, at the residuals of per-movie's last update.
+    mres, mmodel, mstats = last["per-movie"]
+    entity_optimality(torch, datasets["per-movie"], mres, mmodel,
+                      mstats.reasons, opt["per-movie"].l2_weight,
+                      l1=opt["per-movie"].l1_weight,
+                      phase="train_routes_owlqn_optimality",
+                      cid="per-movie")
+    gres, gmodel, gdiag = last["global"]
+    phase_routes_fixed_effect(torch, data, gres, gmodel.model, gdiag,
+                              opt["global"].l2_weight, TRAIN_FEATURES - 1,
+                              tron.call)
+    phase_routes_variances(torch, datasets, last,
+                           {cid: opt[cid].l2_weight for cid in RE_IDS})
+    # The incremental refit: one iteration from the first fit's model,
+    # every coordinate's prior its variances.
+    inc = routes_estimator(device=device, incremental=True,
+                           num_iterations=1)
+    second, res2, _ = routes_fit(torch, data, inc, device,
+                                 initial_model=res.model)
+    moved = float((res2.model["per-user"].coefficients
+                   - res.model["per-user"].coefficients).abs().max())
+    emit({"phase": "train_routes_fit", "fit": "incremental",
+          "per_user_max_move": moved, **second})
+    if second["newton_launches"] <= 0 or second["plain_route_solves"] != 0:
+        fail("train_routes: the incremental refit did not take the Newton "
+             "kernel on every per-user bucket")
+    del data, datasets, res, res2, last
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    routes_agreement(torch, (device, "cpu"))
+    return {"newton_launches": first["newton_launches"]
+            + second["newton_launches"]}
+
+
+def train_cli_routes_config(cli: dict) -> dict:
+    """Phase 14a's configuration on the slice's routes: ``global`` TRON
+    with FULL variances and down-sampling at 0.5; ``per-user`` L2
+    [1, 10] with SIMPLE variances; ``per-movie`` L1 weight 1 (OWL-QN)
+    with SIMPLE variances, so that the incremental run has a prior for
+    every coordinate."""
+    cfg = json.loads(json.dumps(cli["cfg"]))
+    coords = cfg["coordinates"]
+    coords["global"].update(optimizer={"type": "TRON"},
+                            variance_computation="FULL",
+                            down_sampling_rate=0.5)
+    coords["per-user"].update(variance_computation="SIMPLE")
+    coords["per-movie"].update(regularization={"type": "L1",
+                                               "weights": [1.0]},
+                               variance_computation="SIMPLE")
+    return cfg
+
+
+def entity_feature_table(model) -> dict | None:
+    """A random-effect model's variances by (entity key, feature id),
+    whatever the slot layout the model was loaded into; None when a
+    model with coefficients has no variances."""
+    rows, slots = np.nonzero(model.proj_all >= 0)
+    if model.variances is None:
+        return None if rows.size else {}
+    v = model.variances.double().numpy()
+    keys = np.asarray(model.entity_keys, dtype=object)[rows]
+    return dict(zip(zip(keys.tolist(),
+                        model.proj_all[rows, slots].tolist()),
+                    v[rows, slots].tolist()))
+
+
+def phase_train_cli_routes(torch, cli: dict) -> dict:
+    """``cli.train`` on the slice's routes over phase 14a's files, then an
+    incremental ``cli.train`` from the first run's best model, then
+    ``cli.score`` of the validation file with the second run's best
+    model (module docstring, phase 14b)."""
+    from photon_tpu_torch.cli import score as score_cli
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.io.avro_data import read_merged
+    from photon_tpu_torch.io.model_io import load_checkpoint, load_game_model
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.programs import ShapeLadder
+
+    root = os.path.join(cli["root"], "routes")
+    cfg = train_cli_routes_config(cli)
+    first = run_train_cli(torch, cfg, os.path.join(root, "first"), False)
+    best_ckpt = os.path.join(first["out"], "models", "best",
+                             "checkpoint.npz")
+    inc = dict(cfg, incremental_training=True)
+    second = run_train_cli(torch, inc, os.path.join(root, "incremental"),
+                           False, "--init-model", best_ckpt)
+    # The written Avro models carry variances and read back equal to the
+    # run's native checkpoint.
+    _, maps = read_merged(cli["files"]["train"]["data"],
+                          feature_shards=CLI_SHARDS,
+                          id_tag_names=["userId", "movieId"], device="cpu")
+    mismatched = []
+    for run in (first, second):
+        best = os.path.join(run["out"], "models", "best")
+        avro_model, _ = load_game_model(best, maps, device="cpu")
+        native = load_checkpoint(os.path.join(best, "checkpoint.npz"), "cpu")
+        for cid in ("global",) + RE_IDS:
+            a, b = avro_model[cid], native[cid]
+            if cid == "global":
+                va, vb = (m.model.coefficients.variances for m in (a, b))
+                same = (va is not None and vb is not None
+                        and np.array_equal(va.double().numpy(),
+                                           vb.double().numpy()))
+            else:
+                ta = entity_feature_table(a)
+                same = ta is not None and ta == entity_feature_table(b)
+            if not same:
+                mismatched.append((run["root"], cid))
+    # Score the validation file with the incremental run's best model.
+    val = cli["files"]["validation"]
+    best_dir = os.path.join(second["out"], "models", "best")
+    score_out = os.path.join(root, "scores")
+    serve_kernel.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = score_cli.main([
+            "--model-dir", best_dir, "--input", val["data"],
+            "--output", score_out, "--feature-shards",
+            *[f"{s}={b[0]}" for s, b in CLI_SHARDS.items()],
+            "--id-tags", "userId", "movieId", "--device", "cuda",
+            "--evaluators", *CLI_EVALUATORS])
+    score_launches = serve_kernel.launches
+    chunks = len(ShapeLadder(SCORE_RUNGS).chunk_plan(CLI_VALIDATION_ROWS))
+    scores = np.array([r["predictionScore"] for r in avro.read_container_dir(
+        os.path.join(score_out, "part-00000.avro"))])
+    exact = numpy_model_scores(best_dir, val["data"])
+    score_err = float(np.max(np.abs(scores - exact) / (1.0 + np.abs(exact))))
+    with open(os.path.join(score_out, "evaluation.json")) as f:
+        score_auc = json.load(f)["AUC"]
+    aucs = [r["summary"]["configurations"][
+        r["summary"]["best_configuration_index"]]["evaluation"]["AUC"]
+        for r in (first, second)]
+    gen_auc = cli["generating_auc"]
+    row = {"phase": "train_cli_routes",
+           "seconds": [first["summary"]["seconds"],
+                       second["summary"]["seconds"]],
+           "wall_seconds": [first["wall_seconds"], second["wall_seconds"]],
+           "newton_launches": [first["launches"], second["launches"]],
+           "plain_route_solves": [first["plain_route_solves"],
+                                  second["plain_route_solves"]],
+           "validation_auc": aucs, "generating_auc": gen_auc,
+           "score_auc": score_auc, "score_launches": score_launches,
+           "score_chunks": chunks, "score_max_rel_err_numpy_f64": score_err,
+           "variance_mismatches": mismatched}
+    emit(row)
+    if mismatched:
+        fail(f"train_cli_routes: variances missing or unequal after the "
+             f"round trip: {mismatched}")
+    if min(row["newton_launches"]) <= 0 or max(row["plain_route_solves"]):
+        fail(f"train_cli_routes: the runs did not take the Newton kernel on "
+             f"every per-user bucket: {row}")
+    if not min(aucs) - 0.5 >= 0.5 * (gen_auc - 0.5):
+        fail(f"train_cli_routes: validation AUC {aucs} recovers under half "
+             f"the generating model's lift ({gen_auc})")
+    if rc != 0 or len(scores) != CLI_VALIDATION_ROWS or not np.isfinite(
+            scores).all():
+        fail("train_cli_routes: cli.score did not score every row")
+    if not score_err <= 1e-5:
+        fail(f"train_cli_routes: scores differ from the numpy score by "
+             f"{score_err}")
+    if score_launches != chunks:
+        fail(f"train_cli_routes: {score_launches} serve launches for "
+             f"{chunks} chunks")
+    return {"newton_launches": sum(row["newton_launches"]),
+            "serve_launches": score_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2934,6 +3794,7 @@ def phase_wide(torch) -> dict:
         "source": sr.SOURCE,
         "replaces": SEGMENT_REPLACES,
         "launches": sum(launches.values()),
+        "launches_by_path": {"wide_fit": sum(launches.values())},
         "max_abs_err": worst,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -2992,7 +3853,9 @@ def main() -> int:
     ap.add_argument("--fits", type=int, default=0, metavar="N",
                     help="run only the full-width fits, N warm times each")
     ap.add_argument("--train-cli", action="store_true",
-                    help="run only the training CLI phase")
+                    help="run only the training CLI phases")
+    ap.add_argument("--train-routes", action="store_true",
+                    help="run only the optimizer-routes phase")
     args = ap.parse_args()
     try:
         import torch
@@ -3035,7 +3898,12 @@ def main() -> int:
     if args.fits > 0:
         return fits_only(torch, args.fits)
     if args.train_cli:
-        phase_train_cli(torch, *serving_arrays())
+        phase_train_cli_routes(torch, phase_train_cli(torch,
+                                                      *serving_arrays()))
+        print(smi, flush=True)
+        return 0
+    if args.train_routes:
+        phase_train_routes(torch)
         print(smi, flush=True)
         return 0
     if args.timing > 0:
@@ -3068,13 +3936,23 @@ def main() -> int:
     newton = phase_train(torch)
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(torch, arrays, manifest)
-    newton["launches_by_path"] = {"fit": newton["launches"],
-                                  "train_cli": train_cli["newton_launches"]}
-    newton["launches"] += train_cli["newton_launches"]
+    cli_routes = phase_train_cli_routes(torch, train_cli)
+    torch.cuda.empty_cache()
+    routes = phase_train_routes(torch)
+    newton["launches_by_path"] = {
+        "fit": newton["launches"], "train_cli": train_cli["newton_launches"],
+        "train_routes": routes["newton_launches"],
+        "train_cli_routes": cli_routes["newton_launches"]}
+    newton["launches"] = sum(newton["launches_by_path"].values())
     newton["max_abs_err"] = max(newton["max_abs_err"],
                                 train_cli["newton_parity_max_abs_diff"])
     torch.cuda.empty_cache()
     segment = phase_wide(torch)
+    segment["launches_by_path"]["score_cli_evaluation"] = batch[
+        "evaluation_launches"]
+    segment["launches"] = sum(segment["launches_by_path"].values())
+    segment["max_abs_err"] = max(segment["max_abs_err"],
+                                 batch["evaluation_max_abs_err"])
 
     top = next(r for r in rows
                if r["precision"] == SERVE_PRECISION and r["rung"] == 512)
@@ -3086,10 +3964,13 @@ def main() -> int:
         # Its main paths: the served requests, the batch CLI and the
         # training CLI's train -> score round trip.
         "launches": (serve["kernel_launches"] + batch["launches"]
-                     + train_cli["serve_launches"]),
+                     + train_cli["serve_launches"]
+                     + cli_routes["serve_launches"]),
         "launches_by_path": {"serve": serve["kernel_launches"],
                              "score_cli": batch["launches"],
-                             "train_cli": train_cli["serve_launches"]},
+                             "train_cli": train_cli["serve_launches"],
+                             "train_cli_routes":
+                                 cli_routes["serve_launches"]},
         "max_abs_err": max(worst, coords["float32"]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

@@ -3,7 +3,10 @@
 
 A coordinate trains against its batch's base offsets plus the residual
 scores of every other coordinate (Coordinate.scala:52-53), and its
-``score`` is the pure model contribution per row, with no offset.
+``score`` is the pure model contribution per row, with no offset. A
+``down_sampling_rate`` under 1 masks rows per train call with draws
+seeded by the call's seed (FixedEffectCoordinate.trainModel ->
+DistributedOptimizationProblem.runWithSampling :141-167).
 """
 
 from __future__ import annotations
@@ -12,13 +15,14 @@ import dataclasses
 
 import torch
 
-from photon_tpu_torch import optim
 from photon_tpu_torch.algorithm.problems import (
     GLMOptimizationConfiguration,
     GLMOptimizationProblem,
 )
+from photon_tpu_torch.data import sampling
 from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.types import TaskType
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +40,15 @@ class FixedEffectCoordinate:
     def train(self, residuals: torch.Tensor | None = None,
               initial_model: GeneralizedLinearModel | None = None, *,
               seed: int = 0):
-        if 0.0 < self.config.down_sampling_rate < 1.0:
-            raise optim.not_ported("fixed-effect down-sampling")
         batch = self.batch
         if residuals is not None:
             batch = batch.with_offsets(batch.offsets + residuals)
+        rate = self.config.down_sampling_rate
+        if 0.0 < rate < 1.0:
+            batch = sampling.downsample(
+                batch, rate, seed, binary=self.problem.task in (
+                    TaskType.LOGISTIC_REGRESSION,
+                    TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM))
         initial = (initial_model.coefficients if initial_model is not None
                    else None)
         solution = self.problem.run(batch, initial)

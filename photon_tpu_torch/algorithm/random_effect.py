@@ -9,9 +9,9 @@ refinement pass: from the ELL blocks through the segment-sum kernel (the
 gram route, ``_solve_direct_gram``) where the planner's window bounds
 allow, else from a dense slab (``_solve_direct_batched``). A wide ELL
 bucket is densified for it by the same kernel (``densify_ell_blocks``).
-For logistic or Poisson loss the bucket runs damped Newton/IRLS
-(``_solve_newton_batched``) on a dense slab, with per-entity
-convergence through the reference's cascade:
+For a well-posed logistic or Poisson bucket the bucket runs damped
+Newton/IRLS (``_solve_newton_batched``) on a dense slab, with
+per-entity convergence through the reference's cascade:
 
 - the Newton-step route, taken when ``newton_kernel.kernel_supported``
   holds (f32; R * S <= 16384, or up to S = 128 slots any bucket whose
@@ -23,12 +23,23 @@ convergence through the reference's cascade:
 Each iteration of either loop makes one host sync, to test whether any
 entity is still running; ``host_syncs`` counts them.
 
+Every other bucket (an L1 or elastic-net part, L2 = 0, box constraints,
+the smoothed hinge, a prior at ``incremental_weight`` 0) takes the
+per-entity quasi-Newton route, ``_solve_quasi_newton_batched``: the
+configured L-BFGS, L-BFGS-B, OWL-QN or TRON over the whole bucket at
+once (``optim/batched.py``, each entity's iterations and reason those of
+its solo solve, as the reference's ``jax.vmap`` gives), on the
+effective-coefficient objective with the masked L2 or the Gaussian
+prior. An ELL bucket is densified for it (``segment_reduce.densify_ell``).
+
 Coefficients are solved in the transformed (normalized) space and
 reported in the original one; the per-entity intercept slot carries the
-shift mass. The vmapped quasi-Newton route (L1, smoothed hinge), the
-per-entity Newton solve of an ELL bucket that densify does not take, and
-coefficient variances are not ported (ROADMAP Queue A); they raise
-``NotImplementedError``.
+shift mass. SIMPLE and FULL variances come at the optimum on every
+route but the gram route, which ``block_route`` refuses when they are
+asked for: padded slots report 0 and valid slots with no curvature inf.
+The per-entity Newton solve of an ELL bucket that densify does not take
+(f64 logistic on a wide bucket) is not ported (ROADMAP Queue A) and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from photon_tpu_torch import optim
 from photon_tpu_torch.algorithm.problems import (
     GLMOptimizationConfiguration,
     VarianceComputationType,
+    cholesky_inverse_diagonal,
 )
 from photon_tpu_torch.data.random_effect import (
     DENSE_SUB_DIM_MAX,
@@ -55,6 +67,7 @@ from photon_tpu_torch.ops import newton_kernel as nk
 from photon_tpu_torch.ops import precision as precision_mod
 from photon_tpu_torch.ops import segment_reduce
 from photon_tpu_torch.ops.normalization import NormalizationContext
+from photon_tpu_torch.optim import batched, owlqn, tron
 from photon_tpu_torch.types import TaskType
 
 _NEWTON_LINE_SEARCH_HALVINGS = 15
@@ -63,6 +76,8 @@ _NEWTON_LINE_SEARCH_HALVINGS = 15
 host_syncs = 0
 # Bucket solves that took the plain route.
 plain_route_solves = 0
+# Bucket solves on the per-entity quasi-Newton route.
+quasi_newton_solves = 0
 # Bucket solves by how the bucket's design reached its solver (see
 # ``block_route``).
 route_solves: dict = {}
@@ -193,14 +208,85 @@ def _spd_solve_cg(h: torch.Tensor, b: torch.Tensor, sub_dim: int,
     return x + _spd_solve_cg_sb(h, res, sub_dim, active)
 
 
-def _direct_result(w: torch.Tensor):
+def _direct_result(w: torch.Tensor, variances: torch.Tensor):
     """(w, variances, iterations, reasons) of an exact solve: one
     iteration, converged."""
     bsz = w.shape[0]
-    return (w, torch.zeros_like(w),
+    return (w, variances,
             torch.ones(bsz, dtype=torch.int32, device=w.device),
             torch.full((bsz,), int(optim.ConvergenceReason.GRADIENT_CONVERGED),
                        dtype=torch.int32, device=w.device))
+
+
+def _entity_variances(x, curvature, factors, shifts, l2_diag, valid_mask,
+                      variance_computation: VarianceComputationType):
+    """Each entity's variances from its RAW design x [B, R, S] and
+    curvature ``weights * d2l/dz2`` [B, R], through its projected
+    normalization (the reference's ``variances_in_transformed_space``
+    per entity): SIMPLE inverts f^2 (sum c x^2 - 2 s sum c x + s^2 sum
+    c) + l2_diag, FULL takes the Cholesky inverse's diagonal of
+    F (H_raw - s a^T - a s^T + (sum c) s s^T) F + diag(l2_diag). Slots
+    with no curvature get inf, padded slots 0; original space."""
+    c = curvature
+    normalized = factors is not None or shifts is not None
+    sh = torch.zeros_like(l2_diag) if shifts is None else shifts
+    fa = torch.ones_like(l2_diag) if factors is None else factors
+    if variance_computation == VarianceComputationType.SIMPLE:
+        diag = torch.einsum("brs,br->bs", x * x, c)
+        if normalized:
+            d1 = torch.einsum("brs,br->bs", x, c)
+            tot = torch.sum(c, dim=-1)[:, None]
+            diag = fa * fa * (diag - 2.0 * sh * d1 + sh * sh * tot)
+        diag = diag + l2_diag
+        var_t = 1.0 / torch.where(diag == 0.0, torch.inf, diag)
+    else:
+        h = torch.einsum("brs,brt->bst", x * c[:, :, None], x)
+        if normalized:
+            a = torch.einsum("brs,br->bs", x, c)
+            tot = torch.sum(c, dim=-1)[:, None, None]
+            h = (h - sh[:, :, None] * a[:, None, :]
+                 - a[:, :, None] * sh[:, None, :]
+                 + tot * (sh[:, :, None] * sh[:, None, :]))
+            h = fa[:, :, None] * h * fa[:, None, :]
+        h = h + torch.diag_embed(l2_diag)
+        dead = torch.diagonal(h, dim1=-2, dim2=-1) == 0.0
+        h = h + torch.diag_embed(dead.to(h.dtype))
+        var_t = torch.where(dead, torch.inf, cholesky_inverse_diagonal(h))
+    f_sq = 1.0 if factors is None else factors * factors
+    return torch.where(valid_mask > 0, var_t * f_sq,
+                       torch.zeros_like(var_t))
+
+
+def _batched_variances(x_t, labels, offsets, weights, w_t, l2_diag,
+                       valid_mask, factors, loss,
+                       variance_computation: VarianceComputationType):
+    """Variances of a dense bucket whose design ``x_t`` is already
+    transformed (the Newton route; reference :767-813): SIMPLE inverts
+    the Hessian's diagonal, FULL solves for each basis vector by one
+    refined S-step CG. Slots with no curvature get inf, padded slots
+    0; original space."""
+    z = torch.einsum("brs,bs->br", x_t, w_t) + offsets
+    curv = weights * loss.dzz(z, labels)
+    f_sq = 1.0 if factors is None else factors * factors
+    if variance_computation == VarianceComputationType.SIMPLE:
+        return f_sq * _entity_variances(x_t, curv, None, None, l2_diag,
+                                        valid_mask, variance_computation)
+    h_diag = torch.einsum("brs,br->bs", x_t * x_t, curv) + l2_diag
+    dead = h_diag == 0.0
+    s = w_t.shape[-1]
+    h = torch.einsum("brs,brt->bst", x_t * curv[:, :, None], x_t)
+    h = h + torch.diag_embed(l2_diag + dead.to(h.dtype))
+    active = torch.ones(w_t.shape[0], dtype=torch.bool, device=w_t.device)
+    var_t = torch.zeros_like(w_t)
+    for i in range(s):
+        e = torch.zeros_like(w_t)
+        e[:, i] = 1.0
+        sol = _spd_solve_cg_sb(h, e, s, active)
+        res = e - torch.einsum("bst,bt->bs", h, sol)
+        sol = sol + _spd_solve_cg_sb(h, res, s, active)
+        var_t[:, i] = sol[:, i]
+    var_t = torch.where(dead, torch.inf, var_t)
+    return torch.where(valid_mask > 0, var_t * f_sq, torch.zeros_like(var_t))
 
 
 def _prior_terms(prior, factors, shifts, int_onehot, valid_mask,
@@ -225,13 +311,12 @@ def _solve_direct_batched(x_indices, x_values, labels, offsets, weights,
     ``_solve_one_entity_direct`` written as one batch. An ELL bucket
     (``x_indices`` set, a shape densify's gates refuse) is densified
     whole by ``segment_reduce.densify_ell``."""
-    if variance_computation != VarianceComputationType.NONE:
-        raise optim.not_ported("random-effect coefficient variances")
     dtype = labels.dtype
     if x_indices is None:
         x = x_values
     else:
         x = segment_reduce.densify_ell(x_indices, x_values, sub_dim)
+    x_raw = x
     if shifts is not None:
         x = x - precision_mod.like_storage(shifts, x)[:, None, :]
     if factors is not None:
@@ -253,7 +338,12 @@ def _solve_direct_batched(x_indices, x_values, labels, offsets, weights,
     h = h + torch.diag_embed(l2_diag + (1.0 - valid_mask))
     w_t = _spd_solve_cg(h, bvec, sub_dim) * valid_mask
     w = _coef_to_original(w_t, factors, shifts, int_onehot) * valid_mask
-    return _direct_result(w)
+    if variance_computation == VarianceComputationType.NONE:
+        return _direct_result(w, torch.zeros_like(w))
+    # Squared loss: the curvature is the row weight.
+    return _direct_result(w, _entity_variances(
+        x_raw.to(dtype), weights, factors, shifts, l2_diag, valid_mask,
+        variance_computation))
 
 
 def _solve_direct_gram(block, offsets, factors_sub, prior, *, sub_dim: int,
@@ -294,7 +384,7 @@ def _solve_direct_gram(block, offsets, factors_sub, prior, *, sub_dim: int,
     h = h + torch.diag_embed(l2_diag + (1.0 - valid_mask))
     w_t = _spd_solve_cg(h, b_vec, s) * valid_mask
     w = _coef_to_original(w_t, factors_sub, None, None) * valid_mask
-    return _direct_result(w)
+    return _direct_result(w, torch.zeros_like(w))
 
 
 def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
@@ -306,8 +396,6 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
     """Damped Newton/IRLS for a whole dense bucket x [B, R, S]. Returns
     (w [B, S] original space, variances, iterations [B], reasons [B])."""
     global host_syncs, plain_route_solves
-    if variance_computation != VarianceComputationType.NONE:
-        raise optim.not_ported("random-effect coefficient variances")
     dtype = labels.dtype
     dev = labels.device
     b = x.shape[0]
@@ -406,8 +494,102 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
         w, f, g, it = w_n, f_n, g_n, it_n
 
     w_t = w * valid_mask
+    if variance_computation == VarianceComputationType.NONE:
+        variances = torch.zeros_like(w_t)
+    else:
+        variances = _batched_variances(
+            x, labels, offsets, weights, w_t, l2_diag, valid_mask, factors,
+            loss, variance_computation)
     w_orig = _coef_to_original(w_t, factors, shifts, int_onehot) * valid_mask
-    return w_orig, torch.zeros_like(w_t), it, code
+    return w_orig, variances, it, code
+
+
+def _solve_quasi_newton_batched(x, labels, offsets, weights, penalty_mask,
+                                valid_mask, factors, shifts, intercept_slots,
+                                w0_orig, prior, *, sub_dim: int,
+                                task: TaskType,
+                                opt_config: optim.OptimizerConfig,
+                                variance_computation: VarianceComputationType,
+                                l1_weight: float, l2_weight: float,
+                                incremental_weight: float):
+    """The configured quasi-Newton solver over a whole dense bucket, x
+    [B, R, S] raw: the reference's ``_solve_one_entity`` (:970-1079)
+    for every entity at once. The objective works on raw features
+    through each entity's effective coefficients (margin x.(w f) -
+    s.(w f) + offset); the masked L2 or the Gaussian prior is added,
+    OWL-QN takes an L1 part, TRON gets the matching Hessian-vector
+    product, and L-BFGS hands box constraints to L-BFGS-B. Returns
+    (w [B, S] original space, variances, iterations [B], reasons [B])."""
+    global quasi_newton_solves
+    quasi_newton_solves += 1
+    dtype = labels.dtype
+    loss = losses_mod.get_loss(task)
+    int_onehot = (None if shifts is None
+                  else _onehot_slots(intercept_slots, sub_dim, dtype))
+
+    def effective(w):
+        ew = w if factors is None else w * factors
+        es = (torch.zeros_like(ew[:, 0]) if shifts is None
+              else torch.sum(shifts * ew, dim=-1))
+        return ew, es
+
+    def to_transformed_grad(raw, total):
+        g = raw if shifts is None else raw - shifts * total[:, None]
+        return g if factors is None else g * factors
+
+    def margins(w):
+        ew, es = effective(w)
+        return torch.einsum("brs,bs->br", x, ew) - es[:, None] + offsets
+
+    if prior is not None:
+        m_t = _coef_to_transformed(prior[0], factors, shifts, int_onehot)
+        f_sq = 1.0 if factors is None else factors * factors
+        inv_prior_var = optim.inverse_prior_variances(
+            prior[1] / f_sq, l2_weight) * valid_mask
+        l2_diag = incremental_weight * inv_prior_var
+    else:
+        m_t = None
+        l2_diag = l2_weight * penalty_mask
+
+    def objective(w):
+        z = margins(w)
+        value = torch.sum(weights * loss.loss(z, labels), dim=-1)
+        c = weights * loss.dz(z, labels)
+        g = to_transformed_grad(torch.einsum("brs,br->bs", x, c),
+                                torch.sum(c, dim=-1))
+        if m_t is not None:
+            dw = (w - m_t) * inv_prior_var
+            return (value + 0.5 * incremental_weight * batched.dot(
+                w - m_t, dw), g + incremental_weight * dw)
+        wm = w * penalty_mask
+        return (value + 0.5 * l2_weight * batched.dot(wm, wm),
+                g + l2_weight * wm)
+
+    def hvp(w, v):
+        ev, es_v = effective(v)
+        zv = torch.einsum("brs,bs->br", x, ev) - es_v[:, None]
+        h = weights * loss.dzz(margins(w), labels) * zv
+        hv = to_transformed_grad(torch.einsum("brs,br->bs", x, h),
+                                 torch.sum(h, dim=-1))
+        return hv + (incremental_weight * (v * inv_prior_var)
+                     if m_t is not None else l2_weight * (v * penalty_mask))
+
+    w0 = _coef_to_transformed(w0_orig, factors, shifts, int_onehot)
+    if l1_weight != 0.0:
+        res = owlqn.owlqn(objective, w0, l1_weight, opt_config)
+    elif opt_config.optimizer_type == optim.OptimizerType.TRON:
+        res = tron.tron(objective, w0, opt_config, hvp=hvp)
+    else:
+        res = batched.lbfgs(objective, w0, opt_config)
+    w_t = res.coefficients * valid_mask
+    if variance_computation == VarianceComputationType.NONE:
+        variances = torch.zeros_like(w_t)
+    else:
+        variances = _entity_variances(
+            x, weights * loss.dzz(margins(w_t), labels), factors, shifts,
+            l2_diag, valid_mask, variance_computation)
+    w_orig = _coef_to_original(w_t, factors, shifts, int_onehot) * valid_mask
+    return w_orig, variances, res.iterations, res.convergence_reason
 
 
 def _scatter_results(w_all, v_all, codes, w, v, it, reason):
@@ -452,7 +634,8 @@ def block_route(block, sub_dim: int, *, direct: bool, newton: bool,
 
 
 def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
-                 l2_weight: float, incremental_weight: float, prior_full,
+                 l1_weight: float, l2_weight: float,
+                 incremental_weight: float, prior_full,
                  w_all, v_all, *, sub_dim: int, task: TaskType,
                  opt_config: optim.OptimizerConfig,
                  variance_computation: VarianceComputationType,
@@ -470,10 +653,6 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
             offsets = offsets + torch.where(
                 block.weights > 0, residuals[block.row_ids.long()],
                 torch.zeros((), dtype=offsets.dtype, device=offsets.device))
-    if not (direct or newton):
-        raise optim.not_ported(
-            "the per-entity quasi-Newton (L-BFGS/OWL-QN/TRON) random-effect "
-            "solve")
     dtype = block.labels.dtype
     route = block_route(
         block, sub_dim, direct=direct, newton=newton, gram_mults=gram_mults,
@@ -520,16 +699,23 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
             shifts_sub, block.intercept_slots, prior, sub_dim=s,
             variance_computation=variance_computation, l2_weight=l2_weight,
             incremental_weight=incremental_weight)
-    elif block.x_indices is None:
+    elif newton and block.x_indices is not None:
+        raise optim.not_ported("the per-entity Newton solve of an ELL bucket")
+    else:
         w0 = w0_full.to(dtype)[take][:, :s]
-        w, v, it, reason = _solve_newton_batched(
-            block.x_values, block.labels, offsets, block.weights,
+        solver = (_solve_newton_batched if newton
+                  else _solve_quasi_newton_batched)
+        extra = {} if newton else {"l1_weight": l1_weight}
+        x = (block.x_values if block.x_indices is None
+             else segment_reduce.densify_ell(block.x_indices, block.x_values,
+                                             s))
+        w, v, it, reason = solver(
+            x, block.labels, offsets, block.weights,
             block.penalty_mask, block.valid_mask, factors_sub, shifts_sub,
             block.intercept_slots, w0, prior, sub_dim=s, task=task,
             opt_config=opt_config, variance_computation=variance_computation,
-            l2_weight=l2_weight, incremental_weight=incremental_weight)
-    else:
-        raise optim.not_ported("the per-entity Newton solve of an ELL bucket")
+            l2_weight=l2_weight, incremental_weight=incremental_weight,
+            **extra)
     return _scatter_results(w_all, v_all, block.entity_codes, w, v, it,
                             reason)
 
@@ -574,6 +760,9 @@ class RandomEffectCoordinate:
         w0_full = (initial_model.coefficients if initial_model is not None
                    else torch.zeros(shape, dtype=dtype, device=dev))
         w_all = torch.zeros(shape, dtype=dtype, device=dev)
+        v_all = (None if self.config.variance_computation
+                 == VarianceComputationType.NONE
+                 else torch.zeros(shape, dtype=dtype, device=dev))
         real_masks = [ds.real_entity_mask(i) for i in range(len(ds.blocks))]
         if self.normalization.shifts is not None:
             for ints, real in zip(ds.block_intercepts_np, real_masks):
@@ -591,13 +780,14 @@ class RandomEffectCoordinate:
         for i, block in enumerate(ds.device_blocks()):
             gram_mults = (ds.block_gram_mults[i]
                           if i < len(ds.block_gram_mults) else None)
-            w_all, _, it, reason = _solve_block(
+            w_all, v_all, it, reason = _solve_block(
                 block, residuals, self.normalization.factors,
-                self.normalization.shifts, w0_full, self.config.l2_weight,
+                self.normalization.shifts, w0_full, self.config.l1_weight,
+                self.config.l2_weight,
                 self.config.incremental_weight,
                 None if self.prior is None
                 else (self.prior.coefficients, self.prior.variances),
-                w_all, None, sub_dim=block.sub_dim, task=self.task,
+                w_all, v_all, sub_dim=block.sub_dim, task=self.task,
                 opt_config=self.config.optimizer,
                 variance_computation=self.config.variance_computation,
                 direct=direct, newton=newton, gram_mults=gram_mults)
@@ -609,7 +799,7 @@ class RandomEffectCoordinate:
             feature_shard_id=ds.config.feature_shard_id,
             task=self.task,
             proj_all=ds.proj_all,
-            variances=None,
+            variances=v_all,
             entity_keys=ds.entity_keys,
         )
         return model, RandomEffectTrainingStats(reasons, iters, real_masks)

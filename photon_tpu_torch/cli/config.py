@@ -8,11 +8,15 @@ vocabulary: optimizer, regularization type and its lambda grid, active
 data bounds, update sequence, normalization, evaluators, output modes.
 
 JSON always reads. YAML needs PyYAML, imported only for a YAML file.
-An option the port does not run yet raises ``NotImplementedError``
-naming its ROADMAP item when the file is loaded: hyperparameter tuning
-(item 11), profiling (item 10), multi-device (item 12), and TRON,
-L1/elastic net, box constraints, coefficient variances and
-down-sampling (item 6).
+Every optimizer option of the reference's file runs: TRON (with its
+``max_cg_iterations``), ``L1`` and ``ELASTIC_NET`` regularization (with
+``alpha``, the L1 fraction), ``variance_computation`` and
+``down_sampling_rate``. ``box_constraints``, a ``[lower, upper]`` pair
+of numbers or of per-feature lists, goes to L-BFGS-B; the reference's
+file reader leaves that key unread. An option the port does not run
+yet raises ``NotImplementedError`` naming its ROADMAP item when the
+file is loaded: hyperparameter tuning and its search ranges (item 11),
+profiling (item 10) and multi-device (item 12).
 """
 
 from __future__ import annotations
@@ -36,7 +40,6 @@ from photon_tpu_torch.ops.normalization import NormalizationType
 from photon_tpu_torch.types import TaskType
 
 # The ROADMAP Queue A item of each unported option.
-TRAINING_ROUTES_ITEM = 6
 STREAMING_ITEM = 9
 TELEMETRY_ITEM = 10
 TUNING_ITEM = 11
@@ -59,29 +62,31 @@ class CoordinateSpec:
                 for lam in sorted(self.lambdas, reverse=True)]
 
 
+def _parse_box(cid: str, box) -> tuple | None:
+    """``[lower, upper]``, each a number or a per-feature list."""
+    if box is None:
+        return None
+    if len(box) != 2:
+        raise ValueError(f"coordinate {cid!r}: box_constraints must be "
+                         f"[lower, upper], got {box!r}")
+    return tuple(tuple(float(v) for v in b) if isinstance(b, list)
+                 else float(b) for b in box)
+
+
 def _parse_optimizer(cid: str, d: dict) -> optim.OptimizerConfig:
     kind = optim.OptimizerType(d.get("type", "LBFGS").upper())
-    if kind == optim.OptimizerType.TRON:
-        raise optim.not_ported(f"coordinate {cid!r}: TRON",
-                               TRAINING_ROUTES_ITEM)
-    if d.get("box_constraints") is not None:
-        raise optim.not_ported(
-            f"coordinate {cid!r}: box constraints (L-BFGS-B)",
-            TRAINING_ROUTES_ITEM)
     kw = {key: d[key] for key in (
         "tolerance", "max_iterations", "num_corrections",
         "max_improvement_failures", "max_cg_iterations",
         "max_line_search_iterations") if key in d}
+    kw["box_constraints"] = _parse_box(cid, d.get("box_constraints"))
+    if kind == optim.OptimizerType.TRON:
+        return optim.OptimizerConfig.tron(**kw)
     return optim.OptimizerConfig.lbfgs(**kw)
 
 
 def _parse_regularization(cid: str, d: dict):
     kind = optim.RegularizationType(d.get("type", "NONE").upper())
-    if kind in (optim.RegularizationType.L1,
-                optim.RegularizationType.ELASTIC_NET):
-        raise optim.not_ported(
-            f"coordinate {cid!r}: {kind.value} regularization (OWL-QN)",
-            TRAINING_ROUTES_ITEM)
     for key in ("weight_range", "alpha_range"):
         if key in d:
             raise optim.not_ported(
@@ -90,27 +95,21 @@ def _parse_regularization(cid: str, d: dict):
     weights = d.get("weights", d.get("weight", ()))
     if isinstance(weights, (int, float)):
         weights = (float(weights),)
-    return (optim.RegularizationContext(kind),
+    alpha = (d.get("alpha") if kind == optim.RegularizationType.ELASTIC_NET
+             else None)
+    return (optim.RegularizationContext(kind, alpha),
             tuple(float(w) for w in weights))
 
 
 def parse_coordinate(cid: str, d: dict) -> CoordinateSpec:
-    rate = float(d.get("down_sampling_rate", 1.0))
-    if rate < 1.0:
-        raise optim.not_ported(
-            f"coordinate {cid!r}: down_sampling_rate {rate}",
-            TRAINING_ROUTES_ITEM)
-    variance = VarianceComputationType(
-        d.get("variance_computation", "NONE").upper())
-    if variance != VarianceComputationType.NONE:
-        raise optim.not_ported(
-            f"coordinate {cid!r}: variance_computation {variance.value}",
-            TRAINING_ROUTES_ITEM)
     reg, lambdas = _parse_regularization(cid, d.get("regularization", {}))
     opt_cfg = GLMOptimizationConfiguration(
         optimizer=_parse_optimizer(cid, d.get("optimizer", {})),
         regularization=reg,
         regularization_weight=lambdas[0] if lambdas else 0.0,
+        down_sampling_rate=float(d.get("down_sampling_rate", 1.0)),
+        variance_computation=VarianceComputationType(
+            d.get("variance_computation", "NONE").upper()),
         incremental_weight=float(d.get("incremental_weight", 1.0)),
     )
     shard = d.get("feature_shard", "features")

@@ -95,6 +95,9 @@ class GLMBatch:
     def with_offsets(self, offsets: torch.Tensor) -> "GLMBatch":
         return dataclasses.replace(self, offsets=offsets)
 
+    def with_weights(self, weights: torch.Tensor) -> "GLMBatch":
+        return dataclasses.replace(self, weights=weights)
+
 
 def rows_to_ell(rows: list, num_features: int, *, capacity: int | None = None,
                 dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:

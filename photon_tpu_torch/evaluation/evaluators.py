@@ -8,8 +8,17 @@ the weighted tie-aware local AUC (AreaUnderROCCurveLocalEvaluator.scala:72),
 ``PrecisionAtKLocalEvaluator`` (:76) and the grouped ``MultiEvaluator``
 (photon-lib evaluation/MultiEvaluator.scala:36: a metric per group,
 NaN/Inf groups dropped, the unweighted mean over groups). A grouped AUC
-is one stable two-key sort plus ``index_add_`` passes, on whatever device
-the scores lie.
+is one stable two-key sort plus segment sums and running sums, on
+whatever device the scores lie.
+
+On the card the f32 sums run in a fixed order, so two evaluations of
+the same scores are bit-identical: the segment sums (every caller's ids
+are sorted) go through the deterministic segment-sum kernel
+(``segment_reduce.sorted_segment_sum``, no float atomics), and the
+running sums through ``running_sum``, a float64 scan whose partial sums
+are fixed by its block layout, rounded once to the labels' dtype as
+the CPU's ``torch.cumsum`` rounds its float64 accumulator. On the CPU
+both stay ``index_add_`` and ``torch.cumsum``.
 
 The reference's formula quirks are kept:
 - loss evaluators return the weighted SUM of pointwise losses, not a mean;
@@ -31,6 +40,7 @@ import math
 import torch
 
 from photon_tpu_torch.ops import losses as losses_mod
+from photon_tpu_torch.ops import segment_reduce
 
 _POS = 0.5  # MathConst.POSITIVE_RESPONSE_THRESHOLD
 
@@ -84,8 +94,53 @@ def _lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
                  n: int) -> torch.Tensor:
+    """Sums of ``values`` by SORTED ``ids``: the segment-sum kernel for
+    f32 on the card, ``index_add_`` otherwise."""
+    if values.device.type == "cuda" and values.dtype == torch.float32:
+        return segment_reduce.sorted_segment_sum(values, ids, n,
+                                                 site="evaluation")
     out = torch.zeros(n, dtype=values.dtype, device=values.device)
     return out.index_add_(0, ids.long(), values)
+
+
+# Elements a row of ``running_sum``'s blocked scan.
+SCAN_BLOCK = 1024
+
+
+def running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running sum of a 1-D tensor, each sum accumulated in
+    float64 and rounded once to ``x``'s dtype. On the CPU
+    ``torch.cumsum``, which accumulates a float32 scan in float64.
+    Elsewhere ``blocked_running_sum`` on the float64 values: a 1-D
+    ``torch.cumsum`` of more than one tile on the card is a single-pass
+    scan whose partial sums depend on the run's timing, and one in
+    float32 rounds at every step, where the grouped AUC's differences of
+    running sums near the total negative weight cannot afford it. A 1-D
+    float64 ``torch.cumsum`` repeats itself only while its sums are
+    exact, which f32 values spanning fewer than 53 - log2(n) bits
+    guarantee and wider weights do not (``chip_smoke.py``'s
+    ``scan_stability`` counts the runs that differ)."""
+    if x.device.type == "cpu":
+        return torch.cumsum(x, 0)
+    return blocked_running_sum(x.double()).to(x.dtype)
+
+
+def blocked_running_sum(x: torch.Tensor) -> torch.Tensor:
+    """A running sum with a fixed order of additions, on any device:
+    ``x`` in rows of ``SCAN_BLOCK``, each row scanned along its length
+    (PyTorch's row scan, one fixed tree a row), the row totals scanned
+    the same way (recursively), and each row's predecessor total added
+    to it."""
+    n = x.shape[0]
+    if n <= SCAN_BLOCK:
+        # Two rows keep the scan on the row kernel.
+        return torch.stack([x, torch.zeros_like(x)]).cumsum(1)[0]
+    rows = -(-n // SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, rows * SCAN_BLOCK - n)).view(
+        rows, SCAN_BLOCK).cumsum(1)
+    carry = blocked_running_sum(blocks[:-1, -1].contiguous())
+    blocks[1:] += carry[:, None]
+    return blocks.reshape(-1)[:n]
 
 
 # --------------------------------------------------------------------------
@@ -112,8 +167,8 @@ def auc_pr(scores, labels) -> torch.Tensor:
     order = _argsort(-scores)
     s = scores[order]
     y = (labels[order] > _POS).to(scores.dtype)
-    tp = torch.cumsum(y, 0)
-    fp = torch.cumsum(1.0 - y, 0)
+    tp = running_sum(y)
+    fp = running_sum(1.0 - y)
     total_pos = tp[-1]
     # Only tie-block ends are curve points.
     is_boundary = torch.cat([s[1:] != s[:-1],
@@ -222,8 +277,8 @@ def peak_f1(scores, labels, weights=None):
     s = scores[order]
     pos_w = torch.where(labels[order] > _POS, w[order],
                         torch.zeros_like(w))
-    tp = torch.cumsum(pos_w, 0)
-    pred = torch.cumsum(w[order], 0)
+    tp = running_sum(pos_w)
+    pred = running_sum(w[order])
     f1 = 2.0 * tp / torch.clamp(pred + tp[-1], min=1e-300)
     block_end = torch.cat([s[:-1] != s[1:],
                            torch.ones(1, dtype=torch.bool, device=s.device)])
@@ -303,9 +358,9 @@ def _segment_auc(s, y, w, gid, num_groups):
     neg_per_tie = _segment_sum(neg_w, tid, n)
     # Negative weight strictly below each tie block, less the negatives
     # of earlier groups.
-    neg_below_tie = torch.cumsum(neg_per_tie, 0) - neg_per_tie
+    neg_below_tie = running_sum(neg_per_tie) - neg_per_tie
     neg_per_group = _segment_sum(neg_w, gid, num_groups)
-    group_offset = torch.cumsum(neg_per_group, 0) - neg_per_group
+    group_offset = running_sum(neg_per_group) - neg_per_group
     credit = pos_w * (neg_below_tie[tid] - group_offset[gid]
                       + 0.5 * neg_per_tie[tid])
 

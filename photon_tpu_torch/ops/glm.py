@@ -1,5 +1,5 @@
-"""The GLM objective: value, gradient, Hessian-vector product and
-Hessian diagonal as matvecs (port of ``photon_tpu/ops/glm.py``).
+"""The GLM objective: value, gradient, Hessian-vector product, Hessian
+diagonal and full Hessian as matvecs (port of ``photon_tpu/ops/glm.py``).
 
     z     = X @ ew - es + offset
     value = sum(weight * l(z, y))
@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from photon_tpu_torch.data.dataset import GLMBatch
+from photon_tpu_torch.data.dataset import DenseFeatures, GLMBatch
 from photon_tpu_torch.ops.losses import PointwiseLoss
 from photon_tpu_torch.ops.normalization import NormalizationContext
 
@@ -80,3 +80,33 @@ def hessian_diagonal(batch: GLMBatch, loss: PointwiseLoss,
     s = norm.shifts if norm.shifts is not None else torch.zeros_like(d_sq)
     f = norm.factors if norm.factors is not None else torch.ones_like(d_sq)
     return f * f * (d_sq - 2.0 * s * d1 + s * s * torch.sum(c))
+
+
+def hessian_matrix(batch: GLMBatch, loss: PointwiseLoss, coef: torch.Tensor,
+                   norm: NormalizationContext | None = None
+                   ) -> torch.Tensor:
+    """The full [d, d] Hessian in the transformed space, for FULL
+    variances (HessianMatrixAggregator): X^T diag(c) X on dense
+    features, d mat-vec pairs on sparse ones; with normalization
+    H = F (H_raw - s a^T - a s^T + (sum c) s s^T) F, a = X^T c."""
+    norm = norm or NormalizationContext()
+    z = margins(batch, coef, norm)
+    c = batch.weights * loss.dzz(z, batch.labels)
+    feats = batch.features
+    if isinstance(feats, DenseFeatures):
+        h_raw = feats.x.T @ (c[:, None] * feats.x)
+    else:
+        eye = torch.eye(batch.num_features, dtype=c.dtype, device=c.device)
+        h_raw = torch.stack([feats.rmatvec(c * feats.matvec(e))
+                             for e in eye]).T
+    if norm.is_identity:
+        return h_raw
+    d = h_raw.shape[0]
+    s = (norm.shifts if norm.shifts is not None
+         else torch.zeros(d, dtype=c.dtype, device=c.device))
+    f = (norm.factors if norm.factors is not None
+         else torch.ones(d, dtype=c.dtype, device=c.device))
+    a = feats.rmatvec(c)
+    h = (h_raw - torch.outer(s, a) - torch.outer(a, s)
+         + torch.sum(c) * torch.outer(s, s))
+    return f[:, None] * h * f[None, :]

@@ -110,3 +110,13 @@ def convergence_code(
     code = torch.where(iteration >= max_iterations,
                        int(ConvergenceReason.MAX_ITERATIONS), code)
     return code.to(torch.int32)
+
+
+def project_box(w: torch.Tensor, box_constraints: tuple | None):
+    """Clip coefficients into (lower, upper) after an accepted step
+    (OptimizationUtils.projectCoefficientsToSubspace)."""
+    if box_constraints is None:
+        return w
+    lower, upper = (torch.as_tensor(b, dtype=w.dtype, device=w.device)
+                    for b in box_constraints)
+    return torch.clamp(w, lower, upper)

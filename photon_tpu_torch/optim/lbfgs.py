@@ -129,11 +129,14 @@ def _wolfe_line_search(fun, w, f0, g0, d, dderiv, t0, max_iters):
 
 def lbfgs_solve(fun, w0: torch.Tensor, config: OptimizerConfig | None = None,
                 *, tolerances: Tolerances | None = None) -> OptResult:
-    """Minimize ``fun(w) -> (value, grad)`` from ``w0``."""
+    """Minimize ``fun(w) -> (value, grad)`` from ``w0``; box
+    constraints go to the bound-constrained solver (``lbfgsb.py``), as
+    the reference's ``lbfgs_solve`` routes them."""
     config = config or OptimizerConfig()
     if config.box_constraints is not None:
-        raise NotImplementedError(
-            "L-BFGS-B (box constraints) is not ported yet (ROADMAP Queue A)")
+        from photon_tpu_torch.optim.lbfgsb import lbfgsb_solve
+
+        return lbfgsb_solve(fun, w0, config, tolerances=tolerances)
     dtype = w0.dtype
     tol = tolerances if tolerances is not None else absolute_tolerances(
         fun, w0, config.tolerance)

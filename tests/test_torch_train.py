@@ -507,30 +507,57 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu():
 
 
 def test_unported_routes_raise_not_implemented():
+    """bf16 training still raises with its name. The L1 fixed effect
+    (OWL-QN) and the smoothed hinge's per-entity quasi-Newton solve,
+    which raised here before, run and match the reference in float64:
+    coefficients within rtol 1e-6 / atol 1e-8 (the fit's tolerance),
+    OWL-QN's exact zeros and the per-entity iterations equal."""
+    from photon_tpu.algorithm import random_effect as jax_ra_alg
+
     arrays = synth()
-    _, pdata = both_datasets(arrays)
-    cfg = GLMOptimizationConfiguration(
-        regularization=optim.RegularizationContext(
-            optim.RegularizationType.L1), regularization_weight=0.1)
+    jdata, pdata = both_datasets(arrays)
+    cfgs = {}
+    for side, opt, cls in (("jax", jax_optim, JaxGLMConfig),
+                           ("pt", optim, GLMOptimizationConfiguration)):
+        cfgs[side] = cls(
+            regularization=opt.RegularizationContext(
+                opt.RegularizationType.L1), regularization_weight=40.0)
     est = pt_est.GameEstimator(
         TaskType.LOGISTIC_REGRESSION,
-        {"global": pt_est.FixedEffectCoordinateConfiguration("global", cfg)},
-        device=CPU)
-    with pytest.raises(NotImplementedError, match="OWL-QN"):
-        est.fit(pdata)
+        {"global": pt_est.FixedEffectCoordinateConfiguration(
+            "global", cfgs["pt"])}, device=CPU)
+    jest = jax_est.GameEstimator(
+        JaxTask.LOGISTIC_REGRESSION,
+        {"global": jax_est.FixedEffectCoordinateConfiguration(
+            "global", cfgs["jax"])}, mesh="off", non_finite_guard=True)
+    pw = est.fit(pdata)[0].model["global"].model.coefficients.means.numpy()
+    jw = np.asarray(jest.fit(jdata)[0].model["global"].model.coefficients
+                    .means)
+    np.testing.assert_allclose(pw, jw, rtol=1e-6, atol=1e-8)
+    np.testing.assert_array_equal(pw == 0.0, jw == 0.0)
+    assert (pw == 0.0).any()
     with pytest.raises(NotImplementedError, match="bf16"):
         pt_est.GameEstimator(TaskType.LOGISTIC_REGRESSION, {}, device=CPU,
                              precision="bfloat16")
-    # The materialized layout is ported; the per-entity quasi-Newton
-    # solve (here for the smoothed hinge loss) is not.
+    # The smoothed hinge on the materialized layout takes the
+    # per-entity quasi-Newton route in both packages.
+    spec = dict(random_effect_type="userId", feature_shard_id="userShard",
+                score_table_width_cap=2)
     ds = pt_re.build_random_effect_dataset(
-        pdata, pt_re.RandomEffectDataConfiguration(
-            "userId", "userShard", score_table_width_cap=2))
+        pdata, pt_re.RandomEffectDataConfiguration(**spec))
+    jds = jax_re.build_random_effect_dataset(
+        jdata, jax_re.RandomEffectDataConfiguration(**spec))
     assert not ds.is_lazy
-    coord = pt_re_alg.RandomEffectCoordinate(
-        ds, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM, l2(1.0)["pt"])
-    with pytest.raises(NotImplementedError, match="quasi-Newton"):
-        coord.train()
+    before = pt_re_alg.quasi_newton_solves
+    pm, ps = pt_re_alg.RandomEffectCoordinate(
+        ds, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM, l2(1.0)["pt"]).train()
+    assert pt_re_alg.quasi_newton_solves > before
+    jm, js = jax_ra_alg.RandomEffectCoordinate(
+        jds, JaxTask.SMOOTHED_HINGE_LOSS_LINEAR_SVM, l2(1.0)["jax"]).train()
+    np.testing.assert_array_equal(ps.iterations, js._materialize()[1])
+    np.testing.assert_allclose(pm.coefficients.numpy(),
+                               np.asarray(jm.coefficients), rtol=1e-6,
+                               atol=1e-8)
 
 
 @pytest.mark.parametrize("task", ["logistic", "poisson"])

@@ -35,6 +35,7 @@ one from each package, are then within twice that of each other:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -915,22 +916,20 @@ UNPORTED = [
     ([], {"hyperparameter_tuning": {"mode": "RANDOM"}}, 11),
     ([], {"mesh": 4}, 12),
     ([], {"global": {"feature_sharding": "column"}}, 12),
-    ([], {"global": {"optimizer": {"type": "TRON"}}}, 6),
-    ([], {"global": {"optimizer": {"box_constraints": [-1, 1]}}}, 6),
-    ([], {"global": {"regularization": {"type": "L1", "weights": [1]}}}, 6),
-    ([], {"global": {"regularization": {"type": "ELASTIC_NET",
-                                        "weights": [1]}}}, 6),
     ([], {"global": {"regularization": {"type": "L2", "weights": [1],
                                         "weight_range": [0.1, 10]}}}, 11),
-    ([], {"per-user": {"variance_computation": "SIMPLE"}}, 6),
-    ([], {"global": {"down_sampling_rate": 0.5}}, 6),
     (["--no-flight"], {}, 10),
 ]
 
 
+# Each case keeps the id it had before the item-6 cases (13-16, 18, 19)
+# were ported and moved to FORMERLY_UNPORTED below.
+UNPORTED_POSITIONS = [*range(13), 17, 20]
+
+
 @pytest.mark.parametrize("args,overrides,item", UNPORTED,
-                         ids=[f"{i}-item{u[2]}"
-                              for i, u in enumerate(UNPORTED)])
+                         ids=[f"{i}-item{u[2]}" for i, u in
+                              zip(UNPORTED_POSITIONS, UNPORTED, strict=True)])
 def test_unported_options_raise_naming_their_item(tmp_path, glmix, args,
                                                   overrides, item):
     train, val = glmix
@@ -945,6 +944,156 @@ def test_unported_options_raise_naming_their_item(tmp_path, glmix, args,
                        match=f"ROADMAP Queue A item {item}\\)"):
         run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device", "cpu",
                 *args)
+
+
+# The options of ROADMAP Queue A item 6 that raised until they were
+# ported; each now trains through both CLIs.
+FORMERLY_UNPORTED = [
+    {"global": {"optimizer": {"type": "TRON"}}},
+    {"global": {"optimizer": {"box_constraints": [-1, 1]}}},
+    {"global": {"regularization": {"type": "L1", "weights": [1]}}},
+    {"global": {"regularization": {"type": "ELASTIC_NET", "weights": [1]}}},
+    {"per-user": {"variance_computation": "SIMPLE"}},
+    {"global": {"down_sampling_rate": 0.5}},
+]
+
+
+def reference_box_constraints(monkeypatch):
+    """The reference's config reader leaves ``box_constraints`` unread;
+    hand it to the reference's OptimizerConfig as the port's reader
+    does, so that both CLIs solve the same problem."""
+    from photon_tpu.cli import config as jax_config
+
+    parse = jax_config._parse_optimizer
+
+    def with_box(d):
+        box = d.get("box_constraints")
+        cfg = parse(d)
+        return cfg if box is None else dataclasses.replace(
+            cfg, box_constraints=tuple(float(b) for b in box))
+
+    monkeypatch.setattr(jax_config, "_parse_optimizer", with_box)
+
+
+def reference_draws(monkeypatch):
+    """The port's down-sampling draws replaced by the reference's
+    (``jax.random.uniform(jax.random.key(seed), shape)``): the two
+    generators differ, the masks that use them do not."""
+    import jax
+
+    from photon_tpu_torch.data import sampling
+
+    monkeypatch.setattr(
+        sampling, "draw_uniforms",
+        lambda n, seed, like: torch.tensor(np.asarray(jax.random.uniform(
+            jax.random.key(seed), (n,)))).to(like.device))
+
+
+@pytest.mark.parametrize("overrides", FORMERLY_UNPORTED,
+                         ids=["tron", "box", "l1", "elastic_net",
+                              "variances", "down_sampling"])
+def test_formerly_unported_options_match_the_reference(tmp_path, glmix,
+                                                       overrides,
+                                                       monkeypatch):
+    """TRON, box constraints (L-BFGS-B), L1 and elastic net (OWL-QN),
+    SIMPLE variances and down-sampling through both CLIs: the same
+    summaries and best configuration, the models within FE_ATOL /
+    RE_ATOL, the saved variances within rtol 1e-5 (f32 sums of the same
+    squared-loss curvature, which does not depend on the coefficients),
+    and each CLI's evaluation reproduced by the port."""
+    train, val = glmix
+    cfg = make_config(tmp_path, train, val)
+    for key, value in overrides.items():
+        cfg["coordinates"][key] = {**cfg["coordinates"][key], **value}
+    reference_box_constraints(monkeypatch)
+    if "down_sampling_rate" in overrides.get("global", {}):
+        reference_draws(monkeypatch)
+    runs = run_both(tmp_path, cfg)
+    maps = single_bag_maps(train)
+    assert_summaries_match(runs, val_dataset(val, maps), maps)
+    pmodel, jmodel = load(runs["pt"][0], maps), load(runs["jax"][0], maps)
+    assert_models_close(pmodel, jmodel)
+    means = pmodel["global"].model.coefficients.means.numpy()
+    if "box_constraints" in str(overrides):
+        assert means.min() >= -1.0 and means.max() <= 1.0
+        assert (np.abs(means) == 1.0).any(), "the box should bind"
+    if "L1" in str(overrides) or "ELASTIC" in str(overrides):
+        np.testing.assert_array_equal(
+            means == 0.0,
+            jmodel["global"].model.coefficients.means.numpy() == 0.0)
+    if "variance_computation" in str(overrides):
+        pv, jv = (m["per-user"].variances.numpy() for m in (pmodel, jmodel))
+        assert np.isfinite(pv).any()
+        np.testing.assert_allclose(pv, jv, rtol=1e-5)
+    else:
+        assert pmodel["per-user"].variances is None
+
+
+def test_incremental_training_from_the_ports_own_model(tmp_path, glmix):
+    """A first run with SIMPLE variances writes them to its Avro model
+    and checkpoint (they read back equal); a second run with
+    ``incremental_training`` and ``--init-model`` on the first run's
+    best checkpoint trains with the prior, in each package from its own
+    model; ``cli.score`` of each second model on the validation file
+    agrees with the other's."""
+    from photon_tpu.cli import score as jax_score
+    from photon_tpu_torch.cli import score as pt_score
+    from photon_tpu_torch.io.model_io import load_checkpoint
+
+    train, val = glmix
+    var = {"variance_computation": "SIMPLE"}
+    cfg = make_config(tmp_path, train, val, num_iterations=1)
+    for cid in ("global", "per-user"):
+        cfg["coordinates"][cid] = {**cfg["coordinates"][cid], **var}
+    (tmp_path / "first").mkdir()
+    first = run_both(tmp_path / "first", cfg)
+    maps = single_bag_maps(train)
+    avro_model = load(first["pt"][0], maps)
+    ckpt = load_checkpoint(str(first["pt"][0] / "models" / "best" /
+                                "checkpoint.npz"), device="cpu")
+    np.testing.assert_array_equal(
+        avro_model["global"].model.coefficients.variances.numpy(),
+        ckpt["global"].model.coefficients.variances.numpy())
+    for m in (avro_model, ckpt):
+        assert np.isfinite(m["per-user"].variances.numpy()).any()
+    dense = {k: v for k, v in dense_coordinates(ckpt).items()}
+    assert dense.keys() == {"global", "per-user"}
+
+    inc = dict(cfg, incremental_training=True, num_iterations=1)
+    runs = {}
+    for side, main, extra in (("jax", None, ()),
+                              ("pt", pt_train.main, ("--device", "cpu"))):
+        from photon_tpu.cli import train as jax_train
+
+        main = main or jax_train.main
+        root = tmp_path / side
+        root.mkdir()
+        c = dict(inc, output_dir=str(root / "out"))
+        rc, line = run_cli(main, c, root / "cfg.json", "--init-model",
+                           str(first[side][0] / "models" / "best" /
+                               "checkpoint.npz"), *extra)
+        assert rc == 0, side
+        runs[side] = (root / "out", line)
+    assert_summaries_match(runs, val_dataset(val, maps), maps)
+    second = load(runs["pt"][0], maps)
+    assert_models_close(second, load(runs["jax"][0], maps))
+    # The prior holds the refit near the first model.
+    moved = np.abs(dense_coordinates(second)["global"]
+                   - dense_coordinates(avro_model)["global"]).max()
+    assert 0.0 < moved < 0.05
+    scores = {}
+    for side, main, extra in (("jax", jax_score.main, ("--mesh", "off")),
+                              ("pt", pt_score.main, ("--device", "cpu"))):
+        out = tmp_path / f"scores_{side}"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["--model-dir", str(runs[side][0] / "models" /
+                                            "best"),
+                         "--input", str(val), "--output", str(out),
+                         *extra]) == 0
+        recs = avro.read_container_dir(str(out / "part-00000.avro"))
+        scores[side] = np.array([r["predictionScore"] for r in recs])
+    np.testing.assert_allclose(scores["pt"], scores["jax"], rtol=0,
+                               atol=(D + 1) * FE_ATOL + RE_ATOL)
 
 
 def test_yaml_config_and_its_absence(tmp_path, glmix, monkeypatch):
