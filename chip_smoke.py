@@ -19,10 +19,14 @@ JSON lines:
              ELL-sparse layout, 5% cold lookups plus padding rows;
              max |diff| <= 1e-5 (f32) and <= 5e-2 (bf16, the serving
              parity gate);
-4. serve   - load_checkpoint -> CoefficientTables -> ScorePrograms ->
-             MicroBatchQueue -> drive over 20,000 synthetic requests
-             (5% cold) with bf16 tables; no errors, every dispatch one
-             kernel launch, and 64 sampled requests re-scored through
+4. serve   - load_checkpoint -> CoefficientTables -> ScorePrograms
+             (one CUDA graph captured per rung: the count, seconds and
+             bytes) -> MicroBatchQueue -> drive over 20,000 synthetic
+             requests (5% cold) with bf16 tables; no errors, no graph
+             captured while serving, every dispatch a replay that runs
+             one kernel launch and no launch from Python, and 2,000 more
+             requests under ``torch.profiler``: one ``serve_score``
+             kernel per replay; 64 sampled requests re-scored through
              the queue agree with the plain version and with a float64
              numpy score taken straight from the checkpoint arrays;
 5. timing  - per rung and table dtype, median of 50 runs after warm-up
@@ -30,8 +34,10 @@ JSON lines:
              time (calls captured in a CUDA graph and replayed) beside
              the launch floor (``torch.zeros(1)`` timed the same way),
              the same calls issued eagerly from Python, the host time to
-             issue one kernel call, a whole host dispatch (copies +
-             launch + fetch), and the bound;
+             issue one kernel call, a whole host dispatch and fetch as
+             a graph replay (``dispatch_host_ms``) beside the eager
+             dispatch (copies, launch and fetch from Python), and the
+             bound;
 6. paced   - a second drive at a fixed offered load, whose p50/p99 are
              service latency rather than queueing behind a flood;
 6a. coords - the serving model plus 9 small random coordinates (12
@@ -72,6 +78,32 @@ JSON lines:
              each stage's seconds, rows/s, and the kernel's device ms
              at rungs 1024 and 8192 on the CLI's ELL operands beside the
              bound and the launch floor.
+
+6c. serve_ops - serving as operators run it, on the serving model with
+             bf16 tables: (a) a values-only reload (new coefficients
+             from another seed) while 4 producer threads flood 20,000
+             requests: nothing recaptured, every request served, 64 of
+             them then within 5e-2 of the new model's float64 numpy
+             score; (b) four degraded drives of 5,000 requests on the
+             live ladder, each with its counters gated: 1 ms deadlines
+             (every request served or expired, both counted), a shed
+             watermark of 256 (every refusal counted), transient
+             ``serve.dispatch`` faults at calls 2, 4, 6, 8 and 10 (all
+             retried and served), poison at calls 1-3 with a breaker of
+             threshold 3 (tripped once, every request poisoned, drained
+             or refused, then ``reset_breaker`` serves a full batch);
+             (c) a structure-change reload to the 12-coordinate
+             ``coords`` model under the same flood: 4 graphs captured
+             off the request path, the seconds the queue was parked,
+             the old ladder's bytes released, every request served,
+             two launches a replay, and the new ladder against its
+             plain version; (d) ``cli.serve --input`` on score_cli's
+             107,496 rows and model directory (ELL requests, deadlines,
+             a shed watermark, the breaker, a hot reload of the same
+             directory): every row served twice with no graph captured
+             after start, one launch a replay, and the per-request
+             scores within 1e-5 (relative to 1 + |score|) of
+             ``cli.score``'s.
 
 Then the training group, on the bench's logistic GLMix at full width in
 float32 (``bench.py`` ``build_estimator("logistic")`` and
@@ -276,8 +308,8 @@ commit, unpack its package into a git-ignored directory, copy this
 script beside it, and run parent, change, change, parent in one call.
 
 ``python3 chip_smoke.py --train-cli`` runs only the device and build
-phases and then phases 14a and 14b, and ``--train-routes`` phase 14c,
-printing no ``ok`` line.
+phases and then phases 14a and 14b, ``--train-routes`` phase 14c, and
+``--serve`` the serving phases 1-6c, printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -296,6 +328,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -308,6 +341,7 @@ RUNGS = (1, 8, 64, 512)
 N_REQUESTS = 20_000
 COLD_FRACTION = 0.05
 PACED_REQUESTS, PACED_QPS = 10_000, 5_000.0
+PROFILED_REQUESTS = 2_000
 SERVE_PRECISION = "bfloat16"
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # ELL widths of the sparse layout: a few of each shard's features.
@@ -319,6 +353,18 @@ F32_FLOPS = 67e12
 TIMING_RUNS, TIMING_INNER = 50, 20
 PLAIN_INNER = 4
 REPLACES = "photon_tpu/ops/serve_kernel.py:291"
+
+
+def zero_serve_counts(serve_kernel) -> None:
+    """Zero the serve kernel's counters: launches from Python and
+    launches run by graph replays."""
+    serve_kernel.launches = 0
+    serve_kernel.replay_launches = 0
+
+
+def serve_counts(serve_kernel) -> tuple[int, int]:
+    """(launches from Python, launches run by graph replays)."""
+    return serve_kernel.launches, serve_kernel.replay_launches
 
 
 def emit(obj) -> None:
@@ -424,10 +470,11 @@ def phase_parity(torch, model) -> float:
     worst = 0.0
     for precision in ("float32", "bfloat16"):
         tables = CoefficientTables.from_game_model(model, precision)
-        dense = ScorePrograms(tables)
+        dense = ScorePrograms(tables, compile_now=False)
         for layout, programs in (
             ("dense", dense),
-            ("ell", ScorePrograms(tables, specs=ell_specs(dense))),
+            ("ell", ScorePrograms(tables, specs=ell_specs(dense),
+                                  compile_now=False)),
         ):
             for rung in RUNGS:
                 n = max(1, rung - 1)
@@ -477,6 +524,32 @@ def numpy_scores(torch, arrays, requests, precision) -> np.ndarray:
     return np.asarray(out)
 
 
+def profiled_queue_window(torch, queue, requests) -> dict:
+    """``requests`` through the live queue under ``torch.profiler``:
+    the rung dispatches (graph replays) in the window beside the
+    ``serve_score`` kernels, graph launches and copies the card ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    programs = queue.programs
+    before = sum(programs.stats["dispatches"].values())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        futs = [queue.submit(f, ids) for f, ids in requests]
+        for f in futs:
+            f.result(timeout=120)
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for e in prof.key_averages():
+        for key, match in (("kernels", "serve_score_kernel"),
+                           ("graph_launches", "cudaGraphLaunch"),
+                           ("copies_to_device", "Memcpy HtoD"),
+                           ("copies_to_host", "Memcpy DtoH")):
+            if match in e.key:
+                counts[key] = counts.get(key, 0) + e.count
+    replays = sum(programs.stats["dispatches"].values()) - before
+    return {"requests": len(requests), "replays": replays, **counts}
+
+
 def phase_serve(torch, ckpt_path, arrays) -> dict:
     from photon_tpu_torch.io.model_io import load_checkpoint
     from photon_tpu_torch.ops import serve_kernel
@@ -488,16 +561,24 @@ def phase_serve(torch, ckpt_path, arrays) -> dict:
     t0 = time.perf_counter()
     model = load_checkpoint(ckpt_path)
     tables = CoefficientTables.from_game_model(model, SERVE_PRECISION)
-    programs = ScorePrograms(tables)
+    programs = ScorePrograms(tables)  # one CUDA graph captured per rung
     setup_s = time.perf_counter() - t0
+    capture = {k: programs.stats[k] for k in (
+        "programs_compiled", "aot_compile_seconds", "graph_device_bytes",
+        "graph_host_bytes")}
+    per_graph = {r: programs.compile_rung(r).launches for r in RUNGS}
     requests = synthetic_requests(tables, programs, N_REQUESTS,
                                   cold_fraction=COLD_FRACTION, seed=7)
     with MicroBatchQueue(programs, max_linger_s=0.002) as queue:
-        serve_kernel.launches = 0
+        zero_serve_counts(serve_kernel)
         summary = drive(queue, requests)
-        launches = serve_kernel.launches
+        eager, launches = serve_counts(serve_kernel)
         by_rung = dict(programs.stats["dispatches"])
         dispatches = sum(by_rung.values())
+        recaptured = (programs.stats["programs_compiled"]
+                      - capture["programs_compiled"])
+        profiled = profiled_queue_window(torch, queue,
+                                         requests[:PROFILED_REQUESTS])
         sample = np.random.default_rng(1).choice(
             len(requests), size=64, replace=False)
         picked = [requests[i] for i in sample]
@@ -512,8 +593,11 @@ def phase_serve(torch, ckpt_path, arrays) -> dict:
     err_numpy = float(np.abs(served - exact).max())
     result = {
         "phase": "serve", "precision": SERVE_PRECISION,
-        "setup_seconds": setup_s, "kernel_launches": launches,
-        "dispatches": by_rung,
+        "setup_seconds": setup_s, **capture,
+        "launches_per_replay": per_graph,
+        "kernel_launches": launches, "eager_launches": eager,
+        "graphs_captured_while_serving": recaptured,
+        "dispatches": by_rung, "profiled": profiled,
         "sample_max_abs_err_plain": err_plain,
         "sample_max_abs_err_numpy_f64": err_numpy,
         # Host pack (pad, stack, entity-code lookup) per batch, whole run.
@@ -528,8 +612,18 @@ def phase_serve(torch, ckpt_path, arrays) -> dict:
     emit(result)
     if summary["errors"]:
         fail(f"{summary['errors']} requests failed")
-    if launches <= 0 or launches != dispatches:
-        fail(f"{launches} kernel launches for {dispatches} dispatches")
+    if capture["programs_compiled"] != len(RUNGS) or recaptured:
+        fail(f"serve: {capture['programs_compiled']} graphs captured at "
+             f"start for {len(RUNGS)} rungs, {recaptured} while serving")
+    if set(per_graph.values()) != {1}:
+        fail(f"serve: kernel launches per graph {per_graph}, expected 1")
+    if eager or launches <= 0 or launches != dispatches:
+        fail(f"serve: {launches} replayed and {eager} eager kernel "
+             f"launches for {dispatches} dispatches")
+    if profiled.get("kernels") != profiled["replays"] or not profiled[
+            "replays"]:
+        fail(f"serve: the profiler saw {profiled.get('kernels')} "
+             f"serve_score kernels for {profiled['replays']} replays")
     if not np.isfinite(served).all():
         fail("non-finite served scores")
     if not err_plain <= TOL[SERVE_PRECISION]:
@@ -610,15 +704,17 @@ def enqueue_ms(torch, fn, inner: int) -> float:
     return float(np.median(runs))
 
 
-def host_ms(programs, feats, codes, n) -> float:
-    """Median host wall time of one whole dispatch: staging copies,
-    launch and the fetch that waits for the scores."""
+def host_ms(programs, dispatch, feats, codes, n) -> float:
+    """Median host wall time of one whole dispatch (``dispatch`` is
+    ``programs.dispatch_padded``, a graph replay, or
+    ``programs.dispatch_eager``) and the fetch that waits for the
+    scores."""
     for _ in range(3):
-        programs.score_padded(feats, codes, n)
+        programs.fetch_padded(dispatch(feats, codes, n))
     runs = []
     for _ in range(TIMING_RUNS):
         t0 = time.perf_counter()
-        programs.score_padded(feats, codes, n)
+        programs.fetch_padded(dispatch(feats, codes, n))
         runs.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(runs))
 
@@ -657,7 +753,10 @@ def phase_timing(torch, model) -> list[dict]:
                 "eager_ms": eager_ms(torch, kernel, TIMING_INNER),
                 "plain_eager_ms": eager_ms(torch, plain, PLAIN_INNER),
                 "enqueue_host_ms": enqueue_ms(torch, kernel, TIMING_INNER),
-                "dispatch_host_ms": host_ms(programs, feats, codes, rung),
+                "dispatch_host_ms": host_ms(
+                    programs, programs.dispatch_padded, feats, codes, rung),
+                "eager_dispatch_host_ms": host_ms(
+                    programs, programs.dispatch_eager, feats, codes, rung),
                 **bound(ops, precision),
             }
             emit(row)
@@ -721,7 +820,7 @@ def phase_coords(torch, arrays, manifest, timing_rows) -> dict:
     out = {}
     for precision in ("float32", "bfloat16"):
         tables = CoefficientTables.from_game_model(model, precision)
-        programs = ScorePrograms(tables)
+        programs = ScorePrograms(tables, compile_now=False)
         n_coords = len(programs._fe_names) + len(programs._re_names)
         for rung in COORD_RUNGS:
             ops = packed_operands(programs, max(1, rung - 1), rung_seed=rung)
@@ -1065,7 +1164,8 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
     model, _ = load_game_model(files["model_dir"], maps, device="cuda")
     programs = ScorePrograms(
         CoefficientTables.from_game_model(model, "float32"),
-        ladder=ShapeLadder(SCORE_RUNGS), specs=specs_from_dataset(data))
+        ladder=ShapeLadder(SCORE_RUNGS), specs=specs_from_dataset(data),
+        compile_now=False)
     codes_all = [torch.from_numpy(scoring_codes(
         data, programs.tables.random[nm].random_effect_type,
         programs.tables.random[nm].entity_keys).astype(np.int32)).cuda()
@@ -1146,10 +1246,300 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
     if evaluation != in_process or in_process != again:
         fail(f"score_cli: evaluation.json {evaluation} and evaluate_scores "
              f"on the written scores {in_process}, {again} are not equal")
-    return {**timing[-1], "launches": launches,
-            "evaluation_launches": eval_launches,
+    return {**timing[-1], "launches": launches, "files": files,
+            "scores": scores, "evaluation_launches": eval_launches,
             "evaluation_max_abs_err": row[
                 "evaluation_segment_parity_max_abs_err"]}
+
+
+# ---------------------------------------------------------------------------
+# serving as operators run it: hot reloads, degraded mode, cli.serve --input
+# ---------------------------------------------------------------------------
+
+RELOAD_REQUESTS = 20_000
+RELOAD_PRODUCERS = 4
+DEGRADED_REQUESTS = 5_000
+DEADLINE_S = 0.001
+SHED_WATERMARK = 256
+TRANSIENT_AT = (2, 4, 6, 8, 10)  # dispatch calls; never two in a row
+POISON_AT = (1, 2, 3)
+BREAKER_THRESHOLD = 3
+
+
+def flood_with_reload(programs, requests, model) -> dict:
+    """RELOAD_PRODUCERS threads submit ``requests`` to a live queue while
+    this thread reloads ``model`` into it once a quarter was submitted.
+    Returns the reload's summary, the outcome of every request, the
+    queue's health and the ladder serving at the end."""
+    from photon_tpu_torch.serve.queue import MicroBatchQueue
+
+    futures: list = [None] * len(requests)
+    parts = np.array_split(np.arange(len(requests)), RELOAD_PRODUCERS)
+    with MicroBatchQueue(programs, max_linger_s=0.002) as queue:
+        def producer(idx):
+            for i in idx:
+                futures[i] = queue.submit(*requests[i])
+
+        threads = [threading.Thread(target=producer, args=(idx,))
+                   for idx in parts]
+        for t in threads:
+            t.start()
+        while queue.stats()["requests"] < len(requests) // 4:
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        info = queue.reload_model(model)
+        info["reload_seconds"] = time.perf_counter() - t0
+        info["submitted_before_reload"] = queue.stats()["requests"]
+        for t in threads:
+            t.join(timeout=300)
+        outcomes = [f.exception(timeout=300) for f in futures]
+        live = queue.programs
+    health = queue.health()
+    return {"info": info, "served": sum(e is None for e in outcomes),
+            "errors": sum(e is not None for e in outcomes),
+            "health": health, "programs": live}
+
+
+def outcome_counts(futures, rejected: dict) -> dict:
+    """Outcomes of a drive's futures by exception name ('served' for a
+    result), plus the submits the queue refused, by name."""
+    out = dict(rejected)
+    for f in futures:
+        exc = f.exception(timeout=300)
+        key = "served" if exc is None else type(exc).__name__
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def degraded_drive(programs, requests, plan=None, **queue_kw) -> dict:
+    """Flood ``requests`` into a fresh queue over the live ladder with
+    ``queue_kw``, ``plan`` (a fault plan) armed; count every outcome."""
+    from photon_tpu_torch.resilience import faults
+    from photon_tpu_torch.serve.queue import MicroBatchQueue
+
+    rejected: dict = {}
+    futures = []
+    ctx = faults.injected(plan) if plan is not None else (
+        contextlib.nullcontext())
+    with ctx, MicroBatchQueue(programs, max_linger_s=0.002,
+                              **queue_kw) as queue:
+        for feats, ids in requests:
+            try:
+                futures.append(queue.submit(feats, ids))
+            except RuntimeError as exc:  # typed refusals: shed, breaker
+                name = type(exc).__name__
+                rejected[name] = rejected.get(name, 0) + 1
+        counts = outcome_counts(futures, rejected)
+        health = queue.health()
+        if queue_kw.get("breaker_threshold"):
+            queue.reset_breaker()
+            after = [queue.submit(*r) for r in requests[:RUNGS[-1]]]
+            counts["served_after_reset"] = sum(
+                f.exception(timeout=300) is None for f in after)
+            counts["breaker_open_after_reset"] = queue.health()[
+                "breaker_open"]
+    return {"counts": counts, "health": health}
+
+
+def run_serve_cli(argv) -> dict:
+    """One ``cli.serve.main`` run in this process; its JSON line."""
+    from photon_tpu_torch.cli import serve as serve_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(argv)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0:
+        fail(f"cli.serve exited {rc}: errors {line.get('errors')}")
+    return line
+
+
+def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
+    """Serving as the reference's operators run it, at full width with
+    bf16 tables (module docstring): hot reloads under a four-producer
+    flood, the degraded drives and ``cli.serve --input``."""
+    from photon_tpu_torch.io.model_io import (
+        game_model_from_numpy,
+        load_checkpoint,
+    )
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.resilience import FaultPlan, retry
+    from photon_tpu_torch.serve.driver import synthetic_requests
+    from photon_tpu_torch.serve.programs import ScorePrograms
+    from photon_tpu_torch.serve.tables import CoefficientTables
+
+    tables = CoefficientTables.from_game_model(
+        load_checkpoint(ckpt_path), SERVE_PRECISION)
+    programs = ScorePrograms(tables)
+    requests = synthetic_requests(tables, programs, RELOAD_REQUESTS,
+                                  cold_fraction=COLD_FRACTION, seed=11)
+    launches = 0
+    out: dict = {}
+
+    def counted(fn, *a, warmups: int = 0, **kw):
+        """``fn``'s replayed launches, added to the phase's count; the
+        only launches from Python allowed are a new ladder's capture
+        warm-ups (one eager run a rung, before its capture)."""
+        nonlocal launches
+        zero_serve_counts(serve_kernel)
+        res = fn(*a, **kw)
+        eager, replayed = serve_counts(serve_kernel)
+        if eager != warmups:
+            fail(f"serve_ops: {eager} kernel launches from Python in a "
+                 f"drive, expected {warmups} capture warm-ups")
+        launches += replayed
+        return res
+
+    # A values-only refresh: new coefficients, the same structure.
+    fresh_arrays, _ = serving_arrays(SEED + 7)
+    refreshed = game_model_from_numpy(fresh_arrays, manifest, "cuda")
+    flood = counted(flood_with_reload, programs, requests, refreshed)
+    picked = [requests[i] for i in range(0, RELOAD_REQUESTS, 313)]
+    feats, codes, _ = programs.pack_requests(picked[:64])
+    got = programs.score_padded(feats, codes, len(picked[:64]))
+    exact = numpy_scores(torch, fresh_arrays, picked[:64], SERVE_PRECISION)
+    err = float(np.abs(got - exact).max())
+    info = flood["info"]
+    out["values_only"] = row = {
+        "phase": "serve_ops", "step": "values_only_reload", **info,
+        "served": flood["served"], "errors": flood["errors"],
+        "graphs": programs.stats["programs_compiled"],
+        "max_abs_err_numpy_f64": err, "tol": TOL[SERVE_PRECISION]}
+    emit(row)
+    if not info["values_only"] or info["programs_compiled"] or (
+            programs.stats["programs_compiled"] != len(RUNGS)
+            or flood["programs"] is not programs):
+        fail(f"serve_ops: the values-only reload recaptured: {row}")
+    if flood["served"] != RELOAD_REQUESTS or flood["errors"]:
+        fail(f"serve_ops: the values-only reload lost requests: {row}")
+    if not err <= TOL[SERVE_PRECISION]:
+        fail(f"serve_ops: scores after the values-only reload differ from "
+             f"the new model's numpy score by {err}")
+
+    # The degraded drives, on the live ladder.
+    drives = {
+        "deadline": dict(default_deadline_s=DEADLINE_S),
+        "shed": dict(shed_watermark=SHED_WATERMARK),
+        "transient": dict(plan=FaultPlan(
+            [dict(point="serve.dispatch", nth=n, error="transient")
+             for n in TRANSIENT_AT])),
+        "breaker": dict(plan=FaultPlan(
+            [dict(point="serve.dispatch", nth=n, error="poison")
+             for n in POISON_AT]), breaker_threshold=BREAKER_THRESHOLD),
+    }
+    n = DEGRADED_REQUESTS
+    for name, kw in drives.items():
+        retry.reset_retry_stats()
+        res = counted(degraded_drive, programs, requests[:n], **kw)
+        c, h = res["counts"], res["health"]
+        out[name] = row = {"phase": "serve_ops", "step": name, **c,
+                           "health": h, "retry": retry.retry_stats()}
+        emit(row)
+        served = c.get("served", 0)
+        if name == "deadline":
+            ok = (h["deadline_expired"] > 0
+                  and c.get("DeadlineExceededError", 0)
+                  == h["deadline_expired"]
+                  and served + h["deadline_expired"] == n
+                  and not h["dispatch_errors"])
+        elif name == "shed":
+            ok = (h["shed"] > 0 and c.get("OverloadedError", 0) == h["shed"]
+                  and served == n - h["shed"] and not h["dispatch_errors"])
+        elif name == "transient":
+            ok = (served == n and not h["dispatch_errors"]
+                  and h["dispatch_retries"] == len(TRANSIENT_AT)
+                  and row["retry"]["recovered"] == len(TRANSIENT_AT))
+        else:
+            ok = (h["breaker_trips"] == 1 and h["breaker_open"]
+                  and h["dispatch_errors"] == len(POISON_AT)
+                  and c.get("PoisonError", 0) > 0
+                  and c.get("CircuitOpenError", 0) > 0
+                  and served + c["PoisonError"] + c["CircuitOpenError"] == n
+                  and c["served_after_reset"] == RUNGS[-1]
+                  and not c["breaker_open_after_reset"])
+        if not ok:
+            fail(f"serve_ops: the {name} drive's counters do not hold: "
+                 f"{row}")
+
+    # A structure change: the 12-coordinate model of the coords phase.
+    big_arrays, big_manifest = coords_arrays(arrays, manifest)
+    grown = game_model_from_numpy(big_arrays, big_manifest, "cuda")
+    # 12 coordinates: two launches a rung, in each warm-up too.
+    flood = counted(flood_with_reload, programs, requests, grown,
+                    warmups=2 * len(RUNGS))
+    live = flood["programs"]
+    feats, codes, _ = live.pack_requests(picked[:64])
+    got = live.score_padded(feats, codes, 64)
+    plain = serve_kernel.fused_score_reference(
+        **live.operands(feats, codes))[:64].cpu().numpy()
+    err = float(np.abs(got - plain).max())
+    info = flood["info"]
+    out["structure"] = row = {
+        "phase": "serve_ops", "step": "structure_reload", **info,
+        "served": flood["served"], "errors": flood["errors"],
+        "launches_per_replay": {r: live.compile_rung(r).launches
+                                for r in RUNGS},
+        "max_abs_err_plain": err, "tol": TOL[SERVE_PRECISION]}
+    emit(row)
+    if info["values_only"] or info["programs_compiled"] != len(RUNGS):
+        fail(f"serve_ops: the structure reload captured "
+             f"{info['programs_compiled']} graphs: {row}")
+    if flood["served"] != RELOAD_REQUESTS or flood["errors"]:
+        fail(f"serve_ops: the structure reload lost requests: {row}")
+    if set(row["launches_per_replay"].values()) != {2}:
+        fail(f"serve_ops: 12 coordinates replay "
+             f"{row['launches_per_replay']} launches, expected 2")
+    if not err <= TOL[SERVE_PRECISION]:
+        fail(f"serve_ops: the new ladder differs from the plain version "
+             f"by {err}")
+    del programs, live, flood, tables
+    torch.cuda.empty_cache()
+
+    # cli.serve --input on score_cli's rows, with a hot reload of the
+    # same model directory (values-only against the data's maps).
+    files = batch["files"]
+    npy = os.path.join(os.path.dirname(files["data"]), "served.npy")
+    # Its ladder (3 coordinates: one launch a rung) is captured inside
+    # the counted window.
+    line = counted(run_serve_cli, [
+        "--model-dir", files["model_dir"], "--input", files["data"],
+        "--feature-shards",
+        *[f"{s}={SCORE_SHARDS[s][0]}" for s in SCORE_SHARDS],
+        "--id-tags", "userId", "movieId", "--scores", npy,
+        "--deadline-ms", "60000", "--shed-watermark", "1000000",
+        "--breaker-threshold", "8", "--reload-model", files["model_dir"]],
+        warmups=len(RUNGS))
+    served = np.load(npy)
+    rel = float(np.max(np.abs(served - batch["scores"])
+                       / (1.0 + np.abs(batch["scores"]))))
+    reload_info = line["reloads"][0]
+    out["cli"] = row = {
+        "phase": "serve_ops", "step": "cli_serve_input",
+        "requests": len(served),
+        **{k: line[k] for k in (
+            "programs_compiled", "aot_compile_seconds",
+            "graph_device_bytes", "compile_events_during_serving",
+            "kernel_launches", "errors", "p50_ms", "p99_ms", "qps",
+            "wall_seconds", "batches", "dispatches", "health")},
+        "reload": {k: v for k, v in reload_info.items() if k != "summary"},
+        "reload_drive": {k: reload_info["summary"][k] for k in (
+            "errors", "p50_ms", "p99_ms", "qps")},
+        "max_rel_err_score_cli": rel}
+    emit(row)
+    replays = sum(line["dispatches"].values())
+    if (len(served) != SCORE_ROWS or line["errors"]
+            or reload_info["summary"]["errors"]):
+        fail(f"cli.serve --input did not serve every row: {row}")
+    if (line["programs_compiled"] != len(RUNGS)
+            or line["compile_events_during_serving"]
+            or not reload_info["values_only"]
+            or reload_info["programs_compiled"]):
+        fail(f"cli.serve --input captured graphs while serving: {row}")
+    if line["kernel_launches"] != replays or not rel <= 1e-5:
+        fail(f"cli.serve --input: {line['kernel_launches']} launches for "
+             f"{replays} replays, scores {rel} from cli.score's")
+    out["launches"] = launches
+    return out
 
 
 # The segment-sum kernel's order of additions (``csrc/segment_sum.cu``):
@@ -1787,9 +2177,9 @@ def phase_train_serve(torch, arrays, model, total) -> dict:
         for i in rows
     ]
     feats, codes, rung = programs.pack_requests(requests)
-    serve_kernel.launches = 0
+    zero_serve_counts(serve_kernel)
     served = programs.score_padded(feats, codes, len(requests))
-    launches = serve_kernel.launches
+    launches = sum(serve_counts(serve_kernel))
     trainer = total[torch.from_numpy(rows).to(total.device)].cpu().numpy()
     err = float(np.abs(served - trainer).max())
     row = {"phase": "train_serve", "requests": len(requests), "rung": rung,
@@ -3600,9 +3990,9 @@ def phase_wide_train_serve(torch, wide, fit) -> dict:
         for i in rows
     ]
     feats, codes, rung = programs.pack_requests(requests)
-    serve_kernel.launches = 0
+    zero_serve_counts(serve_kernel)
     served = programs.score_padded(feats, codes, len(requests))
-    launches = serve_kernel.launches
+    launches = sum(serve_counts(serve_kernel))
     trainer = fit["total"][torch.from_numpy(rows).to(WIDE_DEVICE)].cpu().numpy()
     err = float(np.abs(served - trainer).max())
     row = {"phase": "wide_train_serve", "requests": len(requests),
@@ -3856,6 +4246,8 @@ def main() -> int:
                     help="run only the training CLI phases")
     ap.add_argument("--train-routes", action="store_true",
                     help="run only the optimizer-routes phase")
+    ap.add_argument("--serve", action="store_true",
+                    help="run only the serving phases (1-6c)")
     args = ap.parse_args()
     try:
         import torch
@@ -3933,6 +4325,11 @@ def main() -> int:
     batch = phase_score_cli(torch, arrays, manifest,
                             rows[0]["launch_floor_ms"])
     torch.cuda.empty_cache()
+    ops = phase_serve_ops(torch, arrays, manifest, ckpt, batch)
+    torch.cuda.empty_cache()
+    if args.serve:
+        print(smi, flush=True)
+        return 0
     newton = phase_train(torch)
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(torch, arrays, manifest)
@@ -3961,12 +4358,16 @@ def main() -> int:
         "route": "cuda",
         "source": serve_kernel.SOURCE,
         "replaces": REPLACES,
-        # Its main paths: the served requests, the batch CLI and the
-        # training CLI's train -> score round trip.
-        "launches": (serve["kernel_launches"] + batch["launches"]
+        # Its main paths: the served requests (graph replays), serving
+        # under reloads, the degraded drives and cli.serve --input (graph
+        # replays), the batch CLI and the training CLI's train -> score
+        # round trip.
+        "launches": (serve["kernel_launches"] + ops["launches"]
+                     + batch["launches"]
                      + train_cli["serve_launches"]
                      + cli_routes["serve_launches"]),
         "launches_by_path": {"serve": serve["kernel_launches"],
+                             "serve_ops": ops["launches"],
                              "score_cli": batch["launches"],
                              "train_cli": train_cli["serve_launches"],
                              "train_cli_routes":
@@ -3978,6 +4379,10 @@ def main() -> int:
         "bound_by": top["bound_by"],
         "library_ms": None,
         "launch_floor_ms": top["launch_floor_ms"],
+        "graphs_captured": serve["programs_compiled"],
+        "graph_capture_seconds": serve["aot_compile_seconds"],
+        "dispatch_host_ms_replay": top["dispatch_host_ms"],
+        "dispatch_host_ms_eager": top["eager_dispatch_host_ms"],
         "score_cli_rung_8192_ms": batch["ms"],
         "score_cli_rung_8192_bound_ms": batch["bound_ms"],
         "coords_12_rung_512_bf16_ms": coords["bfloat16"]["ms"],

@@ -90,16 +90,7 @@ def _run(args) -> int:
     )
     from photon_tpu_torch.data.validators import sanity_check_data
     from photon_tpu_torch.io import avro
-    from photon_tpu_torch.io.avro_data import (
-        build_index_map_from_records,
-        read_merged,
-        read_training_examples,
-    )
-    from photon_tpu_torch.io.model_io import (
-        load_game_model,
-        model_feature_shard_ids,
-        save_scores,
-    )
+    from photon_tpu_torch.io.model_io import save_scores
 
     dev = device_mod.resolve(args.device)
     mesh = resolve_mesh(args.mesh)
@@ -120,73 +111,11 @@ def _run(args) -> int:
                 f"--input-columns operands must be COL=FIELD, got {bad}")
         input_columns = dict(kv.split("=", 1) for kv in args.input_columns)
 
-    # Feature index maps come from the scoring data's keys. Model
-    # features absent from the data are dropped at model load: a feature
-    # no row carries adds no margin either way.
     decoded_before = dict(avro.DECODED_BLOCKS)
-    records = avro.read_container_dir(args.input)
-    needed_shards = model_feature_shard_ids(args.model_dir)
-    lap("decode")
-
-    if args.feature_shards:
-        # Multi-bag layout: one feature table and one index map per shard.
-        from photon_tpu_torch.cli.index import (
-            build_shard_vocabularies,
-            parse_shard_spec,
-        )
-        from photon_tpu_torch.data.index_map import IndexMap
-        from photon_tpu_torch.types import make_feature_key
-
-        shard_bags = parse_shard_spec(args.feature_shards)
-        missing = sorted(needed_shards - set(shard_bags))
-        if missing:
-            raise ValueError(
-                f"model needs feature shard(s) {missing} but "
-                f"--feature-shards only defines {sorted(shard_bags)}")
-        index_maps = {
-            shard: IndexMap.from_feature_names(
-                [make_feature_key(n, t) for n, t in pairs])
-            for shard, pairs in build_shard_vocabularies(
-                records, shard_bags).items()
-        }
-        lap("index_build")
-        data, _ = read_merged(
-            args.input,
-            feature_shards=shard_bags,
-            index_maps=index_maps,
-            id_columns=args.id_columns,
-            id_tag_names=args.id_tags,
-            input_columns=input_columns,
-            records=records,
-            device=dev,
-        )
-        del records
-        lap("dataset_build")
-        model, metadata = load_game_model(args.model_dir, index_maps,
-                                          device=dev)
-        lap("model_load")
-    else:
-        if len(needed_shards) > 1:
-            raise ValueError(
-                f"model was trained on multiple feature shards "
-                f"{sorted(needed_shards)}; pass --feature-shards so each "
-                "resolves against its own bags (aliasing them all to the "
-                "single 'features' table would silently zero the random "
-                "effects)")
-        index_map = build_index_map_from_records(records)
-        lap("index_build")
-        data, _ = read_training_examples(
-            args.input, index_map=index_map, id_tag_names=args.id_tags,
-            input_columns=input_columns, records=records, device=dev,
-        )
-        del records
-        lap("dataset_build")
-        index_maps = {s: index_map for s in needed_shards} or {
-            "features": index_map}
-        model, metadata = load_game_model(args.model_dir, index_maps,
-                                          device=dev)
-        data = _alias_shards(data, needed_shards)
-        lap("model_load")
+    data, model, metadata, _ = read_data_and_model(
+        args.model_dir, args.input, feature_shards=args.feature_shards,
+        id_tags=args.id_tags, id_columns=args.id_columns,
+        input_columns=input_columns, device=dev, lap=lap)
 
     # Scoring rows may carry dummy labels; validate everything else.
     sanity_check_data(data, model.task, args.data_validation,
@@ -229,6 +158,98 @@ def _run(args) -> int:
     return 0
 
 
+def read_data_and_model(model_dir: str, input_path: str, *,
+                        feature_shards=None, id_tags=None, id_columns=None,
+                        input_columns=None, device=None, lap=None):
+    """The scoring rows and the model, each feature shard keyed by the
+    index map the data's own keys define: ``feature_shards`` (a list of
+    ``shard=bag[,bag...]``) reads one map per shard from its bags;
+    without it the single ``features`` bag serves every model shard,
+    which a model of more than one shard refuses. ``lap(stage)``, when
+    given, is called after the decode, index build, dataset build and
+    model load. Returns (data, model, the model's metadata, the index
+    map of each model shard)."""
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.io.avro_data import (
+        build_index_map_from_records,
+        read_merged,
+        read_training_examples,
+    )
+    from photon_tpu_torch.io.model_io import (
+        load_game_model,
+        model_feature_shard_ids,
+    )
+
+    lap = lap or (lambda stage: None)
+    # Feature index maps come from the scoring data's keys. Model
+    # features absent from the data are dropped at model load: a feature
+    # no row carries adds no margin either way.
+    records = avro.read_container_dir(input_path)
+    needed_shards = model_feature_shard_ids(model_dir)
+    lap("decode")
+
+    if feature_shards:
+        # Multi-bag layout: one feature table and one index map per shard.
+        from photon_tpu_torch.cli.index import (
+            build_shard_vocabularies,
+            parse_shard_spec,
+        )
+        from photon_tpu_torch.data.index_map import IndexMap
+        from photon_tpu_torch.types import make_feature_key
+
+        shard_bags = parse_shard_spec(feature_shards)
+        missing = sorted(needed_shards - set(shard_bags))
+        if missing:
+            raise ValueError(
+                f"model needs feature shard(s) {missing} but "
+                f"--feature-shards only defines {sorted(shard_bags)}")
+        index_maps = {
+            shard: IndexMap.from_feature_names(
+                [make_feature_key(n, t) for n, t in pairs])
+            for shard, pairs in build_shard_vocabularies(
+                records, shard_bags).items()
+        }
+        lap("index_build")
+        data, _ = read_merged(
+            input_path,
+            feature_shards=shard_bags,
+            index_maps=index_maps,
+            id_columns=id_columns,
+            id_tag_names=id_tags,
+            input_columns=input_columns,
+            records=records,
+            device=device,
+        )
+        del records
+        lap("dataset_build")
+        model, metadata = load_game_model(model_dir, index_maps,
+                                          device=device)
+        lap("model_load")
+    else:
+        if len(needed_shards) > 1:
+            raise ValueError(
+                f"model was trained on multiple feature shards "
+                f"{sorted(needed_shards)}; pass --feature-shards so each "
+                "resolves against its own bags (aliasing them all to the "
+                "single 'features' table would silently zero the random "
+                "effects)")
+        index_map = build_index_map_from_records(records)
+        lap("index_build")
+        data, _ = read_training_examples(
+            input_path, index_map=index_map, id_tag_names=id_tags,
+            input_columns=input_columns, records=records, device=device,
+        )
+        del records
+        lap("dataset_build")
+        index_maps = {s: index_map for s in needed_shards} or {
+            "features": index_map}
+        model, metadata = load_game_model(model_dir, index_maps,
+                                          device=device)
+        data = _alias_shards(data, needed_shards)
+        lap("model_load")
+    return data, model, metadata, index_maps
+
+
 def score_game_dataset(model, data, *, mesh=None, evaluators=None,
                        report: dict | None = None):
     """Batch scoring through the serving implementation: float32
@@ -258,8 +279,9 @@ def score_game_dataset(model, data, *, mesh=None, evaluators=None,
     t0 = time.perf_counter()
     specs = specs_from_dataset(data)
     tables = CoefficientTables.from_game_model(model, "float32", data.device)
+    # score_dataset runs its own chunk loop: no rung graph is captured.
     programs = ScorePrograms(tables, ladder=ShapeLadder(BATCH_RUNGS),
-                             specs=specs)
+                             specs=specs, compile_now=False)
     seconds["tables"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scores = programs.score_dataset(data)

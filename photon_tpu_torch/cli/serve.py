@@ -1,78 +1,160 @@
-"""Online scoring on the GPU: load a model, serve synthetic traffic.
+"""Online scoring on the GPU: load a model, serve requests (port of
+``photon_tpu/cli/serve.py``).
 
-Loads a native ``.npz`` checkpoint, or an Avro GAME model directory
-keyed by its own records' feature index maps, into device-resident
-coefficient tables, builds the score ladder (loading the fused serve
-kernel), starts the micro-batch queue, drives synthetic requests through
-it and prints one JSON line: p50/p99 latency, QPS, batch fill,
-cold-entity rate, dispatches per rung and the kernel launches the run
-made.
+Loads a native ``.npz`` checkpoint, or an Avro GAME model directory,
+into device-resident coefficient tables, captures the score ladder (one
+CUDA graph per rung, each running the fused serve kernel), starts the
+micro-batch queue and drives requests through it: one per row of a
+TrainingExampleAvro file (``--input``, scored against the data's own
+index maps, so it needs ``--model-dir``), or synthetic ones. It prints
+one JSON line: p50/p99 latency, QPS, batch fill, cold-entity rate,
+dispatches per rung, the graphs captured and their capture seconds, the
+kernel launches the run made, the queue's ``health()`` and, per
+``--reload-model``, the reload's summary and the drive that follows it.
+A reload is hot, on the live queue: a values-only refresh is copied
+into the live tables, a structure change captures a new ladder off the
+request path and swaps it in under the queue's ``quiesce``. The exit is
+non-zero when any request of any drive failed.
+
+``PHOTON_TPU_FAULT_PLAN`` arms a fault plan in the process (the
+``serve.dispatch`` point fires inside the queue's retried dispatch).
+The JAX package's observability flags (``--monitor-port``, ``--slo-*``,
+``--telemetry``, ``--trace``, ``--request-log``, ``--health-sketch``,
+``--flight-dir``, ``--no-flight``) raise: ROADMAP Queue A item 10.
 
 Usage:
     python -m photon_tpu_torch.cli.serve (--checkpoint model.npz | \
-        --model-dir out/models/best) --synthetic 20000 \
-        [--batch-sizes 1,8,64,512] [--max-linger-ms 2] \
-        [--precision float32|bfloat16] [--target-qps Q] [--device cuda|cpu]
+        --model-dir out/models/best) \
+        [--input data.avro [--feature-shards s=bag ...] [--id-tags t ...] \
+         | --synthetic 20000] [--batch-sizes 1,8,64,512] \
+        [--max-linger-ms 2] [--deadline-ms D] [--shed-watermark N] \
+        [--breaker-threshold 8] [--reload-model PATH ...] \
+        [--precision float32|bfloat16] [--target-qps Q] [--scores PATH] \
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+
+# The JAX package's observability flags: ROADMAP Queue A item 10.
+OBSERVABILITY_FLAGS = ("monitor_port", "slo_p99_ms", "slo_error_rate",
+                       "slo_cold_rate", "slo_window_s", "telemetry", "trace",
+                       "request_log", "health_sketch", "flight_dir",
+                       "no_flight")
 
 
 def build_server(checkpoint: str | None = None, *,
                  precision: str = "float32", rungs=(1, 8, 64, 512),
                  device=None, model_dir: str | None = None):
     """A checkpoint or an Avro model directory -> (tables, programs) on
-    ``device`` (default cuda)."""
-    from photon_tpu_torch.io.model_io import load_checkpoint, load_game_model
+    ``device`` (default cuda), the ladder's graphs captured."""
     from photon_tpu_torch.serve.programs import ScorePrograms, ShapeLadder
-    from photon_tpu_torch.serve.tables import (
-        CoefficientTables,
-        build_index_maps_from_model,
-    )
+    from photon_tpu_torch.serve.tables import CoefficientTables
 
     if (checkpoint is None) == (model_dir is None):
         raise ValueError("give exactly one of a checkpoint and a model "
                          "directory")
-    if checkpoint is not None:
-        model = load_checkpoint(checkpoint, device)
-    else:
-        # Standalone serving: the model directory's own records define
-        # the feature space.
-        model, _ = load_game_model(
-            model_dir, build_index_maps_from_model(model_dir), device=device)
+    model = load_model(checkpoint or model_dir, device)
     tables = CoefficientTables.from_game_model(model, precision, device)
     return tables, ScorePrograms(tables, ladder=ShapeLadder(rungs))
 
 
+def load_model(path: str, device=None, index_maps=None):
+    """A native checkpoint (a file), or an Avro model directory keyed by
+    ``index_maps`` (default: its own records' index maps, the
+    standalone-serving convention)."""
+    from photon_tpu_torch.io.model_io import load_checkpoint, load_game_model
+    from photon_tpu_torch.serve.tables import build_index_maps_from_model
+
+    if os.path.isfile(path) or path.endswith(".npz"):
+        return load_checkpoint(path, device)
+    if index_maps is None:
+        index_maps = build_index_maps_from_model(path)
+    model, _ = load_game_model(path, index_maps, device=device)
+    return model
+
+
 def run(args) -> dict:
     from photon_tpu_torch.ops import serve_kernel
-    from photon_tpu_torch.serve.driver import drive, synthetic_requests
+    from photon_tpu_torch.serve.driver import (
+        dataset_requests,
+        drive,
+        synthetic_requests,
+    )
     from photon_tpu_torch.serve.queue import MicroBatchQueue
 
     rungs = tuple(int(r) for r in args.batch_sizes.split(",") if r.strip())
-    tables, programs = build_server(
-        args.checkpoint, precision=args.precision, rungs=rungs,
-        device=args.device, model_dir=args.model_dir,
-    )
-    requests = synthetic_requests(
-        tables, programs, args.synthetic,
-        cold_fraction=args.cold_fraction, seed=args.seed,
-    )
-    launches_before = serve_kernel.launches
+    index_maps = None
+    if args.input:
+        from photon_tpu_torch.cli.score import read_data_and_model
+        from photon_tpu_torch.serve.programs import (
+            ScorePrograms,
+            ShapeLadder,
+            specs_from_dataset,
+        )
+        from photon_tpu_torch.serve.tables import CoefficientTables
+
+        # Request features resolve against the data's index maps, so
+        # the model loads against the same maps (as cli.score does).
+        data, model, _, index_maps = read_data_and_model(
+            args.model_dir, args.input, feature_shards=args.feature_shards,
+            id_tags=args.id_tags, device=args.device)
+        tables = CoefficientTables.from_game_model(
+            model, args.precision, args.device)
+        programs = ScorePrograms(tables, ladder=ShapeLadder(rungs),
+                                 specs=specs_from_dataset(data))
+        requests = dataset_requests(data, programs)
+        del data, model
+    else:
+        tables, programs = build_server(
+            args.checkpoint, precision=args.precision, rungs=rungs,
+            device=args.device, model_dir=args.model_dir,
+        )
+        requests = synthetic_requests(
+            tables, programs, args.synthetic,
+            cold_fraction=args.cold_fraction, seed=args.seed,
+        )
+
+    def launched() -> int:
+        return serve_kernel.launches + serve_kernel.replay_launches
+
+    launches_before = launched()
+    scores: list | None = [] if args.scores else None
     with MicroBatchQueue(
         programs,
         max_batch=args.max_batch,
         max_linger_s=args.max_linger_ms / 1e3,
         max_queue=args.max_queue,
+        default_deadline_s=(None if args.deadline_ms is None
+                            else args.deadline_ms / 1e3),
+        shed_watermark=args.shed_watermark,
+        breaker_threshold=args.breaker_threshold or None,
     ) as queue:
-        summary = drive(queue, requests, rate=args.target_qps)
+        captured_before = programs.stats["programs_compiled"]
+        summary = drive(queue, requests, rate=args.target_qps,
+                        scores=scores)
+        captured_during = (programs.stats["programs_compiled"]
+                           - captured_before)
+        reloads = []
+        for path in args.reload_model:
+            info = queue.reload_model(
+                load_model(path, args.device, index_maps))
+            info["model"] = path
+            info["summary"] = drive(queue, requests, rate=args.target_qps)
+            reloads.append(info)
+        health = queue.health()
+    if scores is not None:
+        import numpy as np
+
+        np.save(args.scores, np.asarray(scores, dtype=np.float32))
     out = {
         "metric": "serving",
         "model": args.checkpoint or args.model_dir,
+        "input": args.input,
         "device": str(programs.device),
         "precision": tables.precision,
         "rungs": list(programs.ladder.rungs),
@@ -80,14 +162,22 @@ def run(args) -> dict:
         "max_linger_ms": args.max_linger_ms,
         "library_load_seconds": round(
             programs.stats["library_load_seconds"], 4),
+        "programs_compiled": programs.stats["programs_compiled"],
+        "aot_compile_seconds": round(
+            programs.stats["aot_compile_seconds"], 4),
+        "graph_device_bytes": programs.stats["graph_device_bytes"],
+        "graph_host_bytes": programs.stats["graph_host_bytes"],
         "dispatches": programs.stats["dispatches"],
         "serve_kernel": programs.stats["serve_kernel"],
-        # Nothing is built after ScorePrograms.__init__ loaded the
-        # kernel library, so the request loop builds nothing.
-        "compile_events_during_serving": 0,
-        "kernel_launches": serve_kernel.launches - launches_before,
+        # Graphs captured while the main drive served: none, since
+        # every rung was captured at start.
+        "compile_events_during_serving": captured_during,
+        "kernel_launches": launched() - launches_before,
+        "health": health,
         "tables": tables.coordinate_stats(),
     }
+    if reloads:
+        out["reloads"] = reloads
     out.update(summary)
     return out
 
@@ -101,8 +191,17 @@ def main(argv=None) -> int:
     src.add_argument("--checkpoint", help="native .npz checkpoint")
     src.add_argument("--model-dir",
                      help="GAME model directory (Avro layout)")
+    parser.add_argument("--input", default=None,
+                        help="TrainingExampleAvro file/dir to replay as "
+                             "requests, one a row (needs --model-dir)")
+    parser.add_argument("--feature-shards", nargs="*", default=None,
+                        help="with --input: shard=bag[,bag...] specs for "
+                             "multi-bag layouts (as cli.score takes them)")
+    parser.add_argument("--id-tags", nargs="*", default=None,
+                        help="with --input: id tags to read")
     parser.add_argument("--synthetic", type=int, default=1000, metavar="N",
-                        help="number of synthetic requests to drive")
+                        help="without --input: the number of synthetic "
+                             "requests to drive")
     parser.add_argument("--cold-fraction", type=float, default=0.05,
                         help="fraction of entity lookups drawn outside "
                              "the model vocabulary")
@@ -115,24 +214,73 @@ def main(argv=None) -> int:
                              "batch-mates before a flush")
     parser.add_argument("--max-queue", type=int, default=4096,
                         help="queue bound; producers block beyond it")
+    parser.add_argument("--deadline-ms", type=float, default=None,
+                        help="per-request deadline: a request still "
+                             "queued past it fails fast with "
+                             "DeadlineExceededError")
+    parser.add_argument("--shed-watermark", type=int, default=None,
+                        help="queue depth beyond which submits are "
+                             "rejected (OverloadedError) instead of "
+                             "blocking")
+    parser.add_argument("--breaker-threshold", type=int, default=8,
+                        help="consecutive dispatch failures that trip "
+                             "the circuit breaker; 0 disables")
+    parser.add_argument("--reload-model", action="append", default=[],
+                        metavar="PATH",
+                        help="after the main drive, hot-reload this model "
+                             "(.npz checkpoint or Avro model directory) "
+                             "into the live queue and drive the requests "
+                             "again (repeatable)")
     parser.add_argument("--precision", default="float32",
                         choices=("float32", "bfloat16"),
                         help="coefficient table storage")
     parser.add_argument("--target-qps", type=float, default=None,
                         help="pace submissions at this offered load "
                              "(default: flood)")
+    parser.add_argument("--scores", default=None, metavar="PATH",
+                        help="write the main drive's per-request scores, "
+                             "in request order, to PATH (.npy; NaN for a "
+                             "failed request)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--json", default=None, metavar="PATH",
                         help="also write the summary JSON to PATH")
+    parser.add_argument("--verbose", action="store_true")
+    parser.add_argument("--log-file", default=None)
+    for flag in OBSERVABILITY_FLAGS:
+        name = "--" + flag.replace("_", "-")
+        if flag == "no_flight":
+            parser.add_argument(name, action="store_true",
+                                help="(item 10)")
+        else:
+            parser.add_argument(name, default=None, help="(item 10)")
     args = parser.parse_args(argv)
-    out = run(args)
+    if args.checkpoint and args.input:
+        # A native checkpoint keys its coefficients by dense index with
+        # no (name, term), so nothing aligns it with a data file's maps.
+        parser.error("--input requires --model-dir (the Avro layout's "
+                     "name-keyed coefficients align with the data's index "
+                     "maps; a .npz checkpoint cannot)")
+    for flag in OBSERVABILITY_FLAGS:
+        if getattr(args, flag) not in (None, False):
+            from photon_tpu_torch import optim
+
+            raise optim.not_ported("--" + flag.replace("_", "-"), 10)
+
+    from photon_tpu_torch.cli.common import cli_logging
+    from photon_tpu_torch.resilience import faults
+
+    with cli_logging(args.verbose, args.log_file):
+        faults.arm_from_env()
+        out = run(args)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)
     print(json.dumps(out))
-    return 0 if out["errors"] == 0 else 1
+    errors = out["errors"] + sum(r["summary"]["errors"]
+                                 for r in out.get("reloads", ()))
+    return 0 if errors == 0 else 1
 
 
 if __name__ == "__main__":

@@ -26,6 +26,14 @@ projectors (-1 pad), ``codes`` one [rung] int32 entity-code vector per
 random coordinate (-1 cold). ``fe_feat``/``re_feat`` name each
 coordinate's shard. Tables are all f32 or all bf16; the result is
 [rung] f32.
+
+Under CUDA-graph capture (``ScorePrograms.compile_rung``) ``fused_score``
+records its launches instead of running them: it must find the library
+already loaded, syncs nothing, and allocates its output from the
+capturing graph's pool. Three counters: ``launches`` counts launches run
+from Python, ``captured`` the launches recorded into graphs, and
+``replay_launches`` the launches graph replays ran (each replay adds the
+launches its graph captured; ``ScorePrograms`` keeps it).
 """
 
 from __future__ import annotations
@@ -43,8 +51,14 @@ from photon_tpu_torch.ops import precision as precision_mod
 GROUP_COORDS = 8
 SOURCE = "photon_tpu_torch/csrc/serve_score.cu"
 
-# Kernel launches made by ``fused_score`` (never by the plain version).
+# Kernel launches made by ``fused_score`` from Python (never by the
+# plain version, never during a capture).
 launches = 0
+# Launches ``fused_score`` recorded into CUDA graphs (not run).
+captured = 0
+# Launches run by replays of captured graphs: replays x launches per
+# graph (added by ``ScorePrograms.dispatch_padded``).
+replay_launches = 0
 
 
 class _Coord(ctypes.Structure):
@@ -186,7 +200,7 @@ def _check(t: torch.Tensor, what: str, dev, dtypes, ndim: int) -> None:
 def _launch(
     fe_ws, re_ws, re_projs, feats, codes, *, spec_kinds, fe_feat, re_feat
 ) -> torch.Tensor:
-    global launches
+    global launches, captured
     n_coords = len(fe_ws) + len(re_ws)
     if n_coords < 1:
         raise ValueError("the serve kernel needs at least one coordinate")
@@ -256,7 +270,16 @@ def _launch(
         c.e, c.s = int(w.shape[0]), int(w.shape[1])
         coords.append((c, c.s))
 
-    load()
+    capturing = (dev.type == "cuda"
+                 and torch.cuda.is_current_stream_capturing())
+    if _launch_fn is None:
+        if capturing:
+            raise RuntimeError(
+                "serve kernel library not loaded before a CUDA-graph "
+                "capture: call serve_kernel.load() first")
+        load()
+    # Inside a capture this comes from the graph's private pool and
+    # lives as long as the graph.
     out = torch.empty(rung, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for g0 in range(0, n_coords, GROUP_COORDS):
@@ -282,5 +305,8 @@ def _launch(
         if rc != 0:
             raise RuntimeError(
                 f"serve_score launch failed with CUDA error {rc}")
-        launches += 1
+        if capturing:
+            captured += 1
+        else:
+            launches += 1
     return out

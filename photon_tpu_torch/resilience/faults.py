@@ -18,10 +18,12 @@ point               boundary
 ``cd.iteration``    end of one outer coordinate-descent iteration, AFTER
                     its checkpoint was written (the kill-and-resume
                     window)
+``serve.dispatch``  the serve queue's batch dispatch, inside its retried
+                    call (``MicroBatchQueue._dispatch``)
 ==================  ======================================================
 
 The reference's other points (ingest, compile, transfer, the fused fit,
-serving, streaming and the pilot) are accepted in a plan, so one plan
+streaming and the pilot) are accepted in a plan, so one plan
 serves both packages, and fire where the port grows those boundaries.
 
 Fault kinds (``FaultSpec.error``): ``"transient"`` raises

@@ -1,9 +1,13 @@
 """Synchronous serving driver (port of ``photon_tpu/serve/driver.py``).
 
 The driver is the load generator and the client: it pushes requests
-through a ``MicroBatchQueue`` from the calling thread, timestamps each
-completion with a done-callback on the worker thread, and reports
-p50/p99 latency, QPS, batch fill and the cold-entity rate.
+(synthetic, or one per row of a ``GameDataset``) through a
+``MicroBatchQueue`` from the calling thread, timestamps each completion
+with a done-callback on the worker thread, and reports p50/p99 latency,
+QPS, batch fill and the cold-entity rate. ``traffic_loop`` is the
+open-ended paced load generator a caller runs on its own thread against
+a live server, so that a reload happens under traffic. The driver owns
+no threads and no locks.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import time
 
 import numpy as np
 
+from photon_tpu_torch.data.dataset import DenseFeatures
 from photon_tpu_torch.serve.programs import ScorePrograms
 from photon_tpu_torch.serve.queue import MicroBatchQueue
 from photon_tpu_torch.serve.tables import CoefficientTables
@@ -60,12 +65,116 @@ def synthetic_requests(
     return reqs
 
 
+def dataset_requests(data, programs: ScorePrograms
+                     ) -> list[tuple[dict, dict]]:
+    """One ``(features, entity_ids)`` request per dataset row, against
+    the dataset's own feature layout and id tags (the file-driven
+    serve CLI path)."""
+    host: dict[str, tuple] = {}
+    for s in programs.shard_order:
+        feats = data.feature_shards[s]
+        if isinstance(feats, DenseFeatures):
+            host[s] = (feats.x.cpu().numpy(),)
+        else:
+            host[s] = (feats.indices.cpu().numpy().astype(np.int32),
+                       feats.values.cpu().float().numpy())
+    keys = {}
+    for rt in programs.retype_order:
+        tag = data.id_tags[rt]
+        keys[rt] = [tag.inverse[c] for c in tag.host_codes()]
+    reqs: list[tuple[dict, dict]] = []
+    for i in range(data.num_samples):
+        feats = {s: (leaf[0][i] if len(leaf) == 1
+                     else (leaf[0][i], leaf[1][i]))
+                 for s, leaf in host.items()}
+        reqs.append((feats, {rt: k[i] for rt, k in keys.items()}))
+    return reqs
+
+
+def traffic_loop(
+    get_server,
+    rate: float,
+    stop,
+    counts: dict,
+    *,
+    batch: int = 32,
+    cold_fraction: float = 0.05,
+    idle_sleep: float = 0.05,
+    drain_timeout_s: float = 30.0,
+) -> None:
+    """Open-ended paced synthetic traffic against a live server, run by
+    the caller on its own thread until ``stop`` (a
+    ``threading.Event``) is set.
+
+    ``get_server()`` returns the current server (anything with
+    ``.programs`` and ``.submit``, such as a ``MicroBatchQueue``) or
+    None while none is up; it is read again every ``batch`` requests,
+    so a swapped generation is picked up. ``counts`` (``served``,
+    ``errors``, ``submit_errors``, ``stranded``, ``last_error``) is
+    written only from the calling thread; read it after the join. Typed
+    queue rejections (shed, breaker, closed) are counted, never fatal.
+    """
+    interval = 1.0 / rate
+    next_t = time.perf_counter()
+    pending: list = []
+    batch_no = 0
+    while not stop.is_set():
+        server = get_server()
+        if server is None:
+            time.sleep(idle_sleep)
+            continue
+        programs = server.programs
+        try:
+            reqs = synthetic_requests(
+                programs.tables, programs, batch,
+                cold_fraction=cold_fraction, seed=batch_no,
+            )
+        except (StopIteration, KeyError):
+            # Read mid-swap: the programs read above and the tables they
+            # point at are two generations; the next read is settled.
+            time.sleep(0.01)
+            continue
+        batch_no += 1
+        for feats, ids in reqs:
+            if stop.is_set():
+                break
+            delay = next_t - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            next_t = max(next_t + interval,
+                         time.perf_counter() - 5 * interval)
+            try:
+                pending.append(server.submit(feats, ids))
+            except Exception as exc:  # noqa: BLE001 - a typed queue
+                # rejection counts as a drop; the loop outlives it.
+                counts["submit_errors"] += 1
+                counts["last_error"] = type(exc).__name__
+            while pending and pending[0].done():
+                _count(counts, pending.pop(0).exception())
+    for fut in pending:
+        try:
+            exc = fut.exception(timeout=drain_timeout_s)
+        except TimeoutError:
+            counts["stranded"] += 1
+            continue
+        _count(counts, exc)
+
+
+def _count(counts: dict, exc: BaseException | None) -> None:
+    if exc is None:
+        counts["served"] += 1
+    else:
+        counts["errors"] += 1
+        counts["last_error"] = type(exc).__name__
+
+
 def drive(
     queue: MicroBatchQueue,
     requests: list[tuple[dict, dict]],
     *,
     warmup: int | None = None,
     rate: float | None = None,
+    scores: list | None = None,
 ) -> dict:
     """Push ``requests`` through ``queue``; return the serving summary.
 
@@ -73,7 +182,8 @@ def drive(
     of the requests) runs to completion before the measured window.
     ``rate=None`` floods (QPS is the ceiling and latency includes
     queueing); a requests/s ``rate`` paces submission on a fixed
-    schedule.
+    schedule. ``scores``, when given, receives every request's score in
+    request order, warmup included (NaN for a failed request).
     """
     ladder = queue.programs.ladder
     if warmup is None:
@@ -84,7 +194,8 @@ def drive(
             f"{len(requests)} requests leave nothing to measure after "
             f"a {warmup}-request warmup"
         )
-    for fut in [queue.submit(feats, ids) for feats, ids in warm]:
+    warm_futures = [queue.submit(feats, ids) for feats, ids in warm]
+    for fut in warm_futures:
         fut.result()
     warm_stats = queue.stats()
 
@@ -118,6 +229,9 @@ def drive(
             first_error = first_error or exc
     if errors == len(futures) and first_error is not None:
         raise first_error  # nothing scored: surface the real failure
+    if scores is not None:
+        scores.extend(float("nan") if f.exception() is not None
+                      else f.result() for f in warm_futures + futures)
     # Latency and QPS describe served requests only.
     ok = [(t0, td) for t0, td, f in completions if f.exception() is None]
     lat_arr = np.asarray(sorted(td - t0 for t0, td in ok))

@@ -5,24 +5,36 @@ The bridge is a ladder of batch rungs (default 1/8/64/512): each batch
 of requests is padded up to the nearest rung, padded rows carrying zero
 features and code -1 so they score 0 and are sliced away.
 
-On the GPU every rung is scored by one launch of the fused serve kernel
-(``ops/serve_kernel.py``; one per group of ``GROUP_COORDS`` coordinates
-for a larger model). The kernel library is built and loaded when
-``ScorePrograms`` is constructed, so the request loop never builds
-anything. ``PHOTON_SERVE_KERNEL=off`` (read once, at construction)
-scores on the card with the kernel's plain PyTorch version instead; the
-choice is logged and kept in ``stats["serve_kernel"]``. On the CPU every
-call runs the plain version.
+On the card every rung is one CUDA graph, captured at server start
+(``compile_all``, the counterpart of the JAX package's AOT ladder; the
+constructor calls it unless ``compile_now=False``). A graph covers the
+host-to-device copies from the rung's static pinned buffers, the fused
+serve kernel's launches (``ops/serve_kernel.py``; one per group of
+``GROUP_COORDS`` coordinates) and the copy of the scores into a static
+pinned output. ``dispatch_padded`` fills the static inputs and replays;
+``fetch_padded`` waits on the replay's event and reads the first ``n``
+scores. Nothing is built or captured after start, and a rung that was
+not captured is refused, not run eagerly. ``stats["programs_compiled"]``
+counts the graphs captured and ``stats["aot_compile_seconds"]`` their
+capture time, under the JAX package's names.
+
+A ladder's graphs share one memory pool. Each is captured on a side
+stream in ``thread_local`` mode, so a new ladder can be captured while
+the queue's worker replays the old one on its own thread. A graph holds
+the tables' device pointers: a values-only reload must copy into the
+live tensors (``CoefficientTables.reload`` does), never rebind them.
+
+``PHOTON_SERVE_KERNEL=off`` (read once, at construction) captures the
+kernel's plain PyTorch version instead; the choice is logged and kept
+in ``stats["serve_kernel"]``. On the CPU there are no graphs: every
+dispatch runs the plain version eagerly (``dispatch_eager``), and
+``compile_all`` captures nothing.
 
 ``score_dataset`` chunks a whole ``GameDataset`` through the ladder
 (``ShapeLadder.chunk_plan``), the batch-scoring route of
-``cli/score.py``: each chunk is one kernel launch on rows sliced from
-the dataset's own device tensors, so no chunk is staged through the
-host.
-
-The tables are read at every dispatch, so a values-only
-``CoefficientTables.reload`` (an in-place copy) is served by the next
-dispatch with nothing rebuilt.
+``cli/score.py``: each chunk is one eager call of the route chosen at
+construction (one kernel launch on the card) on rows sliced from the
+dataset's own device tensors, so no chunk is staged through the host.
 """
 
 from __future__ import annotations
@@ -174,23 +186,45 @@ def specs_from_dataset(data) -> dict[str, FeatureSpec]:
     return specs
 
 
+@dataclasses.dataclass
+class _RungGraph:
+    """One rung's captured CUDA graph and the static buffers it reads
+    and writes. ``host_in`` are numpy views of the pinned inputs in the
+    flat order of ``ScorePrograms._flat_host``; ``keep`` holds the
+    tensors behind the views, the device inputs and the graph's output.
+    ``seq`` counts the replays; a dispatch handle carries the one whose
+    scores it fetches."""
+
+    graph: object  # torch.cuda.CUDAGraph
+    host_in: tuple
+    host_out: np.ndarray
+    done: object  # torch.cuda.Event recorded after each replay
+    launches: int  # serve-kernel launches one replay runs
+    keep: tuple
+    seq: int = 0
+
+
 @dataclasses.dataclass(frozen=True)
 class _Inflight:
-    """One dispatched, not yet fetched rung: the device scores, the
-    staged host buffers the copies read from (held until the fetch), and
-    the caller's live row count."""
+    """One dispatched, not yet fetched rung: a graph replay (``graph``
+    and its ``seq``), or an eager call's device scores and the pinned
+    host buffers its copies read from (held until the fetch)."""
 
-    out: torch.Tensor
-    staged: tuple
     batch: int
     n: int
+    graph: _RungGraph | None = None
+    seq: int = 0
+    out: torch.Tensor | None = None
+    staged: tuple = ()
 
 
 class ScorePrograms:
     """The score ladder for one model structure.
 
-    A structure change of the tables (``reload`` returned False) needs
-    a new ``ScorePrograms``.
+    A structure change of the tables needs a new ``ScorePrograms``
+    (``CoefficientTables.rebuild_from`` builds it). One thread dispatches
+    at a time (the queue's worker): a rung's static buffers serve one
+    dispatch until its fetch.
     """
 
     def __init__(
@@ -199,6 +233,7 @@ class ScorePrograms:
         *,
         ladder: ShapeLadder | None = None,
         specs: dict[str, FeatureSpec] | None = None,
+        compile_now: bool = True,
     ):
         self.tables = tables
         self.device = tables.device
@@ -217,6 +252,9 @@ class ScorePrograms:
         self.retype_order = tuple(dict.fromkeys(
             tables.random[n].random_effect_type for n in self._re_names
         ))
+        # The request layout the caller chose (None: the tables'
+        # default), carried over to a structure change's new ladder.
+        self.given_specs = None if specs is None else dict(specs)
         self.specs = dict(
             specs if specs is not None else default_specs(tables)
         )
@@ -240,9 +278,18 @@ class ScorePrograms:
                            and serve_kernel.kernel_supported())
         self._score = (serve_kernel.fused_score if self.use_kernel
                        else serve_kernel.fused_score_reference)
+        self._graphs: dict[int, _RungGraph] = {}
+        self._pool = None
+        self._capture_stream = None
         self.stats = {
             "serve_kernel": "cuda" if self.use_kernel else "plain",
             "library_load_seconds": 0.0,
+            "programs_compiled": 0,
+            "aot_compile_seconds": 0.0,
+            # Device memory the captured graphs hold (static inputs and
+            # the pool), and their pinned host buffers.
+            "graph_device_bytes": 0,
+            "graph_host_bytes": 0,
             "dispatches": {int(r): 0 for r in self.ladder.rungs},
         }
         log.info("ScorePrograms on %s: serve kernel route %s", self.device,
@@ -251,6 +298,49 @@ class ScorePrograms:
             t0 = time.perf_counter()
             serve_kernel.load()
             self.stats["library_load_seconds"] = time.perf_counter() - t0
+        if compile_now:
+            self.compile_all()
+
+    # -- operand layout ---------------------------------------------------
+
+    def _flat_host(self, feats: dict, codes: dict) -> list[np.ndarray]:
+        """One packed rung's host arrays in flat order: each shard's
+        leaf (dense x, or ELL ids then values) in shard order, then one
+        int32 code vector per random coordinate."""
+        flat = []
+        for s in self.shard_order:
+            leaf = feats[s]
+            if self.specs[s].kind == "dense":
+                flat.append(leaf)
+            else:
+                flat.extend(leaf)
+        flat.extend(np.asarray(codes[nm], dtype=np.int32)
+                    for nm in self._re_names)
+        return flat
+
+    def _flat_layout(self, batch: int) -> list[tuple[tuple, torch.dtype]]:
+        """(shape, dtype) of each flat input of rung ``batch``."""
+        out = []
+        for s in self.shard_order:
+            spec = self.specs[s]
+            if spec.kind == "dense":
+                out.append(((batch, spec.d), torch.float32))
+            else:
+                out += [((batch, spec.k), torch.int32),
+                        ((batch, spec.k), torch.float32)]
+        out += [((batch,), torch.int32)] * len(self._re_names)
+        return out
+
+    def _unflat(self, flat: list) -> tuple[tuple, tuple]:
+        """Flat inputs -> (features in shard order, codes in coordinate
+        order), as ``_device_operands`` takes them."""
+        it = iter(flat)
+        feats = tuple(
+            next(it) if self.specs[s].kind == "dense" else (next(it),
+                                                            next(it))
+            for s in self.shard_order
+        )
+        return feats, tuple(it)
 
     def operands(self, feats: dict, codes: dict,
                  staged: list | None = None) -> dict:
@@ -259,17 +349,9 @@ class ScorePrograms:
         the shard wiring. Pinned host buffers are appended to
         ``staged``; keep them until the scores are fetched."""
         staged = [] if staged is None else staged
-        f = []
-        for s in self.shard_order:
-            leaf = feats[s]
-            if self.specs[s].kind == "dense":
-                f.append(self._to_device(leaf, staged))
-            else:
-                f.append(tuple(self._to_device(a, staged) for a in leaf))
-        return self._device_operands(tuple(f), tuple(
-            self._to_device(np.asarray(codes[nm], dtype=np.int32), staged)
-            for nm in self._re_names
-        ))
+        flat = [self._to_device(np.asarray(a), staged)
+                for a in self._flat_host(feats, codes)]
+        return self._device_operands(*self._unflat(flat))
 
     def _device_operands(self, feats: tuple, codes: tuple) -> dict:
         """``fused_score``'s keyword operands from features and codes
@@ -297,10 +379,104 @@ class ScorePrograms:
         staged.append(pinned)
         return pinned.to(self.device, non_blocking=True)
 
-    def dispatch_padded(self, feats: dict, codes: dict, n: int) -> _Inflight:
-        """Enqueue the score of ``n`` stacked requests without waiting;
-        ``fetch_padded`` returns the scores. The split lets the queue
-        pack batch k+1 while batch k is on the device."""
+    # -- capture ----------------------------------------------------------
+
+    def compile_rung(self, batch: int) -> _RungGraph | None:
+        """Capture rung ``batch``'s CUDA graph, once (server start).
+
+        The static inputs and the graph's output come first; one eager
+        run on them (counted as the kernel's launches from Python) loads
+        everything that would otherwise load lazily inside the capture;
+        then the copies in, the score and the copy out are captured on
+        a side stream in ``thread_local`` mode, into the ladder's shared
+        pool. A failed capture raises: there is no eager fallback. On
+        the CPU there is nothing to capture and this returns None.
+        """
+        if batch not in self.stats["dispatches"]:
+            raise ValueError(
+                f"batch {batch} is not a ladder rung {self.ladder.rungs}")
+        if self.device.type != "cuda":
+            return None
+        g = self._graphs.get(batch)
+        if g is not None:
+            return g
+        t0 = time.perf_counter()
+        mem0 = torch.cuda.memory_allocated(self.device)
+        layout = self._flat_layout(batch)
+        host = [torch.zeros(shape, dtype=dt, pin_memory=True)
+                for shape, dt in layout]
+        dev = [torch.zeros(shape, dtype=dt, device=self.device)
+               for shape, dt in layout]
+        host_out = torch.zeros(batch, dtype=torch.float32, pin_memory=True)
+        for h, d, (shape, _) in zip(host, dev, layout):
+            if len(shape) == 1:  # a code vector: padding rows are cold
+                h.fill_(-1)
+                d.fill_(-1)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        ops = self._device_operands(*self._unflat(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self._score(**ops)
+            side.synchronize()
+            before = serve_kernel.captured
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                for d, h in zip(dev, host):
+                    d.copy_(h, non_blocking=True)
+                out = self._score(**ops)
+                host_out.copy_(out, non_blocking=True)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is already broken; raise its cause
+                raise
+            graph.capture_end()
+        g = _RungGraph(
+            graph=graph,
+            host_in=tuple(h.numpy() for h in host),
+            host_out=host_out.numpy(),
+            done=torch.cuda.Event(),
+            launches=serve_kernel.captured - before,
+            keep=(host, dev, host_out, out),
+        )
+        self._graphs[batch] = g
+        self.stats["programs_compiled"] += 1
+        self.stats["aot_compile_seconds"] += time.perf_counter() - t0
+        self.stats["graph_device_bytes"] += (
+            torch.cuda.memory_allocated(self.device) - mem0)
+        self.stats["graph_host_bytes"] += sum(
+            h.numel() * h.element_size() for h in host) + 4 * batch
+        return g
+
+    def compile_all(self) -> None:
+        """Capture every rung's graph (server start); the request loop
+        never captures again."""
+        for r in self.ladder.rungs:
+            self.compile_rung(r)
+
+    def release(self) -> int:
+        """Drop every captured graph and its buffers (a retired ladder,
+        after a structure swap); returns the device bytes freed."""
+        if not self._graphs:
+            return 0
+        mem0 = torch.cuda.memory_allocated(self.device)
+        for g in self._graphs.values():
+            g.done.synchronize()
+            g.graph.reset()
+            # A handle still held elsewhere must not keep the buffers.
+            g.keep = g.host_in = ()
+        self._graphs.clear()
+        return mem0 - torch.cuda.memory_allocated(self.device)
+
+    # -- dispatch ---------------------------------------------------------
+
+    def _rung_of(self, feats: dict, codes: dict) -> int:
         if not feats and not codes:
             raise ValueError("score dispatch needs at least one operand")
         some = next(iter(feats.values())) if feats else None
@@ -314,15 +490,59 @@ class ScorePrograms:
                 f"batch {batch} is not a ladder rung {self.ladder.rungs}; "
                 "pad with pack_requests first"
             )
+        return batch
+
+    def dispatch_padded(self, feats: dict, codes: dict, n: int) -> _Inflight:
+        """Enqueue the score of ``n`` stacked requests without waiting;
+        ``fetch_padded`` returns the scores. The split lets the queue
+        pack batch k+1 while batch k is on the device.
+
+        On the card: wait for the rung's last replay (its copies have
+        then read the static inputs and written its scores), fill the
+        static inputs, replay the rung's graph and record its event. On
+        the CPU: ``dispatch_eager``."""
+        batch = self._rung_of(feats, codes)
+        if self.device.type != "cuda":
+            return self.dispatch_eager(feats, codes, n)
+        g = self._graphs.get(batch)
+        if g is None:
+            raise ValueError(
+                f"rung {batch} has no captured graph: compile_rung({batch}) "
+                "or compile_all() first")
+        g.done.synchronize()
+        for dst, src in zip(g.host_in, self._flat_host(feats, codes)):
+            if dst.shape != np.shape(src):
+                raise ValueError(f"operand of shape {np.shape(src)} for a "
+                                 f"static input of shape {dst.shape}")
+            dst[...] = src
+        g.graph.replay()
+        g.done.record()
+        g.seq += 1
+        self.stats["dispatches"][batch] += 1
+        serve_kernel.replay_launches += g.launches
+        return _Inflight(batch=batch, n=n, graph=g, seq=g.seq)
+
+    def dispatch_eager(self, feats: dict, codes: dict, n: int) -> _Inflight:
+        """The eager dispatch: copies and the score issued from Python
+        (the CPU's dispatch; on the card, the yardstick for a replay)."""
+        batch = self._rung_of(feats, codes)
         staged: list = []
         out = self._score(**self.operands(feats, codes, staged))
         self.stats["dispatches"][batch] += 1
-        return _Inflight(out=out, staged=tuple(staged), batch=batch, n=n)
+        return _Inflight(batch=batch, n=n, out=out, staged=tuple(staged))
 
     def fetch_padded(self, handle: _Inflight) -> np.ndarray:
         """Wait for a dispatched rung; its first ``n`` scores as numpy
         (the one host sync of the request path)."""
-        return handle.out[: handle.n].cpu().numpy()
+        g = handle.graph
+        if g is None:
+            return handle.out[: handle.n].cpu().numpy()
+        if handle.seq != g.seq:
+            raise RuntimeError(
+                f"rung {handle.batch} was dispatched again before this "
+                "dispatch was fetched; its scores are gone")
+        g.done.synchronize()
+        return g.host_out[: handle.n].copy()
 
     def score_padded(self, feats: dict, codes: dict, n: int) -> np.ndarray:
         """Dispatch and fetch in one call."""

@@ -1,5 +1,5 @@
-"""The serving micro-batch queue (a thin port of
-``photon_tpu/serve/queue.py``).
+"""The serving micro-batch queue: bounded, lingering, draining, degrading
+(port of ``photon_tpu/serve/queue.py``).
 
 One worker thread owns every dispatch; producers hand
 ``(features, entity_ids)`` pairs to ``submit`` and get a future back. A
@@ -8,19 +8,61 @@ ladder's top rung) or when its oldest request has lingered
 ``max_linger_s``. The queue is bounded (``max_queue``): producers block
 for space.
 
-Staging is double-buffered: while batch k is on the device the worker
-pops and packs batch k+1, so host packing overlaps the device round
-trip. ``close`` drains everything queued and resolves every future;
-``quiesce`` parks the worker between batches.
+Degraded mode. Deadlines, shedding and the circuit breaker are off by
+default; dispatch retry is on (``dispatch_retry=_DISPATCH_RETRY``: 3
+attempts, 5 ms base backoff), and ``dispatch_retry=None`` fails on the
+first attempt.
 
-Not ported yet: deadlines, shedding, the circuit breaker, dispatch
-retry, hotness sketches, SLO tracking, metrics families and
-``reload_model``.
+- **Deadlines**: a request submitted with ``deadline_s`` (or the
+  queue's ``default_deadline_s``) that is still queued when it expires
+  fails with ``DeadlineExceededError`` before any device work is spent
+  on it. A deadline also cuts the linger short: a batch whose earliest
+  deadline would lapse mid-linger flushes ``_DEADLINE_FLUSH_SLACK_S``
+  early, so a deadline tighter than the linger is served.
+- **Shedding**: with ``shed_watermark`` set, a submit that finds that
+  many requests queued is rejected at once with ``OverloadedError``.
+- **Circuit breaker**: ``breaker_threshold`` consecutive dispatch
+  failures open the breaker: the pending deque and the staged batch
+  fail with ``CircuitOpenError``, new submits fail fast, and
+  ``reset_breaker()`` re-arms it.
+- **Dispatch retry**: transient failures (``TransientError``, such as
+  the injected ``serve.dispatch`` fault, and the CUDA codes
+  ``resilience.errors.is_transient`` retries) are retried with backoff
+  before any error fans out; a deterministic failure (``PoisonError``, a
+  malformed request, a sticky CUDA error) fans out to its batch only.
+- **health()**: one locked snapshot of queue depth, the degraded-mode
+  counters and the tables' generation.
+- **reload_model() / quiesce()**: a hot model swap on the live queue.
+  A values-only refresh is copied into the live tables in place, so the
+  captured graphs, which hold the tables' device pointers, serve it with
+  nothing recaptured. A structure change builds and captures the new
+  generation's ladder off the request path, then swaps tables and the
+  queue's program binding inside one ``quiesce`` window (the worker
+  parks before popping; producers keep queueing; nothing is dropped).
+
+Staging is double-buffered: while batch k is on the device the worker
+pops and packs batch k+1 into fresh host arrays, so packing overlaps the
+device round trip; batch k+1's dispatch copies them into the rung's
+static buffers only after batch k's scores were fetched.
+``pipeline_staging=False`` gives the serial worker, the parity
+reference for the staged one.
+
+``close()`` drains everything queued and resolves every future.
+``close(timeout=...)`` (and ``close_timeout_s`` for the ``with`` exit)
+bounds the drain: past it every still-queued future fails with
+``ShutdownError`` and close returns False; the worker is a daemon, so a
+wedged dispatch cannot hang process exit.
+
+Not ported: the JAX package's request traces, latency windows, SLO
+tracking, hotness sketches and metric families (ROADMAP Queue A item
+10).
 
 Threading: ``_cond`` (a Condition, which is also the mutex) guards the
-pending deque, the closed and pause flags, the staged slot and the
-counters. The worker takes a batch under the lock and dispatches and
-resolves futures outside it.
+pending deque, the closed, stranded, pause and dispatching flags, the
+breaker state, the staged slot, ``programs`` and the counters. The
+worker takes a batch under the lock and dispatches outside it; every
+future resolution (results, errors, expiry, breaker drain, shutdown
+strand) runs outside it too, because resolution runs callbacks.
 """
 
 from __future__ import annotations
@@ -32,6 +74,15 @@ import threading
 import time
 
 import numpy as np
+
+from photon_tpu_torch.resilience import faults
+from photon_tpu_torch.resilience import retry as _retry
+from photon_tpu_torch.resilience.errors import (
+    CircuitOpenError,
+    DeadlineExceededError,
+    OverloadedError,
+    ShutdownError,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -104,25 +155,56 @@ class _Future:
 
 
 class _Request:
-    __slots__ = ("features", "entity_ids", "future", "enqueued_at")
+    __slots__ = ("features", "entity_ids", "future", "enqueued_at",
+                 "deadline")
 
-    def __init__(self, features: dict, entity_ids: dict):
+    def __init__(self, features: dict, entity_ids: dict,
+                 deadline_s: float | None = None):
         self.features = features
         self.entity_ids = entity_ids
         self.future = _Future()
         self.enqueued_at = time.perf_counter()
+        self.deadline = (None if deadline_s is None
+                         else self.enqueued_at + float(deadline_s))
 
 
 class _Staged:
     """A batch popped and packed while the previous one was in flight.
-    ``packed`` is None when packing raised; the dispatch then packs
-    again and reports the error to the batch."""
+    ``programs`` pins the generation it was packed against: after a
+    structure reload adopted new programs its codes name the old
+    vocabulary, so ``_dispatch`` packs again. ``packed`` is None when
+    packing raised; the dispatch then packs again and reports the error
+    to the batch."""
 
-    __slots__ = ("requests", "packed")
+    __slots__ = ("requests", "packed", "programs")
 
-    def __init__(self, requests, packed):
+    def __init__(self, requests, packed, programs):
         self.requests = requests
         self.packed = packed
+        self.programs = programs
+
+
+# Two quick re-attempts: a transient dispatch failure clears in
+# milliseconds or not at all, and a long backoff stacks onto the latency
+# of every request queued behind the batch.
+_DISPATCH_RETRY = _retry.RetryPolicy(
+    max_attempts=3, base_delay_s=0.005, max_delay_s=0.1
+)
+
+# How far before the earliest pending deadline the linger flushes:
+# waking at the deadline itself would expire the request in the scan
+# meant to save it, and Condition.wait oversleeps by scheduler jitter.
+_DEADLINE_FLUSH_SLACK_S = 25e-3
+
+# The JAX package's live-monitoring defaults; other values ask for
+# ROADMAP Queue A item 10.
+_LATENCY_WINDOW_S, _LATENCY_WINDOWS, _HOTNESS_K = 10.0, 6, 64
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    from photon_tpu_torch import optim
+
+    return optim.not_ported(what, 10)
 
 
 class MicroBatchQueue:
@@ -135,7 +217,23 @@ class MicroBatchQueue:
         max_batch: int | None = None,
         max_linger_s: float = 0.002,
         max_queue: int = 4096,
+        default_deadline_s: float | None = None,
+        shed_watermark: int | None = None,
+        breaker_threshold: int | None = None,
+        dispatch_retry: "_retry.RetryPolicy | None" = _DISPATCH_RETRY,
+        pipeline_staging: bool = True,
+        close_timeout_s: float | None = None,
+        slo=None,
+        latency_window_s: float = _LATENCY_WINDOW_S,
+        latency_windows: int = _LATENCY_WINDOWS,
+        hotness_k: int = _HOTNESS_K,
     ):
+        if slo is not None:
+            raise _not_ported("the serve queue's SLO tracking")
+        if (latency_window_s, latency_windows, hotness_k) != (
+                _LATENCY_WINDOW_S, _LATENCY_WINDOWS, _HOTNESS_K):
+            raise _not_ported(
+                "the serve queue's latency windows and hotness sketches")
         self.programs = programs
         top = programs.ladder.max_batch
         self.max_batch = min(
@@ -145,12 +243,29 @@ class MicroBatchQueue:
             raise ValueError("max_batch must be >= 1")
         self.max_linger_s = float(max_linger_s)
         self.max_queue = max(int(max_queue), self.max_batch)
+        self.default_deadline_s = default_deadline_s
+        self.shed_watermark = (None if shed_watermark is None
+                               else max(int(shed_watermark), 1))
+        self.breaker_threshold = (None if breaker_threshold is None
+                                  else max(int(breaker_threshold), 1))
+        self.dispatch_retry = dispatch_retry
+        self.pipeline_staging = bool(pipeline_staging)
+        self.close_timeout_s = close_timeout_s
         self._cond = threading.Condition()
         self._pending: collections.deque[_Request] = collections.deque()
         self._closed = False
+        self._close_stranded = False
+        self._breaker_open = False
+        self._consecutive_failures = 0
+        # While ``_paused`` the worker parks before popping;
+        # ``_dispatching`` is True from a batch's pop to its dispatch's
+        # return, so ``quiesce`` can wait out the batch in flight.
         self._paused = False
         self._dispatching = False
         self._staged: _Staged | None = None
+        # Latched by the first deadline-bearing submit, so the expiry
+        # scan stays off the clean path.
+        self._has_deadlines = default_deadline_s is not None
         self._stats = {
             "requests": 0,
             "batches": 0,
@@ -159,6 +274,12 @@ class MicroBatchQueue:
             "entity_lookups": 0,
             "rejected": 0,
             "dispatch_errors": 0,
+            "dispatch_retries": 0,
+            "deadline_expired": 0,
+            "shed": 0,
+            "breaker_trips": 0,
+            "breaker_rejected": 0,
+            "shutdown_stranded": 0,
             # staged_batches: batches packed ahead of their dispatch;
             # staging_seconds: all host pack time;
             # staging_overlapped_seconds: the part hidden behind a
@@ -169,7 +290,7 @@ class MicroBatchQueue:
         }
         self._coord_stats = {
             name: {"entity_lookups": 0, "cold_lookups": 0}
-            for name in programs.tables.random
+            for name in self._random_tables(programs)
         }
         self._thread = threading.Thread(
             target=self._worker, name="photon-torch-serve-worker",
@@ -178,39 +299,110 @@ class MicroBatchQueue:
         )
         self._thread.start()
 
+    @staticmethod
+    def _random_tables(programs) -> dict:
+        return getattr(getattr(programs, "tables", None), "random",
+                       None) or {}
+
     # -- producer side ----------------------------------------------------
 
-    def submit(self, features: dict, entity_ids: dict | None = None):
-        """Queue one request; returns its future. ``features`` maps
-        shard id -> the spec's request leaf, ``entity_ids`` maps
-        random-effect type -> entity key. Blocks while the queue is
-        full; raises ``QueueClosed`` after ``close``."""
-        req = _Request(features, dict(entity_ids or {}))
+    def submit(self, features: dict, entity_ids: dict | None = None,
+               *, deadline_s: float | None = None):
+        """Queue one request; returns its future.
+
+        ``features`` maps shard id -> the spec's request leaf,
+        ``entity_ids`` maps random-effect type -> entity key, and
+        ``deadline_s`` (default: the queue's ``default_deadline_s``)
+        bounds how long it may wait queued. Blocks while the queue holds
+        ``max_queue`` requests unless ``shed_watermark`` rejects first;
+        raises ``QueueClosed``, ``CircuitOpenError`` or
+        ``OverloadedError`` instead of queueing.
+        """
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        req = _Request(features, dict(entity_ids or {}), deadline_s)
         with self._cond:
-            while not self._closed and len(self._pending) >= self.max_queue:
+            while True:
+                if self._closed:
+                    self._stats["rejected"] += 1
+                    raise QueueClosed("serve queue is closed")
+                if self._breaker_open:
+                    self._stats["breaker_rejected"] += 1
+                    raise CircuitOpenError(
+                        "serve dispatch circuit breaker is open (tripped "
+                        f"after {self.breaker_threshold} consecutive batch "
+                        "failures); reset_breaker() to resume")
+                if (self.shed_watermark is not None
+                        and len(self._pending) >= self.shed_watermark):
+                    self._stats["shed"] += 1
+                    raise OverloadedError(
+                        f"serve queue depth {len(self._pending)} is at the "
+                        f"shed watermark {self.shed_watermark}; request "
+                        "rejected instead of queued")
+                if len(self._pending) < self.max_queue:
+                    break
                 self._cond.wait()
-            if self._closed:
-                self._stats["rejected"] += 1
-                raise QueueClosed("serve queue is closed")
+            if req.deadline is not None:
+                self._has_deadlines = True
             self._pending.append(req)
             self._stats["requests"] += 1
             self._cond.notify_all()
         return req.future
 
     def close(self, timeout: float | None = None) -> bool:
-        """Stop accepting requests, drain the queue, join the worker.
-        Returns False when the worker did not finish within
-        ``timeout``."""
+        """Stop accepting requests, drain everything queued, join the
+        worker. Idempotent.
+
+        ``timeout`` bounds the drain and join: past it, every request
+        still queued (never handed to the worker) fails with
+        ``ShutdownError`` and close returns False; the batch in flight
+        stays with the worker, which resolves it if its dispatch ever
+        returns. Once a bounded close has stranded the queue, a later
+        ``close()`` without a timeout polls the worker instead of
+        joining it forever.
+        """
         with self._cond:
             self._closed = True
+            already_stranded = self._close_stranded
             self._cond.notify_all()
+        if already_stranded and timeout is None:
+            timeout = 0.0
         self._thread.join(timeout)
-        return not self._thread.is_alive()
+        if not self._thread.is_alive():
+            return True
+        if already_stranded:
+            return False
+        with self._cond:
+            self._close_stranded = True
+            stranded = list(self._pending)
+            self._pending.clear()
+            self._stats["shutdown_stranded"] += len(stranded)
+            self._cond.notify_all()
+        logger.error(
+            "serve queue close(): drain did not finish in %.3fs; failing "
+            "%d still-queued request(s) with ShutdownError",
+            timeout, len(stranded))
+        exc = ShutdownError(
+            f"serve queue drain exceeded its {timeout}s close timeout; "
+            "request abandoned before dispatch")
+        for r in stranded:
+            r.future.set_exception(exc)
+        return False
+
+    def reset_breaker(self) -> None:
+        """Re-arm a tripped dispatch circuit breaker (after the failure
+        behind it was dealt with)."""
+        with self._cond:
+            self._breaker_open = False
+            self._consecutive_failures = 0
+            self._cond.notify_all()
 
     @contextlib.contextmanager
     def quiesce(self):
         """Hold dispatch for the block: entering waits out the batch in
-        flight; producers keep queueing meanwhile."""
+        flight; while held the worker parks before popping and producers
+        keep queueing. Not reentrant; ``close()`` overrides a held pause
+        so shutdown still drains."""
         with self._cond:
             self._paused = True
             while self._dispatching:
@@ -222,14 +414,97 @@ class MicroBatchQueue:
                 self._paused = False
                 self._cond.notify_all()
 
+    def _adopt_programs_locked(self, programs) -> None:
+        """Rebind the queue to a new generation's ``ScorePrograms``
+        (the caller holds ``_cond`` and the quiesce pause, so no
+        dispatch straddles generations). Per-coordinate counters carry
+        over where the coordinate survives and start at zero where it
+        is new."""
+        self.programs = programs
+        self.max_batch = min(self.max_batch, programs.ladder.max_batch)
+        self._coord_stats = {
+            name: self._coord_stats.get(
+                name, {"entity_lookups": 0, "cold_lookups": 0})
+            for name in self._random_tables(programs)
+        }
+
+    def reload_model(self, model) -> dict:
+        """Hot-swap a refreshed ``GameModel`` into the live queue.
+
+        Values-only delta (a daily retrain): the new coefficients are
+        copied into the live tables in place; the captured graphs read
+        them at their next replay and nothing is recaptured. On the card
+        the copy is ordered on the stream between two replays and needs
+        no pause; on the CPU the worker's eager dispatch reads the
+        tables from its own thread, so the copy waits out the batch in
+        flight (``quiesce``) rather than tear a row under it.
+
+        Structure change: the new tables and their ladder (one graph
+        captured per rung, on a side stream) are built off the request
+        path while the old generation serves, then swapped in with the
+        queue's program binding inside one ``quiesce`` window, and the
+        old ladder's graphs are released. No queued request is dropped.
+
+        Returns ``values_only``, ``generation``, ``programs_compiled``
+        (graphs captured), and for a structure change
+        ``capture_seconds``, ``quiesce_seconds`` (how long the worker
+        was parked), ``graph_device_bytes`` of the new ladder and
+        ``released_device_bytes`` of the old one.
+        """
+        from photon_tpu_torch.serve.tables import CoefficientTables
+
+        tables = self.programs.tables
+        # Built at the live precision and device: a bf16 queue
+        # reloading an f32-trained model stays values-only.
+        new = CoefficientTables.from_game_model(
+            model, tables.precision, tables.device)
+        if tables._values_only_delta(new):
+            if tables.device.type == "cuda":
+                tables._reload_built(new)
+            else:
+                with self.quiesce():
+                    tables._reload_built(new)
+            return {"values_only": True, "generation": tables.generation,
+                    "programs_compiled": 0}
+
+        old = self.programs
+        parked: dict = {}
+
+        @contextlib.contextmanager
+        def timed_quiesce():
+            t0 = time.perf_counter()
+            with self.quiesce():
+                yield
+            parked["quiesce_seconds"] = time.perf_counter() - t0
+
+        def adopt(new_programs):
+            with self._cond:
+                self._adopt_programs_locked(new_programs)
+
+        new_programs = tables.rebuild_from(
+            model, programs=old, quiesce=timed_quiesce, adopt=adopt,
+            prebuilt=new)
+        released = old.release()
+        stats = new_programs.stats
+        return {
+            "values_only": False,
+            "generation": tables.generation,
+            "programs_compiled": stats["programs_compiled"],
+            "capture_seconds": stats["aot_compile_seconds"],
+            "quiesce_seconds": parked["quiesce_seconds"],
+            "graph_device_bytes": stats["graph_device_bytes"],
+            "released_device_bytes": released,
+        }
+
     def __enter__(self) -> "MicroBatchQueue":
         return self
 
     def __exit__(self, *exc) -> None:
-        self.close()
+        self.close(self.close_timeout_s)
 
     def stats(self) -> dict:
-        """Snapshot of the counters, with per-coordinate lookups."""
+        """Snapshot of the counters, with derived fill, cold and overlap
+        rates and the per-coordinate lookups."""
         with self._cond:
             snap = dict(self._stats)
             snap["queued_now"] = len(self._pending)
@@ -242,147 +517,330 @@ class MicroBatchQueue:
                 if cs["entity_lookups"] else None
             )
         snap["per_coordinate"] = per_coord
+        batches = snap["batches"]
+        snap["batch_fill_fraction"] = (
+            round(snap["batched_requests"] / (batches * self.max_batch), 4)
+            if batches else None)
         snap["mean_batch_size"] = (
-            round(snap["batched_requests"] / snap["batches"], 2)
-            if snap["batches"] else None
-        )
+            round(snap["batched_requests"] / batches, 2)
+            if batches else None)
         snap["cold_entity_rate"] = (
             round(snap["cold_lookups"] / snap["entity_lookups"], 4)
             if snap["entity_lookups"] else None
         )
+        snap["staging_overlap_fraction"] = self._overlap(snap)
         return snap
+
+    @staticmethod
+    def _overlap(stats: dict) -> float | None:
+        """Share of the host pack time hidden behind a batch in flight
+        (0 on the serial worker, None before any pack)."""
+        if stats["staging_seconds"] <= 0:
+            return None
+        return round(stats["staging_overlapped_seconds"]
+                     / stats["staging_seconds"], 4)
+
+    def health(self) -> dict:
+        """One consistent degraded-mode snapshot: queue depth, breaker
+        state, the shed, deadline, error, retry, breaker and shutdown
+        counters, the configuration and the tables' reload generation.
+        The JAX package's ``window_latency`` and ``slo`` blocks belong
+        to ROADMAP Queue A item 10."""
+        with self._cond:
+            s = self._stats
+            per_coord = {
+                nm: dict(cs) for nm, cs in self._coord_stats.items()
+            }
+            snap = {
+                "queue_depth": len(self._pending),
+                "closed": self._closed,
+                "breaker_open": self._breaker_open,
+                "consecutive_failures": self._consecutive_failures,
+                **{k: s[k] for k in (
+                    "requests", "shed", "deadline_expired",
+                    "dispatch_errors", "dispatch_retries", "breaker_trips",
+                    "breaker_rejected", "shutdown_stranded",
+                    "staged_batches")},
+                "staging_overlap_fraction": self._overlap(s),
+            }
+            generation = getattr(self.programs.tables, "generation", 0)
+        snap["pipeline_staging"] = self.pipeline_staging
+        snap["max_queue"] = self.max_queue
+        snap["shed_watermark"] = self.shed_watermark
+        snap["breaker_threshold"] = self.breaker_threshold
+        snap["default_deadline_s"] = self.default_deadline_s
+        snap["table_generation"] = generation
+        snap["cold_entity_rate_by_coordinate"] = {
+            nm: (round(cs["cold_lookups"] / cs["entity_lookups"], 4)
+                 if cs["entity_lookups"] else None)
+            for nm, cs in per_coord.items()
+        }
+        return snap
+
+    def hotness_top(self, n: int = 10) -> dict:
+        raise _not_ported("the serve queue's hotness sketches")
+
+    def metrics_families(self) -> list[dict]:
+        raise _not_ported("the serve queue's /metrics families")
 
     # -- worker side ------------------------------------------------------
 
+    def _expire_locked(self) -> list[_Request]:
+        """Pull every pending request whose deadline has passed (the
+        caller holds ``_cond``; the caller resolves them outside it).
+        Skipped until a deadline-bearing request was ever submitted."""
+        if not self._has_deadlines or not self._pending:
+            return []
+        now = time.perf_counter()
+        expired = [r for r in self._pending
+                   if r.deadline is not None and now >= r.deadline]
+        if expired:
+            self._pending = collections.deque(
+                r for r in self._pending
+                if r.deadline is None or now < r.deadline)
+            self._stats["deadline_expired"] += len(expired)
+            self._cond.notify_all()  # space freed: wake producers
+        return expired
+
     def _pop_locked(self) -> list[_Request]:
-        batch = [
-            self._pending.popleft()
-            for _ in range(min(len(self._pending), self.max_batch))
-        ]
-        self._stats["batches"] += 1
-        self._stats["batched_requests"] += len(batch)
+        batch = [self._pending.popleft()
+                 for _ in range(min(len(self._pending), self.max_batch))]
+        if batch:
+            self._stats["batches"] += 1
+            self._stats["batched_requests"] += len(batch)
         self._cond.notify_all()  # space freed: wake producers
         return batch
 
-    def _take_batch(self) -> list[_Request] | None:
-        """Block for the next batch per the flush policy; None once the
-        queue is closed and drained."""
+    def _take_batch(self):
+        """Block for the next batch per the flush policy.
+
+        Returns ``(batch, expired)``: ``batch`` is None once the queue is
+        closed and drained, and empty when this round only expired
+        requests; ``expired`` failed their deadline while queued and are
+        resolved by the caller, outside the lock, before any device work
+        is spent on the batch.
+        """
         with self._cond:
             while True:
+                # Quiesced: park without popping; close() overrides the
+                # pause so a quiesced queue still drains.
                 while self._paused and not self._closed:
                     self._cond.wait()
+                expired = self._expire_locked()
                 if self._pending:
-                    linger_end = (
-                        self._pending[0].enqueued_at + self.max_linger_s
-                    )
-                    while (
-                        len(self._pending) < self.max_batch
-                        and not self._closed
-                        and not self._paused
-                    ):
-                        remaining = linger_end - time.perf_counter()
+                    linger_end = (self._pending[0].enqueued_at
+                                  + self.max_linger_s)
+                    while (len(self._pending) < self.max_batch
+                           and not self._closed and not self._paused):
+                        flush_at = linger_end
+                        if self._has_deadlines:
+                            earliest = min(
+                                (r.deadline for r in self._pending
+                                 if r.deadline is not None),
+                                default=None)
+                            if earliest is not None:
+                                flush_at = min(
+                                    flush_at,
+                                    earliest - _DEADLINE_FLUSH_SLACK_S)
+                        remaining = flush_at - time.perf_counter()
                         if remaining <= 0:
                             break
                         self._cond.wait(timeout=remaining)
+                    # A quiesce can begin during the linger: park again
+                    # before popping, handing back what already expired.
                     if self._paused and not self._closed:
-                        continue  # a quiesce began during the linger
-                    self._dispatching = True
-                    return self._pop_locked()
-                if self._closed:
-                    return None
+                        if expired:
+                            return [], expired
+                        continue
+                    # Deadlines may have lapsed during the linger; no
+                    # request reaches dispatch already dead.
+                    expired.extend(self._expire_locked())
+                    batch = self._pop_locked()
+                    if batch:
+                        # Under the same hold that popped it: a quiescer
+                        # entering now waits for this dispatch.
+                        self._dispatching = True
+                    return batch, expired
+                if self._closed or expired:
+                    return (None if self._closed else []), expired
                 self._cond.wait()
 
+    @staticmethod
+    def _resolve_expired(expired: list[_Request]) -> None:
+        """Fail a round's expired requests (worker thread, outside the
+        lock)."""
+        if not expired:
+            return
+        exc = DeadlineExceededError(
+            "request deadline expired while queued; failed before "
+            "dispatch")
+        for r in expired:
+            r.future.set_exception(exc)
+
     def _pop_staged(self) -> _Staged | None:
+        """Claim the staged batch, if any. Parks while quiesced, as
+        ``_take_batch`` does; ``_dispatching`` turns True under the hold
+        that claims the batch."""
         with self._cond:
             while self._paused and not self._closed:
                 self._cond.wait()
             staged, self._staged = self._staged, None
             if staged is not None:
                 self._dispatching = True
+                self._cond.notify_all()
             return staged
 
     def _stage_next(self) -> None:
         """Pop and pack the next batch while the current one is on the
         device. Pops only what the flush policy would release now (a
         full batch, a head request past its linger, or a closing
-        queue's drain) and never waits."""
+        queue's drain) and never waits; no-ops when a batch is already
+        staged (a retried dispatch) or the queue is quiesced."""
         with self._cond:
             if self._staged is not None or self._paused:
                 return
+            expired = self._expire_locked()
             flush = bool(self._pending) and (
                 len(self._pending) >= self.max_batch
                 or self._closed
                 or self._pending[0].enqueued_at + self.max_linger_s
                 <= time.perf_counter()
             )
-            if not flush:
-                return
-            reqs = self._pop_locked()
-            self._stats["staged_batches"] += 1
+            reqs = self._pop_locked() if flush else []
+            if reqs:
+                self._stats["staged_batches"] += 1
+        self._resolve_expired(expired)
+        if not reqs:
+            return
         t0 = time.perf_counter()
         try:
             packed = self.programs.pack_requests(
-                [(r.features, r.entity_ids) for r in reqs]
-            )
+                [(r.features, r.entity_ids) for r in reqs])
         except Exception:  # noqa: BLE001 - a malformed request fails
-            # on the dispatch path, where its batch's futures get the
-            # error; it must not break the fetch of the batch in flight.
+            # on the dispatch path, where retry, the breaker and its
+            # batch's futures handle it; it must not break the fetch of
+            # the batch in flight.
             packed = None
         dt = time.perf_counter() - t0
         with self._cond:
-            self._staged = _Staged(reqs, packed)
+            self._staged = _Staged(reqs, packed, self.programs)
             self._stats["staging_seconds"] += dt
             self._stats["staging_overlapped_seconds"] += dt
+            self._cond.notify_all()
 
     def _worker(self) -> None:
         while True:
+            # A staged batch goes first: its requests are off the
+            # pending deque already, and close() must drain them.
             staged = self._pop_staged()
             if staged is not None:
-                batch, packed = staged.requests, staged.packed
+                batch = staged.requests
             else:
-                batch, packed = self._take_batch(), None
+                batch, expired = self._take_batch()
+                self._resolve_expired(expired)
                 if batch is None:
                     return
+                if not batch:
+                    continue
             try:
-                self._dispatch(batch, packed)
+                self._dispatch(batch, staged)
             finally:
                 with self._cond:
                     self._dispatching = False
                     self._cond.notify_all()
 
-    def _dispatch(self, batch: list[_Request], packed) -> None:
-        """Pack (unless staged), score and resolve one batch. Any
-        exception goes to this batch's futures; the worker serves on."""
-        try:
-            if packed is None:
+    def _dispatch(self, batch: list[_Request],
+                  staged: _Staged | None = None) -> None:
+        """Pack (unless staged for this generation), score and resolve
+        one batch, outside the lock. On the pipelined path the dispatch
+        is split: enqueue (``dispatch_padded``), pack the next batch
+        while it runs, then fetch. Transient failures retry with backoff
+        (``dispatch_retry``) around ``faults.check("serve.dispatch")``
+        and the dispatch; anything else fans out to this batch's futures
+        and feeds the breaker's consecutive-failure count."""
+
+        def attempt():
+            if (staged is not None and staged.packed is not None
+                    and staged.programs is self.programs):
+                feats, codes, _rung = staged.packed
+            else:
                 t0 = time.perf_counter()
-                packed = self.programs.pack_requests(
-                    [(r.features, r.entity_ids) for r in batch]
-                )
+                feats, codes, _rung = self.programs.pack_requests(
+                    [(r.features, r.entity_ids) for r in batch])
                 with self._cond:
                     self._stats["staging_seconds"] += (
-                        time.perf_counter() - t0
-                    )
-            feats, codes, _rung = packed
+                        time.perf_counter() - t0)
             cold_by_coord = {
                 nm: int(np.sum(vec[: len(batch)] < 0))
                 for nm, vec in codes.items()
             }
-            handle = self.programs.dispatch_padded(feats, codes, len(batch))
-            self._stage_next()
-            scores = self.programs.fetch_padded(handle)
+            dp = getattr(self.programs, "dispatch_padded", None)
+            if self.pipeline_staging and dp is not None:
+                handle = dp(feats, codes, len(batch))
+                self._stage_next()
+                scores = self.programs.fetch_padded(handle)
+            else:
+                # The serial worker, or a programs object without the
+                # split dispatch and fetch.
+                scores = self.programs.score_padded(feats, codes,
+                                                    len(batch))
+            return cold_by_coord, len(codes) * len(batch), scores
+
+        def on_retry(attempt_no, exc):
+            with self._cond:
+                self._stats["dispatch_retries"] += 1
+
+        try:
+            if self.dispatch_retry is not None:
+                cold_by_coord, lookups, scores = _retry.retrying_check(
+                    "serve.dispatch", attempt, site="serve.dispatch",
+                    policy=self.dispatch_retry, on_retry=on_retry)
+            else:
+                faults.check("serve.dispatch")
+                cold_by_coord, lookups, scores = attempt()
         except Exception as exc:  # noqa: BLE001 - fan out to the waiters
+            drained: list[_Request] = []
             with self._cond:
                 self._stats["dispatch_errors"] += 1
+                self._consecutive_failures += 1
+                tripped = (
+                    self.breaker_threshold is not None
+                    and not self._breaker_open
+                    and self._consecutive_failures >= self.breaker_threshold
+                )
+                if tripped:
+                    self._breaker_open = True
+                    self._stats["breaker_trips"] += 1
+                    drained = list(self._pending)
+                    self._pending.clear()
+                    # The staged batch is off the deque but not yet
+                    # dispatched: its futures would strand otherwise.
+                    if self._staged is not None:
+                        drained.extend(self._staged.requests)
+                        self._staged = None
+                    self._cond.notify_all()
             for r in batch:
                 r.future.set_exception(exc)
+            if tripped:
+                logger.error(
+                    "serve dispatch circuit breaker OPEN after %d "
+                    "consecutive batch failure(s) (last: %r); drained %d "
+                    "queued request(s)",
+                    self._consecutive_failures, exc, len(drained))
+                drain_exc = CircuitOpenError(
+                    "serve dispatch circuit breaker opened while this "
+                    f"request was queued (last failure: {exc!r})")
+                for r in drained:
+                    r.future.set_exception(drain_exc)
             return
+        cold = sum(cold_by_coord.values())
         with self._cond:
-            for nm, cold in cold_by_coord.items():
+            self._consecutive_failures = 0
+            self._stats["cold_lookups"] += cold
+            self._stats["entity_lookups"] += lookups
+            for nm, c in cold_by_coord.items():
                 cs = self._coord_stats[nm]
                 cs["entity_lookups"] += len(batch)
-                cs["cold_lookups"] += cold
-                self._stats["entity_lookups"] += len(batch)
-                self._stats["cold_lookups"] += cold
+                cs["cold_lookups"] += c
         for r, s in zip(batch, scores):
             r.future.set_result(float(s))

@@ -8,10 +8,13 @@ entity key -> row. An entity missing from the map gets code -1 and
 scores through the fixed effects only.
 
 ``reload`` with unchanged structure copies the new values into the live
-tensors in place (torch has no buffer donation), so the score ladder
-keeps serving the same tensors; a structure change rebuilds the tables
-and returns False, and the caller builds new ``ScorePrograms``
-(``rebuild_from`` does both steps). ``build_index_maps_from_model``
+tensors in place (the JAX package's donated swap writes the old
+buffers' memory the same way): the score ladder's captured CUDA graphs
+hold these tensors' device pointers, so a rebound tensor would go on
+being served from the old one with no error. A structure change
+rebuilds the tables and returns False, and the caller builds new
+``ScorePrograms``; ``rebuild_from`` does the whole swap, with the new
+ladder built before a ``quiesce`` window. ``build_index_maps_from_model``
 gives a standalone server the feature index maps of an Avro model
 directory.
 """
@@ -220,26 +223,57 @@ class CoefficientTables:
         self.task = new.task
         return True
 
-    def rebuild_from(self, model: GameModel, *, programs=None, adopt=None):
-        """A reload of any kind, with the score ladder rebuilt when the
+    def rebuild_from(
+        self,
+        model: GameModel,
+        *,
+        programs=None,
+        quiesce=None,
+        adopt=None,
+        prebuilt: "CoefficientTables | None" = None,
+    ):
+        """A reload of any kind, the score ladder rebuilt when the
         structure changed.
 
-        A values-only delta is copied in place (``reload``) and returns
-        None. A structure change swaps the new generation's tables in
-        (the caller guarantees no live dispatch) and, when ``programs``
-        (the live ``ScorePrograms``) is given, builds a new ladder with
-        the same rungs over them; ``adopt``, when given, receives it.
-        Returns the new ``ScorePrograms`` (None without ``programs``).
+        A values-only delta is copied in place (``_reload_built``) and
+        returns None. Otherwise the new generation's tables (``prebuilt``
+        when the caller built them already) and, when ``programs`` (the
+        live ``ScorePrograms``) is given, a new ladder with the same
+        rungs and request layout over them (its graphs captured on the
+        card) are built first, while the old generation keeps serving.
+        Then, inside ``quiesce()`` (a context-manager factory such as
+        ``MicroBatchQueue.quiesce``; None: the caller guarantees no live
+        dispatch), the tables swap in, the generation moves on, the new
+        ladder is rebound to this tables object and ``adopt`` (when
+        given) receives it. Returns the new ``ScorePrograms`` (None
+        without ``programs``).
         """
+        import contextlib
+
         from photon_tpu_torch.serve.programs import ScorePrograms
 
-        if self.reload(model):
+        new = prebuilt if prebuilt is not None else (
+            CoefficientTables.from_game_model(model, self.precision,
+                                              self.device))
+        if self._values_only_delta(new):
+            self._reload_built(new)
             return None
         new_programs = None
         if programs is not None:
-            new_programs = ScorePrograms(self, ladder=programs.ladder)
-        if adopt is not None:
-            adopt(new_programs)
+            new_programs = ScorePrograms(new, ladder=programs.ladder,
+                                         specs=programs.given_specs)
+        ctx = quiesce() if quiesce is not None else contextlib.nullcontext()
+        with ctx:
+            self.generation += 1
+            self.fixed = new.fixed
+            self.random = new.random
+            self.task = new.task
+            if new_programs is not None:
+                # The swapped dicts hold the very tensors the new
+                # graphs were captured on.
+                new_programs.tables = self
+            if adopt is not None:
+                adopt(new_programs)
         return new_programs
 
 
