@@ -112,6 +112,14 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
 4 coordinate-descent iterations; nothing cut):
 
 7.  train_data     - numpy data, the copy to the card, the host planner;
+7a. planner_logistic - the same prepare with PHOTON_TPU_SERIAL_INGEST=1
+                     on a fresh estimator, then pipelined again: the
+                     seconds of the three, each one's PIPELINE_STATS
+                     report and packed
+                     transfers (bytes, chunks, seconds), ``os.cpu_count()``,
+                     PHOTON_TPU_INGEST_THREADS and ``torch.get_num_threads()``;
+                     gate: every run's packed plan buffers equal to the
+                     first's on the card;
 8.  newton_parity  - three Newton steps on the largest user and movie
                      buckets: the CUDA kernel, ``newton_step_plain`` in
                      f32 and in float64, on the card. The kernel's
@@ -236,6 +244,45 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      and entities on the card and on the CPU
                      (``device="cpu"``) within route_agreement's
                      tolerances, training losses within 1e-4.
+14d. stream_cli    - run right after 14a, on its configuration and its
+                     training rows, which 14a writes as 16 part files
+                     (the in-memory runs read the directory): the
+                     in-memory ``cli.train`` and (a) ``--stream-dir
+                     --stream-window 2``, each in a subprocess of its
+                     own (``--cli-child``) for its peak RSS (the larger
+                     of VmHWM, where the kernel reports it, and VmRSS
+                     sampled every 10 ms from this process), beside the
+                     RSS after the imports and the CUDA context;
+                     then in this process, each with
+                     a lighter config (one lambda, one iteration, the
+                     best model only): (b) shard 5 truncated: the default
+                     policy raises ``CorruptShardError`` naming it;
+                     ``--max-bad-shards 1`` completes, under (d)
+                     transient faults at ``io.shard_read`` calls 2, 4, 6
+                     and 8 (each followed by a clean attempt: three in a
+                     row exhaust the 3-attempt policy); (c) a ``crash``
+                     at ``io.shard_decode`` on shard 9 (serial decode, so
+                     the call count is exact), then ``--resume-ingest``;
+                     (e) day 2: stream again with ``--init-model`` (a)'s
+                     best checkpoint, then ``cli.score`` of the
+                     validation file. Gates: (a) the dataset (host
+                     mirrors, device columns, id tags) and the packed
+                     plan buffer sha256-equal to the in-memory run's, the
+                     best model within twice the difference of two
+                     in-memory runs (14a's kernel run and this phase's;
+                     0 when both are bit-equal); (b) the file named, the
+                     quarantined path and ingested_fraction 15/16;
+                     (c) ``resumed_from_shard`` the committed cursor's,
+                     the dataset and plans equal to (a)'s; (d) 4
+                     retries, 4 recovered, none exhausted; (e) the
+                     checkpoint's run meta holds ``ingest_cursor`` and
+                     ``init_model``, the scores within 1e-5 of a float64
+                     numpy score, one serve launch a chunk; every run
+                     launches the Newton kernel with no plain-route
+                     solve, and the segment sum at the ``evaluation``
+                     site (the validation's AUC:userId). It prints the
+                     ingest's seconds by stage, rows/s, the packed
+                     transfers and both peak RSS.
 
 Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
 GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
@@ -247,6 +294,7 @@ table capped at 6 entries a row with a COO tail); 4,000,000 rows,
 nothing cut:
 
 15. wide_data        - generation, the copy to the card, the planner's
+                       host seconds and ``planner_wide`` (as 7a),
                        host seconds, every bucket's shape, S, route and
                        gram bounds, the tail's size and multiplicity;
 16. segment_parity   - the segment-sum kernel against its plain version
@@ -308,8 +356,9 @@ commit, unpack its package into a git-ignored directory, copy this
 script beside it, and run parent, change, change, parent in one call.
 
 ``python3 chip_smoke.py --train-cli`` runs only the device and build
-phases and then phases 14a and 14b, ``--train-routes`` phase 14c, and
-``--serve`` the serving phases 1-6c, printing no ``ok`` line.
+phases and then phases 14a and 14b, ``--train-routes`` phase 14c,
+``--serve`` the serving phases 1-6c, and ``--stream`` phases 14a, 14d,
+7a (on its own logistic data) and 15, printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -863,7 +912,8 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
                 seed: int = SEED + 2, *, cold: float = COLD_FRACTION,
                 intercept: bool = False, model: bool = True,
                 name: str = "data.avro",
-                user_skew: int | None = None) -> dict:
+                user_skew: int | None = None,
+                parts: int | None = None) -> dict:
     """The serving model as an Avro GAME model directory (float32
     coefficients, written by the port's ``save_game_model``; left out
     without ``model``) and ``n`` TrainingExampleAvro rows with the
@@ -875,8 +925,11 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
     activity. With ``intercept`` each shard's last
     slot is the intercept: the bags draw from the other ids, every
     row's margin adds the last coefficient (the reader appends the
-    intercept column). Returns the paths and the arrays the numpy
-    reference scores from."""
+    intercept column). With ``parts`` the rows go, in order, into that
+    many part files ``part-NNNNN.avro`` of the directory ``name`` (the
+    shard layout the streaming ingest reads; the in-memory readers read
+    the directory as one input). Returns the paths and the arrays the
+    numpy reference scores from."""
     from photon_tpu_torch.data.index_map import IndexMap
     from photon_tpu_torch.io import avro_data
     from photon_tpu_torch.io.model_io import (
@@ -933,11 +986,23 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
              "movieId": f"cold-{tag}-{i}" if cm else str(m)}
             for i, (u, m, cu, cm) in enumerate(zip(
                 users.tolist(), movies.tolist(), cold_u, cold_m))]
-    avro_data.write_training_examples(
-        data_path, labels, rows("global"), offsets=offsets,
-        weights=weights, metadata=meta, uids=np.arange(n),
-        bags={SCORE_SHARDS[s][0]: rows(s)
-              for s in ("userShard", "movieShard")})
+    global_rows = rows("global")
+    bag_rows = {SCORE_SHARDS[s][0]: rows(s)
+                for s in ("userShard", "movieShard")}
+    if parts is None:
+        spans = [(data_path, 0, n)]
+    else:
+        os.makedirs(data_path, exist_ok=True)
+        step = -(-n // parts)
+        spans = [(os.path.join(data_path, f"part-{k:05d}.avro"), lo,
+                  min(lo + step, n))
+                 for k, lo in enumerate(range(0, n, step))]
+    for path, lo, hi in spans:
+        avro_data.write_training_examples(
+            path, labels[lo:hi], global_rows[lo:hi],
+            offsets=offsets[lo:hi], weights=weights[lo:hi],
+            metadata=meta[lo:hi], uids=np.arange(lo, hi),
+            bags={b: r[lo:hi] for b, r in bag_rows.items()})
     data_s = time.perf_counter() - t0
     return dict(model_dir=model_dir, data=data_path, exact=exact,
                 labels=labels, weights=weights.astype(np.float64),
@@ -945,7 +1010,7 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
                 keys=keys, users=np.where(cold_u, -1, users),
                 movies=np.where(cold_m, -1, movies),
                 model_seconds=model_s, data_seconds=data_s,
-                data_bytes=os.path.getsize(data_path))
+                data_bytes=sum(os.path.getsize(p) for p, _, _ in spans))
 
 
 def numpy_batch_scores(arrays, feats, users, movies,
@@ -2369,9 +2434,8 @@ def phase_train(torch) -> dict:
     torch.cuda.synchronize()
     put_s = time.perf_counter() - t0
     est = build_estimator()
-    t0 = time.perf_counter()
-    datasets, _ = est.prepare(data)
-    plan_s = time.perf_counter() - t0
+    datasets, plan_row = timed_prepare(torch, est, data)
+    plan_s = plan_row["seconds"]
     t0 = time.perf_counter()
     buckets = {cid: [list(b.x_values.shape)
                      for b in datasets[cid].device_blocks()]
@@ -2382,6 +2446,8 @@ def phase_train(torch) -> dict:
           "generate_seconds": gen_s, "to_device_seconds": put_s,
           "planner_host_seconds": plan_s, "slab_gather_seconds": gather_s,
           "buckets": buckets})
+    planner_comparison(torch, "logistic", build_estimator, data, datasets,
+                       plan_row)
     parity = phase_newton_parity(torch, datasets, est)
 
     fit = phase_fit(torch, arrays, data, est)
@@ -2425,6 +2491,8 @@ def phase_train(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 CLI_TRAIN_ROWS = 32 * 8192
+# The training rows' part files, and the streaming runs' window of them.
+STREAM_SHARDS, STREAM_WINDOW = 16, 2
 CLI_VALIDATION_ROWS = 4 * 8192
 CLI_EVALUATORS = ["AUC", "AUC:userId"]
 CLI_SHARDS = {s: [bag] for s, (bag, _, _) in SCORE_SHARDS.items()}
@@ -2479,6 +2547,20 @@ def train_cli_config(files, root: str) -> dict:
     }
 
 
+def write_cli_config(cfg: dict, root: str) -> tuple[dict, str]:
+    """``cfg`` with its outputs under ``root`` (feature stats too, when it
+    asks for them), written to ``root/train.json``: (the config, its
+    path)."""
+    cfg = dict(cfg, output_dir=os.path.join(root, "out"))
+    if "data_summary_dir" in cfg:
+        cfg["data_summary_dir"] = os.path.join(root, "summary")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
 def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
                   *extra: str) -> dict:
     """One in-process ``cli.train.main`` run into ``root`` (counts zeroed
@@ -2493,12 +2575,7 @@ def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
     from photon_tpu_torch.cli import train as train_cli
     from photon_tpu_torch.ops import newton_kernel as nk
 
-    cfg = dict(cfg, output_dir=os.path.join(root, "out"),
-               data_summary_dir=os.path.join(root, "summary"))
-    os.makedirs(root, exist_ok=True)
-    path = os.path.join(root, "train.json")
-    with open(path, "w") as f:
-        json.dump(cfg, f)
+    cfg, path = write_cli_config(cfg, root)
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
     prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
@@ -2647,10 +2724,13 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
                         "build", "smoke", "train_cli")
     t0 = time.perf_counter()
     files = {
+        # The training rows as STREAM_SHARDS part files: the in-memory
+        # runs read the directory, the streaming runs stream it.
         "train": score_files(arrays, manifest, root, CLI_TRAIN_ROWS,
                              SEED + 3, cold=0.0, intercept=True,
-                             model=False, name="train.avro",
-                             user_skew=CLI_USER_SKEW),
+                             model=False, name="train",
+                             user_skew=CLI_USER_SKEW,
+                             parts=STREAM_SHARDS),
         "validation": score_files(arrays, manifest, root,
                                   CLI_VALIDATION_ROWS, SEED + 4,
                                   intercept=True, model=False,
@@ -2830,6 +2910,503 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
             "serve_launches": score_launches, "row": row,
             "files": files, "cfg": cfg, "root": root,
             "generating_auc": gen_auc}
+
+
+# ---------------------------------------------------------------------------
+# ingest at scale: the streaming CLI and the pipelined planner
+# ---------------------------------------------------------------------------
+
+
+def _sha(*arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype.str, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def ingest_digests(data, datasets) -> dict:
+    """sha256 digests of a prepared training dataset: its host mirrors,
+    its device columns (copied back), its id tags, and the one packed
+    plan buffer every random-effect coordinate's plan lies in (with its
+    layout), so two runs compare byte for byte without holding both."""
+    def dev(t):
+        return t.detach().cpu().numpy()
+
+    out = {"host": _sha(data.host["labels"], data.host["offsets"],
+                        data.host["weights"], data.uids,
+                        *[a for s in sorted(data.feature_shards)
+                          for a in data.host_shard_coo(s)[:2]]),
+           "device": _sha(dev(data.labels), dev(data.offsets),
+                          dev(data.weights),
+                          *[dev(t) for s in sorted(data.feature_shards)
+                            for t in (data.feature_shards[s].indices,
+                                      data.feature_shards[s].values)]),
+           "id_tags": _sha(*[dev(data.id_tags[t].codes)
+                             for t in sorted(data.id_tags)],
+                           np.array([k for t in sorted(data.id_tags)
+                                     for k in data.id_tags[t].inverse]))}
+    views = [ds.packed_view for ds in datasets.values()
+             if getattr(ds, "packed_view", None) is not None]
+    bufs = {id(v.buffer): v.buffer for v in views}
+    if len(bufs) != 1:
+        fail(f"the plan arrays lie in {len(bufs)} device buffers, not one")
+    buf = next(iter(bufs.values()))
+    out["packed"] = _sha(dev(buf), np.array(
+        [d for v in views for sh in v.shapes for d in (len(sh), *sh)]))
+    out["packed_bytes"] = int(buf.numel() * buf.element_size())
+    return out
+
+
+@contextlib.contextmanager
+def capture_prepare(store: list):
+    """Record ``ingest_digests`` of the first ``GameEstimator.prepare``
+    in the block (a CLI run prepares once and fit reuses it)."""
+    from photon_tpu_torch.estimators import game_estimator as ge
+
+    orig = ge.GameEstimator.prepare
+
+    def prepare(self, data, validation=None, initial_model=None):
+        out = orig(self, data, validation, initial_model)
+        if not store:
+            store.append(ingest_digests(data, out[0]))
+        return out
+
+    ge.GameEstimator.prepare = prepare
+    try:
+        yield store
+    finally:
+        ge.GameEstimator.prepare = orig
+
+
+def stream_run(torch, cfg: dict, root: str, *extra: str) -> dict:
+    """One in-process ``cli.train`` run (``run_train_cli``) with its
+    ingest digests and the segment-sum launches of its validation (the
+    grouped AUC, site ``evaluation``), counts zeroed just before."""
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    sr.reset_counts()
+    store: list = []
+    with capture_prepare(store):
+        out = run_train_cli(torch, cfg, root, False, *extra)
+    out["digests"] = store[0]
+    out["segment_evaluation_launches"] = sr.launches_by_site.get(
+        "evaluation", 0)
+    return out
+
+
+_CHILD_KEYS = ("rc", "wall_seconds", "launches", "plain_route_solves",
+               "peak_device_bytes", "summary", "digests",
+               "segment_evaluation_launches")
+
+
+def _vm_status(key: str, pid="self") -> int | None:
+    """A ``/proc/<pid>/status`` size (VmRSS, VmHWM) in bytes."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def cli_child(spec_path: str) -> int:
+    """``--cli-child SPEC``: one ``stream_run`` in this process, its
+    result and its memory written to ``spec["out"]``: VmHWM, its own
+    address space's high-water mark, where the kernel reports it (the
+    rusage maximum would carry the parent's over the exec), and the RSS
+    after the imports and the CUDA context, before the run."""
+    import torch
+
+    from photon_tpu_torch.cli import train  # noqa: F401 — the imports
+    from photon_tpu_torch.data import stream  # noqa: F401
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    base = _vm_status("VmRSS")
+    out = stream_run(torch, spec["cfg"], spec["root"], *spec["extra"])
+    result = {k: out[k] for k in _CHILD_KEYS}
+    result.update(vm_hwm_bytes=_vm_status("VmHWM"), baseline_rss_bytes=base)
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def stream_child(cfg: dict, root: str, *extra: str) -> dict:
+    """``stream_run`` in a subprocess of its own, for its peak RSS."""
+    os.makedirs(root, exist_ok=True)
+    spec = os.path.join(root, "child.json")
+    out = os.path.join(root, "child-result.json")
+    with open(spec, "w") as f:
+        json.dump({"cfg": cfg, "root": root, "extra": list(extra),
+                   "out": out}, f)
+    log = os.path.join(root, "child.log")
+    t0 = time.perf_counter()
+    sampled = 0
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cli-child",
+             spec], stdout=f, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            # The child's RSS every 10 ms, read from here, where its GIL
+            # does not hold the reads back.
+            while proc.poll() is None:
+                sampled = max(sampled, _vm_status("VmRSS", proc.pid) or 0)
+                if time.perf_counter() - t0 > 900:
+                    proc.kill()
+                time.sleep(0.01)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or not os.path.exists(out):
+        with open(log) as f:
+            fail(f"stream_cli: the child run in {root} exited "
+                 f"{proc.returncode}: {f.read()[-3000:]}")
+    with open(out) as f:
+        result = json.load(f)
+    result["process_seconds"] = time.perf_counter() - t0
+    result["sampled_peak_rss_bytes"] = sampled
+    result["peak_host_rss_bytes"] = max(result["vm_hwm_bytes"] or 0,
+                                        sampled)
+    return result
+
+
+def best_arrays(out_dir: str) -> dict:
+    return checkpoint_arrays(os.path.join(out_dir, "models", "best",
+                                          "checkpoint.npz"))[0]
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over two checkpoints' arrays (inf when their keys
+    or shapes differ)."""
+    if a.keys() != b.keys() or any(a[k].shape != b[k].shape for k in a):
+        return math.inf
+    return max((float(np.max(np.abs(a[k].astype(np.float64)
+                                    - b[k].astype(np.float64))))
+                for k in a if a[k].size), default=0.0)
+
+
+def stream_ingest_row(summary: dict) -> dict:
+    """The ingest's seconds by stage (scan, decode, transfer, assemble),
+    rows/s and the packed transfer of one CLI run's summary."""
+    si = summary["streaming_ingest"]
+    pipe = summary["ingest_pipeline"]
+    return {k: si[k] for k in (
+        "scan_seconds", "decode_seconds", "transfer_seconds",
+        "wall_seconds", "rows_per_sec", "rows_ingested",
+        "ingested_fraction", "shards_quarantined", "resumed_from_shard",
+        "retry")} | {
+        "assemble_seconds": pipe["stages"].get("stream_assemble"),
+        "pipeline": {k: v for k, v in pipe.items()
+                     if k != "packed_transfers"},
+        "packed_transfers": pipe["packed_transfers"],
+        "cli_seconds": summary["seconds"]}
+
+
+def phase_stream_cli(torch, cli: dict) -> dict:
+    """The streaming training CLI on ``train_cli``'s configuration and
+    rows (module docstring, phase 14d): the in-memory run and (a) in
+    subprocesses of their own for their peak RSS, then (b)-(e)."""
+    import shutil
+
+    from photon_tpu_torch.cli import score as score_cli
+    from photon_tpu_torch.cli import train as train_cli
+    from photon_tpu_torch.data import pipeline
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.resilience import faults, reset_retry_stats
+    from photon_tpu_torch.resilience.errors import (
+        CorruptShardError,
+        InjectedCrash,
+    )
+    from photon_tpu_torch.serve.programs import ShapeLadder
+
+    files, cfg = cli["files"], cli["cfg"]
+    # The runs that are not compared with an in-memory run train one
+    # iteration of one lambda and save the best model only: their gates
+    # read the ingest, the plans and the kernels' launches.
+    light = {k: v for k, v in cfg.items() if k != "data_summary_dir"}
+    light.update(num_iterations=1, model_output_mode="BEST", coordinates={
+        **cfg["coordinates"], "per-user": {
+            **cfg["coordinates"]["per-user"],
+            "regularization": {"type": "L2", "weights": [1.0]}}})
+    shard_dir = files["train"]["data"]
+    root = os.path.join(cli["root"], "stream")
+    shutil.rmtree(root, ignore_errors=True)
+    window = ("--stream-window", str(STREAM_WINDOW))
+    stream = ("--stream-dir", shard_dir, *window)
+    t_phase = time.perf_counter()
+
+    # The in-memory run and (a), each in its own process.
+    memory = stream_child(cfg, os.path.join(root, "memory"))
+    run_a = stream_child(cfg, os.path.join(root, "a"), *stream)
+    a_out = os.path.join(root, "a", "out")
+    a_best = best_arrays(a_out)
+    mem_best = best_arrays(os.path.join(root, "memory", "out"))
+    kernel_best = best_arrays(os.path.join(cli["root"], "kernel", "out"))
+    # Two in-memory runs of the same files: the card's own spread.
+    spread = max_abs_diff(kernel_best, mem_best)
+    model_diff = max_abs_diff(a_best, mem_best)
+
+    # (b) one shard truncated: the default policy stops naming it; a
+    # budget of one completes without it. (d) rides the same run:
+    # transient faults at io.shard_read, each followed by a clean attempt
+    # (three in a row would exhaust the 3-attempt policy).
+    bad_dir = os.path.join(root, "shards-truncated")
+    shutil.copytree(shard_dir, bad_dir)
+    bad = os.path.join(bad_dir, "part-00005.avro")
+    with open(bad, "rb") as f:
+        raw = f.read()
+    with open(bad, "wb") as f:
+        f.write(raw[: len(raw) // 2])
+    _, path = write_cli_config(light, os.path.join(root, "b-default"))
+    refused = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(["--config", path, "--device", "cuda",
+                            "--stream-dir", bad_dir, *window])
+    except CorruptShardError as exc:
+        refused = str(exc)
+    reset_retry_stats()
+    with env_switch("PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
+            {"point": "io.shard_read", "nth": n} for n in (2, 4, 6, 8)]})):
+        try:
+            run_b = stream_run(torch, light, os.path.join(root, "bd"),
+                               "--stream-dir", bad_dir, *window,
+                               "--max-bad-shards", "1")
+        finally:
+            faults.disarm()
+    reset_retry_stats()
+
+    # (c) a crash at io.shard_decode on shard 9 (serial decode, so the
+    # count is exact: 16 scan calls, then one a shard), then a resume.
+    crash_at = STREAM_SHARDS + 9 + 1
+    c_root = os.path.join(root, "c")
+    _, path = write_cli_config(light, c_root)
+    crashed = None
+    with env_switch("PHOTON_TPU_SERIAL_INGEST", "1"), env_switch(
+            "PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
+                {"point": "io.shard_decode", "nth": crash_at,
+                 "error": "crash"}]})):
+        pipeline.reset_executors()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.main(["--config", path, "--device", "cuda",
+                                "--checkpoint-dir",
+                                os.path.join(c_root, "ckpt"), *stream])
+        except InjectedCrash as exc:
+            crashed = str(exc)
+        finally:
+            faults.disarm()
+            pipeline.reset_executors()
+    cursor_path = os.path.join(c_root, "ckpt", "ingest-work",
+                               "ingest-cursor.json")
+    with open(cursor_path) as f:
+        cursor = json.load(f)
+    run_c = stream_run(torch, light, c_root, *stream, "--resume-ingest")
+
+    # (e) day 2: stream again, warm-started from (a)'s model, then score.
+    e_root = os.path.join(root, "e")
+    run_e = stream_run(torch, light, e_root, *stream, "--init-model",
+                       os.path.join(a_out, "models", "best",
+                                    "checkpoint.npz"))
+    with open(os.path.join(e_root, "ckpt", "manifest.json")) as f:
+        run_meta = json.load(f).get("run", {})
+    val = files["validation"]
+    score_out = os.path.join(e_root, "scores")
+    best_dir = os.path.join(run_e["out"], "models", "best")
+    serve_kernel.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        score_rc = score_cli.main([
+            "--model-dir", best_dir, "--input", val["data"],
+            "--output", score_out, "--feature-shards",
+            *[f"{s}={b[0]}" for s, b in CLI_SHARDS.items()],
+            "--id-tags", "userId", "movieId", "--device", "cuda",
+            "--evaluators", *CLI_EVALUATORS])
+    score_launches = serve_kernel.launches
+    chunks = len(ShapeLadder(SCORE_RUNGS).chunk_plan(CLI_VALIDATION_ROWS))
+    scores = np.array([r["predictionScore"] for r in avro.read_container_dir(
+        os.path.join(score_out, "part-00000.avro"))])
+    exact = numpy_model_scores(best_dir, val["data"])
+    score_err = float(np.max(np.abs(scores - exact) / (1.0 + np.abs(exact))))
+
+    trained = {"memory": memory, "a": run_a, "bd": run_b, "c": run_c,
+               "e": run_e}
+    newton = sum(r["launches"] for r in trained.values())
+    segment = sum(r["segment_evaluation_launches"]
+                  for r in trained.values())
+    si = {k: r["summary"].get("streaming_ingest")
+          for k, r in trained.items()}
+    row = {
+        "phase": "stream_cli", "shards": STREAM_SHARDS,
+        "window_shards": STREAM_WINDOW, "rows": CLI_TRAIN_ROWS,
+        "phase_seconds": time.perf_counter() - t_phase,
+        "cpu_count": os.cpu_count(),
+        "ingest_threads_env": os.environ.get("PHOTON_TPU_INGEST_THREADS"),
+        "ingest_threads": pipeline.ingest_threads(),
+        "torch_threads": torch.get_num_threads(),
+        "memory": {"peak_host_rss_bytes": memory["peak_host_rss_bytes"],
+                   "baseline_rss_bytes": memory["baseline_rss_bytes"],
+                   "sampled_peak_rss_bytes": memory[
+                       "sampled_peak_rss_bytes"],
+                   "vm_hwm_bytes": memory["vm_hwm_bytes"],
+                   "process_seconds": memory["process_seconds"],
+                   "cli_seconds": memory["summary"]["seconds"],
+                   "pipeline": memory["summary"]["ingest_pipeline"]},
+        "a": {"peak_host_rss_bytes": run_a["peak_host_rss_bytes"],
+              "baseline_rss_bytes": run_a["baseline_rss_bytes"],
+              "sampled_peak_rss_bytes": run_a["sampled_peak_rss_bytes"],
+              "vm_hwm_bytes": run_a["vm_hwm_bytes"],
+              "process_seconds": run_a["process_seconds"],
+              **stream_ingest_row(run_a["summary"])},
+        "digests_equal_memory": {k: run_a["digests"][k] == memory[
+            "digests"][k] for k in ("host", "device", "id_tags",
+                                    "packed")},
+        "packed_bytes": run_a["digests"]["packed_bytes"],
+        "best_model_max_abs_diff": model_diff,
+        "in_memory_runs_max_abs_diff": spread,
+        "bd": {"default_policy_error": refused,
+               **stream_ingest_row(run_b["summary"]),
+               "quarantined_paths": si["bd"]["quarantined_paths"]},
+        "c": {"crash": crashed, "fault_call": crash_at,
+              "cursor_next_shard": cursor["next_shard"],
+              **stream_ingest_row(run_c["summary"]),
+              "digests_equal_a": run_c["digests"] == run_a["digests"]},
+        "e": {**stream_ingest_row(run_e["summary"]),
+              "run_meta_keys": sorted(run_meta),
+              "score_launches": score_launches, "score_chunks": chunks,
+              "score_max_rel_err_numpy_f64": score_err},
+        "newton_launches": {k: r["launches"] for k, r in trained.items()},
+        "plain_route_solves": {k: r["plain_route_solves"]
+                               for k, r in trained.items()},
+        "segment_evaluation_launches": {
+            k: r["segment_evaluation_launches"]
+            for k, r in trained.items()},
+        "validation_auc": {
+            k: r["summary"]["configurations"][r["summary"][
+                "best_configuration_index"]]["evaluation"]["AUC"]
+            for k, r in trained.items()},
+    }
+    emit(row)
+    print(f"stream_cli: peak RSS in-memory {memory['peak_host_rss_bytes']}"
+          f" B, streamed {run_a['peak_host_rss_bytes']} B; "
+          f"{si['a']['rows_per_sec']} rows/s streamed", flush=True)
+
+    # (a) byte-identical data and plans; the model as the in-memory one.
+    if not all(row["digests_equal_memory"].values()):
+        fail(f"stream_cli (a): the streamed dataset or packed plan buffer "
+             f"differs from the in-memory run's: "
+             f"{row['digests_equal_memory']}")
+    if not model_diff <= 2.0 * spread:
+        fail(f"stream_cli (a): best models differ by {model_diff}, past "
+             f"twice the in-memory runs' {spread}")
+    if si["a"]["ingested_fraction"] != 1.0 or si["a"][
+            "shards_quarantined"]:
+        fail(f"stream_cli (a): a clean ingest reports {si['a']}")
+    # (b) the default policy names the file; a budget of one completes.
+    if refused is None or "part-00005.avro" not in refused:
+        fail(f"stream_cli (b): the default policy did not refuse the "
+             f"truncated shard by name ({refused})")
+    if (si["bd"]["quarantined_paths"] != [bad]
+            or not 0.9 < si["bd"]["ingested_fraction"] < 1.0):
+        fail(f"stream_cli (b): --max-bad-shards 1 reports {si['bd']}")
+    # (c) a killed ingest resumes to the same bytes.
+    if crashed is None or si["c"]["resumed_from_shard"] != cursor[
+            "next_shard"] or not 0 < cursor["next_shard"] <= 9:
+        fail(f"stream_cli (c): crash {crashed}, cursor {cursor}, resumed "
+             f"at {si['c']['resumed_from_shard']}")
+    if not row["c"]["digests_equal_a"]:
+        fail("stream_cli (c): the resumed run's dataset or packed plan "
+             "buffer differs from (a)'s")
+    # (d) every transient retried and counted.
+    retry = si["bd"]["retry"]
+    if (retry["retries"], retry["recovered"], retry["exhausted"]) != (
+            4, 4, 0):
+        fail(f"stream_cli (d): retry counters {retry}")
+    # (e) the day-2 run's provenance and its scores.
+    if not {"ingest_cursor", "init_model"} <= set(run_meta):
+        fail(f"stream_cli (e): the checkpoint's run meta holds "
+             f"{sorted(run_meta)}")
+    if score_rc != 0 or len(scores) != CLI_VALIDATION_ROWS or not (
+            score_err <= 1e-5) or score_launches != chunks:
+        fail(f"stream_cli (e): cli.score rc {score_rc}, error "
+             f"{score_err}, {score_launches} launches for {chunks} chunks")
+    # Every run's path through the kernels.
+    for k, r in trained.items():
+        if r["launches"] <= 0 or r["plain_route_solves"] != 0:
+            fail(f"stream_cli ({k}): the Newton kernel did not take every "
+                 "bucket")
+        if r["segment_evaluation_launches"] <= 0:
+            fail(f"stream_cli ({k}): the validation's grouped AUC launched "
+                 "no segment sum")
+    return {"newton_launches": newton, "segment_launches": segment,
+            "serve_launches": score_launches, "row": row}
+
+
+def timed_prepare(torch, est, data) -> tuple[dict, dict]:
+    """``est.prepare(data)`` timed, with its PIPELINE_STATS report and
+    packed transfers: (datasets, row)."""
+    from photon_tpu_torch.data import pipeline
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    datasets, _ = est.prepare(data)
+    torch.cuda.synchronize()
+    return datasets, {
+        "seconds": time.perf_counter() - t0,
+        "report": pipeline.PIPELINE_STATS.report(),
+        "packed_transfers": pipeline.PIPELINE_STATS.transfers()}
+
+
+def planner_comparison(torch, name: str, make_estimator, data, datasets,
+                       pipelined: dict) -> dict:
+    """The same prepare with ``PHOTON_TPU_SERIAL_INGEST=1`` on a fresh
+    estimator, then pipelined once more (pipelined, serial, pipelined:
+    the first run's place in the process is not the path's): the
+    seconds of each, and every run's packed plan buffers compared with
+    the first's on the card (exact int32 equality)."""
+    from photon_tpu_torch.data import pipeline
+
+    def same_plans(other) -> bool:
+        views = [(ds.packed_view, other[cid].packed_view)
+                 for cid, ds in datasets.items()
+                 if getattr(ds, "packed_view", None) is not None]
+        return bool(views) and all(
+            a.shapes == b.shapes and a.buffer.shape == b.buffer.shape
+            and bool(torch.equal(a.buffer, b.buffer)) for a, b in views)
+
+    with env_switch("PHOTON_TPU_SERIAL_INGEST", "1"):
+        pipeline.reset_executors()
+        serial, serial_row = timed_prepare(torch, make_estimator(), data)
+    pipeline.reset_executors()
+    identical = same_plans(serial)
+    del serial
+    again, again_row = timed_prepare(torch, make_estimator(), data)
+    identical = identical and same_plans(again)
+    del again
+    row = {"phase": f"planner_{name}", "pipelined": pipelined,
+           "serial": serial_row, "pipelined_again": again_row,
+           "identical": identical,
+           "speedup": [serial_row["seconds"] / pipelined["seconds"],
+                       serial_row["seconds"] / again_row["seconds"]],
+           "cpu_count": os.cpu_count(),
+           "ingest_threads_env": os.environ.get("PHOTON_TPU_INGEST_THREADS"),
+           "ingest_threads": pipeline.ingest_threads(),
+           "torch_threads": torch.get_num_threads()}
+    emit(row)
+    torch.cuda.empty_cache()
+    if not identical:
+        fail(f"planner_{name}: the serial and pipelined plans differ")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3545,9 +4122,8 @@ def phase_wide_data(torch) -> dict:
     torch.cuda.synchronize()
     put_s = time.perf_counter() - t0
     est = wide_estimator()
-    t0 = time.perf_counter()
-    datasets, _ = est.prepare(data)
-    plan_s = time.perf_counter() - t0
+    datasets, plan_row = timed_prepare(torch, est, data)
+    plan_s = plan_row["seconds"]
     movie = datasets["per-movie"]
     buckets = [{"coordinate": cid, "shape": list(eb.x_values.shape),
                 "sub_dim": eb.sub_dim, "route": route,
@@ -3565,6 +4141,8 @@ def phase_wide_data(torch) -> dict:
            "tail_mult": movie.score_tail_mult,
            "buckets": buckets}
     emit(row)
+    planner_comparison(torch, "wide", wide_estimator, data, datasets,
+                       plan_row)
     routes = {b["route"] for b in buckets if b["coordinate"] == "per-movie"}
     if movie.is_lazy or not {"gram", "densify"} <= routes:
         fail(f"per-movie buckets took the routes {sorted(routes)}; the "
@@ -4248,7 +4826,14 @@ def main() -> int:
                     help="run only the optimizer-routes phase")
     ap.add_argument("--serve", action="store_true",
                     help="run only the serving phases (1-6c)")
+    ap.add_argument("--stream", action="store_true",
+                    help="run only the ingest phases: train_cli, "
+                         "stream_cli and the planner comparisons")
+    ap.add_argument("--cli-child", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cli_child:
+        return cli_child(args.cli_child)
     try:
         import torch
     except ImportError as exc:
@@ -4298,6 +4883,18 @@ def main() -> int:
         phase_train_routes(torch)
         print(smi, flush=True)
         return 0
+    if args.stream:
+        phase_stream_cli(torch, phase_train_cli(torch, *serving_arrays()))
+        arrays = synth_arrays()
+        data = train_dataset(arrays)
+        datasets, plan_row = timed_prepare(torch, build_estimator(), data)
+        planner_comparison(torch, "logistic", build_estimator, data,
+                           datasets, plan_row)
+        del arrays, data, datasets
+        torch.cuda.empty_cache()
+        phase_wide_data(torch)
+        print(smi, flush=True)
+        return 0
     if args.timing > 0:
         model = game_model_from_numpy(*serving_arrays(), "cuda")
         for _ in range(args.timing):
@@ -4333,11 +4930,14 @@ def main() -> int:
     newton = phase_train(torch)
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(torch, arrays, manifest)
+    stream = phase_stream_cli(torch, train_cli)
+    torch.cuda.empty_cache()
     cli_routes = phase_train_cli_routes(torch, train_cli)
     torch.cuda.empty_cache()
     routes = phase_train_routes(torch)
     newton["launches_by_path"] = {
         "fit": newton["launches"], "train_cli": train_cli["newton_launches"],
+        "stream_cli": stream["newton_launches"],
         "train_routes": routes["newton_launches"],
         "train_cli_routes": cli_routes["newton_launches"]}
     newton["launches"] = sum(newton["launches_by_path"].values())
@@ -4347,6 +4947,8 @@ def main() -> int:
     segment = phase_wide(torch)
     segment["launches_by_path"]["score_cli_evaluation"] = batch[
         "evaluation_launches"]
+    segment["launches_by_path"]["stream_cli_evaluation"] = stream[
+        "segment_launches"]
     segment["launches"] = sum(segment["launches_by_path"].values())
     segment["max_abs_err"] = max(segment["max_abs_err"],
                                  batch["evaluation_max_abs_err"])
@@ -4365,11 +4967,13 @@ def main() -> int:
         "launches": (serve["kernel_launches"] + ops["launches"]
                      + batch["launches"]
                      + train_cli["serve_launches"]
+                     + stream["serve_launches"]
                      + cli_routes["serve_launches"]),
         "launches_by_path": {"serve": serve["kernel_launches"],
                              "serve_ops": ops["launches"],
                              "score_cli": batch["launches"],
                              "train_cli": train_cli["serve_launches"],
+                             "stream_cli": stream["serve_launches"],
                              "train_cli_routes":
                                  cli_routes["serve_launches"]},
         "max_abs_err": max(worst, coords["float32"]["max_abs_err"]),

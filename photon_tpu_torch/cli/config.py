@@ -40,7 +40,6 @@ from photon_tpu_torch.ops.normalization import NormalizationType
 from photon_tpu_torch.types import TaskType
 
 # The ROADMAP Queue A item of each unported option.
-STREAMING_ITEM = 9
 TELEMETRY_ITEM = 10
 TUNING_ITEM = 11
 MULTI_DEVICE_ITEM = 12

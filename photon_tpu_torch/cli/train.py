@@ -14,18 +14,26 @@ Newton kernel there. The last line of standard output is the JSON the
 reference prints; ``training-summary.json`` also holds each stage's
 seconds.
 
+With ``--stream-dir DIR`` the training data comes from DIR's Avro
+shards through the out-of-core streaming ingest (``data/stream.py``):
+bounded-memory windows of ``--stream-window`` shards against an
+integrity manifest, a bounded-loss quarantine (``--max-bad-shards``,
+``--max-bad-fraction``), transient I/O retried, and a cursor that
+``--resume-ingest`` resumes; its work directory is ``ingest-work``
+under the checkpoint directory, else the output directory.
+
 Options the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: streaming ingest (``--stream-dir``,
-``--resume-ingest`` and their budgets: item 9), telemetry and
-monitoring (``--telemetry``, ``--trace``, ``--flight-dir``,
-``--no-flight``, ``--monitor-port``, ``--fleet-dir``: item 10) and
-``--distributed`` (item 12), besides the config options
-``cli/config.py`` lists. The JAX package's ``--backend`` is
-``--device`` here.
+their ROADMAP Queue A item: telemetry and monitoring (``--telemetry``,
+``--trace``, ``--flight-dir``, ``--no-flight``, ``--monitor-port``,
+``--fleet-dir``: item 10) and ``--distributed`` (item 12), besides the
+config options ``cli/config.py`` lists. The JAX package's ``--backend``
+is ``--device`` here.
 
 Usage:
     python -m photon_tpu_torch.cli.train --config train.json \
         [--checkpoint-dir DIR | --resume DIR] [--init-model PATH] \
+        [--stream-dir DIR [--resume-ingest] [--stream-window N] \
+         [--max-bad-shards N] [--max-bad-fraction F]] \
         [--device cuda|cpu]
 """
 
@@ -62,16 +70,35 @@ def main(argv=None) -> int:
                         help="warm start from a GameModel: a native "
                              "checkpoint .npz or an Avro model directory")
     parser.add_argument("--stream-dir", default=None, metavar="DIR",
-                        help="streaming ingest (not ported: ROADMAP "
-                             "Queue A item 9)")
+                        help="out-of-core streaming ingest: train from "
+                             "DIR's Avro shards in bounded-memory "
+                             "windows with per-shard integrity checks, "
+                             "transient-I/O retry and a resumable "
+                             "cursor, instead of the config's "
+                             "train_path")
     parser.add_argument("--resume-ingest", action="store_true",
-                        help="resume a streaming ingest (item 9)")
+                        help="resume a killed streaming ingest from its "
+                             "committed cursor (window spills are "
+                             "reloaded; the resumed dataset is byte-"
+                             "identical to the uninterrupted run's). "
+                             "Requires --stream-dir")
     parser.add_argument("--stream-window", type=int, default=1,
-                        metavar="N", help="streaming window (item 9)")
+                        metavar="N",
+                        help="shards per streaming window (decode of "
+                             "window k+1 overlaps window k's device "
+                             "copy; default 1 = the cursor commits at "
+                             "every shard boundary)")
     parser.add_argument("--max-bad-shards", type=int, default=0,
-                        metavar="N", help="streaming quarantine (item 9)")
+                        metavar="N",
+                        help="quarantine budget: tolerate up to N "
+                             "corrupt shards (skipped, counted and "
+                             "reported as ingested_fraction; default 0 "
+                             "= abort on the first corrupt shard)")
     parser.add_argument("--max-bad-fraction", type=float, default=0.0,
-                        metavar="F", help="streaming quarantine (item 9)")
+                        metavar="F",
+                        help="quarantine budget as a fraction of the "
+                             "shard count (combined with "
+                             "--max-bad-shards by max)")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--log-file", default=None,
                         help="also write logs to this file (PhotonLogger "
@@ -93,17 +120,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from photon_tpu_torch import optim
-    from photon_tpu_torch.cli.config import (
-        MULTI_DEVICE_ITEM,
-        STREAMING_ITEM,
-        TELEMETRY_ITEM,
-    )
+    from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM, TELEMETRY_ITEM
 
-    if (args.stream_dir or args.resume_ingest or args.stream_window != 1
-            or args.max_bad_shards or args.max_bad_fraction):
-        raise optim.not_ported(
-            "streaming ingest (--stream-dir, --resume-ingest and their "
-            "window and quarantine options)", STREAMING_ITEM)
     for flag, value in (("--telemetry", args.telemetry),
                         ("--trace", args.trace),
                         ("--flight-dir", args.flight_dir),
@@ -123,6 +141,8 @@ def main(argv=None) -> int:
             "--resume and --checkpoint-dir point at different "
             f"directories ({args.resume} vs {args.checkpoint_dir}); "
             "--resume DIR already implies --checkpoint-dir DIR")
+    if args.resume_ingest and not args.stream_dir:
+        parser.error("--resume-ingest requires --stream-dir")
 
     from photon_tpu_torch.cli.common import cli_logging
     from photon_tpu_torch.resilience import faults
@@ -138,6 +158,7 @@ def _run(args) -> int:
     from photon_tpu_torch import device as device_mod
     from photon_tpu_torch.cli.config import TrainingConfig
     from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
+    from photon_tpu_torch.data.pipeline import PIPELINE_STATS
     from photon_tpu_torch.data.validators import sanity_check_data
     from photon_tpu_torch.io.avro_data import (
         read_merged,
@@ -175,12 +196,14 @@ def _run(args) -> int:
 
     cfg = TrainingConfig.load(args.config)
     os.makedirs(cfg.output_dir, exist_ok=True)
+    # This run's ingest stages, from its first read on.
+    PIPELINE_STATS.reset()
 
     # ------------------------------------------------------------------
     # read the data (readTrainingData :537)
     # ------------------------------------------------------------------
     train_records = val_records = None
-    if cfg.date_range or cfg.days_range:
+    if (cfg.date_range or cfg.days_range) and not args.stream_dir:
         train_records, val_records = _daily_records(cfg, log)
 
     prebuilt_maps = None
@@ -209,7 +232,78 @@ def _run(args) -> int:
 
     multi_shard_maps = None
     validation = None
-    if cfg.input_format == "avro" and cfg.feature_shards:
+    stream_stats = None
+    stream_work_dir = None
+    if args.stream_dir:
+        # --------------------------------------------------------------
+        # streaming ingest (data/stream.py)
+        # --------------------------------------------------------------
+        if cfg.input_format != "avro":
+            raise ValueError(
+                "--stream-dir streams Avro shards; set input.format to "
+                "avro")
+        if cfg.date_range or cfg.days_range:
+            raise ValueError(
+                "--stream-dir does not combine with date_range/"
+                "days_range; point it at the day directory instead")
+        from photon_tpu_torch.data.stream import (
+            QuarantinePolicy,
+            StreamingIngest,
+        )
+
+        # The ingest's work dir (manifest, vocabulary, spills, cursor)
+        # sits with the training checkpoints when crash safety is on, so
+        # one directory carries the whole recovery chain; else in the
+        # output dir.
+        stream_work_dir = os.path.join(
+            args.checkpoint_dir or args.resume or cfg.output_dir,
+            "ingest-work")
+        shard_bags = cfg.shard_bags()
+        ingest = StreamingIngest(
+            args.stream_dir,
+            work_dir=stream_work_dir,
+            feature_shards=shard_bags,
+            index_maps=prebuilt_maps,
+            id_tag_names=cfg.id_tags,
+            id_columns=cfg.id_columns,
+            input_columns=cfg.input_columns,
+            add_intercept=cfg.shard_intercepts() if shard_bags else True,
+            window_shards=args.stream_window,
+            quarantine=QuarantinePolicy(args.max_bad_shards,
+                                        args.max_bad_fraction),
+            resume=args.resume_ingest,
+            device=dev,
+        )
+        train, stream_stats = ingest.run()
+        log.info(
+            "streamed %d row(s) from %d/%d shard(s) "
+            "(ingested_fraction %.4f%s)", stream_stats["rows_ingested"],
+            stream_stats["shards_ingested"], stream_stats["shards_total"],
+            stream_stats["ingested_fraction"],
+            f", resumed at shard {stream_stats['resumed_from_shard']}"
+            if stream_stats["resumed_from_shard"] is not None else "")
+        if stream_stats["quarantined_paths"]:
+            log.warning(
+                "streaming ingest quarantined %d shard(s): %s",
+                stream_stats["shards_quarantined"],
+                ", ".join(stream_stats["quarantined_paths"]))
+        multi_shard_maps = ingest.resolved_maps
+        index_map = next(iter(multi_shard_maps.values()))
+        if cfg.validation_path:
+            # The validation rows are read against the streamed maps.
+            if shard_bags:
+                validation, _ = read_merged(
+                    cfg.validation_path, feature_shards=shard_bags,
+                    index_maps=multi_shard_maps, id_columns=cfg.id_columns,
+                    id_tag_names=list(ingest.id_tag_names),
+                    input_columns=cfg.input_columns, device=dev)
+            else:
+                validation, _ = read_training_examples(
+                    cfg.validation_path,
+                    index_map=multi_shard_maps["features"],
+                    id_tag_names=list(ingest.id_tag_names),
+                    input_columns=cfg.input_columns, device=dev)
+    elif cfg.input_format == "avro" and cfg.feature_shards:
         if prebuilt_maps is not None:
             missing = sorted(set(cfg.feature_shards) - set(prebuilt_maps))
             if missing:
@@ -349,10 +443,27 @@ def _run(args) -> int:
     if ckpt_dir:
         checkpointer = TrainingCheckpointer(
             ckpt_dir, training_static_key(estimator, opt_seq))
+        # Run provenance rides every manifest commit: the streaming
+        # ingest's cursor (work dir and the pinned shard-manifest hash)
+        # and the init model's digest, so a crash at any point recovers
+        # ingest, then descent, end to end.
+        run_meta = {}
+        if stream_stats is not None:
+            run_meta["ingest_cursor"] = {
+                "stream_dir": os.path.abspath(args.stream_dir),
+                "work_dir": os.path.abspath(stream_work_dir),
+                "manifest_sha256": stream_stats.get("manifest_sha256"),
+                "rows_ingested": stream_stats.get("rows_ingested"),
+                "ingested_fraction": stream_stats.get("ingested_fraction"),
+                "quarantined_shards": stream_stats.get(
+                    "shards_quarantined"),
+            }
         if init_model_digest is not None:
-            checkpointer.set_run_meta({"init_model": {
+            run_meta["init_model"] = {
                 "path": os.path.abspath(args.init_model),
-                "sha256": init_model_digest}})
+                "sha256": init_model_digest}
+        if run_meta:
+            checkpointer.set_run_meta(run_meta)
         if args.resume:
             resume_state = load_training_checkpoint(args.resume, dev)
             log.info(
@@ -465,7 +576,15 @@ def _run(args) -> int:
         "device": str(dev),
         "seconds": dict(seconds, fit_per_configuration=[
             r.seconds for r in results]),
+        # The ingest pipeline's stages (raw and plan transfers, planning)
+        # and its packed transfers, of this run's prepare.
+        "ingest_pipeline": dict(PIPELINE_STATS.report(),
+                                packed_transfers=PIPELINE_STATS.transfers()),
     }
+    if stream_stats is not None:
+        # The streaming ingest's health: ingested_fraction and the
+        # quarantined paths.
+        summary["streaming_ingest"] = stream_stats
     with open(os.path.join(cfg.output_dir, "training-summary.json"),
               "w") as f:
         json.dump(summary, f, indent=2)

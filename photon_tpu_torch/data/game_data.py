@@ -21,6 +21,10 @@ from photon_tpu_torch.data.dataset import (
     GLMBatch,
     SparseFeatures,
 )
+from photon_tpu_torch.data.pipeline import PIPELINE_STATS
+
+# A raw array at least this large is copied from pinned memory.
+_PINNED_COPY_MIN_BYTES = 1 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +126,8 @@ def make_game_dataset(
     """Build a GameDataset from numpy arrays. ``feature_shards`` maps a
     shard id to ``DenseFeatures(x)`` or ``SparseFeatures(idx, val, d)``
     holding numpy arrays; everything is copied to ``device`` (default
-    ``cuda``) once, and the numpy inputs stay as the host mirror."""
+    ``cuda``) once, in the ``raw_transfer`` stage of ``PIPELINE_STATS``,
+    and the numpy inputs stay as the host mirror."""
     dev = device_mod.resolve(device)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     labels_np = np.asarray(labels, dtype=np_dtype)
@@ -135,10 +140,7 @@ def make_game_dataset(
         "labels": labels_np, "offsets": offsets_np, "weights": weights_np,
     }
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    shards: dict[str, Features] = {}
+    specs: dict[str, tuple] = {}
     for name, feats in feature_shards.items():
         if isinstance(feats, DenseFeatures):
             x = np.asarray(feats.x, dtype=np_dtype)
@@ -148,7 +150,7 @@ def make_game_dataset(
             d = x.shape[1]
             host[("shard", name)] = (
                 np.broadcast_to(np.arange(d, dtype=np.int32), x.shape), x, d)
-            shards[name] = DenseFeatures(put(x))
+            specs[name] = (x,)
         elif isinstance(feats, SparseFeatures):
             idx = np.asarray(feats.indices, dtype=np.int32)
             val = np.asarray(feats.values, dtype=np_dtype)
@@ -156,14 +158,36 @@ def make_game_dataset(
                 raise ValueError(f"feature shard {name!r} has "
                                  f"{idx.shape[0]} rows, expected {n}")
             host[("shard", name)] = (idx, val, feats.d)
-            shards[name] = SparseFeatures(put(idx), put(val), feats.d)
+            specs[name] = (idx, val, feats.d)
         else:
             raise TypeError(f"feature shard {name!r}: expected Dense or "
                             f"Sparse features, got {type(feats).__name__}")
+
+    pinned: list = []
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda" and t.nbytes >= _PINNED_COPY_MIN_BYTES:
+            # From pinned memory the copy runs at the link's rate without
+            # blocking; the pinned copy lives until the sync below.
+            t = t.pin_memory()
+            pinned.append(t)
+            return t.to(dev, non_blocking=True)
+        return t.to(dev)
+
+    # Every device copy of the raw data, timed as one stage.
+    with PIPELINE_STATS.stage("raw_transfer"):
+        shards: dict[str, Features] = {
+            name: (DenseFeatures(put(spec[0])) if len(spec) == 1 else
+                   SparseFeatures(put(spec[0]), put(spec[1]), spec[2]))
+            for name, spec in specs.items()}
+        columns = [put(a) for a in (labels_np, offsets_np, weights_np)]
+        if pinned:
+            torch.cuda.current_stream(dev).synchronize()
     return GameDataset(
-        labels=put(labels_np),
-        offsets=put(offsets_np),
-        weights=put(weights_np),
+        labels=columns[0],
+        offsets=columns[1],
+        weights=columns[2],
         feature_shards=shards,
         id_tags={k: IdTag.from_raw(v, dev)
                  for k, v in (id_tags or {}).items()},

@@ -9,11 +9,18 @@ Two stages, as in the reference (RandomEffectDataset.scala:264-354):
    subspace projector, and the active entities are grouped into
    size buckets. The plan arrays are byte-identical to the JAX
    planner's.
+   The row passes chunk over rows and the buckets build on the ingest
+   pipeline's chunk pool (``data/pipeline.py``); the result is
+   byte-identical to the serial path.
 2. **Device placement (lazy)**: only the small plan arrays go to the
-   device. Each bucket's ``[B, R, S]`` design slab is gathered on the
-   device from the raw feature tensors: once per dataset into a cache
-   (``device_blocks``) while the slabs fit ``_DEVICE_SLAB_BUDGET_BYTES``,
-   else inside every solve (``BlockPlan.materialize``).
+   device, all of a build's in ONE packed transfer
+   (``PackedPlanArrays``: every array a slice of one int32 device
+   buffer); ``defer_transfer`` hands them to the caller instead, so the
+   estimator sends every coordinate's in one. Each bucket's
+   ``[B, R, S]`` design slab is gathered on the device from the raw
+   feature tensors: once per dataset into a cache (``device_blocks``)
+   while the slabs fit ``_DEVICE_SLAB_BUDGET_BYTES``, else inside every
+   solve (``BlockPlan.materialize``).
 
 Scoring is scatter-free: ``score_inv`` maps each canonical row to its
 position in the concatenation of every bucket's ``[B, cap]`` score block
@@ -25,9 +32,11 @@ configuration sets ``score_table_width_cap`` (as the reference does):
 every bucket is built on the host as ELL blocks ``[B, R, k]`` of subspace
 slots, with the gram route's window bounds (``block_gram_mults``), and
 every row scores through a remapped ``[n, k]`` score table whose rows
-past the width cap spill into a COO tail. The lazy layout's ELL slab for
-wide subspaces is not ported: a wide lazy bucket raises
-``NotImplementedError``.
+past the width cap spill into a COO tail. Its blocks and table reach the
+device in one packed transfer too (float32 arrays by their bits; a
+float64 build copies array by array, ``_ListPlanArrays``). The lazy
+layout's ELL slab for wide subspaces is not ported: a wide lazy bucket
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +53,15 @@ from photon_tpu_torch.data.dataset import (
     SparseFeatures,
 )
 from photon_tpu_torch.data.game_data import GameDataset
+from photon_tpu_torch.data.pipeline import (
+    PIPELINE_STATS,
+    bincount_chunked,
+    chunk_executor,
+    consume_futures,
+    map_chunked,
+    packable,
+    packed_to_device,
+)
 from photon_tpu_torch.ops import segment_reduce
 
 DEFAULT_BUCKET_CAPS = (16, 64, 256, 1024, 4096)
@@ -235,6 +253,10 @@ class RandomEffectDataset:
     # Per bucket the gram route's (grad_mult, hess_mult) window bounds,
     # or None where the route cannot engage; empty for lazy datasets.
     block_gram_mults: tuple = ()
+    # The device copy of a lazy dataset's plan arrays: a view of the
+    # packed buffer (5 arrays a bucket, then proj_all, then score_inv),
+    # or a ``_ListPlanArrays``.
+    packed_view: object = None
 
     @property
     def num_rows(self) -> int:
@@ -260,16 +282,14 @@ class RandomEffectDataset:
         dataset's blocks as they are."""
         if not self.is_lazy:
             return self.blocks
-        dev = self.device
 
         def build():
+            arrays = self.packed_view.device_arrays()
+            k = PLAN_ARRAYS_PER_BUCKET
             return tuple(
-                dataclasses.replace(b, **{
-                    f: torch.from_numpy(np.asarray(getattr(b, f))).to(dev)
-                    for f in _PLAN_FIELDS
-                })
-                for b in self.blocks
-            )
+                dataclasses.replace(b, **dict(zip(
+                    _PLAN_FIELDS, arrays[k * i:k * (i + 1)])))
+                for i, b in enumerate(self.blocks))
 
         return self._cached("_device_plans", build)
 
@@ -303,14 +323,13 @@ class RandomEffectDataset:
     def score_inv_device(self) -> torch.Tensor:
         """[n] int64 inverse score map on the device (cached)."""
         return self._cached(
-            "_score_inv", lambda: torch.from_numpy(
-                self.score_inv_np.astype(np.int64)).to(self.device))
+            "_score_inv", lambda: self.packed_view.device_arrays()[
+                packed_score_inv_index(len(self.blocks))].long())
 
     def proj_device(self) -> torch.Tensor:
-        """[E, max_sub_dim] int32 projector table on the device (cached)."""
-        return self._cached(
-            "_proj_dev", lambda: torch.from_numpy(
-                self.proj_all.astype(np.int32)).to(self.device))
+        """[E, max_sub_dim] int32 projector table on the device."""
+        return self.packed_view.device_arrays()[
+            packed_proj_index(len(self.blocks))]
 
     def covered_row_partition(self):
         """(covered [n] bool, passive rows int32), both host arrays, of a
@@ -423,8 +442,11 @@ class _ProjectorTable:
 class _Plan:
     codes: np.ndarray  # [n] int64 owning entity per row
     perm: np.ndarray  # [n] rows sorted by (entity, reservoir hash)
+    sorted_codes: np.ndarray  # [n] codes[perm]
     starts: np.ndarray  # [E] start of each entity's sorted span
     counts: np.ndarray  # [E] kept (reservoir-capped) rows per entity
+    keep_sorted: np.ndarray  # [n] bool: kept, in sorted order
+    rank_sorted: np.ndarray  # [n] within-entity rank in sorted order
     active: np.ndarray  # [E] bool: the entity trains a model
     table: _ProjectorTable
     proj_all: np.ndarray  # [E, S] feature ids, -1 pad
@@ -451,21 +473,26 @@ def _plan_random_effect(game_data: GameDataset,
             else np.arange(n, dtype=np.int64))
 
     # 1. Deterministic reservoir cap: each entity keeps the
-    # active_data_upper_bound rows with the smallest hash keys.
-    counts_full = np.bincount(codes, minlength=num_entities).astype(
+    # active_data_upper_bound rows with the smallest hash keys. The
+    # chunked passes (bincount partial sums, elementwise hashing) are
+    # exact: the pipelined planner's output is bit-identical to serial.
+    counts_full = bincount_chunked(codes, num_entities).astype(
         np.int64, copy=False)
     upper = config.active_data_upper_bound
     lower = config.active_data_lower_bound
     if upper is not None and bool(counts_full.max(initial=0) > upper):
         seed = _stable_type_seed(config.random_effect_type)
-        order_keys = _byteswap64_mix(uids, seed)
+        order_keys = map_chunked(lambda u: _byteswap64_mix(u, seed),
+                                 np.empty(n, dtype=np.uint64), uids)
         # (code, high hash bits) packed into one int64 sorts as one
         # stable radix sort; ties fall back to row order.
         code_bits = max(int(num_entities - 1).bit_length(), 1)
         if code_bits <= 40:
             hash_bits = 63 - code_bits
-            key = (codes << hash_bits) | (
-                order_keys >> np.uint64(64 - hash_bits)).astype(np.int64)
+            key = map_chunked(
+                lambda c, k: (c << hash_bits) | (
+                    k >> np.uint64(64 - hash_bits)).astype(np.int64),
+                np.empty(n, dtype=np.int64), codes, order_keys)
             perm = np.argsort(key, kind="stable")
         else:
             perm = np.lexsort((order_keys, codes))
@@ -571,7 +598,9 @@ def _plan_random_effect(game_data: GameDataset,
     # 3. Size-bucket membership.
     bucket_members = _assign_buckets(counts, active, config.bucket_caps,
                                      config.min_bucket_entities)
-    return _Plan(codes=codes, perm=perm, starts=starts, counts=counts,
+    return _Plan(codes=codes, perm=perm, sorted_codes=sorted_codes,
+                 starts=starts, counts=counts,
+                 keep_sorted=keep_sorted, rank_sorted=rank_sorted,
                  active=active, table=table, proj_all=proj_all,
                  sub_dims=sub_dims, max_sub_dim=max_sub_dim,
                  intercept_slots_all=intercept_slots_all,
@@ -710,6 +739,121 @@ def _gram_window_bounds(bi: np.ndarray, bv: np.ndarray, sub_dim: int):
             segment_reduce.window_bound_from_counts(hess_counts.max()))
 
 
+# PLAN_ARRAYS_PER_BUCKET arrays a bucket of a lazy build (members,
+# row_ids, counts, proj, intercepts), then the [E, S] projector table,
+# then the score gather map: the packed layout every device accessor of
+# a lazy dataset indexes.
+PLAN_ARRAYS_PER_BUCKET = 5
+
+
+def packed_proj_index(n_blocks: int) -> int:
+    return PLAN_ARRAYS_PER_BUCKET * n_blocks
+
+
+def packed_score_inv_index(n_blocks: int) -> int:
+    return PLAN_ARRAYS_PER_BUCKET * n_blocks + 1
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+class PackedPlanArrays:
+    """Every plan array of a build in ONE granule-padded int32 device
+    buffer. Array ``i`` is ``buf[off:off + n]`` viewed as its dtype and
+    shape: a view, so the arrays cost no device memory of their own and
+    no split program."""
+
+    def __init__(self, buf: torch.Tensor, shapes: tuple, dtypes: tuple):
+        self.buf = buf
+        self.shapes = tuple(tuple(s) for s in shapes)
+        self.dtypes = tuple(dtypes)
+        self.sizes = tuple(int(np.prod(s)) if s else 1
+                           for s in self.shapes)
+        offs = np.cumsum([0, *self.sizes])
+        self.offsets = tuple(int(o) for o in offs[:-1])
+        self._arrays: tuple | None = None
+
+    def view(self, lo: int, hi: int) -> "_PackedPlanView":
+        return _PackedPlanView(self, lo, hi)
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        return self.buf
+
+    def device_arrays(self) -> tuple:
+        if self._arrays is None:
+            self._arrays = tuple(
+                self.buf[o:o + n].view(dt).view(s)
+                for o, n, s, dt in zip(self.offsets, self.sizes,
+                                       self.shapes, self.dtypes))
+        return self._arrays
+
+
+class _PackedPlanView:
+    """A subrange of a PackedPlanArrays: one dataset's arrays of a
+    multi-coordinate transfer."""
+
+    def __init__(self, packed: PackedPlanArrays, lo: int, hi: int):
+        self.packed = packed
+        self.lo = lo
+        self.hi = hi
+
+    def __len__(self) -> int:
+        return self.hi - self.lo
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        return self.packed.buf
+
+    @property
+    def shapes(self) -> tuple:
+        return self.packed.shapes[self.lo:self.hi]
+
+    def device_arrays(self) -> tuple:
+        return self.packed.device_arrays()[self.lo:self.hi]
+
+
+class _ListPlanArrays:
+    """Array-by-array placement, the fallback for a build with arrays
+    the int32 buffer cannot carry (float64)."""
+
+    def __init__(self, arrays, device):
+        self._host = list(arrays)
+        self._device = device
+        self._arrays: tuple | None = None
+
+    def device_arrays(self) -> tuple:
+        if self._arrays is None:
+            self._arrays = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
+                for a in self._host)
+        return self._arrays
+
+
+def _plan_arrays_to_device(arrays: list, device):
+    """All ``arrays`` on ``device``: one packed, chunked, double-buffered
+    transfer (``pipeline.packed_to_device``) when every array is int32 or
+    float32, else a ``_ListPlanArrays``."""
+    if not all(packable(a) for a in arrays):
+        return _ListPlanArrays(arrays, device)
+    buf, shapes = packed_to_device(arrays, device)
+    return PackedPlanArrays(
+        buf, shapes, tuple(torch.from_numpy(np.empty(0, a.dtype)).dtype
+                           for a in arrays))
+
+
+@dataclasses.dataclass
+class PendingRandomEffectDataset:
+    """A build whose device placement is deferred: ``flat`` lists its
+    host arrays, and ``finalize`` takes their device copy (a
+    PackedPlanArrays view of the same order) and returns the dataset.
+    The estimator sends every coordinate's ``flat`` in one transfer."""
+
+    flat: list
+    finalize: object  # Callable[[PackedPlanArrays view], RandomEffectDataset]
+
+
 def build_random_effect_dataset(
     game_data: GameDataset,
     config: RandomEffectDataConfiguration,
@@ -717,18 +861,21 @@ def build_random_effect_dataset(
     intercept_index: int | None = None,
     extra_features: dict | None = None,
     lazy: bool | None = None,
-) -> RandomEffectDataset:
+    defer_transfer: bool = False,
+):
     """Plan one random-effect coordinate on the host and build its
     dataset on ``game_data``'s device. ``extra_features`` maps an entity
     code to feature ids that must stay in its subspace (a warm-start
     model's support, RandomEffectDataset.scala:390-426). ``lazy`` picks
     the layout; by default it is lazy unless the configuration sets
     ``score_table_width_cap`` or a subspace is wider than
-    ``DENSE_SUB_DIM_MAX``."""
+    ``DENSE_SUB_DIM_MAX``. With ``defer_transfer`` it makes no CUDA call
+    and returns a ``PendingRandomEffectDataset``."""
     feats = game_data.feature_shards[config.feature_shard_id]
-    plan = _plan_random_effect(game_data, config,
-                               intercept_index=intercept_index,
-                               extra_features=extra_features)
+    with PIPELINE_STATS.stage("plan"):
+        plan = _plan_random_effect(game_data, config,
+                                   intercept_index=intercept_index,
+                                   extra_features=extra_features)
     if lazy is None:
         # A width cap says heavy entities dominate max_sub_dim: the lazy
         # scorer's [n, S] gathers would bring back what the cap bounds.
@@ -738,21 +885,28 @@ def build_random_effect_dataset(
     tag = game_data.id_tags[config.random_effect_type]
     n = plan.codes.shape[0]
 
-    bucket_host = []
-    covered = np.zeros(n, dtype=bool)
-    for cap in sorted(plan.bucket_members):
+    def build_bucket(cap: int) -> dict:
         members = plan.bucket_members[cap]
         rows_flat, t_of, r_of, counts_b = _bucket_rows(plan, members)
         brow = np.zeros((members.size, cap), dtype=np.int32)
         brow[t_of, r_of] = rows_flat
         s = max(int(plan.sub_dims[members].max(initial=0)), 1)
-        bucket_host.append(dict(
+        return dict(
             members=members.astype(np.int32), brow=brow,
             counts=counts_b.astype(np.int32),
             proj=plan.proj_all[members][:, :s].astype(np.int32),
             intercepts=plan.intercept_slots_all[members],
-            rows_flat=rows_flat, t_of=t_of, r_of=r_of))
-        covered[rows_flat] = True
+            rows_flat=rows_flat, t_of=t_of, r_of=r_of)
+
+    # Buckets are independent: they build concurrently on the chunk
+    # pool, and the ordered wait keeps ascending-cap order.
+    with PIPELINE_STATS.stage("pack"):
+        bucket_host = consume_futures([
+            chunk_executor.submit(build_bucket, cap)
+            for cap in sorted(plan.bucket_members)])
+    covered = np.zeros(n, dtype=bool)
+    for bh in bucket_host:
+        covered[bh["rows_flat"]] = True
     common = dict(
         config=config,
         num_entities=tag.num_groups,
@@ -766,10 +920,24 @@ def build_random_effect_dataset(
         block_intercepts_np=tuple(bh["intercepts"] for bh in bucket_host),
         covered_np=covered,
     )
-    if not lazy:
-        return _build_materialized(game_data, config, plan, bucket_host,
-                                   common)
+    if lazy:
+        flat, finalize = _lazy_host(game_data, feats, plan, bucket_host,
+                                    common)
+    else:
+        flat, finalize = _materialized_host(game_data, config, plan,
+                                            bucket_host, common)
+    if defer_transfer:
+        return PendingRandomEffectDataset(flat=flat, finalize=finalize)
+    return finalize(_plan_arrays_to_device(flat, game_data.device))
 
+
+def _lazy_host(game_data: GameDataset, feats: Features, plan: _Plan,
+               bucket_host: list, common: dict):
+    """(flat, finalize) of the lazy layout. The inverse score map sends
+    each canonical row to its position in the concatenation of every
+    bucket's [B, cap] score block followed by the passive rows' scores."""
+    covered = common["covered_np"]
+    n = covered.shape[0]
     score_inv = np.empty(n, dtype=np.int32)
     base = 0
     for bh in bucket_host:
@@ -783,41 +951,56 @@ def build_random_effect_dataset(
             f"flat score layout has {base + passive.size} elements, which "
             "overflows the int32 inverse score map")
     score_inv[passive] = base + np.arange(passive.size, dtype=np.int32)
-    blocks = tuple(
-        BlockPlan(
-            entity_codes=bh["members"],
-            row_ids=bh["brow"],
-            row_counts=bh["counts"],
-            proj=bh["proj"],
-            intercept_slots=bh["intercepts"],
-            raw=feats,
-            raw_labels=game_data.labels,
-            raw_offsets=game_data.offsets,
-            raw_weights=game_data.weights,
-        )
-        for bh in bucket_host)
-    return RandomEffectDataset(blocks=blocks, score_codes=tag.codes,
-                               raw=feats, score_inv_np=score_inv, **common)
+    flat: list = []
+    for bh in bucket_host:
+        flat += [bh["members"], bh["brow"], bh["counts"], bh["proj"],
+                 bh["intercepts"]]
+    flat += [plan.proj_all.astype(np.int32), score_inv]
+    tag = game_data.id_tags[common["config"].random_effect_type]
+
+    def finalize(devs) -> RandomEffectDataset:
+        blocks = tuple(
+            BlockPlan(
+                entity_codes=bh["members"],
+                row_ids=bh["brow"],
+                row_counts=bh["counts"],
+                proj=bh["proj"],
+                intercept_slots=bh["intercepts"],
+                raw=feats,
+                raw_labels=game_data.labels,
+                raw_offsets=game_data.offsets,
+                raw_weights=game_data.weights,
+            )
+            for bh in bucket_host)
+        return RandomEffectDataset(blocks=blocks, score_codes=tag.codes,
+                                   raw=feats, score_inv_np=score_inv,
+                                   packed_view=devs, **common)
+
+    return flat, finalize
 
 
-def _build_materialized(game_data: GameDataset,
-                        config: RandomEffectDataConfiguration, plan: _Plan,
-                        bucket_host: list, common: dict
-                        ) -> RandomEffectDataset:
-    """The materialized layout: each bucket's ELL blocks remapped to
-    subspace slots on the host and copied to the device, and the score
-    table with its tail."""
-    dev, dtype = game_data.device, game_data.dtype
+# The host arrays of one materialized bucket, in the packed order, and
+# the float ones among them (cast to the training dtype on the host).
+_MAT_BLOCK_FIELDS = ("entity_codes", "x_indices", "x_values", "labels",
+                     "offsets", "weights", "row_ids", "proj",
+                     "penalty_mask", "valid_mask", "intercept_slots")
+_MAT_FLOAT_FIELDS = frozenset(("x_values", "labels", "offsets", "weights",
+                               "penalty_mask", "valid_mask"))
+
+
+def _materialized_host(game_data: GameDataset,
+                       config: RandomEffectDataConfiguration, plan: _Plan,
+                       bucket_host: list, common: dict):
+    """(flat, finalize) of the materialized layout: each bucket's ELL
+    blocks remapped to subspace slots on the host (concurrently, on the
+    chunk pool), the score table with its tail, all in ``flat``."""
     ell_idx, ell_val, _ = game_data.host_shard_coo(config.feature_shard_id)
     labels_np = game_data.host_column("labels")
     offsets_np = game_data.host_column("offsets")
     weights_np = game_data.host_column("weights")
+    np_dtype = _np_dtype(game_data.dtype)
 
-    def put(a: np.ndarray, to=None) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, to)
-
-    blocks, gram_mults = [], []
-    for bh in bucket_host:
+    def host_block(bh: dict) -> dict:
         members = bh["members"]
         b, cap = bh["brow"].shape
         rows_flat, t_of, r_of = bh["rows_flat"], bh["t_of"], bh["r_of"]
@@ -831,7 +1014,6 @@ def _build_materialized(game_data: GameDataset,
         bv = np.zeros((b, cap, k), dtype=ell_val.dtype)
         bi[t_of, r_of] = ri
         bv[t_of, r_of] = rv
-        gram_mults.append(_gram_window_bounds(bi, bv, s))
         bl = np.zeros((b, cap), dtype=labels_np.dtype)
         bo = np.zeros((b, cap), dtype=offsets_np.dtype)
         bw = np.zeros((b, cap), dtype=weights_np.dtype)
@@ -844,45 +1026,66 @@ def _build_materialized(game_data: GameDataset,
         penalty = valid.copy()
         has_int = bint >= 0
         penalty[has_int, bint[has_int]] = 0.0
-        blocks.append(EntityBlocks(
-            entity_codes=put(members),
-            x_indices=put(bi),
-            x_values=put(bv, dtype),
-            labels=put(bl, dtype),
-            offsets=put(bo, dtype),
-            weights=put(bw, dtype),
-            row_ids=put(bh["brow"]),
-            proj=put(bh["proj"]),
-            penalty_mask=put(penalty, dtype),
-            valid_mask=put(valid, dtype),
-            intercept_slots=put(bint),
-        ))
+        arrays = dict(entity_codes=members, x_indices=bi, x_values=bv,
+                      labels=bl, offsets=bo, weights=bw,
+                      row_ids=bh["brow"], proj=bh["proj"],
+                      penalty_mask=penalty, valid_mask=valid,
+                      intercept_slots=bint)
+        return dict(
+            arrays=[arrays[f].astype(np_dtype, copy=False)
+                    if f in _MAT_FLOAT_FIELDS else arrays[f]
+                    for f in _MAT_BLOCK_FIELDS],
+            gram=_gram_window_bounds(bi, bv, s))
 
-    si, sv, tail = _score_table_arrays(
-        plan.codes, ell_idx, ell_val, plan.table,
-        config.score_table_width_cap)
-    tail_arrays = dict(score_tail_rows=None, score_tail_indices=None,
-                       score_tail_values=None, score_tail_mult=None)
+    with PIPELINE_STATS.stage("pack"):
+        table = chunk_executor.submit(
+            _score_table_arrays, plan.codes, ell_idx, ell_val, plan.table,
+            config.score_table_width_cap)
+        blocks_host = consume_futures([
+            chunk_executor.submit(host_block, bh) for bh in bucket_host])
+        si, sv, tail = consume_futures([table])[0]
+    flat: list = []
+    for bh in blocks_host:
+        flat += bh["arrays"]
+    flat += [plan.codes.astype(np.int32), si,
+             sv.astype(np_dtype, copy=False)]
+    tail_mult = None
     if tail is not None:
-        tail_arrays = dict(
-            score_tail_rows=put(tail[0].astype(np.int32)),
-            score_tail_indices=put(tail[1].astype(np.int32)),
-            score_tail_values=put(tail[2], dtype),
-            # Tail rows are sorted: one bincount prices the widest row.
-            score_tail_mult=(int(np.bincount(tail[0]).max())
-                             if tail[0].size else 1),
+        flat += [tail[0].astype(np.int32), tail[1].astype(np.int32),
+                 tail[2].astype(np_dtype, copy=False)]
+        # Tail rows are sorted: one bincount prices the widest row.
+        tail_mult = int(np.bincount(tail[0]).max()) if tail[0].size else 1
+    gram_mults = tuple(bh["gram"] for bh in blocks_host)
+
+    def finalize(devs) -> RandomEffectDataset:
+        arrays = devs.device_arrays()
+        k = len(_MAT_BLOCK_FIELDS)
+        blocks = tuple(
+            EntityBlocks(**dict(zip(_MAT_BLOCK_FIELDS,
+                                    arrays[k * i:k * (i + 1)])))
+            for i in range(len(blocks_host)))
+        rest = arrays[k * len(blocks_host):]
+        tail_arrays = dict(score_tail_rows=None, score_tail_indices=None,
+                           score_tail_values=None, score_tail_mult=None)
+        if tail is not None:
+            tail_arrays = dict(score_tail_rows=rest[3],
+                               score_tail_indices=rest[4],
+                               score_tail_values=rest[5],
+                               score_tail_mult=tail_mult)
+        return RandomEffectDataset(
+            blocks=blocks,
+            score_codes=rest[0],
+            raw=None,
+            score_inv_np=None,
+            score_indices=rest[1],
+            score_values=rest[2],
+            block_gram_mults=gram_mults,
+            packed_view=devs,
+            **tail_arrays,
+            **common,
         )
-    return RandomEffectDataset(
-        blocks=tuple(blocks),
-        score_codes=put(plan.codes.astype(np.int32)),
-        raw=None,
-        score_inv_np=None,
-        score_indices=put(si),
-        score_values=put(sv, dtype),
-        block_gram_mults=tuple(gram_mults),
-        **tail_arrays,
-        **common,
-    )
+
+    return flat, finalize
 
 
 def scoring_codes(game_data: GameDataset, re_type: str,
@@ -937,18 +1140,15 @@ def remap_for_scoring(game_data: GameDataset, *, re_type: str,
     table = projector_table_from_proj_all(proj_all, num_features)
     si, sv, tail = _score_table_arrays(codes, ell_idx, ell_val, table,
                                        width_cap)
-    unseen = codes < 0
-    sv = np.array(sv)
-    sv[unseen] = 0.0
-    codes_safe = np.maximum(codes, 0)
-
-    def put(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
-
-    tail_out = None
+    np_dtype = _np_dtype(dtype)
+    sv = np.array(sv, dtype=np_dtype)
+    sv[codes < 0] = 0.0
+    flat = [np.maximum(codes, 0).astype(np.int32), si.astype(np.int32), sv]
     if tail is not None:
         tr, ti, tv = tail
-        tail_out = (put(tr, torch.int32), put(ti, torch.int32),
-                    put(tv, dtype))
-    return (put(codes_safe, torch.int32), put(si, torch.int32),
-            put(sv, dtype), tail_out)
+        flat += [tr.astype(np.int32), ti.astype(np.int32),
+                 tv.astype(np_dtype)]
+    # One packed transfer for the whole remap.
+    arrays = _plan_arrays_to_device(flat, dev).device_arrays()
+    tail_out = tuple(arrays[3:]) if tail is not None else None
+    return arrays[0], arrays[1], arrays[2], tail_out

@@ -14,9 +14,12 @@ across configurations (GameTrainingDriver.scala:753-793). A
 ``TrainingCheckpointer`` commits a recovery point after every outer
 iteration, and ``resume`` restarts from one.
 
-Waiting (ROADMAP Queue A): mesh execution (item 12), streaming ingest
-(item 9), the event emitter (item 10), and the whole-fit fused program
-(item 8; its torch counterpart is a CUDA-graph capture of a fit).
+The random-effect coordinates plan concurrently and reach the device in
+one packed transfer (``data/pipeline.py``).
+
+Waiting (ROADMAP Queue A): mesh execution (item 12), the event emitter
+(item 10), and the whole-fit fused program (item 8; its torch
+counterpart is a CUDA-graph capture of a fit).
 """
 
 from __future__ import annotations
@@ -41,8 +44,11 @@ from photon_tpu_torch.algorithm.problems import (
 )
 from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
 from photon_tpu_torch.data.game_data import GameDataset
+from photon_tpu_torch.data.pipeline import PIPELINE_STATS, packable
 from photon_tpu_torch.data.random_effect import (
+    PendingRandomEffectDataset,
     RandomEffectDataConfiguration,
+    _plan_arrays_to_device,
     build_random_effect_dataset,
 )
 from photon_tpu_torch.evaluation.evaluators import EvaluatorSpec
@@ -96,6 +102,29 @@ class RandomEffectCoordinateConfiguration:
 
 CoordinateConfiguration = Union[FixedEffectCoordinateConfiguration,
                                 RandomEffectCoordinateConfiguration]
+
+
+def _resolve_pending(out: dict, device) -> dict:
+    """Place every deferred build: the builds whose arrays the int32
+    buffer carries share ONE packed transfer, each finalized on its
+    view; the others (float64 materialized builds) copy on their own."""
+    pending = {cid: d for cid, d in out.items()
+               if isinstance(d, PendingRandomEffectDataset)}
+    packed = {cid: p for cid, p in pending.items()
+              if all(packable(a) for a in p.flat)}
+    if packed:
+        all_flat: list = []
+        spans = {}
+        for cid, p in packed.items():
+            spans[cid] = (len(all_flat), len(all_flat) + len(p.flat))
+            all_flat.extend(p.flat)
+        devs = _plan_arrays_to_device(all_flat, device)
+        for cid, p in packed.items():
+            out[cid] = p.finalize(devs.view(*spans[cid]))
+    for cid, p in pending.items():
+        if cid not in packed:
+            out[cid] = p.finalize(_plan_arrays_to_device(p.flat, device))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,12 +209,25 @@ class GameEstimator:
         """The per-coordinate datasets. A prior model's per-entity
         feature support joins the subspaces
         (RandomEffectDataset.scala:390-426), so its coefficients keep
-        their slots under warm start."""
-        out = {}
-        for cid, cfg in self.coordinate_configs.items():
+        their slots under warm start.
+
+        The random-effect coordinates plan concurrently on the ingest
+        pipeline's plan pool (each planner's row passes and buckets on
+        the chunk pool, ``data/pipeline.py``); the results are collected
+        in the dict order, so the plans are bit-identical to the serial
+        path. No pool thread makes a CUDA call: every build defers its
+        placement, and all of them reach the device afterwards in one
+        packed transfer. ``PHOTON_TPU_SERIAL_INGEST=1`` restores the
+        in-line path."""
+        from photon_tpu_torch.data import pipeline
+        from photon_tpu_torch.resilience import faults
+
+        def build_one(cid: str, cfg):
+            # A planner thunk dying on the plan pool propagates through
+            # consume_futures.
+            faults.check("ingest.plan")
             if not isinstance(cfg, RandomEffectCoordinateConfiguration):
-                out[cid] = data.shard_batch(cfg.feature_shard_id)
-                continue
+                return data.shard_batch(cfg.feature_shard_id)
             extra = None
             if initial_model is not None and cid in initial_model:
                 prior = initial_model[cid]
@@ -197,13 +239,23 @@ class GameEstimator:
                         if code is not None:
                             p = prior.proj_all[eo]
                             extra[code] = p[p >= 0]
-            out[cid] = build_random_effect_dataset(
+            return build_random_effect_dataset(
                 data, cfg.data,
                 intercept_index=self.intercept_indices.get(
                     cfg.data.feature_shard_id),
                 extra_features=extra,
+                defer_transfer=True,
             )
-        return out
+
+        futs = {
+            cid: pipeline.plan_executor.submit(build_one, cid, cfg)
+            for cid, cfg in self.coordinate_configs.items()
+            if isinstance(cfg, RandomEffectCoordinateConfiguration)
+        }
+        planned = dict(zip(futs, pipeline.consume_futures(futs.values())))
+        out = {cid: planned[cid] if cid in planned else build_one(cid, cfg)
+               for cid, cfg in self.coordinate_configs.items()}
+        return _resolve_pending(out, self.device)
 
     def _build_coordinates(self, datasets: dict, opt_configs: dict,
                            priors: dict) -> dict:
@@ -328,6 +380,11 @@ class GameEstimator:
                 a is b for a, b in zip(self._fit_cache[0], key)):
             return self._fit_cache[1]
         self._fit_cache = None
+        # The raw data's transfer (and a streamed dataset's window
+        # copies and assembly) were recorded when the dataset was built,
+        # before this prepare: they survive the reset.
+        PIPELINE_STATS.reset(keep=("raw_transfer", "stream_transfer",
+                                   "stream_assemble"))
         datasets = self._build_datasets(data, initial_model)
         val_ctx = (self._build_validation(datasets, validation)
                    if validation is not None else None)

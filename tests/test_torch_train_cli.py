@@ -903,9 +903,6 @@ def test_train_then_score_round_trip(tmp_path, glmix):
 
 
 UNPORTED = [
-    (["--stream-dir", "d"], {}, 9),
-    (["--resume-ingest"], {}, 9),
-    (["--max-bad-shards", "2"], {}, 9),
     (["--telemetry", "t.jsonl"], {}, 10),
     (["--trace", "t.json"], {}, 10),
     (["--flight-dir", "f"], {}, 10),
@@ -923,8 +920,9 @@ UNPORTED = [
 
 
 # Each case keeps the id it had before the item-6 cases (13-16, 18, 19)
-# were ported and moved to FORMERLY_UNPORTED below.
-UNPORTED_POSITIONS = [*range(13), 17, 20]
+# were ported and moved to FORMERLY_UNPORTED below, and the item-9 cases
+# (0-2, the streaming flags) to tests/test_torch_stream.py.
+UNPORTED_POSITIONS = [*range(3, 13), 17, 20]
 
 
 @pytest.mark.parametrize("args,overrides,item", UNPORTED,
