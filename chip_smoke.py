@@ -192,7 +192,19 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      from the best model's arrays, ``evaluation.json``'s
                      AUC within 1e-4 of the summary's, one serve launch a
                      chunk; (f) the global shard's feature stats within
-                     1e-6 of numpy float64 over the written rows.
+                     1e-6 of numpy float64 over the written rows. And
+                     (b) the fixed effect's sparse transpose: the kernel
+                     run (profiled) launched the segment-sum kernel at
+                     its ``fixed_effect`` site and no atomic scatter
+                     kernel (``index_add_``, ``scatter_add_``,
+                     ``index_put_`` with accumulate; ATOMIC_SCATTER_KERNELS)
+                     on the card; on the run's own global shard (262,144
+                     x 9 slots into 64 features, cut into 8,192 row
+                     blocks of 64 segments each) the kernel is held,
+                     twice, against its plain version and timed, alone
+                     and with the blocks' sum, beside ``index_add_`` on
+                     the same slots and its bound (``fixed_effect_site``);
+                     the run's peak device memory is printed with it.
 
 14b. train_cli_routes - phase 14a's files through ``cli.train`` on the
                      optimizer routes (``train_cli_routes_config``:
@@ -248,8 +260,9 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      training rows, which 14a writes as 16 part files
                      (the in-memory runs read the directory): the
                      in-memory ``cli.train`` and (a) ``--stream-dir
-                     --stream-window 2``, each in a subprocess of its
-                     own (``--cli-child``) for its peak RSS (the larger
+                     --stream-window 2``, side by side, each in a
+                     subprocess of its own (``--cli-child``,
+                     ``cli_children``) for its peak RSS (the larger
                      of VmHWM, where the kernel reports it, and VmRSS
                      sampled every 10 ms from this process), beside the
                      RSS after the imports and the CUDA context;
@@ -267,10 +280,13 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      best checkpoint, then ``cli.score`` of the
                      validation file. Gates: (a) the dataset (host
                      mirrors, device columns, id tags) and the packed
-                     plan buffer sha256-equal to the in-memory run's, the
-                     best model within twice the difference of two
-                     in-memory runs (14a's kernel run and this phase's;
-                     0 when both are bit-equal); (b) the file named, the
+                     plan buffer sha256-equal to the in-memory run's,
+                     two in-memory fits equal bit for bit (14a's kernel
+                     run and this phase's) and the streamed fit's best
+                     model equal, bit for bit, to the in-memory one's
+                     (the fixed effect's transpose is a sorted segment
+                     sum, so no reduction on the card changes its order
+                     from run to run); (b) the file named, the
                      quarantined path and ingested_fraction 15/16;
                      (c) ``resumed_from_shard`` the committed cursor's,
                      the dataset and plans equal to (a)'s; (d) 4
@@ -280,9 +296,43 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      numpy score, one serve launch a chunk; every run
                      launches the Newton kernel with no plain-route
                      solve, and the segment sum at the ``evaluation``
-                     site (the validation's AUC:userId). It prints the
+                     site (the validation's AUC:userId) and at the
+                     ``fixed_effect`` site. It prints the
                      ingest's seconds by stage, rows/s, the packed
                      transfers and both peak RSS.
+14e. tuning_cli    - hyperparameter tuning through ``cli.train`` on 14a's
+                     files (``tuning_config``: one lambda a coordinate,
+                     one CD iteration, TUNED output, seed TUNING_SEED):
+                     RANDOM with 3 candidates and BAYESIAN with 5
+                     twice (with three tunable coordinates and a
+                     one-point grid the GP makes the 4th and 5th), the
+                     three runs side by side, each in a subprocess of
+                     its own (``cli_children``), then
+                     ``cli.score`` of the validation file with the
+                     BAYESIAN run's best model. Gates: the RANDOM
+                     candidates' lambdas equal, bit for bit, the Sobol
+                     draws taken straight from ``scipy.stats.qmc`` with
+                     the same seed (``sobol_lambdas``); the two BAYESIAN
+                     runs' configurations, evaluations, best index and
+                     best model equal bit for bit; each run's
+                     ``num_tuned_configurations`` its candidates; TUNED
+                     saves ``best`` and every tuned model but the best,
+                     never the grid's; Newton launches with no
+                     plain-route solve, segment sums at the
+                     ``fixed_effect`` and ``evaluation`` sites; the
+                     scores within 1e-5 of a float64 numpy score, one
+                     serve launch a chunk. It prints each run's seconds
+                     by stage and per configuration.
+14f. glm_cli       - the legacy ``cli.glm`` on 14a's files (the global
+                     bag), lambdas GLM_LAMBDAS, on the card in float32
+                     and on the CPU in float64 (the port's readers
+                     switched to float64: ``float64_readers``). Gates:
+                     the same selected lambda, the card's best model
+                     within GLM_F32_ATOL = 5e-4 of float64 (the bound
+                     ``tests/test_torch_wide.py`` derives for an f32
+                     fixed-effect solve), segment sums
+                     at the ``fixed_effect`` site. It prints both runs'
+                     seconds by stage.
 
 Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
 GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
@@ -357,8 +407,9 @@ script beside it, and run parent, change, change, parent in one call.
 
 ``python3 chip_smoke.py --train-cli`` runs only the device and build
 phases and then phases 14a and 14b, ``--train-routes`` phase 14c,
-``--serve`` the serving phases 1-6c, and ``--stream`` phases 14a, 14d,
-7a (on its own logistic data) and 15, printing no ``ok`` line.
+``--serve`` the serving phases 1-6c, ``--stream`` phases 14a, 14d, 7a
+(on its own logistic data) and 15, and ``--tuning`` phases 14a, 14e and
+14f, printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -416,7 +467,14 @@ def serve_counts(serve_kernel) -> tuple[int, int]:
     return serve_kernel.launches, serve_kernel.replay_launches
 
 
+# The script's clock: every phase row carries its seconds since start
+# ("t"), so that a run shows where its wall time went.
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -931,7 +989,6 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
     the directory as one input). Returns the paths and the arrays the
     numpy reference scores from."""
     from photon_tpu_torch.data.index_map import IndexMap
-    from photon_tpu_torch.io import avro_data
     from photon_tpu_torch.io.model_io import (
         game_model_from_numpy,
         save_game_model,
@@ -997,12 +1054,20 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
         spans = [(os.path.join(data_path, f"part-{k:05d}.avro"), lo,
                   min(lo + step, n))
                  for k, lo in enumerate(range(0, n, step))]
-    for path, lo, hi in spans:
-        avro_data.write_training_examples(
-            path, labels[lo:hi], global_rows[lo:hi],
-            offsets=offsets[lo:hi], weights=weights[lo:hi],
-            metadata=meta[lo:hi], uids=np.arange(lo, hi),
-            bags={b: r[lo:hi] for b, r in bag_rows.items()})
+    jobs = [(path, labels[lo:hi], global_rows[lo:hi], offsets[lo:hi],
+             weights[lo:hi], meta[lo:hi], np.arange(lo, hi),
+             {b: r[lo:hi] for b, r in bag_rows.items()})
+            for path, lo, hi in spans]
+    if len(jobs) == 1:
+        write_part(jobs[0])
+    else:
+        # The Avro encoder is Python: one process a part file. Spawned,
+        # not forked, since this process holds a CUDA context.
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+            pool.map(write_part, jobs)
     data_s = time.perf_counter() - t0
     return dict(model_dir=model_dir, data=data_path, exact=exact,
                 labels=labels, weights=weights.astype(np.float64),
@@ -1011,6 +1076,16 @@ def score_files(arrays, manifest, root: str, n: int = SCORE_ROWS,
                 movies=np.where(cold_m, -1, movies),
                 model_seconds=model_s, data_seconds=data_s,
                 data_bytes=sum(os.path.getsize(p) for p, _, _ in spans))
+
+
+def write_part(job) -> None:
+    """One TrainingExampleAvro file of ``score_files``' rows."""
+    from photon_tpu_torch.io import avro_data
+
+    path, labels, rows, offsets, weights, meta, uids, bags = job
+    avro_data.write_training_examples(
+        path, labels, rows, offsets=offsets, weights=weights,
+        metadata=meta, uids=uids, bags=bags)
 
 
 def numpy_batch_scores(arrays, feats, users, movies,
@@ -2574,6 +2649,7 @@ def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
     from photon_tpu_torch.algorithm import random_effect as ra
     from photon_tpu_torch.cli import train as train_cli
     from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
 
     cfg, path = write_cli_config(cfg, root)
     torch.cuda.reset_peak_memory_stats()
@@ -2582,6 +2658,7 @@ def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
             else contextlib.nullcontext())
     nk.launches = ra.plain_route_solves = 0
     nk.launches_by_shape.clear()
+    sr.reset_counts()
     t0 = time.perf_counter()
     with prof, contextlib.redirect_stdout(buf):
         rc = train_cli.main(["--config", path, "--device", "cuda",
@@ -2591,6 +2668,7 @@ def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
     wall = time.perf_counter() - t0
     out = {"rc": rc, "wall_seconds": wall, "launches": nk.launches,
            "launches_by_shape": dict(nk.launches_by_shape),
+           "segment_launches_by_site": dict(sr.launches_by_site),
            "plain_route_solves": ra.plain_route_solves,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "line": json.loads(buf.getvalue().strip().splitlines()[-1]),
@@ -2612,6 +2690,8 @@ def run_train_cli(torch, cfg: dict, root: str, profiled: bool,
         out["newton_profiled_launches"] = sum(e.count for e in newton)
         out["device_ms"] = sum(map(device_us, kernels)) / 1e3
         out["device_busy_share"] = out["device_ms"] / (wall * 1e3)
+        out["atomic_scatter_kernels"] = atomic_scatter_kernels(
+            e.key for e in kernels)
     return out
 
 
@@ -2704,6 +2784,32 @@ def long_bucket(torch, shape, seed: int):
         valid_mask=dev(np.ones((b, s))), num_entities=b)
 
 
+def train_cli_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke", "train_cli")
+
+
+def train_cli_files(arrays, manifest, root: str) -> tuple[dict, float]:
+    """``train_cli``'s Avro files under ``root`` and the seconds they
+    took: the training rows as STREAM_SHARDS part files (the in-memory
+    runs read the directory, the streaming runs stream it) and the
+    validation file."""
+    t0 = time.perf_counter()
+    files = {
+        "train": score_files(arrays, manifest, root, CLI_TRAIN_ROWS,
+                             SEED + 3, cold=0.0, intercept=True,
+                             model=False, name="train",
+                             user_skew=CLI_USER_SKEW,
+                             parts=STREAM_SHARDS),
+        "validation": score_files(arrays, manifest, root,
+                                  CLI_VALIDATION_ROWS, SEED + 4,
+                                  intercept=True, model=False,
+                                  name="validation.avro",
+                                  user_skew=CLI_USER_SKEW),
+    }
+    return files, time.perf_counter() - t0
+
+
 def phase_train_cli(torch, arrays, manifest) -> dict:
     """``cli.train`` at the logistic configuration's widths, through the
     CLI (module docstring, phase 14a). Cut: rows only, 262,144 train and
@@ -2720,26 +2826,24 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
     from photon_tpu_torch.resilience import load_training_checkpoint
     from photon_tpu_torch.serve.programs import ShapeLadder
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", "smoke", "train_cli")
-    t0 = time.perf_counter()
-    files = {
-        # The training rows as STREAM_SHARDS part files: the in-memory
-        # runs read the directory, the streaming runs stream it.
-        "train": score_files(arrays, manifest, root, CLI_TRAIN_ROWS,
-                             SEED + 3, cold=0.0, intercept=True,
-                             model=False, name="train",
-                             user_skew=CLI_USER_SKEW,
-                             parts=STREAM_SHARDS),
-        "validation": score_files(arrays, manifest, root,
-                                  CLI_VALIDATION_ROWS, SEED + 4,
-                                  intercept=True, model=False,
-                                  name="validation.avro",
-                                  user_skew=CLI_USER_SKEW),
-    }
-    write_s = time.perf_counter() - t0
+    root = train_cli_root()
+    files, write_s = train_cli_files(arrays, manifest, root)
     cfg = train_cli_config(files, root)
-    kernel = run_train_cli(torch, cfg, os.path.join(root, "kernel"), True)
+    kept: list = []
+    with capture_prepare(kept, keep=lambda data, datasets: data):
+        kernel = run_train_cli(torch, cfg, os.path.join(root, "kernel"),
+                               True)
+    # (b) the fixed effect's transpose: the segment-sum kernel at its
+    # fixed_effect site on the run's own global shard.
+    global_shard = kept[0].feature_shards["global"]
+    site = fixed_effect_site(torch, global_shard, torch.from_numpy(
+        np.random.default_rng(SEED + 6).normal(
+            size=global_shard.num_rows).astype(np.float32)).cuda())
+    plan = global_shard.transpose_plan()
+    site["transpose_plan_bytes"] = sum(
+        t.numel() * t.element_size()
+        for t in (plan.ids, plan.values, plan.rows))
+    del kept, global_shard, plan
     with newton_switch("off"):
         plain = run_train_cli(torch, cfg, os.path.join(root, "plain"),
                               False)
@@ -2848,10 +2952,14 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
                                plain["plain_route_solves"]],
         "newton_device_ms": kernel.get("newton_device_ms"),
         "newton_profiled_launches": kernel.get("newton_profiled_launches"),
+        "segment_launches_by_site": [kernel["segment_launches_by_site"],
+                                     plain["segment_launches_by_site"]],
+        "atomic_scatter_kernels": kernel["atomic_scatter_kernels"],
         "device_ms": kernel.get("device_ms"),
         "device_busy_share": kernel.get("device_busy_share"),
         "peak_device_bytes": [kernel["peak_device_bytes"],
                               plain["peak_device_bytes"]],
+        "transpose_plan_bytes": site["transpose_plan_bytes"],
         "peak_host_rss_bytes": resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss * 1024,
         "best_configuration": [best, ps["best_configuration_index"]],
@@ -2882,6 +2990,11 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
              "every bucket")
     if plain["launches"] != 0:
         fail("train_cli: PHOTON_NEWTON_KERNEL=off still launched the kernel")
+    fe_launches = kernel["segment_launches_by_site"].get("fixed_effect", 0)
+    if fe_launches <= 0 or kernel["atomic_scatter_kernels"]:
+        fail(f"train_cli (b): {fe_launches} segment-sum launches at the "
+             f"fixed_effect site; atomic scatter kernels on the card: "
+             f"{kernel['atomic_scatter_kernels']}")
     if best != ps["best_configuration_index"]:
         fail("train_cli: the two runs chose different configurations")
     if not all(v is True or (not isinstance(v, bool) and v <= 0.0)
@@ -2908,8 +3021,363 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
     return {"newton_launches": kernel["launches"],
             "newton_parity_max_abs_diff": parity_err,
             "serve_launches": score_launches, "row": row,
+            "fixed_effect_launches": fe_launches,
+            "fixed_effect_site": site,
             "files": files, "cfg": cfg, "root": root,
             "generating_auc": gen_auc}
+
+
+# ---------------------------------------------------------------------------
+# a fit that repeats bit for bit: the fixed effect's sparse transpose
+# ---------------------------------------------------------------------------
+
+# Name fragments of PyTorch's scatter-add kernels on the card:
+# index_add_ and scatter_add_ (``ReduceAdd``: float atomics, whose order
+# of additions changes from run to run) and index_put_ with accumulate
+# (``indexing_backward``, the sorted form deterministic mode takes).
+# Gathers (``_scatter_gather_elementwise_kernel`` with ``TensorAssign``)
+# do not match.
+ATOMIC_SCATTER_KERNELS = ("reduceadd", "index_add", "indexing_backward",
+                          "atomic")
+
+
+def atomic_scatter_kernels(names) -> list:
+    return sorted(n for n in names
+                  if any(a in n.lower() for a in ATOMIC_SCATTER_KERNELS))
+
+
+LIBRARY_REPEATS = 20
+
+
+def index_add_transpose(features, contrib):
+    """The fixed effect's sparse transpose as one ``index_add_`` over the
+    unsorted slots (float atomics on the card): the library call for the
+    ``fixed_effect`` site's ``library_ms``, used nowhere in the port."""
+    import torch
+
+    out = torch.zeros(features.d, dtype=contrib.dtype,
+                      device=contrib.device)
+    return out.index_add_(0, features.indices.reshape(-1).long(),
+                          contrib.reshape(-1))
+
+
+def fixed_effect_site(torch, features, g) -> dict:
+    """The segment-sum kernel at the ``fixed_effect`` site on one shard's
+    sorted slots (``SparseFeatures.transpose_plan``: ``parts`` row blocks
+    of ``d`` segments) times ``g``: held twice against its plain version
+    (``_segment_check``), then its device ms beside the plain version's,
+    the kernel with the blocks' sum (``reduce_ms``), ``index_add_`` on
+    the same unsorted slots (the library call) and how far
+    LIBRARY_REPEATS of its calls disagree, the whole ``rmatvec`` and the
+    bound."""
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    plan = features.transpose_plan()
+    vals = (plan.values * g.index_select(0, plan.rows)).contiguous()
+    d = int(features.d)
+    n = plan.parts * d
+    check = _segment_check(
+        torch, sr, f"fixed_effect {tuple(features.indices.shape)}", vals,
+        plan.ids, n)
+    contrib = features.values * g[:, None]
+
+    def kernel():
+        return sr.segment_sum(vals, plan.ids, n, site="timing")
+
+    def reduce():
+        return kernel().view(plan.parts, d).sum(0)
+
+    def plain():
+        return sr.sorted_segment_sum_plain(vals, plan.ids, n)
+
+    def library():
+        return index_add_transpose(features, contrib)
+
+    row = {"phase": "fixed_effect_timing", "site": "fixed_effect",
+           "shape": list(features.indices.shape), "values": int(vals.shape[0]),
+           "features": d, "parts": plan.parts, "segments": n,
+           "max_abs_err": check["max_abs_err"],
+           "ms": device_ms(torch, kernel, SEGMENT_INNER),
+           "reduce_ms": device_ms(torch, reduce, SEGMENT_INNER),
+           "plain_ms": device_ms(torch, plain, SEGMENT_INNER),
+           "library_ms": device_ms(torch, library, SEGMENT_INNER),
+           "rmatvec_ms": eager_ms(torch, lambda: features.rmatvec(g),
+                                  SEGMENT_INNER),
+           "index_add_vs_kernel_max_abs": float(
+               (library() - reduce()).abs().max()),
+           **segment_bound(vals, n)}
+    # What the site replaced: the atomic index_add_ on the same slots
+    # gives a different sum from call to call; the kernel (checked
+    # above) gives one.
+    runs = [library() for _ in range(LIBRARY_REPEATS)]
+    row["library_runs_unequal"] = sum(
+        not torch.equal(r, runs[0]) for r in runs[1:])
+    row["library_spread_max_abs"] = max(
+        float((r - runs[0]).abs().max()) for r in runs)
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# hyperparameter tuning in cli.train, and the legacy cli.glm driver
+# ---------------------------------------------------------------------------
+
+TUNING_SEED = 7
+# RANDOM draws 3 candidates. BAYESIAN draws 5: with train_cli's three
+# tunable coordinates and a one-point grid, the reference's
+# GaussianProcessSearch draws Sobol points until it holds more
+# observations than dimensions, so its 4th and 5th candidates are the
+# first that come from the GP.
+TUNING_RANDOM, TUNING_BAYESIAN = 3, 5
+# The tuner's default search range of a regularization weight
+# (GameEstimatorEvaluationFunction.scala:242), searched in log space.
+TUNING_WEIGHT_RANGE = (1e-4, 1e4)
+# Three weights in the range where train_cli's validation AUC still moves
+# with lambda, so that the best two lie well beyond the ~1e-5 of f32
+# rounding in an AUC of 32,768 rows (the phase prints every lambda's AUC
+# on both runs): below lambda ~100 the AUCs agree to that rounding, and
+# the f32 and float64 runs could pick either.
+GLM_LAMBDAS = "10000,1000,100"
+GLM_F32_ATOL = 5e-4
+
+
+def tuning_config(cli: dict, mode: str, iterations: int) -> dict:
+    """``train_cli``'s configuration with one lambda a coordinate (its
+    first), one CD iteration, TUNED output and no feature stats, tuned
+    by ``mode`` for ``iterations`` candidates from TUNING_SEED."""
+    cfg = {k: v for k, v in cli["cfg"].items() if k != "data_summary_dir"}
+    cfg.update(
+        coordinates={cid: dict(c, regularization={
+            "type": "L2", "weights": c["regularization"]["weights"][:1]})
+            for cid, c in cfg["coordinates"].items()},
+        num_iterations=1, model_output_mode="TUNED",
+        hyperparameter_tuning={"mode": mode, "iterations": iterations,
+                               "seed": TUNING_SEED})
+    return cfg
+
+
+def sobol_lambdas(n_params: int, n: int, seed: int) -> list:
+    """The RANDOM tuner's first ``n`` candidates taken straight from
+    scipy's Sobol sequence (unscrambled, fast-forwarded by the seed, as
+    RandomSearch.scala:46-51 draws them), mapped to weights over
+    TUNING_WEIGHT_RANGE in log space: one row per candidate, the
+    coordinates in sorted order."""
+    from scipy.stats import qmc
+
+    sobol = qmc.Sobol(d=n_params, scramble=False)
+    if seed % 65536:
+        sobol.fast_forward(seed % 65536)
+    lo, hi = (math.log(w) for w in TUNING_WEIGHT_RANGE)
+    return [[math.exp(float(v) * (hi - lo) + lo) for v in row]
+            for row in sobol.random(n)]
+
+
+def summary_lambdas(summary: dict) -> list:
+    """Each configuration's lambdas, the coordinates in sorted order."""
+    return [[c["config"][cid]["lambda"] for cid in sorted(c["config"])]
+            for c in summary["configurations"]]
+
+
+def phase_tuning_cli(torch, cli: dict) -> dict:
+    """Hyperparameter tuning through ``cli.train`` on ``train_cli``'s
+    files (module docstring, phase 14e): RANDOM once and BAYESIAN twice,
+    side by side, then ``cli.score`` of the validation file with the
+    BAYESIAN run's best model."""
+    from photon_tpu_torch.cli import score as score_cli
+    from photon_tpu_torch.io import avro
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.programs import ShapeLadder
+
+    root = os.path.join(cli["root"], "tuning")
+    t_phase = time.perf_counter()
+    # Three processes side by side: the two BAYESIAN runs repeat each
+    # other across processes.
+    jobs = {"random": ("RANDOM", TUNING_RANDOM),
+            "bayesian": ("BAYESIAN", TUNING_BAYESIAN),
+            "bayesian_again": ("BAYESIAN", TUNING_BAYESIAN)}
+    runs = dict(zip(jobs, cli_children([
+        (tuning_config(cli, mode, n), os.path.join(root, k), ())
+        for k, (mode, n) in jobs.items()])))
+    sums = {k: r["summary"] for k, r in runs.items()}
+    n_params = len(cli["cfg"]["coordinates"])
+    want_random = sobol_lambdas(n_params, TUNING_RANDOM, TUNING_SEED)
+    got_random = summary_lambdas(sums["random"])[1:]
+    dirs, want_dirs = {}, {}
+    for k, r in runs.items():
+        s = sums[k]
+        best = s["best_configuration_index"]
+        dirs[k] = sorted(os.listdir(os.path.join(r["out"], "models")))
+        want_dirs[k] = sorted({"best"} | {
+            f"config_{i}" for i in range(1, s["num_configurations"])
+            if i != best})
+    b, b2 = runs["bayesian"], runs["bayesian_again"]
+    bayes_models = max_abs_diff(best_arrays(b["out"]), best_arrays(b2["out"]))
+    # The tuned best model through cli.score.
+    val = cli["files"]["validation"]
+    best_dir = os.path.join(b["out"], "models", "best")
+    score_out = os.path.join(root, "scores")
+    serve_kernel.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        score_rc = score_cli.main([
+            "--model-dir", best_dir, "--input", val["data"],
+            "--output", score_out, "--feature-shards",
+            *[f"{sh}={bag[0]}" for sh, bag in CLI_SHARDS.items()],
+            "--id-tags", "userId", "movieId", "--device", "cuda",
+            "--evaluators", *CLI_EVALUATORS])
+    score_launches = serve_kernel.launches
+    chunks = len(ShapeLadder(SCORE_RUNGS).chunk_plan(CLI_VALIDATION_ROWS))
+    scores = np.array([r["predictionScore"] for r in avro.read_container_dir(
+        os.path.join(score_out, "part-00000.avro"))])
+    exact = numpy_model_scores(best_dir, val["data"])
+    score_err = float(np.max(np.abs(scores - exact) / (1.0 + np.abs(exact))))
+    row = {
+        "phase": "tuning_cli", "seed": TUNING_SEED,
+        "phase_seconds": time.perf_counter() - t_phase,
+        "runs": {k: {
+            "wall_seconds": r["wall_seconds"],
+            "seconds": sums[k]["seconds"],
+            "num_configurations": sums[k]["num_configurations"],
+            "num_tuned_configurations": sums[k]["num_tuned_configurations"],
+            "best_configuration_index": sums[k]["best_configuration_index"],
+            "lambdas": summary_lambdas(sums[k]),
+            "auc": [c["evaluation"]["AUC"]
+                    for c in sums[k]["configurations"]],
+            "newton_launches": r["launches"],
+            "plain_route_solves": r["plain_route_solves"],
+            "segment_launches_by_site": r["segment_launches_by_site"],
+            "model_dirs": dirs[k]} for k, r in runs.items()},
+        "random_lambdas_sobol": want_random,
+        "bayesian_best_models_max_abs_diff": bayes_models,
+        "score_launches": score_launches, "score_chunks": chunks,
+        "score_max_rel_err_numpy_f64": score_err,
+    }
+    emit(row)
+    if got_random != want_random:
+        fail(f"tuning_cli: the RANDOM candidates {got_random} are not the "
+             f"Sobol draws {want_random}")
+    for k, mode_n in (("random", TUNING_RANDOM), ("bayesian", TUNING_BAYESIAN),
+                      ("bayesian_again", TUNING_BAYESIAN)):
+        s = sums[k]
+        if (s["num_tuned_configurations"], s["num_configurations"]) != (
+                mode_n, mode_n + 1):
+            fail(f"tuning_cli ({k}): {s['num_tuned_configurations']} tuned "
+                 f"of {s['num_configurations']} configurations")
+        if dirs[k] != want_dirs[k]:
+            fail(f"tuning_cli ({k}): TUNED saved {dirs[k]}, not "
+                 f"{want_dirs[k]}")
+        r = runs[k]
+        if (r["launches"] <= 0 or r["plain_route_solves"] != 0
+                or r["segment_launches_by_site"].get("fixed_effect", 0) <= 0
+                or r["segment_launches_by_site"].get("evaluation", 0) <= 0):
+            fail(f"tuning_cli ({k}): Newton launches {r['launches']}, "
+                 f"plain solves {r['plain_route_solves']}, segment sums "
+                 f"{r['segment_launches_by_site']}")
+    if (sums["bayesian"]["configurations"]
+            != sums["bayesian_again"]["configurations"]
+            or sums["bayesian"]["best_configuration_index"]
+            != sums["bayesian_again"]["best_configuration_index"]
+            or bayes_models != 0.0):
+        fail("tuning_cli: two BAYESIAN runs differ: "
+             f"{row['runs']['bayesian']['lambdas']} against "
+             f"{row['runs']['bayesian_again']['lambdas']}, best models "
+             f"{bayes_models} apart")
+    if score_rc != 0 or len(scores) != CLI_VALIDATION_ROWS or not (
+            score_err <= 1e-5) or score_launches != chunks:
+        fail(f"tuning_cli: cli.score rc {score_rc}, error {score_err}, "
+             f"{score_launches} launches for {chunks} chunks")
+    fe = sum(r["segment_launches_by_site"].get("fixed_effect", 0)
+             for r in runs.values())
+    return {"newton_launches": sum(r["launches"] for r in runs.values()),
+            "fixed_effect_launches": fe, "serve_launches": score_launches,
+            "row": row}
+
+
+@contextlib.contextmanager
+def float64_readers():
+    """The port's Avro and libsvm readers make float64 data inside the
+    block (the CLIs read float32)."""
+    import functools
+
+    import torch
+
+    from photon_tpu_torch.data import libsvm
+    from photon_tpu_torch.io import avro_data
+
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (avro_data, "read_training_examples"), (libsvm, "read_libsvm"))]
+    for m, n, fn in saved:
+        setattr(m, n, functools.partial(fn, dtype=torch.float64))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def run_glm_cli(torch, files: dict, out_dir: str, device: str) -> dict:
+    """``cli.glm`` on ``train_cli``'s files (the global bag) into
+    ``out_dir``: its summary, the segment sums by site and the best
+    model's means in float64."""
+    from photon_tpu_torch.cli import glm as glm_cli
+    from photon_tpu_torch.data.index_map import IndexMap
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.ops import segment_reduce as sr
+
+    sr.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = glm_cli.main([
+            "--train", files["train"]["data"],
+            "--validate", files["validation"]["data"],
+            "--task", "LOGISTIC_REGRESSION", "--lambdas", GLM_LAMBDAS,
+            "--output-dir", out_dir, "--device", device])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"glm_cli: cli.glm exited {rc} on {device}")
+    imap = IndexMap.from_feature_names(files["train"]["keys"]["global"])
+    model, _ = load_game_model(os.path.join(out_dir, "best-model"),
+                               {"features": imap}, device="cpu",
+                               dtype=torch.float64)
+    return {"summary": json.loads(buf.getvalue().strip().splitlines()[-1]),
+            "wall_seconds": wall,
+            "segment_launches_by_site": dict(sr.launches_by_site),
+            "means": model["global"].model.coefficients.means.numpy()}
+
+
+def phase_glm_cli(torch, cli: dict) -> dict:
+    """The legacy ``cli.glm`` on ``train_cli``'s files (module docstring,
+    phase 14f): on the card in float32, then on the CPU in float64."""
+    root = os.path.join(cli["root"], "glm")
+    card = run_glm_cli(torch, cli["files"], os.path.join(root, "card"),
+                       "cuda")
+    with float64_readers():
+        cpu = run_glm_cli(torch, cli["files"], os.path.join(root, "cpu64"),
+                          "cpu")
+    diff = float(np.max(np.abs(card["means"] - cpu["means"])))
+    fe = card["segment_launches_by_site"].get("fixed_effect", 0)
+    row = {"phase": "glm_cli", "lambdas": GLM_LAMBDAS,
+           "best_lambda": [card["summary"]["best_lambda"],
+                           cpu["summary"]["best_lambda"]],
+           "seconds": {"card": card["summary"]["seconds"],
+                       "cpu_float64": cpu["summary"]["seconds"]},
+           "wall_seconds": [card["wall_seconds"], cpu["wall_seconds"]],
+           "auc": {k: {lam: m["AUC"] for lam, m in r["summary"][
+               "metrics"].items()} for k, r in (("card", card),
+                                                ("cpu_float64", cpu))},
+           "best_model_max_abs_diff_float64": diff,
+           "segment_launches_by_site": card["segment_launches_by_site"]}
+    emit(row)
+    if card["summary"]["best_lambda"] != cpu["summary"]["best_lambda"]:
+        fail(f"glm_cli: the card selected lambda "
+             f"{card['summary']['best_lambda']}, float64 on the CPU "
+             f"{cpu['summary']['best_lambda']}")
+    if not diff <= GLM_F32_ATOL:
+        fail(f"glm_cli: the card's best model is {diff} from float64")
+    if fe <= 0:
+        fail("glm_cli: the sweep launched no segment sum at the "
+             "fixed_effect site")
+    return {"fixed_effect_launches": fe, "row": row}
 
 
 # ---------------------------------------------------------------------------
@@ -2962,9 +3430,10 @@ def ingest_digests(data, datasets) -> dict:
 
 
 @contextlib.contextmanager
-def capture_prepare(store: list):
-    """Record ``ingest_digests`` of the first ``GameEstimator.prepare``
-    in the block (a CLI run prepares once and fit reuses it)."""
+def capture_prepare(store: list, keep=ingest_digests):
+    """Record ``keep(data, datasets)`` of the first
+    ``GameEstimator.prepare`` in the block (a CLI run prepares once and
+    fit reuses it): by default its ``ingest_digests``."""
     from photon_tpu_torch.estimators import game_estimator as ge
 
     orig = ge.GameEstimator.prepare
@@ -2972,7 +3441,7 @@ def capture_prepare(store: list):
     def prepare(self, data, validation=None, initial_model=None):
         out = orig(self, data, validation, initial_model)
         if not store:
-            store.append(ingest_digests(data, out[0]))
+            store.append(keep(data, out[0]))
         return out
 
     ge.GameEstimator.prepare = prepare
@@ -2995,12 +3464,15 @@ def stream_run(torch, cfg: dict, root: str, *extra: str) -> dict:
     out["digests"] = store[0]
     out["segment_evaluation_launches"] = sr.launches_by_site.get(
         "evaluation", 0)
+    out["segment_fixed_effect_launches"] = sr.launches_by_site.get(
+        "fixed_effect", 0)
     return out
 
 
 _CHILD_KEYS = ("rc", "wall_seconds", "launches", "plain_route_solves",
-               "peak_device_bytes", "summary", "digests",
-               "segment_evaluation_launches")
+               "peak_device_bytes", "summary", "digests", "out",
+               "segment_launches_by_site", "segment_evaluation_launches",
+               "segment_fixed_effect_launches")
 
 
 def _vm_status(key: str, pid="self") -> int | None:
@@ -3039,45 +3511,60 @@ def cli_child(spec_path: str) -> int:
     return 0
 
 
-def stream_child(cfg: dict, root: str, *extra: str) -> dict:
-    """``stream_run`` in a subprocess of its own, for its peak RSS."""
-    os.makedirs(root, exist_ok=True)
-    spec = os.path.join(root, "child.json")
-    out = os.path.join(root, "child-result.json")
-    with open(spec, "w") as f:
-        json.dump({"cfg": cfg, "root": root, "extra": list(extra),
-                   "out": out}, f)
-    log = os.path.join(root, "child.log")
-    t0 = time.perf_counter()
-    sampled = 0
-    with open(log, "w") as f:
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cli-child",
-             spec], stdout=f, stderr=subprocess.STDOUT, text=True,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        try:
-            # The child's RSS every 10 ms, read from here, where its GIL
-            # does not hold the reads back.
-            while proc.poll() is None:
-                sampled = max(sampled, _vm_status("VmRSS", proc.pid) or 0)
-                if time.perf_counter() - t0 > 900:
-                    proc.kill()
-                time.sleep(0.01)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
-    if proc.returncode != 0 or not os.path.exists(out):
-        with open(log) as f:
-            fail(f"stream_cli: the child run in {root} exited "
-                 f"{proc.returncode}: {f.read()[-3000:]}")
-    with open(out) as f:
-        result = json.load(f)
-    result["process_seconds"] = time.perf_counter() - t0
-    result["sampled_peak_rss_bytes"] = sampled
-    result["peak_host_rss_bytes"] = max(result["vm_hwm_bytes"] or 0,
-                                        sampled)
-    return result
+def cli_children(jobs: list) -> list:
+    """``stream_run`` of each (cfg, root, extra) job in a subprocess of
+    its own, all at once, for their peak RSS: each result as
+    ``cli_child`` wrote it, with the process's seconds and the peak of
+    its RSS sampled from here."""
+    procs = []
+    for cfg, root, extra in jobs:
+        os.makedirs(root, exist_ok=True)
+        spec = os.path.join(root, "child.json")
+        with open(spec, "w") as f:
+            json.dump({"cfg": cfg, "root": root, "extra": list(extra),
+                       "out": os.path.join(root, "child-result.json")}, f)
+        log = open(os.path.join(root, "child.log"), "w")
+        procs.append({"root": root, "log": log, "sampled": 0,
+                      "t0": time.perf_counter(), "proc": subprocess.Popen(
+                          [sys.executable, os.path.abspath(__file__),
+                           "--cli-child", spec], stdout=log,
+                          stderr=subprocess.STDOUT, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))})
+    try:
+        # Each child's RSS every 10 ms, read from here, where their GILs
+        # do not hold the reads back.
+        while any(c["proc"].poll() is None for c in procs):
+            for c in procs:
+                if c["proc"].poll() is None:
+                    c["sampled"] = max(c["sampled"], _vm_status(
+                        "VmRSS", c["proc"].pid) or 0)
+                    if time.perf_counter() - c["t0"] > 900:
+                        c["proc"].kill()
+                elif "seconds" not in c:
+                    c["seconds"] = time.perf_counter() - c["t0"]
+            time.sleep(0.01)
+    finally:
+        for c in procs:
+            if c["proc"].poll() is None:
+                c["proc"].kill()
+            c["proc"].wait()
+            c["log"].close()
+            c.setdefault("seconds", time.perf_counter() - c["t0"])
+    results = []
+    for c in procs:
+        out = os.path.join(c["root"], "child-result.json")
+        if c["proc"].returncode != 0 or not os.path.exists(out):
+            with open(os.path.join(c["root"], "child.log")) as f:
+                fail(f"the child run in {c['root']} exited "
+                     f"{c['proc'].returncode}: {f.read()[-3000:]}")
+        with open(out) as f:
+            result = json.load(f)
+        result["process_seconds"] = c["seconds"]
+        result["sampled_peak_rss_bytes"] = c["sampled"]
+        result["peak_host_rss_bytes"] = max(result["vm_hwm_bytes"] or 0,
+                                            c["sampled"])
+        results.append(result)
+    return results
 
 
 def best_arrays(out_dir: str) -> dict:
@@ -3115,7 +3602,8 @@ def stream_ingest_row(summary: dict) -> dict:
 def phase_stream_cli(torch, cli: dict) -> dict:
     """The streaming training CLI on ``train_cli``'s configuration and
     rows (module docstring, phase 14d): the in-memory run and (a) in
-    subprocesses of their own for their peak RSS, then (b)-(e)."""
+    subprocesses of their own, side by side, for their peak RSS, then
+    (b)-(e)."""
     import shutil
 
     from photon_tpu_torch.cli import score as score_cli
@@ -3146,9 +3634,9 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     stream = ("--stream-dir", shard_dir, *window)
     t_phase = time.perf_counter()
 
-    # The in-memory run and (a), each in its own process.
-    memory = stream_child(cfg, os.path.join(root, "memory"))
-    run_a = stream_child(cfg, os.path.join(root, "a"), *stream)
+    # The in-memory run and (a), each in its own process, side by side.
+    memory, run_a = cli_children([(cfg, os.path.join(root, "memory"), ()),
+                                  (cfg, os.path.join(root, "a"), stream)])
     a_out = os.path.join(root, "a", "out")
     a_best = best_arrays(a_out)
     mem_best = best_arrays(os.path.join(root, "memory", "out"))
@@ -3244,6 +3732,8 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     newton = sum(r["launches"] for r in trained.values())
     segment = sum(r["segment_evaluation_launches"]
                   for r in trained.values())
+    fixed_effect = sum(r["segment_fixed_effect_launches"]
+                       for r in trained.values())
     si = {k: r["summary"].get("streaming_ingest")
           for k, r in trained.items()}
     row = {
@@ -3255,6 +3745,7 @@ def phase_stream_cli(torch, cli: dict) -> dict:
         "ingest_threads": pipeline.ingest_threads(),
         "torch_threads": torch.get_num_threads(),
         "memory": {"peak_host_rss_bytes": memory["peak_host_rss_bytes"],
+                   "peak_device_bytes": memory["peak_device_bytes"],
                    "baseline_rss_bytes": memory["baseline_rss_bytes"],
                    "sampled_peak_rss_bytes": memory[
                        "sampled_peak_rss_bytes"],
@@ -3263,6 +3754,7 @@ def phase_stream_cli(torch, cli: dict) -> dict:
                    "cli_seconds": memory["summary"]["seconds"],
                    "pipeline": memory["summary"]["ingest_pipeline"]},
         "a": {"peak_host_rss_bytes": run_a["peak_host_rss_bytes"],
+              "peak_device_bytes": run_a["peak_device_bytes"],
               "baseline_rss_bytes": run_a["baseline_rss_bytes"],
               "sampled_peak_rss_bytes": run_a["sampled_peak_rss_bytes"],
               "vm_hwm_bytes": run_a["vm_hwm_bytes"],
@@ -3291,6 +3783,9 @@ def phase_stream_cli(torch, cli: dict) -> dict:
         "segment_evaluation_launches": {
             k: r["segment_evaluation_launches"]
             for k, r in trained.items()},
+        "segment_fixed_effect_launches": {
+            k: r["segment_fixed_effect_launches"]
+            for k, r in trained.items()},
         "validation_auc": {
             k: r["summary"]["configurations"][r["summary"][
                 "best_configuration_index"]]["evaluation"]["AUC"]
@@ -3306,9 +3801,12 @@ def phase_stream_cli(torch, cli: dict) -> dict:
         fail(f"stream_cli (a): the streamed dataset or packed plan buffer "
              f"differs from the in-memory run's: "
              f"{row['digests_equal_memory']}")
-    if not model_diff <= 2.0 * spread:
-        fail(f"stream_cli (a): best models differ by {model_diff}, past "
-             f"twice the in-memory runs' {spread}")
+    if spread != 0.0:
+        fail(f"stream_cli (a): two in-memory fits of the same files differ "
+             f"by {spread}")
+    if model_diff != 0.0:
+        fail(f"stream_cli (a): the streamed fit differs from the in-memory "
+             f"one by {model_diff}")
     if si["a"]["ingested_fraction"] != 1.0 or si["a"][
             "shards_quarantined"]:
         fail(f"stream_cli (a): a clean ingest reports {si['a']}")
@@ -3348,7 +3846,11 @@ def phase_stream_cli(torch, cli: dict) -> dict:
         if r["segment_evaluation_launches"] <= 0:
             fail(f"stream_cli ({k}): the validation's grouped AUC launched "
                  "no segment sum")
+        if r["segment_fixed_effect_launches"] <= 0:
+            fail(f"stream_cli ({k}): the fixed effect's transpose launched "
+                 "no segment sum")
     return {"newton_launches": newton, "segment_launches": segment,
+            "fixed_effect_launches": fixed_effect,
             "serve_launches": score_launches, "row": row}
 
 
@@ -3981,6 +4483,9 @@ def phase_train_cli_routes(torch, cli: dict) -> dict:
         fail(f"train_cli_routes: {score_launches} serve launches for "
              f"{chunks} chunks")
     return {"newton_launches": sum(row["newton_launches"]),
+            "fixed_effect_launches": sum(
+                r["segment_launches_by_site"].get("fixed_effect", 0)
+                for r in (first, second)),
             "serve_launches": score_launches}
 
 
@@ -4829,6 +5334,9 @@ def main() -> int:
     ap.add_argument("--stream", action="store_true",
                     help="run only the ingest phases: train_cli, "
                          "stream_cli and the planner comparisons")
+    ap.add_argument("--tuning", action="store_true",
+                    help="run only train_cli, the tuned cli.train runs "
+                         "and cli.glm")
     ap.add_argument("--cli-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4874,6 +5382,12 @@ def main() -> int:
           "sources": [str(p.name) for p in _build.sources()]})
     if args.fits > 0:
         return fits_only(torch, args.fits)
+    if args.tuning:
+        cli = phase_train_cli(torch, *serving_arrays())
+        phase_tuning_cli(torch, cli)
+        phase_glm_cli(torch, cli)
+        print(smi, flush=True)
+        return 0
     if args.train_cli:
         phase_train_cli_routes(torch, phase_train_cli(torch,
                                                       *serving_arrays()))
@@ -4934,12 +5448,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_routes = phase_train_cli_routes(torch, train_cli)
     torch.cuda.empty_cache()
+    tuning = phase_tuning_cli(torch, train_cli)
+    glm = phase_glm_cli(torch, train_cli)
+    torch.cuda.empty_cache()
     routes = phase_train_routes(torch)
     newton["launches_by_path"] = {
         "fit": newton["launches"], "train_cli": train_cli["newton_launches"],
         "stream_cli": stream["newton_launches"],
         "train_routes": routes["newton_launches"],
-        "train_cli_routes": cli_routes["newton_launches"]}
+        "train_cli_routes": cli_routes["newton_launches"],
+        "tuning_cli": tuning["newton_launches"]}
     newton["launches"] = sum(newton["launches_by_path"].values())
     newton["max_abs_err"] = max(newton["max_abs_err"],
                                 train_cli["newton_parity_max_abs_diff"])
@@ -4949,9 +5467,27 @@ def main() -> int:
         "evaluation_launches"]
     segment["launches_by_path"]["stream_cli_evaluation"] = stream[
         "segment_launches"]
+    # The fixed effect's sparse transpose on every CLI training path.
+    fixed_effect = {"train_cli": train_cli["fixed_effect_launches"],
+                    "stream_cli": stream["fixed_effect_launches"],
+                    "train_cli_routes": cli_routes["fixed_effect_launches"],
+                    "tuning_cli": tuning["fixed_effect_launches"],
+                    "glm_cli": glm["fixed_effect_launches"]}
+    for path, n in fixed_effect.items():
+        segment["launches_by_path"][f"{path}_fixed_effect"] = n
     segment["launches"] = sum(segment["launches_by_path"].values())
+    site = train_cli["fixed_effect_site"]
     segment["max_abs_err"] = max(segment["max_abs_err"],
-                                 batch["evaluation_max_abs_err"])
+                                 batch["evaluation_max_abs_err"],
+                                 site["max_abs_err"])
+    segment["fixed_effect"] = {
+        k: site[k] for k in ("shape", "values", "features", "parts",
+                             "segments", "ms", "reduce_ms", "plain_ms",
+                             "library_ms", "library_spread_max_abs",
+                             "rmatvec_ms",
+                             "bound_ms", "bound_by", "max_abs_err")}
+    segment["fixed_effect"]["launches_per_train_cli_run"] = train_cli[
+        "fixed_effect_launches"]
 
     top = next(r for r in rows
                if r["precision"] == SERVE_PRECISION and r["rung"] == 512)

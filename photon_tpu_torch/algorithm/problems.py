@@ -45,6 +45,12 @@ class GLMOptimizationConfiguration:
     down_sampling_rate: float = 1.0
     variance_computation: VarianceComputationType = (
         VarianceComputationType.NONE)
+    # Hyperparameter tuning's search ranges
+    # (CoordinateOptimizationConfiguration.scala:40-41
+    # regularizationWeightRange / elasticNetParamRange); None means the
+    # tuner's defaults apply.
+    regularization_weight_range: tuple[float, float] | None = None
+    elastic_net_param_range: tuple[float, float] | None = None
     incremental_weight: float = 1.0
 
     def with_regularization_weight(self, weight: float):

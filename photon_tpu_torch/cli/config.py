@@ -13,10 +13,13 @@ Every optimizer option of the reference's file runs: TRON (with its
 ``alpha``, the L1 fraction), ``variance_computation`` and
 ``down_sampling_rate``. ``box_constraints``, a ``[lower, upper]`` pair
 of numbers or of per-feature lists, goes to L-BFGS-B; the reference's
-file reader leaves that key unread. An option the port does not run
-yet raises ``NotImplementedError`` naming its ROADMAP item when the
-file is loaded: hyperparameter tuning and its search ranges (item 11),
-profiling (item 10) and multi-device (item 12).
+file reader leaves that key unread. A regularization's
+``weight_range`` and ``alpha_range`` are the tuner's search intervals,
+and ``hyperparameter_tuning`` (``mode`` NONE, RANDOM or BAYESIAN,
+``iterations``, ``seed``) runs the tuner after the lambda grid. An
+option the port does not run yet raises ``NotImplementedError`` naming
+its ROADMAP item when the file is loaded: profiling (item 10) and
+multi-device (item 12).
 """
 
 from __future__ import annotations
@@ -41,7 +44,6 @@ from photon_tpu_torch.types import TaskType
 
 # The ROADMAP Queue A item of each unported option.
 TELEMETRY_ITEM = 10
-TUNING_ITEM = 11
 MULTI_DEVICE_ITEM = 12
 
 
@@ -84,13 +86,8 @@ def _parse_optimizer(cid: str, d: dict) -> optim.OptimizerConfig:
     return optim.OptimizerConfig.lbfgs(**kw)
 
 
-def _parse_regularization(cid: str, d: dict):
+def _parse_regularization(d: dict):
     kind = optim.RegularizationType(d.get("type", "NONE").upper())
-    for key in ("weight_range", "alpha_range"):
-        if key in d:
-            raise optim.not_ported(
-                f"coordinate {cid!r}: regularization {key} "
-                "(hyperparameter tuning)", TUNING_ITEM)
     weights = d.get("weights", d.get("weight", ()))
     if isinstance(weights, (int, float)):
         weights = (float(weights),)
@@ -100,8 +97,15 @@ def _parse_regularization(cid: str, d: dict):
             tuple(float(w) for w in weights))
 
 
+def _parse_range(d: dict, key: str) -> tuple[float, float] | None:
+    """A regularization's ``weight_range`` / ``alpha_range``: the tuner's
+    search interval for that coordinate."""
+    return tuple(float(v) for v in d[key]) if key in d else None
+
+
 def parse_coordinate(cid: str, d: dict) -> CoordinateSpec:
-    reg, lambdas = _parse_regularization(cid, d.get("regularization", {}))
+    reg_dict = d.get("regularization", {})
+    reg, lambdas = _parse_regularization(reg_dict)
     opt_cfg = GLMOptimizationConfiguration(
         optimizer=_parse_optimizer(cid, d.get("optimizer", {})),
         regularization=reg,
@@ -109,6 +113,8 @@ def parse_coordinate(cid: str, d: dict) -> CoordinateSpec:
         down_sampling_rate=float(d.get("down_sampling_rate", 1.0)),
         variance_computation=VarianceComputationType(
             d.get("variance_computation", "NONE").upper()),
+        regularization_weight_range=_parse_range(reg_dict, "weight_range"),
+        elastic_net_param_range=_parse_range(reg_dict, "alpha_range"),
         incremental_weight=float(d.get("incremental_weight", 1.0)),
     )
     shard = d.get("feature_shard", "features")
@@ -170,6 +176,9 @@ class TrainingConfig:
     data_summary_dir: str | None = None
     # Reserved-column remapping (InputColumnsNames.scala:80-88).
     input_columns: dict[str, str] | None = None
+    # {mode: NONE | RANDOM | BAYESIAN, iterations, seed}
+    # (runHyperparameterTuning, GameTrainingDriver.scala:677-719).
+    hyperparameter_tuning: dict | None = None
 
     def shard_bags(self) -> dict[str, list[str]] | None:
         if self.feature_shards is None:
@@ -202,11 +211,6 @@ class TrainingConfig:
     @staticmethod
     def load(path: str) -> "TrainingConfig":
         raw = _read_config_file(path)
-        tuning = str((raw.get("hyperparameter_tuning") or {}).get(
-            "mode", "NONE")).upper()
-        if tuning != "NONE":
-            raise optim.not_ported(
-                f"hyperparameter_tuning mode {tuning}", TUNING_ITEM)
         if raw.get("profile_dir"):
             raise optim.not_ported("profile_dir (device profiling)",
                                    TELEMETRY_ITEM)
@@ -244,6 +248,7 @@ class TrainingConfig:
             days_range=inp.get("days_range"),
             data_summary_dir=raw.get("data_summary_dir"),
             input_columns=inp.get("input_columns"),
+            hyperparameter_tuning=raw.get("hyperparameter_tuning"),
         )
 
     def opt_config_sequence(self) -> list[dict]:

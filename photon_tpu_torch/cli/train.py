@@ -6,11 +6,14 @@ cli/game/training/GameTrainingDriver.scala:54, run :363-516), in the
 reference's order: read the data (single-bag or multi-bag Avro, libsvm,
 daily directories) -> data validation -> warm-start model -> feature
 stats and normalization contexts -> the lambda grid's fit with
-validation, under crash-safe checkpoints -> model selection -> the
-models (Avro layout plus ``checkpoint.npz``), ``training-summary.json``
-and the per-group evaluations. It runs on ``cuda`` unless ``--device
-cpu`` is given; every random-effect Newton solve launches the CUDA
-Newton kernel there. The last line of standard output is the JSON the
+validation, under crash-safe checkpoints -> hyperparameter tuning
+(``hyperparameter_tuning``: RANDOM or BAYESIAN candidates, each a full
+fit) -> model selection -> the models (Avro layout plus
+``checkpoint.npz``), ``training-summary.json`` and the per-group
+evaluations. It runs on ``cuda`` unless ``--device cpu`` is given;
+every random-effect Newton solve launches the CUDA Newton kernel there,
+and every fixed-effect transpose on a sparse shard the segment-sum
+kernel. The last line of standard output is the JSON the
 reference prints; ``training-summary.json`` also holds each stage's
 seconds.
 
@@ -511,6 +514,41 @@ def _run(args) -> int:
             signal.signal(sig, handler)
 
     # ------------------------------------------------------------------
+    # hyperparameter tuning (runHyperparameterTuning :677-719)
+    # ------------------------------------------------------------------
+    num_tuned = 0
+    tuning = cfg.hyperparameter_tuning or {}
+    tuning_mode = str(tuning.get("mode", "NONE")).upper()
+    if tuning_mode != "NONE" and validation is None:
+        log.warning(
+            "hyperparameter tuning (%s) requested but no validation_path is "
+            "configured; skipping", tuning_mode)
+    elif tuning_mode != "NONE":
+        from photon_tpu_torch import hyperparameter
+
+        evaluation_function = hyperparameter.GameEstimatorEvaluationFunction(
+            estimator, results[0].config, train, validation,
+            is_opt_max=results[0].evaluation.primary_evaluator
+            .bigger_is_better,
+            initial_model=initial_model)
+        if evaluation_function.num_params == 0:
+            log.warning(
+                "hyperparameter tuning requested but no coordinate has a "
+                "tunable regularization; skipping")
+        else:
+            tuned = hyperparameter.search(
+                int(tuning.get("iterations", 10)),
+                evaluation_function.num_params, tuning_mode,
+                evaluation_function,
+                evaluation_function.convert_observations(results),
+                seed=int(tuning.get("seed", 0)))
+            num_tuned = len(tuned)
+            log.info("hyperparameter tuning (%s) evaluated %d candidate(s)",
+                     tuning_mode, num_tuned)
+            results = results + tuned
+    lap("tune")
+
+    # ------------------------------------------------------------------
     # model selection + save (selectBestModel :753, saveModelToHDFS :804)
     # ------------------------------------------------------------------
     best = estimator.select_best(results)
@@ -526,16 +564,22 @@ def _run(args) -> int:
 
     # Model output modes (io/ModelOutputMode.scala:47): NONE saves
     # nothing, BEST the selected model, EXPLICIT adds the lambda grid's,
-    # TUNED the tuner's (none: tuning is not ported), ALL everything.
-    # The best model always lands in "best/".
+    # TUNED the tuner's, ALL everything. The best model always lands in
+    # "best/".
+    num_grid = len(results) - num_tuned
     mode = cfg.model_output_mode
     if mode == "NONE":
         to_save = []
-    elif mode in ("BEST", "TUNED"):
+    elif mode == "BEST":
         to_save = [(best_idx, best)]
     elif mode == "EXPLICIT":
         to_save = [(best_idx, best)] + [
-            (i, r) for i, r in enumerate(results) if i != best_idx]
+            (i, r) for i, r in enumerate(results[:num_grid])
+            if i != best_idx]
+    elif mode == "TUNED":
+        to_save = [(best_idx, best)] + [
+            (i, r) for i, r in enumerate(results)
+            if i >= num_grid and i != best_idx]
     elif mode == "ALL":
         to_save = list(enumerate(results))
     else:
@@ -564,7 +608,7 @@ def _run(args) -> int:
         "task": cfg.task.value,
         "num_training_rows": train.num_samples,
         "num_configurations": len(results),
-        "num_tuned_configurations": 0,
+        "num_tuned_configurations": num_tuned,
         "best_configuration_index": best_idx,
         "configurations": [
             {"config": config_json(r),

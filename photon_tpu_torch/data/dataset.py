@@ -3,8 +3,25 @@
 
 A dataset is a struct of tensors on one device. ELL padding slots point
 at a valid column with value 0, so the matvec is a gather plus a
-multiply-reduce and the transposed matvec an ``index_add_``. Rows carry
-(label, offset, weight); weight 0 removes a row from every sum.
+multiply-reduce. Rows carry (label, offset, weight); weight 0 removes a
+row from every sum.
+
+The ELL transpose (``rmatvec``, ``rmatvec_sq``: the fixed effect's
+gradient and Hessian diagonal) is deterministic by construction. Once
+per ``SparseFeatures`` the rows are cut into ``parts`` equal blocks and
+the slots sorted by (block, feature id), stably, so each feature's slots
+keep row order within a block. Every call multiplies the sorted slots
+by their rows' weights, reduces them with
+``segment_reduce.sorted_segment_sum`` at the ``fixed_effect`` site into
+``parts * d`` sums (the segment-sum kernel on the card, its plain
+version on the CPU) and adds the blocks' sums per feature with a torch
+``sum``, a reduce without atomics whose order is fixed. The reference's
+``.at[].add`` is a scatter-add, which a GPU runs with float atomics
+whose order changes from run to run; here every addition has a place
+fixed by the data, so two fits on the same data are equal bit for bit.
+The blocks are there for the kernel, which gives each tile of output
+segments to one thread block: a fixed effect has few features, and
+without them its whole reduce would run on one SM.
 """
 
 from __future__ import annotations
@@ -16,6 +33,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import device as device_mod
+from photon_tpu_torch.ops import segment_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +58,34 @@ class DenseFeatures:
         return (self.x * self.x).T @ g
 
 
+# Output segments the split transpose aims at: about four of the
+# segment-sum kernel's smallest tiles (1,024 segments) for each of an
+# H100's 132 SMs; at most a quarter of the slots, so that the
+# [parts, d] partial sums stay small beside the slots they reduce.
+_SPLIT_SEGMENTS = 1 << 19
+
+
+def transpose_block_rows(num_rows: int, k: int, d: int) -> int:
+    """Rows in each block of the transpose of a [num_rows, k] ELL matrix
+    with ``d`` features: all of them where ``d`` alone is that many
+    segments."""
+    target = min(_SPLIT_SEGMENTS, num_rows * k // 4)
+    parts = max(1, min(target // max(d, 1), num_rows))
+    return -(-num_rows // parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TransposePlan:
+    """An ELL matrix's slots in ascending stable order of (row block,
+    feature id): their int32 keys ``block * d + id``, values and int32
+    rows, and the number of row blocks."""
+
+    ids: torch.Tensor  # [n k] int32, sorted
+    values: torch.Tensor  # [n k]
+    rows: torch.Tensor  # [n k] int32
+    parts: int
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseFeatures:
     """ELL layout: per-row id/value slabs of a fixed width ``k``."""
@@ -47,6 +93,8 @@ class SparseFeatures:
     indices: torch.Tensor  # [n, k] int32
     values: torch.Tensor  # [n, k]
     d: int
+    _plan: _TransposePlan | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_features(self) -> int:
@@ -59,16 +107,39 @@ class SparseFeatures:
     def matvec(self, w: torch.Tensor) -> torch.Tensor:
         return torch.sum(self.values * w[self.indices.long()], dim=-1)
 
-    def _scatter(self, contrib: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros(self.d, dtype=contrib.dtype, device=contrib.device)
-        return out.index_add_(0, self.indices.reshape(-1).long(),
-                              contrib.reshape(-1))
+    def transpose_plan(self) -> _TransposePlan:
+        """The sorted slots that ``rmatvec`` reduces, built on the first
+        call (one stable sort on the features' device) and kept: the
+        slot ids never change while the features live."""
+        if self._plan is None:
+            n, k = self.indices.shape
+            block_rows = transpose_block_rows(n, k, self.d)
+            parts = -(-n // block_rows)
+            rows = torch.arange(n * k, device=self.indices.device) // k
+            keys = (rows // block_rows) * self.d + self.indices.reshape(-1)
+            keys, order = torch.sort(keys, stable=True)
+            object.__setattr__(self, "_plan", _TransposePlan(
+                keys.to(torch.int32),
+                self.values.reshape(-1)[order].contiguous(),
+                rows[order].to(torch.int32), parts))
+        return self._plan
+
+    def _reduce(self, plan: _TransposePlan,
+                slots: torch.Tensor) -> torch.Tensor:
+        out = segment_reduce.sorted_segment_sum(
+            slots, plan.ids, plan.parts * self.d, site="fixed_effect")
+        if plan.parts > 1:
+            out = out.view(plan.parts, self.d).sum(0)
+        return out.to(slots.dtype)
 
     def rmatvec(self, g: torch.Tensor) -> torch.Tensor:
-        return self._scatter(self.values * g[:, None])
+        plan = self.transpose_plan()
+        return self._reduce(plan, plan.values * g.index_select(0, plan.rows))
 
     def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
-        return self._scatter(self.values * self.values * g[:, None])
+        plan = self.transpose_plan()
+        return self._reduce(plan, plan.values * plan.values
+                            * g.index_select(0, plan.rows))
 
 
 Features = Union[DenseFeatures, SparseFeatures]

@@ -910,19 +910,18 @@ UNPORTED = [
     (["--fleet-dir", "f"], {}, 10),
     (["--distributed"], {}, 12),
     ([], {"profile_dir": "p"}, 10),
-    ([], {"hyperparameter_tuning": {"mode": "RANDOM"}}, 11),
     ([], {"mesh": 4}, 12),
     ([], {"global": {"feature_sharding": "column"}}, 12),
-    ([], {"global": {"regularization": {"type": "L2", "weights": [1],
-                                        "weight_range": [0.1, 10]}}}, 11),
     (["--no-flight"], {}, 10),
 ]
 
 
 # Each case keeps the id it had before the item-6 cases (13-16, 18, 19)
-# were ported and moved to FORMERLY_UNPORTED below, and the item-9 cases
-# (0-2, the streaming flags) to tests/test_torch_stream.py.
-UNPORTED_POSITIONS = [*range(3, 13), 17, 20]
+# were ported and moved to FORMERLY_UNPORTED below, the item-9 cases
+# (0-2, the streaming flags) to tests/test_torch_stream.py, and the
+# item-11 cases (10 and 17, hyperparameter tuning and a weight range) to
+# the tuning tests below.
+UNPORTED_POSITIONS = [*range(3, 10), 11, 12, 20]
 
 
 @pytest.mark.parametrize("args,overrides,item", UNPORTED,
@@ -1324,3 +1323,203 @@ def test_train_cli_runs_on_cuda_unless_asked_for_the_cpu(tmp_path, glmix):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_cli(pt_train.main, cfg, tmp_path / "c.json")
     assert not (tmp_path / "o" / "models").exists()
+
+
+# ---------------------------------------------------------------------------
+# hyperparameter tuning (ROADMAP Queue A item 11): the cases 10-item11 and
+# 17-item11 of the unported list above now train through both CLIs.
+# ---------------------------------------------------------------------------
+
+BAD_GRID = {"type": "fixed", "regularization": {
+    "type": "L2", "weights": [1e4], "weight_range": [1e-4, 1e4]}}
+
+
+def tuned_lambdas(out_dir) -> list:
+    return [c["config"]["global"]["lambda"]
+            for c in summary(out_dir)["configurations"]]
+
+
+def test_tuning_improves_over_bad_grid(tmp_path, glmix):
+    """``TestHyperparameterTuningCLI::test_tuning_improves_over_bad_grid``
+    through both CLIs: RANDOM tuning over the fixed effect's
+    ``weight_range`` evaluates 4 more configurations, the same lambdas
+    bit for bit (the same Sobol draws), and the selected model beats the
+    badly over-regularized grid's."""
+    train, val = glmix
+    cfg = make_config(tmp_path, train, val, coordinates={"global": BAD_GRID},
+                      hyperparameter_tuning={"mode": "RANDOM",
+                                             "iterations": 4, "seed": 7})
+    runs = run_both(tmp_path, cfg)
+    maps = single_bag_maps(train)
+    assert_summaries_match(runs, val_dataset(val, maps), maps)
+    assert tuned_lambdas(runs["pt"][0]) == tuned_lambdas(runs["jax"][0])
+    s = summary(runs["pt"][0])
+    assert s["num_configurations"] == 5  # 1 grid + 4 tuned
+    assert s["num_tuned_configurations"] == 4
+    assert summary(runs["jax"][0])["num_tuned_configurations"] == 4
+    rmses = [c["evaluation"]["RMSE"] for c in s["configurations"]]
+    # The grid model is badly over-regularized; tuning must beat it.
+    assert min(rmses[1:]) < rmses[0]
+    assert s["best_configuration_index"] != 0
+    assert_models_close(load(runs["pt"][0], maps), load(runs["jax"][0], maps))
+
+
+@pytest.mark.parametrize("mode", ["EXPLICIT", "TUNED"])
+def test_tuned_and_explicit_output_modes(tmp_path, glmix, mode):
+    """``TestObservability::test_output_modes``'s EXPLICIT and TUNED
+    cases through both CLIs: a grid of two and two RANDOM candidates;
+    EXPLICIT saves the best and the grid's models, never a tuned one,
+    TUNED the best and the tuned ones; both packages save the same
+    directories."""
+    train, val = glmix
+    cfg = make_config(
+        tmp_path, train, val, model_output_mode=mode,
+        coordinates={"global": {"type": "fixed", "regularization": {
+            "type": "L2", "weights": [100.0, 0.01]}}},
+        hyperparameter_tuning={"mode": "RANDOM", "iterations": 2,
+                               "seed": 3})
+    runs = run_both(tmp_path, cfg)
+    dirs = {side: {p.name for p in (runs[side][0] / "models").iterdir()}
+            for side in runs}
+    assert dirs["pt"] == dirs["jax"]
+    assert "best" in dirs["pt"]
+    assert summary(runs["pt"][0])["num_configurations"] == 4
+    if mode == "EXPLICIT":
+        # Grid indices 0-1; the tuned models (2-3) never get a config dir.
+        assert not {"config_2", "config_3"} & dirs["pt"]
+        assert dirs["pt"] - {"best"} <= {"config_0", "config_1"}
+    else:
+        assert not {"config_0", "config_1"} & dirs["pt"]
+        assert dirs["pt"] - {"best"} <= {"config_2", "config_3"}
+    maps = single_bag_maps(train)
+    assert_summaries_match(runs, val_dataset(val, maps), maps,
+                           sorted(dirs["pt"]))
+
+
+def test_bayesian_tuning_in_float64_matches_the_reference(tmp_path, glmix,
+                                                          monkeypatch):
+    """A BAYESIAN run of both CLIs with both packages' readers in float64
+    (the fits in float64 on each side): the same best configuration
+    index, and every configuration's lambda within 1e-9 (its candidate
+    comes from a GP over evaluations that agree to rounding)."""
+    from test_torch_glm_cli import float64_readers
+
+    train, val = glmix
+    cfg = make_config(tmp_path, train, val, coordinates={"global": BAD_GRID},
+                      hyperparameter_tuning={"mode": "BAYESIAN",
+                                             "iterations": 4, "seed": 5})
+    with float64_readers(monkeypatch):
+        runs = run_both(tmp_path, cfg)
+    js, ps = summary(runs["jax"][0]), summary(runs["pt"][0])
+    assert ps["best_configuration_index"] == js["best_configuration_index"]
+    assert ps["num_tuned_configurations"] == 4
+    np.testing.assert_allclose(tuned_lambdas(runs["pt"][0]),
+                               tuned_lambdas(runs["jax"][0]), rtol=1e-9)
+    for jc, pc in zip(js["configurations"], ps["configurations"],
+                      strict=True):
+        assert pc["evaluation"]["RMSE"] == pytest.approx(
+            jc["evaluation"]["RMSE"], rel=1e-9)
+
+
+def incremental_tuning(package: str, rng_seed: int = 20260729) -> list:
+    """``TestIncrementalWithTuning`` in one package, float64 on the CPU:
+    a prior model, an incremental refit on new rows, then two RANDOM
+    candidates each retrained with the prior forwarded. Returns each
+    candidate's (lambdas, RMSE)."""
+    import importlib
+
+    jax_side = package == "photon_tpu"
+    pkg = importlib.import_module(package)
+    problems = importlib.import_module(f"{package}.algorithm.problems")
+    dataset = importlib.import_module(f"{package}.data.dataset")
+    game_data = importlib.import_module(f"{package}.data.game_data")
+    re_data = importlib.import_module(f"{package}.data.random_effect")
+    ge = importlib.import_module(f"{package}.estimators.game_estimator")
+    hp = importlib.import_module(f"{package}.hyperparameter")
+    tuner = importlib.import_module(f"{package}.hyperparameter.tuner")
+    task = importlib.import_module(f"{package}.types").TaskType
+    if jax_side:
+        import jax.numpy as jnp
+
+        dtype, kw = jnp.float64, {}
+    else:
+        dtype, kw = torch.float64, {"device": "cpu"}
+    rng = np.random.default_rng(rng_seed)
+    w, u_eff = rng.normal(size=4), rng.normal(size=6)
+
+    def data(seed, n=600):
+        r = np.random.default_rng(seed)
+        x = r.normal(size=(n, 4))
+        uid = r.integers(0, 6, size=n)
+        y = x @ w + u_eff[uid] + 0.05 * r.normal(size=n)
+        return game_data.make_game_dataset(
+            y, {"shard": dataset.DenseFeatures(x),
+                "bias": dataset.DenseFeatures(np.ones((n, 1)))},
+            id_tags={"userId": uid}, dtype=dtype, **kw)
+
+    l2 = pkg.optim.RegularizationContext(pkg.optim.RegularizationType.L2)
+    simple = problems.VarianceComputationType.SIMPLE
+
+    def estimator(incremental, **extra):
+        return ge.GameEstimator(task.LINEAR_REGRESSION, {
+            "global": ge.FixedEffectCoordinateConfiguration(
+                "shard", problems.GLMOptimizationConfiguration(
+                    regularization=l2, regularization_weight=1e-3,
+                    variance_computation=simple)),
+            "per-user": ge.RandomEffectCoordinateConfiguration(
+                re_data.RandomEffectDataConfiguration("userId", "bias"),
+                problems.GLMOptimizationConfiguration(
+                    regularization=l2, regularization_weight=0.1,
+                    variance_computation=simple))},
+            num_iterations=2, incremental_training=incremental, **extra,
+            **kw)
+
+    prior = estimator(False).fit(data(3))[0].model
+    train2, val = data(4), data(5)
+    est = estimator(True, evaluators=["RMSE"])
+    base = est.fit(train2, val, initial_model=prior)[0]
+    fn = hp.GameEstimatorEvaluationFunction(
+        est, base.config, train2, val, is_opt_max=False,
+        initial_model=prior)
+    tuned = tuner.search(2, fn.num_params, "RANDOM", fn,
+                         fn.convert_observations([base]), seed=1)
+    return [({cid: c.regularization_weight for cid, c in r.config.items()},
+             r.evaluation.primary_evaluation) for r in tuned]
+
+
+def test_tuner_retrains_forward_the_initial_model():
+    """``TestIncrementalWithTuning``: with ``incremental_training`` the
+    tuner's candidates forward the initial model into each retrain
+    (instead of failing the validation invariant) and are evaluated;
+    both packages, in float64, draw the same lambdas and evaluate them
+    within 1e-9."""
+    got = incremental_tuning("photon_tpu_torch")
+    want = incremental_tuning("photon_tpu")
+    assert len(got) == len(want) == 2
+    for (g_lams, g_rmse), (w_lams, w_rmse) in zip(got, want):
+        assert g_lams == w_lams
+        assert np.isfinite(g_rmse)
+        assert g_rmse == pytest.approx(w_rmse, rel=1e-9)
+
+
+@pytest.mark.parametrize("case", ["no_validation", "nothing_tunable"])
+def test_tuning_is_skipped_without_validation_or_a_tunable_coordinate(
+        tmp_path, glmix, case, caplog):
+    """Both CLIs warn and skip the tuner when the config has no
+    validation file, or no coordinate with an L1, L2 or elastic-net
+    weight to tune: the grid's configurations only, none tuned."""
+    train, val = glmix
+    cfg = make_config(tmp_path, train, None if case == "no_validation"
+                      else val,
+                      hyperparameter_tuning={"mode": "RANDOM",
+                                             "iterations": 3, "seed": 1})
+    if case == "nothing_tunable":
+        for c in cfg["coordinates"].values():
+            c["regularization"] = {"type": "NONE"}
+    with caplog.at_level("WARNING"):
+        runs = run_both(tmp_path, cfg)
+    assert caplog.text.count("skipping") == 2
+    for side in runs:
+        s = summary(runs[side][0])
+        assert (s["num_configurations"], s["num_tuned_configurations"]) == (
+            1, 0), side
