@@ -36,10 +36,18 @@ JSON lines:
              the same calls issued eagerly from Python, the host time to
              issue one kernel call, a whole host dispatch and fetch as
              a graph replay (``dispatch_host_ms``) beside the eager
-             dispatch (copies, launch and fetch from Python), and the
-             bound;
+             dispatch (copies, launch and fetch from Python), the
+             bound and ``ladder_bound_ms``, the cost ledger's count of
+             the rung (every row known and distinct,
+             ``ScorePrograms.rung_cost``);
 6. paced   - a second drive at a fixed offered load, whose p50/p99 are
-             service latency rather than queueing behind a flood;
+             service latency rather than queueing behind a flood, once
+             with telemetry off and once on as ``cli.serve`` runs it
+             (spans, request records, the registry): both p50/p99, no
+             graph captured, and the request records the ring kept plus
+             the events it dropped cover every request; then the
+             20,000-request flood off, on, on, off (``flood_telemetry``:
+             QPS, p50/p99);
 6a. coords - the serving model plus 9 small random coordinates (12
              active, two launches a rung: groups of 8 and 4): the kernel
              against its plain version at rungs 1 and 512, f32 and bf16
@@ -100,10 +108,17 @@ JSON lines:
              plain version; (d) ``cli.serve --input`` on score_cli's
              107,496 rows and model directory (ELL requests, deadlines,
              a shed watermark, the breaker, a hot reload of the same
-             directory): every row served twice with no graph captured
-             after start, one launch a replay, and the per-request
-             scores within 1e-5 (relative to 1 + |score|) of
-             ``cli.score``'s.
+             directory) with ``--telemetry``, ``--trace`` and
+             ``--request-log`` and the cost ledger armed: every row
+             served twice with no graph captured after start, one launch
+             a replay, and the per-request scores within 1e-5 (relative
+             to 1 + |score|) of ``cli.score``'s; every file validates,
+             the request records kept plus the events dropped cover the
+             2 x 107,496 requests, the registry's outcome counters equal
+             ``health()``, the ledger's ``serve/score@<rung>`` dispatches
+             sum to the replays and its roofline for rung 512 equals the
+             count ``score_cli`` printed for that rung of this ladder
+             (``cli_serve_telemetry``).
 
 Then the training group, on the bench's logistic GLMix at full width in
 float32 (``bench.py`` ``build_estimator("logistic")`` and
@@ -137,6 +152,10 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      replayed by the port's two L-BFGS designs, host
                      branching and a batch of one, alternating
                      (``fe_lbfgs_designs``: seconds, syncs, iterations);
+                     then the fit once more with ``obs.enable()`` and
+                     ``ledger.enable()`` (``fit_telemetry``): the same
+                     host syncs and Newton launches, the model equal bit
+                     for bit and a ``coord:<cid>`` span every update;
 10. optimality     - each entity's gradient at the fitted model against
                      the cascade's tolerance, else its convergence reason;
 11. quality        - train AUC beside the generating weights' AUC;
@@ -172,7 +191,8 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      iterations, AUC and AUC:userId, EXPLICIT output,
                      feature stats, a checkpoint directory) runs through
                      ``cli.train.main`` twice: on the kernel, under
-                     ``torch.profiler`` (device time only), and with
+                     ``torch.profiler`` (device time only) with
+                     ``--no-flight`` (telemetry fully off), and with
                      ``PHOTON_NEWTON_KERNEL=off``; then ``cli.score.main``
                      scores the validation file with the kernel run's
                      best model. Gates: (a) both exit 0, the output
@@ -278,9 +298,18 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      the call count is exact), then ``--resume-ingest``;
                      (e) day 2: stream again with ``--init-model`` (a)'s
                      best checkpoint, then ``cli.score`` of the
-                     validation file. Gates: (a) the dataset (host
-                     mirrors, device columns, id tags) and the packed
-                     plan buffer sha256-equal to the in-memory run's,
+                     validation file. The in-memory child passes
+                     ``--telemetry``, ``--trace`` and ``--flight-dir``
+                     and a copy of the config with ``profile_dir``: its
+                     JSONL and Chrome trace validate, it leaves no
+                     flight dump, and its torch.profiler trace names the
+                     Newton and segment-sum kernels within the
+                     ``train_fit_profile`` span (``stream_telemetry``);
+                     (c)'s crash leaves one ``flight-<pid>.json`` whose
+                     ``faults_fired`` names it. Gates: (a) the dataset
+                     (host mirrors, device columns, id tags) and the
+                     packed plan buffer sha256-equal to the in-memory
+                     run's,
                      two in-memory fits equal bit for bit (14a's kernel
                      run and this phase's) and the streamed fit's best
                      model equal, bit for bit, to the in-memory one's
@@ -446,10 +475,9 @@ SERVE_PRECISION = "bfloat16"
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # ELL widths of the sparse layout: a few of each shard's features.
 ELL_K = {"global": 8, "userShard": 6, "movieShard": 4}
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32
-# FLOP/s, the unit this kernel's arithmetic runs on.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# The card's peaks and the kernels' byte and operation counts live in the
+# package (photon_tpu_torch/analysis/costmodel.py): the bounds printed
+# here and the cost ledger's rows read one count.
 TIMING_RUNS, TIMING_INNER = 50, 20
 PLAIN_INNER = 4
 REPLACES = "photon_tpu/ops/serve_kernel.py:291"
@@ -526,36 +554,32 @@ def ell_specs(programs):
     }
 
 
+def peaks() -> dict:
+    """The H100 SXM's peaks (NVIDIA data sheet), from the package."""
+    from photon_tpu_torch.analysis import costmodel
+
+    return costmodel.CHIP_PEAKS[costmodel.DEFAULT_CHIP]
+
+
+def roofline_row(cost: dict) -> dict:
+    """bound_ms and bound_by of a count at the card's peaks."""
+    from photon_tpu_torch.analysis import costmodel
+
+    roof = costmodel.roofline(cost)
+    return {"bound_ms": roof["min_seconds"] * 1e3,
+            "bound_by": "bytes" if roof["bound"] == "hbm" else "operations",
+            "bytes": cost["hbm_bytes"], "flops": cost["flops"]}
+
+
 def bound(ops: dict, precision: str) -> dict:
-    """Least time the card could take for one launch on these operands:
-    each input byte read once (only the table rows this rung's known
-    codes name, once per distinct entity), the output written once, and
-    the multiply-adds at the f32 peak."""
-    wbytes = 2 if precision == "bfloat16" else 4
-    rung = int(ops["codes"][0].shape[0])
-    nbytes = 4.0 * rung  # the f32 output
-    flops = 0.0
-    kinds, feats = ops["spec_kinds"], ops["feats"]
-    for si, kind in enumerate(kinds):
-        nbytes += (feats[si].numel() * 4 if kind == "dense"
-                   else feats[si][0].numel() * 8)
-    for w, fi in zip(ops["fe_ws"], ops["fe_feat"]):
-        nbytes += w.numel() * wbytes
-        width = (feats[fi].shape[1] if kinds[fi] == "dense"
-                 else feats[fi][0].shape[1])
-        flops += 2.0 * rung * width
-    for w, code, fi in zip(ops["re_ws"], ops["codes"], ops["re_feat"]):
-        s = int(w.shape[1])
-        known = code[(code >= 0) & (code < w.shape[0])]
-        nbytes += code.numel() * 4
-        nbytes += int(known.unique().numel()) * s * (wbytes + 4)
-        per_slot = 2.0 if kinds[fi] == "dense" else 2.0 * (
-            feats[fi][0].shape[1] + 1)
-        flops += per_slot * int(known.numel()) * s
-    ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else (
-        "operations")
-    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "flops": flops}
+    """Least time the card could take for one launch on these operands
+    (``costmodel.serve_score_cost`` on this batch's data): each input
+    byte read once (only the table rows this rung's known codes name,
+    once per distinct entity), the output written once, and the
+    multiply-adds at the f32 peak."""
+    from photon_tpu_torch.analysis import costmodel
+
+    return roofline_row(costmodel.serve_score_cost(ops, precision))
 
 
 def packed_operands(programs, n, rung_seed, cold_fraction=COLD_FRACTION):
@@ -738,15 +762,75 @@ def phase_serve(torch, ckpt_path, arrays) -> dict:
     if not err_numpy <= TOL[SERVE_PRECISION]:
         fail(f"served scores differ from the numpy score by {err_numpy}")
 
-    with MicroBatchQueue(programs, max_linger_s=0.002) as queue:
-        paced = drive(queue, requests[:PACED_REQUESTS], rate=PACED_QPS)
-    emit({"phase": "paced", "precision": SERVE_PRECISION, **{
-        k: paced[k] for k in (
-            "requests", "errors", "offered_rate", "qps", "p50_ms", "p90_ms",
-            "p99_ms", "max_ms", "mean_batch_size", "batches")}})
-    if paced["errors"]:
-        fail(f"{paced['errors']} paced requests failed")
+    # The paced drive with telemetry off, then on as cli.serve runs it
+    # (spans, request records, registry): the same ladder, no capture.
+    from photon_tpu_torch import obs
+
+    paced = {}
+    captured = programs.stats["programs_compiled"]
+    for mode in ("off", "on"):
+        if mode == "on":
+            obs.reset()
+            obs.enable()
+        try:
+            with MicroBatchQueue(programs, max_linger_s=0.002) as queue:
+                paced[mode] = drive(queue, requests[:PACED_REQUESTS],
+                                    rate=PACED_QPS)
+        finally:
+            obs.disable()
+        emit({"phase": "paced", "precision": SERVE_PRECISION,
+              "telemetry": mode, **{k: paced[mode][k] for k in (
+                  "requests", "errors", "offered_rate", "qps", "p50_ms",
+                  "p90_ms", "p99_ms", "max_ms", "mean_batch_size",
+                  "batches")},
+              **({"request_trace": paced[mode]["request_trace"]}
+                 if mode == "on" else {})})
+        if paced[mode]["errors"]:
+            fail(f"{paced[mode]['errors']} paced requests failed "
+                 f"(telemetry {mode})")
+    dropped = obs.trace.dropped()
+    obs.reset()
+    if programs.stats["programs_compiled"] != captured:
+        fail("paced: a graph was captured while serving with telemetry on")
+    # The request ring holds 8,192 events: the records it kept and the
+    # events it dropped cover every request.
+    trace_on = paced["on"]["request_trace"]
+    if (set(trace_on["outcomes"]) != {"served"}
+            or trace_on["records"] + dropped < PACED_REQUESTS):
+        fail(f"paced: request records {trace_on}, {dropped} dropped")
+    result["paced"] = {m: {k: paced[m][k] for k in ("p50_ms", "p99_ms")}
+                       for m in paced}
+    result["flood_telemetry"] = flood_telemetry(programs, requests)
     return result
+
+
+def flood_telemetry(programs, requests) -> dict:
+    """The flood of phase 4 with telemetry off and on, in turns (off, on,
+    on, off): QPS and p50/p99 of each, the cost of recording every
+    request (``cli.serve`` always records)."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.serve.driver import drive
+    from photon_tpu_torch.serve.queue import MicroBatchQueue
+
+    runs = []
+    for mode in ("off", "on", "on", "off"):
+        obs.reset()
+        if mode == "on":
+            obs.enable()
+        try:
+            with MicroBatchQueue(programs, max_linger_s=0.002) as queue:
+                out = drive(queue, requests)
+        finally:
+            obs.disable()
+            obs.reset()
+        if out["errors"]:
+            fail(f"flood_telemetry: {out['errors']} requests failed")
+        runs.append({"telemetry": mode, **{k: out[k] for k in (
+            "qps", "p50_ms", "p99_ms", "batches", "mean_batch_size")}})
+    row = {"phase": "flood_telemetry", "precision": SERVE_PRECISION,
+           "requests": len(requests), "runs": runs}
+    emit(row)
+    return row
 
 
 def event_ms(torch, run, inner: int) -> float:
@@ -865,6 +949,10 @@ def phase_timing(torch, model) -> list[dict]:
                 "eager_dispatch_host_ms": host_ms(
                     programs, programs.dispatch_eager, feats, codes, rung),
                 **bound(ops, precision),
+                # The cost ledger's count of this rung: every row known
+                # and distinct (ScorePrograms.rung_cost).
+                "ladder_bound_ms": roofline_row(
+                    programs.rung_cost(rung))["bound_ms"],
             }
             emit(row)
             rows.append(row)
@@ -1329,7 +1417,18 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
                "launch_floor_ms": floor_ms, **bound(ops, "float32")}
         emit(row)
         timing.append(row)
-    del data, model, programs, codes_all
+    # The count the cost ledger books for cli.serve's top rung on these
+    # files (its default ladder, this layout, f32 tables): serve_ops
+    # holds the ledger's priced row of that rung against it.
+    cli_ladder = ScorePrograms(programs.tables, ladder=ShapeLadder(RUNGS),
+                               specs=programs.given_specs,
+                               compile_now=False)
+    ladder_bound = {"phase": "score_cli_timing", "rung": RUNGS[-1],
+                    "layout": "ell", "precision": "float32",
+                    "ladder_bound": roofline_row(
+                        cli_ladder.rung_cost(RUNGS[-1]))}
+    emit(ladder_bound)
+    del data, model, programs, codes_all, cli_ladder
     torch.cuda.empty_cache()
 
     sec = line["seconds"]
@@ -1387,6 +1486,7 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
         fail(f"score_cli: evaluation.json {evaluation} and evaluate_scores "
              f"on the written scores {in_process}, {again} are not equal")
     return {**timing[-1], "launches": launches, "files": files,
+            "ladder_bound": ladder_bound["ladder_bound"],
             "scores": scores, "evaluation_launches": eval_launches,
             "evaluation_max_abs_err": row[
                 "evaluation_segment_parity_max_abs_err"]}
@@ -1479,6 +1579,87 @@ def degraded_drive(programs, requests, plan=None, **queue_kw) -> dict:
             counts["breaker_open_after_reset"] = queue.health()[
                 "breaker_open"]
     return {"counts": counts, "health": health}
+
+
+def cli_serve_telemetry(line, files, report, ladder_bound) -> dict:
+    """Gates of ``cli.serve --telemetry --trace --request-log`` (phase
+    6c(d)): every file validates; the request records the ring kept plus
+    the events it dropped cover the requests served; the registry's
+    outcome counters equal the queue's ``health()``; the ledger's
+    ``serve/score@<rung>`` dispatches sum to the run's replays, and its
+    roofline for the top rung is the count ``score_cli`` printed for it."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.analysis import costmodel
+
+    n_records = obs.validate_jsonl(files["requests.jsonl"])
+    n_lines = obs.validate_jsonl(files["telemetry.jsonl"])
+    n_events = obs.trace.validate_chrome_trace(files["trace.json"])
+    with open(files["requests.jsonl"]) as f:
+        recs = [json.loads(x) for x in f]
+    header, recs = recs[0], recs[1:]
+    outcomes: dict = {}
+    for r in recs:
+        outcomes[r["outcome"]] = outcomes.get(r["outcome"], 0) + 1
+    with open(files["telemetry.jsonl"]) as f:
+        counters = {r["series"]: r["value"] for r in map(json.loads, f)
+                    if r["type"] == "counter"}
+    health = line["health"]
+    served_total = SCORE_ROWS * 2  # the main drive and the reload's
+    serve_rows = {r["program"]: r for r in report["rows"]
+                  if r["program"].startswith("serve/score@")}
+    dispatched = sum(r["dispatches"] for r in serve_rows.values())
+    replays = sum(line["dispatches"].values())
+    top = f"serve/score@{RUNGS[-1]}"
+    top_cost = report["programs"][top]["cost"]
+    top_ms = costmodel.roofline(top_cost)["min_seconds"] * 1e3
+    row = {"phase": "serve_ops", "step": "cli_serve_telemetry",
+           "telemetry_lines": n_lines, "trace_events": n_events,
+           "request_records": len(recs),
+           "events_dropped": header["events_dropped"],
+           "outcomes_retained": outcomes,
+           "registry": {k: counters.get(k, 0.0) for k in (
+               "serve_requests_total", "serve_deadline_expired_total",
+               "serve_dispatch_retries_total", "serve_breaker_trips_total")},
+           "ledger_dispatches": dispatched, "replays": replays,
+           "ledger_rows": {k: {c: r[c] for c in (
+               "dispatches", "seconds", "vs_roofline", "blocking")}
+               for k, r in serve_rows.items()},
+           "ledger_compiles": report["compiles"],
+           "resident_bytes": report["resident_bytes"],
+           "top_rung_roofline_ms": top_ms,
+           "top_rung_ladder_bound_ms": ladder_bound["bound_ms"],
+           "flight_dumps": len([f for f in os.listdir(files["flight"])
+                                if f.startswith("flight-")])
+           if os.path.isdir(files["flight"]) else 0}
+    emit(row)
+    if n_records != len(recs) + 1 or any(
+            r["outcome"] != "served" for r in recs):
+        fail(f"cli.serve request log: {row}")
+    if len(recs) + header["events_dropped"] < served_total:
+        fail(f"cli.serve: {len(recs)} request records and "
+             f"{header['events_dropped']} dropped events for "
+             f"{served_total} requests")
+    reg = row["registry"]
+    if (reg["serve_requests_total"] != health["requests"]
+            or health["requests"] != served_total
+            or reg["serve_deadline_expired_total"]
+            != health["deadline_expired"]
+            or reg["serve_dispatch_retries_total"]
+            != health["dispatch_retries"]
+            or reg["serve_breaker_trips_total"] != health["breaker_trips"]):
+        fail(f"cli.serve: the registry's outcome counters disagree with "
+             f"health() {health}: {reg}")
+    if dispatched != replays or set(line["dispatches"]) != {
+            str(r) for r in RUNGS} or set(report["compiles"]) != {
+            f"serve/score@{r}" for r in RUNGS}:
+        fail(f"cli.serve: the ledger booked {dispatched} dispatches for "
+             f"{replays} replays: {row}")
+    if top_ms != ladder_bound["bound_ms"]:
+        fail(f"cli.serve: the ledger's rung-{RUNGS[-1]} roofline "
+             f"{top_ms} ms is not the count's {ladder_bound['bound_ms']}")
+    if row["flight_dumps"]:
+        fail("cli.serve: a clean run left a flight dump")
+    return row
 
 
 def run_serve_cli(argv) -> dict:
@@ -1638,17 +1819,39 @@ def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
     # cli.serve --input on score_cli's rows, with a hot reload of the
     # same model directory (values-only against the data's maps).
     files = batch["files"]
-    npy = os.path.join(os.path.dirname(files["data"]), "served.npy")
+    work = os.path.dirname(files["data"])
+    npy = os.path.join(work, "served.npy")
+    obs_files = {k: os.path.join(work, f"serve-{k}") for k in (
+        "telemetry.jsonl", "trace.json", "requests.jsonl", "flight")}
     # Its ladder (3 coordinates: one launch a rung) is captured inside
-    # the counted window.
-    line = counted(run_serve_cli, [
-        "--model-dir", files["model_dir"], "--input", files["data"],
-        "--feature-shards",
-        *[f"{s}={SCORE_SHARDS[s][0]}" for s in SCORE_SHARDS],
-        "--id-tags", "userId", "movieId", "--scores", npy,
-        "--deadline-ms", "60000", "--shed-watermark", "1000000",
-        "--breaker-threshold", "8", "--reload-model", files["model_dir"]],
-        warmups=len(RUNGS))
+    # the counted window. The cost ledger is armed for the run (cli.serve
+    # records telemetry on every run; the ledger is the caller's).
+    from photon_tpu_torch.obs import ledger
+
+    ledger.reset()
+    ledger.enable()
+    try:
+        line = counted(run_serve_cli, [
+            "--model-dir", files["model_dir"], "--input", files["data"],
+            "--feature-shards",
+            *[f"{s}={SCORE_SHARDS[s][0]}" for s in SCORE_SHARDS],
+            "--id-tags", "userId", "movieId", "--scores", npy,
+            "--deadline-ms", "60000", "--shed-watermark", "1000000",
+            "--breaker-threshold", "8", "--reload-model",
+            files["model_dir"],
+            "--telemetry", obs_files["telemetry.jsonl"],
+            "--trace", obs_files["trace.json"],
+            "--request-log", obs_files["requests.jsonl"],
+            "--flight-dir", obs_files["flight"]],
+            warmups=len(RUNGS))
+        ledger_report = ledger.report()
+        # The programs as priced by that report.
+        ledger_report["programs"] = ledger.snapshot()["programs"]
+    finally:
+        ledger.disable()
+        ledger.reset()
+    out["cli_telemetry"] = cli_serve_telemetry(
+        line, obs_files, ledger_report, batch["ladder_bound"])
     served = np.load(npy)
     rel = float(np.max(np.abs(served - batch["scores"])
                        / (1.0 + np.abs(batch["scores"]))))
@@ -1840,10 +2043,6 @@ FIT_RTOL, FIT_ATOL = 1e-3, 1e-4
 RE_FIT_ATOL = 2e-3
 NEWTON_STEPS = 3
 SERVE_ROWS = 512
-# H100 special-function units: 16 results per clock per SM (CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0) x 132 SMs x 1.98 GHz boost clock.
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 NEWTON_REPLACES = "photon_tpu/ops/newton_kernel.py:225"
 
 
@@ -2144,7 +2343,9 @@ def fit_trajectory(torch, est, data) -> tuple[dict, object]:
 
 def phase_fit(torch, arrays, data, est) -> dict:
     """GameEstimator.fit at full width, counts zeroed just before; then
-    the fixed effect's last L-BFGS solve replayed by both designs."""
+    the fixed effect's last L-BFGS solve replayed by both designs; then
+    the fit once more with telemetry and the cost ledger on
+    (``fit_telemetry``)."""
     with _LastSolve("lbfgs_solve") as fe:
         traj, res = fit_trajectory(torch, est, data)
     row = {"phase": "fit", "rows": int(arrays["y"].shape[0]), **traj}
@@ -2154,7 +2355,59 @@ def phase_fit(torch, arrays, data, est) -> dict:
     if row["plain_route_solves"] != 0:
         fail(f"{row['plain_route_solves']} bucket solves took the plain route")
     lbfgs_designs(torch, fe.call)
+    fit_telemetry(torch, est, data, traj, res)
     return {"row": row, "result": res}
+
+
+def model_arrays_equal(a, b) -> bool:
+    """Two GameModels equal bit for bit, array by array."""
+    from photon_tpu_torch.io.model_io import game_model_to_numpy
+
+    (xa, ma), (xb, mb) = game_model_to_numpy(a), game_model_to_numpy(b)
+    return ma == mb and set(xa) == set(xb) and all(
+        np.array_equal(xa[k], xb[k]) for k in xa)
+
+
+def fit_telemetry(torch, est, data, off: dict, off_result) -> dict:
+    """The warm fit once more with ``obs.enable()`` and
+    ``ledger.enable()``. Gates against the telemetry-off fit: the same
+    host syncs and Newton launches, the model equal bit for bit, and a
+    ``coord:<cid>`` span for every update."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import ledger
+
+    obs.reset()
+    obs.enable()
+    ledger.enable()
+    try:
+        on, res = fit_trajectory(torch, est, data)
+        spans = [sp.path for sp in obs.TRACER.completed()]
+    finally:
+        obs.disable()
+        ledger.disable()
+        obs.reset()
+    keys = ("newton_kernel_launches", "plain_route_solves",
+            "newton_host_syncs", "lbfgs_host_syncs")
+    coords = {cid: sum(p.endswith(f"coord:{cid}") for p in spans)
+              for cid in est.update_sequence}
+    same_model = model_arrays_equal(res.model, off_result.model)
+    row = {"phase": "fit_telemetry",
+           "fit_seconds": {"off": off["fit_seconds"],
+                           "on": on["fit_seconds"]},
+           **{k: {"off": off[k], "on": on[k]} for k in keys},
+           "model_bit_identical": same_model,
+           "coord_spans": coords, "spans": len(spans)}
+    emit(row)
+    if any(off[k] != on[k] for k in keys):
+        fail(f"fit_telemetry: telemetry changed the fit's syncs or "
+             f"launches: {row}")
+    if not same_model:
+        fail("fit_telemetry: the fit with telemetry on differs from the "
+             "fit with it off")
+    if any(n != CD_ITERATIONS for n in coords.values()):
+        fail(f"fit_telemetry: coord spans {coords}, expected "
+             f"{CD_ITERATIONS} a coordinate")
+    return row
 
 
 def lbfgs_designs(torch, call) -> dict:
@@ -2340,24 +2593,18 @@ def newton_bound(shape, trials=16) -> dict:
     67 TFLOP/s, the CG taken the cheaper of two ways: on a formed H, or
     applying H from the slab; and the exp and log1p of every row in every
     trial, plus those of the margins and the refresh, at the
-    special-function rate. ``bound_ms`` is the largest."""
-    b, r, s = shape
-    nbytes = 4.0 * b * (r * s + 3 * r + 4 * s + 2 * s + 2) + b
-    cg = min(r * s * (s + 1) + r * s + s * (2 * s * s + 10 * s),
-             s * (4 * r * s + r + 12 * s))
-    per_entity = (
-        2 * r * s                      # margins
-        + cg                           # H (formed or not) and the CG
-        + 2 * r * s + 4 * s            # gradient + penalty
-        + 2 * r * s                    # trial margins x d
-        + trials * (r * 12 + 4 * s)    # trial losses + penalties
-        + 4 * r * s + 12 * r           # refresh: margins, gradient, loss
-    )
-    flops = float(b) * per_entity
-    transcendental = float(b) * r * (2 * trials + 6)
-    times = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": flops / F32_FLOPS,
-             "transcendentals": transcendental / SFU_OPS_PER_S}
+    special-function rate. ``bound_ms`` is the largest. The counts are
+    ``costmodel.newton_step_cost``'s."""
+    from photon_tpu_torch.analysis import costmodel
+
+    cost = costmodel.newton_step_cost(shape, trials)
+    nbytes, flops = cost["hbm_bytes"], cost["flops"]
+    transcendental = cost["transcendentals"]
+    pk = peaks()
+    times = {"bytes": nbytes / pk["hbm_bytes_per_sec"],
+             "operations": flops / pk["flops_per_sec"],
+             "transcendentals": transcendental
+             / pk["transcendentals_per_sec"]}
     name = max(times, key=times.get)
     return {"bound_ms": times[name] * 1e3,
             "bound_by": "bytes" if name == "bytes" else "operations",
@@ -2831,8 +3078,10 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
     cfg = train_cli_config(files, root)
     kept: list = []
     with capture_prepare(kept, keep=lambda data, datasets: data):
+        # --no-flight: with the recorder off, telemetry is fully off in
+        # the run this script profiles.
         kernel = run_train_cli(torch, cfg, os.path.join(root, "kernel"),
-                               True)
+                               True, "--no-flight")
     # (b) the fixed effect's transpose: the segment-sum kernel at its
     # fixed_effect site on the run's own global shard.
     global_shard = kept[0].feature_shards["global"]
@@ -3635,8 +3884,20 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     t_phase = time.perf_counter()
 
     # The in-memory run and (a), each in its own process, side by side.
-    memory, run_a = cli_children([(cfg, os.path.join(root, "memory"), ()),
-                                  (cfg, os.path.join(root, "a"), stream)])
+    # The in-memory run records its telemetry, timeline and flight
+    # recorder and profiles its fit (profile_dir): gated below, and the
+    # in-memory fits' bit-equality shows they change no result.
+    mem_root = os.path.join(root, "memory")
+    mem_obs = {"telemetry": os.path.join(mem_root, "telemetry.jsonl"),
+               "trace": os.path.join(mem_root, "trace.json"),
+               "flight": os.path.join(mem_root, "flight"),
+               "profile": os.path.join(mem_root, "profile")}
+    memory, run_a = cli_children([
+        (dict(cfg, profile_dir=mem_obs["profile"]), mem_root,
+         ("--telemetry", mem_obs["telemetry"], "--trace", mem_obs["trace"],
+          "--flight-dir", mem_obs["flight"])),
+        (cfg, os.path.join(root, "a"), stream)])
+    mem_telemetry = stream_telemetry(mem_obs)
     a_out = os.path.join(root, "a", "out")
     a_best = best_arrays(a_out)
     mem_best = best_arrays(os.path.join(root, "memory", "out"))
@@ -3681,6 +3942,7 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     c_root = os.path.join(root, "c")
     _, path = write_cli_config(light, c_root)
     crashed = None
+    c_flight = os.path.join(c_root, "flight")
     with env_switch("PHOTON_TPU_SERIAL_INGEST", "1"), env_switch(
             "PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
                 {"point": "io.shard_decode", "nth": crash_at,
@@ -3690,12 +3952,19 @@ def phase_stream_cli(torch, cli: dict) -> dict:
             with contextlib.redirect_stdout(io.StringIO()):
                 train_cli.main(["--config", path, "--device", "cuda",
                                 "--checkpoint-dir",
-                                os.path.join(c_root, "ckpt"), *stream])
+                                os.path.join(c_root, "ckpt"),
+                                "--flight-dir", c_flight, *stream])
         except InjectedCrash as exc:
             crashed = str(exc)
         finally:
             faults.disarm()
             pipeline.reset_executors()
+    c_dumps = sorted(os.listdir(c_flight)) if os.path.isdir(
+        c_flight) else []
+    c_dump = {}
+    if len(c_dumps) == 1:
+        with open(os.path.join(c_flight, c_dumps[0])) as f:
+            c_dump = json.load(f)
     cursor_path = os.path.join(c_root, "ckpt", "ingest-work",
                                "ingest-cursor.json")
     with open(cursor_path) as f:
@@ -3769,7 +4038,11 @@ def phase_stream_cli(torch, cli: dict) -> dict:
         "bd": {"default_policy_error": refused,
                **stream_ingest_row(run_b["summary"]),
                "quarantined_paths": si["bd"]["quarantined_paths"]},
+        "memory_telemetry": mem_telemetry,
         "c": {"crash": crashed, "fault_call": crash_at,
+              "flight_dumps": c_dumps,
+              "flight_reason": c_dump.get("reason"),
+              "flight_faults_fired": c_dump.get("faults_fired"),
               "cursor_next_shard": cursor["next_shard"],
               **stream_ingest_row(run_c["summary"]),
               "digests_equal_a": run_c["digests"] == run_a["digests"]},
@@ -3825,6 +4098,12 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     if not row["c"]["digests_equal_a"]:
         fail("stream_cli (c): the resumed run's dataset or packed plan "
              "buffer differs from (a)'s")
+    # (c) the crash left one post-mortem that names the fault.
+    if c_dumps != [f"flight-{os.getpid()}.json"] or {
+            "point": "io.shard_decode", "call": crash_at,
+            "error": "crash"} not in (c_dump.get("faults_fired") or []):
+        fail(f"stream_cli (c): flight dumps {c_dumps}, fired "
+             f"{c_dump.get('faults_fired')}")
     # (d) every transient retried and counted.
     retry = si["bd"]["retry"]
     if (retry["retries"], retry["recovered"], retry["exhausted"]) != (
@@ -3852,6 +4131,48 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     return {"newton_launches": newton, "segment_launches": segment,
             "fixed_effect_launches": fixed_effect,
             "serve_launches": score_launches, "row": row}
+
+
+def stream_telemetry(files: dict) -> dict:
+    """Gates of the in-memory child's ``--telemetry``, ``--trace`` and
+    ``profile_dir`` (phase 14d): both files validate, the clean run left
+    no flight dump, and the profiler's Chrome trace names the Newton and
+    segment-sum kernels, whose spread fits inside the
+    ``train_fit_profile`` span."""
+    from photon_tpu_torch import obs
+
+    n_lines = obs.validate_jsonl(files["telemetry"])
+    n_events = obs.trace.validate_chrome_trace(files["trace"])
+    with open(files["telemetry"]) as f:
+        spans = [r for r in map(json.loads, f) if r["type"] == "span"]
+    profile_spans = [s for s in spans if s["name"] == "train_fit_profile"]
+    traces = sorted(p for p in os.listdir(files["profile"])
+                    if p.endswith(".json"))
+    kernels = []
+    if len(traces) == 1:
+        with open(os.path.join(files["profile"], traces[0])) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+    named = {k: [e for e in kernels if k in e.get("name", "").lower()]
+             for k in ("newton", "segment_sum")}
+    spread_s = ((max(e["ts"] + e.get("dur", 0) for e in kernels)
+                 - min(e["ts"] for e in kernels)) / 1e6) if kernels else None
+    row = {"telemetry_lines": n_lines, "trace_events": n_events,
+           "profile_traces": traces, "kernel_events": len(kernels),
+           "newton_kernel_events": len(named["newton"]),
+           "segment_sum_kernel_events": len(named["segment_sum"]),
+           "kernel_spread_seconds": spread_s,
+           "train_fit_profile_seconds": [s["seconds"]
+                                         for s in profile_spans],
+           "coord_spans": sum("coord:" in s["path"] for s in spans),
+           "flight_dumps": os.listdir(files["flight"])
+           if os.path.isdir(files["flight"]) else []}
+    if (len(traces) != 1 or not named["newton"]
+            or not named["segment_sum"] or len(profile_spans) != 1
+            or spread_s > profile_spans[0]["seconds"]
+            or not row["coord_spans"] or row["flight_dumps"]):
+        fail(f"stream_cli: the in-memory run's telemetry: {row}")
+    return row
 
 
 def timed_prepare(torch, est, data) -> tuple[dict, dict]:
@@ -4809,11 +5130,14 @@ def phase_segment_parity(torch, ops) -> float:
 
 
 def segment_bound(vals, n) -> dict:
-    """Least time for one reduce: each value and id read once and each
-    output written once, at 3.35 TB/s."""
-    nbytes = float(vals.shape[0] * (4 + vals.element_size()) + n * 4)
-    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": nbytes}
+    """Least time for one reduce (``costmodel.segment_sum_cost``): each
+    value and id read once and each output written once, at 3.35 TB/s."""
+    from photon_tpu_torch.analysis import costmodel
+
+    nbytes = costmodel.segment_sum_cost(
+        int(vals.shape[0]), vals.element_size(), n)["hbm_bytes"]
+    return {"bound_ms": nbytes / peaks()["hbm_bytes_per_sec"] * 1e3,
+            "bound_by": "bytes", "bytes": nbytes}
 
 
 def phase_segment_timing(torch, ops) -> list:

@@ -12,6 +12,11 @@ way, one [n_val] tensor per coordinate, and after every update only the
 updated coordinate's are swapped into their total; the suite then
 evaluates the total, and the best full model by the primary evaluator
 is kept (descendWithValidation, :493 and :312-333).
+
+Each update is a ``coord:<cid>`` telemetry span carrying its iteration
+(host time only: the span waits for nothing, so it adds no host sync);
+with an ``emitter`` the loop sends a ``CoordinateUpdateEvent`` per
+update and a ``CoordinateRollbackEvent`` per rolled-back one.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.evaluation.suite import (
     EvaluationResults,
     EvaluationSuite,
@@ -97,7 +103,7 @@ class CoordinateDescent:
 
     def __init__(self, update_sequence: list, num_iterations: int, *,
                  locked_coordinates: set | None = None,
-                 non_finite_guard: bool = False):
+                 non_finite_guard: bool = False, emitter=None):
         if num_iterations < 1:
             raise ValueError(f"num_iterations must be >= 1: {num_iterations}")
         if len(set(update_sequence)) != len(update_sequence):
@@ -106,6 +112,8 @@ class CoordinateDescent:
         self.num_iterations = num_iterations
         self.locked_coordinates = set(locked_coordinates or ())
         self.non_finite_guard = bool(non_finite_guard)
+        # events.EventEmitter, or None: no events.
+        self.emitter = emitter
         if not [c for c in update_sequence
                 if c not in self.locked_coordinates]:
             raise ValueError(
@@ -160,36 +168,54 @@ class CoordinateDescent:
                     continue
                 coord = coordinates[cid]
                 t0 = time.perf_counter()
-                residuals = None
-                if total is not None:
-                    residuals = total
-                    if cid in scores:
-                        residuals = residuals - scores[cid]
-                model, diag = coord.train(residuals=residuals,
-                                          initial_model=models.get(cid),
-                                          seed=seed + it)
-                new_scores = coord.score(model)
-                if self.non_finite_guard and not _update_is_finite(
-                        model, new_scores):
-                    if cid not in models:
-                        raise NonFiniteUpdateError(
-                            f"coordinate {cid!r} produced non-finite "
-                            f"loss/weights on its first update (CD "
-                            f"iteration {it}): no previous iterate to roll "
-                            "back to")
+                rolled_back = False
+                with obs.span(f"coord:{cid}", attrs={"iteration": it}):
+                    residuals = None
+                    if total is not None:
+                        residuals = total
+                        if cid in scores:
+                            residuals = residuals - scores[cid]
+                    model, diag = coord.train(
+                        residuals=residuals, initial_model=models.get(cid),
+                        seed=seed + it)
+                    new_scores = coord.score(model)
+                    if self.non_finite_guard and not _update_is_finite(
+                            model, new_scores):
+                        if cid not in models:
+                            raise NonFiniteUpdateError(
+                                f"coordinate {cid!r} produced non-finite "
+                                f"loss/weights on its first update (CD "
+                                f"iteration {it}): no previous iterate to "
+                                "roll back to")
+                        rolled_back = True
+                    elif total is None:
+                        total = new_scores
+                    elif cid in scores:
+                        total = _sub_add(total, scores[cid], new_scores)
+                    else:
+                        total = total + new_scores
+                if rolled_back:
                     logger.warning(
                         "CD iter %d coordinate %s: non-finite update "
                         "rolled back to the previous iterate", it, cid)
-                    history.append(CoordinateUpdateRecord(
+                    if obs.enabled():
+                        obs.REGISTRY.counter(
+                            "coordinate_rollbacks_total", coordinate=cid
+                        ).inc()
+                        obs.trace.instant("cd.rollback", cat="resilience",
+                                          coordinate=cid, iteration=it)
+                    record = CoordinateUpdateRecord(
                         it, cid, time.perf_counter() - t0, diag,
-                        rolled_back=True))
+                        rolled_back=True)
+                    history.append(record)
+                    if self.emitter is not None:
+                        from photon_tpu_torch.events import (
+                            CoordinateRollbackEvent,
+                        )
+
+                        self.emitter.send_event(
+                            CoordinateRollbackEvent(record))
                     continue
-                if total is None:
-                    total = new_scores
-                elif cid in scores:
-                    total = _sub_add(total, scores[cid], new_scores)
-                else:
-                    total = total + new_scores
                 models[cid] = model
                 scores[cid] = new_scores
                 seconds = time.perf_counter() - t0
@@ -223,8 +249,13 @@ class CoordinateDescent:
                 else:
                     logger.info("CD iter %d coordinate %s (%.2fs)", it, cid,
                                 seconds)
-                history.append(CoordinateUpdateRecord(
-                    it, cid, seconds, diag, evaluation))
+                record = CoordinateUpdateRecord(
+                    it, cid, seconds, diag, evaluation)
+                history.append(record)
+                if self.emitter is not None:
+                    from photon_tpu_torch.events import CoordinateUpdateEvent
+
+                    self.emitter.send_event(CoordinateUpdateEvent(record))
             # The end of an outer iteration is the recovery point: the
             # checkpoint commits, then the kill-and-resume fault point.
             if on_iteration is not None:

@@ -18,8 +18,9 @@ file reader leaves that key unread. A regularization's
 and ``hyperparameter_tuning`` (``mode`` NONE, RANDOM or BAYESIAN,
 ``iterations``, ``seed``) runs the tuner after the lambda grid. An
 option the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item when the file is loaded: profiling (item 10) and
-multi-device (item 12).
+its ROADMAP item when the file is loaded: multi-device (item 12).
+``profile_dir`` runs the fit under ``torch.profiler``
+(``obs.trace.profile_session``) and writes its Chrome trace there.
 """
 
 from __future__ import annotations
@@ -174,6 +175,8 @@ class TrainingConfig:
     days_range: str | None
     # Per-shard FeatureSummarizationResultAvro under <dir>/<shard>/.
     data_summary_dir: str | None = None
+    # torch.profiler trace of the fit (obs.trace.profile_session).
+    profile_dir: str | None = None
     # Reserved-column remapping (InputColumnsNames.scala:80-88).
     input_columns: dict[str, str] | None = None
     # {mode: NONE | RANDOM | BAYESIAN, iterations, seed}
@@ -211,9 +214,6 @@ class TrainingConfig:
     @staticmethod
     def load(path: str) -> "TrainingConfig":
         raw = _read_config_file(path)
-        if raw.get("profile_dir"):
-            raise optim.not_ported("profile_dir (device profiling)",
-                                   TELEMETRY_ITEM)
         mesh = str(raw.get("mesh", "auto")).strip().lower()
         if mesh not in ("auto", "off", "1"):
             raise optim.not_ported(f"mesh {mesh!r} (multi-device training)",
@@ -247,6 +247,7 @@ class TrainingConfig:
             date_range=inp.get("date_range"),
             days_range=inp.get("days_range"),
             data_summary_dir=raw.get("data_summary_dir"),
+            profile_dir=raw.get("profile_dir"),
             input_columns=inp.get("input_columns"),
             hyperparameter_tuning=raw.get("hyperparameter_tuning"),
         )

@@ -114,6 +114,7 @@ def _run(args, log, t_start) -> int:
     import torch
 
     from photon_tpu_torch import device as device_mod
+    from photon_tpu_torch import obs
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
@@ -148,14 +149,15 @@ def _run(args, log, t_start) -> int:
 
     @contextlib.contextmanager
     def stage(name: str):
-        """Logs and records the stage's seconds, ending in a device sync
-        so that the card's queued work is counted where it ran."""
+        """A logged telemetry span (``obs.logged_span``) that records
+        the stage's seconds, ending in a device sync so that the card's
+        queued work is counted where it ran."""
         t0 = time.perf_counter()
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with obs.logged_span(name, log):
+            yield
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         seconds[name] = time.perf_counter() - t0
-        log.info("%s executed in %.3f s", name, seconds[name])
 
     # ---- stage PREPROCESSED (Driver.scala preprocess) --------------------
     with stage("preprocess"):

@@ -18,9 +18,18 @@ non-zero when any request of any drive failed.
 
 ``PHOTON_TPU_FAULT_PLAN`` arms a fault plan in the process (the
 ``serve.dispatch`` point fires inside the queue's retried dispatch).
-The JAX package's observability flags (``--monitor-port``, ``--slo-*``,
-``--telemetry``, ``--trace``, ``--request-log``, ``--health-sketch``,
-``--flight-dir``, ``--no-flight``) raise: ROADMAP Queue A item 10.
+
+Telemetry is on for every run, as in the JAX package: the summary
+carries ``request_trace`` (outcome counts and mean segment times over
+the request ring), ``--telemetry PATH`` writes the JSONL stream,
+``--trace PATH`` the Chrome-trace timeline and ``--request-log PATH``
+the per-request records the ring retained (its header counts the
+events dropped). The crash flight recorder chains SIGINT and SIGTERM
+and dumps ``flight-<pid>.json`` into ``--flight-dir`` (default ``.``)
+when the process dies; ``--no-flight`` turns it off. All of it is
+recorded on the host, after each fetch: the captured graphs are the
+same with it on or off. ``--monitor-port``, ``--slo-*`` and
+``--health-sketch`` raise: ROADMAP Queue A item 10, second half.
 
 Usage:
     python -m photon_tpu_torch.cli.serve (--checkpoint model.npz | \
@@ -30,7 +39,8 @@ Usage:
         [--max-linger-ms 2] [--deadline-ms D] [--shed-watermark N] \
         [--breaker-threshold 8] [--reload-model PATH ...] \
         [--precision float32|bfloat16] [--target-qps Q] [--scores PATH] \
-        [--device cuda|cpu]
+        [--telemetry PATH] [--trace PATH] [--request-log PATH] \
+        [--flight-dir DIR | --no-flight] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -40,27 +50,31 @@ import json
 import os
 import sys
 
-# The JAX package's observability flags: ROADMAP Queue A item 10.
+# The JAX package's live-monitoring and health flags: ROADMAP Queue A
+# item 10, second half.
 OBSERVABILITY_FLAGS = ("monitor_port", "slo_p99_ms", "slo_error_rate",
-                       "slo_cold_rate", "slo_window_s", "telemetry", "trace",
-                       "request_log", "health_sketch", "flight_dir",
-                       "no_flight")
+                       "slo_cold_rate", "slo_window_s", "health_sketch")
 
 
 def build_server(checkpoint: str | None = None, *,
                  precision: str = "float32", rungs=(1, 8, 64, 512),
                  device=None, model_dir: str | None = None):
     """A checkpoint or an Avro model directory -> (tables, programs) on
-    ``device`` (default cuda), the ladder's graphs captured."""
+    ``device`` (default cuda), the ladder's graphs captured; each step a
+    logged telemetry span."""
+    from photon_tpu_torch import obs
     from photon_tpu_torch.serve.programs import ScorePrograms, ShapeLadder
     from photon_tpu_torch.serve.tables import CoefficientTables
 
     if (checkpoint is None) == (model_dir is None):
         raise ValueError("give exactly one of a checkpoint and a model "
                          "directory")
-    model = load_model(checkpoint or model_dir, device)
-    tables = CoefficientTables.from_game_model(model, precision, device)
-    return tables, ScorePrograms(tables, ladder=ShapeLadder(rungs))
+    with obs.logged_span("serve: load model"):
+        tables = CoefficientTables.from_game_model(
+            load_model(checkpoint or model_dir, device), precision, device)
+    with obs.logged_span("serve: AOT-compile score ladder"):
+        programs = ScorePrograms(tables, ladder=ShapeLadder(rungs))
+    return tables, programs
 
 
 def load_model(path: str, device=None, index_maps=None):
@@ -79,6 +93,7 @@ def load_model(path: str, device=None, index_maps=None):
 
 
 def run(args) -> dict:
+    from photon_tpu_torch import obs
     from photon_tpu_torch.ops import serve_kernel
     from photon_tpu_torch.serve.driver import (
         dataset_requests,
@@ -100,13 +115,16 @@ def run(args) -> dict:
 
         # Request features resolve against the data's index maps, so
         # the model loads against the same maps (as cli.score does).
-        data, model, _, index_maps = read_data_and_model(
-            args.model_dir, args.input, feature_shards=args.feature_shards,
-            id_tags=args.id_tags, device=args.device)
-        tables = CoefficientTables.from_game_model(
-            model, args.precision, args.device)
-        programs = ScorePrograms(tables, ladder=ShapeLadder(rungs),
-                                 specs=specs_from_dataset(data))
+        with obs.logged_span("serve: load model"):
+            data, model, _, index_maps = read_data_and_model(
+                args.model_dir, args.input,
+                feature_shards=args.feature_shards, id_tags=args.id_tags,
+                device=args.device)
+            tables = CoefficientTables.from_game_model(
+                model, args.precision, args.device)
+        with obs.logged_span("serve: AOT-compile score ladder"):
+            programs = ScorePrograms(tables, ladder=ShapeLadder(rungs),
+                                     specs=specs_from_dataset(data))
         requests = dataset_requests(data, programs)
         del data, model
     else:
@@ -124,7 +142,7 @@ def run(args) -> dict:
 
     launches_before = launched()
     scores: list | None = [] if args.scores else None
-    with MicroBatchQueue(
+    with obs.logged_span("serve: drive requests"), MicroBatchQueue(
         programs,
         max_batch=args.max_batch,
         max_linger_s=args.max_linger_ms / 1e3,
@@ -179,7 +197,45 @@ def run(args) -> dict:
     if reloads:
         out["reloads"] = reloads
     out.update(summary)
+    if args.telemetry:
+        obs.write_jsonl(args.telemetry)
+    if args.trace:
+        obs.write_chrome_trace(args.trace)
+    if args.request_log:
+        obs.trace.write_request_jsonl(args.request_log)
     return out
+
+
+def run_instrumented(args) -> dict:
+    """``run`` with telemetry on, as the JAX package serves: the
+    caller's enabled flag restored afterwards, and the flight recorder
+    (unless ``--no-flight``) chaining SIGINT and SIGTERM and dumping on
+    an exception. Off the main thread signal handlers cannot be set:
+    the recorder then installs without them."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import flight
+
+    was_enabled = obs.enabled()
+    obs.reset()
+    obs.enable()
+    rec = None
+    prior_rec = flight.installed()
+    if not args.no_flight:
+        rec = flight.install(args.flight_dir, signals=True)
+    try:
+        return run(args)
+    except BaseException as exc:
+        # An in-process caller catches up-stack, so the chained
+        # excepthook never fires for it: dump at the unwind.
+        if rec is not None and not isinstance(exc, SystemExit):
+            flight.dump(f"exception:{type(exc).__name__}")
+        raise
+    finally:
+        if rec is not None:
+            flight.uninstall()
+            if prior_rec is not None:
+                flight.reinstall(prior_rec)
+        obs.TRACER.enabled = was_enabled
 
 
 def main(argv=None) -> int:
@@ -248,13 +304,26 @@ def main(argv=None) -> int:
                         help="also write the summary JSON to PATH")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--log-file", default=None)
+    parser.add_argument("--telemetry", default=None, metavar="PATH",
+                        help="write the telemetry JSONL stream (spans, "
+                             "metrics, reports) to PATH")
+    parser.add_argument("--trace", default=None, metavar="PATH",
+                        help="write the Chrome-trace / Perfetto timeline "
+                             "(spans, per-request slices, counters) to "
+                             "PATH")
+    parser.add_argument("--request-log", default=None, metavar="PATH",
+                        help="write the per-request records the request "
+                             "ring retained (one JSON line each, with "
+                             "the count dropped in the header) to PATH")
+    parser.add_argument("--flight-dir", default=".", metavar="DIR",
+                        help="crash flight recorder destination: "
+                             "flight-<pid>.json is dumped there on "
+                             "SIGINT/SIGTERM or an unhandled exception")
+    parser.add_argument("--no-flight", action="store_true",
+                        help="turn the crash flight recorder off")
     for flag in OBSERVABILITY_FLAGS:
-        name = "--" + flag.replace("_", "-")
-        if flag == "no_flight":
-            parser.add_argument(name, action="store_true",
-                                help="(item 10)")
-        else:
-            parser.add_argument(name, default=None, help="(item 10)")
+        parser.add_argument("--" + flag.replace("_", "-"), default=None,
+                            help="(ROADMAP Queue A item 10)")
     args = parser.parse_args(argv)
     if args.checkpoint and args.input:
         # A native checkpoint keys its coefficients by dense index with
@@ -263,7 +332,7 @@ def main(argv=None) -> int:
                      "name-keyed coefficients align with the data's index "
                      "maps; a .npz checkpoint cannot)")
     for flag in OBSERVABILITY_FLAGS:
-        if getattr(args, flag) not in (None, False):
+        if getattr(args, flag) is not None:
             from photon_tpu_torch import optim
 
             raise optim.not_ported("--" + flag.replace("_", "-"), 10)
@@ -273,7 +342,7 @@ def main(argv=None) -> int:
 
     with cli_logging(args.verbose, args.log_file):
         faults.arm_from_env()
-        out = run(args)
+        out = run_instrumented(args)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)

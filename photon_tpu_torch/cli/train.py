@@ -25,18 +25,30 @@ integrity manifest, a bounded-loss quarantine (``--max-bad-shards``,
 ``--resume-ingest`` resumes; its work directory is ``ingest-work``
 under the checkpoint directory, else the output directory.
 
+Telemetry (``photon_tpu_torch.obs``): the crash flight recorder is on
+by default (``--no-flight`` turns it off) and turns recording on; a run
+that dies leaves ``flight-<pid>.json`` in ``--flight-dir`` (default: the
+output directory). ``--telemetry PATH`` writes the JSONL stream (spans,
+metrics, reports) and adds the snapshot to ``training-summary.json``;
+``--trace PATH`` writes the Chrome-trace timeline; the config's
+``profile_dir`` runs the fit under ``torch.profiler`` inside the
+``train_fit_profile`` span. The stages ``stream ingest``, ``prepare
+training datasets`` and ``train models`` are logged spans. None of it
+adds a host sync or a launch.
+
 Options the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: telemetry and monitoring (``--telemetry``,
-``--trace``, ``--flight-dir``, ``--no-flight``, ``--monitor-port``,
-``--fleet-dir``: item 10) and ``--distributed`` (item 12), besides the
-config options ``cli/config.py`` lists. The JAX package's ``--backend``
-is ``--device`` here.
+their ROADMAP Queue A item: live monitoring and fleet bundles
+(``--monitor-port``, ``--fleet-dir``: item 10, second half) and
+``--distributed`` (item 12), besides the config options
+``cli/config.py`` lists. The JAX package's ``--backend`` is ``--device``
+here.
 
 Usage:
     python -m photon_tpu_torch.cli.train --config train.json \
         [--checkpoint-dir DIR | --resume DIR] [--init-model PATH] \
         [--stream-dir DIR [--resume-ingest] [--stream-window N] \
          [--max-bad-shards N] [--max-bad-fraction F]] \
+        [--telemetry PATH] [--trace PATH] [--flight-dir DIR | --no-flight] \
         [--device cuda|cpu]
 """
 
@@ -107,13 +119,19 @@ def main(argv=None) -> int:
                         help="also write logs to this file (PhotonLogger "
                              "equivalent, util/PhotonLogger.scala:34)")
     parser.add_argument("--telemetry", default=None, metavar="PATH",
-                        help="telemetry JSONL (item 10)")
+                        help="write the telemetry JSONL stream (spans, "
+                             "metrics, pipeline and compile reports) to "
+                             "PATH and its snapshot into "
+                             "training-summary.json")
     parser.add_argument("--trace", default=None, metavar="PATH",
-                        help="Chrome-trace timeline (item 10)")
+                        help="write the Chrome-trace / Perfetto timeline "
+                             "(spans, instants, counters) to PATH")
     parser.add_argument("--flight-dir", default=None, metavar="DIR",
-                        help="crash flight recorder (item 10)")
+                        help="crash flight recorder destination: "
+                             "flight-<pid>.json is dumped there when the "
+                             "run dies (default: the output directory)")
     parser.add_argument("--no-flight", action="store_true",
-                        help="turn the flight recorder off (item 10)")
+                        help="turn the crash flight recorder off")
     parser.add_argument("--monitor-port", type=int, default=None,
                         metavar="PORT", help="live /metrics (item 10)")
     parser.add_argument("--distributed", action="store_true",
@@ -125,15 +143,12 @@ def main(argv=None) -> int:
     from photon_tpu_torch import optim
     from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM, TELEMETRY_ITEM
 
-    for flag, value in (("--telemetry", args.telemetry),
-                        ("--trace", args.trace),
-                        ("--flight-dir", args.flight_dir),
-                        ("--no-flight", args.no_flight or None),
-                        ("--monitor-port", args.monitor_port),
+    for flag, value in (("--monitor-port", args.monitor_port),
                         ("--fleet-dir", args.fleet_dir)):
         if value is not None:
-            raise optim.not_ported(f"{flag} (telemetry and monitoring)",
-                                   TELEMETRY_ITEM)
+            raise optim.not_ported(
+                f"{flag} (live monitoring and fleet bundles)",
+                TELEMETRY_ITEM)
     if args.distributed:
         raise optim.not_ported("--distributed (multi-process training)",
                                MULTI_DEVICE_ITEM)
@@ -154,11 +169,72 @@ def main(argv=None) -> int:
         # PHOTON_TPU_FAULT_PLAN arms a seeded fault plan in this process
         # (nothing when unset): how tests inject a crash or a signal.
         faults.arm_from_env()
+        return _main_instrumented(args)
+
+
+def _main_instrumented(args) -> int:
+    """``_run`` inside the telemetry layer's set-up and teardown: the
+    exports' reset and enable, the flight dump at an unwind, and the
+    caller's telemetry state restored."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import flight
+
+    log = logging.getLogger("photon.train")
+    was_enabled = obs.enabled()
+    exporting = bool(args.telemetry or args.trace)
+    if exporting:
+        # The run owns the process's telemetry stream: a prior
+        # session's records in this run's files would be worse. Only
+        # the enabled flag is restored afterwards.
+        obs.reset()
+        obs.enable()
+    # _run installs this CLI's recorder (unless --no-flight); the dump
+    # and uninstall below act only when it did, so an embedding
+    # caller's own recorder is never dumped to or removed.
+    prior_rec = flight.installed()
+    try:
         return _run(args)
+    except BaseException as exc:
+        # The chained excepthook never fires for an in-process caller,
+        # which catches up-stack: dump at the unwind. SystemExit is an
+        # exit code, not a crash.
+        if (not isinstance(exc, SystemExit)
+                and flight.installed() is not prior_rec):
+            flight.dump(f"exception:{type(exc).__name__}")
+        raise
+    finally:
+        # Uninstall first: it restores the flag it found at install,
+        # and the exports' restore below must win over it.
+        if flight.installed() is not prior_rec:
+            flight.uninstall()
+            if prior_rec is not None:
+                # Hand an embedding caller's recorder back, re-armed.
+                flight.reinstall(prior_rec)
+            elif not exporting and not was_enabled:
+                # The recorder was all that recorded: drop this run's
+                # records rather than leave them to the caller.
+                obs.reset()
+        if args.trace:
+            try:
+                obs.write_chrome_trace(args.trace)
+                log.info("chrome trace written to %s", args.trace)
+            except Exception:  # noqa: BLE001 - never masks the outcome
+                log.exception("failed to write trace to %s", args.trace)
+        if args.telemetry:
+            try:
+                obs.write_jsonl(args.telemetry)
+                log.info("telemetry JSONL written to %s\n%s",
+                         args.telemetry, obs.summary_table())
+            except Exception:  # noqa: BLE001 - never masks the outcome
+                log.exception("failed to write telemetry to %s",
+                              args.telemetry)
+        if exporting:
+            obs.TRACER.enabled = was_enabled
 
 
 def _run(args) -> int:
     from photon_tpu_torch import device as device_mod
+    from photon_tpu_torch import obs
     from photon_tpu_torch.cli.config import TrainingConfig
     from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
     from photon_tpu_torch.data.pipeline import PIPELINE_STATS
@@ -199,6 +275,18 @@ def _run(args) -> int:
 
     cfg = TrainingConfig.load(args.config)
     os.makedirs(cfg.output_dir, exist_ok=True)
+    # The crash flight recorder: the rings' tails land in
+    # flight-<pid>.json when the run dies. Signals stay with this
+    # driver's own handlers below (they commit the emergency
+    # checkpoint), whose path dumps explicitly; crash-kind injected
+    # faults dump through the faults listener. Installing turns
+    # recording on (host bookkeeping only); the caller uninstalls.
+    recorder = None
+    if not args.no_flight:
+        from photon_tpu_torch.obs import flight
+
+        recorder = flight.install(args.flight_dir or cfg.output_dir,
+                                  signals=False)
     # This run's ingest stages, from its first read on.
     PIPELINE_STATS.reset()
 
@@ -277,7 +365,8 @@ def _run(args) -> int:
             resume=args.resume_ingest,
             device=dev,
         )
-        train, stream_stats = ingest.run()
+        with obs.logged_span("stream ingest", log):
+            train, stream_stats = ingest.run()
         log.info(
             "streamed %d row(s) from %d/%d shard(s) "
             "(ingested_fraction %.4f%s)", stream_stats["rows_ingested"],
@@ -489,15 +578,22 @@ def _run(args) -> int:
             pass
     lap("setup")
     try:
-        estimator.prepare(train, validation, initial_model)
+        with obs.logged_span("prepare training datasets", log):
+            estimator.prepare(train, validation, initial_model)
         lap("prepare")
-        results = estimator.fit(train, validation, opt_seq,
-                                initial_model=initial_model,
-                                checkpointer=checkpointer,
-                                resume=resume_state)
+        obs.REGISTRY.gauge("train_datasets_prepared").set(1)
+        with obs.logged_span("train models", log), obs.profile_session(
+                cfg.profile_dir, name="train_fit_profile"):
+            results = estimator.fit(train, validation, opt_seq,
+                                    initial_model=initial_model,
+                                    checkpointer=checkpointer,
+                                    resume=resume_state)
         lap("fit")
     except TrainingInterrupted as exc:
         log.error("training interrupted by signal %d", exc.signum)
+        # The post-mortem and the recovery point commit together.
+        if recorder is not None:
+            recorder.dump(f"signal:{exc.signum}")
         if checkpointer is not None:
             path = checkpointer.write_emergency()
             if path:
@@ -629,6 +725,10 @@ def _run(args) -> int:
         # The streaming ingest's health: ingested_fraction and the
         # quarantined paths.
         summary["streaming_ingest"] = stream_stats
+    if args.telemetry:
+        # The telemetry snapshot rides the summary; the full stream
+        # goes to the --telemetry JSONL.
+        summary["telemetry"] = obs.snapshot()
     with open(os.path.join(cfg.output_dir, "training-summary.json"),
               "w") as f:
         json.dump(summary, f, indent=2)

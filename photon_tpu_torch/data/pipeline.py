@@ -32,8 +32,8 @@ in-line path (the determinism tests diff the two);
 ``PHOTON_TPU_INGEST_THREADS`` bounds the chunk pool;
 ``PHOTON_TPU_TRANSFER_CHUNK_MB`` sets the transfer chunk (default 64).
 The reference's third pool, for its ahead-of-time compile, has no
-counterpart here (ROADMAP Queue A item 8), nor has its telemetry spans
-per stage (item 10).
+counterpart here (ROADMAP Queue A item 8). With telemetry on, every
+stage is also a ``pipeline/<stage>`` span and a histogram sample.
 """
 
 from __future__ import annotations
@@ -198,15 +198,28 @@ class PipelineStats:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        # Every stage is also a ``pipeline/<stage>`` span (a pool
+        # thread's roots its own subtree) and a ``pipeline_stage_seconds``
+        # histogram sample; both are no-ops with telemetry off, and this
+        # accounting stays authoritative either way.
+        from photon_tpu_torch import obs
+
         with self._stats_lock:
             gen = self._generation
         t0 = time.perf_counter()
         try:
-            yield
+            with obs.span(f"pipeline/{name}"):
+                yield
         finally:
             t1 = time.perf_counter()
             with self._stats_lock:
+                # A stale generation (reset() ran mid-stage) records
+                # nothing here, nor in the histogram.
                 if gen == self._generation:
+                    if obs.enabled():
+                        obs.REGISTRY.histogram(
+                            "pipeline_stage_seconds", stage=name
+                        ).observe(t1 - t0)
                     self._seconds[name] = self._seconds.get(
                         name, 0.0) + (t1 - t0)
                     self._counts[name] = self._counts.get(name, 0) + 1

@@ -20,8 +20,9 @@ The robustness layers:
 - **Bounded-loss quarantine** (``max_bad_shards`` / ``max_bad_fraction``,
   default 0 = abort): above zero a corrupt shard is skipped, counted and
   surfaced: ``ingested_fraction`` and the quarantined paths ride the
-  stats dict (and the training summary). The reference's registry
-  gauges wait for the observability port (ROADMAP Queue A item 10).
+  stats dict (and the training summary), and the registry's
+  ``stream_ingested_fraction``, ``stream_quarantined_shards`` and
+  ``stream_rows_ingested`` gauges.
 - **Transient-I/O retry**: shard read and decode run inside
   ``resilience.retry`` behind the ``io.shard_read`` / ``io.shard_decode``
   fault points; ``errors.is_transient`` classifies EIO-style OSErrors. A
@@ -908,8 +909,8 @@ class StreamingIngest:
         self.resolved_maps = dict(maps)
         self.manifest_sha256 = manifest_sha
         # The reference folds every window into a data-health sketch
-        # here when its health layer is armed; that layer waits for the
-        # observability port (ROADMAP Queue A item 10).
+        # here when its health layer is armed; that layer waits for
+        # ROADMAP Queue A item 10's second half.
 
         cursor = self._load_cursor(manifest_sha) if self.resume else None
         start_window = 0
@@ -1199,9 +1200,16 @@ class StreamingIngest:
         }
         # Process-wide retry counters: zero on a clean run; after
         # injected or real transients the recovery count is visible.
-        # (The reference also sets its stream_* registry gauges here,
-        # which wait for the observability port, ROADMAP Queue A item 10.)
         from photon_tpu_torch.resilience import retry_stats
 
         stats["retry"] = retry_stats()
+        # The ingest's health as registry gauges (not gated on the
+        # telemetry flag, as in the JAX package).
+        from photon_tpu_torch import obs
+
+        obs.REGISTRY.gauge("stream_ingested_fraction").set(
+            stats["ingested_fraction"])
+        obs.REGISTRY.gauge("stream_quarantined_shards").set(
+            len(quarantined))
+        obs.REGISTRY.gauge("stream_rows_ingested").set(rows)
         return stats

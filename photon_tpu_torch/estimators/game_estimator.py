@@ -17,9 +17,16 @@ iteration, and ``resume`` restarts from one.
 The random-effect coordinates plan concurrently and reach the device in
 one packed transfer (``data/pipeline.py``).
 
-Waiting (ROADMAP Queue A): mesh execution (item 12), the event emitter
-(item 10), and the whole-fit fused program (item 8; its torch
-counterpart is a CUDA-graph capture of a fit).
+``listeners`` (callables taking an ``events`` event) receive a
+``CoordinateUpdateEvent`` per coordinate update and a ``FitEndEvent``
+per configuration. With telemetry on, ``prepare`` and each
+``fit/config:<i>`` are spans, and with the cost ledger on the
+validation rescoring of a (re)loaded model is booked under
+``eval/score`` and ``eval/suite``.
+
+Waiting (ROADMAP Queue A): mesh execution (item 12) and the whole-fit
+fused program (item 8; its torch counterpart is a CUDA-graph capture of
+a fit).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import time
 from typing import Union
 
 from photon_tpu_torch import device as device_mod
+from photon_tpu_torch import obs
 from photon_tpu_torch import optim
 from photon_tpu_torch.algorithm.coordinate import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.coordinate_descent import (
@@ -179,6 +187,7 @@ class GameEstimator:
         non_finite_guard: bool = False,
         precision: str = "float32",
         device=None,
+        listeners=None,
     ):
         self.device = device_mod.resolve(device)
         self.task = task
@@ -199,6 +208,13 @@ class GameEstimator:
         self.precision = precision_mod.resolve(precision)
         if precision_mod.is_mixed(self.precision):
             raise optim.not_ported("bf16 training")
+        # Training-event fan-out (EventEmitter.scala:24 for the GAME
+        # path): None without listeners.
+        self.emitter = None
+        if listeners:
+            from photon_tpu_torch.events import EventEmitter
+
+            self.emitter = EventEmitter(listeners)
         self._fit_cache = None
 
     def _shard_norm(self, shard: str) -> NormalizationContext:
@@ -307,12 +323,29 @@ class GameEstimator:
     @staticmethod
     def _score_with_validation(val_ctx: ValidationContext,
                                model: GameModel) -> EvaluationResults:
-        """Evaluate a (re)loaded model on the validation data."""
+        """Evaluate a (re)loaded model on the validation data. With the
+        cost ledger on, each coordinate's scoring is booked under
+        ``eval/score`` and the suite under ``eval/suite`` (host windows:
+        nothing waits for the card)."""
+        from photon_tpu_torch.obs import ledger
+
+        armed = ledger.enabled()
         total = None
         for cid, m in model.items():
+            t0 = time.perf_counter() if armed else 0.0
             vs = val_ctx.scorers[cid](m)
             total = vs if total is None else total + vs
-        return val_ctx.suite.evaluate(total)
+            if armed:
+                t1 = time.perf_counter()
+                ledger.record_dispatch("eval/score", t1 - t0, phase="eval",
+                                       coordinate=cid, start=t0, end=t1)
+        t0 = time.perf_counter() if armed else 0.0
+        out = val_ctx.suite.evaluate(total)
+        if armed:
+            t1 = time.perf_counter()
+            ledger.record_dispatch("eval/suite", t1 - t0, phase="eval",
+                                   start=t0, end=t1)
+        return out
 
     def _full_config(self, opt_configs: dict) -> dict:
         return {cid: opt_configs.get(
@@ -385,9 +418,10 @@ class GameEstimator:
         # before this prepare: they survive the reset.
         PIPELINE_STATS.reset(keep=("raw_transfer", "stream_transfer",
                                    "stream_assemble"))
-        datasets = self._build_datasets(data, initial_model)
-        val_ctx = (self._build_validation(datasets, validation)
-                   if validation is not None else None)
+        with obs.span("prepare"):
+            datasets = self._build_datasets(data, initial_model)
+            val_ctx = (self._build_validation(datasets, validation)
+                       if validation is not None else None)
         self._fit_cache = (key, (datasets, val_ctx))
         return datasets, val_ctx
 
@@ -499,7 +533,8 @@ class GameEstimator:
             cd = CoordinateDescent(
                 self.update_sequence, self.num_iterations,
                 locked_coordinates=self.locked_coordinates,
-                non_finite_guard=self.non_finite_guard)
+                non_finite_guard=self.non_finite_guard,
+                emitter=self.emitter)
             initial_models = {}
             if prev_model is not None:
                 for cid in self.update_sequence:
@@ -532,21 +567,29 @@ class GameEstimator:
                     checkpointer.save(model, config_index=_ci,
                                       iteration=it)
             t0 = time.perf_counter()
-            descent = cd.run(
-                coords, initial_models or None, val_ctx,
-                seed=i * self.num_iterations,
-                start_iteration=resume_iteration if i == start_config else 0,
-                on_iteration=on_iteration, initial_best=initial_best)
-            results.append(GameFitResult(
+            with obs.span(f"fit/config:{i}"):
+                descent = cd.run(
+                    coords, initial_models or None, val_ctx,
+                    seed=i * self.num_iterations,
+                    start_iteration=(resume_iteration if i == start_config
+                                     else 0),
+                    on_iteration=on_iteration, initial_best=initial_best)
+            result = GameFitResult(
                 model=descent.best_model,
                 config=self._full_config(opt_configs),
                 evaluation=descent.best_evaluation,
                 descent=descent,
                 seconds=time.perf_counter() - t0,
-            ))
+            )
+            results.append(result)
             if checkpointer is not None:
                 checkpointer.save_config_final(descent.best_model,
                                                config_index=i)
+            if self.emitter is not None:
+                from photon_tpu_torch.events import FitEndEvent
+
+                self.emitter.send_event(
+                    FitEndEvent(config_index=i, result=result))
             prev_model = descent.model
         return results
 

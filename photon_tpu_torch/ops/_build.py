@@ -133,6 +133,13 @@ def build() -> Path:
     return target
 
 
+def loaded_library() -> str | None:
+    """The path of the loaded kernel library, or None before a kernel
+    was first needed; never builds or loads."""
+    lib = _lib
+    return None if lib is None else lib._name
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib

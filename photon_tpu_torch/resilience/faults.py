@@ -33,6 +33,11 @@ raises ``InjectedCrash`` (a simulated process death), ``"delay"`` sleeps
 ``nth`` (the Nth call to the point, 1-based, once) or ``probability``
 (a seeded draw per call from a per-point stream keyed by
 ``(seed, crc32(point))``).
+
+``on_crash(fn)`` registers a listener that runs where a ``crash``
+fault fires, before ``InjectedCrash`` propagates (the flight recorder's
+hook), and with telemetry on every fired fault marks a ``fault.fired``
+instant on the timeline.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import threading
 import time
@@ -178,6 +184,28 @@ class FaultPlan:
 
 _lock = threading.Lock()
 _active: FaultPlan | None = None
+# Crash-fault listeners, called (point, message) where a ``crash``-kind
+# fault fires, before ``InjectedCrash`` propagates: how the flight
+# recorder (obs/flight.py) leaves a post-mortem even when a caller
+# catches the crash. Registered under ``_lock``; called outside it, and
+# a listener that raises is logged, never raised over the crash.
+_crash_listeners: list = []
+
+
+def on_crash(fn) -> None:
+    """Register ``fn(point, message)`` to run when a ``crash``-kind
+    fault fires (at the raise point, before ``InjectedCrash``)."""
+    with _lock:
+        _crash_listeners.append(fn)
+
+
+def remove_crash_listener(fn) -> None:
+    """Unregister a crash listener. Idempotent."""
+    with _lock:
+        try:
+            _crash_listeners.remove(fn)
+        except ValueError:
+            pass
 
 
 def arm(plan: FaultPlan) -> None:
@@ -218,6 +246,18 @@ def arm_from_env(env_var: str = ENV_VAR) -> FaultPlan | None:
     return plan
 
 
+def _fault_instant(point: str, error: str) -> None:
+    """Mark a fired fault on the trace timeline (a no-op with telemetry
+    off)."""
+    try:
+        from photon_tpu_torch.obs import trace as obs_trace
+
+        obs_trace.instant("fault.fired", cat="fault", point=point,
+                          error=error)
+    except Exception:  # noqa: BLE001 - telemetry never alters a fault
+        pass
+
+
 def fired() -> list[dict]:
     """Snapshot of the active plan's fired-fault log (empty when no
     plan is armed or nothing fired)."""
@@ -241,11 +281,21 @@ def check(point: str) -> None:
     if spec is None:
         return
     msg = spec.message or f"injected {spec.error} fault at {point}"
+    _fault_instant(point, spec.error)
     if spec.error == "transient":
         raise TransientError(msg)
     if spec.error == "poison":
         raise PoisonError(msg)
     if spec.error == "crash":
+        with _lock:
+            listeners = list(_crash_listeners)
+        for fn in listeners:
+            try:
+                fn(point, msg)
+            except Exception:  # noqa: BLE001 - a listener (the flight
+                # recorder's dump) never replaces the injected crash.
+                logging.getLogger(__name__).exception(
+                    "crash-fault listener raised at %s", point)
         raise InjectedCrash(msg)
     if spec.error == "sigterm":
         import signal

@@ -18,9 +18,11 @@ their one fallible step. The policy is narrow:
 - The happy path takes no lock and allocates nothing; a clean run
   records zero retry stats.
 
-The counters (``retry_stats``) are always on and process-wide. The
-JAX package's telemetry metrics and trace instants per site wait for
-the observability port (ROADMAP Queue A item 10).
+The counters (``retry_stats``) are always on and process-wide. With
+telemetry on, each site also counts ``retry_attempts_total`` and
+``retry_exhausted_total`` in the metrics registry (labelled by site)
+and marks ``retry.attempt`` / ``retry.exhausted`` instants on the
+timeline.
 """
 
 from __future__ import annotations
@@ -102,6 +104,27 @@ def _record(key: str, value=1) -> None:
         _stats[key] += value
 
 
+def _metric(name: str, site: str, value: float = 1.0) -> None:
+    try:
+        from photon_tpu_torch import obs
+
+        if obs.enabled():
+            obs.REGISTRY.counter(name, site=site).inc(value)
+    except Exception:  # noqa: BLE001 - telemetry never aborts a retry
+        pass
+
+
+def _instant(name: str, **args) -> None:
+    """Mark a retry event on the timeline (a no-op with telemetry
+    off)."""
+    try:
+        from photon_tpu_torch.obs import trace as obs_trace
+
+        obs_trace.instant(name, cat="retry", **args)
+    except Exception:  # noqa: BLE001
+        pass
+
+
 def call_with_retry(
     fn,
     *,
@@ -135,7 +158,12 @@ def call_with_retry(
                 raise
             _record("retries" if attempt < policy.max_attempts
                     else "exhausted")
+            _metric("retry_attempts_total", site)
+            _instant("retry.attempt", site=site, attempt=attempt,
+                     error=type(exc).__name__)
             if attempt >= policy.max_attempts:
+                _metric("retry_exhausted_total", site)
+                _instant("retry.exhausted", site=site, attempt=attempt)
                 logger.warning(
                     "%s: transient failure persisted through %d "
                     "attempt(s): %r", site, attempt, exc)

@@ -280,4 +280,11 @@ def drive(
         round(delta("staging_overlapped_seconds") / stage_s, 4)
         if stage_s > 0 else None
     )
+    from photon_tpu_torch import obs
+
+    if obs.enabled():
+        # Outcome counts and mean segment milliseconds over the ring's
+        # request records (warmup included; the full stream is
+        # obs.trace.write_request_jsonl).
+        out["request_trace"] = obs.trace.request_summary()
     return out

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 
 import numpy as np
@@ -51,6 +52,23 @@ from photon_tpu_torch.ops import serve_kernel
 from photon_tpu_torch.serve.tables import CoefficientTables
 
 log = logging.getLogger(__name__)
+
+# Graph captures of every ladder in the process (the compile report of
+# ``obs/export.py``), guarded by ``_capture_lock``: a structure reload
+# captures its ladder on the reloading thread while others serve.
+_capture_lock = threading.Lock()
+_capture_totals = {"captures": 0, "seconds": 0.0}
+
+
+def capture_totals() -> dict:
+    """{captures, seconds}: the CUDA graphs every ``ScorePrograms`` of
+    the process captured, and their capture seconds."""
+    with _capture_lock:
+        return dict(_capture_totals)
+
+
+def _ledger_key(batch: int) -> str:
+    return f"serve/score@{batch}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +234,7 @@ class _Inflight:
     seq: int = 0
     out: torch.Tensor | None = None
     staged: tuple = ()
+    t0: float = 0.0  # perf_counter at the replay (or eager call)
 
 
 class ScorePrograms:
@@ -396,6 +415,7 @@ class ScorePrograms:
             raise ValueError(
                 f"batch {batch} is not a ladder rung {self.ladder.rungs}")
         if self.device.type != "cuda":
+            self._register_rung(batch)
             return None
         g = self._graphs.get(batch)
         if g is not None:
@@ -446,8 +466,17 @@ class ScorePrograms:
             keep=(host, dev, host_out, out),
         )
         self._graphs[batch] = g
+        seconds = time.perf_counter() - t0
         self.stats["programs_compiled"] += 1
-        self.stats["aot_compile_seconds"] += time.perf_counter() - t0
+        self.stats["aot_compile_seconds"] += seconds
+        with _capture_lock:
+            _capture_totals["captures"] += 1
+            _capture_totals["seconds"] += seconds
+        from photon_tpu_torch.obs import ledger
+
+        # The capture is the rung's compile, under its program's key.
+        ledger.record_compile(_ledger_key(batch), seconds)
+        self._register_rung(batch)
         self.stats["graph_device_bytes"] += (
             torch.cuda.memory_allocated(self.device) - mem0)
         self.stats["graph_host_bytes"] += sum(
@@ -457,8 +486,38 @@ class ScorePrograms:
     def compile_all(self) -> None:
         """Capture every rung's graph (server start); the request loop
         never captures again."""
-        for r in self.ladder.rungs:
-            self.compile_rung(r)
+        from photon_tpu_torch import obs
+
+        with obs.span("serve/compile_ladder"):
+            for r in self.ladder.rungs:
+                self.compile_rung(r)
+
+    def _register_rung(self, batch: int) -> None:
+        """Put rung ``batch`` in the cost ledger's census (one flag
+        check when the ledger is off), its cost counted at report
+        time."""
+        from photon_tpu_torch.obs import ledger
+
+        ledger.register_program(
+            _ledger_key(batch), phase="serve",
+            cost_thunk=lambda b=batch: self.rung_cost(b))
+
+    def rung_cost(self, batch: int) -> dict:
+        """The serve kernel's count for one launch of rung ``batch``
+        (``costmodel.serve_score_cost``) at the ladder's layout: every
+        row of the rung known, reading distinct table rows up to the
+        table's size, the most one launch of the rung can need. Counted
+        from shapes (meta tensors); reads no device data."""
+        from photon_tpu_torch.analysis import costmodel
+
+        flat = [torch.empty(shape, dtype=dt, device="meta")
+                for shape, dt in self._flat_layout(batch)]
+        ops = self._device_operands(*self._unflat(flat))
+        read = [min(batch, self.tables.random[n].num_entities)
+                for n in self._re_names]
+        return costmodel.serve_score_cost(
+            ops, self.tables.precision, rows_read=read,
+            rows_known=[batch] * len(read))
 
     def release(self) -> int:
         """Drop every captured graph and its buffers (a retired ladder,
@@ -515,34 +574,54 @@ class ScorePrograms:
                 raise ValueError(f"operand of shape {np.shape(src)} for a "
                                  f"static input of shape {dst.shape}")
             dst[...] = src
+        t0 = time.perf_counter()
         g.graph.replay()
         g.done.record()
         g.seq += 1
         self.stats["dispatches"][batch] += 1
         serve_kernel.replay_launches += g.launches
-        return _Inflight(batch=batch, n=n, graph=g, seq=g.seq)
+        return _Inflight(batch=batch, n=n, graph=g, seq=g.seq, t0=t0)
 
     def dispatch_eager(self, feats: dict, codes: dict, n: int) -> _Inflight:
         """The eager dispatch: copies and the score issued from Python
         (the CPU's dispatch; on the card, the yardstick for a replay)."""
         batch = self._rung_of(feats, codes)
         staged: list = []
+        t0 = time.perf_counter()
         out = self._score(**self.operands(feats, codes, staged))
         self.stats["dispatches"][batch] += 1
-        return _Inflight(batch=batch, n=n, out=out, staged=tuple(staged))
+        return _Inflight(batch=batch, n=n, out=out, staged=tuple(staged),
+                         t0=t0)
 
-    def fetch_padded(self, handle: _Inflight) -> np.ndarray:
+    def fetch_padded(self, handle: _Inflight, *,
+                     exclude_seconds: float = 0.0) -> np.ndarray:
         """Wait for a dispatched rung; its first ``n`` scores as numpy
-        (the one host sync of the request path)."""
+        (the one host sync of the request path).
+
+        With the cost ledger on, the dispatch's window (replay to
+        fetched) is booked to ``serve/score@<rung>``, less
+        ``exclude_seconds``: host time the caller spent between dispatch
+        and fetch on work overlapped with the card (the queue's staging
+        pack), so the row stays the device's time."""
         g = handle.graph
         if g is None:
-            return handle.out[: handle.n].cpu().numpy()
-        if handle.seq != g.seq:
-            raise RuntimeError(
-                f"rung {handle.batch} was dispatched again before this "
-                "dispatch was fetched; its scores are gone")
-        g.done.synchronize()
-        return g.host_out[: handle.n].copy()
+            scores = handle.out[: handle.n].cpu().numpy()
+        else:
+            if handle.seq != g.seq:
+                raise RuntimeError(
+                    f"rung {handle.batch} was dispatched again before this "
+                    "dispatch was fetched; its scores are gone")
+            g.done.synchronize()
+            scores = g.host_out[: handle.n].copy()
+        from photon_tpu_torch.obs import ledger
+
+        if ledger.enabled():
+            t1 = time.perf_counter()
+            ledger.record_dispatch(
+                _ledger_key(handle.batch),
+                max((t1 - handle.t0) - max(exclude_seconds, 0.0), 0.0),
+                phase="serve", start=handle.t0, end=t1)
+        return scores
 
     def score_padded(self, feats: dict, codes: dict, n: int) -> np.ndarray:
         """Dispatch and fetch in one call."""

@@ -53,9 +53,15 @@ bounds the drain: past it every still-queued future fails with
 ``ShutdownError`` and close returns False; the worker is a daemon, so a
 wedged dispatch cannot hang process exit.
 
-Not ported: the JAX package's request traces, latency windows, SLO
-tracking, hotness sketches and metric families (ROADMAP Queue A item
-10).
+Request tracing (``photon_tpu_torch.obs.trace``): with telemetry on,
+every request, served or refused, leaves one record at its outcome
+(``REQUEST_OUTCOMES``) under a process-unique id minted at ``submit``,
+with the served path's segment stamps (take, dispatch, scatter); each
+batch is a ``serve/batch`` span, and the registry counts requests,
+batches, cold lookups, expiries, retries and breaker trips. Everything
+is recorded on the worker after the fetch, outside any captured graph.
+Not ported: the JAX package's latency windows, SLO tracking, hotness
+sketches and metric families (ROADMAP Queue A item 10, second half).
 
 Threading: ``_cond`` (a Condition, which is also the mutex) guards the
 pending deque, the closed, stranded, pause and dispatching flags, the
@@ -69,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import logging
 import threading
 import time
@@ -154,18 +161,46 @@ class _Future:
         return self._exc
 
 
+# Minted at every submit, refused ones included, so each request yields
+# one trace record under a process-unique id.
+_REQUEST_IDS = itertools.count(1)
+
+
 class _Request:
     __slots__ = ("features", "entity_ids", "future", "enqueued_at",
-                 "deadline")
+                 "deadline", "rid", "take_ts")
 
     def __init__(self, features: dict, entity_ids: dict,
                  deadline_s: float | None = None):
         self.features = features
         self.entity_ids = entity_ids
         self.future = _Future()
+        self.rid = next(_REQUEST_IDS)
         self.enqueued_at = time.perf_counter()
+        # Stamped, with telemetry on, when the worker pops the request
+        # into a batch: submit to take is the queue_wait segment.
+        self.take_ts: float | None = None
         self.deadline = (None if deadline_s is None
                          else self.enqueued_at + float(deadline_s))
+
+
+def _record_request(req: _Request, outcome: str, **extra) -> None:
+    """One request's trace record (a no-op with telemetry off);
+    ``extra`` carries the served path's stamps or the error."""
+    from photon_tpu_torch import obs
+
+    if not obs.enabled():
+        return
+    rec = {
+        "id": req.rid,
+        "outcome": outcome,
+        "submit_ts": req.enqueued_at,
+        "done_ts": time.perf_counter(),
+    }
+    if req.take_ts is not None:
+        rec["take_ts"] = req.take_ts
+    rec.update(extra)
+    obs.trace.request(rec)
 
 
 class _Staged:
@@ -321,32 +356,42 @@ class MicroBatchQueue:
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         req = _Request(features, dict(entity_ids or {}), deadline_s)
+        rejection = None  # (outcome, exc), recorded outside the lock
         with self._cond:
             while True:
                 if self._closed:
                     self._stats["rejected"] += 1
-                    raise QueueClosed("serve queue is closed")
+                    rejection = ("closed",
+                                 QueueClosed("serve queue is closed"))
+                    break
                 if self._breaker_open:
                     self._stats["breaker_rejected"] += 1
-                    raise CircuitOpenError(
+                    rejection = ("breaker", CircuitOpenError(
                         "serve dispatch circuit breaker is open (tripped "
                         f"after {self.breaker_threshold} consecutive batch "
-                        "failures); reset_breaker() to resume")
+                        "failures); reset_breaker() to resume"))
+                    break
                 if (self.shed_watermark is not None
                         and len(self._pending) >= self.shed_watermark):
                     self._stats["shed"] += 1
-                    raise OverloadedError(
+                    rejection = ("shed", OverloadedError(
                         f"serve queue depth {len(self._pending)} is at the "
                         f"shed watermark {self.shed_watermark}; request "
-                        "rejected instead of queued")
+                        "rejected instead of queued"))
+                    break
                 if len(self._pending) < self.max_queue:
                     break
                 self._cond.wait()
-            if req.deadline is not None:
-                self._has_deadlines = True
-            self._pending.append(req)
-            self._stats["requests"] += 1
-            self._cond.notify_all()
+            if rejection is None:
+                if req.deadline is not None:
+                    self._has_deadlines = True
+                self._pending.append(req)
+                self._stats["requests"] += 1
+                self._cond.notify_all()
+        if rejection is not None:
+            outcome, exc = rejection
+            _record_request(req, outcome)
+            raise exc
         return req.future
 
     def close(self, timeout: float | None = None) -> bool:
@@ -387,6 +432,7 @@ class MicroBatchQueue:
             "request abandoned before dispatch")
         for r in stranded:
             r.future.set_exception(exc)
+            _record_request(r, "shutdown")
         return False
 
     def reset_breaker(self) -> None:
@@ -603,22 +649,29 @@ class MicroBatchQueue:
         return expired
 
     def _pop_locked(self) -> list[_Request]:
+        from photon_tpu_torch import obs
+
         batch = [self._pending.popleft()
                  for _ in range(min(len(self._pending), self.max_batch))]
         if batch:
             self._stats["batches"] += 1
             self._stats["batched_requests"] += len(batch)
+            if obs.enabled():
+                now = time.perf_counter()
+                for r in batch:
+                    r.take_ts = now
         self._cond.notify_all()  # space freed: wake producers
         return batch
 
     def _take_batch(self):
         """Block for the next batch per the flush policy.
 
-        Returns ``(batch, expired)``: ``batch`` is None once the queue is
-        closed and drained, and empty when this round only expired
-        requests; ``expired`` failed their deadline while queued and are
-        resolved by the caller, outside the lock, before any device work
-        is spent on the batch.
+        Returns ``(batch, expired, depth, breaker_open)``: ``batch`` is
+        None once the queue is closed and drained, and empty when this
+        round only expired requests; ``expired`` failed their deadline
+        while queued and are resolved by the caller, outside the lock,
+        before any device work is spent on the batch; ``depth`` and
+        ``breaker_open`` are read under the same hold.
         """
         with self._cond:
             while True:
@@ -650,7 +703,8 @@ class MicroBatchQueue:
                     # before popping, handing back what already expired.
                     if self._paused and not self._closed:
                         if expired:
-                            return [], expired
+                            return ([], expired, len(self._pending),
+                                    self._breaker_open)
                         continue
                     # Deadlines may have lapsed during the linger; no
                     # request reaches dispatch already dead.
@@ -660,15 +714,19 @@ class MicroBatchQueue:
                         # Under the same hold that popped it: a quiescer
                         # entering now waits for this dispatch.
                         self._dispatching = True
-                    return batch, expired
+                    return (batch, expired, len(self._pending),
+                            self._breaker_open)
                 if self._closed or expired:
-                    return (None if self._closed else []), expired
+                    return ((None if self._closed else []), expired,
+                            len(self._pending), self._breaker_open)
                 self._cond.wait()
 
     @staticmethod
     def _resolve_expired(expired: list[_Request]) -> None:
         """Fail a round's expired requests (worker thread, outside the
         lock)."""
+        from photon_tpu_torch import obs
+
         if not expired:
             return
         exc = DeadlineExceededError(
@@ -676,6 +734,10 @@ class MicroBatchQueue:
             "dispatch")
         for r in expired:
             r.future.set_exception(exc)
+            _record_request(r, "expired")
+        if obs.enabled():
+            obs.REGISTRY.counter("serve_deadline_expired_total").inc(
+                len(expired))
 
     def _pop_staged(self) -> _Staged | None:
         """Claim the staged batch, if any. Parks while quiesced, as
@@ -690,15 +752,17 @@ class MicroBatchQueue:
                 self._cond.notify_all()
             return staged
 
-    def _stage_next(self) -> None:
+    def _stage_next(self) -> float:
         """Pop and pack the next batch while the current one is on the
-        device. Pops only what the flush policy would release now (a
+        device; returns the pack's seconds (0.0 when nothing was
+        packed), which the fetch leaves out of the ledger's device
+        window. Pops only what the flush policy would release now (a
         full batch, a head request past its linger, or a closing
         queue's drain) and never waits; no-ops when a batch is already
         staged (a retried dispatch) or the queue is quiesced."""
         with self._cond:
             if self._staged is not None or self._paused:
-                return
+                return 0.0
             expired = self._expire_locked()
             flush = bool(self._pending) and (
                 len(self._pending) >= self.max_batch
@@ -711,7 +775,7 @@ class MicroBatchQueue:
                 self._stats["staged_batches"] += 1
         self._resolve_expired(expired)
         if not reqs:
-            return
+            return 0.0
         t0 = time.perf_counter()
         try:
             packed = self.programs.pack_requests(
@@ -727,8 +791,11 @@ class MicroBatchQueue:
             self._stats["staging_seconds"] += dt
             self._stats["staging_overlapped_seconds"] += dt
             self._cond.notify_all()
+        return dt
 
     def _worker(self) -> None:
+        from photon_tpu_torch import obs
+
         while True:
             # A staged batch goes first: its requests are off the
             # pending deque already, and close() must drain them.
@@ -736,7 +803,12 @@ class MicroBatchQueue:
             if staged is not None:
                 batch = staged.requests
             else:
-                batch, expired = self._take_batch()
+                batch, expired, depth, breaker = self._take_batch()
+                if obs.enabled():
+                    # Queue pressure at every wakeup, in the registry.
+                    obs.REGISTRY.gauge("serve_queue_depth").set(depth)
+                    obs.REGISTRY.gauge("serve_breaker_open").set(
+                        float(breaker))
                 self._resolve_expired(expired)
                 if batch is None:
                     return
@@ -757,9 +829,18 @@ class MicroBatchQueue:
         while it runs, then fetch. Transient failures retry with backoff
         (``dispatch_retry``) around ``faults.check("serve.dispatch")``
         and the dispatch; anything else fans out to this batch's futures
-        and feeds the breaker's consecutive-failure count."""
+        and feeds the breaker's consecutive-failure count. With
+        telemetry on, the batch is a ``serve/batch`` span and each
+        request's record is written at its outcome, after the fetch."""
+        from photon_tpu_torch import obs
+
+        t_start = time.perf_counter()
+        # A retried dispatch keeps the last attempt's stamps: the one
+        # whose scores the requests are served from.
+        dispatch_ts = scatter_ts = None
 
         def attempt():
+            nonlocal dispatch_ts, scatter_ts
             if (staged is not None and staged.packed is not None
                     and staged.programs is self.programs):
                 feats, codes, _rung = staged.packed
@@ -774,21 +855,29 @@ class MicroBatchQueue:
                 nm: int(np.sum(vec[: len(batch)] < 0))
                 for nm, vec in codes.items()
             }
+            dispatch_ts = time.perf_counter()
             dp = getattr(self.programs, "dispatch_padded", None)
-            if self.pipeline_staging and dp is not None:
-                handle = dp(feats, codes, len(batch))
-                self._stage_next()
-                scores = self.programs.fetch_padded(handle)
-            else:
-                # The serial worker, or a programs object without the
-                # split dispatch and fetch.
-                scores = self.programs.score_padded(feats, codes,
-                                                    len(batch))
+            with obs.span("serve/batch"):
+                if self.pipeline_staging and dp is not None:
+                    handle = dp(feats, codes, len(batch))
+                    # The card is busy: pack the next batch now, and
+                    # leave that host time out of the ledger's window.
+                    overlap = self._stage_next()
+                    scores = self.programs.fetch_padded(
+                        handle, exclude_seconds=overlap)
+                else:
+                    # The serial worker, or a programs object without
+                    # the split dispatch and fetch.
+                    scores = self.programs.score_padded(feats, codes,
+                                                        len(batch))
+            scatter_ts = time.perf_counter()
             return cold_by_coord, len(codes) * len(batch), scores
 
         def on_retry(attempt_no, exc):
             with self._cond:
                 self._stats["dispatch_retries"] += 1
+            if obs.enabled():
+                obs.REGISTRY.counter("serve_dispatch_retries_total").inc()
 
         try:
             if self.dispatch_retry is not None:
@@ -821,6 +910,8 @@ class MicroBatchQueue:
                     self._cond.notify_all()
             for r in batch:
                 r.future.set_exception(exc)
+                _record_request(r, "error", error=type(exc).__name__,
+                                batch_size=len(batch))
             if tripped:
                 logger.error(
                     "serve dispatch circuit breaker OPEN after %d "
@@ -832,6 +923,13 @@ class MicroBatchQueue:
                     f"request was queued (last failure: {exc!r})")
                 for r in drained:
                     r.future.set_exception(drain_exc)
+                    _record_request(r, "breaker")
+                if obs.enabled():
+                    obs.REGISTRY.counter("serve_breaker_trips_total").inc()
+                    obs.trace.instant(
+                        "serve.breaker_open", cat="serve",
+                        consecutive_failures=self._consecutive_failures,
+                        drained=len(drained))
             return
         cold = sum(cold_by_coord.values())
         with self._cond:
@@ -842,5 +940,24 @@ class MicroBatchQueue:
                 cs = self._coord_stats[nm]
                 cs["entity_lookups"] += len(batch)
                 cs["cold_lookups"] += c
+            batch_no = self._stats["batches"]
+            depth = len(self._pending)
+        if obs.enabled():
+            obs.REGISTRY.counter("serve_requests_total").inc(len(batch))
+            obs.REGISTRY.counter("serve_batches_total").inc()
+            if lookups:
+                obs.REGISTRY.counter("serve_cold_lookups_total").inc(cold)
+            obs.REGISTRY.histogram("serve_batch_fill").observe(
+                len(batch) / self.max_batch)
+            obs.REGISTRY.histogram("serve_batch_seconds").observe(
+                time.perf_counter() - t_start)
+            # Queue depth after each batch: a counter track on the
+            # timeline.
+            obs.trace.counter("serve_queue_depth", depth)
         for r, s in zip(batch, scores):
             r.future.set_result(float(s))
+            # done_ts lands after resolution: scatter to done covers
+            # the fan-out, the driver's done-callbacks included.
+            _record_request(r, "served", dispatch_ts=dispatch_ts,
+                            scatter_ts=scatter_ts, batch=batch_no,
+                            batch_size=len(batch))

@@ -157,10 +157,29 @@ class CoefficientTables:
                 )
             else:
                 raise TypeError(f"unknown sub-model type for {name!r}")
-        return CoefficientTables(
+        tables = CoefficientTables(
             fixed=fixed, random=random, task=model.task, device=dev,
             precision=resolved,
         )
+        tables.account_resident()
+        return tables
+
+    def account_resident(self) -> None:
+        """Book every table's device bytes into the cost ledger's
+        resident account (owner ``table/<coordinate>``; one flag check
+        when the ledger is off). Called at build and after every
+        reload, so the account and its peak follow the serving
+        footprint, the transient double residency of a rebuild
+        included."""
+        from photon_tpu_torch.obs import ledger
+
+        if not ledger.enabled():
+            return
+        for n, t in self.fixed.items():
+            ledger.set_resident(f"table/{n}", ledger.tree_nbytes(t.weights))
+        for n, t in self.random.items():
+            ledger.set_resident(f"table/{n}",
+                                ledger.tree_nbytes((t.weights, t.proj)))
 
     def structure_key(self) -> tuple:
         """What the score ladder specializes on: coordinate names,
@@ -212,6 +231,7 @@ class CoefficientTables:
             self.fixed = new.fixed
             self.random = new.random
             self.task = new.task
+            self.account_resident()
             return False
         with torch.no_grad():
             for name, t in self.fixed.items():
@@ -221,6 +241,7 @@ class CoefficientTables:
                 t.weights.copy_(new.random[name].weights)
                 t.task = new.random[name].task
         self.task = new.task
+        self.account_resident()
         return True
 
     def rebuild_from(
@@ -274,6 +295,8 @@ class CoefficientTables:
                 new_programs.tables = self
             if adopt is not None:
                 adopt(new_programs)
+        # Outside the quiesce window: re-book the new generation.
+        self.account_resident()
         return new_programs
 
 

@@ -903,25 +903,22 @@ def test_train_then_score_round_trip(tmp_path, glmix):
 
 
 UNPORTED = [
-    (["--telemetry", "t.jsonl"], {}, 10),
-    (["--trace", "t.json"], {}, 10),
-    (["--flight-dir", "f"], {}, 10),
     (["--monitor-port", "0"], {}, 10),
     (["--fleet-dir", "f"], {}, 10),
     (["--distributed"], {}, 12),
-    ([], {"profile_dir": "p"}, 10),
     ([], {"mesh": 4}, 12),
     ([], {"global": {"feature_sharding": "column"}}, 12),
-    (["--no-flight"], {}, 10),
 ]
 
 
 # Each case keeps the id it had before the item-6 cases (13-16, 18, 19)
 # were ported and moved to FORMERLY_UNPORTED below, the item-9 cases
-# (0-2, the streaming flags) to tests/test_torch_stream.py, and the
+# (0-2, the streaming flags) to tests/test_torch_stream.py, the
 # item-11 cases (10 and 17, hyperparameter tuning and a weight range) to
-# the tuning tests below.
-UNPORTED_POSITIONS = [*range(3, 10), 11, 12, 20]
+# the tuning tests below, and the item-10 telemetry cases (3-5, 9 and
+# 20: --telemetry, --trace, --flight-dir, profile_dir, --no-flight) to
+# tests/test_torch_obs_cli.py.
+UNPORTED_POSITIONS = [6, 7, 8, 11, 12]
 
 
 @pytest.mark.parametrize("args,overrides,item", UNPORTED,
