@@ -47,7 +47,14 @@ JSON lines:
              graph captured, and the request records the ring kept plus
              the events it dropped cover every request; then the
              20,000-request flood off, on, on, off (``flood_telemetry``:
-             QPS, p50/p99);
+             QPS, p50/p99), and one more pair on the same requests with
+             skewed users, p(u) ~ 1 / (u + 1) (``flood_monitor``):
+             the health tap, an SLO policy and the monitor exporter
+             under a scraper polling /metrics, /healthz and /readyz
+             every 50 ms, off then on (QPS and p50 reported, not gated;
+             gated: no error, no graph captured and one replay a batch
+             in both, every exposition valid, and the hottest user in
+             the queue's top 5);
 6a. coords - the serving model plus 9 small random coordinates (12
              active, two launches a rung: groups of 8 and 4): the kernel
              against its plain version at rungs 1 and 512, f32 and bf16
@@ -111,14 +118,24 @@ JSON lines:
              directory) with ``--telemetry``, ``--trace`` and
              ``--request-log`` and the cost ledger armed: every row
              served twice with no graph captured after start, one launch
-             a replay, and the per-request scores within 1e-5 (relative
-             to 1 + |score|) of ``cli.score``'s; every file validates,
+             a replay, and the per-request scores equal, bit for bit in
+             float32, to ``cli.score``'s (and within 1e-5 relative to
+             1 + |score|); every file validates,
              the request records kept plus the events dropped cover the
              2 x 107,496 requests, the registry's outcome counters equal
              ``health()``, the ledger's ``serve/score@<rung>`` dispatches
              sum to the replays and its roofline for rung 512 equals the
              count ``score_cli`` printed for that rung of this ladder
-             (``cli_serve_telemetry``).
+             (``cli_serve_telemetry``). The same run passes
+             ``--monitor-port 0 --health-sketch --slo-p99-ms 10``, its
+             exporter polled every 50 ms (``scraping_monitors``): every
+             exposition valid by the port's ``validate_exposition``,
+             /healthz 200, /readyz 503 before the last rung's graph was
+             captured and 200 after, the ladder's graphs captured and
+             one replay for each batch the queue served, the tap's
+             sampled requests in the written sketch, and ``slo``,
+             ``window_latency`` and ``hot_entities`` in the summary
+             (``cli_serve_monitoring``).
 
 Then the training group, on the bench's logistic GLMix at full width in
 float32 (``bench.py`` ``build_estimator("logistic")`` and
@@ -152,10 +169,11 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      replayed by the port's two L-BFGS designs, host
                      branching and a batch of one, alternating
                      (``fe_lbfgs_designs``: seconds, syncs, iterations);
-                     then the fit once more with ``obs.enable()`` and
-                     ``ledger.enable()`` (``fit_telemetry``): the same
-                     host syncs and Newton launches, the model equal bit
-                     for bit and a ``coord:<cid>`` span every update;
+                     then the fit once more with ``obs.enable()``,
+                     ``ledger.enable()`` and ``obs.health.enable()``
+                     (``fit_telemetry``): the same host syncs and Newton
+                     launches, the model equal bit for bit and a
+                     ``coord:<cid>`` span every update;
 10. optimality     - each entity's gradient at the fitted model against
                      the cascade's tolerance, else its convergence reason;
 11. quality        - train AUC beside the generating weights' AUC;
@@ -171,7 +189,14 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      within rtol 1e-3 / atol 1e-4,
                      random effects within rtol 1e-3 / atol 2e-3 (the
                      f32 resolution of an entity's optimum, see
-                     RE_FIT_ATOL), training losses within 1e-4.
+                     RE_FIT_ATOL), training losses within 1e-4. The
+                     kernel fit's model then goes through
+                     ``GameEstimator.evaluate_model`` with
+                     ``obs.health.calibration_sink`` on the data's last
+                     40,000 rows (``calibration_check``): the sketch's
+                     ECE within 1e-12 of numpy's on the host scores the
+                     sink received, and the sink's one device-to-host
+                     copy counted under ``torch.profiler``.
 14a. train_cli     - GAME training from the command line at the
                      logistic configuration's widths: the serving
                      model's arrays (fixed effect ``global`` on the
@@ -306,7 +331,13 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      Newton and segment-sum kernels within the
                      ``train_fit_profile`` span (``stream_telemetry``);
                      (c)'s crash leaves one ``flight-<pid>.json`` whose
-                     ``faults_fired`` names it. Gates: (a) the dataset
+                     ``faults_fired`` names it. (a) and (c) run with
+                     ``obs.health`` armed: the resumed (c)'s
+                     ``ingest-sketch.json`` is byte-identical to (a)'s,
+                     then ``python -m photon_tpu_torch.cli.health``
+                     compares (a)'s work dir with 6c(d)'s serve sketch
+                     and prints its report (``stream_sketch_check``).
+                     Gates: (a) the dataset
                      (host mirrors, device columns, id tags) and the
                      packed plan buffer sha256-equal to the in-memory
                      run's,
@@ -807,7 +838,9 @@ def phase_serve(torch, ckpt_path, arrays) -> dict:
 def flood_telemetry(programs, requests) -> dict:
     """The flood of phase 4 with telemetry off and on, in turns (off, on,
     on, off): QPS and p50/p99 of each, the cost of recording every
-    request (``cli.serve`` always records)."""
+    request (``cli.serve`` always records). Then one more pair on
+    skewed traffic (``flood_monitor``): the health tap, the monitor
+    exporter under a concurrent scraper and SLO tracking off, then on."""
     from photon_tpu_torch import obs
     from photon_tpu_torch.serve.driver import drive
     from photon_tpu_torch.serve.queue import MicroBatchQueue
@@ -828,9 +861,201 @@ def flood_telemetry(programs, requests) -> dict:
         runs.append({"telemetry": mode, **{k: out[k] for k in (
             "qps", "p50_ms", "p99_ms", "batches", "mean_batch_size")}})
     row = {"phase": "flood_telemetry", "precision": SERVE_PRECISION,
-           "requests": len(requests), "runs": runs}
+           "requests": len(requests), "runs": runs,
+           "monitor_runs": flood_monitor(programs, requests)}
     emit(row)
     return row
+
+
+# The /metrics, /healthz and /readyz poll interval of the scrapers.
+SCRAPE_INTERVAL_S = 0.05
+# Skewed users for the monitored flood: p(u) ~ 1 / (u + c).
+HOT_USER_SKEW = 1
+
+
+class MonitorScraper(threading.Thread):
+    """Polls one monitor exporter every ``SCRAPE_INTERVAL_S`` until
+    ``stop()``: each ``/metrics`` text through the port's own
+    ``validate_exposition``, each ``/healthz`` and ``/readyz`` status
+    (the latter with its JSON detail). The first probe runs at
+    construction, before the caller goes on. A failure is recorded,
+    never raised on this thread; the caller gates the record."""
+
+    def __init__(self, url: str):
+        super().__init__(name="chip-smoke-scraper", daemon=True)
+        self.url = url
+        self._stop_event = threading.Event()
+        self.expositions = 0
+        self.samples = 0
+        self.healthz: dict = {}
+        self.readyz: list = []  # (status, detail) in order
+        self.errors: list = []
+        self.poll()
+
+    def poll(self) -> None:
+        import urllib.error
+        import urllib.request
+
+        from photon_tpu_torch.obs import monitor
+
+        try:
+            for path in ("/readyz", "/healthz", "/metrics"):
+                try:
+                    with urllib.request.urlopen(self.url + path,
+                                                timeout=5) as resp:
+                        status, body = resp.status, resp.read()
+                except urllib.error.HTTPError as exc:
+                    status, body = exc.code, exc.read()
+                if path == "/readyz":
+                    self.readyz.append((status, json.loads(body)))
+                elif path == "/healthz":
+                    self.healthz[status] = self.healthz.get(status, 0) + 1
+                elif status != 200:
+                    self.errors.append(f"/metrics {status}: {body[:200]}")
+                else:
+                    self.samples += monitor.validate_exposition(
+                        body.decode("utf-8"))
+                    self.expositions += 1
+        except Exception as exc:  # noqa: BLE001 - recorded, then gated
+            self.errors.append(repr(exc))
+
+    def run(self) -> None:
+        while not self._stop_event.wait(SCRAPE_INTERVAL_S):
+            self.poll()
+
+    def stop(self) -> "MonitorScraper":
+        self._stop_event.set()
+        self.join(timeout=30)
+        return self
+
+    def summary(self) -> dict:
+        return {"expositions": self.expositions, "samples": self.samples,
+                "healthz": self.healthz, "errors": self.errors[:3],
+                "readyz": [s for s, _ in self.readyz]}
+
+
+@contextlib.contextmanager
+def scraping_monitors():
+    """Every ``MonitorServer`` started inside the block gets a
+    ``MonitorScraper``, its first probe made inside ``start`` (before
+    the starter goes on) and its last before the server stops; yields
+    the list of scrapers."""
+    from photon_tpu_torch.obs import monitor
+
+    scrapers: list = []
+    start, stop = monitor.MonitorServer.start, monitor.MonitorServer.stop
+
+    def scraped_start(self):
+        out = start(self)
+        scraper = MonitorScraper(self.url)
+        scraper.server = self
+        scraper.start()
+        scrapers.append(scraper)
+        return out
+
+    def scraped_stop(self):
+        for scraper in scrapers:
+            if scraper.server is self:
+                scraper.stop()
+        stop(self)
+
+    monitor.MonitorServer.start = scraped_start
+    monitor.MonitorServer.stop = scraped_stop
+    try:
+        yield scrapers
+    finally:
+        monitor.MonitorServer.start, monitor.MonitorServer.stop = start, stop
+        for scraper in scrapers:
+            scraper.stop()
+
+
+def skewed_users(requests, seed: int = SEED + 5) -> tuple[list, str]:
+    """``requests`` with their userId redrawn from the vocabulary the
+    synthetic requests used, p(u) ~ 1 / (u + HOT_USER_SKEW) (cold ids
+    kept): (requests, the most frequent id)."""
+    keys = sorted({ids["userId"] for _, ids in requests
+                   if not ids["userId"].startswith("__cold")}, key=int)
+    rng = np.random.default_rng(seed)
+    p = 1.0 / (np.arange(len(keys)) + HOT_USER_SKEW)
+    draws = rng.choice(len(keys), size=len(requests), p=p / p.sum())
+    out = []
+    for (feats, ids), d in zip(requests, draws):
+        if not ids["userId"].startswith("__cold"):
+            ids = {**ids, "userId": keys[int(d)]}
+        out.append((feats, ids))
+    counts: dict = {}
+    for _, ids in out:
+        counts[ids["userId"]] = counts.get(ids["userId"], 0) + 1
+    return out, max(counts, key=counts.get)
+
+
+def flood_monitor(programs, requests) -> list:
+    """The phase-4 flood on skewed users (``skewed_users``), with the
+    health layer, an SLO policy and the monitor exporter under a
+    ``MonitorScraper`` off, then on. Gates, each run: no request failed,
+    no graph captured, one replay a batch (the layers add no device
+    work); on: every scraped exposition valid, ``/healthz`` 200,
+    ``/readyz`` 200, the tap sampled requests, and the hottest user in
+    the queue's top 5 for ``per-user``. QPS and p50 are reported, not
+    gated."""
+    from photon_tpu_torch.obs import health, monitor
+    from photon_tpu_torch.serve.driver import drive
+    from photon_tpu_torch.serve.queue import MicroBatchQueue
+
+    skewed, hottest = skewed_users(requests)
+    runs = []
+    for mode in ("off", "on"):
+        on = mode == "on"
+        health.reset()
+        if on:
+            health.enable()
+        captured = programs.stats["programs_compiled"]
+        replays = sum(programs.stats["dispatches"].values())
+        scraper = None
+        try:
+            with MicroBatchQueue(
+                    programs, max_linger_s=0.002,
+                    slo=monitor.SloPolicy(p99_ms=10.0) if on else None
+            ) as queue, (monitor.MonitorServer(
+                    0, collectors=[queue.metrics_families],
+                    readiness=lambda: (not queue.health()["breaker_open"],
+                                       {}))
+                    if on else contextlib.nullcontext()) as srv:
+                if on:
+                    scraper = MonitorScraper(srv.url)
+                    scraper.start()
+                try:
+                    out = drive(queue, skewed)
+                finally:
+                    if scraper is not None:
+                        scraper.stop()
+                batches = queue.stats()["batches"]
+                top = [it["key"] for it in queue.hotness_top(5)["per-user"]]
+            tap = health.serve_snapshot()
+        finally:
+            health.disable()
+            health.reset()
+        run = {"mode": mode, **{k: out[k] for k in (
+            "qps", "p50_ms", "p99_ms", "batches", "mean_batch_size",
+            "errors")},
+            "graphs_captured": programs.stats["programs_compiled"]
+            - captured,
+            "replays": sum(programs.stats["dispatches"].values()) - replays,
+            "queue_batches": batches, "hot_top5": top, "hottest": hottest,
+            "requests_sampled": tap["requests_sampled"],
+            "slo": out.get("slo"), "window_latency": out["window_latency"],
+            "scraper": None if scraper is None else scraper.summary()}
+        runs.append(run)
+        if (out["errors"] or run["graphs_captured"]
+                or run["replays"] != batches):
+            fail(f"flood_monitor ({mode}): {run}")
+        if on and (scraper.errors or not scraper.expositions
+                   or set(scraper.healthz) != {200}
+                   or {s for s, _ in scraper.readyz} != {200}
+                   or tap["requests_sampled"] <= 0
+                   or hottest not in top or out.get("slo") is None):
+            fail(f"flood_monitor (on): {run}")
+    return runs
 
 
 def event_ms(torch, run, inner: int) -> float:
@@ -1662,6 +1887,70 @@ def cli_serve_telemetry(line, files, report, ladder_bound) -> dict:
     return row
 
 
+def cli_serve_monitoring(line, scrapers, sketch) -> dict:
+    """Gates of ``cli.serve --monitor-port 0 --health-sketch --slo-p99-ms``
+    (phase 6c(d)), from its summary and the exporter's scraper: every
+    scraped exposition valid and ``/healthz`` always 200; ``/readyz``
+    503 while a rung's graph was not yet captured (its first probe ran
+    before the model loaded) and 200 only once every rung's was, never
+    503 again; the graphs captured are the ladder's and every batch the
+    queue served one replay (the layers add none); the tap sampled
+    requests and the sketch holds them; ``slo``, ``window_latency`` and
+    ``hot_entities`` present."""
+    from photon_tpu_torch.obs import health
+
+    if len(scrapers) != 1:
+        fail(f"cli.serve --monitor-port started {len(scrapers)} exporters")
+    scraper = scrapers[0]
+    queue = scraper.server._collectors[0].__self__
+    batches = queue.stats()["batches"]
+    replays = sum(line["dispatches"].values())
+    ready = scraper.readyz
+    first_ok = next((i for i, (s, _) in enumerate(ready) if s == 200),
+                    None)
+    early = [d for s, d in ready[:first_ok] if s == 503]
+    rows = health.DataSketch.load(sketch).rows
+    row = {"phase": "serve_ops", "step": "cli_serve_monitoring",
+           "scraper": scraper.summary(),
+           "readyz_503_before_ready": len(early),
+           "readyz_first_detail": ready[0][1] if ready else None,
+           "monitor": line.get("monitor"),
+           "graphs_captured": line["programs_compiled"],
+           "queue_batches": batches, "replays": replays,
+           "requests_sampled": line["health_sketch"]["requests_sampled"],
+           "sketch_rows": rows, "sketch_bytes": os.path.getsize(sketch),
+           "health_tap": {k: line["health_tap"][k] for k in (
+               "batches_seen", "batches_sampled", "requests_sampled",
+               "sample_every")},
+           "slo": line.get("slo"), "window_latency": line.get(
+               "window_latency"),
+           "hot_entities": line.get("hot_entities")}
+    emit(row)
+    if scraper.errors or not scraper.expositions or set(
+            scraper.healthz) != {200}:
+        fail(f"cli.serve --monitor-port: scrapes {row['scraper']}")
+    if (first_ok is None or not early
+            or any(d["graphs_captured"] >= len(RUNGS) for d in early)
+            or any(s != 200 for s, _ in ready[first_ok:])
+            or any(d["graphs_captured"] != len(RUNGS)
+                   or not d["ladder_compiled"]
+                   for s, d in ready if s == 200)):
+        fail(f"cli.serve /readyz did not turn 200 exactly when the last "
+             f"rung was captured: {[(s, d) for s, d in ready[:3]]} ... "
+             f"{row['scraper']['readyz'][-3:]}")
+    if line["programs_compiled"] != len(RUNGS) or replays != batches:
+        fail(f"cli.serve --monitor-port: {line['programs_compiled']} "
+             f"graphs, {replays} replays for {batches} batches")
+    if not 0 < row["requests_sampled"] == rows:
+        fail(f"cli.serve --health-sketch sampled {row['requests_sampled']} "
+             f"requests, its sketch holds {rows} rows")
+    if not (line.get("slo") and line.get("window_latency")
+            and line.get("hot_entities", {}).get("per-user")):
+        fail(f"cli.serve: slo, window_latency or hot_entities missing: "
+             f"{row}")
+    return row
+
+
 def run_serve_cli(argv) -> dict:
     """One ``cli.serve.main`` run in this process; its JSON line."""
     from photon_tpu_torch.cli import serve as serve_cli
@@ -1828,22 +2117,28 @@ def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
     # records telemetry on every run; the ledger is the caller's).
     from photon_tpu_torch.obs import ledger
 
+    # The live monitor, the SLO tracker and the health tap ride the same
+    # run, the exporter polled throughout (``scraping_monitors``).
+    sketch = os.path.join(work, "serve-sketch.json")
     ledger.reset()
     ledger.enable()
     try:
-        line = counted(run_serve_cli, [
-            "--model-dir", files["model_dir"], "--input", files["data"],
-            "--feature-shards",
-            *[f"{s}={SCORE_SHARDS[s][0]}" for s in SCORE_SHARDS],
-            "--id-tags", "userId", "movieId", "--scores", npy,
-            "--deadline-ms", "60000", "--shed-watermark", "1000000",
-            "--breaker-threshold", "8", "--reload-model",
-            files["model_dir"],
-            "--telemetry", obs_files["telemetry.jsonl"],
-            "--trace", obs_files["trace.json"],
-            "--request-log", obs_files["requests.jsonl"],
-            "--flight-dir", obs_files["flight"]],
-            warmups=len(RUNGS))
+        with scraping_monitors() as scrapers:
+            line = counted(run_serve_cli, [
+                "--model-dir", files["model_dir"], "--input", files["data"],
+                "--feature-shards",
+                *[f"{s}={SCORE_SHARDS[s][0]}" for s in SCORE_SHARDS],
+                "--id-tags", "userId", "movieId", "--scores", npy,
+                "--deadline-ms", "60000", "--shed-watermark", "1000000",
+                "--breaker-threshold", "8", "--reload-model",
+                files["model_dir"],
+                "--telemetry", obs_files["telemetry.jsonl"],
+                "--trace", obs_files["trace.json"],
+                "--request-log", obs_files["requests.jsonl"],
+                "--flight-dir", obs_files["flight"],
+                "--monitor-port", "0", "--health-sketch", sketch,
+                "--slo-p99-ms", "10"],
+                warmups=len(RUNGS))
         ledger_report = ledger.report()
         # The programs as priced by that report.
         ledger_report["programs"] = ledger.snapshot()["programs"]
@@ -1852,6 +2147,8 @@ def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
         ledger.reset()
     out["cli_telemetry"] = cli_serve_telemetry(
         line, obs_files, ledger_report, batch["ladder_bound"])
+    out["cli_monitoring"] = cli_serve_monitoring(line, scrapers, sketch)
+    out["health_sketch"] = sketch
     served = np.load(npy)
     rel = float(np.max(np.abs(served - batch["scores"])
                        / (1.0 + np.abs(batch["scores"]))))
@@ -1867,7 +2164,10 @@ def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
         "reload": {k: v for k, v in reload_info.items() if k != "summary"},
         "reload_drive": {k: reload_info["summary"][k] for k in (
             "errors", "p50_ms", "p99_ms", "qps")},
-        "max_rel_err_score_cli": rel}
+        "max_rel_err_score_cli": rel,
+        "scores_differing_from_score_cli": int(np.sum(
+            served.astype(np.float32) != batch["scores"].astype(
+                np.float32)))}
     emit(row)
     replays = sum(line["dispatches"].values())
     if (len(served) != SCORE_ROWS or line["errors"]
@@ -1878,9 +2178,11 @@ def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
             or not reload_info["values_only"]
             or reload_info["programs_compiled"]):
         fail(f"cli.serve --input captured graphs while serving: {row}")
-    if line["kernel_launches"] != replays or not rel <= 1e-5:
+    if (line["kernel_launches"] != replays or not rel <= 1e-5
+            or row["scores_differing_from_score_cli"]):
         fail(f"cli.serve --input: {line['kernel_launches']} launches for "
-             f"{replays} replays, scores {rel} from cli.score's")
+             f"{replays} replays, scores {rel} from cli.score's, "
+             f"{row['scores_differing_from_score_cli']} not bit for bit")
     out["launches"] = launches
     return out
 
@@ -2369,22 +2671,27 @@ def model_arrays_equal(a, b) -> bool:
 
 
 def fit_telemetry(torch, est, data, off: dict, off_result) -> dict:
-    """The warm fit once more with ``obs.enable()`` and
-    ``ledger.enable()``. Gates against the telemetry-off fit: the same
-    host syncs and Newton launches, the model equal bit for bit, and a
-    ``coord:<cid>`` span for every update."""
+    """The warm fit once more with ``obs.enable()``, ``ledger.enable()``
+    and ``obs.health.enable()``. Gates against the telemetry-off fit:
+    the same host syncs and Newton launches, the model equal bit for
+    bit, and a ``coord:<cid>`` span for every update. The health
+    layer's numerics report is printed (the unfused fit parks no
+    sentinel: ``fits_scanned`` 0)."""
     from photon_tpu_torch import obs
-    from photon_tpu_torch.obs import ledger
+    from photon_tpu_torch.obs import health, ledger
 
     obs.reset()
     obs.enable()
     ledger.enable()
+    health.enable()
     try:
         on, res = fit_trajectory(torch, est, data)
         spans = [sp.path for sp in obs.TRACER.completed()]
+        numerics = health.numerics_report()
     finally:
         obs.disable()
         ledger.disable()
+        health.disable()
         obs.reset()
     keys = ("newton_kernel_launches", "plain_route_solves",
             "newton_host_syncs", "lbfgs_host_syncs")
@@ -2396,7 +2703,8 @@ def fit_telemetry(torch, est, data, off: dict, off_result) -> dict:
                            "on": on["fit_seconds"]},
            **{k: {"off": off[k], "on": on[k]} for k in keys},
            "model_bit_identical": same_model,
-           "coord_spans": coords, "spans": len(spans)}
+           "coord_spans": coords, "spans": len(spans),
+           "health_armed": True, "numerics": numerics}
     emit(row)
     if any(off[k] != on[k] for k in keys):
         fail(f"fit_telemetry: telemetry changed the fit's syncs or "
@@ -2682,6 +2990,77 @@ def newton_switch(value: str | None):
     return env_switch("PHOTON_NEWTON_KERNEL", value)
 
 
+# Rows of the route_agreement data held out as calibration_check's
+# validation set (its last rows).
+CALIBRATION_ROWS = 40_000
+
+
+def calibration_check(torch, est, model, arrays, data) -> dict:
+    """``GameEstimator.evaluate_model`` with ``obs.health``'s
+    ``calibration_sink`` on the logistic model of ``route_agreement``'s
+    kernel fit, its validation the data's last ``CALIBRATION_ROWS``
+    rows. Gates: the sketch's ECE equal, within 1e-12, to an ECE
+    computed here in numpy from the host scores and labels the sink
+    received; and the sink's call adds exactly one device-to-host copy
+    (``Memcpy DtoH`` events under ``torch.profiler``, a call with the
+    sink against one without, both after a warm call)."""
+    from photon_tpu_torch.obs import health
+    from photon_tpu_torch.types import TaskType
+
+    validation = train_dataset({k: arrays[k][-CALIBRATION_ROWS:] for k in (
+        "y", "x", "xu", "xm", "users", "movies")})
+    t0 = time.perf_counter()
+    est.evaluate_model(model, data, validation)  # builds the context
+    warm_s = time.perf_counter() - t0
+    copies, seen, evals = {}, [], {}
+    cal, sink = health.calibration_sink(TaskType.LOGISTIC_REGRESSION)
+
+    def recording_sink(z, y):
+        seen.append((z, y))
+        sink(z, y)
+
+    for mode in ("no_sink", "sink"):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = est.evaluate_model(
+                model, data, validation,
+                score_sink=recording_sink if mode == "sink" else None)
+            torch.cuda.synchronize()
+        copies[mode] = sum("Memcpy DtoH" in e.name for e in prof.events())
+        evals[mode] = res.evaluations
+    z, y = seen[0]
+    p = 1.0 / (1.0 + np.exp(-np.clip(z.astype(np.float64), -60.0, 60.0)))
+    b = np.minimum((p * 10).astype(np.int64), 9)
+    n_b = np.zeros(10)
+    p_b = np.zeros(10)
+    y_b = np.zeros(10)
+    np.add.at(n_b, b, 1.0)
+    np.add.at(p_b, b, p)
+    np.add.at(y_b, b, y.astype(np.float64))
+    live = n_b > 0
+    ece_numpy = float(np.sum(np.abs(y_b[live] - p_b[live])) / len(p))
+    row = {"phase": "calibration", "rows": CALIBRATION_ROWS,
+           "warm_call_seconds": warm_s, "ece": cal.ece(),
+           "ece_numpy": ece_numpy,
+           "ece_abs_diff": abs(cal.ece() - ece_numpy),
+           "samples": int(cal.counts.sum()), "missing": cal.missing,
+           "d2h_copies": copies,
+           "evaluations_equal": evals["sink"] == evals["no_sink"],
+           "evaluations": evals["sink"]}
+    emit(row)
+    if (len(seen) != 1 or len(z) != CALIBRATION_ROWS
+            or not row["ece_abs_diff"] <= 1e-12):
+        fail(f"calibration: the sketch's ECE is not numpy's: {row}")
+    if copies["sink"] - copies["no_sink"] != 1 or not copies["no_sink"]:
+        fail(f"calibration: the score sink made "
+             f"{copies['sink'] - copies['no_sink']} device-to-host "
+             f"copies, not one: {row}")
+    if not row["evaluations_equal"]:
+        fail(f"calibration: the sink changed the evaluation: {row}")
+    return row
+
+
 def phase_route_agreement(torch) -> dict:
     """The same fit at a tenth of the rows, users and movies (the
     per-entity shapes stay the bench's) with the kernel route and with
@@ -2706,6 +3085,8 @@ def phase_route_agreement(torch) -> dict:
         fits[route] = dict(model=model, seconds=secs, launches=nk.launches,
                            plain_solves=ra.plain_route_solves,
                            objective=fit_objective(torch, total, data))
+        if route == "kernel":
+            calibration_check(torch, est, model, arrays, data)
     k, p = fits["kernel"], fits["plain"]
     row = {"phase": "route_agreement", **REDUCED,
            "rtol": FIT_RTOL,
@@ -3749,6 +4130,10 @@ def cli_child(spec_path: str) -> int:
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec.get("health"):
+        from photon_tpu_torch.obs import health
+
+        health.enable()
     torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     base = _vm_status("VmRSS")
@@ -3761,16 +4146,18 @@ def cli_child(spec_path: str) -> int:
 
 
 def cli_children(jobs: list) -> list:
-    """``stream_run`` of each (cfg, root, extra) job in a subprocess of
-    its own, all at once, for their peak RSS: each result as
-    ``cli_child`` wrote it, with the process's seconds and the peak of
-    its RSS sampled from here."""
+    """``stream_run`` of each (cfg, root, extra[, health]) job in a
+    subprocess of its own, all at once, for their peak RSS: each result
+    as ``cli_child`` wrote it, with the process's seconds and the peak of
+    its RSS sampled from here. ``health`` arms ``obs.health`` in the
+    child."""
     procs = []
-    for cfg, root, extra in jobs:
+    for cfg, root, extra, *armed in jobs:
         os.makedirs(root, exist_ok=True)
         spec = os.path.join(root, "child.json")
         with open(spec, "w") as f:
             json.dump({"cfg": cfg, "root": root, "extra": list(extra),
+                       "health": bool(armed and armed[0]),
                        "out": os.path.join(root, "child-result.json")}, f)
         log = open(os.path.join(root, "child.log"), "w")
         procs.append({"root": root, "log": log, "sampled": 0,
@@ -3848,16 +4235,20 @@ def stream_ingest_row(summary: dict) -> dict:
         "cli_seconds": summary["seconds"]}
 
 
-def phase_stream_cli(torch, cli: dict) -> dict:
+def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
+                     ) -> dict:
     """The streaming training CLI on ``train_cli``'s configuration and
     rows (module docstring, phase 14d): the in-memory run and (a) in
     subprocesses of their own, side by side, for their peak RSS, then
-    (b)-(e)."""
+    (b)-(e). (a) and (c) run with ``obs.health`` armed; ``cli.health``
+    then compares (a)'s ingest sketch with ``serve_sketch`` (serve_ops'
+    ``--health-sketch``; without one, with (c)'s)."""
     import shutil
 
     from photon_tpu_torch.cli import score as score_cli
     from photon_tpu_torch.cli import train as train_cli
     from photon_tpu_torch.data import pipeline
+    from photon_tpu_torch.obs import health
     from photon_tpu_torch.io import avro
     from photon_tpu_torch.ops import serve_kernel
     from photon_tpu_torch.resilience import faults, reset_retry_stats
@@ -3896,7 +4287,7 @@ def phase_stream_cli(torch, cli: dict) -> dict:
         (dict(cfg, profile_dir=mem_obs["profile"]), mem_root,
          ("--telemetry", mem_obs["telemetry"], "--trace", mem_obs["trace"],
           "--flight-dir", mem_obs["flight"])),
-        (cfg, os.path.join(root, "a"), stream)])
+        (cfg, os.path.join(root, "a"), stream, True)])
     mem_telemetry = stream_telemetry(mem_obs)
     a_out = os.path.join(root, "a", "out")
     a_best = best_arrays(a_out)
@@ -3943,6 +4334,9 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     _, path = write_cli_config(light, c_root)
     crashed = None
     c_flight = os.path.join(c_root, "flight")
+    # (a) and (c) fold the ingest's health sketch (ingest-sketch.json).
+    health.reset()
+    health.enable()
     with env_switch("PHOTON_TPU_SERIAL_INGEST", "1"), env_switch(
             "PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
                 {"point": "io.shard_decode", "nth": crash_at,
@@ -3969,7 +4363,17 @@ def phase_stream_cli(torch, cli: dict) -> dict:
                                "ingest-cursor.json")
     with open(cursor_path) as f:
         cursor = json.load(f)
-    run_c = stream_run(torch, light, c_root, *stream, "--resume-ingest")
+    c_work = os.path.join(c_root, "ckpt", "ingest-work")
+    partial_rows = health.DataSketch.load(
+        os.path.join(c_work, "ingest-sketch.json")).rows
+    try:
+        run_c = stream_run(torch, light, c_root, *stream, "--resume-ingest")
+    finally:
+        health.disable()
+        health.reset()
+    sketch_check = stream_sketch_check(
+        os.path.join(root, "a", "ckpt", "ingest-work"), c_work,
+        partial_rows, serve_sketch)
 
     # (e) day 2: stream again, warm-started from (a)'s model, then score.
     e_root = os.path.join(root, "e")
@@ -4046,6 +4450,7 @@ def phase_stream_cli(torch, cli: dict) -> dict:
               "cursor_next_shard": cursor["next_shard"],
               **stream_ingest_row(run_c["summary"]),
               "digests_equal_a": run_c["digests"] == run_a["digests"]},
+        "health_sketch": sketch_check,
         "e": {**stream_ingest_row(run_e["summary"]),
               "run_meta_keys": sorted(run_meta),
               "score_launches": score_launches, "score_chunks": chunks,
@@ -4098,6 +4503,11 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     if not row["c"]["digests_equal_a"]:
         fail("stream_cli (c): the resumed run's dataset or packed plan "
              "buffer differs from (a)'s")
+    if not sketch_check["bytes_equal_a"] or not (
+            0 < partial_rows < CLI_TRAIN_ROWS) or sketch_check[
+            "rows"] != CLI_TRAIN_ROWS or sketch_check["cli_health_rc"]:
+        fail(f"stream_cli (c): the resumed ingest's health sketch is not "
+             f"(a)'s, or cli.health failed: {sketch_check}")
     # (c) the crash left one post-mortem that names the fault.
     if c_dumps != [f"flight-{os.getpid()}.json"] or {
             "point": "io.shard_decode", "call": crash_at,
@@ -4131,6 +4541,46 @@ def phase_stream_cli(torch, cli: dict) -> dict:
     return {"newton_launches": newton, "segment_launches": segment,
             "fixed_effect_launches": fixed_effect,
             "serve_launches": score_launches, "row": row}
+
+
+def stream_sketch_check(a_work: str, c_work: str, partial_rows: int,
+                        serve_sketch: str | None) -> dict:
+    """(a)'s and the resumed (c)'s ``ingest-sketch.json``, byte for
+    byte, then ``python -m photon_tpu_torch.cli.health --a <(a)'s work
+    dir> --b <serve_sketch or (c)'s work dir> --json`` in a subprocess,
+    its report printed."""
+    from photon_tpu_torch.obs import health
+
+    with open(os.path.join(a_work, "ingest-sketch.json"), "rb") as f:
+        a_bytes = f.read()
+    with open(os.path.join(c_work, "ingest-sketch.json"), "rb") as f:
+        c_bytes = f.read()
+    b = serve_sketch or c_work
+    report_path = os.path.join(os.path.dirname(c_work), "health.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_tpu_torch.cli.health", "--a", a_work,
+         "--b", b, "--json", report_path], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    seconds = time.perf_counter() - t0
+    print(proc.stdout, flush=True)
+    report = {}
+    if proc.returncode == 0:
+        with open(report_path) as f:
+            report = json.load(f)["comparison"]
+    return {"bytes_equal_a": a_bytes == c_bytes, "sketch_bytes": len(a_bytes),
+            "rows": health.DataSketch.from_dict(json.loads(a_bytes)).rows,
+            "partial_rows_at_crash": partial_rows,
+            "cli_health_b": "serve_ops sketch" if serve_sketch else "(c)",
+            "cli_health_rc": proc.returncode,
+            "cli_health_seconds": seconds,
+            "cli_health_stderr": proc.stderr[-2000:] if proc.returncode
+            else None,
+            "max_psi": report.get("max_psi"),
+            "max_psi_surface": report.get("max_psi_surface"),
+            "max_ks": report.get("max_ks"),
+            "compared_columns": sorted(report.get("columns", {})),
+            "compared_shards": sorted(report.get("shards", {}))}
 
 
 def stream_telemetry(files: dict) -> dict:
@@ -5768,7 +6218,7 @@ def main() -> int:
     newton = phase_train(torch)
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(torch, arrays, manifest)
-    stream = phase_stream_cli(torch, train_cli)
+    stream = phase_stream_cli(torch, train_cli, ops["health_sketch"])
     torch.cuda.empty_cache()
     cli_routes = phase_train_cli_routes(torch, train_cli)
     torch.cuda.empty_cache()

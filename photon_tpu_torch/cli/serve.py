@@ -28,8 +28,24 @@ events dropped). The crash flight recorder chains SIGINT and SIGTERM
 and dumps ``flight-<pid>.json`` into ``--flight-dir`` (default ``.``)
 when the process dies; ``--no-flight`` turns it off. All of it is
 recorded on the host, after each fetch: the captured graphs are the
-same with it on or off. ``--monitor-port``, ``--slo-*`` and
-``--health-sketch`` raise: ROADMAP Queue A item 10, second half.
+same with it on or off.
+
+Live monitoring and health. ``--monitor-port PORT`` (0: ephemeral)
+serves ``/metrics`` (Prometheus text: the registry, the queue's depth,
+per-coordinate cold counters, latency window, hot entities and SLO
+burn, plus the ledger's and health layer's families when armed),
+``/healthz`` and ``/readyz`` for the whole run. The exporter comes up
+before the model loads, so ``/healthz`` answers from the start;
+``/readyz`` answers 503 until the tables are resident, every rung's
+CUDA graph is captured and the breaker is closed. The queue always
+tracks the declared SLOs (``--slo-p99-ms``, ``--slo-error-rate``,
+``--slo-cold-rate``, ``--slo-window-s``; the long window is 12 times
+the short), reported under ``slo`` in the summary and ``health``.
+``--health-sketch PATH`` arms the health layer's serve tap for the run
+and writes the sampled request and score sketch to PATH at the end
+(compare it with a training run's ``ingest-sketch.json`` through
+``python -m photon_tpu_torch.cli.health``); the layer's armed state is
+restored on exit.
 
 Usage:
     python -m photon_tpu_torch.cli.serve (--checkpoint model.npz | \
@@ -40,20 +56,18 @@ Usage:
         [--breaker-threshold 8] [--reload-model PATH ...] \
         [--precision float32|bfloat16] [--target-qps Q] [--scores PATH] \
         [--telemetry PATH] [--trace PATH] [--request-log PATH] \
-        [--flight-dir DIR | --no-flight] [--device cuda|cpu]
+        [--flight-dir DIR | --no-flight] [--monitor-port PORT] \
+        [--slo-p99-ms MS] [--slo-error-rate R] [--slo-cold-rate R] \
+        [--slo-window-s S] [--health-sketch PATH] [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import sys
-
-# The JAX package's live-monitoring and health flags: ROADMAP Queue A
-# item 10, second half.
-OBSERVABILITY_FLAGS = ("monitor_port", "slo_p99_ms", "slo_error_rate",
-                       "slo_cold_rate", "slo_window_s", "health_sketch")
 
 
 def build_server(checkpoint: str | None = None, *,
@@ -93,7 +107,45 @@ def load_model(path: str, device=None, index_maps=None):
 
 
 def run(args) -> dict:
+    """Serve per ``args``, with the monitor exporter (``--monitor-port``)
+    up from before the model loads until the summary is built."""
+    from photon_tpu_torch.obs import fleet, monitor
+
+    rungs = tuple(int(r) for r in args.batch_sizes.split(",") if r.strip())
+    # Read by /readyz on the exporter's threads; written here.
+    ready = {"tables_loaded": False, "ladder_compiled": False,
+             "graphs_captured": 0, "rungs": len(rungs)}
+    queue_ref: list = []
+
+    def readiness():
+        breaker_open = bool(queue_ref
+                            and queue_ref[0].health()["breaker_open"])
+        ok = (ready["tables_loaded"] and ready["ladder_compiled"]
+              and bool(queue_ref) and not breaker_open)
+        return ok, {**ready, "queue_up": bool(queue_ref),
+                    "breaker_open": breaker_open}
+
+    mon = None
+    if args.monitor_port is not None:
+        # Offset by the process index, so processes sharing a host do
+        # not collide on one --monitor-port value.
+        mon = monitor.MonitorServer(
+            fleet.resolve_monitor_port(args.monitor_port),
+            readiness=readiness).start()
+        logging.getLogger("photon.serve").info(
+            "monitor endpoints on port %d (requested %d, rank %d)",
+            mon.port, args.monitor_port,
+            fleet.host_identity()["process_index"])
+    try:
+        return _serve(args, rungs, mon, ready, queue_ref)
+    finally:
+        if mon is not None:
+            mon.stop()
+
+
+def _serve(args, rungs, mon, ready, queue_ref) -> dict:
     from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import monitor
     from photon_tpu_torch.ops import serve_kernel
     from photon_tpu_torch.serve.driver import (
         dataset_requests,
@@ -102,7 +154,6 @@ def run(args) -> dict:
     )
     from photon_tpu_torch.serve.queue import MicroBatchQueue
 
-    rungs = tuple(int(r) for r in args.batch_sizes.split(",") if r.strip())
     index_maps = None
     if args.input:
         from photon_tpu_torch.cli.score import read_data_and_model
@@ -122,6 +173,7 @@ def run(args) -> dict:
                 device=args.device)
             tables = CoefficientTables.from_game_model(
                 model, args.precision, args.device)
+        ready["tables_loaded"] = True
         with obs.logged_span("serve: AOT-compile score ladder"):
             programs = ScorePrograms(tables, ladder=ShapeLadder(rungs),
                                      specs=specs_from_dataset(data))
@@ -132,10 +184,15 @@ def run(args) -> dict:
             args.checkpoint, precision=args.precision, rungs=rungs,
             device=args.device, model_dir=args.model_dir,
         )
+        ready["tables_loaded"] = True
         requests = synthetic_requests(
             tables, programs, args.synthetic,
             cold_fraction=args.cold_fraction, seed=args.seed,
         )
+    # Every rung's graph is captured (none on the CPU, where dispatch
+    # is eager).
+    ready["graphs_captured"] = programs.stats["programs_compiled"]
+    ready["ladder_compiled"] = True
 
     def launched() -> int:
         return serve_kernel.launches + serve_kernel.replay_launches
@@ -151,7 +208,19 @@ def run(args) -> dict:
                             else args.deadline_ms / 1e3),
         shed_watermark=args.shed_watermark,
         breaker_threshold=args.breaker_threshold or None,
+        slo=monitor.SloPolicy(
+            p99_ms=args.slo_p99_ms,
+            error_rate=args.slo_error_rate,
+            cold_entity_rate=args.slo_cold_rate,
+            short_window_s=args.slo_window_s,
+            long_window_s=12 * args.slo_window_s,
+        ),
     ) as queue:
+        queue_ref.append(queue)
+        if mon is not None:
+            # From here /readyz can answer 200 and /metrics carries the
+            # queue's families.
+            mon.add_collector(queue.metrics_families)
         captured_before = programs.stats["programs_compiled"]
         summary = drive(queue, requests, rate=args.target_qps,
                         scores=scores)
@@ -194,6 +263,8 @@ def run(args) -> dict:
         "health": health,
         "tables": tables.coordinate_stats(),
     }
+    if mon is not None:
+        out["monitor"] = {"port": mon.port, **mon.scrape_stats()}
     if reloads:
         out["reloads"] = reloads
     out.update(summary)
@@ -203,6 +274,12 @@ def run(args) -> dict:
         obs.write_chrome_trace(args.trace)
     if args.request_log:
         obs.trace.write_request_jsonl(args.request_log)
+    if args.health_sketch:
+        out["health_sketch"] = {
+            "path": args.health_sketch,
+            "requests_sampled": obs.health.save_serve_sketch(
+                args.health_sketch),
+        }
     return out
 
 
@@ -211,13 +288,17 @@ def run_instrumented(args) -> dict:
     caller's enabled flag restored afterwards, and the flight recorder
     (unless ``--no-flight``) chaining SIGINT and SIGTERM and dumping on
     an exception. Off the main thread signal handlers cannot be set:
-    the recorder then installs without them."""
+    the recorder then installs without them. ``--health-sketch`` arms
+    the health layer for the run; its armed state is restored after."""
     from photon_tpu_torch import obs
     from photon_tpu_torch.obs import flight
 
     was_enabled = obs.enabled()
+    was_health = obs.health.enabled()
     obs.reset()
     obs.enable()
+    if args.health_sketch:
+        obs.health.enable()
     rec = None
     prior_rec = flight.installed()
     if not args.no_flight:
@@ -236,6 +317,8 @@ def run_instrumented(args) -> dict:
             if prior_rec is not None:
                 flight.reinstall(prior_rec)
         obs.TRACER.enabled = was_enabled
+        if not was_health:
+            obs.health.disable()
 
 
 def main(argv=None) -> int:
@@ -321,9 +404,31 @@ def main(argv=None) -> int:
                              "SIGINT/SIGTERM or an unhandled exception")
     parser.add_argument("--no-flight", action="store_true",
                         help="turn the crash flight recorder off")
-    for flag in OBSERVABILITY_FLAGS:
-        parser.add_argument("--" + flag.replace("_", "-"), default=None,
-                            help="(ROADMAP Queue A item 10)")
+    parser.add_argument("--monitor-port", type=int, default=None,
+                        metavar="PORT",
+                        help="serve /metrics (Prometheus text), /healthz "
+                             "and /readyz on this port for the whole run "
+                             "(0: ephemeral; the bound port is in the "
+                             "summary). /readyz answers 200 once the "
+                             "tables are resident, every rung's graph is "
+                             "captured and the breaker is closed")
+    parser.add_argument("--slo-p99-ms", type=float, default=250.0,
+                        help="latency SLO: 99%% of served requests "
+                             "finish under this many ms")
+    parser.add_argument("--slo-error-rate", type=float, default=0.001,
+                        help="error-rate SLO budget (the fraction of "
+                             "requests allowed to fail)")
+    parser.add_argument("--slo-cold-rate", type=float, default=0.2,
+                        help="cold-entity SLO budget (the fraction of "
+                             "lookups allowed out of vocabulary)")
+    parser.add_argument("--slo-window-s", type=float, default=5.0,
+                        help="short burn-rate window, seconds (the long "
+                             "window is 12 times longer)")
+    parser.add_argument("--health-sketch", default=None, metavar="PATH",
+                        help="arm the health layer's serve tap and write "
+                             "the sampled request and score sketch to "
+                             "PATH at the end (compare it with "
+                             "python -m photon_tpu_torch.cli.health)")
     args = parser.parse_args(argv)
     if args.checkpoint and args.input:
         # A native checkpoint keys its coefficients by dense index with
@@ -331,12 +436,6 @@ def main(argv=None) -> int:
         parser.error("--input requires --model-dir (the Avro layout's "
                      "name-keyed coefficients align with the data's index "
                      "maps; a .npz checkpoint cannot)")
-    for flag in OBSERVABILITY_FLAGS:
-        if getattr(args, flag) is not None:
-            from photon_tpu_torch import optim
-
-            raise optim.not_ported("--" + flag.replace("_", "-"), 10)
-
     from photon_tpu_torch.cli.common import cli_logging
     from photon_tpu_torch.resilience import faults
 

@@ -36,10 +36,15 @@ metrics, reports) and adds the snapshot to ``training-summary.json``;
 training datasets`` and ``train models`` are logged spans. None of it
 adds a host sync or a launch.
 
+``--monitor-port PORT`` (0: ephemeral) serves ``/metrics`` (the
+registry, and the ledger's and health layer's families when armed),
+``/healthz`` and ``/readyz`` for the whole run, on the port offset by
+the process index; ``/readyz`` answers 200 once the
+``train_datasets_prepared`` gauge is set, after ``prepare``.
+
 Options the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: live monitoring and fleet bundles
-(``--monitor-port``, ``--fleet-dir``: item 10, second half) and
-``--distributed`` (item 12), besides the config options
+their ROADMAP Queue A item: fleet bundles (``--fleet-dir``: item 10's
+last part) and ``--distributed`` (item 12), besides the config options
 ``cli/config.py`` lists. The JAX package's ``--backend`` is ``--device``
 here.
 
@@ -133,7 +138,11 @@ def main(argv=None) -> int:
     parser.add_argument("--no-flight", action="store_true",
                         help="turn the crash flight recorder off")
     parser.add_argument("--monitor-port", type=int, default=None,
-                        metavar="PORT", help="live /metrics (item 10)")
+                        metavar="PORT",
+                        help="serve /metrics (Prometheus text), /healthz "
+                             "and /readyz on this port for the whole run "
+                             "(0: ephemeral); /readyz answers 200 once "
+                             "the training datasets are prepared")
     parser.add_argument("--distributed", action="store_true",
                         help="multi-process training (item 12)")
     parser.add_argument("--fleet-dir", default=None, metavar="DIR",
@@ -143,12 +152,9 @@ def main(argv=None) -> int:
     from photon_tpu_torch import optim
     from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM, TELEMETRY_ITEM
 
-    for flag, value in (("--monitor-port", args.monitor_port),
-                        ("--fleet-dir", args.fleet_dir)):
-        if value is not None:
-            raise optim.not_ported(
-                f"{flag} (live monitoring and fleet bundles)",
-                TELEMETRY_ITEM)
+    if args.fleet_dir is not None:
+        raise optim.not_ported("--fleet-dir (fleet bundles)",
+                               TELEMETRY_ITEM)
     if args.distributed:
         raise optim.not_ported("--distributed (multi-process training)",
                                MULTI_DEVICE_ITEM)
@@ -188,6 +194,27 @@ def _main_instrumented(args) -> int:
         # the enabled flag is restored afterwards.
         obs.reset()
         obs.enable()
+    mon = None
+    if args.monitor_port is not None:
+        from photon_tpu_torch.obs import fleet, monitor
+
+        # A prepare of an earlier run in this process must not make
+        # this one ready.
+        obs.REGISTRY.gauge("train_datasets_prepared").set(0)
+
+        def ready():
+            gauges = obs.REGISTRY.snapshot()["gauges"]
+            prepared = gauges.get("train_datasets_prepared", 0) >= 1
+            return prepared, {"datasets_prepared": prepared}
+
+        # Offset by the process index, so processes sharing a host do
+        # not collide on one --monitor-port value.
+        mon = monitor.MonitorServer(
+            fleet.resolve_monitor_port(args.monitor_port),
+            readiness=ready).start()
+        log.info("monitor endpoints on port %d (requested %d, rank %d) "
+                 "(/metrics /healthz /readyz)", mon.port,
+                 args.monitor_port, fleet.host_identity()["process_index"])
     # _run installs this CLI's recorder (unless --no-flight); the dump
     # and uninstall below act only when it did, so an embedding
     # caller's own recorder is never dumped to or removed.
@@ -203,6 +230,8 @@ def _main_instrumented(args) -> int:
             flight.dump(f"exception:{type(exc).__name__}")
         raise
     finally:
+        if mon is not None:
+            mon.stop()
         # Uninstall first: it restores the flag it found at install,
         # and the exports' restore below must win over it.
         if flight.installed() is not prior_rec:

@@ -33,6 +33,12 @@ The robustness layers:
   resumes where it stopped, reloading committed windows from their
   spills: the resumed dataset, and so every packed plan buffer built
   from it, is byte-identical to the uninterrupted run's.
+- **Health sketch** (``ingest-sketch.json``): with ``obs.health``
+  armed, every window folds, in window order, into one ``DataSketch``
+  saved beside the cursor at each commit (a resumed run re-folds the
+  committed windows from their spills, so the file is byte-identical to
+  the uninterrupted run's) and registered with
+  ``obs.health.set_train_sketch`` at the end.
 
 On the card a window's arrays are copied from pinned host tensors with
 ``non_blocking`` copies on a side stream, an event recorded behind them;
@@ -77,6 +83,7 @@ logger = logging.getLogger(__name__)
 MANIFEST_FILE = "ingest-manifest.json"
 CURSOR_FILE = "ingest-cursor.json"
 VOCAB_FILE = "ingest-vocab.json"
+SKETCH_FILE = "ingest-sketch.json"
 SCHEMA_VERSION = 1
 
 
@@ -801,6 +808,9 @@ class StreamingIngest:
     def _cursor_path(self) -> str:
         return os.path.join(self.work_dir, CURSOR_FILE)
 
+    def _sketch_path(self) -> str:
+        return os.path.join(self.work_dir, SKETCH_FILE)
+
     def _spill_path(self, widx: int) -> str:
         return os.path.join(self.work_dir, f"window-{widx:05d}.npz")
 
@@ -908,9 +918,20 @@ class StreamingIngest:
         # reads these after run() for the validation read and the models.
         self.resolved_maps = dict(maps)
         self.manifest_sha256 = manifest_sha
-        # The reference folds every window into a data-health sketch
-        # here when its health layer is armed; that layer waits for
-        # ROADMAP Queue A item 10's second half.
+        # Data-health sketching (obs/health.py; off by default): with
+        # the health layer armed, every window folds into one
+        # bounded-memory DataSketch, saved beside the cursor
+        # (SKETCH_FILE) at every cursor commit. Windows decode on the
+        # chunk pool, but float moment sums are not associative bit for
+        # bit, so the fold runs here, on the consuming thread, in window
+        # order; a resumed run re-folds the committed windows from their
+        # spills in the same order, so a kill-and-resume ingest writes
+        # the uninterrupted run's sketch byte for byte.
+        from photon_tpu_torch.obs import health
+
+        sketch = health.DataSketch() if health.enabled() else None
+        widths = {s: len(maps[s]) for s in self.feature_shards}
+        self.health_sketch = sketch
 
         cursor = self._load_cursor(manifest_sha) if self.resume else None
         start_window = 0
@@ -938,6 +959,10 @@ class StreamingIngest:
             for w in range(start_window):
                 window = self._load_spill(w)
                 self._transfer_window(window, PIPELINE_STATS)
+                if sketch is not None:
+                    sketch.update_window(
+                        window.labels, window.offsets, window.weights,
+                        window.shards, widths)
                 windows.append(window)
             logger.info(
                 "streaming ingest: resumed at shard %d/%d (%d window "
@@ -989,17 +1014,29 @@ class StreamingIngest:
                     f"({budget}): {sorted(self.stats.quarantined())}")
             self._transfer_window(window, PIPELINE_STATS)
             self._spill_window(window)
+            if sketch is not None:
+                sketch.update_window(
+                    window.labels, window.offsets, window.weights,
+                    window.shards, widths)
             windows.append(window)
             rows_ingested += window.rows
             next_shard = min(
                 (todo[i][0] + 1) * self.window_shards, len(shards))
             self._commit_cursor(
                 manifest_sha, next_shard, todo[i][0] + 1, rows_ingested)
+            if sketch is not None:
+                # At the same shard boundary as the cursor: a resumed
+                # run that reloads these windows lands on this file.
+                sketch.save(self._sketch_path())
 
         data = self._assemble(windows, maps, PIPELINE_STATS)
         stats = self._final_stats(
             manifest, rows_ingested, resumed_from,
             time.perf_counter() - t_run)
+        if sketch is not None:
+            sketch.save(self._sketch_path())
+            health.set_train_sketch(sketch)
+            stats["health_sketch_path"] = self._sketch_path()
         return data, stats
 
     def _drain(self, pending) -> None:

@@ -24,6 +24,11 @@ per configuration. With telemetry on, ``prepare`` and each
 validation rescoring of a (re)loaded model is booked under
 ``eval/score`` and ``eval/suite``.
 
+``evaluate_model`` scores any ``GameModel`` (a serving generation, a
+candidate) on validation data through the same scorers and metrics a
+fit records; its ``score_sink`` hands the evaluated scores and labels
+to a host consumer such as ``obs.health.calibration_sink``.
+
 Waiting (ROADMAP Queue A): mesh execution (item 12) and the whole-fit
 fused program (item 8; its torch counterpart is a CUDA-graph capture of
 a fit).
@@ -36,6 +41,9 @@ import logging
 import os
 import time
 from typing import Union
+
+import numpy as np
+import torch
 
 from photon_tpu_torch import device as device_mod
 from photon_tpu_torch import obs
@@ -322,11 +330,17 @@ class GameEstimator:
 
     @staticmethod
     def _score_with_validation(val_ctx: ValidationContext,
-                               model: GameModel) -> EvaluationResults:
+                               model: GameModel,
+                               score_sink=None) -> EvaluationResults:
         """Evaluate a (re)loaded model on the validation data. With the
         cost ledger on, each coordinate's scoring is booked under
         ``eval/score`` and the suite under ``eval/suite`` (host windows:
-        nothing waits for the card)."""
+        nothing waits for the card).
+
+        ``score_sink`` (optional) receives the evaluated scores (the
+        model's scores plus the offsets, as the suite judged them) and
+        the labels as host numpy, after the metrics: both come back in
+        one device-to-host copy, after the suite's own sync."""
         from photon_tpu_torch.obs import ledger
 
         armed = ledger.enabled()
@@ -345,7 +359,49 @@ class GameEstimator:
             t1 = time.perf_counter()
             ledger.record_dispatch("eval/suite", t1 - t0, phase="eval",
                                    start=t0, end=t1)
+        if score_sink is not None:
+            suite = val_ctx.suite
+            host = torch.stack((suite._z(total), suite.labels)).cpu()
+            z, labels = host.numpy()
+            score_sink(z, labels)
         return out
+
+    def evaluate_model(self, model: GameModel, data: GameDataset,
+                       validation: GameDataset, *,
+                       initial_model: GameModel | None = None,
+                       score_sink=None) -> EvaluationResults:
+        """Evaluate any ``GameModel`` (a serving generation, a
+        candidate) on ``validation`` with this estimator's evaluators:
+        the scorers and metric path a ``fit(validation=...)`` run
+        records, so two models are compared by one ruler.
+
+        ``data`` gives the per-coordinate layouts the scorers map onto
+        (the dataset the candidate trained on); pass the fit's
+        ``initial_model`` to reuse ``prepare``'s cache. A random-effect
+        model whose entity vocabulary or projectors differ from the
+        layout's is remapped by (entity key, feature id) first: entities
+        the layout lacks score through the fixed effect alone.
+        ``score_sink`` receives the evaluated host scores and labels
+        (``_score_with_validation``)."""
+        datasets, val_ctx = self.prepare(
+            data, validation=validation, initial_model=initial_model)
+        if val_ctx is None:
+            raise ValueError("evaluate_model needs a validation dataset")
+        for cid in self.update_sequence:
+            if cid not in model:
+                continue
+            m = model[cid]
+            if not isinstance(m, RandomEffectModel):
+                continue
+            ds = datasets[cid]
+            if (tuple(str(k) for k in m.entity_keys)
+                    != tuple(str(k) for k in ds.entity_keys)
+                    or not np.array_equal(np.asarray(m.proj_all),
+                                          np.asarray(ds.proj_all))):
+                model = model.updated(cid, remap_random_effect_model(
+                    m, entity_keys=ds.entity_keys, proj_all=ds.proj_all))
+        return self._score_with_validation(val_ctx, model,
+                                           score_sink=score_sink)
 
     def _full_config(self, opt_configs: dict) -> dict:
         return {cid: opt_configs.get(

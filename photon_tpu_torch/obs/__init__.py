@@ -7,9 +7,13 @@ device-side **convergence traces** (``obs/convergence.py``; empty until
 the fused fit is ported), a **timeline** of instants, counters and
 per-request records with its Chrome-trace export (``obs/trace.py``),
 the crash **flight recorder** (``obs/flight.py``), the per-program
-**cost ledger** (``obs/ledger.py``) and the **exporters**:
-``snapshot()``, the JSONL stream and the text table (``obs/export.py``;
-schema in OBSERVABILITY.md).
+**cost ledger** (``obs/ledger.py``), the model and data **health**
+layer (``obs/health.py``: sketches, drift and skew, calibration,
+sentinels, the serve tap), **live monitoring** (``obs/monitor.py``:
+``/metrics``, ``/healthz``, ``/readyz``, latency windows, SLO burn,
+hotness; imported lazily) and the **exporters**: ``snapshot()``, the
+JSONL stream and the text table (``obs/export.py``; schema in
+OBSERVABILITY.md).
 
 Telemetry is off by default, and turning it on is a host decision only:
 no hook launches a kernel, copies to or from the card or waits for it,
@@ -27,8 +31,8 @@ Usage::
     print(obs.summary_table())
     obs.write_jsonl("run-telemetry.jsonl")
 
-Waiting for ROADMAP Queue A item 10's second half: ``obs.health``,
-``obs.monitor``, and the rest of ``obs.fleet``.
+Waiting for ROADMAP Queue A item 10's last part: the rest of
+``obs.fleet`` (clock alignment, bundles, the fleet merge).
 """
 
 from __future__ import annotations
@@ -40,8 +44,24 @@ import time
 from photon_tpu_torch.obs import convergence
 from photon_tpu_torch.obs import fleet
 from photon_tpu_torch.obs import flight
+from photon_tpu_torch.obs import health
 from photon_tpu_torch.obs import ledger
 from photon_tpu_torch.obs import trace
+
+
+def __getattr__(name: str):
+    # Lazy submodule (PEP 562): every training and serving path imports
+    # the obs package, and only --monitor-port users need the
+    # http.server import chain. `from photon_tpu_torch.obs import
+    # monitor` still works: the from-import falls back to this hook.
+    if name == "monitor":
+        import importlib
+
+        return importlib.import_module("photon_tpu_torch.obs.monitor")
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
+
+
 from photon_tpu_torch.obs.export import (
     snapshot,
     summary_table,
@@ -91,13 +111,14 @@ def enabled() -> bool:
 
 def reset() -> None:
     """Drop all recorded telemetry (spans, metrics, convergence traces,
-    trace events, the ledger's accumulators, the host identity). Does
-    not touch the enabled flags."""
+    trace events, the ledger's accumulators, the health sketches and
+    sentinels, the host identity). Does not touch the enabled flags."""
     TRACER.reset()
     REGISTRY.reset()
     convergence.reset()
     trace.reset()
     ledger.reset()
+    health.reset()
     fleet.reset()
 
 
@@ -121,6 +142,7 @@ __all__ = [
     "enabled",
     "fleet",
     "flight",
+    "health",
     "ledger",
     "logged_span",
     "metrics_listener",

@@ -32,8 +32,10 @@ the counterparts under the JAX package's key names where they mean the
 same thing (``aot_compiles`` and ``aot_compile_seconds``: the serving
 ladders' CUDA graph captures), and the kernel library that
 ``ops/_build.py`` built or loaded (``dir``, ``kernel_library``,
-``kernel_build_seconds``). The JAX package's ``health`` section waits
-for ROADMAP Queue A item 10's second half and is absent.
+``kernel_build_seconds``). With the health layer armed, the snapshot
+carries a ``health`` section and the stream a ``health`` report
+(``obs.health.snapshot()``: by export time every fit completed, so
+copying a parked sentinel to the host there is a plain copy).
 """
 
 from __future__ import annotations
@@ -116,6 +118,10 @@ def snapshot() -> dict:
 
     if ledger.enabled():
         out["ledger"] = ledger.snapshot()
+    from photon_tpu_torch.obs import health
+
+    if health.enabled():
+        out["health"] = health.snapshot()
     return out
 
 
@@ -174,6 +180,13 @@ def write_jsonl(path: str) -> int:
         lines.append({
             "type": "report", "name": "ledger",
             "data": ledger.snapshot(),
+        })
+    from photon_tpu_torch.obs import health
+
+    if health.enabled():
+        lines.append({
+            "type": "report", "name": "health",
+            "data": health.snapshot(),
         })
     with open(path, "w") as f:
         for line in lines:

@@ -9,9 +9,10 @@ them; 0 and 1 on one card). The device kind and count come from
 ``torch.cuda``, read only once the process has initialized CUDA, so
 stamping never creates a CUDA context as a side effect.
 
-The rest of the JAX module (clock alignment, bundles, the fleet merge
-and the straggler report) waits for ROADMAP Queue A item 10's second
-half.
+``resolve_monitor_port`` offsets a ``--monitor-port`` by the process
+index. The rest of the JAX module (clock alignment, bundles, the fleet
+merge and the straggler report) waits for ROADMAP Queue A item 10's
+last part.
 
 Threading: the cached identity and the run id are guarded by ``_lock``.
 """
@@ -75,6 +76,19 @@ def host_identity(*, refresh: bool = False) -> dict:
     out = dict(cached)
     out["run_id"] = run_id()
     return out
+
+
+def resolve_monitor_port(port: int, process_index: int | None = None
+                         ) -> int:
+    """The per-process ``/metrics`` bind port: ``port + process_index``,
+    so several processes sharing a host never collide on one
+    ``--monitor-port`` value. Port 0 (ephemeral: the OS picks) passes
+    through untouched."""
+    if port <= 0:
+        return port
+    k = (host_identity()["process_index"] if process_index is None
+         else int(process_index))
+    return port + k
 
 
 def _cuda_up() -> bool:

@@ -4,7 +4,8 @@ always (port of ``photon_tpu/obs/flight.py``).
 The telemetry layer's bounded rings (completed spans, trace events) are
 the recording; a dump writes their tails, the metrics and their deltas
 since install, the retry counters and fired faults and, when armed, the
-cost ledger to ``flight-<pid>.json``, atomically (temp file, fsync,
+cost ledger and the health layer's counters (``health.raw_snapshot``,
+which copies nothing from the card) to ``flight-<pid>.json``, atomically (temp file, fsync,
 rename: ``io/model_io.atomic_write_bytes``), so a dump cut short by the
 dying process leaves no half-written file.
 
@@ -174,6 +175,16 @@ class FlightRecorder:
                 out["ledger"] = ledger.snapshot()
         except Exception as exc:  # noqa: BLE001
             out["ledger_error"] = repr(exc)
+        try:
+            from photon_tpu_torch.obs import health
+
+            if health.enabled():
+                # Counters and the last gate decision only: a dying
+                # process must not copy parked sentinel tensors from the
+                # card (the ledger's policy above).
+                out["health"] = health.raw_snapshot()
+        except Exception as exc:  # noqa: BLE001
+            out["health_error"] = repr(exc)
         return out
 
     # -- hooks -----------------------------------------------------------

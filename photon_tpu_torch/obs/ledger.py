@@ -510,6 +510,81 @@ def render_top_k(k: int = 5, chip: str = DEFAULT_CHIP) -> str:
     )
 
 
+# --------------------------------------------------------------------------
+# the /metrics collector (obs/monitor.py appends it on every scrape)
+# --------------------------------------------------------------------------
+
+
+def metrics_families() -> list[dict]:
+    """``ledger_*`` metric families for the monitor exporter — empty
+    when the ledger is disabled, so an unarmed process scrapes exactly
+    what it scraped before this module existed."""
+    snap = snapshot()
+    if not snap["enabled"]:
+        return []
+    from photon_tpu_torch.obs.monitor import family
+
+    fams = []
+    row_labels = [
+        (
+            {
+                "coordinate": r["coordinate"],
+                "phase": r["phase"],
+                "program": r["program"],
+            },
+            r,
+        )
+        for r in snap["rows"]
+    ]
+    if row_labels:
+        fams.append(family(
+            "ledger_dispatch_seconds_total", "counter",
+            "measured wall seconds per (coordinate, phase, program) "
+            "ledger row",
+            [("", labels, row["seconds"]) for labels, row in row_labels],
+        ))
+        fams.append(family(
+            "ledger_dispatches_total", "counter",
+            "dispatches per ledger row",
+            [("", labels, float(row["dispatches"]))
+             for labels, row in row_labels],
+        ))
+        fams.append(family(
+            "ledger_host_gap_seconds_total", "counter",
+            "host idle seconds between consecutive dispatches, charged "
+            "to the program that dispatched next",
+            [("", labels, row["host_gap_seconds"])
+             for labels, row in row_labels],
+        ))
+    fams.append(family(
+        "ledger_programs_registered", "gauge",
+        "compiled programs in the ledger census (0 when the ledger "
+        "is off: a disabled run registers nothing)",
+        [("", {}, float(len(snap["programs"])))],
+    ))
+    if snap["compiles"]:
+        fams.append(family(
+            "ledger_compile_seconds_total", "counter",
+            "compile seconds per key (a rung's CUDA graph capture is "
+            "its compile)",
+            [("", {"key": k}, v["seconds"])
+             for k, v in snap["compiles"].items()],
+        ))
+    if snap["resident_bytes"]:
+        fams.append(family(
+            "ledger_resident_bytes", "gauge",
+            "live device bytes per owner (the serving tables)",
+            [("", {"owner": k}, v)
+             for k, v in snap["resident_bytes"].items()],
+        ))
+    fams.append(family(
+        "ledger_resident_peak_bytes", "gauge",
+        "peak watermark of total accounted resident bytes",
+        [("", {}, snap["resident_peak_bytes"])],
+    ))
+    return fams
+
+
 def tree_nbytes(tree) -> int:
     """Total bytes of the tensors and arrays in a nest of tuples, lists
     and dicts (metadata only: never reads device data). The resident

@@ -280,6 +280,17 @@ def drive(
         round(delta("staging_overlapped_seconds") / stage_s, 4)
         if stage_s > 0 else None
     )
+    # Live monitoring: the sliding window's quantiles (warmup ages out
+    # of the ring; the whole-run percentiles above cannot), the SLO
+    # burn report and each coordinate's hottest entities.
+    out["window_latency"] = queue.latency.quantiles_ms()
+    if queue.slo_tracker is not None:
+        out["slo"] = queue.slo_tracker.report()
+    out["hot_entities"] = {
+        nm: [{"key": it["key"], "count": it["count"], "error": it["error"]}
+             for it in items]
+        for nm, items in queue.hotness_top(5).items()
+    }
     from photon_tpu_torch import obs
 
     if obs.enabled():
@@ -287,4 +298,8 @@ def drive(
         # request records (warmup included; the full stream is
         # obs.trace.write_request_jsonl).
         out["request_trace"] = obs.trace.request_summary()
+    if obs.health.enabled():
+        # The serve tap's view of this drive: sampled batch and request
+        # counts and the score and request-feature sketch summaries.
+        out["health_tap"] = obs.health.serve_snapshot()
     return out

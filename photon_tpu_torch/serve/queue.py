@@ -31,7 +31,9 @@ first attempt.
   before any error fans out; a deterministic failure (``PoisonError``, a
   malformed request, a sticky CUDA error) fans out to its batch only.
 - **health()**: one locked snapshot of queue depth, the degraded-mode
-  counters and the tables' generation.
+  counters and the tables' generation, with the sliding-window latency
+  quantiles (``window_latency``), the per-coordinate cold rates and,
+  given an ``slo``, the SLO burn report.
 - **reload_model() / quiesce()**: a hot model swap on the live queue.
   A values-only refresh is copied into the live tables in place, so the
   captured graphs, which hold the tables' device pointers, serve it with
@@ -58,14 +60,31 @@ every request, served or refused, leaves one record at its outcome
 (``REQUEST_OUTCOMES``) under a process-unique id minted at ``submit``,
 with the served path's segment stamps (take, dispatch, scatter); each
 batch is a ``serve/batch`` span, and the registry counts requests,
-batches, cold lookups, expiries, retries and breaker trips. Everything
-is recorded on the worker after the fetch, outside any captured graph.
-Not ported: the JAX package's latency windows, SLO tracking, hotness
-sketches and metric families (ROADMAP Queue A item 10, second half).
+batches, cold lookups, expiries, retries and breaker trips.
+
+Live monitoring (``photon_tpu_torch.obs.monitor``): every served
+request's submit-to-scatter latency feeds a rolling window ring
+(``latency``) and, given ``slo``, an ``SloTracker`` (``slo_tracker``),
+which also counts every refused or failed request and every entity
+lookup; each random coordinate's lookups feed a space-saving top-K
+sketch (``hotness``, ``hotness_top``). ``metrics_families`` is the
+queue's ``/metrics`` collector. With the health layer armed
+(``obs.health``), a sample of the served batches (features and scores)
+folds into the serve-side sketch; a tap that raises is logged and the
+batch is served all the same.
+
+Everything is recorded on the worker after ``fetch_padded`` returned
+the scores as host numpy, outside ``_cond`` and outside any captured
+graph: no record adds a launch, a graph capture or a copy from the
+card.
 
 Threading: ``_cond`` (a Condition, which is also the mutex) guards the
 pending deque, the closed, stranded, pause and dispatching flags, the
-breaker state, the staged slot, ``programs`` and the counters. The
+breaker state, the staged slot, ``programs``, the counters and the
+per-coordinate maps (``_coord_stats``, ``_re_types``, ``hotness``). The
+latency ring, the SLO tracker and each hotness sketch keep their own
+lock (``obs/monitor.py``), so a scrape never waits on ``_cond`` for more
+than a dict copy. The
 worker takes a batch under the lock and dispatches outside it; every
 future resolution (results, errors, expiry, breaker drain, shutdown
 strand) runs outside it too, because resolution runs callbacks.
@@ -231,17 +250,6 @@ _DISPATCH_RETRY = _retry.RetryPolicy(
 # meant to save it, and Condition.wait oversleeps by scheduler jitter.
 _DEADLINE_FLUSH_SLACK_S = 25e-3
 
-# The JAX package's live-monitoring defaults; other values ask for
-# ROADMAP Queue A item 10.
-_LATENCY_WINDOW_S, _LATENCY_WINDOWS, _HOTNESS_K = 10.0, 6, 64
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    from photon_tpu_torch import optim
-
-    return optim.not_ported(what, 10)
-
-
 class MicroBatchQueue:
     """Bounded micro-batching front of a ``ScorePrograms`` ladder."""
 
@@ -259,16 +267,15 @@ class MicroBatchQueue:
         pipeline_staging: bool = True,
         close_timeout_s: float | None = None,
         slo=None,
-        latency_window_s: float = _LATENCY_WINDOW_S,
-        latency_windows: int = _LATENCY_WINDOWS,
-        hotness_k: int = _HOTNESS_K,
+        latency_window_s: float = 10.0,
+        latency_windows: int = 6,
+        hotness_k: int = 64,
     ):
-        if slo is not None:
-            raise _not_ported("the serve queue's SLO tracking")
-        if (latency_window_s, latency_windows, hotness_k) != (
-                _LATENCY_WINDOW_S, _LATENCY_WINDOWS, _HOTNESS_K):
-            raise _not_ported(
-                "the serve queue's latency windows and hotness sketches")
+        from photon_tpu_torch.obs.monitor import (
+            RollingHistogram,
+            SloTracker,
+        )
+
         self.programs = programs
         top = programs.ladder.max_batch
         self.max_batch = min(
@@ -327,6 +334,13 @@ class MicroBatchQueue:
             name: {"entity_lookups": 0, "cold_lookups": 0}
             for name in self._random_tables(programs)
         }
+        self.latency = RollingHistogram(
+            window_s=latency_window_s, num_windows=latency_windows)
+        self.slo_tracker = None if slo is None else SloTracker(slo)
+        self._hotness_k = int(hotness_k)
+        self._re_types: dict = {}
+        self.hotness: dict = {}
+        self._bind_coordinates_locked(programs)
         self._thread = threading.Thread(
             target=self._worker, name="photon-torch-serve-worker",
             # A dispatch wedged in native code must not hang exit.
@@ -391,6 +405,8 @@ class MicroBatchQueue:
         if rejection is not None:
             outcome, exc = rejection
             _record_request(req, outcome)
+            if self.slo_tracker is not None:
+                self.slo_tracker.observe_errors(1)
             raise exc
         return req.future
 
@@ -433,6 +449,8 @@ class MicroBatchQueue:
         for r in stranded:
             r.future.set_exception(exc)
             _record_request(r, "shutdown")
+        if self.slo_tracker is not None:
+            self.slo_tracker.observe_errors(len(stranded))
         return False
 
     def reset_breaker(self) -> None:
@@ -465,13 +483,28 @@ class MicroBatchQueue:
         (the caller holds ``_cond`` and the quiesce pause, so no
         dispatch straddles generations). Per-coordinate counters carry
         over where the coordinate survives and start at zero where it
-        is new."""
+        is new; so do the hotness sketches."""
         self.programs = programs
         self.max_batch = min(self.max_batch, programs.ladder.max_batch)
         self._coord_stats = {
             name: self._coord_stats.get(
                 name, {"entity_lookups": 0, "cold_lookups": 0})
             for name in self._random_tables(programs)
+        }
+        self._bind_coordinates_locked(programs)
+
+    def _bind_coordinates_locked(self, programs) -> None:
+        """Each random coordinate's entity type and hotness sketch (kept
+        where the coordinate survives a reload)."""
+        from photon_tpu_torch.obs.monitor import SpaceSavingSketch
+
+        tables = self._random_tables(programs)
+        self._re_types = {name: t.random_effect_type
+                          for name, t in tables.items()}
+        self.hotness = {
+            name: self.hotness.get(name)
+            or SpaceSavingSketch(self._hotness_k)
+            for name in tables
         }
 
     def reload_model(self, model) -> dict:
@@ -589,9 +622,10 @@ class MicroBatchQueue:
     def health(self) -> dict:
         """One consistent degraded-mode snapshot: queue depth, breaker
         state, the shed, deadline, error, retry, breaker and shutdown
-        counters, the configuration and the tables' reload generation.
-        The JAX package's ``window_latency`` and ``slo`` blocks belong
-        to ROADMAP Queue A item 10."""
+        counters, the configuration and the tables' reload generation;
+        then, each under its own lock, the sliding-window latency
+        quantiles (``window_latency``) and, given an ``slo``, its burn
+        report (``slo``)."""
         with self._cond:
             s = self._stats
             per_coord = {
@@ -616,18 +650,145 @@ class MicroBatchQueue:
         snap["breaker_threshold"] = self.breaker_threshold
         snap["default_deadline_s"] = self.default_deadline_s
         snap["table_generation"] = generation
+        window = self.latency.quantiles_ms()
+        window["window_seconds"] = (
+            self.latency.window_s * self.latency.num_windows)
+        snap["window_latency"] = window
         snap["cold_entity_rate_by_coordinate"] = {
             nm: (round(cs["cold_lookups"] / cs["entity_lookups"], 4)
                  if cs["entity_lookups"] else None)
             for nm, cs in per_coord.items()
         }
+        if self.slo_tracker is not None:
+            snap["slo"] = self.slo_tracker.report()
         return snap
 
     def hotness_top(self, n: int = 10) -> dict:
-        raise _not_ported("the serve queue's hotness sketches")
+        """Per-coordinate top-``n`` hottest entities (space-saving
+        sketch: counts overestimate by at most their recorded error)."""
+        with self._cond:
+            sketches = dict(self.hotness)
+        return {nm: sketch.top(n) for nm, sketch in sketches.items()}
 
     def metrics_families(self) -> list[dict]:
-        raise _not_ported("the serve queue's /metrics families")
+        """The queue's ``/metrics`` collector (register with
+        ``MonitorServer(collectors=[queue.metrics_families])``): live
+        depth/breaker gauges, per-coordinate cold counters, the
+        windowed-latency histogram + quantile gauges, hotness top-K,
+        and the SLO burn gauges. Every number is copied under its own
+        surface's lock and rendered lockless."""
+        from photon_tpu_torch.obs import monitor
+
+        with self._cond:
+            depth = len(self._pending)
+            breaker = self._breaker_open
+            closed = self._closed
+            stats = dict(self._stats)
+            per_coord = {
+                nm: dict(cs) for nm, cs in self._coord_stats.items()
+            }
+        fams = [
+            monitor.family(
+                "serve_queue_depth_live", "gauge",
+                "requests queued at scrape time", [("", {}, depth)],
+            ),
+            monitor.family(
+                "serve_breaker_open_live", "gauge",
+                "1 when the dispatch circuit breaker is open",
+                [("", {}, float(breaker))],
+            ),
+            monitor.family(
+                "serve_queue_closed", "gauge",
+                "1 once close() was called", [("", {}, float(closed))],
+            ),
+            monitor.family(
+                "serve_queue_requests_total", "counter",
+                "requests accepted by the queue",
+                [("", {}, float(stats["requests"]))],
+            ),
+            monitor.family(
+                "serve_staging_overlap_fraction", "gauge",
+                "fraction of host pack time overlapped with the batch "
+                "in flight by the pipelined worker",
+                [(
+                    "", {},
+                    (
+                        stats["staging_overlapped_seconds"]
+                        / stats["staging_seconds"]
+                    )
+                    if stats["staging_seconds"] > 0
+                    else 0.0,
+                )],
+            ),
+            monitor.family(
+                "serve_staged_batches_total", "counter",
+                "batches popped and host-packed ahead of dispatch",
+                [("", {}, float(stats["staged_batches"]))],
+            ),
+            monitor.family(
+                "serve_queue_events_total", "counter",
+                "degraded-mode queue events by kind",
+                [
+                    ("", {"kind": k}, float(stats[k]))
+                    for k in (
+                        "shed", "deadline_expired", "dispatch_errors",
+                        "dispatch_retries", "breaker_trips",
+                        "breaker_rejected", "shutdown_stranded",
+                    )
+                ],
+            ),
+            monitor.family(
+                "serve_entity_lookups_total", "counter",
+                "entity lookups per random-effect coordinate",
+                [
+                    ("", {"coordinate": nm}, float(cs["entity_lookups"]))
+                    for nm, cs in sorted(per_coord.items())
+                ],
+            ),
+            monitor.family(
+                "serve_cold_entity_lookups_total", "counter",
+                "cold (out-of-vocabulary) lookups per coordinate",
+                [
+                    ("", {"coordinate": nm}, float(cs["cold_lookups"]))
+                    for nm, cs in sorted(per_coord.items())
+                ],
+            ),
+            self.latency.prometheus_family(
+                "serve_request_latency_window_seconds",
+                "submit-to-scatter latency over the sliding window (last "
+                f"{self.latency.window_s * self.latency.num_windows:g}s)",
+            ),
+        ]
+        quantiles = self.latency.quantiles_ms()
+        fams.append(
+            monitor.family(
+                "serve_request_latency_window_ms", "gauge",
+                "sliding-window latency quantiles, milliseconds",
+                [
+                    ("", {"quantile": str(int(q[1:q.index('_')]) / 100)}, v)
+                    for q, v in quantiles.items()
+                    if q.startswith("p") and v is not None
+                ],
+            )
+        )
+        hot_samples = [
+            ("", {"coordinate": nm, "entity": item["key"]},
+             float(item["count"]))
+            for nm, items in sorted(self.hotness_top(10).items())
+            for item in items
+        ]
+        if hot_samples:
+            fams.append(
+                monitor.family(
+                    "serve_hot_entity_requests", "gauge",
+                    "space-saving sketch count per hot entity "
+                    "(overestimates by at most the sketch error)",
+                    hot_samples,
+                )
+            )
+        if self.slo_tracker is not None:
+            fams.extend(self.slo_tracker.prometheus_families())
+        return fams
 
     # -- worker side ------------------------------------------------------
 
@@ -721,8 +882,7 @@ class MicroBatchQueue:
                             len(self._pending), self._breaker_open)
                 self._cond.wait()
 
-    @staticmethod
-    def _resolve_expired(expired: list[_Request]) -> None:
+    def _resolve_expired(self, expired: list[_Request]) -> None:
         """Fail a round's expired requests (worker thread, outside the
         lock)."""
         from photon_tpu_torch import obs
@@ -735,6 +895,8 @@ class MicroBatchQueue:
         for r in expired:
             r.future.set_exception(exc)
             _record_request(r, "expired")
+        if self.slo_tracker is not None:
+            self.slo_tracker.observe_errors(len(expired))
         if obs.enabled():
             obs.REGISTRY.counter("serve_deadline_expired_total").inc(
                 len(expired))
@@ -820,6 +982,27 @@ class MicroBatchQueue:
                 with self._cond:
                     self._dispatching = False
                     self._cond.notify_all()
+
+    def _health_tap(self, batch: list[_Request], scores) -> None:
+        """Fold a sample of a served batch (its request features and its
+        scores, already host numpy) into the health layer's serve-side
+        sketch; a no-op unless ``obs.health`` is armed. A tap that
+        raises is logged and the batch is served all the same:
+        telemetry must not strand the futures."""
+        from photon_tpu_torch.obs import health
+
+        if not health.enabled():
+            return
+        try:
+            health.observe_serve_batch(
+                [r.features for r in batch], scores,
+                # The spec widths size a sparse shard's per-feature
+                # moments to the serving feature space, so they align
+                # with the training sketch's.
+                widths={s: self.programs.specs[s].d
+                        for s in self.programs.shard_order})
+        except Exception:  # noqa: BLE001 - see the docstring
+            logger.exception("serve health tap failed; continuing")
 
     def _dispatch(self, batch: list[_Request],
                   staged: _Staged | None = None) -> None:
@@ -930,7 +1113,10 @@ class MicroBatchQueue:
                         "serve.breaker_open", cat="serve",
                         consecutive_failures=self._consecutive_failures,
                         drained=len(drained))
+            if self.slo_tracker is not None:
+                self.slo_tracker.observe_errors(len(batch) + len(drained))
             return
+        self._health_tap(batch, scores)
         cold = sum(cold_by_coord.values())
         with self._cond:
             self._consecutive_failures = 0
@@ -942,6 +1128,16 @@ class MicroBatchQueue:
                 cs["cold_lookups"] += c
             batch_no = self._stats["batches"]
             depth = len(self._pending)
+            hotness = {nm: (self.hotness[nm], self._re_types[nm])
+                       for nm in cold_by_coord}
+        # Each surface below has its own lock, taken outside _cond.
+        for sketch, rt in hotness.values():
+            for r in batch:
+                key = r.entity_ids.get(rt)
+                if key is not None:
+                    sketch.observe(key)
+        if self.slo_tracker is not None:
+            self.slo_tracker.observe_lookups(lookups, cold)
         if obs.enabled():
             obs.REGISTRY.counter("serve_requests_total").inc(len(batch))
             obs.REGISTRY.counter("serve_batches_total").inc()
@@ -955,6 +1151,14 @@ class MicroBatchQueue:
             # timeline.
             obs.trace.counter("serve_queue_depth", depth)
         for r, s in zip(batch, scores):
+            # Submit to scatter is the request's service latency, the
+            # number the window ring and the latency SLO judge; taken
+            # before resolution, so a slow done-callback cannot
+            # inflate it.
+            latency = scatter_ts - r.enqueued_at
+            self.latency.observe(latency)
+            if self.slo_tracker is not None:
+                self.slo_tracker.observe_request(latency)
             r.future.set_result(float(s))
             # done_ts lands after resolution: scatter to done covers
             # the fan-out, the driver's done-callbacks included.

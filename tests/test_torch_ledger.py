@@ -5,13 +5,13 @@ off-means-off census, attribution windows with the explicit
 ``unattributed`` residual, the priced report's roofline join and
 blocking reasons at the H100's peaks, the cost model's counts, thread
 safety under three writer threads, the export and flight surfaces, and
-the feed from a real fit with validation and a serving ladder.
+the feed from a real fit with validation and a serving ladder, and the
+``ledger_*`` /metrics families (rendered and checked by the port's
+``obs.monitor.validate_exposition``, and on a monitor scrape).
 
-Not ported: the JAX package's ``metrics_families`` cases (two) and its
-monitor scrape (``obs.monitor`` is ROADMAP Queue A item 10's second
-half), its profile CLI case (``cli.profile``, the same) and its
-``benchtrend`` case (the port has no benchmark). Its fused-fit cases
-run on the port's unfused fit.
+Not ported: its profile CLI case (``cli.profile``, ROADMAP Queue A item
+10's last part) and its ``benchtrend`` case (the port has no
+benchmark). Its fused-fit cases run on the port's unfused fit.
 """
 
 from __future__ import annotations
@@ -457,6 +457,38 @@ class TestThreadSafety:
 
 
 class TestSurfaces:
+    def test_metrics_families_empty_when_disabled(self):
+        assert ledger.metrics_families() == []
+
+    def test_metrics_families_render_and_validate(self, armed):
+        from photon_tpu_torch.obs.monitor import (
+            render_exposition,
+            validate_exposition,
+        )
+
+        ledger.register_program("p", phase="fit")
+        ledger.record_dispatch(
+            "p", 0.5, phase="fit", coordinate="global")
+        ledger.record_compile("k", 1.0)
+        ledger.set_resident("table/a", 42.0)
+        text = render_exposition(ledger.metrics_families())
+        assert validate_exposition(text) > 0
+        assert 'ledger_dispatch_seconds_total{' in text
+        assert 'coordinate="global"' in text
+        assert "ledger_resident_peak_bytes 42" in text
+        assert 'ledger_compile_seconds_total{key="k"} 1' in text
+
+    def test_monitor_scrape_includes_ledger(self, armed):
+        from photon_tpu_torch.obs.monitor import (
+            MonitorServer,
+            validate_exposition,
+        )
+
+        ledger.record_dispatch("p", 0.5, phase="fit")
+        text = MonitorServer(port=0).render()
+        assert validate_exposition(text) > 0
+        assert "ledger_programs_registered" in text
+
     def test_snapshot_and_jsonl_carry_ledger(self, armed, tmp_path):
         from photon_tpu_torch.obs.export import validate_jsonl
 

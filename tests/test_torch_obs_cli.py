@@ -222,9 +222,21 @@ def test_serve_cli_no_flight_and_flags_still_refused(tmp_path):
     assert out["errors"] == 0 and "request_trace" in out
     assert obs.enabled() == was  # the caller's flag is restored
     assert obs.flight.installed() is None
-    for flag in ("--monitor-port", "--slo-p99-ms", "--health-sketch"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            serve_cli.main(["--model-dir", str(model_dir), flag, "1"])
+    # The flags that raised naming item 10 until it was ported (the
+    # name is kept) now run, beside --no-flight.
+    sketch = tmp_path / "serve-sketch.json"
+    out = _serve(serve_cli.main, [
+        "--model-dir", str(model_dir), "--input", str(data), "--id-tags",
+        "userId", "movieId", "--batch-sizes", "1,8,64", "--device", "cpu",
+        "--no-flight", "--monitor-port", "0", "--slo-p99-ms", "1",
+        "--health-sketch", str(sketch)])
+    assert out["errors"] == 0 and out["monitor"]["port"] > 0
+    assert out["slo"]["p99_ms"]["target"] == 1.0
+    assert out["health_sketch"]["requests_sampled"] > 0
+    assert obs.health.DataSketch.load(str(sketch)).rows == out[
+        "health_sketch"]["requests_sampled"]
+    assert not obs.health.enabled()
+    obs.health.reset()
 
 
 def _flight_sections(directory) -> set:
@@ -285,7 +297,9 @@ def test_forced_exception_leaves_a_flight_dump_in_each_cli(
     (["--flight-dir", "{tmp}/f"], {}),
     ([], {"profile_dir": "{tmp}/p"}),
     (["--no-flight"], {}),
-], ids=["telemetry", "trace", "flight-dir", "profile_dir", "no-flight"])
+    (["--monitor-port", "0"], {}),
+], ids=["telemetry", "trace", "flight-dir", "profile_dir", "no-flight",
+        "monitor-port"])
 def test_formerly_unported_telemetry_options_run(tmp_path, files, args,
                                                  overrides):
     """The options that raised naming item 10 until this port now run,

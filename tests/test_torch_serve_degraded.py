@@ -416,9 +416,12 @@ def test_staging_stats_surfaced(rng):
     assert 0.0 <= stats["staging_overlap_fraction"] <= 1.0
     assert stats["staging_seconds"] >= 0.0
     assert q.health()["pipeline_staging"] is True
-    # The JAX package's /metrics families wait for ROADMAP item 10.
-    with pytest.raises(NotImplementedError, match="item 10"):
-        q.metrics_families()
+    # The staging counters reach the queue's /metrics families.
+    fams = {f["name"]: f for f in q.metrics_families()}
+    assert fams["serve_staged_batches_total"]["samples"][0][2] == float(
+        stats["staged_batches"])
+    assert 0.0 <= fams["serve_staging_overlap_fraction"]["samples"][0][
+        2] <= 1.0
 
 
 def test_hammer_quiesce_and_reload_mid_stream(rng):
@@ -478,13 +481,29 @@ def test_serial_flag_disables_staging(rng):
 # -- the queue's other surfaces ---------------------------------------------
 
 
-@pytest.mark.parametrize("kw", [dict(slo=object()),
+@pytest.mark.parametrize("kw", [dict(slo="policy"),
                                 dict(latency_window_s=5.0),
                                 dict(hotness_k=8)])
 def test_observability_options_raise_naming_item_10(rng, kw):
+    """The queue's live-monitoring options, which raised naming ROADMAP
+    item 10 until it was ported (the name is kept): each is accepted
+    and shows in ``health()`` and the hotness sketches."""
+    from photon_tpu_torch.obs.monitor import SloPolicy
+
+    if kw.get("slo") == "policy":
+        kw = dict(slo=SloPolicy(p99_ms=60_000.0))
     _, programs = server(rng)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MicroBatchQueue(programs, **kw)
+    with MicroBatchQueue(programs, max_linger_s=0.0, **kw) as q:
+        for f in [q.submit(*r) for r in requests(3, 12)]:
+            f.result(timeout=30)
+        health = q.health()
+    assert health["window_latency"]["count"] == 12
+    assert health["window_latency"]["window_seconds"] == (
+        kw.get("latency_window_s", 10.0) * 6)
+    assert ("slo" in health) == ("slo" in kw)
+    if "slo" in kw:
+        assert health["slo"]["healthy"]
+    assert q.hotness["per-user"].k == kw.get("hotness_k", 64)
 
 
 def test_cpu_ladder_captures_nothing(rng):
@@ -677,9 +696,8 @@ def test_health_counters_match_the_reference_under_a_fault_plan(
         theirs_q.close()
     assert mine == theirs == ["served", "PoisonError", "PoisonError",
                               "NoneType"]
-    # The JAX package's latency window and SLO blocks are item 10's.
-    assert set(mine_health) == set(their_health) - {"window_latency", "slo"}
-    timing = {"staging_overlap_fraction"}
+    assert set(mine_health) == set(their_health)
+    timing = {"staging_overlap_fraction", "window_latency"}
     for key in set(mine_health) - timing:
         assert mine_health[key] == their_health[key], key
     assert mine_health["dispatch_retries"] == 2
@@ -762,14 +780,46 @@ def test_serve_cli_input_needs_a_model_directory(tmp_path):
                         "--input", str(tmp_path / "d.avro")])
 
 
-@pytest.mark.parametrize("flag", serve_cli.OBSERVABILITY_FLAGS)
-def test_serve_cli_observability_flags_raise_naming_item_10(tmp_path, flag):
-    # The item-10 flags that still raise (live monitoring, SLOs, the
-    # health sketch); --telemetry, --trace, --request-log, --flight-dir
-    # and --no-flight run, tests/test_torch_obs_cli.py.
-    argv = ["--" + flag.replace("_", "-"), "1"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve_cli.main(["--checkpoint", str(tmp_path / "m.npz"), *argv])
+# The live-monitoring and health flags of cli.serve, each with a value.
+OBSERVABILITY_FLAGS = {
+    "monitor_port": "0", "slo_p99_ms": "60000", "slo_error_rate": "0.01",
+    "slo_cold_rate": "0.5", "slo_window_s": "2", "health_sketch": None,
+}
+
+
+@pytest.mark.parametrize("flag", OBSERVABILITY_FLAGS)
+def test_serve_cli_observability_flags_raise_naming_item_10(
+        tmp_path, flag, rng, capsys):
+    """The flags raised naming ROADMAP item 10 until it was ported (the
+    name is kept): each now runs a served drive on the CPU and shows in
+    the summary (tests/test_torch_health_cli.py runs them together)."""
+    from photon_tpu_torch.obs import health
+
+    ckpt = model_io.save_checkpoint(glmix_model(rng),
+                                    str(tmp_path / "m.npz"))
+    value = OBSERVABILITY_FLAGS[flag] or str(tmp_path / "serve.json")
+    argv = ["--checkpoint", ckpt, "--synthetic", "40", "--batch-sizes",
+            "1,8", "--device", "cpu", "--no-flight",
+            "--" + flag.replace("_", "-"), value]
+    try:
+        assert serve_cli.main(argv) == 0
+    finally:
+        health.reset()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["errors"] == 0
+    assert "slo" in out and "window_latency" in out
+    if flag == "monitor_port":
+        assert out["monitor"]["port"] > 0
+    elif flag == "health_sketch":
+        assert out["health_sketch"]["requests_sampled"] > 0
+        assert not health.enabled()  # the armed state is restored
+    else:
+        target = float(value) * (12 if flag == "slo_window_s" else 1)
+        key = {"slo_p99_ms": ("p99_ms", "target"),
+               "slo_error_rate": ("error_rate", "target"),
+               "slo_cold_rate": ("cold_entity_rate", "target"),
+               "slo_window_s": ("windows_s", "long")}[flag]
+        assert out["slo"][key[0]][key[1]] == pytest.approx(target)
 
 
 # -- on the card ------------------------------------------------------------

@@ -9,9 +9,13 @@ streamed datasets equal bit for bit, ``ingest-manifest.json`` byte for
 byte, the stats dicts on every key that is not a time, and both
 ``cli.train --stream-dir`` models within the training-CLI tests' f32
 bounds (fixed effect 1e-3, random effects 4e-3; ``test_torch_train_cli``'s
-module docstring). The reference's registry gauges, its data-health
-sketch and its program-contract test wait for ROADMAP Queue A items 10
-and 13 and are not checked here.
+module docstring). The ingest's registry gauges are checked on the
+quarantine case. With the health layer armed, ``ingest-sketch.json``
+is byte-identical to the reference's on the same shards, and a killed
+and resumed ingest (the pipelined and the serial planner) writes the
+uninterrupted run's sketch byte for byte (exact). The reference's
+program-contract test waits for ROADMAP Queue A item 13 and is not
+checked here.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from photon_tpu_torch.data import pipeline
 from photon_tpu_torch.data.stream import (
     CURSOR_FILE,
     MANIFEST_FILE,
+    SKETCH_FILE,
     QuarantinePolicy,
     StreamingIngest,
     build_shard_manifest,
@@ -266,6 +271,14 @@ class TestCorruptShards:
         assert stats["rows_ingested"] == N_PER_SHARD * (N_SHARDS - 1)
         assert 0.0 < stats["ingested_fraction"] < 1.0
         assert ds.num_samples == stats["rows_ingested"]
+        # Health surface: the registry gauges carry the degradation.
+        from photon_tpu_torch import obs
+
+        gauges = obs.REGISTRY.snapshot()["gauges"]
+        assert gauges.get("stream_ingested_fraction") == stats[
+            "ingested_fraction"]
+        assert gauges.get("stream_quarantined_shards") == 1
+        assert gauges.get("stream_rows_ingested") == stats["rows_ingested"]
 
     def test_quarantine_budget_exceeded_aborts(self, shard_dir, tmp_path):
         _, imap = _read(shard_dir)
@@ -846,3 +859,83 @@ def test_stream_cli_models_match_reference(shard_dir, tmp_path):
     np.testing.assert_allclose(pm["per-user"].coefficients.numpy(),
                                jm["per-user"].coefficients.numpy(), rtol=0,
                                atol=RE_ATOL)
+
+
+# -- the data-health sketch ------------------------------------------------
+
+
+@pytest.fixture
+def health_armed():
+    from photon_tpu.obs import health as jax_health
+    from photon_tpu_torch.obs import health
+
+    for h in (health, jax_health):
+        h.reset()
+        h.enable()
+    yield health
+    for h in (health, jax_health):
+        h.reset()
+        h.disable()
+
+
+@pytest.mark.parametrize("window_shards", [1, 2])
+def test_health_sketch_matches_reference(shard_dir, tmp_path, health_armed,
+                                         window_shards):
+    """Both packages armed, the same shards: each writes
+    ``ingest-sketch.json`` beside its cursor, byte for byte the same,
+    and registers it as the in-process train sketch."""
+    from photon_tpu.obs import health as jax_health
+
+    kw = dict(window_shards=window_shards,
+              index_maps={"features": _read(shard_dir)[1]})
+    _, jstats = _reference_ingest(shard_dir, tmp_path / "j", **kw).run()
+    _, pstats = _ingest(shard_dir, tmp_path / "p", **kw).run()
+    want = (tmp_path / "j" / SKETCH_FILE).read_bytes()
+    got = (tmp_path / "p" / SKETCH_FILE).read_bytes()
+    assert got == want
+    assert pstats["health_sketch_path"] == str(tmp_path / "p" / SKETCH_FILE)
+    assert health_armed.train_sketch().to_bytes() == got
+    assert jax_health.train_sketch().to_bytes() == want
+    sketch = health_armed.DataSketch.load(pstats["health_sketch_path"])
+    assert sketch.rows == N_PER_SHARD * N_SHARDS
+    # Three drawn features and the intercept per row.
+    assert sketch.shards["features"]["values"].count == (
+        N_PER_SHARD * N_SHARDS * 4)
+
+
+@pytest.mark.parametrize("serial", [False, True], ids=["pipelined", "serial"])
+def test_kill_and_resume_sketch_byte_identical(shard_dir, tmp_path,
+                                               health_armed, monkeypatch,
+                                               serial):
+    """A crash at the third shard read, then a resume: the committed
+    windows re-fold from their spills in window order, so the sketch
+    equals the uninterrupted run's byte for byte, whether the windows
+    decode on the chunk pool or inline."""
+    if serial:
+        monkeypatch.setenv("PHOTON_TPU_SERIAL_INGEST", "1")
+    pipeline.reset_executors()
+    imap = _read(shard_dir)[1]
+    kw = dict(window_shards=1, index_maps={"features": imap})
+    _ingest(shard_dir, tmp_path / "whole", **kw).run()
+    want = (tmp_path / "whole" / SKETCH_FILE).read_bytes()
+    killed = tmp_path / "killed"
+    with faults.injected(FaultPlan(
+            [dict(point="io.shard_read", nth=3, error="crash")])):
+        with pytest.raises(InjectedCrash):
+            _ingest(shard_dir, killed, **kw).run()
+    partial = health_armed.DataSketch.load(str(killed / SKETCH_FILE))
+    assert 0 < partial.rows < N_PER_SHARD * N_SHARDS
+    _ingest(shard_dir, killed, resume=True, **kw).run()
+    assert (killed / SKETCH_FILE).read_bytes() == want
+    monkeypatch.delenv("PHOTON_TPU_SERIAL_INGEST", raising=False)
+    pipeline.reset_executors()
+
+
+def test_disarmed_ingest_writes_no_sketch(shard_dir, tmp_path):
+    from photon_tpu_torch.obs import health
+
+    assert not health.enabled()
+    _, stats = _ingest(shard_dir, tmp_path / "off",
+                       index_maps={"features": _read(shard_dir)[1]}).run()
+    assert not (tmp_path / "off" / SKETCH_FILE).exists()
+    assert "health_sketch_path" not in stats

@@ -903,7 +903,6 @@ def test_train_then_score_round_trip(tmp_path, glmix):
 
 
 UNPORTED = [
-    (["--monitor-port", "0"], {}, 10),
     (["--fleet-dir", "f"], {}, 10),
     (["--distributed"], {}, 12),
     ([], {"mesh": 4}, 12),
@@ -916,9 +915,9 @@ UNPORTED = [
 # (0-2, the streaming flags) to tests/test_torch_stream.py, the
 # item-11 cases (10 and 17, hyperparameter tuning and a weight range) to
 # the tuning tests below, and the item-10 telemetry cases (3-5, 9 and
-# 20: --telemetry, --trace, --flight-dir, profile_dir, --no-flight) to
-# tests/test_torch_obs_cli.py.
-UNPORTED_POSITIONS = [6, 7, 8, 11, 12]
+# 20: --telemetry, --trace, --flight-dir, profile_dir, --no-flight; and
+# 6, --monitor-port) to tests/test_torch_obs_cli.py.
+UNPORTED_POSITIONS = [7, 8, 11, 12]
 
 
 @pytest.mark.parametrize("args,overrides,item", UNPORTED,
