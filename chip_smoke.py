@@ -131,7 +131,9 @@ JSON lines:
              exporter polled every 50 ms (``scraping_monitors``): every
              exposition valid by the port's ``validate_exposition``,
              /healthz 200, /readyz 503 before the last rung's graph was
-             captured and 200 after, the ladder's graphs captured and
+             captured (each 503 naming the tables, a graph or the
+             queue, which starts just after the last capture) and 200
+             once the queue was up, the ladder's graphs captured and
              one replay for each batch the queue served, the tap's
              sampled requests in the written sketch, and ``slo``,
              ``window_latency`` and ``hot_entities`` in the summary
@@ -367,7 +369,8 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      twice (with three tunable coordinates and a
                      one-point grid the GP makes the 4th and 5th), the
                      three runs side by side, each in a subprocess of
-                     its own (``cli_children``), then
+                     its own (``cli_children``, started before 14b and
+                     running beside it), then
                      ``cli.score`` of the validation file with the
                      BAYESIAN run's best model. Gates: the RANDOM
                      candidates' lambdas equal, bit for bit, the Sobol
@@ -393,6 +396,65 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      fixed-effect solve), segment sums
                      at the ``fixed_effect`` site. It prints both runs'
                      seconds by stage.
+14g. pilot_cli     - ``python -m photon_tpu_torch.cli.pilot`` (through
+                     ``--cli-child``, so the child reports its counts;
+                     ``pilot_child``), started beside 14e's three
+                     children and 14b (all only read 14a's files), at 14a's
+                     widths (``pilot_config``: 14a's coordinates with one
+                     lambda each, one CD iteration, AUC and AUC:userId on
+                     the validation file, windows of 2 shards, rungs
+                     1/8/64/512, ``--traffic-qps 1000`` for the whole
+                     first run, ``--monitor-port 0`` scraped every 50 ms,
+                     health armed with drift 0.25 and non-finite
+                     coefficients; the skew gate off, since the traffic
+                     is synthetic and not drawn from the training rows).
+                     Cut: rows, as in 14a, and the days are 14a's part
+                     files of 16,384 rows. Every cycle ingests every
+                     shard of the watched directory, so the cycles grow:
+                     (a) parts 0-3 land, the bootstrap promotes and the
+                     server captures the ladder; (b) parts 4-5 land, the
+                     retrain from the live generation is gated on the
+                     holdout and promoted under traffic (values-only or a
+                     structure change, reported); (c) part 6's rows with
+                     every feature value moved by DRIFT_SHIFT = 4.0
+                     (bench.py:223) land and the cycle is refused with a
+                     ``health:drift`` reason, held in the state file and
+                     a flight post-mortem; (d) a restart (a second child,
+                     no traffic of its own) with the shifted day taken
+                     out and a replay of part 2 in (a copy under a new
+                     name: no new entity or feature, so the promotion and
+                     the rollback are values-only reloads), under a
+                     ``PHOTON_TPU_FAULT_PLAN`` that poisons the first
+                     ``serve.dispatch`` after the new generation's
+                     64-request sample in its observation window: the
+                     pilot rolls back to (b)'s generation. Not run here:
+                     the SIGTERM between the ring commit and the reload
+                     (``tests/test_torch_pilot.py`` on the CPU). Gates:
+                     no stage failure, deadline overrun or error report
+                     in either run (the pilot retries a failed stage
+                     after a backoff); every stage on the card, Newton
+                     launches with no plain-route solve and segment sums
+                     at the ``fixed_effect`` and ``evaluation`` sites in
+                     both runs; one serve replay a batch served (a
+                     poisoned batch none); the start captures the ladder,
+                     a values-only reload no graph and a structure change
+                     one a rung, off the request path, and (d)'s
+                     promotion and rollback are values-only; no request
+                     error in (a)-(c) and none stranded, in (d) only the
+                     poisoned batch's, in OBSERVE; after each promotion
+                     ((d)'s inside its window) and after the rollback, 64
+                     requests through the live queue within 1e-5 (5e-2
+                     with bf16 tables) of the plain version of that
+                     generation's tables and, relative to 1 + |score|, of
+                     a float64 numpy score from its ``.npz``, the
+                     rollback's equal bit for bit to (b)'s; (b)'s holdout
+                     AUC recovers at least half the generating model's
+                     lift; every scraped exposition valid. It prints the
+                     staleness (part landed to serving), each cycle's
+                     seconds by stage, the graphs each promotion
+                     captured, the traffic served and its errors, and
+                     p50/p99 by the stage a request was submitted in
+                     (TRAIN against IDLE).
 
 Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
 GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
@@ -468,8 +530,9 @@ script beside it, and run parent, change, change, parent in one call.
 ``python3 chip_smoke.py --train-cli`` runs only the device and build
 phases and then phases 14a and 14b, ``--train-routes`` phase 14c,
 ``--serve`` the serving phases 1-6c, ``--stream`` phases 14a, 14d, 7a
-(on its own logistic data) and 15, and ``--tuning`` phases 14a, 14e and
-14f, printing no ``ok`` line.
+(on its own logistic data) and 15, ``--tuning`` phases 14a, 14e and
+14f, and ``--pilot`` 14a's files (not its runs) and phase 14g, printing
+no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -482,6 +545,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import math
@@ -1892,11 +1956,14 @@ def cli_serve_monitoring(line, scrapers, sketch) -> dict:
     (phase 6c(d)), from its summary and the exporter's scraper: every
     scraped exposition valid and ``/healthz`` always 200; ``/readyz``
     503 while a rung's graph was not yet captured (its first probe ran
-    before the model loaded) and 200 only once every rung's was, never
-    503 again; the graphs captured are the ladder's and every batch the
-    queue served one replay (the layers add none); the tap sampled
-    requests and the sketch holds them; ``slo``, ``window_latency`` and
-    ``hot_entities`` present."""
+    before the model loaded), every 503 naming what was missing (the
+    tables, a rung's graph, or the queue, which starts after the last
+    capture: a probe between the two reads every graph captured and
+    ``queue_up`` false), and 200 only once every rung's graph was
+    captured and the queue was up, never 503 again; the graphs captured
+    are the ladder's and every batch the queue served one replay (the
+    layers add none); the tap sampled requests and the sketch holds
+    them; ``slo``, ``window_latency`` and ``hot_entities`` present."""
     from photon_tpu_torch.obs import health
 
     if len(scrapers) != 1:
@@ -1909,10 +1976,28 @@ def cli_serve_monitoring(line, scrapers, sketch) -> dict:
     first_ok = next((i for i, (s, _) in enumerate(ready) if s == 200),
                     None)
     early = [d for s, d in ready[:first_ok] if s == 503]
+
+    def all_captured(d):
+        return d["graphs_captured"] >= len(RUNGS) and d["ladder_compiled"]
+
+    def up(d):
+        return (d["tables_loaded"] and all_captured(d) and d["queue_up"]
+                and not d["breaker_open"])
+
+    # Before the first 200 no batch has run, so the breaker is closed and
+    # a 503 names the tables, a graph or the queue.
+    unexplained = [(s, d) for s, d in ready[:first_ok]
+                   if s != 503 or up(d) or d["breaker_open"]]
+    late = [] if first_ok is None else [
+        (s, d) for s, d in ready[first_ok:] if s != 200 or not up(d)]
     rows = health.DataSketch.load(sketch).rows
     row = {"phase": "serve_ops", "step": "cli_serve_monitoring",
            "scraper": scraper.summary(),
            "readyz_503_before_ready": len(early),
+           "readyz_503_before_capture": sum(
+               not all_captured(d) for d in early),
+           "readyz_503_queue_pending": sum(
+               all_captured(d) and not d["queue_up"] for d in early),
            "readyz_first_detail": ready[0][1] if ready else None,
            "monitor": line.get("monitor"),
            "graphs_captured": line["programs_compiled"],
@@ -1929,15 +2014,13 @@ def cli_serve_monitoring(line, scrapers, sketch) -> dict:
     if scraper.errors or not scraper.expositions or set(
             scraper.healthz) != {200}:
         fail(f"cli.serve --monitor-port: scrapes {row['scraper']}")
-    if (first_ok is None or not early
-            or any(d["graphs_captured"] >= len(RUNGS) for d in early)
-            or any(s != 200 for s, _ in ready[first_ok:])
-            or any(d["graphs_captured"] != len(RUNGS)
-                   or not d["ladder_compiled"]
-                   for s, d in ready if s == 200)):
+    if (first_ok is None or not row["readyz_503_before_capture"]
+            or unexplained or late):
         fail(f"cli.serve /readyz did not turn 200 exactly when the last "
-             f"rung was captured: {[(s, d) for s, d in ready[:3]]} ... "
-             f"{row['scraper']['readyz'][-3:]}")
+             f"rung was captured and the queue was up: "
+             f"{[(s, d) for s, d in ready[:3]]} ... "
+             f"{row['scraper']['readyz'][-3:]}; before the first 200 "
+             f"{unexplained[:3]}; from it {late[:3]}")
     if line["programs_compiled"] != len(RUNGS) or replays != batches:
         fail(f"cli.serve --monitor-port: {line['programs_compiled']} "
              f"graphs, {replays} replays for {batches} batches")
@@ -3438,6 +3521,23 @@ def train_cli_files(arrays, manifest, root: str) -> tuple[dict, float]:
     return files, time.perf_counter() - t0
 
 
+def generating_auc(files) -> float:
+    """The generating model's AUC on the validation rows, in float64."""
+    val = files["validation"]
+    return numpy_auc(val["exact"] + val["offsets"], val["labels"],
+                     val["weights"])
+
+
+def train_cli_inputs(arrays, manifest) -> dict:
+    """``train_cli``'s files and configuration without its runs (what
+    ``--pilot`` needs)."""
+    root = train_cli_root()
+    files, write_s = train_cli_files(arrays, manifest, root)
+    return {"files": files, "cfg": train_cli_config(files, root),
+            "root": root, "generating_auc": generating_auc(files),
+            "write_files_seconds": write_s}
+
+
 def phase_train_cli(torch, arrays, manifest) -> dict:
     """``cli.train`` at the logistic configuration's widths, through the
     CLI (module docstring, phase 14a). Cut: rows only, 262,144 train and
@@ -3533,8 +3633,7 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
         phase="train_cli_newton_parity")
     # (d) the generating model's validation AUC in float64.
     val = files["validation"]
-    gen_auc = numpy_auc(val["exact"] + val["offsets"], val["labels"],
-                        val["weights"])
+    gen_auc = generating_auc(files)
     # (e) train -> score on the validation file.
     score_out = os.path.join(root, "scores")
     best_dir = os.path.join(kernel["out"], "models", "best")
@@ -3808,26 +3907,32 @@ def summary_lambdas(summary: dict) -> list:
             for c in summary["configurations"]]
 
 
-def phase_tuning_cli(torch, cli: dict) -> dict:
+# Phase 14e's three runs, side by side, each in a process of its own:
+# the two BAYESIAN runs repeat each other across processes.
+TUNING_RUNS = {"random": ("RANDOM", TUNING_RANDOM),
+               "bayesian": ("BAYESIAN", TUNING_BAYESIAN),
+               "bayesian_again": ("BAYESIAN", TUNING_BAYESIAN)}
+
+
+def tuning_jobs(cli: dict) -> list:
+    """Phase 14e's ``cli_children`` specs, in TUNING_RUNS' order."""
+    return [train_child(tuning_config(cli, mode, n),
+                        os.path.join(cli["root"], "tuning", k))
+            for k, (mode, n) in TUNING_RUNS.items()]
+
+
+def phase_tuning_cli(torch, cli: dict, results: list) -> dict:
     """Hyperparameter tuning through ``cli.train`` on ``train_cli``'s
-    files (module docstring, phase 14e): RANDOM once and BAYESIAN twice,
-    side by side, then ``cli.score`` of the validation file with the
-    BAYESIAN run's best model."""
+    files (module docstring, phase 14e): the gates on the three runs'
+    results (``tuning_jobs``, through ``cli_children``), then ``cli.score``
+    of the validation file with the BAYESIAN run's best model."""
     from photon_tpu_torch.cli import score as score_cli
     from photon_tpu_torch.io import avro
     from photon_tpu_torch.ops import serve_kernel
     from photon_tpu_torch.serve.programs import ShapeLadder
 
     root = os.path.join(cli["root"], "tuning")
-    t_phase = time.perf_counter()
-    # Three processes side by side: the two BAYESIAN runs repeat each
-    # other across processes.
-    jobs = {"random": ("RANDOM", TUNING_RANDOM),
-            "bayesian": ("BAYESIAN", TUNING_BAYESIAN),
-            "bayesian_again": ("BAYESIAN", TUNING_BAYESIAN)}
-    runs = dict(zip(jobs, cli_children([
-        (tuning_config(cli, mode, n), os.path.join(root, k), ())
-        for k, (mode, n) in jobs.items()])))
+    runs = dict(zip(TUNING_RUNS, results))
     sums = {k: r["summary"] for k, r in runs.items()}
     n_params = len(cli["cfg"]["coordinates"])
     want_random = sobol_lambdas(n_params, TUNING_RANDOM, TUNING_SEED)
@@ -3862,9 +3967,9 @@ def phase_tuning_cli(torch, cli: dict) -> dict:
     score_err = float(np.max(np.abs(scores - exact) / (1.0 + np.abs(exact))))
     row = {
         "phase": "tuning_cli", "seed": TUNING_SEED,
-        "phase_seconds": time.perf_counter() - t_phase,
         "runs": {k: {
             "wall_seconds": r["wall_seconds"],
+            "process_seconds": r["process_seconds"],
             "seconds": sums[k]["seconds"],
             "num_configurations": sums[k]["num_configurations"],
             "num_tuned_configurations": sums[k]["num_tuned_configurations"],
@@ -4118,8 +4223,9 @@ def _vm_status(key: str, pid="self") -> int | None:
 
 
 def cli_child(spec_path: str) -> int:
-    """``--cli-child SPEC``: one ``stream_run`` in this process, its
-    result and its memory written to ``spec["out"]``: VmHWM, its own
+    """``--cli-child SPEC``: one ``stream_run`` in this process (or, for
+    a spec of kind ``pilot``, one ``cli.pilot`` run: ``pilot_child``),
+    its result and its memory written to ``spec["out"]``: VmHWM, its own
     address space's high-water mark, where the kernel reports it (the
     rusage maximum would carry the parent's over the exec), and the RSS
     after the imports and the CUDA context, before the run."""
@@ -4137,70 +4243,143 @@ def cli_child(spec_path: str) -> int:
     torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     base = _vm_status("VmRSS")
-    out = stream_run(torch, spec["cfg"], spec["root"], *spec["extra"])
-    result = {k: out[k] for k in _CHILD_KEYS}
+    if spec.get("kind") == "pilot":
+        result = pilot_child(torch, spec)
+    else:
+        out = stream_run(torch, spec["cfg"], spec["root"], *spec["extra"])
+        result = {k: out[k] for k in _CHILD_KEYS}
     result.update(vm_hwm_bytes=_vm_status("VmHWM"), baseline_rss_bytes=base)
     with open(spec["out"], "w") as f:
         json.dump(result, f)
     return 0
 
 
-def cli_children(jobs: list) -> list:
-    """``stream_run`` of each (cfg, root, extra[, health]) job in a
-    subprocess of its own, all at once, for their peak RSS: each result
-    as ``cli_child`` wrote it, with the process's seconds and the peak of
-    its RSS sampled from here. ``health`` arms ``obs.health`` in the
-    child."""
-    procs = []
-    for cfg, root, extra, *armed in jobs:
-        os.makedirs(root, exist_ok=True)
-        spec = os.path.join(root, "child.json")
-        with open(spec, "w") as f:
-            json.dump({"cfg": cfg, "root": root, "extra": list(extra),
-                       "health": bool(armed and armed[0]),
-                       "out": os.path.join(root, "child-result.json")}, f)
-        log = open(os.path.join(root, "child.log"), "w")
-        procs.append({"root": root, "log": log, "sampled": 0,
-                      "t0": time.perf_counter(), "proc": subprocess.Popen(
-                          [sys.executable, os.path.abspath(__file__),
-                           "--cli-child", spec], stdout=log,
-                          stderr=subprocess.STDOUT, text=True,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))})
+def _spawn_child(spec: dict, env: dict) -> dict:
+    """Start ``chip_smoke.py --cli-child`` on ``spec`` with environment
+    ``env`` (``spec`` written to ``<root>/child.json``; its result goes
+    to ``<root>/child-result.json``, its output to ``<root>/child.log``)."""
+    root = spec["root"]
+    os.makedirs(root, exist_ok=True)
+    spec = dict(spec, out=os.path.join(root, "child-result.json"))
+    path = os.path.join(root, "child.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    log = open(os.path.join(root, "child.log"), "w")
+    return {"root": root, "log": log, "sampled": 0,
+            "t0": time.perf_counter(), "proc": subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--cli-child", path], stdout=log, env=env,
+                stderr=subprocess.STDOUT, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))}
+
+
+def _child_result(c: dict) -> dict:
+    out = os.path.join(c["root"], "child-result.json")
+    if c["proc"].returncode != 0 or not os.path.exists(out):
+        with open(os.path.join(c["root"], "child.log")) as f:
+            fail(f"the child run in {c['root']} exited "
+                 f"{c['proc'].returncode}: {f.read()[-3000:]}")
+    with open(out) as f:
+        result = json.load(f)
+    result["process_seconds"] = c["seconds"]
+    result["sampled_peak_rss_bytes"] = c["sampled"]
+    result["peak_host_rss_bytes"] = max(result["vm_hwm_bytes"] or 0,
+                                        c["sampled"])
+    return result
+
+
+def train_child(cfg: dict, root: str, extra=(), health: bool = False
+                ) -> dict:
+    """A ``cli_children`` spec for one ``stream_run`` (``health`` arms
+    ``obs.health`` in the child)."""
+    return {"cfg": cfg, "root": root, "extra": list(extra),
+            "health": health}
+
+
+def cli_children(jobs: list, stop: threading.Event | None = None) -> list:
+    """Each job in a subprocess of its own, all jobs at once, for their
+    peak RSS: a job is a child spec (``train_child``'s, or
+    ``pilot_child``'s) or a list of specs, a chain, each child started
+    when the one before it exited cleanly. Each result as ``cli_child``
+    wrote it, with the process's seconds and the peak of its RSS sampled
+    from here; a chain's results as a list. Every child gets the
+    environment of the call, also one started later in a chain while
+    this process runs other phases. Setting ``stop`` kills the children
+    still running and raises."""
+    env = dict(os.environ)
+    is_chain = [isinstance(job, list) for job in jobs]
+    chains = [list(job) if chain else [job]
+              for job, chain in zip(jobs, is_chain)]
+    running = [_spawn_child(chain.pop(0), env) for chain in chains]
+    done: list = [[] for _ in chains]
+
+    def reap(i, c):
+        c["proc"].wait()
+        c["log"].close()
+        c.setdefault("seconds", time.perf_counter() - c["t0"])
+        done[i].append(c)
+
     try:
         # Each child's RSS every 10 ms, read from here, where their GILs
         # do not hold the reads back.
-        while any(c["proc"].poll() is None for c in procs):
-            for c in procs:
+        while any(c is not None for c in running):
+            if stop is not None and stop.is_set():
+                raise RuntimeError("cli_children stopped")
+            for i, c in enumerate(running):
+                if c is None:
+                    continue
                 if c["proc"].poll() is None:
                     c["sampled"] = max(c["sampled"], _vm_status(
                         "VmRSS", c["proc"].pid) or 0)
                     if time.perf_counter() - c["t0"] > 900:
                         c["proc"].kill()
-                elif "seconds" not in c:
-                    c["seconds"] = time.perf_counter() - c["t0"]
+                    continue
+                reap(i, c)
+                running[i] = (_spawn_child(chains[i].pop(0), env)
+                              if chains[i] and c["proc"].returncode == 0
+                              else None)
             time.sleep(0.01)
     finally:
-        for c in procs:
-            if c["proc"].poll() is None:
-                c["proc"].kill()
-            c["proc"].wait()
-            c["log"].close()
-            c.setdefault("seconds", time.perf_counter() - c["t0"])
+        for i, c in enumerate(running):
+            if c is not None:
+                if c["proc"].poll() is None:
+                    c["proc"].kill()
+                reap(i, c)
     results = []
-    for c in procs:
-        out = os.path.join(c["root"], "child-result.json")
-        if c["proc"].returncode != 0 or not os.path.exists(out):
-            with open(os.path.join(c["root"], "child.log")) as f:
-                fail(f"the child run in {c['root']} exited "
-                     f"{c['proc'].returncode}: {f.read()[-3000:]}")
-        with open(out) as f:
-            result = json.load(f)
-        result["process_seconds"] = c["seconds"]
-        result["sampled_peak_rss_bytes"] = c["sampled"]
-        result["peak_host_rss_bytes"] = max(result["vm_hwm_bytes"] or 0,
-                                            c["sampled"])
-        results.append(result)
+    for i, cs in enumerate(done):
+        rs = [_child_result(c) for c in cs]
+        if chains[i]:
+            fail(f"the child chain in {cs[-1]['root']} stopped early")
+        results.append(rs if is_chain[i] else rs[0])
     return results
+
+
+def in_background(fn, *args):
+    """``fn(*args, stop=event)`` on a thread of its own; returns a
+    ``join(cancel=False)`` that waits for it and gives its result, or
+    raises what it raised (a ``fail`` in it included). ``cancel`` sets
+    the event first."""
+    out: dict = {}
+    stop = threading.Event()
+
+    def run():
+        try:
+            out["result"] = fn(*args, stop=stop)
+        except BaseException as exc:  # noqa: BLE001 - raised by join
+            out["error"] = exc
+
+    thread = threading.Thread(target=run, name="chip-smoke-background")
+    thread.start()
+
+    def join(cancel: bool = False):
+        if cancel:
+            stop.set()
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["result"]
+
+    return join
 
 
 def best_arrays(out_dir: str) -> dict:
@@ -4284,10 +4463,10 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
                "flight": os.path.join(mem_root, "flight"),
                "profile": os.path.join(mem_root, "profile")}
     memory, run_a = cli_children([
-        (dict(cfg, profile_dir=mem_obs["profile"]), mem_root,
-         ("--telemetry", mem_obs["telemetry"], "--trace", mem_obs["trace"],
-          "--flight-dir", mem_obs["flight"])),
-        (cfg, os.path.join(root, "a"), stream, True)])
+        train_child(dict(cfg, profile_dir=mem_obs["profile"]), mem_root,
+                    ("--telemetry", mem_obs["telemetry"], "--trace",
+                     mem_obs["trace"], "--flight-dir", mem_obs["flight"])),
+        train_child(cfg, os.path.join(root, "a"), stream, health=True)])
     mem_telemetry = stream_telemetry(mem_obs)
     a_out = os.path.join(root, "a", "out")
     a_best = best_arrays(a_out)
@@ -5261,6 +5440,627 @@ def phase_train_cli_routes(torch, cli: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the pilot on the card: ingest -> train -> validate -> promote -> observe
+# ---------------------------------------------------------------------------
+
+# bench.py:223: every feature value of the shifted day moves by this.
+DRIFT_SHIFT = 4.0
+# The watched directory's days, from train_cli's part files: (a) the
+# bootstrap, (b) two more days, (c) a day of part 6's rows shifted by
+# DRIFT_SHIFT, (d) after a restart, the shifted day taken out and a
+# replay of part 2's rows whose entities already train (``replay_rows``:
+# no new entity or feature, so (d)'s promotion and its rollback are
+# values-only reloads).
+PILOT_BOOT_PARTS = (0, 1, 2, 3)
+PILOT_DAY_PARTS = (4, 5)
+PILOT_SHIFTED_PART = 6
+PILOT_REPLAY_PART = 2
+PILOT_TRAFFIC_QPS = 1000.0
+PILOT_SAMPLE = 64
+PILOT_OBSERVE_S = 2.0
+# Seconds between the pilot's polls of the watched directory: its IDLE
+# windows, whose traffic is the baseline of the TRAIN window's.
+PILOT_POLL_S = 1.0
+
+
+def pilot_config(cli: dict, root: str) -> tuple[dict, str]:
+    """``train_cli``'s coordinates at their widths with one lambda a
+    coordinate (its first) and one CD iteration, AUC and AUC:userId on
+    the validation file (a directory of its own: the stream reads
+    directories), windows of 2 shards, the serving ladder's rungs,
+    health armed (drift 0.25, non-finite coefficients; the skew gate
+    off: the traffic is synthetic, not drawn from the training rows),
+    a 2 s observation window. Written to ``root/pilot.json``."""
+    holdout = os.path.join(root, "holdout")
+    os.makedirs(holdout, exist_ok=True)
+    link = os.path.join(holdout, "part-00000.avro")
+    if not os.path.exists(link):
+        os.symlink(os.path.abspath(cli["files"]["validation"]["data"]),
+                   link)
+    base = cli["cfg"]
+    cfg = {
+        "task": base["task"],
+        "coordinates": {cid: dict(c, regularization={
+            "type": "L2", "weights": c["regularization"]["weights"][:1]})
+            for cid, c in base["coordinates"].items()},
+        "num_iterations": 1,
+        "evaluators": CLI_EVALUATORS,
+        "stream_dir": os.path.join(root, "watch"),
+        "work_dir": os.path.join(root, "work"),
+        "validation_dir": holdout,
+        "window_shards": STREAM_WINDOW,
+        "keep_generations": 3,
+        "promotion": {"min_delta": {"AUC": -0.005}},
+        "observe": {"window_s": PILOT_OBSERVE_S, "poll_s": 0.05,
+                    "max_dispatch_errors": 0},
+        "serve": {"rungs": list(RUNGS), "max_linger_ms": 2.0},
+        "ingest": {"feature_shards": CLI_SHARDS,
+                   "id_tag_names": ["userId", "movieId"]},
+        "health": {"max_drift_psi": 0.25, "max_skew_psi": None,
+                   "forbid_nonfinite": True},
+    }
+    path = os.path.join(root, "pilot.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def part_rows(train: dict, part: int) -> np.ndarray:
+    """The row indices of train_cli's part file ``part``."""
+    n = len(train["labels"])
+    step = -(-n // STREAM_SHARDS)
+    return np.arange(part * step, min((part + 1) * step, n))
+
+
+def write_rows(train: dict, rows: np.ndarray, path: str,
+               shift: float = 0.0) -> None:
+    """train_cli's rows ``rows`` again as one part file at ``path``, every
+    feature value of every bag moved by ``shift`` (labels, ids, uids,
+    weights and offsets as written)."""
+    def bag(s):
+        idx, val = train["feats"][s]
+        ks = train["keys"][s]
+        return [list(zip([ks[j] for j in r], v)) for r, v in zip(
+            idx[rows].tolist(), (val[rows] + shift).tolist())]
+
+    meta = [{"userId": str(u), "movieId": str(m)} for u, m in zip(
+        train["users"][rows].tolist(), train["movies"][rows].tolist())]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_part((path, train["labels"][rows], bag("global"),
+                train["offsets"][rows].astype(np.float32),
+                train["weights"][rows].astype(np.float32), meta, rows,
+                {SCORE_SHARDS[s][0]: bag(s)
+                 for s in ("userShard", "movieShard")}))
+
+
+def replay_rows(train: dict) -> np.ndarray:
+    """Part PILOT_REPLAY_PART's rows whose user and movie both already
+    train on the parts (b) promoted (at least CLI_MIN_ROWS rows there):
+    landed again, they add no entity and no feature to any entity's
+    subspace, so the tables keep their structure."""
+    seen = np.concatenate([part_rows(train, k) for k in
+                           PILOT_BOOT_PARTS + PILOT_DAY_PARTS])
+    rows = part_rows(train, PILOT_REPLAY_PART)
+    keep = np.ones(len(rows), dtype=bool)
+    for key in ("users", "movies"):
+        ids = train[key]
+        trained = np.bincount(ids[seen], minlength=int(ids.max()) + 1)
+        keep &= trained[ids[rows]] >= CLI_MIN_ROWS
+    return rows[keep]
+
+
+def pilot_jobs(cli: dict) -> list:
+    """Phase 14g's children, as one chain for ``cli_children``: the
+    pilot under traffic for cycles (a)-(c), then its restart for (d).
+    The parts land in the watched directory from the child (copies, so
+    their mtimes are the landing times staleness counts from)."""
+    import shutil
+
+    root = os.path.join(cli["root"], "pilot")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "watch"))
+    cfg, path = pilot_config(cli, root)
+    parts = cli["files"]["train"]["data"]
+
+    def part(k):
+        return os.path.join(parts, f"part-{k:05d}.avro")
+
+    train = cli["files"]["train"]
+    shifted = os.path.join(root, "shifted",
+                           f"part-{PILOT_SHIFTED_PART:05d}.avro")
+    replay = os.path.join(root, "replay",
+                          f"part-{PILOT_REPLAY_PART:05d}-replay.avro")
+    t0 = time.perf_counter()
+    write_rows(train, part_rows(train, PILOT_SHIFTED_PART), shifted,
+               DRIFT_SHIFT)
+    replayed = replay_rows(train)
+    write_rows(train, replayed, replay)
+    emit({"phase": "pilot_cli", "step": "files",
+          "files_seconds": time.perf_counter() - t0,
+          "drift_shift": DRIFT_SHIFT, "replay_rows": len(replayed)})
+    common = {"kind": "pilot", "config": path, "watch": cfg["stream_dir"],
+              "work": cfg["work_dir"], "flight": os.path.join(root, "flight")}
+    argv = ["--config", path, "--device", "cuda",
+            "--poll-interval", str(PILOT_POLL_S), "--monitor-port", "0",
+            "--flight-dir", common["flight"]]
+    # The restart serves no traffic of its own: its first PILOT_SAMPLE
+    # dispatches are the new generation's sample, one request each, in
+    # OBSERVE; the next one, the first of 64 requests submitted right
+    # after, is poisoned.
+    plan = json.dumps({"seed": SEED, "faults": [
+        {"point": "serve.dispatch", "nth": PILOT_SAMPLE + 1,
+         "error": "poison"}]})
+    return [[
+        dict(common, root=os.path.join(root, "run1"),
+             argv=argv + ["--max-cycles", "3",
+                          "--traffic-qps", str(PILOT_TRAFFIC_QPS),
+                          "--json", os.path.join(root, "run1.json")],
+             feeds=[{"add": [part(k) for k in PILOT_BOOT_PARTS]},
+                    {"add": [part(k) for k in PILOT_DAY_PARTS]},
+                    {"add": [shifted]}],
+             env={}, burn=False),
+        dict(common, root=os.path.join(root, "run2"),
+             argv=argv + ["--max-cycles", "1",
+                          "--json", os.path.join(root, "run2.json")],
+             feeds=[{"remove": [os.path.basename(shifted)],
+                     "add": [replay]}],
+             env={"PHOTON_TPU_FAULT_PLAN": plan}, burn=True),
+    ]]
+
+
+def generation_scores(path: str, requests, precision: str) -> np.ndarray:
+    """float64 scores of dense requests from a generation's ``.npz``:
+    each fixed effect's dot, plus, for an entity the generation knows,
+    sum_s w[e, s] * x[proj[e, s]]; weights and features rounded to the
+    table dtype first, as the served path stores and reads them."""
+    import torch
+
+    dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
+
+    def stored(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            dtype).double().numpy()
+
+    arrays, manifest = checkpoint_arrays(path)
+    index = {name: {k: i for i, k in enumerate(info["entity_keys"])}
+             for name, info in manifest.items() if info["kind"] == "random"}
+    out = []
+    for feats, ids in requests:
+        z = 0.0
+        for name, info in manifest.items():
+            x = stored(feats[info["shard"]])
+            if info["kind"] == "fixed":
+                w = stored(arrays[f"{name}/means"])
+                z += float(x[: w.size] @ w)
+                continue
+            e = index[name].get(ids.get(info["re_type"]))
+            if e is not None:
+                proj = arrays[f"{name}/proj_all"][e]
+                w = stored(arrays[f"{name}/coefficients"][e])
+                live = proj >= 0
+                z += float(np.sum(w[live] * x[proj[live]]))
+        out.append(z)
+    return np.asarray(out)
+
+
+def pilot_sample(torch, pilot, cycle: int, one_by_one: bool = False
+                 ) -> dict:
+    """PILOT_SAMPLE requests through the live queue, held against the
+    plain version of the live tables (the same requests packed and
+    scored by ``fused_score_reference``) and against a float64 numpy
+    score from the live generation's ``.npz``. The requests come from
+    one seed, so two samples of one generation are the same requests.
+    ``one_by_one`` waits for each request before the next: one dispatch
+    a request."""
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.serve.driver import synthetic_requests
+
+    server = pilot.server
+    programs = server.programs
+    reqs = synthetic_requests(programs.tables, programs, PILOT_SAMPLE,
+                              seed=SEED + 7)
+    if one_by_one:
+        got = np.array([server.submit(f, ids).result(timeout=120)
+                        for f, ids in reqs])
+    else:
+        futs = [server.submit(f, ids) for f, ids in reqs]
+        got = np.array([f.result(timeout=120) for f in futs])
+    feats, codes, _ = programs.pack_requests(reqs)
+    plain = serve_kernel.fused_score_reference(
+        **programs.operands(feats, codes))[:len(reqs)].float().cpu().numpy()
+    precision = programs.tables.precision
+    exact = generation_scores(pilot.ring.path(pilot.ring.live), reqs,
+                              precision)
+    return {"cycle": cycle, "generation": pilot.ring.live,
+            "precision": precision, "requests": len(reqs),
+            "finite": bool(np.isfinite(got).all()),
+            "plain_max_abs_err": float(np.max(np.abs(got - plain))),
+            "numpy_max_rel_err": float(np.max(
+                np.abs(got - exact) / (1.0 + np.abs(exact)))),
+            "scores_sha": _sha(got.astype(np.float32))}
+
+
+def pilot_child(torch, spec: dict) -> dict:
+    """One ``cli.pilot`` run in this process (phase 14g), instrumented
+    from outside the package: every committed stage stamped, each
+    cycle's report kept, a sample checked after each promotion and
+    rollback (``pilot_sample``), the next day's parts landed once a
+    cycle is done (``spec["feeds"]``), every request's latency by the
+    stage it was submitted in, every reload's summary, the exporter
+    scraped (``scraping_monitors``). With ``spec["burn"]``, once OBSERVE
+    commits: the new generation's sample, one request at a time, then
+    64 requests at once (the fault plan in ``spec["env"]`` poisons the
+    first dispatch after the sample's). The counts start at 0 in this
+    new process and are read after the run."""
+    import shutil
+
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.cli import pilot as pilot_cli
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.ops import serve_kernel
+    from photon_tpu_torch.pilot import PilotServer, loop
+    from photon_tpu_torch.resilience import faults
+    from photon_tpu_torch.serve.driver import synthetic_requests
+
+    watch, feeds = spec["watch"], list(spec["feeds"])
+    rec: dict = {"stages": [], "reports": [], "errors": [], "samples": [],
+                 "reloads": [], "landed": [], "servers": [], "device": None}
+    latency: list = []
+    stage_now = ["IDLE"]
+    burning: list = []
+
+    def land(step):
+        for name in step.get("remove", ()):
+            os.remove(os.path.join(watch, name))
+        for src in step.get("add", ()):
+            shutil.copyfile(src, os.path.join(watch, os.path.basename(src)))
+        rec["landed"].append({"t": time.perf_counter(), **step})
+
+    def burn(pilot):
+        rec["samples"].append(pilot_sample(torch, pilot, pilot.state.cycle,
+                                           one_by_one=True))
+        server = pilot.server
+        reqs = synthetic_requests(server.programs.tables, server.programs,
+                                  PILOT_SAMPLE, seed=SEED + 8)
+        for f in [server.submit(x, ids) for x, ids in reqs]:
+            f.exception(timeout=120)
+
+    orig_commit, orig_cycle = loop.Pilot._commit, loop.Pilot.run_cycle
+    orig_init, orig_reload = PilotServer.__init__, PilotServer.reload
+    orig_submit = PilotServer.submit
+
+    def commit(self):
+        orig_commit(self)
+        rec["device"] = str(self.device)
+        st = self.state
+        if not rec["stages"] or rec["stages"][-1][1:] != [st.cycle,
+                                                          st.stage]:
+            rec["stages"].append([time.perf_counter(), st.cycle, st.stage])
+        stage_now[0] = st.stage
+        if st.stage == "OBSERVE" and spec.get("burn") and not burning:
+            burning.append(threading.Thread(target=burn, args=(self,),
+                                            daemon=True))
+            burning[0].start()
+
+    def run_cycle(self):
+        report = orig_cycle(self)
+        if "error" in report:
+            # A stage that failed: the pilot backs off and resumes there.
+            rec["errors"].append(json.loads(json.dumps(report,
+                                                       default=str)))
+        elif "cycle" in report and report.get("stage") == "IDLE":
+            rec["reports"].append(json.loads(json.dumps(report,
+                                                        default=str)))
+            if "promotion" in report or report.get("rollback"):
+                rec["samples"].append(pilot_sample(torch, self,
+                                                   report["cycle"]))
+            if feeds:
+                land(feeds.pop(0))
+        return report
+
+    def init(self, *a, **kw):
+        t0 = time.perf_counter()
+        orig_init(self, *a, **kw)
+        rec["servers"].append(self)
+        rec["reloads"].append({
+            "kind": "start", "seconds": time.perf_counter() - t0,
+            "programs_compiled": self.programs.stats["programs_compiled"],
+            "serve_kernel": self.programs.stats["serve_kernel"]})
+
+    def reload(self, model):
+        t0 = time.perf_counter()
+        out = orig_reload(self, model)
+        rec["reloads"].append({"kind": "reload",
+                               "seconds": time.perf_counter() - t0,
+                               "stage": stage_now[0], **out})
+        return out
+
+    def submit(self, features, entity_ids=None, **kw):
+        # [stage at submit, submitted, resolved, future]; the callback
+        # runs on the worker before the future's waiters wake, so it
+        # only stamps.
+        entry = [stage_now[0], time.perf_counter(), None, None]
+        fut = orig_submit(self, features, entity_ids, **kw)
+        entry[3] = fut
+        latency.append(entry)
+        fut.add_done_callback(
+            lambda f: entry.__setitem__(2, time.perf_counter()))
+        return fut
+
+    loop.Pilot._commit, loop.Pilot.run_cycle = commit, run_cycle
+    PilotServer.__init__, PilotServer.reload = init, reload
+    PilotServer.submit = submit
+    os.environ.update(spec["env"])
+    land(feeds.pop(0))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with scraping_monitors() as scrapers, contextlib.redirect_stdout(buf):
+        rc = pilot_cli.main(spec["argv"])
+    for th in burning:
+        th.join(timeout=120)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    queues = [s.queue.stats() for s in rec.pop("servers")]
+    by_stage: dict = {}
+    for stage, t_sub, t_done, fut in latency:
+        b = by_stage.setdefault(stage, {"ms": [], "errors": 0,
+                                        "unresolved": 0})
+        if t_done is None:
+            b["unresolved"] += 1
+            continue
+        b["ms"].append((t_done - t_sub) * 1e3)
+        b["errors"] += fut.exception(timeout=0) is not None
+    stage_latency = {
+        stage: {"requests": len(b["ms"]), "errors": b["errors"],
+                "unresolved": b["unresolved"],
+                "p50_ms": float(np.percentile(b["ms"], 50)),
+                "p99_ms": float(np.percentile(b["ms"], 99))}
+        for stage, b in by_stage.items() if b["ms"]}
+    t_base = rec["stages"][0][0] if rec["stages"] else t0
+    return {
+        "rc": rc, "wall_seconds": wall,
+        "line": json.loads(buf.getvalue().strip().splitlines()[-1]),
+        "stages": [[t - t_base, c, s] for t, c, s in rec["stages"]],
+        "landed": [dict(x, t=x["t"] - t_base) for x in rec["landed"]],
+        "reports": rec["reports"], "stage_errors": rec["errors"],
+        "samples": rec["samples"], "reloads": rec["reloads"],
+        "device": rec["device"],
+        "latency_by_stage": stage_latency,
+        "scrapers": [sc.summary() for sc in scrapers],
+        "faults_fired": faults.fired(),
+        "newton_launches": nk.launches,
+        "plain_route_solves": ra.plain_route_solves,
+        "segment_launches_by_site": dict(sr.launches_by_site),
+        "serve_launches": serve_kernel.launches,
+        "serve_replay_launches": serve_kernel.replay_launches,
+        "queue_batches": sum(q["batches"] for q in queues),
+        "queue_requests": sum(q["requests"] for q in queues),
+        "dispatch_errors": sum(q["dispatch_errors"] for q in queues),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def stage_seconds(stages: list) -> dict:
+    """{cycle: {stage: seconds}} from the stamped commits (a stage's
+    seconds run to the next commit)."""
+    out: dict = {}
+    for (t, cycle, stage), (t_next, _, _) in zip(stages, stages[1:]):
+        if stage != "IDLE":
+            out.setdefault(str(cycle), {})[stage] = t_next - t
+    return out
+
+
+def phase_pilot_cli(torch, cli: dict, runs: list) -> dict:
+    """Phase 14g's gates on its two children's results (module
+    docstring)."""
+    from photon_tpu_torch.pilot import GenerationRing, load_state
+
+    first, second = runs
+    root = os.path.join(cli["root"], "pilot")
+    work = os.path.join(root, "work")
+    state = load_state(work)
+    ring = GenerationRing(os.path.join(work, "generations"), keep=3)
+    flights = {}
+    for path in sorted(glob.glob(os.path.join(root, "flight",
+                                              "flight-*.json"))):
+        with open(path) as f:
+            flights[os.path.basename(path)] = json.load(f).get("reason")
+    r1, r2 = first["reports"], second["reports"]
+    promos = [r for r in r1 + r2 if "promotion" in r]
+    gen_auc = cli["generating_auc"]
+    aucs = {r["cycle"]: r["candidate_metrics"]["AUC"] for r in r1 + r2
+            if r.get("candidate_metrics")}
+    lat = first["latency_by_stage"]
+    row = {
+        "phase": "pilot_cli",
+        "parts": {"bootstrap": list(PILOT_BOOT_PARTS),
+                  "day": list(PILOT_DAY_PARTS),
+                  "shifted": PILOT_SHIFTED_PART,
+                  "replay": PILOT_REPLAY_PART},
+        "rows_per_part": -(-CLI_TRAIN_ROWS // STREAM_SHARDS),
+        "cut": ("rows: train_cli's part files as days (the pure-Python "
+                "Avro writer); the SIGTERM between ring commit and reload "
+                "runs on the CPU (tests/test_torch_pilot.py)"),
+        "wall_seconds": [first["wall_seconds"], second["wall_seconds"]],
+        "process_seconds": [first["process_seconds"],
+                            second["process_seconds"]],
+        "stage_seconds": [stage_seconds(first["stages"]),
+                          stage_seconds(second["stages"])],
+        "ingest_rows": {r["cycle"]: r["ingest"]["rows"]
+                        for r in r1 + r2 if "ingest" in r},
+        "staleness_seconds": {r["cycle"]: r["staleness_seconds"]
+                              for r in promos},
+        "promotions": [{"cycle": r["cycle"], **r["promotion"]}
+                       for r in promos],
+        "reloads": [first["reloads"], second["reloads"]],
+        "refused": {r["cycle"]: r["refused"] for r in r1 + r2
+                    if "refused" in r},
+        "health": {r["cycle"]: r.get("health") for r in r1 + r2},
+        "rollback": [r.get("rollback") for r in r2],
+        "failures": [res["line"]["failures"] for res in runs],
+        "deadline_overruns": [res["line"]["deadline_overruns"]
+                              for res in runs],
+        "stage_errors": [res["stage_errors"] for res in runs],
+        "holdout_auc": aucs, "generating_auc": gen_auc,
+        "samples": first["samples"] + second["samples"],
+        "traffic": first["line"].get("traffic"),
+        "latency_by_stage": [lat, second["latency_by_stage"]],
+        "scrapers": [first["scrapers"], second["scrapers"]],
+        "faults_fired": second["faults_fired"],
+        "newton_launches": [first["newton_launches"],
+                            second["newton_launches"]],
+        "plain_route_solves": [first["plain_route_solves"],
+                               second["plain_route_solves"]],
+        "segment_launches_by_site": [first["segment_launches_by_site"],
+                                     second["segment_launches_by_site"]],
+        "serve_replay_launches": [first["serve_replay_launches"],
+                                  second["serve_replay_launches"]],
+        "serve_launches": [first["serve_launches"],
+                           second["serve_launches"]],
+        "queue_batches": [first["queue_batches"], second["queue_batches"]],
+        "dispatch_errors": [first["dispatch_errors"],
+                            second["dispatch_errors"]],
+        "peak_device_bytes": [first["peak_device_bytes"],
+                              second["peak_device_bytes"]],
+        "peak_host_rss_bytes": [first["peak_host_rss_bytes"],
+                                second["peak_host_rss_bytes"]],
+        "flight_dumps": flights,
+        "state": {k: getattr(state, k) for k in (
+            "stage", "cycle", "promotions", "refusals", "rollbacks",
+            "cycles_completed", "mode")},
+        "ring": {"live": ring.live, "staged": ring.staged,
+                 "entries": [{k: e.get(k) for k in (
+                     "gen", "cycle", "rolled_back")}
+                     for e in ring.entries()]},
+        "devices": [first["device"], second["device"]],
+    }
+    emit(row)
+    train, idle = lat.get("TRAIN", {}), lat.get("IDLE", {})
+    print(f"pilot_cli: staleness {row['staleness_seconds']} s; "
+          f"graphs captured per promotion "
+          f"{[p['programs_compiled'] for p in row['promotions']]} "
+          f"(values-only {[p['values_only'] for p in row['promotions']]}); "
+          f"stage failures {row['failures']}, deadline overruns "
+          f"{row['deadline_overruns']}; "
+          f"traffic {row['traffic']}; p50/p99 ms TRAIN "
+          f"{train.get('p50_ms')}/{train.get('p99_ms')} against IDLE "
+          f"{idle.get('p50_ms')}/{idle.get('p99_ms')}", flush=True)
+
+    # Every stage on the card, on the kernels, and none failed (a failed
+    # stage is retried after a backoff and would pass every gate below).
+    for i, res in enumerate(runs):
+        if (res["line"]["failures"] or res["line"]["deadline_overruns"]
+                or res["stage_errors"]):
+            fail(f"pilot_cli run {i + 1}: {res['line']['failures']} stage "
+                 f"failures, {res['line']['deadline_overruns']} deadline "
+                 f"overruns: {res['stage_errors']}")
+        sites = res["segment_launches_by_site"]
+        if (res["rc"] != 0 or res["device"] != "cuda:0"
+                or res["newton_launches"] <= 0
+                or res["plain_route_solves"] != 0
+                or sites.get("fixed_effect", 0) <= 0
+                or sites.get("evaluation", 0) <= 0):
+            fail(f"pilot_cli run {i + 1}: rc {res['rc']} on "
+                 f"{res['device']}, Newton launches "
+                 f"{res['newton_launches']}, plain solves "
+                 f"{res['plain_route_solves']}, segment sums {sites}")
+        # One replay a batch served (a poisoned batch never replays).
+        if (res["serve_replay_launches"]
+                != res["queue_batches"] - res["dispatch_errors"]):
+            fail(f"pilot_cli run {i + 1}: {res['serve_replay_launches']} "
+                 f"replays for {res['queue_batches']} batches "
+                 f"({res['dispatch_errors']} failed)")
+        for sc in res["scrapers"]:
+            if sc["errors"] or not sc["expositions"] or set(
+                    map(str, sc["healthz"])) != {"200"}:
+                fail(f"pilot_cli run {i + 1}: scrapes {sc}")
+        if len(res["scrapers"]) != 1:
+            fail(f"pilot_cli run {i + 1}: {len(res['scrapers'])} exporters")
+    # (a)-(c): two promotions, then the shifted day refused on drift.
+    outcome = [("promotion" in r, bool(r.get("refused"))) for r in r1]
+    if outcome != [(True, False), (True, False), (False, True)]:
+        fail(f"pilot_cli (a)-(c): outcomes {outcome}: {r1}")
+    if not any(x.startswith("health:drift") for x in r1[2]["refused"]):
+        fail(f"pilot_cli (c): refused for {r1[2]['refused']}, not drift")
+    if not (state.last_refusal and any(
+            x.startswith("health:drift")
+            for x in state.last_refusal["reasons"])):
+        fail(f"pilot_cli (c): the state file's refusal {state.last_refusal}")
+    if f"pilot.refusal:cycle-{r1[2]['cycle']}" not in flights.values():
+        fail(f"pilot_cli (c): no refusal post-mortem in {flights}")
+    # Graphs: the start captures the ladder, a values-only promotion
+    # none, a structure change one a rung. (d)'s day is a replay, so its
+    # promotion and its rollback are values-only.
+    for res in runs:
+        for rl in res["reloads"]:
+            want = (0 if rl.get("values_only") else len(RUNGS))
+            if rl["programs_compiled"] != want or (
+                    rl["kind"] == "start" and rl["serve_kernel"] != "cuda"):
+                fail(f"pilot_cli: reload {rl} captured "
+                     f"{rl['programs_compiled']} graphs, not {want}")
+    if [(rl["kind"], rl.get("values_only"), rl["programs_compiled"])
+            for rl in second["reloads"]] != [
+            ("start", None, len(RUNGS)), ("reload", True, 0),
+            ("reload", True, 0)]:
+        fail(f"pilot_cli (d): reloads {second['reloads']}, not a start "
+             "then two values-only reloads")
+    # Traffic: no errors, none stranded, in (a)-(c).
+    t = first["line"].get("traffic") or {}
+    if (not t.get("served") or t.get("errors") or t.get("submit_errors")
+            or t.get("stranded")
+            or any(b["errors"] or b["unresolved"] for b in lat.values())):
+        fail(f"pilot_cli (a)-(c): traffic {t}, latency {lat}")
+    # (d): the promotion rolled back to the generation before it, every
+    # error one of the planned poison's, all of them in OBSERVE.
+    rb = (r2[0].get("rollback") or {}) if r2 else {}
+    if not (len(r2) == 1 and "promotion" in r2[0] and rb.get("rolled_back")
+            and rb.get("to") == promos[1]["promotion"]["generation"]
+            and rb.get("from") == r2[0]["promotion"]["generation"]
+            and ring.live == rb.get("to")
+            and second["line"]["rollbacks"] == 1):
+        fail(f"pilot_cli (d): {r2}, ring live {ring.live}")
+    bad = {s: b["errors"] for s, b in second["latency_by_stage"].items()
+           if b["errors"]}
+    if (second["faults_fired"] != [{"point": "serve.dispatch",
+                                    "call": PILOT_SAMPLE + 1,
+                                    "error": "poison"}]
+            or set(bad) != {"OBSERVE"} or second["dispatch_errors"] != 1):
+        fail(f"pilot_cli (d): faults {second['faults_fired']}, errors by "
+             f"stage {bad}, dispatch errors {second['dispatch_errors']}")
+    # After each promotion ((d)'s inside its observation window) and the
+    # rollback: the live queue against the plain version and float64
+    # numpy; the rollback's sample is (b)'s generation's, bit for bit.
+    samples = row["samples"]
+    if ([smp["generation"] for smp in samples]
+            != [1, 2, rb.get("from"), rb.get("to")]
+            or samples[-1]["scores_sha"] != samples[1]["scores_sha"]):
+        fail(f"pilot_cli: samples {samples}")
+    for smp in samples:
+        tol = TOL[smp["precision"]]
+        if not (smp["finite"] and smp["plain_max_abs_err"] <= tol
+                and smp["numpy_max_rel_err"] <= tol):
+            fail(f"pilot_cli: sample {smp} outside {tol}")
+    # The holdout AUC of (b)'s generation recovers at least half the
+    # generating model's lift, as in train_cli (d).
+    auc_b = aucs[r1[1]["cycle"]]
+    if not auc_b - 0.5 >= 0.5 * (gen_auc - 0.5):
+        fail(f"pilot_cli (b): holdout AUC {auc_b} recovers under half "
+             f"the generating model's lift ({gen_auc})")
+    newton = first["newton_launches"] + second["newton_launches"]
+    return {"newton_launches": newton,
+            "fixed_effect_launches": sum(
+                r["segment_launches_by_site"].get("fixed_effect", 0)
+                for r in runs),
+            "evaluation_launches": sum(
+                r["segment_launches_by_site"].get("evaluation", 0)
+                for r in runs),
+            "serve_launches": sum(r["serve_replay_launches"]
+                                  + r["serve_launches"] for r in runs),
+            "row": row}
+
+
+# ---------------------------------------------------------------------------
 # the wide-subspace squared-loss GLMix at full width, float32
 # ---------------------------------------------------------------------------
 
@@ -5753,10 +6553,13 @@ def phase_wide_optimality(torch, wide, fit) -> list:
         y = sub.labels.double().cpu().numpy()
         pen = sub.penalty_mask.double().cpu().numpy()
         vm = sub.valid_mask.double().cpu().numpy()
-        h = np.einsum("brs,br,brt->bst", x, wt, x)
+        # Batched products (BLAS): a three-operand einsum loops in C
+        # over b * r * s * s terms, over a minute at the widest bucket.
+        xt = np.swapaxes(x, 1, 2)
+        h = xt @ (x * wt[..., None])
         h += np.einsum("bs,st->bst", l2w * pen + (1.0 - vm),
                        np.eye(x.shape[-1]))
-        rhs = np.einsum("brs,br->bs", x, wt * (y - off))
+        rhs = (xt @ (wt * (y - off))[..., None])[..., 0]
         w64 = np.linalg.solve(h, rhs[..., None])[..., 0] * vm
         codes = sub.entity_codes.long()
         w_fit = fit["model"][cid].coefficients[codes][:, :x.shape[-1]]
@@ -6111,6 +6914,9 @@ def main() -> int:
     ap.add_argument("--tuning", action="store_true",
                     help="run only train_cli, the tuned cli.train runs "
                          "and cli.glm")
+    ap.add_argument("--pilot", action="store_true",
+                    help="run only the pilot phase (14g) on train_cli's "
+                         "files")
     ap.add_argument("--cli-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6158,8 +6964,13 @@ def main() -> int:
         return fits_only(torch, args.fits)
     if args.tuning:
         cli = phase_train_cli(torch, *serving_arrays())
-        phase_tuning_cli(torch, cli)
+        phase_tuning_cli(torch, cli, cli_children(tuning_jobs(cli)))
         phase_glm_cli(torch, cli)
+        print(smi, flush=True)
+        return 0
+    if args.pilot:
+        cli = train_cli_inputs(*serving_arrays())
+        phase_pilot_cli(torch, cli, cli_children(pilot_jobs(cli))[0])
         print(smi, flush=True)
         return 0
     if args.train_cli:
@@ -6220,9 +7031,21 @@ def main() -> int:
     train_cli = phase_train_cli(torch, arrays, manifest)
     stream = phase_stream_cli(torch, train_cli, ops["health_sketch"])
     torch.cuda.empty_cache()
-    cli_routes = phase_train_cli_routes(torch, train_cli)
+    # The pilot's children start beside the tuned runs', and both beside
+    # 14b (all three only read train_cli's files; the children count
+    # their launches in their own processes).
+    children = in_background(cli_children, tuning_jobs(train_cli)
+                             + pilot_jobs(train_cli))
+    try:
+        cli_routes = phase_train_cli_routes(torch, train_cli)
+    except BaseException:
+        with contextlib.suppress(BaseException):
+            children(cancel=True)
+        raise
     torch.cuda.empty_cache()
-    tuning = phase_tuning_cli(torch, train_cli)
+    *tuned, piloted = children()
+    tuning = phase_tuning_cli(torch, train_cli, tuned)
+    pilot = phase_pilot_cli(torch, train_cli, piloted)
     glm = phase_glm_cli(torch, train_cli)
     torch.cuda.empty_cache()
     routes = phase_train_routes(torch)
@@ -6231,7 +7054,8 @@ def main() -> int:
         "stream_cli": stream["newton_launches"],
         "train_routes": routes["newton_launches"],
         "train_cli_routes": cli_routes["newton_launches"],
-        "tuning_cli": tuning["newton_launches"]}
+        "tuning_cli": tuning["newton_launches"],
+        "pilot_cli": pilot["newton_launches"]}
     newton["launches"] = sum(newton["launches_by_path"].values())
     newton["max_abs_err"] = max(newton["max_abs_err"],
                                 train_cli["newton_parity_max_abs_diff"])
@@ -6241,12 +7065,15 @@ def main() -> int:
         "evaluation_launches"]
     segment["launches_by_path"]["stream_cli_evaluation"] = stream[
         "segment_launches"]
+    segment["launches_by_path"]["pilot_cli_evaluation"] = pilot[
+        "evaluation_launches"]
     # The fixed effect's sparse transpose on every CLI training path.
     fixed_effect = {"train_cli": train_cli["fixed_effect_launches"],
                     "stream_cli": stream["fixed_effect_launches"],
                     "train_cli_routes": cli_routes["fixed_effect_launches"],
                     "tuning_cli": tuning["fixed_effect_launches"],
-                    "glm_cli": glm["fixed_effect_launches"]}
+                    "glm_cli": glm["fixed_effect_launches"],
+                    "pilot_cli": pilot["fixed_effect_launches"]}
     for path, n in fixed_effect.items():
         segment["launches_by_path"][f"{path}_fixed_effect"] = n
     segment["launches"] = sum(segment["launches_by_path"].values())
@@ -6278,14 +7105,16 @@ def main() -> int:
                      + batch["launches"]
                      + train_cli["serve_launches"]
                      + stream["serve_launches"]
-                     + cli_routes["serve_launches"]),
+                     + cli_routes["serve_launches"]
+                     + pilot["serve_launches"]),
         "launches_by_path": {"serve": serve["kernel_launches"],
                              "serve_ops": ops["launches"],
                              "score_cli": batch["launches"],
                              "train_cli": train_cli["serve_launches"],
                              "stream_cli": stream["serve_launches"],
                              "train_cli_routes":
-                                 cli_routes["serve_launches"]},
+                                 cli_routes["serve_launches"],
+                             "pilot_cli": pilot["serve_launches"]},
         "max_abs_err": max(worst, coords["float32"]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

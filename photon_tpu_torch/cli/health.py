@@ -4,7 +4,7 @@ of ``photon_tpu/cli/health.py``).
 The offline half of ``photon_tpu_torch.obs.health``: take two persisted
 :class:`DataSketch` files — a streaming-ingest run's
 ``ingest-sketch.json`` (written beside the cursor when the health layer
-is armed), a pilot work dir's ``pilot-health-sketch.json`` (the JAX
+is armed), a pilot work dir's ``pilot-health-sketch.json`` (either
 package's pilot writes one; the sketch bytes are the same in both
 packages), or a serve run's ``--health-sketch`` file (the sampled
 traffic) — and render the PSI/KS/mean-shift comparison per column, per

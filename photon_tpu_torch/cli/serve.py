@@ -37,7 +37,8 @@ burn, plus the ledger's and health layer's families when armed),
 ``/healthz`` and ``/readyz`` for the whole run. The exporter comes up
 before the model loads, so ``/healthz`` answers from the start;
 ``/readyz`` answers 503 until the tables are resident, every rung's
-CUDA graph is captured and the breaker is closed. The queue always
+CUDA graph is captured, the queue (started after the last capture) is
+up and the breaker is closed. The queue always
 tracks the declared SLOs (``--slo-p99-ms``, ``--slo-error-rate``,
 ``--slo-cold-rate``, ``--slo-window-s``; the long window is 12 times
 the short), reported under ``slo`` in the summary and ``health``.
@@ -411,7 +412,8 @@ def main(argv=None) -> int:
                              "(0: ephemeral; the bound port is in the "
                              "summary). /readyz answers 200 once the "
                              "tables are resident, every rung's graph is "
-                             "captured and the breaker is closed")
+                             "captured, the queue is up and the breaker "
+                             "is closed")
     parser.add_argument("--slo-p99-ms", type=float, default=250.0,
                         help="latency SLO: 99%% of served requests "
                              "finish under this many ms")

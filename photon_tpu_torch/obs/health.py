@@ -1022,8 +1022,8 @@ def sentinel_watch(coordinates: tuple, array) -> None:
 
 def sentinel_seq() -> int:
     """Monotonic count of fits ever parked — callers window a
-    :func:`numerics_report` to "fits since my mark" with it (the JAX
-    package's pilot marks at each cycle's trigger, so an old cycle's
+    :func:`numerics_report` to "fits since my mark" with it (the pilot
+    marks at each cycle's trigger, so an old cycle's
     violation never refuses a later, healthy retrain)."""
     with _LOCK:
         return _STATE["sentinel_seq"]
@@ -1238,9 +1238,8 @@ def train_sketch() -> DataSketch | None:
 
 @dataclasses.dataclass(frozen=True)
 class HealthGatePolicy:
-    """Thresholds that refuse a promotion (the JAX package's pilot
-    applies them, PILOT.md; the port's pilot waits for its ROADMAP
-    item).
+    """Thresholds that refuse a promotion (the pilot applies them in
+    VALIDATE, ``pilot/loop.py``; PILOT.md).
 
     Every reason is prefixed ``health:`` so refusal bookkeeping (state
     file, flight post-mortem) distinguishes statistical refusals from

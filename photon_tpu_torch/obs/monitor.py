@@ -86,7 +86,7 @@ def family(name: str, mtype: str, help_: str, samples) -> dict:
 def state_family(name: str, states, current, help_: str) -> dict:
     """A Prometheus state-set: one-hot gauge samples labeled by state
     (``name{state="INGEST"} 1`` next to zeros for the others) — the
-    queryable form of an enum-valued gauge like the JAX package pilot's
+    queryable form of an enum-valued gauge like the pilot's
     state-machine stage. ``current`` must be one of ``states``."""
     states = tuple(states)
     if current not in states:

@@ -20,11 +20,24 @@ point               boundary
                     window)
 ``serve.dispatch``  the serve queue's batch dispatch, inside its retried
                     call (``MicroBatchQueue._dispatch``)
+``ingest.plan``,    the planner's per-coordinate plan and chunk, and the
+``ingest.chunk``,   packed host-to-device copy (``data/pipeline.py``)
+``transfer.packed``
+``io.shard_read``,  a streamed shard's read and decode, inside their
+``io.shard_decode`` retried calls (``data/stream.py``)
+``pilot.ingest``,   the pilot's stages, each inside its retried call
+``pilot.train``,    (``Pilot._stage_run``)
+``pilot.validate``
+``pilot.promote``   twice a promotion: inside the generation npz's
+                    atomic write (``GenerationRing.stage_candidate``),
+                    and between the ring commit and the serving reload
+``pilot.rollback``  before a rollback loads its target generation
 ==================  ======================================================
 
-The reference's other points (ingest, compile, transfer, the fused fit,
-streaming and the pilot) are accepted in a plan, so one plan
-serves both packages, and fire where the port grows those boundaries.
+The reference's other points (``compile.aot``, ``fit.dispatch``: the
+fused fit and its ahead-of-time compile) are accepted in a plan, so one
+plan serves both packages, and fire where the port grows those
+boundaries (ROADMAP item 8).
 
 Fault kinds (``FaultSpec.error``): ``"transient"`` raises
 ``TransientError``, ``"poison"`` raises ``PoisonError``, ``"crash"``
