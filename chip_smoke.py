@@ -332,6 +332,16 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      flight dump, and its torch.profiler trace names the
                      Newton and segment-sum kernels within the
                      ``train_fit_profile`` span (``stream_telemetry``);
+                     (i) it also passes ``--distributed --fleet-dir``,
+                     so it runs with the cost ledger armed and ships a
+                     1-rank fleet bundle, which ``python -m
+                     photon_tpu_torch.cli.fleetview --expect-ranks 1``
+                     merges (``stream_fleet``): both exit 0, the bundle
+                     committed, the merged trace valid, one rank, no
+                     gap, a finite clock bound, fit seconds booked to
+                     each of 14a's coordinates, and its launches at
+                     every kernel site equal to 14a's kernel run's (it
+                     prints the bundle's bytes and ship seconds);
                      (c)'s crash leaves one ``flight-<pid>.json`` whose
                      ``faults_fired`` names it. (a) and (c) run with
                      ``obs.health`` armed: the resumed (c)'s
@@ -456,6 +466,30 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      p50/p99 by the stage a request was submitted in
                      (TRAIN against IDLE).
 
+14h. profile_cli   - ``python -m photon_tpu_torch.cli.profile`` twice,
+                     each through ``--cli-child`` (``profile_child``),
+                     chained, the chain started beside 14e's and 14g's
+                     children and 14b: (A) the JAX package's CI
+                     contract, its defaults with ``--overhead-check``
+                     (512 rows, 16 users, 25 samples of at least 1 s of
+                     fits an arm, ledger off and on alternating fit by
+                     fit; the median of the samples' on/off ratios
+                     within 1.05); (B)
+                     ``--rows 262144 --entities 8192 --fits 3``, the
+                     priced report at the training CLI's row count.
+                     Gates for each: exit 0 and ``failures`` empty;
+                     Newton launches in the profiled fit window (from
+                     outside the package: ``ledger.mark`` and the first
+                     ``attribution_since`` wrapped) and no plain-route
+                     solve; each probe (``segment_sum`` on 8,192 values
+                     at site ``segment_reduce/probe``, ``serve_score``
+                     on one 64-row rung) launched its kernel once and
+                     its census row carries a ``vs_roofline``; the fit
+                     window's attributed fraction above 0; (A)'s
+                     overhead and top-k table printed. It prints each
+                     run's seconds, top-k rows with their blocking
+                     reasons and the census.
+
 Then the wide group, ``wide-linear`` in float32: the bench's squared-loss
 GLMix with ``per-movie`` on a sparse tag shard (20,000 movies, p(m) ~
 1 / (m + 20); each owns 192 of 100,000 tag ids; a row carries 2-8 of
@@ -531,8 +565,12 @@ script beside it, and run parent, change, change, parent in one call.
 phases and then phases 14a and 14b, ``--train-routes`` phase 14c,
 ``--serve`` the serving phases 1-6c, ``--stream`` phases 14a, 14d, 7a
 (on its own logistic data) and 15, ``--tuning`` phases 14a, 14e and
-14f, and ``--pilot`` 14a's files (not its runs) and phase 14g, printing
-no ``ok`` line.
+14f, ``--pilot`` 14a's files (not its runs) and phase 14g, and
+``--profile`` phase 14h alone and then ``overhead_aa``, printing no
+``ok`` line: ``cli.profile``'s A/B run three times with both arms off
+(A/A) and three times as it runs, each read by its own estimator (the
+median paired ratio) and by the JAX package's (the best on over
+the best off), with no gate.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -3751,6 +3789,8 @@ def phase_train_cli(torch, arrays, manifest) -> dict:
             "newton_parity_max_abs_diff": parity_err,
             "serve_launches": score_launches, "row": row,
             "fixed_effect_launches": fe_launches,
+            "kernel_segment_launches_by_site": kernel[
+                "segment_launches_by_site"],
             "fixed_effect_site": site,
             "files": files, "cfg": cfg, "root": root,
             "generating_auc": gen_auc}
@@ -4224,7 +4264,8 @@ def _vm_status(key: str, pid="self") -> int | None:
 
 def cli_child(spec_path: str) -> int:
     """``--cli-child SPEC``: one ``stream_run`` in this process (or, for
-    a spec of kind ``pilot``, one ``cli.pilot`` run: ``pilot_child``),
+    a spec of kind ``pilot``, one ``cli.pilot`` run: ``pilot_child``;
+    of kind ``profile``, one ``cli.profile`` run: ``profile_child``),
     its result and its memory written to ``spec["out"]``: VmHWM, its own
     address space's high-water mark, where the kernel reports it (the
     rusage maximum would carry the parent's over the exec), and the RSS
@@ -4245,13 +4286,42 @@ def cli_child(spec_path: str) -> int:
     base = _vm_status("VmRSS")
     if spec.get("kind") == "pilot":
         result = pilot_child(torch, spec)
+    elif spec.get("kind") == "profile":
+        result = profile_child(torch, spec)
     else:
-        out = stream_run(torch, spec["cfg"], spec["root"], *spec["extra"])
+        with timed_ship() as ship:
+            out = stream_run(torch, spec["cfg"], spec["root"],
+                             *spec["extra"])
         result = {k: out[k] for k in _CHILD_KEYS}
+        result["ship_bundle_seconds"] = ship.get("seconds")
     result.update(vm_hwm_bytes=_vm_status("VmHWM"), baseline_rss_bytes=base)
     with open(spec["out"], "w") as f:
         json.dump(result, f)
     return 0
+
+
+@contextlib.contextmanager
+def timed_ship():
+    """``obs.fleet.ship_bundle`` wrapped from outside the package: the
+    seconds of a ``--distributed`` run's bundle commit land in the
+    yielded dict (``seconds``)."""
+    from photon_tpu_torch.obs import fleet
+
+    out: dict = {}
+    orig = fleet.ship_bundle
+
+    def ship_bundle(run_dir, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(run_dir, **kw)
+        finally:
+            out["seconds"] = time.perf_counter() - t0
+
+    fleet.ship_bundle = ship_bundle
+    try:
+        yield out
+    finally:
+        fleet.ship_bundle = orig
 
 
 def _spawn_child(spec: dict, env: dict) -> dict:
@@ -4461,13 +4531,16 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
     mem_obs = {"telemetry": os.path.join(mem_root, "telemetry.jsonl"),
                "trace": os.path.join(mem_root, "trace.json"),
                "flight": os.path.join(mem_root, "flight"),
-               "profile": os.path.join(mem_root, "profile")}
+               "profile": os.path.join(mem_root, "profile"),
+               "fleet": os.path.join(mem_root, "fleet")}
     memory, run_a = cli_children([
         train_child(dict(cfg, profile_dir=mem_obs["profile"]), mem_root,
                     ("--telemetry", mem_obs["telemetry"], "--trace",
-                     mem_obs["trace"], "--flight-dir", mem_obs["flight"])),
+                     mem_obs["trace"], "--flight-dir", mem_obs["flight"],
+                     "--distributed", "--fleet-dir", mem_obs["fleet"])),
         train_child(cfg, os.path.join(root, "a"), stream, health=True)])
     mem_telemetry = stream_telemetry(mem_obs)
+    mem_fleet = stream_fleet(mem_obs, memory, cli)
     a_out = os.path.join(root, "a", "out")
     a_best = best_arrays(a_out)
     mem_best = best_arrays(os.path.join(root, "memory", "out"))
@@ -4622,6 +4695,7 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
                **stream_ingest_row(run_b["summary"]),
                "quarantined_paths": si["bd"]["quarantined_paths"]},
         "memory_telemetry": mem_telemetry,
+        "memory_fleet": mem_fleet,
         "c": {"crash": crashed, "fault_call": crash_at,
               "flight_dumps": c_dumps,
               "flight_reason": c_dump.get("reason"),
@@ -4760,6 +4834,87 @@ def stream_sketch_check(a_work: str, c_work: str, partial_rows: int,
             "max_ks": report.get("max_ks"),
             "compared_columns": sorted(report.get("columns", {})),
             "compared_shards": sorted(report.get("shards", {}))}
+
+
+def stream_fleet(files: dict, memory: dict, cli: dict) -> dict:
+    """Gates of the in-memory child's ``--distributed --fleet-dir``
+    (phase 14d (i)): ``python -m photon_tpu_torch.cli.fleetview`` merges
+    its bundle (exit 0, ``--expect-ranks 1``); the bundle committed, the
+    merged trace valid, one rank, no gap, a finite clock bound, fit
+    seconds booked to each of 14a's trained coordinates, and the run's
+    launches at every kernel site those of 14a's kernel run (the same
+    files and configuration, the ledger off there)."""
+    from photon_tpu_torch import obs
+
+    run_dir = files["fleet"]
+    host = os.path.join(run_dir, "obs-host-0")
+    merged = os.path.join(os.path.dirname(run_dir), "merged.json")
+    report_path = os.path.join(os.path.dirname(run_dir), "report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "photon_tpu_torch.cli.fleetview",
+         "--run-dir", run_dir, "--trace", merged, "--json", report_path,
+         "--expect-ranks", "1"], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    seconds = time.perf_counter() - t0
+    print(proc.stdout, flush=True)
+    report, bundle, events = {}, {}, None
+    if proc.returncode == 0:
+        with open(report_path) as f:
+            report = json.load(f)
+        events = obs.trace.validate_chrome_trace(merged)
+    committed = os.path.exists(os.path.join(host, "bundle.json"))
+    if committed:
+        with open(os.path.join(host, "bundle.json")) as f:
+            bundle = json.load(f)
+    fit_rows = {r["coordinate"]: r["seconds"]
+                for r in (bundle.get("ledger") or {}).get("rows", ())
+                if r["phase"] == "fit" and r["coordinate"] != "-"
+                and r["program"] == "coordinate_descent"}
+    trained = sorted(cli["cfg"]["coordinates"])
+    row = {"fleetview_rc": proc.returncode,
+           "fleetview_seconds": seconds,
+           "fleetview_stderr": proc.stderr[-2000:] if proc.returncode
+           else None,
+           "bundle_committed": committed,
+           "bundle_bytes": sum(
+               os.path.getsize(os.path.join(host, f))
+               for f in ("bundle.json", "spans.jsonl")
+               if os.path.exists(os.path.join(host, f))),
+           "ship_bundle_seconds": memory.get("ship_bundle_seconds"),
+           "merged_trace_events": events,
+           "ranks": report.get("ranks"), "gaps": report.get("gaps"),
+           "clock_skew_bound_seconds": report.get(
+               "clock_skew_bound_seconds"),
+           "attributed_seconds": [r["attributed_seconds"]
+                                  for r in report.get("per_rank", ())],
+           "fit_seconds_by_coordinate": fit_rows,
+           "unattributed_seconds": next(
+               (r["seconds"] for r in (bundle.get("ledger") or {}).get(
+                   "rows", ()) if r["program"] == "unattributed"), None),
+           "census": sorted((bundle.get("ledger") or {}).get(
+               "programs", {})),
+           "run_id": (bundle.get("host") or {}).get("run_id"),
+           "newton_launches": {"memory": memory["launches"],
+                               "train_cli": cli["newton_launches"]},
+           "segment_launches_by_site": {
+               "memory": memory["segment_launches_by_site"],
+               "train_cli": cli["kernel_segment_launches_by_site"]}}
+    if (proc.returncode != 0 or not committed or not events
+            or report.get("ranks") != [0] or report.get("gaps")
+            or not math.isfinite(report.get("clock_skew_bound_seconds",
+                                            math.nan))):
+        fail(f"stream_cli (i): the fleet bundle and its merge: {row}")
+    if any(not fit_rows.get(cid, 0.0) > 0.0 for cid in trained):
+        fail(f"stream_cli (i): fit seconds by coordinate {fit_rows}, "
+             f"trained {trained}")
+    if (memory["launches"] != cli["newton_launches"]
+            or memory["segment_launches_by_site"]
+            != cli["kernel_segment_launches_by_site"]):
+        fail(f"stream_cli (i): the --distributed run launched otherwise "
+             f"than 14a's kernel run: {row['newton_launches']}, "
+             f"{row['segment_launches_by_site']}")
+    return row
 
 
 def stream_telemetry(files: dict) -> dict:
@@ -6061,6 +6216,211 @@ def phase_pilot_cli(torch, cli: dict, runs: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the cost ledger's report: cli.profile
+# ---------------------------------------------------------------------------
+
+# Phase 14h's two runs: (A) the JAX package's CI contract, its defaults
+# with the overhead gate; (B) the priced report at the training CLI's
+# row count (8,192 users of 32 rows: 14a's rows at the profile
+# workload's widths).
+PROFILE_RUNS = {
+    "ci": ["--overhead-check"],
+    "full": ["--rows", str(CLI_TRAIN_ROWS), "--entities", "8192",
+             "--fits", "3"],
+}
+
+
+def profile_jobs(cli: dict) -> list:
+    """Phase 14h's children, as one chain for ``cli_children`` ((A),
+    then (B)): the two runs do not share the host's cores with each
+    other, so (A)'s overhead A/B is not timed against (B)."""
+    import shutil
+
+    root = os.path.join(cli["root"], "profile")
+    shutil.rmtree(root, ignore_errors=True)
+    return [[{"kind": "profile", "name": name, "args": args,
+              "root": os.path.join(root, name),
+              "json": os.path.join(root, name, "profile.json")}
+             for name, args in PROFILE_RUNS.items()]]
+
+
+def profile_child(torch, spec: dict) -> dict:
+    """One ``python -m photon_tpu_torch.cli.profile`` run in this process
+    (``cli.profile.main``), its counts read after it. ``ledger.mark``
+    and the first ``ledger.attribution_since`` with a wall are wrapped
+    from outside the package: they bracket the profiled fit window, so
+    the Newton launches and plain-route solves inside it are counted on
+    their own."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.cli import profile
+    from photon_tpu_torch.obs import ledger
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.ops import serve_kernel as sk
+
+    window: dict = {}
+    orig_mark, orig_attr = ledger.mark, ledger.attribution_since
+
+    def mark():
+        window["start"] = (nk.launches, ra.plain_route_solves)
+        return orig_mark()
+
+    def attribution_since(marker, wall_seconds=None):
+        if wall_seconds is not None and "end" not in window:
+            window["end"] = (nk.launches, ra.plain_route_solves)
+        return orig_attr(marker, wall_seconds)
+
+    nk.launches = ra.plain_route_solves = sk.launches = 0
+    sr.reset_counts()
+    os.makedirs(spec["root"], exist_ok=True)
+    buf = io.StringIO()
+    ledger.mark, ledger.attribution_since = mark, attribution_since
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = profile.main([*spec["args"], "--json", spec["json"],
+                               "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        ledger.mark, ledger.attribution_since = orig_mark, orig_attr
+    wall = time.perf_counter() - t0
+    start, end = window.get("start", (0, 0)), window.get("end", (0, 0))
+    doc = None
+    if os.path.exists(spec["json"]):
+        with open(spec["json"]) as f:
+            doc = json.load(f)
+    return {"name": spec["name"], "args": spec["args"], "rc": rc,
+            "wall_seconds": wall, "stdout": buf.getvalue()[-8000:],
+            "doc": doc, "newton_launches": nk.launches,
+            "fit_window_newton_launches": end[0] - start[0],
+            "fit_window_plain_route_solves": end[1] - start[1],
+            "plain_route_solves": ra.plain_route_solves,
+            "segment_launches": sr.launches,
+            "segment_launches_by_site": dict(sr.launches_by_site),
+            "serve_launches": sk.launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_profile_cli(torch, runs: list) -> dict:
+    """Phase 14h's gates on its two children's results (module
+    docstring): each exits 0 with no failure; the Newton kernel took the
+    fit window's solves; each probe launched its kernel once and its
+    census row is priced; the fit window attributes seconds. (A)'s
+    overhead and both top-k tables are printed."""
+    rows = []
+    for r in runs:
+        doc = r["doc"] or {}
+        report = doc.get("report") or {"rows": [], "programs": {}}
+        probes = {}
+        for key, kernel, count in (
+                ("kernel_probe", "segment_sum",
+                 r["segment_launches_by_site"].get(
+                     "segment_reduce/probe", 0)),
+                ("serve_kernel_probe", "serve_score", None)):
+            probe = doc.get(key)
+            priced = next((x for x in report["rows"] if probe and
+                           x["program"] == probe["program"]), None)
+            probes[kernel] = {
+                "launches": None if probe is None else probe["launches"],
+                "site_launches": count,
+                "seconds": None if probe is None else probe["seconds"],
+                "vs_roofline": None if priced is None
+                else priced["vs_roofline"],
+                "blocking": None if priced is None else priced["blocking"]}
+        top = [{k: x[k] for k in ("coordinate", "phase", "program",
+                                  "seconds", "dispatches",
+                                  "host_gap_seconds", "wasted_seconds",
+                                  "vs_roofline", "blocking")}
+               for x in report["rows"] if x["program"] != "unattributed"][:5]
+        row = {"phase": "profile_cli", "run": r["name"], "args": r["args"],
+               "rc": r["rc"], "failures": doc.get("failures"),
+               "process_seconds": r["process_seconds"],
+               "main_seconds": r["wall_seconds"],
+               "fit_window": doc.get("fit_window"),
+               "overhead": doc.get("overhead"),
+               "top_k": top, "probes": probes,
+               "census": sorted(report.get("programs", {})),
+               "resident_bytes": report.get("resident_bytes"),
+               "newton_launches": r["newton_launches"],
+               "fit_window_newton_launches": r[
+                   "fit_window_newton_launches"],
+               "plain_route_solves": r["plain_route_solves"],
+               "segment_launches_by_site": r["segment_launches_by_site"],
+               "serve_launches": r["serve_launches"],
+               "peak_host_rss_bytes": r["peak_host_rss_bytes"],
+               "peak_device_bytes": r["peak_device_bytes"]}
+        emit(row)
+        print(f"profile_cli ({r['name']}):\n{r['stdout']}", flush=True)
+        rows.append(row)
+        where = f"profile_cli ({r['name']})"
+        if r["rc"] != 0 or doc.get("failures") != []:
+            fail(f"{where}: exit {r['rc']}, failures "
+                 f"{doc.get('failures')}: {r['stdout'][-2000:]}")
+        if r["fit_window_newton_launches"] <= 0 or r[
+                "plain_route_solves"] != 0:
+            fail(f"{where}: {r['fit_window_newton_launches']} Newton "
+                 f"launches in the fit window, "
+                 f"{r['plain_route_solves']} plain-route solves")
+        for kernel, p in probes.items():
+            if p["launches"] != 1 or p["vs_roofline"] is None:
+                fail(f"{where}: the {kernel} probe {p}")
+        if probes["segment_sum"]["site_launches"] != 1:
+            fail(f"{where}: {probes['segment_sum']['site_launches']} "
+                 "launches at the probe's site")
+        if not (doc.get("fit_window") or {}).get("attributed_fraction"):
+            fail(f"{where}: the fit window attributed nothing: "
+                 f"{doc.get('fit_window')}")
+        if r["args"] == PROFILE_RUNS["ci"] and (
+                (doc.get("overhead") or {}).get("overhead_fraction") is None
+                or "ledger overhead:" not in r["stdout"]
+                or "vs_roof" not in r["stdout"]):
+            fail(f"{where}: no overhead or top-k table printed")
+    return {"newton_launches": sum(r["newton_launches"] for r in runs),
+            "segment_launches": sum(r["segment_launches"] for r in runs),
+            "serve_launches": sum(r["serve_launches"] for r in runs),
+            "rows": rows}
+
+
+def overhead_aa(torch, rounds: int = 3) -> list:
+    """``cli.profile``'s overhead A/B (``_overhead_ab``) on its default
+    workload, ``rounds`` times with both arms off (``ledger.enable``
+    stubbed to ``disable``: an A/A, whose true overhead is 0) and
+    ``rounds`` times as it runs, alternating. Each row gives the A/B's
+    own fraction (the median of the samples' on/off ratios, minus 1) and
+    the JAX package's estimator on the same samples (the best on over
+    the best off, minus 1). A measurement, no gate."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.cli import profile
+    from photon_tpu_torch.obs import ledger
+
+    was = obs.enabled()
+    obs.enable()
+    est, data = profile._tiny_workload(512, 16, 2, device="cuda")
+    for _ in range(3):
+        profile._fit_once(est, data)
+    rows = []
+    real_enable = ledger.enable
+    try:
+        for i in range(rounds):
+            for aa in (True, False):
+                ledger.enable = ledger.disable if aa else real_enable
+                out = profile._overhead_ab(est, data, 25)
+                row = {"phase": "overhead_aa", "round": i,
+                       "arms": "off/off" if aa else "off/on", **out,
+                       "best_on_over_best_off": out["on_best_seconds"]
+                       / out["off_best_seconds"] - 1.0}
+                emit(row)
+                rows.append(row)
+    finally:
+        ledger.enable = real_enable
+        ledger.disable()
+        ledger.reset()
+        if not was:
+            obs.disable()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the wide-subspace squared-loss GLMix at full width, float32
 # ---------------------------------------------------------------------------
 
@@ -6917,6 +7277,8 @@ def main() -> int:
     ap.add_argument("--pilot", action="store_true",
                     help="run only the pilot phase (14g) on train_cli's "
                          "files")
+    ap.add_argument("--profile", action="store_true",
+                    help="run only the cli.profile phase (14h)")
     ap.add_argument("--cli-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6966,6 +7328,12 @@ def main() -> int:
         cli = phase_train_cli(torch, *serving_arrays())
         phase_tuning_cli(torch, cli, cli_children(tuning_jobs(cli)))
         phase_glm_cli(torch, cli)
+        print(smi, flush=True)
+        return 0
+    if args.profile:
+        phase_profile_cli(torch, cli_children(
+            profile_jobs({"root": train_cli_root()}))[0])
+        overhead_aa(torch)
         print(smi, flush=True)
         return 0
     if args.pilot:
@@ -7031,11 +7399,12 @@ def main() -> int:
     train_cli = phase_train_cli(torch, arrays, manifest)
     stream = phase_stream_cli(torch, train_cli, ops["health_sketch"])
     torch.cuda.empty_cache()
-    # The pilot's children start beside the tuned runs', and both beside
-    # 14b (all three only read train_cli's files; the children count
-    # their launches in their own processes).
+    # The pilot's and cli.profile's children start beside the tuned
+    # runs', and all beside 14b (they only read train_cli's files, or
+    # none; the children count their launches in their own processes).
     children = in_background(cli_children, tuning_jobs(train_cli)
-                             + pilot_jobs(train_cli))
+                             + pilot_jobs(train_cli)
+                             + profile_jobs(train_cli))
     try:
         cli_routes = phase_train_cli_routes(torch, train_cli)
     except BaseException:
@@ -7043,9 +7412,10 @@ def main() -> int:
             children(cancel=True)
         raise
     torch.cuda.empty_cache()
-    *tuned, piloted = children()
+    *tuned, piloted, profiled = children()
     tuning = phase_tuning_cli(torch, train_cli, tuned)
     pilot = phase_pilot_cli(torch, train_cli, piloted)
+    profiles = phase_profile_cli(torch, profiled)
     glm = phase_glm_cli(torch, train_cli)
     torch.cuda.empty_cache()
     routes = phase_train_routes(torch)
@@ -7055,7 +7425,8 @@ def main() -> int:
         "train_routes": routes["newton_launches"],
         "train_cli_routes": cli_routes["newton_launches"],
         "tuning_cli": tuning["newton_launches"],
-        "pilot_cli": pilot["newton_launches"]}
+        "pilot_cli": pilot["newton_launches"],
+        "profile_cli": profiles["newton_launches"]}
     newton["launches"] = sum(newton["launches_by_path"].values())
     newton["max_abs_err"] = max(newton["max_abs_err"],
                                 train_cli["newton_parity_max_abs_diff"])
@@ -7067,6 +7438,8 @@ def main() -> int:
         "segment_launches"]
     segment["launches_by_path"]["pilot_cli_evaluation"] = pilot[
         "evaluation_launches"]
+    segment["launches_by_path"]["profile_cli"] = profiles[
+        "segment_launches"]
     # The fixed effect's sparse transpose on every CLI training path.
     fixed_effect = {"train_cli": train_cli["fixed_effect_launches"],
                     "stream_cli": stream["fixed_effect_launches"],
@@ -7106,7 +7479,8 @@ def main() -> int:
                      + train_cli["serve_launches"]
                      + stream["serve_launches"]
                      + cli_routes["serve_launches"]
-                     + pilot["serve_launches"]),
+                     + pilot["serve_launches"]
+                     + profiles["serve_launches"]),
         "launches_by_path": {"serve": serve["kernel_launches"],
                              "serve_ops": ops["launches"],
                              "score_cli": batch["launches"],
@@ -7114,7 +7488,8 @@ def main() -> int:
                              "stream_cli": stream["serve_launches"],
                              "train_cli_routes":
                                  cli_routes["serve_launches"],
-                             "pilot_cli": pilot["serve_launches"]},
+                             "pilot_cli": pilot["serve_launches"],
+                             "profile_cli": profiles["serve_launches"]},
         "max_abs_err": max(worst, coords["float32"]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

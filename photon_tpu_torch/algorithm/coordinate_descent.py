@@ -17,12 +17,17 @@ Each update is a ``coord:<cid>`` telemetry span carrying its iteration
 (host time only: the span waits for nothing, so it adds no host sync);
 with an ``emitter`` the loop sends a ``CoordinateUpdateEvent`` per
 update and a ``CoordinateRollbackEvent`` per rolled-back one.
+
+With a ``FitLedgerFeed`` (the estimator makes one when telemetry and
+the cost ledger are both on) the loop times every update for the cost
+ledger; without one it adds nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 from typing import Any, Callable
 
@@ -38,6 +43,18 @@ from photon_tpu_torch.resilience import faults
 from photon_tpu_torch.resilience.errors import NonFiniteUpdateError
 
 logger = logging.getLogger(__name__)
+
+# The cost ledger's name for the fit's program: this loop of coordinate
+# updates (the JAX package books its whole-fit program as "fused_fit").
+FIT_PROGRAM = "coordinate_descent"
+# Host syncs made by ``FitLedgerFeed.close``: one a fit on the card with
+# the ledger armed, none on the CPU or with the ledger off.
+feed_syncs = 0
+# Each thread's timing events, reused by its next feed: a feed resolves
+# every event it recorded before it returns, so none is still pending
+# when the next fit records it again (creating and destroying a CUDA
+# event per update costs more than recording one).
+_events = threading.local()
 
 
 def _sub_add(total: torch.Tensor, old: torch.Tensor,
@@ -61,6 +78,94 @@ def _update_is_finite(model, scores: torch.Tensor) -> bool:
     """One host sync: are the update's scores and weights all finite?"""
     return all(bool(torch.isfinite(t).all())
                for t in [scores, *_model_weight_tensors(model)])
+
+
+class FitLedgerFeed:
+    """The cost ledger's feed of one fit (the JAX package's
+    ``FusedFit._ledger_record``, on this loop).
+
+    ``start``/``stop`` bracket each coordinate update (train, score and
+    the non-finite check). On the card each bracket is a pair of CUDA
+    events recorded on the current stream, so the window is the device's
+    time from reaching the update to finishing it, not the time to
+    enqueue it; the events add no launch and no sync, and ``close``
+    resolves them all with ONE sync on the last (counted in
+    ``feed_syncs``). On the CPU every op completes before it returns, so
+    the windows are ``perf_counter`` stamps. The events are this
+    thread's, made once and recorded again by every later fit.
+
+    ``close`` books, under program ``FIT_PROGRAM`` and phase ``fit``,
+    the windows to one ``(cid, "fit", FIT_PROGRAM)`` row a coordinate
+    (``record_dispatch(..., parts=...)``), the rest of the fit's
+    measured wall (validation, checkpoints, host work between updates)
+    to the ``("-", "host", "unattributed")`` row, and the slabs'
+    resident bytes under ``FIT_PROGRAM + "/slabs"``. It registers the
+    fit's program (measured-only: no static count covers a loop of
+    solver iterations) and, with their counts from
+    ``analysis/costmodel.py``, every Newton bucket shape
+    (``newton_step/<B>x<R>x<S>``) and segment-sum site
+    (``segment_sum/<site>``) the fit launched on the card.
+    """
+
+    def __init__(self, device):
+        from photon_tpu_torch.ops import newton_kernel, segment_reduce
+
+        self.cuda = torch.device(device).type == "cuda"
+        self.updates: list = []
+        if self.cuda:
+            self.stream = torch.cuda.current_stream(device)
+            self.pool = _events.__dict__.setdefault("pool", [])
+            self.used = 0
+        self._newton0 = dict(newton_kernel.launches_by_shape)
+        self._segment0 = dict(segment_reduce.launches_by_site)
+        self.t0 = time.perf_counter()
+
+    def start(self):
+        if self.cuda:
+            if self.used == len(self.pool):
+                self.pool.append(torch.cuda.Event(enable_timing=True))
+            event = self.pool[self.used]
+            self.used += 1
+            event.record(self.stream)
+            return event
+        return time.perf_counter()
+
+    def stop(self, cid: str, start) -> None:
+        self.updates.append((cid, start, self.start()))
+
+    def close(self, slab_bytes: int = 0) -> None:
+        """Resolve the windows and book the fit."""
+        global feed_syncs
+        from photon_tpu_torch.analysis import costmodel
+        from photon_tpu_torch.obs import ledger
+        from photon_tpu_torch.ops import newton_kernel, segment_reduce
+
+        if self.cuda and self.updates:
+            self.updates[-1][2].synchronize()
+            feed_syncs += 1
+        t1 = time.perf_counter()
+        parts: dict = {}
+        for cid, a, b in self.updates:
+            s = a.elapsed_time(b) / 1e3 if self.cuda else b - a
+            parts[cid] = parts.get(cid, 0.0) + s
+        named = sum(parts.values())
+        wall = t1 - self.t0
+        ledger.register_program(FIT_PROGRAM, phase="fit")
+        for shape, n in newton_kernel.launches_by_shape.items():
+            if n > self._newton0.get(shape, 0):
+                ledger.register_program(
+                    "newton_step/{}x{}x{}".format(*shape), phase="fit",
+                    cost=costmodel.newton_step_cost(shape))
+        for site, n in segment_reduce.launches_by_site.items():
+            if n > self._segment0.get(site, 0):
+                ledger.register_program(
+                    f"segment_sum/{site}", phase="fit",
+                    cost=segment_reduce.site_cost(site))
+        if parts:
+            ledger.record_dispatch(FIT_PROGRAM, named, phase="fit",
+                                   start=self.t0, end=t1, parts=parts)
+        ledger.record_unattributed(max(wall - named, 0.0))
+        ledger.set_resident(f"{FIT_PROGRAM}/slabs", slab_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +228,9 @@ class CoordinateDescent:
     def run(self, coordinates: dict, initial_models: dict | None = None,
             validation: ValidationContext | None = None, *,
             seed: int = 0, start_iteration: int = 0, on_iteration=None,
-            initial_best=None) -> CoordinateDescentResult:
+            initial_best=None,
+            ledger_feed: FitLedgerFeed | None = None
+            ) -> CoordinateDescentResult:
         """Train every coordinate by block coordinate descent.
 
         ``start_iteration`` resumes mid-descent: iterations before it
@@ -133,6 +240,7 @@ class CoordinateDescent:
         tracking on resume. ``on_iteration(it, model, best_model)``
         runs after each outer iteration (the checkpointer's hook), and
         the ``cd.iteration`` fault point right after it.
+        ``ledger_feed`` (a ``FitLedgerFeed``) times each update.
         """
         if not 0 <= start_iteration <= self.num_iterations:
             raise ValueError(
@@ -170,6 +278,8 @@ class CoordinateDescent:
                 t0 = time.perf_counter()
                 rolled_back = False
                 with obs.span(f"coord:{cid}", attrs={"iteration": it}):
+                    window = (None if ledger_feed is None
+                              else ledger_feed.start())
                     residuals = None
                     if total is not None:
                         residuals = total
@@ -194,6 +304,8 @@ class CoordinateDescent:
                         total = _sub_add(total, scores[cid], new_scores)
                     else:
                         total = total + new_scores
+                    if ledger_feed is not None:
+                        ledger_feed.stop(cid, window)
                 if rolled_back:
                     logger.warning(
                         "CD iter %d coordinate %s: non-finite update "

@@ -2,9 +2,10 @@
 set-up, and the single-process answers of the multi-host hooks.
 
 The port runs on one device in one process: ``maybe_init_distributed``
-starts nothing, ``fetch_global`` returns its argument as numpy, and this
-process is the coordinator. ``resolve_mesh`` accepts only the mesh
-settings that mean one device.
+starts nothing (it marks the init half of the fleet clock handshake),
+``fetch_global`` returns its argument as numpy, and this process is the
+coordinator. ``resolve_mesh`` accepts only the mesh settings that mean
+one device.
 """
 
 from __future__ import annotations
@@ -19,7 +20,13 @@ from photon_tpu_torch.device import MESH_NOT_PORTED
 
 
 def maybe_init_distributed() -> bool:
-    """No multi-host runtime to start; returns False."""
+    """No multi-host runtime to start; returns False. Marks the init
+    half of the fleet clock-alignment handshake (``obs.fleet.mark_init``)
+    on every call, so a bundle committed later bounds how far this
+    host's clock mapping drifted over the run."""
+    from photon_tpu_torch.obs import fleet
+
+    fleet.mark_init()
     return False
 
 

@@ -44,7 +44,6 @@ from photon_tpu_torch.ops.normalization import NormalizationType
 from photon_tpu_torch.types import TaskType
 
 # The ROADMAP Queue A item of each unported option.
-TELEMETRY_ITEM = 10
 MULTI_DEVICE_ITEM = 12
 
 

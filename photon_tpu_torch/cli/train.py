@@ -34,7 +34,8 @@ metrics, reports) and adds the snapshot to ``training-summary.json``;
 ``profile_dir`` runs the fit under ``torch.profiler`` inside the
 ``train_fit_profile`` span. The stages ``stream ingest``, ``prepare
 training datasets`` and ``train models`` are logged spans. None of it
-adds a host sync or a launch.
+adds a host sync or a launch; the cost ledger, which ``--distributed``
+arms, adds one sync a fit on the card (its feed's CUDA events).
 
 ``--monitor-port PORT`` (0: ephemeral) serves ``/metrics`` (the
 registry, and the ledger's and health layer's families when armed),
@@ -42,11 +43,19 @@ registry, and the ledger's and health layer's families when armed),
 the process index; ``/readyz`` answers 200 once the
 ``train_datasets_prepared`` gauge is set, after ``prepare``.
 
+``--distributed`` arms distributed observability (``obs/fleet.py``):
+telemetry and the cost ledger record for the whole run, and at exit
+this rank commits its obs bundle into the fleet directory
+(``--fleet-dir``, else ``$PHOTON_FLEET_DIR``, else
+``<output_dir>/fleet``), which ``python -m
+photon_tpu_torch.cli.fleetview`` merges. A single process ships a
+1-rank fleet. The run id every artifact carries is derived from the
+fleet directory's path unless ``PHOTON_RUN_ID`` sets it.
+
 Options the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: fleet bundles (``--fleet-dir``: item 10's
-last part) and ``--distributed`` (item 12), besides the config options
-``cli/config.py`` lists. The JAX package's ``--backend`` is ``--device``
-here.
+their ROADMAP Queue A item: a ``WORLD_SIZE`` above 1 (multi-process
+training: item 12), besides the config options ``cli/config.py``
+lists. The JAX package's ``--backend`` is ``--device`` here.
 
 Usage:
     python -m photon_tpu_torch.cli.train --config train.json \
@@ -54,7 +63,7 @@ Usage:
         [--stream-dir DIR [--resume-ingest] [--stream-window N] \
          [--max-bad-shards N] [--max-bad-fraction F]] \
         [--telemetry PATH] [--trace PATH] [--flight-dir DIR | --no-flight] \
-        [--device cuda|cpu]
+        [--distributed [--fleet-dir DIR]] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ import os
 import signal
 import sys
 import time
+import zlib
 
 
 def main(argv=None) -> int:
@@ -144,19 +154,28 @@ def main(argv=None) -> int:
                              "(0: ephemeral); /readyz answers 200 once "
                              "the training datasets are prepared")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training (item 12)")
+                        help="arm distributed observability "
+                             "(obs/fleet.py): telemetry and the cost "
+                             "ledger record for the whole run and this "
+                             "rank commits an atomic obs bundle into "
+                             "the shared fleet dir at exit; merge the "
+                             "ranks with python -m "
+                             "photon_tpu_torch.cli.fleetview. "
+                             "Single-process runs ship a 1-rank fleet")
     parser.add_argument("--fleet-dir", default=None, metavar="DIR",
-                        help="fleet observability bundles (item 10)")
+                        help="shared run directory for --distributed "
+                             "bundles (default: $PHOTON_FLEET_DIR, "
+                             "else <output_dir>/fleet)")
     args = parser.parse_args(argv)
 
     from photon_tpu_torch import optim
-    from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM, TELEMETRY_ITEM
+    from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM
+    from photon_tpu_torch.obs import fleet
 
-    if args.fleet_dir is not None:
-        raise optim.not_ported("--fleet-dir (fleet bundles)",
-                               TELEMETRY_ITEM)
-    if args.distributed:
-        raise optim.not_ported("--distributed (multi-process training)",
+    # The process count a torch.distributed launcher exported.
+    world = fleet.host_identity(refresh=True)["process_count"]
+    if world > 1:
+        raise optim.not_ported(f"multi-process training (WORLD_SIZE={world})",
                                MULTI_DEVICE_ITEM)
     if (args.resume and args.checkpoint_dir
             and os.path.abspath(args.resume)
@@ -168,14 +187,30 @@ def main(argv=None) -> int:
     if args.resume_ingest and not args.stream_dir:
         parser.error("--resume-ingest requires --stream-dir")
 
-    from photon_tpu_torch.cli.common import cli_logging
+    from photon_tpu_torch.cli.common import (
+        cli_logging,
+        maybe_init_distributed,
+    )
     from photon_tpu_torch.resilience import faults
 
     with cli_logging(args.verbose, args.log_file):
         # PHOTON_TPU_FAULT_PLAN arms a seeded fault plan in this process
         # (nothing when unset): how tests inject a crash or a signal.
         faults.arm_from_env()
+        maybe_init_distributed()
         return _main_instrumented(args)
+
+
+def fleet_dir(args) -> str:
+    """Where ``--distributed`` ships: ``--fleet-dir``, else
+    ``$PHOTON_FLEET_DIR``, else ``<output_dir>/fleet``."""
+    resolved = args.fleet_dir or os.environ.get("PHOTON_FLEET_DIR")
+    if not resolved:
+        from photon_tpu_torch.cli.config import TrainingConfig
+
+        resolved = os.path.join(TrainingConfig.load(args.config).output_dir,
+                                "fleet")
+    return resolved
 
 
 def _main_instrumented(args) -> int:
@@ -183,20 +218,38 @@ def _main_instrumented(args) -> int:
     exports' reset and enable, the flight dump at an unwind, and the
     caller's telemetry state restored."""
     from photon_tpu_torch import obs
-    from photon_tpu_torch.obs import flight
+    from photon_tpu_torch.obs import fleet, flight, ledger
 
     log = logging.getLogger("photon.train")
     was_enabled = obs.enabled()
-    exporting = bool(args.telemetry or args.trace)
+    ledger_was_enabled = ledger.enabled()
+    exporting = bool(args.telemetry or args.trace or args.distributed)
+    if args.distributed:
+        # The bundle carries the ledger's rows, which the fleet's
+        # straggler report rolls up.
+        ledger.enable()
     if exporting:
         # The run owns the process's telemetry stream: a prior
         # session's records in this run's files would be worse. Only
         # the enabled flag is restored afterwards.
         obs.reset()
         obs.enable()
+    if args.distributed:
+        # obs.reset() dropped the init clock sample maybe_init_distributed
+        # took: take it again, or the commit's skew bound would pair a
+        # sample with itself. The run id, unless set, is derived from the
+        # fleet directory's path, the same on every rank.
+        fleet.mark_init()
+        if fleet.run_id() is None:
+            try:
+                digest = zlib.crc32(
+                    os.path.abspath(fleet_dir(args)).encode("utf-8"))
+                fleet.set_run_id(f"train-{digest & 0xffffffff:08x}")
+            except Exception:  # noqa: BLE001 - a bad config fails in _run
+                pass
     mon = None
     if args.monitor_port is not None:
-        from photon_tpu_torch.obs import fleet, monitor
+        from photon_tpu_torch.obs import monitor
 
         # A prepare of an earlier run in this process must not make
         # this one ready.
@@ -232,6 +285,15 @@ def _main_instrumented(args) -> int:
     finally:
         if mon is not None:
             mon.stop()
+        if args.distributed:
+            # This rank's bundle ships before the recorder's teardown
+            # (which may reset the rings): a failed run still leaves its
+            # half of the fleet's post-mortem.
+            try:
+                out_dir = fleet.ship_bundle(fleet_dir(args))
+                log.info("fleet bundle committed to %s", out_dir)
+            except Exception:  # noqa: BLE001 - never masks the outcome
+                log.exception("failed to ship the fleet bundle")
         # Uninstall first: it restores the flag it found at install,
         # and the exports' restore below must win over it.
         if flight.installed() is not prior_rec:
@@ -259,6 +321,8 @@ def _main_instrumented(args) -> int:
                               args.telemetry)
         if exporting:
             obs.TRACER.enabled = was_enabled
+        if args.distributed and not ledger_was_enabled:
+            ledger.disable()
 
 
 def _run(args) -> int:

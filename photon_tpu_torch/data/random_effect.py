@@ -293,6 +293,18 @@ class RandomEffectDataset:
 
         return self._cached("_device_plans", build)
 
+    def slab_nbytes(self) -> int:
+        """Device bytes of the training slabs on the card now: the
+        materialized buckets (a lazy dataset's cached ``device_blocks``),
+        counted from metadata. Gathers nothing."""
+        blocks = (self.blocks if not self.is_lazy
+                  else self.__dict__.get("_device_blocks") or ())
+        return sum(
+            t.numel() * t.element_size() for b in blocks
+            if isinstance(b, EntityBlocks)
+            for t in (getattr(b, f.name) for f in dataclasses.fields(b))
+            if isinstance(t, torch.Tensor))
+
     def device_blocks(self) -> tuple:
         """Training blocks with their slabs gathered once on the device
         (cached) while the total stays within the slab budget; a bucket

@@ -20,9 +20,13 @@ one packed transfer (``data/pipeline.py``).
 ``listeners`` (callables taking an ``events`` event) receive a
 ``CoordinateUpdateEvent`` per coordinate update and a ``FitEndEvent``
 per configuration. With telemetry on, ``prepare`` and each
-``fit/config:<i>`` are spans, and with the cost ledger on the
-validation rescoring of a (re)loaded model is booked under
-``eval/score`` and ``eval/suite``.
+``fit/config:<i>`` are spans. With telemetry and the cost ledger both
+on, each configuration's fit books its updates' windows to
+per-coordinate ``coordinate_descent`` rows, the rest of its wall to the
+``unattributed`` row and its slabs' resident bytes
+(``algorithm.coordinate_descent.FitLedgerFeed``: one sync a fit on the
+card), and the validation rescoring of a (re)loaded model is booked
+under ``eval/score`` and ``eval/suite``.
 
 ``evaluate_model`` scores any ``GameModel`` (a serving generation, a
 candidate) on validation data through the same scorers and metrics a
@@ -52,6 +56,7 @@ from photon_tpu_torch.algorithm.coordinate import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
     CoordinateDescentResult,
+    FitLedgerFeed,
     ValidationContext,
 )
 from photon_tpu_torch.algorithm.problems import (
@@ -64,6 +69,7 @@ from photon_tpu_torch.data.pipeline import PIPELINE_STATS, packable
 from photon_tpu_torch.data.random_effect import (
     PendingRandomEffectDataset,
     RandomEffectDataConfiguration,
+    RandomEffectDataset,
     _plan_arrays_to_device,
     build_random_effect_dataset,
 )
@@ -622,6 +628,12 @@ class GameEstimator:
                         saved_best[0] = best
                     checkpointer.save(model, config_index=_ci,
                                       iteration=it)
+            from photon_tpu_torch.obs import ledger
+
+            # The cost ledger's feed, only with telemetry and the ledger
+            # on: off, the fit makes no extra launch, sync or row.
+            feed = (FitLedgerFeed(self.device)
+                    if obs.enabled() and ledger.enabled() else None)
             t0 = time.perf_counter()
             with obs.span(f"fit/config:{i}"):
                 descent = cd.run(
@@ -629,7 +641,12 @@ class GameEstimator:
                     seed=i * self.num_iterations,
                     start_iteration=(resume_iteration if i == start_config
                                      else 0),
-                    on_iteration=on_iteration, initial_best=initial_best)
+                    on_iteration=on_iteration, initial_best=initial_best,
+                    ledger_feed=feed)
+                if feed is not None:
+                    feed.close(slab_bytes=sum(
+                        ds.slab_nbytes() for ds in datasets.values()
+                        if isinstance(ds, RandomEffectDataset)))
             result = GameFitResult(
                 model=descent.best_model,
                 config=self._full_config(opt_configs),

@@ -13,7 +13,8 @@ sentinels, the serve tap), **live monitoring** (``obs/monitor.py``:
 ``/metrics``, ``/healthz``, ``/readyz``, latency windows, SLO burn,
 hotness; imported lazily) and the **exporters**: ``snapshot()``, the
 JSONL stream and the text table (``obs/export.py``; schema in
-OBSERVABILITY.md).
+OBSERVABILITY.md), and the **fleet** layer (``obs/fleet.py``: host
+identity, clock alignment, per-rank bundles and their merge).
 
 Telemetry is off by default, and turning it on is a host decision only:
 no hook launches a kernel, copies to or from the card or waits for it,
@@ -30,9 +31,6 @@ Usage::
     ...
     print(obs.summary_table())
     obs.write_jsonl("run-telemetry.jsonl")
-
-Waiting for ROADMAP Queue A item 10's last part: the rest of
-``obs.fleet`` (clock alignment, bundles, the fleet merge).
 """
 
 from __future__ import annotations

@@ -63,18 +63,33 @@ GRAM_ELEMENT_BUDGET = 1 << 26
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches made by ``segment_sum`` (never by the plain version),
-# in all and by call site.
+# in all and by call site, and each site's last launch's (values, value
+# bytes, segments): what ``site_cost`` counts.
 launches = 0
 launches_by_site: dict = {}
+shapes_by_site: dict = {}
 
 _launch_fn = None
 
 
 def reset_counts() -> None:
-    """Zero ``launches`` and ``launches_by_site``."""
+    """Zero ``launches`` and ``launches_by_site`` (and forget
+    ``shapes_by_site``)."""
     global launches
     launches = 0
     launches_by_site.clear()
+    shapes_by_site.clear()
+
+
+def site_cost(site: str) -> dict | None:
+    """``costmodel.segment_sum_cost`` of the last launch at ``site``
+    (None if none launched there): the cost ledger's census count."""
+    shape = shapes_by_site.get(site)
+    if shape is None:
+        return None
+    from photon_tpu_torch.analysis import costmodel
+
+    return costmodel.segment_sum_cost(*shape)
 
 
 def kernel_supported(num_values: int, num_segments: int, dtype) -> bool:
@@ -212,6 +227,7 @@ def _launch(values, ids, n: int, site: str) -> torch.Tensor:
         raise RuntimeError(f"segment_sum launch failed with CUDA error {rc}")
     launches += 1
     launches_by_site[site] = launches_by_site.get(site, 0) + 1
+    shapes_by_site[site] = (m, values.element_size(), n)
     return out
 
 

@@ -9,9 +9,10 @@ the feed from a real fit with validation and a serving ladder, and the
 ``ledger_*`` /metrics families (rendered and checked by the port's
 ``obs.monitor.validate_exposition``, and on a monitor scrape).
 
-Not ported: its profile CLI case (``cli.profile``, ROADMAP Queue A item
-10's last part) and its ``benchtrend`` case (the port has no
-benchmark). Its fused-fit cases run on the port's unfused fit.
+Its profile CLI cases are in ``tests/test_torch_profile.py`` and its
+``benchtrend`` case in ``tests/test_torch_benchtrend.py``. Its
+fused-fit cases run on the port's unfused fit, whose ledger feed books
+``coordinate_descent`` rows.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from photon_tpu_torch import obs
+from photon_tpu_torch.algorithm.coordinate_descent import FIT_PROGRAM
 from photon_tpu_torch.analysis import costmodel
 from photon_tpu_torch.obs import ledger
 from test_torch_serve_degraded import D, DU, S, request, server
@@ -618,9 +620,26 @@ class TestEndToEnd:
             for f in [q.submit(*request(rng, str(i))) for i in range(9)]:
                 f.result(timeout=30)
         snap = ledger.snapshot()
-        assert {"serve/score@1", "serve/score@4"} == set(snap["programs"])
+        # The fit's program, measured-only, beside the serve rungs; on
+        # the CPU no kernel launched, so no kernel joins the census.
+        assert {"serve/score@1", "serve/score@4", FIT_PROGRAM} == set(
+            snap["programs"])
+        assert snap["programs"][FIT_PROGRAM] == {"phase": "fit",
+                                                 "cost": None}
         rows = {(r["coordinate"], r["phase"], r["program"]): r
                 for r in snap["rows"]}
+        # Per-coordinate fit rows (one dispatch each: one fit) and the
+        # explicit residual of the fit's wall.
+        for cid in ("global", "per-user"):
+            fit_row = rows[(cid, "fit", FIT_PROGRAM)]
+            assert fit_row["dispatches"] == 1 and fit_row["seconds"] > 0
+        assert ("-", "host", "unattributed") in rows
+        # The per-user slabs' bytes: [B, R, S] values plus the [B, R]
+        # and [B, S] leaves of every materialized bucket.
+        slabs = sum(ds.slab_nbytes() for ds in pest._fit_cache[1][0].values()
+                    if hasattr(ds, "slab_nbytes"))
+        assert slabs > 0
+        assert snap["resident_bytes"][f"{FIT_PROGRAM}/slabs"] == slabs
         assert ("global", "eval", "eval/score") in rows
         assert ("per-user", "eval", "eval/score") in rows
         assert ("-", "eval", "eval/suite") in rows

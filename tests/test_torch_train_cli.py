@@ -902,11 +902,12 @@ def test_train_then_score_round_trip(tmp_path, glmix):
                                                 abs=EVAL_TOL)
 
 
+# (args, config overrides, environment, item).
 UNPORTED = [
-    (["--fleet-dir", "f"], {}, 10),
-    (["--distributed"], {}, 12),
-    ([], {"mesh": 4}, 12),
-    ([], {"global": {"feature_sharding": "column"}}, 12),
+    (["--distributed", "--fleet-dir", "f"], {}, {"WORLD_SIZE": "2"}, 12),
+    (["--distributed"], {}, {"WORLD_SIZE": "2"}, 12),
+    ([], {"mesh": 4}, {}, 12),
+    ([], {"global": {"feature_sharding": "column"}}, {}, 12),
 ]
 
 
@@ -916,15 +917,18 @@ UNPORTED = [
 # item-11 cases (10 and 17, hyperparameter tuning and a weight range) to
 # the tuning tests below, and the item-10 telemetry cases (3-5, 9 and
 # 20: --telemetry, --trace, --flight-dir, profile_dir, --no-flight; and
-# 6, --monitor-port) to tests/test_torch_obs_cli.py.
-UNPORTED_POSITIONS = [7, 8, 11, 12]
+# 6, --monitor-port) to tests/test_torch_obs_cli.py. Cases 7 and 8 were
+# --fleet-dir (item 10) and --distributed alone; with fleet bundles
+# ported both run on one process, and the cases, under their old ids,
+# hold that a launcher's WORLD_SIZE of 2 still raises for item 12.
+UNPORTED_IDS = ["7-item10", "8-item12", "11-item12", "12-item12"]
 
 
-@pytest.mark.parametrize("args,overrides,item", UNPORTED,
-                         ids=[f"{i}-item{u[2]}" for i, u in
-                              zip(UNPORTED_POSITIONS, UNPORTED, strict=True)])
+@pytest.mark.parametrize("args,overrides,env,item", UNPORTED,
+                         ids=UNPORTED_IDS)
 def test_unported_options_raise_naming_their_item(tmp_path, glmix, args,
-                                                  overrides, item):
+                                                  overrides, env, item,
+                                                  monkeypatch):
     train, val = glmix
     cfg = make_config(tmp_path, train, val,
                       output_dir=str(tmp_path / "out"))
@@ -933,10 +937,150 @@ def test_unported_options_raise_naming_their_item(tmp_path, glmix, args,
             cfg["coordinates"][key] = {**cfg["coordinates"][key], **value}
         else:
             cfg[key] = value
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue A item {item}\\)"):
         run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device", "cpu",
                 *args)
+
+
+# ---------------------------------------------------------------------------
+# --distributed: a 1-rank fleet on one process
+# ---------------------------------------------------------------------------
+
+
+def _bundle(fleet_dir) -> tuple[dict, list]:
+    """The committed rank-0 bundle under ``fleet_dir`` and its spans."""
+    host = os.path.join(str(fleet_dir), "obs-host-0")
+    with open(os.path.join(host, "bundle.json")) as f:
+        bundle = json.load(f)
+    with open(os.path.join(host, "spans.jsonl")) as f:
+        spans = [r for r in map(json.loads, f) if r["type"] == "span"]
+    return bundle, spans
+
+
+def _expected_run_id(fleet_dir) -> str:
+    import zlib
+
+    digest = zlib.crc32(os.path.abspath(str(fleet_dir)).encode("utf-8"))
+    return f"train-{digest & 0xffffffff:08x}"
+
+
+def test_distributed_ships_a_one_rank_bundle(tmp_path, glmix, monkeypatch):
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.cli import fleetview
+    from photon_tpu_torch.obs import ledger
+
+    monkeypatch.delenv("PHOTON_RUN_ID", raising=False)
+    monkeypatch.delenv("PHOTON_FLEET_DIR", raising=False)
+    train, val = glmix
+    cfg = make_config(tmp_path, train, val,
+                      output_dir=str(tmp_path / "out"))
+    was = obs.enabled()
+    fleet = tmp_path / "fleet"
+    rc, line = run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device",
+                       "cpu", "--distributed", "--fleet-dir", str(fleet))
+    assert rc == 0 and line is not None
+    # The run restores the flags it found.
+    assert obs.enabled() == was and not ledger.enabled()
+    bundle, spans = _bundle(fleet)
+    assert bundle["schema"] == 1
+    assert bundle["host"]["process_index"] == 0
+    assert bundle["host"]["process_count"] == 1
+    assert bundle["host"]["run_id"] == _expected_run_id(fleet)
+    # The init sample was taken after the run's obs.reset(), at the start.
+    clock = bundle["clock"]
+    assert clock["init"] != clock["commit"]
+    assert 0.0 <= clock["skew_bound_seconds"] < 1.0
+    assert bundle["ledger"]["enabled"] is True
+    report_path = tmp_path / "report.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert fleetview.main(["--run-dir", str(fleet), "--expect-ranks",
+                               "1", "--json", str(report_path)]) == 0
+    report = json.loads(report_path.read_text())
+    assert report["ranks"] == [0] and report["gaps"] == []
+    assert report["per_rank"][0]["attributed_seconds"] > 0
+
+
+def test_distributed_bundle_names_the_run_coordinates(tmp_path, glmix,
+                                                      monkeypatch):
+    monkeypatch.delenv("PHOTON_FLEET_DIR", raising=False)
+    train, val = glmix
+    cfg = make_config(tmp_path, train, val,
+                      output_dir=str(tmp_path / "out"))
+    rc, _ = run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device",
+                    "cpu", "--distributed")
+    assert rc == 0
+    bundle, spans = _bundle(tmp_path / "out" / "fleet")
+    coords = set(cfg["coordinates"])
+    # Two iterations: a coord:<cid> span per update.
+    for cid in coords:
+        assert sum(sp["name"] == f"coord:{cid}" for sp in spans) == 2, cid
+    rows = {(r["coordinate"], r["phase"], r["program"]): r
+            for r in bundle["ledger"]["rows"]}
+    for cid in coords:
+        row = rows[(cid, "fit", "coordinate_descent")]
+        assert row["seconds"] > 0 and row["dispatches"] == 1
+    assert ("-", "host", "unattributed") in rows
+    assert "coordinate_descent" in bundle["ledger"]["programs"]
+    assert bundle["ledger"]["resident_bytes"][
+        "coordinate_descent/slabs"] > 0
+
+
+@pytest.mark.parametrize("mode", ["flag", "env", "default"])
+def test_fleet_dir_resolves_as_the_reference_does(tmp_path, glmix,
+                                                  monkeypatch, mode):
+    """``--fleet-dir``, else ``$PHOTON_FLEET_DIR``, else
+    ``<output_dir>/fleet``: both CLIs ship their bundle to the same
+    place, stamped with the run id derived from its path."""
+    from photon_tpu.cli import train as jax_train
+
+    monkeypatch.delenv("PHOTON_RUN_ID", raising=False)
+    monkeypatch.delenv("PHOTON_FLEET_DIR", raising=False)
+    train, val = glmix
+    for side, main, extra in (("jax", jax_train.main, ()),
+                              ("pt", pt_train.main, ("--device", "cpu"))):
+        root = tmp_path / side
+        root.mkdir()
+        cfg = make_config(tmp_path, train, val, output_dir=str(root / "out"))
+        args = ["--distributed", *extra]
+        # The flag wins over the environment, which wins over the default.
+        monkeypatch.setenv("PHOTON_FLEET_DIR", str(root / "fleet-env"))
+        if mode == "flag":
+            args += ["--fleet-dir", str(root / "fleet-flag")]
+            want = root / "fleet-flag"
+        elif mode == "env":
+            want = root / "fleet-env"
+        else:
+            monkeypatch.delenv("PHOTON_FLEET_DIR")
+            want = root / "out" / "fleet"
+        rc, _ = run_cli(main, cfg, root / "c.json", *args)
+        assert rc == 0, side
+        bundle, _ = _bundle(want)
+        assert bundle["host"]["run_id"] == _expected_run_id(want), side
+        shipped = sorted(p.relative_to(root).as_posix()
+                         for p in root.rglob("bundle.json"))
+        assert shipped == [f"{want.relative_to(root).as_posix()}/"
+                           "obs-host-0/bundle.json"], side
+
+
+def test_world_size_above_one_raises_naming_item_12(tmp_path, glmix,
+                                                    monkeypatch):
+    train, val = glmix
+    out = tmp_path / "out"
+    cfg = make_config(tmp_path, train, val, output_dir=str(out))
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError,
+                       match=r"multi-process training \(WORLD_SIZE=2\) is "
+                             r"not ported .*ROADMAP Queue A item 12\)"):
+        run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device", "cpu")
+    # Refused before anything was read or written.
+    assert not out.exists()
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    rc, _ = run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device",
+                    "cpu", "--distributed")
+    assert rc == 0 and (out / "fleet" / "obs-host-0" / "bundle.json").exists()
 
 
 # The options of ROADMAP Queue A item 6 that raised until they were
