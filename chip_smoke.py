@@ -14,6 +14,11 @@ JSON lines:
 
 1. device  - ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build   - compiles the CUDA kernels from ``photon_tpu_torch/csrc``;
+2a. graph_loops - the loop designs measured (``phase_graph_loops``): a
+             toy device loop captured as one WHILE node and unrolled
+             into 100 and 2,500 IF nodes (``csrc/graph_loop.cu``):
+             capture and instantiate seconds, nodes, replay ms, each
+             equal to the eager loop;
 3. parity  - the serve kernel against its plain PyTorch version at every
              rung 1/8/64/512, f32 and bf16 tables, dense features and an
              ELL-sparse layout, 5% cold lookups plus padding rows;
@@ -164,18 +169,32 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      atol 1e-5 are reported (entities whose objective
                      moved only by f32 round-off on both sides are
                      counted and left out);
-9.  fit            - ``GameEstimator.fit`` with the Newton-kernel launch,
-                     plain-route and host-sync counts zeroed just before:
-                     launches > 0 and no bucket on the plain route;
-                     then the fit's last fixed-effect L-BFGS solve
-                     replayed by the port's two L-BFGS designs, host
-                     branching and a batch of one, alternating
-                     (``fe_lbfgs_designs``: seconds, syncs, iterations);
-                     then the fit once more with ``obs.enable()``,
-                     ``ledger.enable()`` and ``obs.health.enable()``
-                     (``fit_telemetry``): the same host syncs and Newton
-                     launches, the model equal bit for bit and a
-                     ``coord:<cid>`` span every update;
+9.  fit            - the unfused ``GameEstimator.fit`` (a no-op listener)
+                     with the Newton-kernel launch, plain-route and
+                     host-sync counts zeroed just before: launches > 0
+                     and no bucket on the plain route; again, warm (its
+                     launches those of the first); then the fused fit
+                     (``fused_fit``): cold, its capture (seconds, graph
+                     and conditional nodes), then 3 warm replays under
+                     ``torch.cuda.set_sync_debug_mode("error")`` and
+                     one under ``torch.profiler`` (peak memory, kernel
+                     launches on the device counters). Gates: no solver
+                     sync in a warm fit; each replay's Newton launches
+                     equal its diagnostics' count and the unfused fit's;
+                     the models equal the unfused fit's bit for bit or
+                     within 5e-4 (fixed effect) / 2e-3 (random effects),
+                     which is printed. (The fused fit's fixed effect runs
+                     ``batched.lbfgs``, the unfused one ``lbfgs.py``:
+                     this pair took the place of ``fe_lbfgs_designs``.)
+                     Then the unfused fit once more with
+                     ``obs.enable()``, ``ledger.enable()`` and
+                     ``obs.health.enable()`` (``fit_telemetry``): the
+                     same host syncs and Newton launches, the model
+                     equal bit for bit and a ``coord:<cid>`` span every
+                     update; and one fused fit armed the same way
+                     (``fused_fit_telemetry``): one ``fused_fit`` span,
+                     one fit recorded, one sentinel parked and scanned
+                     finite, ``fused_fit`` rows for every coordinate;
 10. optimality     - each entity's gradient at the fitted model against
                      the cascade's tolerance, else its convergence reason;
 11. quality        - train AUC beside the generating weights' AUC;
@@ -302,7 +321,13 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      of the rows
                      and entities on the card and on the CPU
                      (``device="cpu"``) within route_agreement's
-                     tolerances, training losses within 1e-4.
+                     tolerances, training losses within 1e-4; (f) at that
+                     size the configuration fused (TRON, OWL-QN and the
+                     variances in a graph) against the unfused fit on the
+                     card, within the same tolerances
+                     (``train_routes_fused``). Both fits of (a)-(d) keep
+                     a no-op listener: their per-update records need the
+                     unfused loop.
 14d. stream_cli    - run right after 14a, on its configuration and its
                      training rows, which 14a writes as 16 part files
                      (the in-memory runs read the directory): the
@@ -520,7 +545,13 @@ nothing cut:
                        zeroed just before: launches at the gram, slots,
                        densify and score-tail sites, every direct solve
                        one iteration and GRADIENT_CONVERGED; then each
-                       update timed alone;
+                       update timed alone. The layout is materialized,
+                       so the fit stays unfused (gated, with the
+                       reference's reason printed); before the fit one
+                       gram and one densify bucket's solve are captured
+                       into a CUDA graph and replayed
+                       (``wide_fit_graph``): bit for bit the eager solve,
+                       the same launches;
 19. wide_optimality  - for 256 sampled entities of every random-effect
                        bucket, the float64 normal equations at the
                        residuals of the entity's last solve: fitted
@@ -545,7 +576,10 @@ nothing cut:
                        rest on the batch-minor Newton loop; the optimality
                        check of phase 10; then newton_parity's three-step
                        check and newton_timing's columns at the widest
-                       bucket on the kernel.
+                       bucket on the kernel, whose solve (densify and the
+                       Newton loop on the wide design) is captured and
+                       replayed before the fit as in 18
+                       (``wide_logistic_graph``).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -553,8 +587,9 @@ last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
 ``python3 chip_smoke.py --fits N`` runs only the device and build phases
 and then the full-width fits and the Newton kernel's timing, for
 comparing two trees on one card: the logistic fit N + 1 times on the
-kernel route (the first, cold, marked), once on the plain route in
-float32 and once in float64, each with its trajectory (Newton and L-BFGS
+kernel route (fused: the first, cold, is the capture) and N + 1 times
+unfused (a no-op listener), once on the plain route in float32 and once
+in float64, each with its trajectory (Newton and L-BFGS
 iterations, launches, host syncs) and training loss; newton_timing; the
 ``wide-linear`` fit N + 1 times; the wide design's check and timing on
 its per-movie gram bucket. It prints no ``ok`` line. To compare a parent
@@ -2724,16 +2759,18 @@ def auc(score: np.ndarray, y: np.ndarray) -> float:
 
 def fit_trajectory(torch, est, data) -> tuple[dict, object]:
     """One ``GameEstimator.fit`` with the counts zeroed just before: its
-    wall seconds (ending in a sync), per CD iteration and coordinate, and
-    its trajectory: L-BFGS and Newton iterations, Newton-kernel launches,
-    plain-route solves, host syncs."""
+    wall seconds (ending in a sync), per CD iteration and coordinate
+    (None for a fused fit: one graph runs the whole fit), and its
+    trajectory: L-BFGS and Newton iterations, Newton-kernel launches
+    made from Python (a fused fit's replay makes none: its launches are
+    counted by ``fused_fit_row``), plain-route solves, host syncs."""
     from photon_tpu_torch.algorithm import random_effect as ra
     from photon_tpu_torch.ops import newton_kernel as nk
-    from photon_tpu_torch.optim import lbfgs
+    from photon_tpu_torch.optim import batched, lbfgs
 
     nk.launches = 0
     ra.host_syncs = ra.plain_route_solves = 0
-    lbfgs.host_syncs = 0
+    lbfgs.host_syncs = batched.host_syncs = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2742,14 +2779,16 @@ def fit_trajectory(torch, est, data) -> tuple[dict, object]:
     fit_s = time.perf_counter() - t0
     res = results[0]
     hist = res.descent.history
+    timed = all(r.seconds is not None for r in hist)
     row = {
         "fit_seconds": fit_s,
+        "fused": est._fused_cache is not None and est.emitter is None,
         "seconds_per_cd_iteration": [
             sum(r.seconds for r in hist if r.iteration == i)
-            for i in range(CD_ITERATIONS)],
+            for i in range(CD_ITERATIONS)] if timed else None,
         "seconds_per_coordinate": {
             cid: sum(r.seconds for r in hist if r.coordinate_id == cid)
-            for cid in est.update_sequence},
+            for cid in est.update_sequence} if timed else None,
         "fe_lbfgs_iterations": [int(r.diagnostics.iterations) for r in hist
                                 if r.coordinate_id == "global"],
         "re_newton_iterations_max": {
@@ -2759,27 +2798,311 @@ def fit_trajectory(torch, est, data) -> tuple[dict, object]:
         "plain_route_solves": ra.plain_route_solves,
         "newton_host_syncs": ra.host_syncs,
         "lbfgs_host_syncs": lbfgs.host_syncs,
+        "batched_host_syncs": batched.host_syncs,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
     }
     return row, res
 
 
-def phase_fit(torch, arrays, data, est) -> dict:
-    """GameEstimator.fit at full width, counts zeroed just before; then
-    the fixed effect's last L-BFGS solve replayed by both designs; then
-    the fit once more with telemetry and the cost ledger on
-    (``fit_telemetry``)."""
-    with _LastSolve("lbfgs_solve") as fe:
-        traj, res = fit_trajectory(torch, est, data)
-    row = {"phase": "fit", "rows": int(arrays["y"].shape[0]), **traj}
+@contextlib.contextmanager
+def unfused(est):
+    """``est`` on its unfused loop: a no-op listener, as the reference's
+    tests/test_fused_fit.py forces it."""
+    from photon_tpu_torch.events import EventEmitter
+
+    saved = est.emitter
+    est.emitter = EventEmitter([lambda e: None])
+    try:
+        yield est
+    finally:
+        est.emitter = saved
+
+
+# Warm replays of the fused fit in phase ``fit``.
+FUSED_WARM = 3
+# The fused fit against the unfused one on the card, f32: the fixed
+# effect's L-BFGS runs as batched.lbfgs in the fused fit and as the
+# host-branching lbfgs.py in the unfused one (two designs, the same
+# float64 iterates), so the f32 solves stop apart by at most the bounds
+# of an f32 solve against float64 that ROADMAP Queue C states.
+FUSED_FE_ATOL, FUSED_RE_ATOL = 5e-4, 2e-3
+
+
+def fused_bucket_launches(stats_history, datasets) -> dict:
+    """Newton-step launches per bucket shape over a fused fit: its
+    diagnostics hold each entity's iterations in entity-code order, and
+    a bucket's WHILE node runs one launch per iteration of its slowest
+    entity."""
+    out: dict = {}
+    for rec in stats_history:
+        if rec.coordinate_id not in RE_IDS:
+            continue
+        it = rec.diagnostics.iterations
+        for eb in datasets[rec.coordinate_id].device_blocks():
+            key = (rec.coordinate_id, tuple(eb.x_values.shape))
+            codes = eb.entity_codes.cpu().numpy()
+            out[key] = out.get(key, 0) + int(it[codes].max())
+    return out
+
+
+def model_diffs(torch, a, b) -> dict:
+    """Largest coefficient difference per coordinate of two models."""
+    out = {}
+    for cid in ("global",) + RE_IDS:
+        x = (a[cid].model.coefficients.means if cid == "global"
+             else a[cid].coefficients)
+        y = (b[cid].model.coefficients.means if cid == "global"
+             else b[cid].coefficients)
+        out[cid] = float((x - y).abs().max())
+    return out
+
+
+def fused_fit_row(torch, est, data, datasets, unfused_row, unfused_res
+                  ) -> dict:
+    """The fused fit: cold (its capture), then ``FUSED_WARM`` warm
+    replays, each under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    host sync anywhere in ``est.fit`` raises), its Newton launches read
+    from the device counters (``device_loop.count_graph_launches``:
+    ``torch.profiler`` reports a kernel inside a WHILE body once a
+    replay, not once an iteration); then the same fit function run
+    eagerly on the same operands (``FusedFit._fit_fn``, the graph's
+    eager twin: the same solvers, the loops Python loops). Gates: the
+    capture succeeded; no solver counted a sync and none was made; each
+    replay's Newton launches equal its diagnostics' count and the eager
+    twin's, and its model equals the twin's bit for bit; the models
+    equal the unfused fit's, bit for bit or within ``FUSED_FE_ATOL`` /
+    ``FUSED_RE_ATOL``. The unfused fit's Newton launches are printed
+    beside the fused fit's, not gated equal: its fixed effect runs
+    ``lbfgs.py``, whose f32 iterates differ from ``batched.lbfgs``'s
+    in the last bits, and an entity at a convergence boundary then
+    stops one Newton iteration apart (the iterations are printed)."""
+    from photon_tpu_torch.utils import device_loop
+
+    device_loop.reset_graph_launches()
+    cold, res = fit_trajectory(torch, est, data)
+    cold_replayed = device_loop.graph_launches("newton_step")
+    if not cold["fused"]:
+        fail("phase fit: the estimator did not take the fused path")
+    ff = next(iter(est._fused_cache.values()))
+    cap = ff.captured()
+    if cap is None:
+        fail("phase fit: the fused fit captured no graph")
+    warm = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FUSED_WARM):
+        from photon_tpu_torch.algorithm import random_effect as ra
+        from photon_tpu_torch.optim import batched, lbfgs
+
+        device_loop.reset_graph_launches()
+        before = (ra.host_syncs, batched.host_syncs, lbfgs.host_syncs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = est.fit(data)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        warm.append({"seconds": time.perf_counter() - t0,
+                     "dispatch_seconds": t1 - t0,
+                     "solver_syncs": [a - b for a, b in zip(
+                         (ra.host_syncs, batched.host_syncs,
+                          lbfgs.host_syncs), before)],
+                     "newton_launches": device_loop.graph_launches(
+                         "newton_step"),
+                     "segment_launches": device_loop.graph_launches(
+                         "segment_sum")})
+    peak = torch.cuda.max_memory_allocated()
+    by_bucket = fused_bucket_launches(res.descent.history, datasets)
+    per_fit = [w["newton_launches"] for w in warm]
+    twin, twin_launches = eager_twin(torch, est, datasets, ff)
+    twin_equal = model_arrays_equal(res.model, twin)
+    diffs = model_diffs(torch, res.model, unfused_res.model)
+    bit_equal = model_arrays_equal(res.model, unfused_res.model)
+    row = {"phase": "fused_fit",
+           "cold_seconds": cold["fit_seconds"],
+           "capture_seconds": cap.seconds,
+           "instantiate_seconds": cap.instantiate_seconds,
+           "graph_nodes": cap.nodes,
+           "conditional_nodes": cap.conditional_nodes,
+           "graphs_captured": len(ff._graphs),
+           "warm": warm,
+           "warm_seconds": [w["seconds"] for w in warm],
+           "unfused_warm_seconds": unfused_row["fit_seconds"],
+           "solver_syncs_warm": [w["solver_syncs"] for w in warm],
+           "newton_launches_per_replay": per_fit,
+           "newton_launches_cold_replay": cold_replayed,
+           "segment_launches_per_replay": [w["segment_launches"]
+                                           for w in warm],
+           "newton_launches_by_bucket": {
+               f"{c}:{'x'.join(map(str, s))}": n
+               for (c, s), n in by_bucket.items()},
+           "newton_launches_unfused": unfused_row["newton_kernel_launches"],
+           "newton_launches_eager_twin": twin_launches,
+           "eager_twin_bit_identical": twin_equal,
+           "re_newton_iterations_max_unfused":
+               unfused_row["re_newton_iterations_max"],
+           "fe_lbfgs_iterations": cold["fe_lbfgs_iterations"],
+           "fe_lbfgs_iterations_unfused":
+               unfused_row["fe_lbfgs_iterations"],
+           "re_newton_iterations_max": cold["re_newton_iterations_max"],
+           "capture_newton_launches": cold["newton_kernel_launches"],
+           "max_memory_allocated_bytes_cold":
+               cold["max_memory_allocated_bytes"],
+           "max_memory_allocated_bytes_warm": peak,
+           "max_memory_allocated_bytes_unfused":
+               unfused_row["max_memory_allocated_bytes"],
+           "max_abs_coefficient_diff": diffs,
+           "models_bit_identical": bit_equal,
+           "bounds": {"global": FUSED_FE_ATOL, "random": FUSED_RE_ATOL}}
     emit(row)
+    if any(any(w["solver_syncs"]) for w in warm):
+        fail(f"phase fit: a warm fused fit counted solver syncs: {row}")
+    if any(n != sum(by_bucket.values()) for n in per_fit + [cold_replayed]):
+        fail(f"phase fit: the replays launched {per_fit} Newton steps, "
+             f"their diagnostics say {sum(by_bucket.values())}")
+    if any(n != twin_launches for n in per_fit) or not twin_equal:
+        fail(f"phase fit: the replays launched {per_fit} Newton steps and "
+             f"its eager twin {twin_launches}; bit-identical models: "
+             f"{twin_equal}")
+    if not bit_equal and (
+            diffs["global"] > FUSED_FE_ATOL
+            or max(diffs[c] for c in RE_IDS) > FUSED_RE_ATOL):
+        fail(f"phase fit: the fused and unfused models differ beyond "
+             f"{FUSED_FE_ATOL} / {FUSED_RE_ATOL}: {diffs}")
+    return dict(row, result=res,
+                replayed_newton_launches=cold_replayed + sum(per_fit))
+
+
+def eager_twin(torch, est, datasets, ff) -> tuple:
+    """The fused fit's function run eagerly (no graph) on the operands
+    of ``est``'s current configuration: (its model, the Newton launches
+    the wrapper counted)."""
+    from photon_tpu_torch.ops import newton_kernel as nk
+
+    coords = est._build_coordinates(datasets, {}, {})
+    ops = ff._operands(coords, None)
+    statics = ff._statics(coords, None)
+    before = nk.launches
+    states = ff._fit_fn(ops, est._fused_mat_share["ebs"], statics)[0]
+    torch.cuda.synchronize()
+    return ff.models(coords, states), nk.launches - before
+
+
+def phase_fit(torch, arrays, data, est) -> dict:
+    """GameEstimator.fit at full width: the unfused fit (a no-op
+    listener; counts zeroed just before) twice, the second warm; then
+    the fused fit (``fused_fit_row``) against it; then both once more
+    with telemetry, the cost ledger and health on (``fit_telemetry``,
+    ``fused_telemetry``). The fused fit's fixed effect runs
+    ``batched.lbfgs``, the unfused one ``lbfgs.py``: their comparison
+    took the place of ``fe_lbfgs_designs`` (the two designs on one
+    recorded solve), cut for the script's time."""
+    from photon_tpu_torch.utils import device_loop
+
+    with unfused(est):
+        traj, res = fit_trajectory(torch, est, data)
+        row = {"phase": "fit", "rows": int(arrays["y"].shape[0]), **traj}
+        emit(row)
+        warm, res = fit_trajectory(torch, est, data)
+        emit({"phase": "fit", "warm": True, **warm})
     if row["newton_kernel_launches"] <= 0:
         fail("the fit launched the Newton kernel no time")
     if row["plain_route_solves"] != 0:
         fail(f"{row['plain_route_solves']} bucket solves took the plain route")
-    lbfgs_designs(torch, fe.call)
-    fit_telemetry(torch, est, data, traj, res)
-    return {"row": row, "result": res}
+    if warm["newton_kernel_launches"] != row["newton_kernel_launches"]:
+        fail("the warm unfused fit launched otherwise than the first")
+    datasets, _ = est.prepare(data)
+    fused = fused_fit_row(torch, est, data, datasets, warm, res)
+    with unfused(est):
+        fit_telemetry(torch, est, data, warm, res)
+    device_loop.reset_graph_launches()
+    fused_telemetry(torch, est, data, fused["result"])
+    # The Newton launches the fused fits made: the eager pass before the
+    # capture through the wrapper (the cold fit's count less what the
+    # capture recorded), then every replay on the device counters.
+    cap = next(iter(est._fused_cache.values())).captured()
+    eager_before_capture = (fused["capture_newton_launches"]
+                            - sum(cap.newton.values()))
+    fused_launches = (eager_before_capture
+                      + fused["replayed_newton_launches"]
+                      + device_loop.graph_launches("newton_step"))
+    return {"row": row, "result": res, "fused": fused,
+            "unfused_launches": row["newton_kernel_launches"]
+            + 2 * warm["newton_kernel_launches"],
+            "fused_newton_launches": fused_launches}
+
+
+def fused_telemetry(torch, est, data, off_result) -> dict:
+    """One warm fused fit with ``obs.enable()``, ``ledger.enable()`` and
+    ``obs.health.enable()``. Gates: one ``fused_fit`` span, one fit
+    recorded in the convergence traces and one parked sentinel, both
+    scanned finite; the ``fused_fit`` ledger rows split over every
+    coordinate (a warm window), beside ``unattributed``; the model equal
+    bit for bit to the telemetry-off replay's."""
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import health, ledger
+
+    obs.reset()
+    ledger.reset()
+    health.reset()
+    obs.enable()
+    ledger.enable()
+    health.enable()
+    try:
+        before = health.sentinel_seq()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = est.fit(data)[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        spans = [sp for sp in obs.TRACER.completed()
+                 if sp.name == "fused_fit"]
+        conv = obs.convergence.snapshot()
+        traces = obs.convergence.traces()
+        numerics = health.numerics_report(since_seq=before)
+        parked = health.sentinel_seq() - before
+        snap = ledger.snapshot()
+    finally:
+        obs.disable()
+        ledger.disable()
+        health.disable()
+        obs.reset()
+        ledger.reset()
+        health.reset()
+    rows = {(r["coordinate"], r["program"]) for r in snap["rows"]}
+    finite = bool(traces) and all(
+        math.isfinite(v) for series in traces[-1].values()
+        for values in series.values() for v in values)
+    row = {"phase": "fused_fit_telemetry", "fit_seconds": seconds,
+           "fused_fit_spans": len(spans),
+           "fit_window_pure": [sp.attrs.get("fit_window_pure")
+                               for sp in spans],
+           "device_wait_seconds": [sp.device_wait_seconds for sp in spans],
+           "fits_recorded": conv["fits_recorded"],
+           "convergence_finite": finite,
+           "convergence_last": conv["last"],
+           "sentinels_parked": parked,
+           "fits_scanned": numerics.get("fits_scanned"),
+           "nonfinite_total": numerics.get("nonfinite_total"),
+           "ledger_rows": sorted(f"{c}/{p}" for c, p in rows),
+           "model_bit_identical": model_arrays_equal(res.model,
+                                                     off_result.model)}
+    emit(row)
+    want = {(cid, "fused_fit") for cid in est.update_sequence}
+    if (len(spans) != 1 or conv["fits_recorded"] != 1 or parked != 1
+            or numerics.get("fits_scanned") != 1):
+        fail(f"fused_fit_telemetry: spans, traces or sentinels: {row}")
+    if not finite or numerics.get("nonfinite_total") != 0:
+        fail(f"fused_fit_telemetry: the convergence block is not finite: "
+             f"{row}")
+    if not want <= rows or ("-", "unattributed") not in rows:
+        fail(f"fused_fit_telemetry: the fused_fit ledger rows are missing: "
+             f"{row}")
+    if not row["model_bit_identical"]:
+        fail("fused_fit_telemetry: telemetry changed the fused fit's model")
+    return dict(row, fits=1)
 
 
 def model_arrays_equal(a, b) -> bool:
@@ -2836,40 +3159,6 @@ def fit_telemetry(torch, est, data, off: dict, off_result) -> dict:
     if any(n != CD_ITERATIONS for n in coords.values()):
         fail(f"fit_telemetry: coord spans {coords}, expected "
              f"{CD_ITERATIONS} a coordinate")
-    return row
-
-
-def lbfgs_designs(torch, call) -> dict:
-    """The port's two L-BFGS designs on one recorded fixed-effect solve,
-    alternating (host, batched, batched, host) twice:
-    ``optim.lbfgs_solve`` (branches on the host: one sync a line-search
-    probe, two an iteration) and ``batched.lbfgs`` with one lane
-    (``batched.single``; every branch a ``torch.where``, the per-entity
-    route's solver). Each one's seconds (ending in a sync), host syncs,
-    iterations and reason, and their largest coefficient difference."""
-    from photon_tpu_torch.optim import batched, lbfgs
-
-    args, kw, _ = call
-    designs = {"host": (lbfgs, lambda: lbfgs.lbfgs_solve(*args, **kw)),
-               "batched": (batched, lambda: batched.single(
-                   batched.lbfgs, *args, **kw))}
-    row = {"phase": "fe_lbfgs_designs"}
-    got = {}
-    for name in ("host", "batched", "batched", "host") * 2:
-        counter, solve = designs[name]
-        before = counter.host_syncs
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got[name] = solve()
-        torch.cuda.synchronize()
-        r = row.setdefault(name, {"seconds": []})
-        r["seconds"].append(time.perf_counter() - t0)
-        r["host_syncs"] = counter.host_syncs - before
-        r["iterations"] = int(got[name].iterations)
-        r["reason"] = int(got[name].convergence_reason)
-    row["max_abs_coefficient_diff"] = float(
-        (got["host"].coefficients - got["batched"].coefficients).abs().max())
-    emit(row)
     return row
 
 
@@ -3300,7 +3589,11 @@ def phase_train(torch) -> dict:
         "route": "cuda",
         "source": nk.SOURCE,
         "replaces": NEWTON_REPLACES,
-        "launches": fit["row"]["newton_kernel_launches"],
+        # The unfused fits' launches and the fused fits'.
+        "launches": fit["unfused_launches"] + fit["fused_newton_launches"],
+        "launches_fused_fit": fit["fused_newton_launches"],
+        "fused_fit_newton_launches_per_replay":
+            fit["fused"]["newton_launches_per_replay"],
         "max_abs_err": parity["max_abs_err"],
         "ms": user["ms"],
         "plain_ms": user["plain_ms"],
@@ -3308,6 +3601,100 @@ def phase_train(torch) -> dict:
         "bound_by": user["bound_by"],
         "library_ms": None,
     }
+
+
+# The loop designs' probe: lanes, iterations of the toy loop's slowest
+# lane, and the unrolled IF-node counts (100 is the solvers' iteration
+# bound; 2,500 = 100 iterations x 25 line-search probes, one solve's
+# line-search bodies at the bound).
+PROBE_LANES = 1024
+PROBE_IF_NODES = (100, 2_500)
+
+
+def phase_graph_loops(torch) -> dict:
+    """The choice of loop design, measured: one toy loop (per lane
+    ``x = 1.5 x + 1`` while ``x < limit``; the row gives the slowest
+    lane's iterations) captured as one WHILE node (``device_loop.while_loop``)
+    and unrolled into N IF nodes (``device_loop.cond_apply`` N times),
+    for each N of ``PROBE_IF_NODES``: capture and instantiate seconds,
+    graph nodes, one replay's milliseconds, and each result equal to the
+    eager loop's. Gates: every result equal."""
+    from types import SimpleNamespace
+
+    from photon_tpu_torch.utils import device_loop
+
+    limit = torch.linspace(10.0, 1e12, PROBE_LANES, device="cuda")
+
+    def fresh():
+        return SimpleNamespace(
+            x=torch.zeros(PROBE_LANES, device="cuda"),
+            n=torch.zeros(PROBE_LANES, dtype=torch.int64, device="cuda"))
+
+    def step(c, active):
+        c.x = torch.where(active, c.x * 1.5 + 1.0, c.x)
+        c.n = c.n + active.long()
+
+    def any_running(mask):
+        return bool(mask.any())
+
+    want = fresh()
+    device_loop.while_loop(lambda: want.x < limit,
+                           lambda a: step(want, a), (want,),
+                           any_running=any_running)
+
+    def measure(kind, build):
+        graph = device_loop.new_graph()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_loop.capture(graph, "cuda") as cap:
+            c = build()
+        capture_s = time.perf_counter() - t0
+        inst = None
+        if hasattr(graph, "instantiate"):
+            t0 = time.perf_counter()
+            graph.instantiate()
+            inst = time.perf_counter() - t0
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        out = {"design": kind, "capture_seconds": capture_s,
+               "instantiate_seconds": inst,
+               "graph_nodes": device_loop.graph_nodes(cap),
+               "conditional_nodes": cap.conditional_nodes,
+               "replay_ms": (time.perf_counter() - t0) * 1e3,
+               "equal": bool(torch.equal(c.x, want.x)
+                             and torch.equal(c.n, want.n))}
+        del graph
+        return out
+
+    def while_node():
+        c = fresh()
+        device_loop.while_loop(lambda: c.x < limit, lambda a: step(c, a),
+                               (c,), any_running=any_running)
+        return c
+
+    def if_nodes(n):
+        def build():
+            c = fresh()
+            for _ in range(n):
+                active = c.x < limit
+                device_loop.cond_apply(active, lambda a=active: step(c, a),
+                                       (c,), any_running=any_running)
+            return c
+        return build
+
+    rows = [measure("while", while_node)]
+    rows += [dict(measure("if_unrolled", if_nodes(n)), if_nodes=n)
+             for n in PROBE_IF_NODES]
+    row = {"phase": "graph_loops", "lanes": PROBE_LANES,
+           "iterations": int(want.n.max()), "designs": rows}
+    emit(row)
+    if not all(r["equal"] for r in rows):
+        fail(f"graph_loops: a captured loop differs from the eager loop: "
+             f"{row}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5026,13 +5413,16 @@ F32_EPS = 2.0 ** -24
 
 
 def routes_estimator(device=None, incremental: bool = False,
-                     num_iterations: int = ROUTES_CD_ITERATIONS):
+                     num_iterations: int = ROUTES_CD_ITERATIONS,
+                     fused: bool = False):
     """The logistic training configuration (``build_estimator``'s data
     configurations and intercepts) on the slice's routes: ``global`` TRON
     with L2 1e-3 and FULL variances; ``per-user`` L2 1 with SIMPLE
     variances (the Newton kernel); ``per-movie`` elastic net, alpha 0.5
     and weight 1 (L1 0.5 + L2 0.5: the batched OWL-QN route), with SIMPLE
-    variances so that the refit has a prior for every coordinate."""
+    variances so that the refit has a prior for every coordinate. Unless
+    ``fused``, a no-op listener keeps it on the unfused loop, whose
+    updates ``update_recorder`` records."""
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
@@ -5060,7 +5450,59 @@ def routes_estimator(device=None, incremental: bool = False,
         for cid, c in base.coordinate_configs.items()}
     base.num_iterations = num_iterations
     base.incremental_training = incremental
+    if not fused:
+        from photon_tpu_torch.events import EventEmitter
+
+        base.emitter = EventEmitter([lambda e: None])
     return base
+
+
+def fused_routes_check(torch) -> dict:
+    """The routes configuration at a tenth of the rows, users and
+    movies, fused (TRON's CG, the batched OWL-QN's line search, L-BFGS
+    and the variances, each loop a conditional node of the graph)
+    against the unfused fit on the card: within route_agreement's
+    tolerances, the training losses within 1e-4."""
+    arrays = synth_arrays(**REDUCED)
+    data = train_dataset(arrays)
+    fits = {}
+    for name in ("unfused", "fused"):
+        est = routes_estimator(fused=name == "fused")
+        est.prepare(data)
+        t0 = time.perf_counter()
+        res = est.fit(data)[0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if (est._fused_cache is not None) != (name == "fused"):
+            fail(f"train_routes_fused: the {name} fit took the other path")
+        datasets, _ = est.prepare(data)
+        total, _ = total_scores(torch, res.model, datasets, data)
+        fits[name] = dict(model=res.model, seconds=secs,
+                          objective=fit_objective(torch, total, data))
+    cap = next(iter(est._fused_cache.values())).captured()
+    u, f = fits["unfused"], fits["fused"]
+    row = {"phase": "train_routes_fused", **REDUCED,
+           "unfused_fit_seconds": u["seconds"],
+           "fused_cold_fit_seconds": f["seconds"],
+           "capture_seconds": cap.seconds, "graph_nodes": cap.nodes,
+           "conditional_nodes": cap.conditional_nodes,
+           "objective_rel_diff": abs(u["objective"] - f["objective"])
+           / abs(u["objective"])}
+    ok = True
+    for cid in ("global",) + RE_IDS:
+        a = (f["model"][cid].model.coefficients.means if cid == "global"
+             else f["model"][cid].coefficients)
+        b = (u["model"][cid].model.coefficients.means if cid == "global"
+             else u["model"][cid].coefficients)
+        atol = FIT_ATOL if cid == "global" else RE_FIT_ATOL
+        gate = (a - b).abs() - (atol + FIT_RTOL * b.abs())
+        row[f"{cid}_max_abs_diff"] = float((a - b).abs().max())
+        row[f"{cid}_max_excess"] = float(gate.max())
+        ok = ok and float(gate.max()) <= 0.0
+    emit(row)
+    if not ok or not row["objective_rel_diff"] <= 1e-4:
+        fail(f"train_routes_fused: the fused and unfused fits differ: {row}")
+    return row
 
 
 @contextlib.contextmanager
@@ -5453,6 +5895,7 @@ def phase_train_routes(torch, device="cuda") -> dict:
     del data, datasets, res, res2, last
     if device == "cuda":
         torch.cuda.empty_cache()
+        fused_routes_check(torch)
     routes_agreement(torch, (device, "cpu"))
     return {"newton_launches": first["newton_launches"]
             + second["newton_launches"]}
@@ -6250,7 +6693,11 @@ def profile_child(torch, spec: dict) -> dict:
     and the first ``ledger.attribution_since`` with a wall are wrapped
     from outside the package: they bracket the profiled fit window, so
     the Newton launches and plain-route solves inside it are counted on
-    their own."""
+    their own. The workload's fits are fused: after the first (the
+    capture) each is a graph replay, whose launches no wrapper counts,
+    so the device counters count them
+    (``device_loop.count_graph_launches``, on before the capture)."""
+    from photon_tpu_torch.algorithm import fused_fit as ff
     from photon_tpu_torch.algorithm import random_effect as ra
     from photon_tpu_torch.cli import profile
     from photon_tpu_torch.obs import ledger
@@ -6258,19 +6705,28 @@ def profile_child(torch, spec: dict) -> dict:
     from photon_tpu_torch.ops import segment_reduce as sr
     from photon_tpu_torch.ops import serve_kernel as sk
 
+    from photon_tpu_torch.utils import device_loop
+
     window: dict = {}
     orig_mark, orig_attr = ledger.mark, ledger.attribution_since
 
+    def counts():
+        return (nk.launches, ra.plain_route_solves, ff.replays,
+                device_loop.graph_launches("newton_step"))
+
     def mark():
-        window["start"] = (nk.launches, ra.plain_route_solves)
+        window["start"] = counts()
         return orig_mark()
 
     def attribution_since(marker, wall_seconds=None):
         if wall_seconds is not None and "end" not in window:
-            window["end"] = (nk.launches, ra.plain_route_solves)
+            window["end"] = counts()
         return orig_attr(marker, wall_seconds)
 
+    device_loop.count_graph_launches("cuda")
+    device_loop.reset_graph_launches()
     nk.launches = ra.plain_route_solves = sk.launches = 0
+    replays0 = ff.replays
     sr.reset_counts()
     os.makedirs(spec["root"], exist_ok=True)
     buf = io.StringIO()
@@ -6284,15 +6740,22 @@ def profile_child(torch, spec: dict) -> dict:
     finally:
         ledger.mark, ledger.attribution_since = orig_mark, orig_attr
     wall = time.perf_counter() - t0
-    start, end = window.get("start", (0, 0)), window.get("end", (0, 0))
+    start = window.get("start", (0, 0, 0, 0))
+    end = window.get("end", (0, 0, 0, 0))
+    replayed = device_loop.graph_launches("newton_step")
     doc = None
     if os.path.exists(spec["json"]):
         with open(spec["json"]) as f:
             doc = json.load(f)
     return {"name": spec["name"], "args": spec["args"], "rc": rc,
             "wall_seconds": wall, "stdout": buf.getvalue()[-8000:],
-            "doc": doc, "newton_launches": nk.launches,
-            "fit_window_newton_launches": end[0] - start[0],
+            "doc": doc, "newton_launches": nk.launches + replayed,
+            "newton_launches_from_python": nk.launches,
+            "replayed_newton_launches": replayed,
+            "fused_replays": ff.replays - replays0,
+            "fit_window_replays": end[2] - start[2],
+            "fit_window_newton_launches": (end[0] - start[0]
+                                           + end[3] - start[3]),
             "fit_window_plain_route_solves": end[1] - start[1],
             "plain_route_solves": ra.plain_route_solves,
             "segment_launches": sr.launches,
@@ -6342,6 +6805,9 @@ def phase_profile_cli(torch, runs: list) -> dict:
                "census": sorted(report.get("programs", {})),
                "resident_bytes": report.get("resident_bytes"),
                "newton_launches": r["newton_launches"],
+               "replayed_newton_launches": r["replayed_newton_launches"],
+               "fused_replays": r["fused_replays"],
+               "fit_window_replays": r["fit_window_replays"],
                "fit_window_newton_launches": r[
                    "fit_window_newton_launches"],
                "plain_route_solves": r["plain_route_solves"],
@@ -6811,6 +7277,87 @@ class _Residuals:
         ra.RandomEffectCoordinate.train = self._train
 
 
+def graph_bucket_check(torch, group, coord, picks, residuals) -> dict:
+    """Each picked bucket's solve (``random_effect._solve_block``, as the
+    fit runs it) captured into a CUDA graph through ``device_loop`` (a
+    Newton loop becomes a WHILE node) and replayed, its launches read
+    from the device counters, against the same solve run eagerly: the
+    coefficients, iterations and reasons equal bit for bit, and the
+    replay's Newton and segment-sum launches beside the eager run's
+    wrapper counts. The wide layout is materialized, so its fits stay
+    on the unfused loop (the reference's own rule); this holds its
+    kernels (the gram and densify segment sums, the Newton kernel's wide
+    design) inside a graph."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.utils import device_loop
+
+    ds, cfg = coord.dataset, coord.config
+    direct, newton = coord._routes()
+    shape = (ds.num_entities, ds.max_sub_dim)
+    w0 = torch.zeros(shape, dtype=ds.dtype, device=ds.device)
+
+    def solve(i, eb):
+        gm = (ds.block_gram_mults[i] if i < len(ds.block_gram_mults)
+              else None)
+        w_all = torch.zeros(shape, dtype=ds.dtype, device=ds.device)
+        return ra._solve_block(
+            eb, residuals, coord.normalization.factors,
+            coord.normalization.shifts, w0, cfg.l1_weight, cfg.l2_weight,
+            cfg.incremental_weight, None, w_all, None, sub_dim=eb.sub_dim,
+            task=coord.task, opt_config=cfg.optimizer,
+            variance_computation=cfg.variance_computation, direct=direct,
+            newton=newton, gram_mults=gm)
+
+    rows = []
+    for i, eb, route in picks:
+        n0, s0 = nk.launches, sr.launches
+        eager = solve(i, eb)
+        torch.cuda.synchronize()
+        eager_launches = {"newton_step": nk.launches - n0,
+                          "segment_sum": sr.launches - s0}
+        graph = device_loop.new_graph()
+        t0 = time.perf_counter()
+        with device_loop.capture(graph, "cuda") as cap:
+            out = solve(i, eb)
+        capture_s = time.perf_counter() - t0
+        if hasattr(graph, "instantiate"):
+            graph.instantiate()
+        torch.cuda.synchronize()
+        device_loop.reset_graph_launches()
+        graph.replay()
+        counts = {"newton_step": device_loop.graph_launches("newton_step"),
+                  "segment_sum": device_loop.graph_launches("segment_sum")}
+        same = all(torch.equal(a, b) for a, b in (
+            (out[0], eager[0]), (out[2], eager[2]), (out[3], eager[3])))
+        rows.append({"bucket": list(eb.x_values.shape) + [eb.sub_dim],
+                     "route": route, "capture_seconds": capture_s,
+                     "graph_nodes": device_loop.graph_nodes(cap),
+                     "conditional_nodes": cap.conditional_nodes,
+                     "replay_kernels": counts,
+                     "eager_launches": eager_launches,
+                     "bit_identical": same,
+                     "max_abs_diff": float((out[0] - eager[0]).abs().max())})
+        # The graph dies here, outside any capture (``cap`` holds it too):
+        # destroying a graph frees device memory, which would invalidate
+        # the next bucket's capture were it to happen inside it.
+        del graph, cap, out, eager
+    row = {"phase": f"{group}_graph", "buckets": rows}
+    emit(row)
+    for r in rows:
+        if not r["bit_identical"]:
+            fail(f"{group}_graph: a bucket's captured solve differs from "
+                 f"its eager solve: {r}")
+        if (r["replay_kernels"]["newton_step"]
+                != r["eager_launches"]["newton_step"]
+                or r["replay_kernels"]["segment_sum"]
+                != r["eager_launches"]["segment_sum"]):
+            fail(f"{group}_graph: the replay's launches differ from the "
+                 f"eager solve's: {r}")
+    return row
+
+
 def phase_wide_fit(torch, wide) -> dict:
     """GameEstimator.fit with the segment counts zeroed just before; then
     each coordinate's update timed alone at its final inputs."""
@@ -6820,6 +7367,14 @@ def phase_wide_fit(torch, wide) -> dict:
     from photon_tpu_torch.optim import ConvergenceReason, lbfgs
 
     est, data = wide["est"], wide["data"]
+    # One gram and one densify bucket of per-movie, solved in a graph.
+    wide_coords = est._build_coordinates(wide["datasets"], {}, {})
+    picks = {}
+    for cid, i, eb, _, route in bucket_routes(wide["datasets"]):
+        if cid == "per-movie" and route in ("gram", "densify"):
+            picks.setdefault(route, (i, eb, route))
+    graph_bucket_check(torch, "wide_fit", wide_coords["per-movie"],
+                       list(picks.values()), None)
     sr.reset_counts()
     ra.route_solves.clear()
     nk.launches = 0
@@ -6873,10 +7428,19 @@ def phase_wide_fit(torch, wide) -> dict:
            "lbfgs_host_syncs": lbfgs.host_syncs,
            "direct_solves_one_iteration_converged": direct_ok,
            "max_memory_allocated_bytes": peak}
+    from photon_tpu_torch.algorithm.fused_fit import (
+        fuse_ineligibility_reasons,
+    )
+
+    row["fused_fit"] = est._fused_cache is not None
+    row["fuse_ineligibility_reasons"] = fuse_ineligibility_reasons(coords)
     emit(row)
+    if row["fused_fit"] or not row["fuse_ineligibility_reasons"]:
+        fail("wide_fit: the materialized layout took the fused path")
     missing = [s for s in FIT_SITES if by_site.get(s, 0) <= 0]
     if missing:
         fail(f"the fit launched the segment-sum kernel at no {missing}")
+
     if not direct_ok:
         fail("a direct solve did not report one iteration and "
              "GRADIENT_CONVERGED")
@@ -7046,6 +7610,14 @@ def phase_wide_logistic(torch) -> dict:
             and eb.x_values.shape[1] * eb.sub_dim <= nk.MAX_RS]
     past_gate = sum(1 for _, _, eb, _, _ in buckets
                     if eb.x_values.shape[1] * eb.sub_dim > nk.MAX_RS)
+    # The widest wide-design bucket's solve (densify, then the Newton
+    # loop on the wide kernel) in a graph, before the fit (as in
+    # wide_fit).
+    gcid, geb = max(wide, key=lambda w: w[1].sub_dim)
+    gi = next(i for c, i, b, _, _ in buckets if c == gcid and b is geb)
+    graph_bucket_check(torch, "wide_logistic",
+                       est._build_coordinates(datasets, {}, {})[gcid],
+                       [(gi, geb, "densify")], None)
     sr.reset_counts()
     ra.route_solves.clear()
     nk.launches = nk.wide_launches = ra.plain_route_solves = 0
@@ -7085,6 +7657,7 @@ def phase_wide_logistic(torch) -> dict:
     cid, eb = max(wide, key=lambda w: w[1].sub_dim)
     timing = wide_newton_check(torch, "wide_logistic", cid, eb,
                                l2_weight(est, cid))
+
     return dict(row, timing=timing)
 
 
@@ -7221,19 +7794,25 @@ def fits_only(torch, n: int) -> int:
     from photon_tpu_torch.ops import newton_kernel as nk
 
     arrays = synth_arrays()
-    for route, dtype in (("kernel", torch.float32), ("plain", torch.float32),
+    for route, dtype in (("kernel", torch.float32),
+                         ("unfused", torch.float32),
+                         ("plain", torch.float32),
                          ("float64", torch.float64)):
         data = train_dataset(arrays, dtype)
         est = build_estimator()
+        if route == "unfused":
+            from photon_tpu_torch.events import EventEmitter
+
+            est.emitter = EventEmitter([lambda e: None])
         datasets, _ = est.prepare(data)
         with newton_switch("off" if route == "plain" else None):
-            for k in range(n + 1 if route == "kernel" else 1):
+            for k in range(n + 1 if route in ("kernel", "unfused") else 1):
                 traj, res = fit_trajectory(torch, est, data)
                 total, _ = total_scores(torch, res.model, datasets, data)
                 emit({"phase": "fits", "route": route, "fit": k,
                       "cold": k == 0, **traj,
                       "training_loss": fit_objective(torch, total, data)})
-        if route == "kernel":
+        if route == "unfused":
             phase_newton_timing(torch, datasets, est, bucket_launches(
                 res.descent.history, datasets))
         del data, est, datasets, res, total
@@ -7322,6 +7901,12 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "library": str(lib),
           "sources": [str(p.name) for p in _build.sources()]})
+    # Count the kernel launches that graph replays run (before any
+    # capture, so every graph carries the counters).
+    from photon_tpu_torch.utils import device_loop
+
+    device_loop.count_graph_launches("cuda")
+    phase_graph_loops(torch)
     if args.fits > 0:
         return fits_only(torch, args.fits)
     if args.tuning:

@@ -44,8 +44,8 @@ from photon_tpu_torch.resilience.errors import NonFiniteUpdateError
 
 logger = logging.getLogger(__name__)
 
-# The cost ledger's name for the fit's program: this loop of coordinate
-# updates (the JAX package books its whole-fit program as "fused_fit").
+# The cost ledger's name for the unfused fit's program: this loop of
+# coordinate updates (the fused fit books "fused_fit" and "materialize").
 FIT_PROGRAM = "coordinate_descent"
 # Host syncs made by ``FitLedgerFeed.close``: one a fit on the card with
 # the ledger armed, none on the CPU or with the ledger off.
@@ -78,6 +78,24 @@ def _update_is_finite(model, scores: torch.Tensor) -> bool:
     """One host sync: are the update's scores and weights all finite?"""
     return all(bool(torch.isfinite(t).all())
                for t in [scores, *_model_weight_tensors(model)])
+
+
+def register_kernel_census(newton_shapes, segment_sites) -> None:
+    """Register, with their counts from ``analysis/costmodel.py``, the
+    Newton bucket shapes (``newton_step/<B>x<R>x<S>``) and segment-sum
+    sites (``segment_sum/<site>``) a fit launched on the card."""
+    from photon_tpu_torch.analysis import costmodel
+    from photon_tpu_torch.obs import ledger
+    from photon_tpu_torch.ops import segment_reduce
+
+    for shape in newton_shapes:
+        ledger.register_program(
+            "newton_step/{}x{}x{}".format(*shape), phase="fit",
+            cost=costmodel.newton_step_cost(shape))
+    for site in segment_sites:
+        ledger.register_program(
+            f"segment_sum/{site}", phase="fit",
+            cost=segment_reduce.site_cost(site))
 
 
 class FitLedgerFeed:
@@ -136,7 +154,6 @@ class FitLedgerFeed:
     def close(self, slab_bytes: int = 0) -> None:
         """Resolve the windows and book the fit."""
         global feed_syncs
-        from photon_tpu_torch.analysis import costmodel
         from photon_tpu_torch.obs import ledger
         from photon_tpu_torch.ops import newton_kernel, segment_reduce
 
@@ -151,16 +168,11 @@ class FitLedgerFeed:
         named = sum(parts.values())
         wall = t1 - self.t0
         ledger.register_program(FIT_PROGRAM, phase="fit")
-        for shape, n in newton_kernel.launches_by_shape.items():
-            if n > self._newton0.get(shape, 0):
-                ledger.register_program(
-                    "newton_step/{}x{}x{}".format(*shape), phase="fit",
-                    cost=costmodel.newton_step_cost(shape))
-        for site, n in segment_reduce.launches_by_site.items():
-            if n > self._segment0.get(site, 0):
-                ledger.register_program(
-                    f"segment_sum/{site}", phase="fit",
-                    cost=segment_reduce.site_cost(site))
+        register_kernel_census(
+            [s for s, n in newton_kernel.launches_by_shape.items()
+             if n > self._newton0.get(s, 0)],
+            [s for s, n in segment_reduce.launches_by_site.items()
+             if n > self._segment0.get(s, 0)])
         if parts:
             ledger.record_dispatch(FIT_PROGRAM, named, phase="fit",
                                    start=self.t0, end=t1, parts=parts)
@@ -186,7 +198,9 @@ class CoordinateUpdateRecord:
 
     iteration: int
     coordinate_id: str
-    seconds: float
+    # None for a fused fit's record with telemetry off: one graph runs
+    # the whole fit, so no update has a time of its own.
+    seconds: float | None
     diagnostics: Any
     evaluation: EvaluationResults | None = None
     # True when the update was non-finite and the previous iterate kept.

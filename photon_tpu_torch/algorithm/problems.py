@@ -161,11 +161,12 @@ def compute_variances(batch: GLMBatch, loss: losses_mod.PointwiseLoss,
             variance_computation), norm)
 
 
-def _l2_diagonal(like: torch.Tensor, l2_weight: float,
+def _l2_diagonal(like: torch.Tensor, l2_weight,
                  intercept_index: int | None) -> torch.Tensor:
-    diag = torch.full_like(like, l2_weight)
+    # A sum, not ``full_like``: ``l2_weight`` may be a 0-d device tensor.
+    diag = torch.zeros_like(like) + l2_weight
     if intercept_index is not None:
-        diag[intercept_index] = 0.0
+        diag.narrow(0, intercept_index, 1).zero_()
     return diag
 
 
@@ -175,13 +176,22 @@ def _to_original_variances(var_t: torch.Tensor, norm: NormalizationContext):
     return var_t * norm.factors * norm.factors
 
 
-def run_impl(batch: GLMBatch, w0_orig: torch.Tensor, l1_weight: float,
-             l2_weight: float, norm: NormalizationContext, prior,
-             incremental_weight: float, *, task: TaskType,
+def run_impl(batch: GLMBatch, w0_orig: torch.Tensor, l1_weight,
+             l2_weight, norm: NormalizationContext, prior,
+             incremental_weight, *, task: TaskType,
              opt_config: optim.OptimizerConfig, intercept_index: int | None,
-             variance_computation: VarianceComputationType):
+             variance_computation: VarianceComputationType,
+             use_owlqn: bool | None = None, device_loops: bool = False):
     """Transform, solve, variances, round trip (the JAX
-    ``_run_impl``). Returns (means, variances or None, OptResult)."""
+    ``_run_impl``). Returns (means, variances or None, OptResult).
+
+    The fused fit passes the weights as 0-d tensors, ``use_owlqn`` (the
+    static route) and ``device_loops``: L-BFGS then runs as
+    ``batched.single(batched.lbfgs, ...)``, whose every branch is a
+    ``torch.where`` and whose loops are device loops, in place of
+    ``lbfgs_solve``, which branches on the host."""
+    if use_owlqn is None:
+        use_owlqn = l1_weight != 0.0
     loss = losses_mod.get_loss(task)
     w0 = norm.coef_to_transformed_space(w0_orig)
     fun = glm_ops.make_value_and_grad(batch, loss, norm)
@@ -195,7 +205,7 @@ def run_impl(batch: GLMBatch, w0_orig: torch.Tensor, l1_weight: float,
                                         inv_var_t)
     else:
         obj = optim.with_l2(fun, l2_weight, intercept_index)
-    if l1_weight != 0.0:
+    if use_owlqn:
         result = optim.owlqn_solve(obj, w0, l1_weight, opt_config)
     elif opt_config.optimizer_type == optim.OptimizerType.TRON:
         raw_hvp = glm_ops.make_hvp(batch, loss, norm)
@@ -205,6 +215,10 @@ def run_impl(batch: GLMBatch, w0_orig: torch.Tensor, l1_weight: float,
         else:
             hvp = optim.with_l2_hvp(raw_hvp, l2_weight, intercept_index)
         result = optim.tron_solve(obj, hvp, w0, opt_config)
+    elif device_loops and opt_config.box_constraints is None:
+        from photon_tpu_torch.optim import batched
+
+        result = batched.single(batched.lbfgs, obj, w0, opt_config)
     else:
         result = optim.lbfgs_solve(obj, w0, opt_config)
     if prior is None:

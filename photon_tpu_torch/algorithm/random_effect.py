@@ -20,8 +20,10 @@ per-entity convergence through the reference's cascade:
 - the plain route otherwise (f64, larger buckets): the same iteration as
   PyTorch tensor code with an S-step CG per entity (``_spd_solve_cg_sb``).
 
-Each iteration of either loop makes one host sync, to test whether any
-entity is still running; ``host_syncs`` counts them.
+Each iteration of either loop is a ``utils.device_loop`` loop: eagerly
+it makes one host sync, to test whether any entity is still running
+(``host_syncs`` counts them); in the fused fit's CUDA graph it is a
+WHILE node and makes none.
 
 Every other bucket (an L1 or elastic-net part, L2 = 0, box constraints,
 the smoothed hinge, a prior at ``incremental_weight`` 0) takes the
@@ -45,6 +47,7 @@ raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -69,6 +72,7 @@ from photon_tpu_torch.ops import segment_reduce
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optim import batched, owlqn, tron
 from photon_tpu_torch.types import TaskType
+from photon_tpu_torch.utils import device_loop
 
 _NEWTON_LINE_SEARCH_HALVINGS = 15
 
@@ -91,8 +95,20 @@ class RandomEffectTrainingStats:
     def __init__(self, reasons, iterations, keep_masks):
         self._device = (reasons, iterations, keep_masks)
         self._host = None
+        self._thunk = None
+
+    @classmethod
+    def from_thunk(cls, thunk):
+        """Stats whose (reasons, iterations) host arrays ``thunk()``
+        returns on first read (the fused fit's packed diagnostics)."""
+        stats = cls((), (), ())
+        stats._thunk = thunk
+        return stats
 
     def _materialize(self):
+        if self._host is None and self._thunk is not None:
+            self._host = self._thunk()
+            self._thunk = None
         if self._host is None:
             reasons, iters, keeps = self._device
             keep = (np.concatenate(keeps) if keeps
@@ -135,6 +151,13 @@ class RandomEffectTrainingStats:
     @property
     def num_entities(self) -> int:
         return int(self.iterations.size)
+
+
+def _any_running(mask: torch.Tensor) -> bool:
+    """The Newton loops' test, one counted host sync."""
+    global host_syncs
+    host_syncs += 1
+    return bool(mask.any())
 
 
 def _spd_solve_cg_sb(h: torch.Tensor, b: torch.Tensor, sub_dim: int,
@@ -280,7 +303,7 @@ def _batched_variances(x_t, labels, offsets, weights, w_t, l2_diag,
     var_t = torch.zeros_like(w_t)
     for i in range(s):
         e = torch.zeros_like(w_t)
-        e[:, i] = 1.0
+        e[:, i].fill_(1.0)
         sol = _spd_solve_cg_sb(h, e, s, active)
         res = e - torch.einsum("bst,bt->bs", h, sol)
         sol = sol + _spd_solve_cg_sb(h, res, s, active)
@@ -395,7 +418,7 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
                           l2_weight: float, incremental_weight: float):
     """Damped Newton/IRLS for a whole dense bucket x [B, R, S]. Returns
     (w [B, S] original space, variances, iterations [B], reasons [B])."""
-    global host_syncs, plain_route_solves
+    global plain_route_solves
     dtype = labels.dtype
     dev = labels.device
     b = x.shape[0]
@@ -448,11 +471,10 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
         diag = (l2_diag[:, :, None] * eye
                 + (1.0 - valid_mask)[:, :, None] * eye)
 
-    while True:
-        host_syncs += 1
-        active = code == 0
-        if not bool(active.any()):
-            break
+    c = SimpleNamespace(w=w, f=f, g=g, it=it, code=code)
+
+    def body(active):
+        w, f, g, it = c.w, c.f, c.g, c.it
         if kernel_route:
             y_, wt_, off_, l2_, mt_, vm_ = step_args
             w_n, f_n, g_n, improved = nk.newton_step(
@@ -490,8 +512,12 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
             iteration=it_n, max_iterations=max_iters, loss_delta=f - f_n,
             gradient_norm=torch.sqrt(torch.sum(g_n * g_n, dim=-1)), tol=tol,
             not_improving=~improved)
-        code = torch.where(active, code_n, code)
-        w, f, g, it = w_n, f_n, g_n, it_n
+        c.code = torch.where(active, code_n, c.code)
+        c.w, c.f, c.g, c.it = w_n, f_n, g_n, it_n
+
+    device_loop.while_loop(lambda: c.code == 0, body, (c,),
+                           any_running=_any_running)
+    w, it, code = c.w, c.it, c.code
 
     w_t = w * valid_mask
     if variance_computation == VarianceComputationType.NONE:
@@ -510,8 +536,9 @@ def _solve_quasi_newton_batched(x, labels, offsets, weights, penalty_mask,
                                 task: TaskType,
                                 opt_config: optim.OptimizerConfig,
                                 variance_computation: VarianceComputationType,
-                                l1_weight: float, l2_weight: float,
-                                incremental_weight: float):
+                                l1_weight, l2_weight,
+                                incremental_weight,
+                                use_owlqn: bool | None = None):
     """The configured quasi-Newton solver over a whole dense bucket, x
     [B, R, S] raw: the reference's ``_solve_one_entity`` (:970-1079)
     for every entity at once. The objective works on raw features
@@ -575,7 +602,9 @@ def _solve_quasi_newton_batched(x, labels, offsets, weights, penalty_mask,
                      if m_t is not None else l2_weight * (v * penalty_mask))
 
     w0 = _coef_to_transformed(w0_orig, factors, shifts, int_onehot)
-    if l1_weight != 0.0:
+    if use_owlqn is None:
+        use_owlqn = l1_weight != 0.0
+    if use_owlqn:
         res = owlqn.owlqn(objective, w0, l1_weight, opt_config)
     elif opt_config.optimizer_type == optim.OptimizerType.TRON:
         res = tron.tron(objective, w0, opt_config, hvp=hvp)
@@ -640,10 +669,13 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
                  opt_config: optim.OptimizerConfig,
                  variance_computation: VarianceComputationType,
                  direct: bool, newton: bool,
-                 gram_mults: tuple | None = None):
+                 gram_mults: tuple | None = None,
+                 use_owlqn: bool | None = None):
     """One bucket's batched per-entity solve, scattered into the
     [E, Smax] tables. A lazy ``BlockPlan`` gathers its slab here; an
-    ELL block takes the route ``block_route`` names."""
+    ELL block takes the route ``block_route`` names. The fused fit
+    passes the weights as 0-d tensors and ``use_owlqn``, the static
+    L1 route."""
     if isinstance(block, BlockPlan):
         block = block.materialize(residuals)
         offsets = block.offsets
@@ -705,7 +737,8 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
         w0 = w0_full.to(dtype)[take][:, :s]
         solver = (_solve_newton_batched if newton
                   else _solve_quasi_newton_batched)
-        extra = {} if newton else {"l1_weight": l1_weight}
+        extra = ({} if newton
+                 else {"l1_weight": l1_weight, "use_owlqn": use_owlqn})
         x = (block.x_values if block.x_indices is None
              else segment_reduce.densify_ell(block.x_indices, block.x_values,
                                              s))
@@ -747,6 +780,25 @@ class RandomEffectCoordinate:
             TaskType.LOGISTIC_REGRESSION, TaskType.POISSON_REGRESSION)
         return direct, newton
 
+    def check_trainable(self) -> list:
+        """The host checks a solve needs (numpy, never the card): shifts
+        need every real entity's intercept slot, a prior its variances.
+        Returns each bucket's real-entity mask."""
+        ds = self.dataset
+        real_masks = [ds.real_entity_mask(i) for i in range(len(ds.blocks))]
+        if self.normalization.shifts is not None:
+            for ints, real in zip(ds.block_intercepts_np, real_masks):
+                if bool((np.asarray(ints)[real] < 0).any()):
+                    raise ValueError(
+                        "normalization with shifts requires every entity's "
+                        "subspace to contain the intercept; build the "
+                        "dataset with intercept_index set")
+        if self.prior is not None and self.prior.variances is None:
+            raise ValueError(
+                "incremental training requires prior variances for every "
+                "entity model (GameEstimator.scala:241-382)")
+        return real_masks
+
     def train(self, residuals: torch.Tensor | None = None,
               initial_model: RandomEffectModel | None = None, *,
               seed: int = 0):
@@ -763,18 +815,7 @@ class RandomEffectCoordinate:
         v_all = (None if self.config.variance_computation
                  == VarianceComputationType.NONE
                  else torch.zeros(shape, dtype=dtype, device=dev))
-        real_masks = [ds.real_entity_mask(i) for i in range(len(ds.blocks))]
-        if self.normalization.shifts is not None:
-            for ints, real in zip(ds.block_intercepts_np, real_masks):
-                if bool((np.asarray(ints)[real] < 0).any()):
-                    raise ValueError(
-                        "normalization with shifts requires every entity's "
-                        "subspace to contain the intercept; build the "
-                        "dataset with intercept_index set")
-        if self.prior is not None and self.prior.variances is None:
-            raise ValueError(
-                "incremental training requires prior variances for every "
-                "entity model (GameEstimator.scala:241-382)")
+        real_masks = self.check_trainable()
         direct, newton = self._routes()
         reasons, iters = [], []
         for i, block in enumerate(ds.device_blocks()):

@@ -8,8 +8,12 @@ launches the serve kernel) under the cost ledger
 phase, program)`` rows ranked by wasted-seconds-vs-roofline, each with
 its blocking reason (dispatch gap, bandwidth, compute or
 measured-only), plus the attribution fraction of the measured fit
-wall. The fit's rows are ``coordinate_descent`` rows
-(``algorithm.coordinate_descent.FitLedgerFeed``).
+wall. The fit is the fused fit (one CUDA-graph replay a fit on the
+card, captured by the first, ledger-off fit), so its rows are
+``fused_fit`` rows, split over the coordinates by
+``FusedFit._attribute_seconds``, beside ``materialize``, the
+``unattributed`` residual and the census rows of the Newton bucket
+shapes the graph launches.
 
 Three gates ride along:
 
@@ -59,7 +63,8 @@ def _tiny_workload(rows: int, entities: int, iterations: int, *,
                    device="cuda"):
     """A miniature GLMix estimator and dataset (one dense fixed effect,
     one random effect, logistic task): the JAX package's
-    ``cli.profile._tiny_workload``, the same data from the same seed."""
+    ``cli.profile._tiny_workload``, the same data from the same seed.
+    Its fit takes the fused path (no validation, listener or guard)."""
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
@@ -361,8 +366,9 @@ def main(argv=None) -> int:
     est, data = _tiny_workload(args.rows, args.entities, args.iterations,
                                device=dev)
     # Gate 1 — off-census: the ledger-disabled run must register NOTHING.
-    # Doubles as warm-up (the slabs are gathered, the kernels loaded),
-    # so the A/B and the attribution window below measure the fit.
+    # Doubles as warm-up (the slabs are gathered, the fit's graph
+    # captured), so the A/B and the attribution window below measure
+    # warm fits.
     result = _fit_once(est, data)
     _serve_pass(result, data)
     off_snap = ledger.snapshot()

@@ -20,22 +20,30 @@ one packed transfer (``data/pipeline.py``).
 ``listeners`` (callables taking an ``events`` event) receive a
 ``CoordinateUpdateEvent`` per coordinate update and a ``FitEndEvent``
 per configuration. With telemetry on, ``prepare`` and each
-``fit/config:<i>`` are spans. With telemetry and the cost ledger both
-on, each configuration's fit books its updates' windows to
-per-coordinate ``coordinate_descent`` rows, the rest of its wall to the
+``fit/config:<i>`` are spans. A configuration with no validation,
+checkpointer, resume or non-finite guard runs the whole-fit fused
+program (``algorithm.fused_fit.FusedFit``: one CUDA-graph replay a fit
+on the card, captured once per static structure and warm-start twin and
+cached in ``_fused_cache``) unless ``fuse_ineligibility_reasons`` names
+a reason (listeners, down-sampling, fixed-effect box constraints,
+materialized random-effect datasets); every other fit runs the unfused
+``CoordinateDescent``. With telemetry and the cost ledger both on, a
+fused fit books ``fused_fit`` and ``materialize`` rows (its own
+accounting), and an unfused fit its updates' windows to per-coordinate
+``coordinate_descent`` rows, the rest of its wall to the
 ``unattributed`` row and its slabs' resident bytes
 (``algorithm.coordinate_descent.FitLedgerFeed``: one sync a fit on the
-card), and the validation rescoring of a (re)loaded model is booked
-under ``eval/score`` and ``eval/suite``.
+card); the validation rescoring of a (re)loaded model is booked under
+``eval/score`` and ``eval/suite``.
 
 ``evaluate_model`` scores any ``GameModel`` (a serving generation, a
 candidate) on validation data through the same scorers and metrics a
 fit records; its ``score_sink`` hands the evaluated scores and labels
 to a host consumer such as ``obs.health.calibration_sink``.
 
-Waiting (ROADMAP Queue A): mesh execution (item 12) and the whole-fit
-fused program (item 8; its torch counterpart is a CUDA-graph capture of
-a fit).
+Waiting (ROADMAP Queue A): mesh execution (item 12); of item 8, the
+shape oracle, the warm capture during ingest and skipping converged
+entities.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import dataclasses
 import logging
 import os
 import time
+from collections import OrderedDict
 from typing import Union
 
 import numpy as np
@@ -93,6 +102,12 @@ from photon_tpu_torch.transformers import (
 from photon_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
+
+# Fused whole-fit programs kept per estimator. Each pins its captured
+# graphs (and their memory pools); the slabs are shared across entries
+# through the generation's ``_fused_mat_share``, so the bound limits
+# graphs, not slab memory.
+_FUSED_CACHE_SIZE = 8
 
 # The primary evaluator of each task when none is configured
 # (GameEstimator.scala:673 prepareValidationEvaluators).
@@ -230,6 +245,8 @@ class GameEstimator:
 
             self.emitter = EventEmitter(listeners)
         self._fit_cache = None
+        self._fused_cache = None
+        self._fused_mat_share = None
 
     def _shard_norm(self, shard: str) -> NormalizationContext:
         return self.normalization.get(shard, NormalizationContext())
@@ -475,6 +492,10 @@ class GameEstimator:
                 a is b for a, b in zip(self._fit_cache[0], key)):
             return self._fit_cache[1]
         self._fit_cache = None
+        # A new generation: every fused program and the shared slabs
+        # are stale together (and would pin the old device arrays).
+        self._fused_cache = None
+        self._fused_mat_share = None
         # The raw data's transfer (and a streamed dataset's window
         # copies and assembly) were recorded when the dataset was built,
         # before this prepare: they survive the reset.
@@ -486,6 +507,41 @@ class GameEstimator:
                        if validation is not None else None)
         self._fit_cache = (key, (datasets, val_ctx))
         return datasets, val_ctx
+
+    def _fused_for(self, coords, datasets):
+        """The fused whole-fit program for this coordinate structure, or
+        None when ``fuse_ineligibility_reasons`` names a reason. Cached
+        per (dataset generation, static key) in a small LRU: a lambda
+        grid replays the same graphs with new weights, and a grid that
+        alternates static keys round-robins among cached programs."""
+        from photon_tpu_torch.algorithm.fused_fit import (
+            FusedFit,
+            fuse_ineligibility_reasons,
+            fused_static_key,
+        )
+
+        if fuse_ineligibility_reasons(coords, emitter=self.emitter):
+            return None
+        key = fused_static_key(coords, self.update_sequence,
+                               self.num_iterations,
+                               self.locked_coordinates, self.precision)
+        cache, share = self._fused_cache, self._fused_mat_share
+        if (cache is None or share is None
+                or share["datasets"] is not datasets):
+            cache = self._fused_cache = OrderedDict()
+            share = self._fused_mat_share = {"datasets": datasets}
+        fused = cache.get(key)
+        if fused is not None:
+            cache.move_to_end(key)
+            return fused
+        fused = FusedFit(coords, self.update_sequence, self.num_iterations,
+                         self.locked_coordinates, mat_share=share,
+                         precision=self.precision)
+        fused.static_key = key
+        cache[key] = fused
+        while len(cache) > _FUSED_CACHE_SIZE:
+            cache.popitem(last=False)
+        return fused
 
     def _on_layout(self, model, ds):
         """``model`` re-laid onto ``ds`` unless it already shares its
@@ -578,6 +634,11 @@ class GameEstimator:
                                else m.model.coefficients)
         results = []
         prev_model = initial_model
+        # Crash safety needs a host boundary after every outer iteration
+        # (the checkpoint write, the non-finite guard's sync); the fused
+        # fit has none until it completes, so these ride the unfused loop.
+        needs_host_boundary = (checkpointer is not None or resume is not None
+                               or self.non_finite_guard)
         for i, opt_configs in enumerate(opt_config_sequence):
             if i < start_config:
                 if (i == resume.config_index
@@ -592,6 +653,9 @@ class GameEstimator:
                         checkpointer, resume, i, opt_configs, val_ctx))
                 continue
             coords = self._build_coordinates(datasets, opt_configs, priors)
+            fused = (self._fused_for(coords, datasets)
+                     if val_ctx is None and not needs_host_boundary
+                     else None)
             cd = CoordinateDescent(
                 self.update_sequence, self.num_iterations,
                 locked_coordinates=self.locked_coordinates,
@@ -630,19 +694,24 @@ class GameEstimator:
                                       iteration=it)
             from photon_tpu_torch.obs import ledger
 
-            # The cost ledger's feed, only with telemetry and the ledger
-            # on: off, the fit makes no extra launch, sync or row.
+            # The unfused loop's cost-ledger feed, only with telemetry and
+            # the ledger on: off, the fit makes no extra launch, sync or
+            # row. A fused fit books its own rows.
             feed = (FitLedgerFeed(self.device)
-                    if obs.enabled() and ledger.enabled() else None)
+                    if fused is None and obs.enabled() and ledger.enabled()
+                    else None)
             t0 = time.perf_counter()
             with obs.span(f"fit/config:{i}"):
-                descent = cd.run(
-                    coords, initial_models or None, val_ctx,
-                    seed=i * self.num_iterations,
-                    start_iteration=(resume_iteration if i == start_config
-                                     else 0),
-                    on_iteration=on_iteration, initial_best=initial_best,
-                    ledger_feed=feed)
+                if fused is not None:
+                    descent = fused.run(coords, initial_models or None)
+                else:
+                    descent = cd.run(
+                        coords, initial_models or None, val_ctx,
+                        seed=i * self.num_iterations,
+                        start_iteration=(resume_iteration
+                                         if i == start_config else 0),
+                        on_iteration=on_iteration,
+                        initial_best=initial_best, ledger_feed=feed)
                 if feed is not None:
                     feed.close(slab_bytes=sum(
                         ds.slab_nbytes() for ds in datasets.values()

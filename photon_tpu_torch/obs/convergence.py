@@ -1,14 +1,12 @@
 """Device-side convergence traces (port of
 ``photon_tpu/obs/convergence.py``).
 
-In the JAX package the whole-fit fused program computes a small
-per-(CD iteration, coordinate) convergence block as extra outputs and
-hands the device array here without a host sync; a consumer (the
-snapshot, the JSONL exporter) fetches it later. The port's fit has no
-fused program yet (ROADMAP Queue A item 8), so nothing records here and
-every trace section exports empty. The unfused loop deliberately
-records nothing: a per-iteration record would add a host sync an
-iteration.
+The fused fit (``algorithm/fused_fit.py``, one CUDA-graph replay a fit
+on the card) computes a small per-(CD iteration, coordinate)
+convergence block as extra outputs and, with telemetry on, hands the
+device tensor here without a host sync; a consumer (the snapshot, the
+JSONL exporter) fetches it later. The unfused loop deliberately records
+nothing: a per-iteration record would add a host sync an iteration.
 
 Metric columns, in order (``METRICS``): the coordinate's final loss and
 gradient norm (fixed effects only), the squared change of its score

@@ -30,9 +30,10 @@ host machinery in float64 numpy:
   metric, iteration) over a fit's convergence block. The block is
   parked as the tensor the fit already produced; it is copied to the
   host (``.cpu()``) only at report time, so arming the sentinel adds no
-  wait for the card to a fit. The port's unfused fit parks nothing yet
-  (its convergence traces stay empty until the fused fit is ported), so
-  ``numerics_report`` reads ``fits_scanned: 0`` after a fit.
+  wait for the card to a fit. The fused fit parks its block on every
+  fit while health is armed; the unfused loop (validation, checkpoints,
+  listeners) parks nothing, so after such a fit ``numerics_report``
+  reads ``fits_scanned: 0``.
   :func:`scan_model` is the companion check on a model's coefficient
   tables.
 
@@ -1005,8 +1006,8 @@ def sentinel_watch(coordinates: tuple, array) -> None:
     """Park one fit's convergence block for lazy non-finite scanning.
 
     ``array`` is the [iters, coords, metrics] tensor a fit already
-    produced (the JAX package's fused fit parks its convergence block
-    here; the port's fit will once the fused fit is ported). Parking
+    produced: the fused fit (``algorithm/fused_fit.py``) parks its
+    convergence block here whenever health is armed. Parking
     keeps a reference only: no wait for the card, no copy (the
     obs/convergence.py contract). The copy to the host and the scan
     happen at :func:`numerics_report` time."""

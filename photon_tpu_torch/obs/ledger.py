@@ -7,9 +7,10 @@ operations; the ledger joins that static cost to measured dispatches
 and live buffers:
 
 - a **program census**: the programs the instrumented paths register
-  (the serve ladder's ``serve/score@<rung>`` graphs; a fit's
-  ``coordinate_descent`` loop and the Newton bucket shapes and
-  segment-sum sites it launched), each with a static cost or a lazy
+  (the serve ladder's ``serve/score@<rung>`` graphs; a fused fit's
+  ``fused_fit`` and ``materialize`` programs, an unfused fit's
+  ``coordinate_descent`` loop, and the Newton bucket shapes and
+  segment-sum sites either launched), each with a static cost or a lazy
   cost thunk priced at report time, never on a dispatch path;
 - **dispatch rows** keyed by ``(coordinate, phase, program)``: measured
   seconds, dispatch count and host-gap seconds (the idle gap between
@@ -29,8 +30,9 @@ minus the bound) and a blocking reason (``dispatch-gap``,
 Off by default, and off means off: every hook is one flag check and
 ``register_program`` adds nothing. Enabled, it is host bookkeeping
 only, never a launch, a copy or a sync; the one wait it brings is the
-fit's feed (``algorithm.coordinate_descent.FitLedgerFeed``), which
-syncs once at a fit's end on the card to read its CUDA events.
+unfused fit's feed (``algorithm.coordinate_descent.FitLedgerFeed``),
+which syncs once at a fit's end on the card to read its CUDA events
+(a fused fit's rows read the telemetry span's own sync).
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ import torch
 from photon_tpu_torch.ops import _build
 from photon_tpu_torch.ops import losses as losses_mod
 from photon_tpu_torch.types import TaskType
+from photon_tpu_torch.utils import device_loop
 
 SOURCE = "photon_tpu_torch/csrc/newton_step.cu"
 REPLACES = "photon_tpu/ops/newton_kernel.py:225"
@@ -242,6 +243,7 @@ def _launch(x, w, y, wt, off, l2, mt, vm, f, *, task, trials):
     )
     if rc != 0:
         raise RuntimeError(f"newton_step launch failed with CUDA error {rc}")
+    device_loop.note_launch("newton_step", dev)
     launches += 1
     launches_by_shape[(b, r, s)] = launches_by_shape.get((b, r, s), 0) + 1
     if s > NARROW_SUB_DIM:

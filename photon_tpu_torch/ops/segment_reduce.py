@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.ops import _build
+from photon_tpu_torch.utils import device_loop
 
 SOURCE = "photon_tpu_torch/csrc/segment_sum.cu"
 REPLACES = "photon_tpu/ops/segment_reduce.py:230"
@@ -225,6 +226,7 @@ def _launch(values, ids, n: int, site: str) -> torch.Tensor:
                     ids.data_ptr(), m, n, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum launch failed with CUDA error {rc}")
+    device_loop.note_launch("segment_sum", values.device)
     launches += 1
     launches_by_site[site] = launches_by_site.get(site, 0) + 1
     shapes_by_site[site] = (m, values.element_size(), n)

@@ -112,11 +112,33 @@ def convergence_code(
     return code.to(torch.int32)
 
 
+# Box bounds on their device, by (id of the bounds, dtype, device); each
+# entry keeps its bounds alive, so no id is reused. The oldest entries go
+# past _MAX_BOUNDS.
+_BOUNDS: dict = {}
+_MAX_BOUNDS = 64
+
+
+def box_bounds(box_constraints: tuple, like: torch.Tensor) -> tuple:
+    """(lower, upper) as tensors of ``like``'s dtype and device, made once
+    per bounds object and kept: a fit's first (eager) solve makes them,
+    so a CUDA-graph capture of a later solve copies nothing from the
+    host (which a capture refuses)."""
+    key = (id(box_constraints), like.dtype, str(like.device))
+    hit = _BOUNDS.get(key)
+    if hit is None:
+        while len(_BOUNDS) >= _MAX_BOUNDS:
+            _BOUNDS.pop(next(iter(_BOUNDS)))
+        hit = _BOUNDS[key] = (box_constraints, tuple(
+            torch.as_tensor(b, dtype=like.dtype, device=like.device)
+            for b in box_constraints))
+    return hit[1]
+
+
 def project_box(w: torch.Tensor, box_constraints: tuple | None):
     """Clip coefficients into (lower, upper) after an accepted step
     (OptimizationUtils.projectCoefficientsToSubspace)."""
     if box_constraints is None:
         return w
-    lower, upper = (torch.as_tensor(b, dtype=w.dtype, device=w.device)
-                    for b in box_constraints)
+    lower, upper = box_bounds(box_constraints, w)
     return torch.clamp(w, lower, upper)

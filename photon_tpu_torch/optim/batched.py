@@ -10,20 +10,25 @@ nesting (the outer iteration, the line search, TRON's CG). So each
 problem's iterates, iteration count and convergence reason are those a
 solo solve gives. The solvers here keep exactly that: every branch is a
 ``torch.where`` on per-problem masks, a lane that has stopped keeps its
-state, and each loop level asks the device once per step whether any
-lane still runs. Those questions are the solvers' host syncs, counted
-in ``host_syncs``. ``torch.func.vmap`` cannot express the loops (no
+state, and each loop level is a ``utils.device_loop`` loop: eagerly it
+asks the device once per step whether any lane still runs (those
+questions are the solvers' host syncs, counted in ``host_syncs``);
+inside a CUDA-graph capture (the fused fit) it is a WHILE node, and
+nothing is asked. ``torch.func.vmap`` cannot express the loops (no
 data-dependent control flow), so the batch axis is explicit.
 
 ``single`` runs one problem through a batched solver as a batch of one:
 the fixed effect's OWL-QN, TRON and L-BFGS-B are these solvers with
-B = 1. The fixed effect's L-BFGS stays ``lbfgs.py`` (host branching).
+B = 1, and so is its L-BFGS in the fused fit; the unfused loop's
+L-BFGS stays ``lbfgs.py`` (host branching).
 
 Constants and the convergence cascade are the reference's
 (``photon_tpu/optim/lbfgs.py``, ``base.py``).
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -35,6 +40,7 @@ from photon_tpu_torch.optim.base import (
     convergence_code,
     l2norm,
 )
+from photon_tpu_torch.utils import device_loop
 
 _C1 = 1e-4  # Armijo sufficient decrease
 _C2 = 0.9  # strong-Wolfe curvature
@@ -143,48 +149,52 @@ def wolfe_line_search(fun, w, f0, g0, d, dderiv, t0, max_iters: int,
                       active: torch.Tensor):
     """Strong-Wolfe search with bisection zoom per lane (the reference's
     ``_wolfe_line_search``). Returns (t, f_t, g_t, improved)."""
-    t, f_t, g_t = t0, f0, g0
-    t_lo = torch.zeros_like(t0)
-    f_lo = f0
-    t_hi = torch.zeros_like(t0)
-    bracketed = torch.zeros_like(active)
-    done = torch.zeros_like(active)
-    it = torch.zeros(t0.shape, dtype=torch.int64, device=t0.device)
-    while True:
-        run = active & ~done & (it < max_iters)
-        if not any_running(run):
-            break
-        tp = torch.where(bracketed, 0.5 * (t_lo + t_hi), t)
+    c = SimpleNamespace(
+        t=t0, f_t=f0, g_t=g0, t_lo=torch.zeros_like(t0), f_lo=f0,
+        t_hi=torch.zeros_like(t0), bracketed=torch.zeros_like(active),
+        done=torch.zeros_like(active),
+        it=torch.zeros(t0.shape, dtype=torch.int64, device=t0.device))
+
+    def body(run):
+        tp = torch.where(c.bracketed, 0.5 * (c.t_lo + c.t_hi), c.t)
         fp, gp = fun(w + tp[:, None] * d)
         dphi = dot(gp, d)
         armijo = fp <= f0 + _C1 * tp * dderiv
         curv = torch.abs(dphi) <= -_C2 * dderiv
-        shrink = ~armijo | (bracketed & (fp >= f_lo))
+        shrink = ~armijo | (c.bracketed & (fp >= c.f_lo))
         accept = armijo & curv
-        flip = torch.where(bracketed, dphi * (t_hi - t_lo) >= 0,
+        flip = torch.where(c.bracketed, dphi * (c.t_hi - c.t_lo) >= 0,
                            dphi >= 0)
         pos_slope = armijo & ~curv & flip
-        br_new = bracketed | shrink | pos_slope
+        br_new = c.bracketed | shrink | pos_slope
         lo_up = run & armijo & ~shrink
-        t_hi = torch.where(run, torch.where(
-            shrink, tp, torch.where(pos_slope, t_lo, t_hi)), t_hi)
-        t_lo = torch.where(lo_up, tp, t_lo)
-        f_lo = torch.where(lo_up, fp, f_lo)
+        c.t_hi = torch.where(run, torch.where(
+            shrink, tp, torch.where(pos_slope, c.t_lo, c.t_hi)), c.t_hi)
+        c.t_lo = torch.where(lo_up, tp, c.t_lo)
+        c.f_lo = torch.where(lo_up, fp, c.f_lo)
         t_next = torch.where(accept | br_new, tp, tp * 2.0)
-        t = torch.where(run, t_next, t)
-        f_t = torch.where(run, fp, f_t)
-        g_t = sel(run, gp, g_t)
-        bracketed = torch.where(run, br_new, bracketed)
-        done = torch.where(run, accept, done)
-        it = it + run.long()
-    ok = done | (t_lo > 0)
-    t = torch.where(done, t, t_lo)
+        c.t = torch.where(run, t_next, c.t)
+        c.f_t = torch.where(run, fp, c.f_t)
+        c.g_t = sel(run, gp, c.g_t)
+        c.bracketed = torch.where(run, br_new, c.bracketed)
+        c.done = torch.where(run, accept, c.done)
+        c.it = c.it + run.long()
+
+    device_loop.while_loop(
+        lambda: active & ~c.done & (c.it < max_iters), body, (c,),
+        any_running=any_running)
+    ok = c.done | (c.t_lo > 0)
+    c.t = torch.where(c.done, c.t, c.t_lo)
+
     # Exhausted lanes fall back to the best Armijo point t_lo.
-    if any_running(active & ~done):
-        fb, gb = fun(w + t[:, None] * d)
-        f_t = torch.where(done, f_t, fb)
-        g_t = sel(done, g_t, gb)
-    return t, f_t, g_t, ok & (f_t < f0)
+    def fallback():
+        fb, gb = fun(w + c.t[:, None] * d)
+        c.f_t = torch.where(c.done, c.f_t, fb)
+        c.g_t = sel(c.done, c.g_t, gb)
+
+    device_loop.cond_apply(active & ~c.done, fallback, (c,),
+                           any_running=any_running)
+    return c.t, c.f_t, c.g_t, ok & (c.f_t < f0)
 
 
 class Solve:
@@ -201,10 +211,11 @@ class Solve:
         self.losses = (f[:, None].repeat(1, config.max_iterations + 1)
                        if history else None)
 
-    def running(self) -> torch.Tensor | None:
-        """The active-lane mask, or None once every lane has stopped."""
-        active = self.code == 0
-        return active if any_running(active) else None
+    def loop(self, body, *state) -> None:
+        """Run ``body(active)`` while any lane is still running, with
+        this state and ``state`` as the carry (``device_loop``)."""
+        device_loop.while_loop(lambda: self.code == 0, body,
+                               (self, *state), any_running=any_running)
 
     def commit(self, active, w, f, g, code, iteration) -> None:
         self.w = sel(active, w, self.w)
@@ -241,7 +252,8 @@ def lbfgs(fun, w0: torch.Tensor, config: OptimizerConfig | None = None, *,
     st = Solve(w0, f0, g0, config, tol, history)
     hist = History(w0.shape[0], config.num_corrections, w0.shape[1],
                    w0.dtype, w0.device)
-    while (active := st.running()) is not None:
+
+    def body(active):
         w, f, g = st.w, st.f, st.g
         d, dderiv = descent_guard(g, hist.direction(g))
         t, f_new, g_new, improved = wolfe_line_search(
@@ -258,6 +270,8 @@ def lbfgs(fun, w0: torch.Tensor, config: OptimizerConfig | None = None, *,
             loss_delta=f - f_acc, gradient_norm=l2norm(g_acc), tol=tol,
             not_improving=~accept)
         st.commit(active, w_acc, f_acc, g_acc, code, iteration)
+
+    st.loop(body, hist)
     return st.result(l2norm(st.g))
 
 

@@ -12,6 +12,8 @@ exactly at KKT points. Every iteration counts, accepted or not.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from photon_tpu_torch.optim import batched
@@ -20,17 +22,17 @@ from photon_tpu_torch.optim.base import (
     OptResult,
     Tolerances,
     absolute_tolerances,
+    box_bounds,
     convergence_code,
     l2norm,
 )
+from photon_tpu_torch.utils import device_loop
 
 
 def _bounds(config: OptimizerConfig, like: torch.Tensor):
     if config.box_constraints is None:
         raise ValueError("L-BFGS-B requires config.box_constraints")
-    lower, upper = config.box_constraints
-    return (torch.as_tensor(lower, dtype=like.dtype, device=like.device),
-            torch.as_tensor(upper, dtype=like.dtype, device=like.device))
+    return box_bounds(config.box_constraints, like)
 
 
 def _projected_gradient(w, g, lower, upper):
@@ -51,34 +53,37 @@ def lbfgsb(fun, w0: torch.Tensor, config: OptimizerConfig, *,
     st = batched.Solve(w0, f0, g0, config, tol, history)
     hist = batched.History(w0.shape[0], config.num_corrections,
                            w0.shape[1], w0.dtype, w0.device)
-    while (active := st.running()) is not None:
+    def body(active):
         w, f, g = st.w, st.f, st.g
         free = ~(((w <= lower) & (g > 0)) | ((w >= upper) & (g < 0)))
         g_free = torch.where(free, g, 0.0)
         d = torch.where(free, hist.direction(g_free), 0.0)
         d, _ = batched.descent_guard(g_free, d)
-        t = batched.first_step(hist, g_free)
-        w_t, f_t, g_t = w, f, g
-        done = torch.zeros_like(active)
-        it = 0
-        while True:
-            run = active & ~done & (it < config.max_line_search_iterations)
-            if not batched.any_running(run):
-                break
-            wp = torch.clamp(w + t[:, None] * d, lower, upper)
+        ls = SimpleNamespace(
+            t=batched.first_step(hist, g_free), w_t=w, f_t=f, g_t=g,
+            done=torch.zeros_like(active),
+            it=torch.zeros((), dtype=torch.int64, device=w.device))
+
+        def search(run):
+            wp = torch.clamp(w + ls.t[:, None] * d, lower, upper)
             fp, gp = fun(wp)
             ok = fp <= f + batched._C1 * batched.dot(g, wp - w)
-            t = torch.where(run & ~ok, t * batched._BACKTRACK, t)
-            w_t = batched.sel(run, wp, w_t)
-            f_t = torch.where(run, fp, f_t)
-            g_t = batched.sel(run, gp, g_t)
-            done = torch.where(run, ok, done)
-            it += 1
-        improved = done & (f_t < f)
-        hist.push(w_t - w, g_t - g, active & improved)
-        w_acc = batched.sel(improved, w_t, w)
-        f_acc = torch.where(improved, f_t, f)
-        g_acc = batched.sel(improved, g_t, g)
+            ls.t = torch.where(run & ~ok, ls.t * batched._BACKTRACK, ls.t)
+            ls.w_t = batched.sel(run, wp, ls.w_t)
+            ls.f_t = torch.where(run, fp, ls.f_t)
+            ls.g_t = batched.sel(run, gp, ls.g_t)
+            ls.done = torch.where(run, ok, ls.done)
+            ls.it = ls.it + 1
+
+        device_loop.while_loop(
+            lambda: (active & ~ls.done
+                     & (ls.it < config.max_line_search_iterations)),
+            search, (ls,), any_running=batched.any_running)
+        improved = ls.done & (ls.f_t < f)
+        hist.push(ls.w_t - w, ls.g_t - g, active & improved)
+        w_acc = batched.sel(improved, ls.w_t, w)
+        f_acc = torch.where(improved, ls.f_t, f)
+        g_acc = batched.sel(improved, ls.g_t, g)
         iteration = st.iteration + 1
         code = convergence_code(
             iteration=iteration, max_iterations=config.max_iterations,
@@ -87,6 +92,8 @@ def lbfgsb(fun, w0: torch.Tensor, config: OptimizerConfig, *,
                                                      upper)),
             tol=tol, not_improving=~improved)
         st.commit(active, w_acc, f_acc, g_acc, code, iteration)
+
+    st.loop(body, hist)
     return st.result(l2norm(_projected_gradient(st.w, st.g, lower, upper)))
 
 

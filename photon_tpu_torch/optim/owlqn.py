@@ -14,6 +14,8 @@ zero state of F: |f(0)| and the pseudo-gradient's norm at 0.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from photon_tpu_torch.optim import batched
@@ -24,6 +26,7 @@ from photon_tpu_torch.optim.base import (
     convergence_code,
     l2norm,
 )
+from photon_tpu_torch.utils import device_loop
 
 
 def _pseudo_gradient(w, g, l1):
@@ -56,7 +59,7 @@ def owlqn(fun, w0: torch.Tensor, l1_weight, config: OptimizerConfig, *,
     st = batched.Solve(w0, f0, g0, config, tolerances, history)
     hist = batched.History(w0.shape[0], config.num_corrections,
                            w0.shape[1], w0.dtype, w0.device)
-    while (active := st.running()) is not None:
+    def body(active):
         w, f, g = st.w, st.f, st.g
         pg = _pseudo_gradient(w, g, l1)
         d = hist.direction(pg)
@@ -68,21 +71,24 @@ def owlqn(fun, w0: torch.Tensor, l1_weight, config: OptimizerConfig, *,
             w_t = w + t[:, None] * d
             return torch.where(torch.sign(w_t) == orthant, w_t, 0.0)
 
-        t = batched.first_step(hist, pg)
-        done = torch.zeros_like(active)
-        it = 0
-        while True:
-            run = active & ~done & (it < config.max_line_search_iterations)
-            if not batched.any_running(run):
-                break
-            fp, _ = total(project(t))
-            ok = fp <= f + batched._C1 * t * dderiv
-            t = torch.where(run & ~ok, t * batched._BACKTRACK, t)
-            done = torch.where(run, ok, done)
-            it += 1
-        w_new = project(t)
+        ls = SimpleNamespace(
+            t=batched.first_step(hist, pg), done=torch.zeros_like(active),
+            it=torch.zeros((), dtype=torch.int64, device=w.device))
+
+        def search(run):
+            fp, _ = total(project(ls.t))
+            ok = fp <= f + batched._C1 * ls.t * dderiv
+            ls.t = torch.where(run & ~ok, ls.t * batched._BACKTRACK, ls.t)
+            ls.done = torch.where(run, ok, ls.done)
+            ls.it = ls.it + 1
+
+        device_loop.while_loop(
+            lambda: (active & ~ls.done
+                     & (ls.it < config.max_line_search_iterations)),
+            search, (ls,), any_running=batched.any_running)
+        w_new = project(ls.t)
         f_new, g_new = total(w_new)
-        accept = done & (f_new < f)
+        accept = ls.done & (f_new < f)
         w_acc = batched.sel(accept, w_new, w)
         f_acc = torch.where(accept, f_new, f)
         g_acc = batched.sel(accept, g_new, g)
@@ -94,6 +100,8 @@ def owlqn(fun, w0: torch.Tensor, l1_weight, config: OptimizerConfig, *,
             gradient_norm=l2norm(_pseudo_gradient(w_acc, g_acc, l1)),
             tol=tolerances, not_improving=~accept)
         st.commit(active, w_acc, f_acc, g_acc, code, iteration)
+
+    st.loop(body, hist)
     return st.result(l2norm(_pseudo_gradient(st.w, st.g, l1)))
 
 

@@ -63,7 +63,9 @@ def _l2_mask(w: torch.Tensor, intercept_index: int | None) -> torch.Tensor:
     if intercept_index is None:
         return w
     w = w.clone()
-    w[intercept_index] = 0.0
+    # A fill, not ``w[i] = 0.0`` (a copy from a host scalar, which a
+    # CUDA-graph capture refuses).
+    w.narrow(0, intercept_index, 1).zero_()
     return w
 
 

@@ -15,6 +15,8 @@ quadratic formula (Lin & More eq. 13).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from photon_tpu_torch.optim import batched
@@ -28,6 +30,7 @@ from photon_tpu_torch.optim.base import (
     l2norm,
     project_box,
 )
+from photon_tpu_torch.utils import device_loop
 
 _ETA0, _ETA1, _ETA2 = 1e-4, 0.25, 0.75
 _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
@@ -40,42 +43,42 @@ def _truncated_cg(hvp, g, delta, max_cg_iterations: int, active):
     dot = batched.dot
     tiny = torch.finfo(g.dtype).tiny
     cg_tol = 0.1 * l2norm(g)
-    step = torch.zeros_like(g)
-    residual = -g
-    direction = -g
-    rtr = dot(g, g)
-    boundary = torch.zeros_like(active)
-    it = 0
-    while True:
-        run = (active & ~boundary & (l2norm(residual) > cg_tol)
-               & (it < max_cg_iterations))
-        if not batched.any_running(run):
-            break
-        hd = hvp(direction)
-        alpha = rtr / torch.clamp(dot(direction, hd), min=tiny)
-        over = l2norm(step + alpha[:, None] * direction) > delta
-        std = dot(step, direction)
-        sts = dot(step, step)
-        dtd = dot(direction, direction)
+    c = SimpleNamespace(
+        step=torch.zeros_like(g), residual=-g, direction=-g,
+        rtr=dot(g, g), boundary=torch.zeros_like(active),
+        it=torch.zeros((), dtype=torch.int64, device=g.device))
+
+    def body(run):
+        hd = hvp(c.direction)
+        alpha = c.rtr / torch.clamp(dot(c.direction, hd), min=tiny)
+        over = l2norm(c.step + alpha[:, None] * c.direction) > delta
+        std = dot(c.step, c.direction)
+        sts = dot(c.step, c.step)
+        dtd = dot(c.direction, c.direction)
         dsq = delta * delta
         rad = torch.sqrt(torch.clamp(std * std + dtd * (dsq - sts), min=0.0))
         alpha_b = torch.where(
             std >= 0.0, (dsq - sts) / torch.clamp(std + rad, min=tiny),
             (rad - std) / torch.clamp(dtd, min=tiny))
         a = torch.where(over, alpha_b, alpha)[:, None]
-        step_n = step + a * direction
-        residual_n = residual - a * hd
+        step_n = c.step + a * c.direction
+        residual_n = c.residual - a * hd
         rtr_n = dot(residual_n, residual_n)
-        beta = rtr_n / torch.clamp(rtr, min=tiny)
-        direction_n = batched.sel(over, direction,
-                                  residual_n + beta[:, None] * direction)
-        step = batched.sel(run, step_n, step)
-        residual = batched.sel(run, residual_n, residual)
-        direction = batched.sel(run, direction_n, direction)
-        rtr = torch.where(run & ~over, rtr_n, rtr)
-        boundary = torch.where(run, over, boundary)
-        it += 1
-    return step, residual
+        beta = rtr_n / torch.clamp(c.rtr, min=tiny)
+        direction_n = batched.sel(over, c.direction,
+                                  residual_n + beta[:, None] * c.direction)
+        c.step = batched.sel(run, step_n, c.step)
+        c.residual = batched.sel(run, residual_n, c.residual)
+        c.direction = batched.sel(run, direction_n, c.direction)
+        c.rtr = torch.where(run & ~over, rtr_n, c.rtr)
+        c.boundary = torch.where(run, over, c.boundary)
+        c.it = c.it + 1
+
+    device_loop.while_loop(
+        lambda: (active & ~c.boundary & (l2norm(c.residual) > cg_tol)
+                 & (c.it < max_cg_iterations)),
+        body, (c,), any_running=batched.any_running)
+    return c.step, c.residual
 
 
 def tron(fun, w0: torch.Tensor, config: OptimizerConfig | None = None, *,
@@ -89,9 +92,11 @@ def tron(fun, w0: torch.Tensor, config: OptimizerConfig | None = None, *,
         fun, w0, config.tolerance)
     f0, g0 = fun(w0)
     st = batched.Solve(w0, f0, g0, config, tol, history)
-    delta = l2norm(g0)
-    failures = torch.zeros_like(st.iteration)
-    while (active := st.running()) is not None:
+    c = SimpleNamespace(delta=l2norm(g0),
+                        failures=torch.zeros_like(st.iteration))
+
+    def body(active):
+        delta, failures = c.delta, c.failures
         w, f, g = st.w, st.f, st.g
         step, residual = _truncated_cg(
             lambda v: hvp(w, v), g, delta, config.max_cg_iterations, active)
@@ -138,9 +143,11 @@ def tron(fun, w0: torch.Tensor, config: OptimizerConfig | None = None, *,
             torch.where(fails >= config.max_improvement_failures,
                         int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING),
                         0).to(torch.int32))
-        delta = torch.where(active, d, delta)
-        failures = torch.where(active, fails, failures)
+        c.delta = torch.where(active, d, delta)
+        c.failures = torch.where(active, fails, failures)
         st.commit(active, w_new, f_new, g_new, code, iteration)
+
+    st.loop(body, c)
     return st.result(l2norm(st.g))
 
 

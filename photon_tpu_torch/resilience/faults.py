@@ -18,6 +18,9 @@ point               boundary
 ``cd.iteration``    end of one outer coordinate-descent iteration, AFTER
                     its checkpoint was written (the kill-and-resume
                     window)
+``fit.dispatch``    before each fused fit's graph replay (its capture on
+                    first use), inside the retried call
+                    ``fused_fit.dispatch`` (``FusedFit.run``)
 ``serve.dispatch``  the serve queue's batch dispatch, inside its retried
                     call (``MicroBatchQueue._dispatch``)
 ``ingest.plan``,    the planner's per-coordinate plan and chunk, and the
@@ -34,10 +37,9 @@ point               boundary
 ``pilot.rollback``  before a rollback loads its target generation
 ==================  ======================================================
 
-The reference's other points (``compile.aot``, ``fit.dispatch``: the
-fused fit and its ahead-of-time compile) are accepted in a plan, so one
-plan serves both packages, and fire where the port grows those
-boundaries (ROADMAP item 8).
+The reference's other point, ``compile.aot`` (the ahead-of-time compile
+during ingest), is accepted in a plan, so one plan serves both
+packages, and fires once the port grows that boundary (ROADMAP item 8).
 
 Fault kinds (``FaultSpec.error``): ``"transient"`` raises
 ``TransientError``, ``"poison"`` raises ``PoisonError``, ``"crash"``

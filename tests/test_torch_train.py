@@ -318,15 +318,16 @@ def both_estimators(task, coords, num_iterations=2, normalization=None):
             cfgs["pt"][cid] = pt_est.RandomEffectCoordinateConfiguration(
                 pt_re.RandomEffectDataConfiguration(**spec), opt["pt"])
     icpt = {"global": D - 1, "userShard": DU - 1, "movieShard": DM - 1}
-    # The non-finite guard keeps the JAX estimator on its unfused loop,
-    # the loop this port mirrors; it changes no result of a finite fit.
+    # The non-finite guard keeps both estimators on their unfused loops
+    # (the fused fits are held in test_torch_fused_fit.py); it changes
+    # no result of a finite fit.
     jest = jax_est.GameEstimator(
         jtask, cfgs["jax"], num_iterations=num_iterations, mesh="off",
         intercept_indices=icpt, non_finite_guard=True,
         normalization=(normalization or {}).get("jax"))
     pest = pt_est.GameEstimator(
         ptask, cfgs["pt"], num_iterations=num_iterations,
-        intercept_indices=icpt, device=CPU,
+        intercept_indices=icpt, device=CPU, non_finite_guard=True,
         normalization=(normalization or {}).get("pt"))
     return jest, pest
 
