@@ -152,13 +152,19 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
 
 7.  train_data     - numpy data, the copy to the card, the host planner;
 7a. planner_logistic - the same prepare with PHOTON_TPU_SERIAL_INGEST=1
-                     on a fresh estimator, then pipelined again: the
-                     seconds of the three, each one's PIPELINE_STATS
-                     report and packed
+                     on a fresh estimator, then pipelined again, this
+                     time the bf16 estimator's with its warm capture
+                     armed (the first prepare, f32, declines it: a
+                     listener is attached, so its fused fit captures at
+                     first use): the seconds of the three, each one's
+                     PIPELINE_STATS report and packed
                      transfers (bytes, chunks, seconds), ``os.cpu_count()``,
-                     PHOTON_TPU_INGEST_THREADS and ``torch.get_num_threads()``;
-                     gate: every run's packed plan buffers equal to the
-                     first's on the card;
+                     PHOTON_TPU_INGEST_THREADS and ``torch.get_num_threads()``,
+                     and the warm stage (``warm_stage_row``: its compile
+                     seconds, the compile_wait at the prepare's end, the
+                     overlap fraction, nodes); gate: every run's packed plan
+                     buffers equal to the first's on the card (precision
+                     changes no plan);
 8.  newton_parity  - three Newton steps on the largest user and movie
                      buckets: the CUDA kernel, ``newton_step_plain`` in
                      f32 and in float64, on the card. The kernel's
@@ -195,6 +201,31 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      (``fused_fit_telemetry``): one ``fused_fit`` span,
                      one fit recorded, one sentinel parked and scanned
                      finite, ``fused_fit`` rows for every coordinate;
+9a. fit_bf16      - the bf16 estimator of 7a on the same data
+                     (``phase_fit_bf16``): its first fused fit adopts
+                     the warm graph (compile and wait seconds, overlap
+                     fraction, nodes), 3 warm replays under
+                     ``set_sync_debug_mode("error")``, the eager twin,
+                     one unfused fit (a no-op listener); a warm start
+                     at a tenth of the rows and entities.
+                     Gates: every coefficient finite; within 2e-2 of
+                     the f32 fused model (fixed and random effects, the
+                     largest difference over the f32 model's largest
+                     magnitude, the reference's logistic tolerance);
+                     the fused fit within ``bf16_fused_bounds`` of the
+                     unfused bf16 fit (2^-8 of the coordinate's largest
+                     coefficient plus 2^-9 of the largest score, each
+                     coordinate); no solver sync in a warm
+                     replay; 0 Newton-kernel launches and every bucket
+                     solve on the batch-minor loop (the kernel takes
+                     f32 only, as the reference's does); the slab bytes
+                     half the f32 fit's; a warm start adds no fused
+                     cache key; ``cache_stats()`` reads
+                     ``aot_compiles >= 1`` and ``aot_failures == 0``;
+                     the graph was adopted, not captured in the fit,
+                     and the adopted fit equals its eager twin bit for
+                     bit. Peak memory and the training AUC beside the
+                     f32 AUC are printed;
 10. optimality     - each entity's gradient at the fitted model against
                      the cascade's tolerance, else its convergence reason;
 11. quality        - train AUC beside the generating weights' AUC;
@@ -672,6 +703,14 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
+
+
+def empty_cache() -> None:
+    """``torch.cuda.empty_cache()`` once no CUDA-graph capture is in
+    progress in any thread (it fails during one)."""
+    from photon_tpu_torch.utils import device_loop
+
+    device_loop.empty_cache()
 
 
 def fail(msg: str) -> None:
@@ -1234,8 +1273,14 @@ def device_ms(torch, fn, inner: int) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    from photon_tpu_torch.utils import device_loop
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # One capture at a time in the process (a warm capture may run), on
+    # a stream no other thread's work shares.
+    capture_stream = torch.cuda.Stream(priority=device_loop.CAPTURE_PRIORITY)
+    with device_loop.exclusive(), torch.cuda.graph(graph,
+                                                   stream=capture_stream):
         for _ in range(inner):
             fn()
     graph.replay()
@@ -1791,7 +1836,7 @@ def phase_score_cli(torch, arrays, manifest, floor_ms: float) -> dict:
                         cli_ladder.rung_cost(RUNGS[-1]))}
     emit(ladder_bound)
     del data, model, programs, codes_all, cli_ladder
-    torch.cuda.empty_cache()
+    empty_cache()
 
     sec = line["seconds"]
     row = {
@@ -2259,7 +2304,7 @@ def phase_serve_ops(torch, arrays, manifest, ckpt_path, batch) -> dict:
         fail(f"serve_ops: the new ladder differs from the plain version "
              f"by {err}")
     del programs, live, flood, tables
-    torch.cuda.empty_cache()
+    empty_cache()
 
     # cli.serve --input on score_cli's rows, with a hot reload of the
     # same model directory (values-only against the data's maps).
@@ -2549,10 +2594,11 @@ def train_dataset(arrays, dtype=None, device="cuda"):
 
 
 def build_estimator(task_name="logistic", movie=None, intercepts=None,
-                    device=None):
-    """The bench's ``build_estimator(task_name)`` in float32. ``movie``
-    replaces the per-movie data configuration and ``intercepts`` the
-    intercept indices."""
+                    device=None, precision="float32"):
+    """The bench's ``build_estimator(task_name)``, in float32 unless
+    ``precision`` says otherwise (the bench's own default is bf16).
+    ``movie`` replaces the per-movie data configuration and
+    ``intercepts`` the intercept indices."""
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
@@ -2593,7 +2639,7 @@ def build_estimator(task_name="logistic", movie=None, intercepts=None,
                                          "userShard": USER_FEATURES,
                                          "movieShard": MOVIE_FEATURES},
         num_iterations=CD_ITERATIONS,
-        precision="float32",
+        precision=precision,
         device=device,
     )
 
@@ -3032,6 +3078,198 @@ def phase_fit(torch, arrays, data, est) -> dict:
             "unfused_launches": row["newton_kernel_launches"]
             + 2 * warm["newton_kernel_launches"],
             "fused_newton_launches": fused_launches}
+
+
+# bf16 against f32: the reference's logistic tolerance
+# (tests/test_precision.py:145-150), by its ``_rel_err``.
+BF16_RTOL = 2e-2
+
+
+def bf16_fused_bounds(torch, unfused_model, zmax: float) -> dict:
+    """Per coordinate, how far the bf16 fused fit may lie from the bf16
+    unfused loop (largest absolute coefficient difference). The two
+    differ by the fused fit's bf16 score carries (the unfused loop's
+    are f32): a carry rounded to bf16 moves each row's offset by at most
+    2^-9 of the largest score ``zmax``, which moves an entity's
+    coefficients (its intercept first) by at most as much; and the
+    margins read each coefficient rounded to bf16, so a solve stops
+    within one bf16 step, 2^-8 of the coordinate's largest coefficient,
+    of where the other stops."""
+    out = {}
+    for cid in ("global",) + RE_IDS:
+        w = (unfused_model[cid].model.coefficients.means if cid == "global"
+             else unfused_model[cid].coefficients)
+        out[cid] = 2.0 ** -8 * float(w.abs().max()) + 2.0 ** -9 * zmax
+    return out
+
+
+def rel_err(torch, a, b) -> float:
+    """The reference's ``_rel_err``: the largest absolute difference over
+    the largest magnitude of ``b``."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-9)
+
+
+def model_rel_errs(torch, a, b) -> dict:
+    out = {}
+    for cid in ("global",) + RE_IDS:
+        x = (a[cid].model.coefficients.means if cid == "global"
+             else a[cid].coefficients)
+        y = (b[cid].model.coefficients.means if cid == "global"
+             else b[cid].coefficients)
+        out[cid] = rel_err(torch, x, y)
+    return out
+
+
+def model_finite(torch, m) -> bool:
+    return all(bool(torch.isfinite(
+        m[cid].model.coefficients.means if cid == "global"
+        else m[cid].coefficients).all()) for cid in ("global",) + RE_IDS)
+
+
+def phase_fit_bf16(torch, arrays, data, est16, est32, fit32,
+                   f32_auc: float) -> dict:
+    """Phase 9a (docstring): the bf16 estimator's fits on the same data,
+    its first fused fit on the graph its prepare captured."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.data import pipeline
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.optim import batched, lbfgs
+    from photon_tpu_torch.utils import compile_cache, device_loop
+
+    datasets, _ = est16.prepare(data)
+    device_loop.reset_graph_launches()
+    first, first_res = fit_trajectory(torch, est16, data)
+    report = pipeline.PIPELINE_STATS.report()
+    first_replayed = device_loop.graph_launches("newton_step")
+    ff = next(iter(est16._fused_cache.values()))
+    cap = ff.captured()
+    graphs_first = len(ff._graphs)
+    warm = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FUSED_WARM):
+        device_loop.reset_graph_launches()
+        before = (ra.host_syncs, batched.host_syncs, lbfgs.host_syncs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = est16.fit(data)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        warm.append({"seconds": time.perf_counter() - t0,
+                     "solver_syncs": [a - b for a, b in zip(
+                         (ra.host_syncs, batched.host_syncs,
+                          lbfgs.host_syncs), before)],
+                     "newton_launches": device_loop.graph_launches(
+                         "newton_step")})
+    peak = torch.cuda.max_memory_allocated()
+    twin, twin_launches = eager_twin(torch, est16, datasets, ff)
+    # A warm start within a generation (a two-configuration sequence,
+    # the second seeded by the first: a lambda grid's re-entry), at a
+    # tenth of the rows and entities: its twin's capture runs the whole
+    # bf16 fit eagerly first, ~12 s at full width.
+    small = train_dataset(synth_arrays(**REDUCED))
+    est_small = build_estimator(precision="bfloat16")
+    est_small.fit(small)
+    keys = set(est_small._fused_cache)
+    est_small.fit(small, opt_config_sequence=[{}, {}])
+    warm_start_keys = set(est_small._fused_cache)
+    del est_small, small
+    with unfused(est16):
+        unf, unf_res = fit_trajectory(torch, est16, data)
+    n_buckets = sum(len(datasets[cid].blocks) for cid in RE_IDS)
+    ff32 = next(iter(est32._fused_cache.values()))
+    m32 = fit32["fused"]["result"].model
+    total, _ = total_scores(torch, res.model, datasets, data)
+    score = total.double().cpu().numpy()
+    unf_total, _ = total_scores(torch, unf_res.model, datasets, data)
+    fused_bounds = bf16_fused_bounds(torch, unf_res.model,
+                                     float(unf_total.abs().max()))
+    stats = compile_cache.cache_stats()
+    row = {"phase": "fit_bf16",
+           "first_seconds": first["fit_seconds"],
+           "compile_seconds": report["compile_seconds"],
+           "compile_wait_seconds": report["compile_wait_seconds"],
+           "compile_overlap_fraction": report["compile_overlap_fraction"],
+           "graph_adopted": bool(cap is not None and cap.adopted),
+           # After the first fit (the warm start's twin adds one later).
+           "graphs_after_first_fit": graphs_first,
+           "capture_seconds": None if cap is None else cap.seconds,
+           "instantiate_seconds": (None if cap is None
+                                   else cap.instantiate_seconds),
+           "graph_nodes": None if cap is None else cap.nodes,
+           "conditional_nodes": (None if cap is None
+                                 else cap.conditional_nodes),
+           "warm_seconds": [w["seconds"] for w in warm],
+           "solver_syncs_warm": [w["solver_syncs"] for w in warm],
+           "unfused_seconds": unf["fit_seconds"],
+           "newton_kernel_launches": {
+               "first_replay": first_replayed,
+               "first_python": first["newton_kernel_launches"],
+               "warm_replays": [w["newton_launches"] for w in warm],
+               "eager_twin": twin_launches,
+               "unfused": unf["newton_kernel_launches"]},
+           "routing": "batch-minor loop (the Newton kernel takes f32 only)",
+           "re_newton_iterations_max": first["re_newton_iterations_max"],
+           "re_newton_iterations_max_unfused":
+               unf["re_newton_iterations_max"],
+           "re_newton_iterations_max_f32":
+               fit32["fused"]["re_newton_iterations_max"],
+           "fe_lbfgs_iterations": first["fe_lbfgs_iterations"],
+           "plain_route_solves_unfused": unf["plain_route_solves"],
+           "bucket_solves_unfused": n_buckets * CD_ITERATIONS,
+           "slab_bytes": ff.slab_nbytes(),
+           "slab_bytes_f32": ff32.slab_nbytes(),
+           "rel_err_vs_f32": model_rel_errs(torch, res.model, m32),
+           "rel_err_fused_vs_unfused": model_rel_errs(torch, res.model,
+                                                      unf_res.model),
+           "max_abs_diff_fused_vs_unfused": model_diffs(torch, res.model,
+                                                        unf_res.model),
+           "eager_twin_bit_identical": (
+               model_arrays_equal(first_res.model, twin)
+               and model_arrays_equal(res.model, twin)),
+           "warm_start_adds_no_key": warm_start_keys == keys,
+           "cache_stats": stats,
+           "max_memory_allocated_bytes_warm": peak,
+           "max_memory_allocated_bytes_first":
+               first["max_memory_allocated_bytes"],
+           "train_auc": auc(score, arrays["y"]),
+           "train_auc_f32": f32_auc,
+           "bounds": {"vs_f32": BF16_RTOL,
+                      "fused_vs_unfused": fused_bounds}}
+    emit(row)
+    if not (model_finite(torch, first_res.model)
+            and model_finite(torch, unf_res.model)):
+        fail(f"fit_bf16: a coefficient is not finite: {row}")
+    if not (row["graph_adopted"] and graphs_first == 1):
+        fail(f"fit_bf16: the first fused fit did not replay the warm "
+             f"graph: {row}")
+    if stats["aot_compiles"] < 1 or stats["aot_failures"] != 0:
+        fail(f"fit_bf16: compile_cache stats {stats}")
+    if max(row["rel_err_vs_f32"].values()) > BF16_RTOL:
+        fail(f"fit_bf16: beyond {BF16_RTOL} of the f32 model: {row}")
+    if any(row["max_abs_diff_fused_vs_unfused"][c] > fused_bounds[c]
+           for c in fused_bounds):
+        fail(f"fit_bf16: fused and unfused beyond {fused_bounds}: {row}")
+    if any(any(w["solver_syncs"]) for w in warm):
+        fail(f"fit_bf16: a warm replay counted solver syncs: {row}")
+    launches = row["newton_kernel_launches"]
+    if (launches["first_replay"] or launches["first_python"]
+            or any(launches["warm_replays"]) or launches["eager_twin"]
+            or launches["unfused"]
+            or unf["plain_route_solves"] != n_buckets * CD_ITERATIONS):
+        fail(f"fit_bf16: the bf16 fit reached the Newton kernel or left "
+             f"the batch-minor loop: {row}")
+    if 2 * row["slab_bytes"] != row["slab_bytes_f32"]:
+        fail(f"fit_bf16: the bf16 slabs are not half the f32 ones: {row}")
+    if not row["warm_start_adds_no_key"]:
+        fail(f"fit_bf16: a warm start added a fused cache key: {row}")
+    if not row["eager_twin_bit_identical"]:
+        fail(f"fit_bf16: the adopted fit differs from its eager twin: "
+             f"{row}")
+    return row
 
 
 def fused_telemetry(torch, est, data, off_result) -> dict:
@@ -3547,7 +3785,11 @@ def phase_train(torch) -> dict:
     torch.cuda.synchronize()
     put_s = time.perf_counter() - t0
     est = build_estimator()
-    datasets, plan_row = timed_prepare(torch, est, data)
+    # The f32 estimator's prepare declines the warm stage (a listener is
+    # attached while it plans): its fused fit captures at first use, and
+    # the bf16 estimator of the planner comparison takes the warm stage.
+    with unfused(est):
+        datasets, plan_row = timed_prepare(torch, est, data)
     plan_s = plan_row["seconds"]
     t0 = time.perf_counter()
     buckets = {cid: [list(b.x_values.shape)
@@ -3559,8 +3801,10 @@ def phase_train(torch) -> dict:
           "generate_seconds": gen_s, "to_device_seconds": put_s,
           "planner_host_seconds": plan_s, "slab_gather_seconds": gather_s,
           "buckets": buckets})
-    planner_comparison(torch, "logistic", build_estimator, data, datasets,
-                       plan_row)
+    est16 = planner_comparison(
+        torch, "logistic", build_estimator, data, datasets, plan_row,
+        again_estimator=lambda: build_estimator(
+            precision="bfloat16"))["estimator"]
     parity = phase_newton_parity(torch, datasets, est)
 
     fit = phase_fit(torch, arrays, data, est)
@@ -3575,6 +3819,9 @@ def phase_train(torch) -> dict:
     emit({"phase": "score", "seconds": time.perf_counter() - t0})
     phase_optimality(torch, model, datasets, data, stats)
     quality = phase_quality(torch, arrays, model, datasets, data)
+    phase_fit_bf16(torch, arrays, data, est16, est, fit,
+                   quality["row"]["train_auc"])
+    del est16
     phase_train_serve(torch, arrays, model, quality["total"])
     by_bucket = bucket_launches(hist, datasets)
     if sum(by_bucket.values()) != fit["row"]["newton_kernel_launches"]:
@@ -5361,14 +5608,44 @@ def timed_prepare(torch, est, data) -> tuple[dict, dict]:
         "packed_transfers": pipeline.PIPELINE_STATS.transfers()}
 
 
+def warm_stage_row(torch, est, prepare_row: dict) -> dict:
+    """``est``'s warm stage, which its prepare waited for at its end:
+    the ``compile`` stage's seconds, the ``compile_wait`` the planning
+    did not hide, the overlap fraction, and the capture's seconds and
+    nodes."""
+    from photon_tpu_torch.data import pipeline
+
+    fut = est._aot_future
+    art = fut.result() if fut is not None else None
+    report = pipeline.PIPELINE_STATS.report()
+    row = {"armed": fut is not None,
+           "prepare_seconds": prepare_row["seconds"],
+           "compile_seconds": pipeline.PIPELINE_STATS.seconds("compile"),
+           "compile_wait_seconds": pipeline.PIPELINE_STATS.seconds(
+               "compile_wait"),
+           "compile_overlap_fraction": report["compile_overlap_fraction"]}
+    cap = None if art is None else art["captured"]
+    if cap is not None:
+        row.update(capture_seconds=cap.seconds,
+                   instantiate_seconds=cap.instantiate_seconds,
+                   graph_nodes=cap.nodes,
+                   conditional_nodes=cap.conditional_nodes)
+    row["captured"] = cap is not None
+    return row
+
+
 def planner_comparison(torch, name: str, make_estimator, data, datasets,
-                       pipelined: dict) -> dict:
+                       pipelined: dict, again_estimator=None) -> dict:
     """The same prepare with ``PHOTON_TPU_SERIAL_INGEST=1`` on a fresh
     estimator, then pipelined once more (pipelined, serial, pipelined:
-    the first run's place in the process is not the path's): the
-    seconds of each, and every run's packed plan buffers compared with
-    the first's on the card (exact int32 equality)."""
+    the first run's place in the process is not the path's), the last
+    on ``again_estimator()`` when given (the bf16 estimator, whose warm
+    capture runs beside its planning: ``warm_stage_row``): the seconds
+    of each, and every run's packed plan buffers compared with the
+    first's on the card (exact int32 equality). Returns the row, with
+    the last estimator under ``estimator`` (not printed)."""
     from photon_tpu_torch.data import pipeline
+    from photon_tpu_torch.utils import device_loop
 
     def same_plans(other) -> bool:
         views = [(ds.packed_view, other[cid].packed_view)
@@ -5384,7 +5661,9 @@ def planner_comparison(torch, name: str, make_estimator, data, datasets,
     pipeline.reset_executors()
     identical = same_plans(serial)
     del serial
-    again, again_row = timed_prepare(torch, make_estimator(), data)
+    again_est = (again_estimator or make_estimator)()
+    again, again_row = timed_prepare(torch, again_est, data)
+    again_row["warm_stage"] = warm_stage_row(torch, again_est, again_row)
     identical = identical and same_plans(again)
     del again
     row = {"phase": f"planner_{name}", "pipelined": pipelined,
@@ -5397,10 +5676,10 @@ def planner_comparison(torch, name: str, make_estimator, data, datasets,
            "ingest_threads": pipeline.ingest_threads(),
            "torch_threads": torch.get_num_threads()}
     emit(row)
-    torch.cuda.empty_cache()
+    device_loop.empty_cache()
     if not identical:
         fail(f"planner_{name}: the serial and pipelined plans differ")
-    return row
+    return dict(row, estimator=again_est)
 
 
 # ---------------------------------------------------------------------------
@@ -5894,7 +6173,7 @@ def phase_train_routes(torch, device="cuda") -> dict:
              "kernel on every per-user bucket")
     del data, datasets, res, res2, last
     if device == "cuda":
-        torch.cuda.empty_cache()
+        empty_cache()
         fused_routes_check(torch)
     routes_agreement(torch, (device, "cpu"))
     return {"newton_launches": first["newton_launches"]
@@ -7747,7 +8026,7 @@ def phase_wide(torch) -> dict:
     worst = phase_segment_parity(torch, ops)
     timing = phase_segment_timing(torch, ops)
     del ops
-    torch.cuda.empty_cache()
+    empty_cache()
     fit = phase_wide_fit(torch, wide)
     phase_wide_optimality(torch, wide, fit)
     phase_wide_route_agreement(torch, wide, fit)
@@ -7769,7 +8048,7 @@ def phase_wide(torch) -> dict:
               key=lambda r: launches.get(r["site"], 0) * r["ms"]
               / len(by_site[r["site"]]))
     del wide, fit
-    torch.cuda.empty_cache()
+    empty_cache()
     phase_wide_logistic(torch)
     return {
         "name": "segment_sum",
@@ -7816,7 +8095,7 @@ def fits_only(torch, n: int) -> int:
             phase_newton_timing(torch, datasets, est, bucket_launches(
                 res.descent.history, datasets))
         del data, est, datasets, res, total
-        torch.cuda.empty_cache()
+        empty_cache()
     del arrays
     wide = phase_wide_data(torch)
     for k in range(n + 1):
@@ -7943,7 +8222,7 @@ def main() -> int:
         planner_comparison(torch, "logistic", build_estimator, data,
                            datasets, plan_row)
         del arrays, data, datasets
-        torch.cuda.empty_cache()
+        empty_cache()
         phase_wide_data(torch)
         print(smi, flush=True)
         return 0
@@ -7973,17 +8252,17 @@ def main() -> int:
     del model
     batch = phase_score_cli(torch, arrays, manifest,
                             rows[0]["launch_floor_ms"])
-    torch.cuda.empty_cache()
+    empty_cache()
     ops = phase_serve_ops(torch, arrays, manifest, ckpt, batch)
-    torch.cuda.empty_cache()
+    empty_cache()
     if args.serve:
         print(smi, flush=True)
         return 0
     newton = phase_train(torch)
-    torch.cuda.empty_cache()
+    empty_cache()
     train_cli = phase_train_cli(torch, arrays, manifest)
     stream = phase_stream_cli(torch, train_cli, ops["health_sketch"])
-    torch.cuda.empty_cache()
+    empty_cache()
     # The pilot's and cli.profile's children start beside the tuned
     # runs', and all beside 14b (they only read train_cli's files, or
     # none; the children count their launches in their own processes).
@@ -7996,13 +8275,13 @@ def main() -> int:
         with contextlib.suppress(BaseException):
             children(cancel=True)
         raise
-    torch.cuda.empty_cache()
+    empty_cache()
     *tuned, piloted, profiled = children()
     tuning = phase_tuning_cli(torch, train_cli, tuned)
     pilot = phase_pilot_cli(torch, train_cli, piloted)
     profiles = phase_profile_cli(torch, profiled)
     glm = phase_glm_cli(torch, train_cli)
-    torch.cuda.empty_cache()
+    empty_cache()
     routes = phase_train_routes(torch)
     newton["launches_by_path"] = {
         "fit": newton["launches"], "train_cli": train_cli["newton_launches"],
@@ -8015,7 +8294,7 @@ def main() -> int:
     newton["launches"] = sum(newton["launches_by_path"].values())
     newton["max_abs_err"] = max(newton["max_abs_err"],
                                 train_cli["newton_parity_max_abs_diff"])
-    torch.cuda.empty_cache()
+    empty_cache()
     segment = phase_wide(torch)
     segment["launches_by_path"]["score_cli_evaluation"] = batch[
         "evaluation_launches"]

@@ -30,9 +30,25 @@ random-effect datasets. The estimator also keeps validation,
 checkpoints, resume and the non-finite guard on the unfused loop. A
 capture or replay that fails raises: nothing falls back to an eager run.
 
-The reference's ``trace``, ``lower``, ``lower_materialize`` and
-``aot_lower`` are XLA entry points (abstract tracing, lowering and the
-ahead-of-time compile); they have no counterpart here.
+Under ``precision="bfloat16"`` (``ops/precision.py``) the slabs are
+materialized in bf16 and each coordinate's score carry is stored in
+bf16; a fresh score is rounded through bf16 before it enters the f32
+total (``_quantize_score``), so ``total - old`` leaves no residue.
+
+The warm capture (the reference's ahead-of-time compile during ingest):
+``GameEstimator.prepare`` captures the graph of a skeleton generation
+(``data.random_effect.skeleton_random_effect_dataset``: zero plan
+tensors at the predicted shapes) on the ingest pipeline's compile pool
+(``warm``; ``prepare`` waits for it at its end) and hands the future to
+the generation's program. Its first ``run`` takes the artifact
+(``_consume_aot``) and adopts the graph when the static key and every
+operand's shape and dtype match, copying the generation's slabs, plan
+and score maps into the graph's inputs once (``_adopt``); otherwise it
+drops the graph and captures as before. On the CPU the warm stage
+builds only the static key, and the first run stays the build of its
+structure (not attributed). The reference's ``trace``,
+``lower`` and ``lower_materialize`` are XLA entry points; they have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -241,6 +257,11 @@ class _Captured:
         self.graph = graph
         self.ops = ops
         self.out = out
+        # The materialized slabs the graph reads: set for a warm capture,
+        # whose own skeleton slabs the generation's replace at adoption.
+        self.ebs_all = None
+        # Whether a warm capture's graph was adopted by a generation.
+        self.adopted = False
         self.seconds = seconds
         self.instantiate_seconds = instantiate_seconds
         self.nodes = nodes
@@ -267,6 +288,27 @@ def _leaves(value) -> list:
     return []
 
 
+def _all_tensors(value) -> list:
+    """Every tensor inside ``value``: dicts (in order), sequences and
+    dataclasses (their fields) walked."""
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        return [t for v in value.values() for t in _all_tensors(v)]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _all_tensors(v)]
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return [t for f in dataclasses.fields(value)
+                for t in _all_tensors(getattr(value, f.name))]
+    return []
+
+
+def _fixed_operands(ops) -> tuple:
+    """The operands read in place (every key but ``_VARIABLE``'s)."""
+    return tuple({k: v for k, v in op.items() if k not in _VARIABLE}
+                 for op in ops)
+
+
 class FusedFit:
     """One estimator generation's whole-fit program. ``run`` assembles
     the operands from the current coordinates, so later configurations
@@ -282,10 +324,6 @@ class FusedFit:
         self.num_iterations = num_iterations
         self.locked = set(locked_coordinates or ())
         self.precision = precision_mod.resolve(precision)
-        if precision_mod.is_mixed(self.precision):
-            from photon_tpu_torch import optim
-
-            raise optim.not_ported("the bf16 fused fit", 6)
         self.kinds: dict[str, str] = {}
         self._re_meta: dict[str, dict] = {}
         for cid in self.seq:
@@ -313,8 +351,11 @@ class FusedFit:
         self._mat_cache: dict | None = None
         self._mat_shared = mat_share
         self._zeros_cache: dict = {}
-        self._passive_dev: dict = {}
         self._graphs: dict = {}
+        # The warm capture's future (``GameEstimator._attach_aot``) and,
+        # once consumed, the artifact this program adopted.
+        self._aot_future = None
+        self._aot: dict | None = None
         # Static structures already run eagerly (the CPU's counterpart
         # of a captured graph, for the attribution window).
         self._seen: set = set()
@@ -328,10 +369,14 @@ class FusedFit:
     def _mat_fn(self, coords) -> dict:
         """Every random-effect bucket's slab on the device, once a
         dataset generation (eager, outside any graph): the dataset's
-        cached blocks, a bucket past its slab budget gathered here, plus
+        cached blocks, a bucket past its slab budget gathered here, each
+        slab cast to the storage precision (reference :532-541), plus
         the scoring plan and projector table. A sparse fixed effect's
         transpose plan is built here too, so no cache fills inside a
         capture."""
+        from photon_tpu_torch.ops import precision as precision_mod
+
+        mixed = precision_mod.is_mixed(self.precision)
         out = {}
         for cid in self.seq:
             inner = getattr(coords[cid], "inner", coords[cid])
@@ -347,6 +392,10 @@ class FusedFit:
             ebs = tuple(
                 b if isinstance(b, EntityBlocks) else b.materialize(None)
                 for b in ds.device_blocks())
+            if mixed:
+                ebs = tuple(dataclasses.replace(
+                    eb, x_values=precision_mod.in_storage(
+                        eb.x_values, self.precision)) for eb in ebs)
             out[cid] = {
                 "ebs": ebs,
                 "codes": tuple(eb.entity_codes for eb in ebs),
@@ -427,11 +476,9 @@ class FusedFit:
                 if inner.prior is not None:
                     prior = (inner.prior.coefficients.to(dtype),
                              inner.prior.variances.to(dtype))
-                pas = self._passive_dev.get(cid)
-                if pas is None and self._re_meta[cid]["passive"] is not None:
-                    pas = self._passive_dev[cid] = torch.from_numpy(
-                        self._re_meta[cid]["passive"].astype(np.int64)
-                    ).to(dev)
+                pas = (ds.passive_rows_device()
+                       if self._re_meta[cid]["passive"] is not None
+                       else None)
                 ops.append({
                     "w0": w0 if w0 is not None else self._zeros(
                         (ds.num_entities, ds.max_sub_dim), dtype, dev),
@@ -499,6 +546,27 @@ class FusedFit:
     def _fe_score(means, batch):
         return Coefficients(means=means).compute_score(batch.features)
 
+    def _store_score(self, z):
+        """A score carry's storage: bf16 under mixed precision (the carry
+        is re-read every sweep), ``z`` itself on the f32 path."""
+        if self.precision == "bfloat16":
+            return z.to(torch.bfloat16)
+        return z
+
+    def _quantize_score(self, z):
+        """Round a fresh score through the storage dtype before it enters
+        the total, so the f32 total is the exact sum of the stored
+        carries and ``total - old`` leaves no quantization residue
+        (bf16(f32(bf16(z))) == bf16(z)); ``z`` itself on the f32 path."""
+        if self.precision == "bfloat16":
+            return z.to(torch.bfloat16).to(torch.float32)
+        return z
+
+    @staticmethod
+    def _read_score(zs, dtype):
+        """A stored carry back in the total's dtype."""
+        return zs if zs.dtype == dtype else zs.to(dtype)
+
     def _fit_fn(self, ops, ebs_all, statics):
         num_iters = self.num_iterations
         conv_index = {
@@ -544,8 +612,9 @@ class FusedFit:
                                 device=w_all.device),
                     torch.zeros((num_iters, e), dtype=torch.int32,
                                 device=w_all.device)))
+            z = self._quantize_score(z)
             total = z if total is None else total + z
-            scores.append(z)
+            scores.append(self._store_score(z))
         conv = torch.zeros((num_iters, len(conv_index), 5),
                            dtype=total.dtype, device=total.device)
         for it in range(num_iters):
@@ -553,7 +622,7 @@ class FusedFit:
                 kind = st[0]
                 if kind == "locked":
                     continue
-                z_old = scores[i]
+                z_old = self._read_score(scores[i], total.dtype)
                 residual = total - z_old
                 if kind == "fixed":
                     _, task, opt_config, use_owlqn, intercept_index, \
@@ -596,7 +665,8 @@ class FusedFit:
                             op["prior"], w_all, v_all, sub_dim=eb.sub_dim,
                             task=task, opt_config=opt_config,
                             variance_computation=var_comp, direct=direct,
-                            newton=newton, use_owlqn=use_owlqn)
+                            newton=newton, use_owlqn=use_owlqn,
+                            precision=self.precision)
                         # Codes past the table (padding) land in a dump
                         # slot that is cut off below.
                         idx = eb.entity_codes.long().clamp(max=e)
@@ -611,6 +681,7 @@ class FusedFit:
                     conv_gnorm = conv_loss
                     conv_wd = torch.sum((w_all - w_prev) ** 2)
                     conv_wn = torch.sum(w_all ** 2)
+                z = self._quantize_score(z)
                 conv[it, conv_index[i]] = torch.stack([
                     conv_loss.to(total.dtype),
                     conv_gnorm.to(total.dtype),
@@ -619,7 +690,7 @@ class FusedFit:
                     conv_wn.to(total.dtype),
                 ])
                 total = total - z_old + z
-                scores[i] = z
+                scores[i] = self._store_score(z)
         flat_parts = [d.reshape(-1) for pair in diags for d in pair]
         packed = (torch.cat(flat_parts) if flat_parts
                   else torch.zeros(0, dtype=torch.int32,
@@ -629,6 +700,13 @@ class FusedFit:
     # ------------------------------------------------------------------
     # the graph
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _owned(ops) -> tuple:
+        """The capture's operands: this run's, with the variable ones
+        cloned (the graph reads them in place on every replay)."""
+        return tuple({k: (_clone_tree(v) if k in _VARIABLE else v)
+                      for k, v in op.items()} for op in ops)
 
     def _capture(self, ops, ebs_all, statics) -> _Captured:
         """Capture ``_fit_fn`` on these operands (which become the
@@ -644,7 +722,8 @@ class FusedFit:
         with torch.cuda.stream(side):
             self._fit_fn(ops, ebs_all, statics)
         torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        # The stream, not the device: another thread may be capturing.
+        side.synchronize()
         newton0 = dict(newton_kernel.launches_by_shape)
         segment0 = dict(segment_reduce.launches_by_site)
         graph = device_loop.new_graph()
@@ -708,19 +787,107 @@ class FusedFit:
         cap = self._graphs.get(statics)
         fresh = cap is None
         if fresh:
-            # The capture's operands are this run's, cloned: the graph
-            # reads them in place on every replay.
-            owned = tuple(
-                {k: (_clone_tree(v) if k in _VARIABLE else v)
-                 for k, v in op.items()} for op in ops)
             cap = self._graphs[statics] = self._capture(
-                owned, ebs_all, statics)
+                self._owned(ops), ebs_all, statics)
         else:
             self._load_inputs(cap, ops)
         cap.graph.replay()
         cap.replays += 1
         replays += 1
         return _clone_tree(cap.out), fresh
+
+    # ------------------------------------------------------------------
+    # the warm capture
+    # ------------------------------------------------------------------
+
+    def warm(self, coords, device) -> dict:
+        """The warm stage's build on a skeleton generation's coordinates:
+        the statics and, on the card, the graph captured on the
+        skeleton's operands (``_capture``'s eager pass first: on zero
+        plan tensors every bucket has zero weights, so each solver
+        stops at its first test). On the CPU nothing is captured and no
+        operand is assembled."""
+        statics = self._statics(coords, None)
+        if torch.device(device).type != "cuda":
+            return {"statics": statics, "captured": None}
+        ops = self._operands(coords, None)
+        self.device = _device_of(ops)
+        ebs_all = self._mat_fn(coords)
+        cap = self._capture(self._owned(ops), ebs_all, statics)
+        cap.ebs_all = ebs_all
+        return {"statics": statics, "captured": cap}
+
+    def _consume_aot(self) -> dict | None:
+        """The warm stage's artifact (waited for inside ``compile_wait``
+        if a caller cut its prepare short), or None when there is none
+        or it belongs to another static structure (then it is dropped
+        here, on the calling thread, outside any capture)."""
+        fut = self._aot_future
+        if fut is None:
+            return None
+        from photon_tpu_torch.data.pipeline import PIPELINE_STATS
+
+        self._aot_future = None
+        with PIPELINE_STATS.stage("compile_wait"):
+            art = fut.result()
+        if art is None or art["key"] != self.static_key:
+            return None
+        return art
+
+    def _adopt(self, art: dict, coords, ops, ebs_all, statics) -> dict:
+        """Take the warm artifact for ``statics`` when it fits; returns
+        the materialized slabs the generation keeps.
+
+        On the card the graph is adopted when every operand it reads in
+        place (``_fixed_operands``, the slabs, plan and score maps) has
+        this generation's shape, dtype and device: each is copied into
+        the graph's own buffer once, the dataset caches that held the
+        same blocks take the graph's, and the generation's copies are
+        freed. Otherwise the artifact is dropped and the first run
+        captures. On the CPU there is no graph: the artifact is only
+        recorded as taken."""
+        if art["statics"] != statics:
+            return ebs_all
+        cap = art["captured"]
+        if cap is None:
+            self._aot = art
+            return ebs_all
+        dst = _all_tensors((_fixed_operands(cap.ops), cap.ebs_all))
+        src = _all_tensors((_fixed_operands(ops), ebs_all))
+        if len(dst) != len(src) or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                or a.device != b.device for a, b in zip(dst, src)):
+            return ebs_all
+        for a, b in zip(dst, src):
+            if a.data_ptr() != b.data_ptr():
+                a.copy_(b)
+        warm_ebs = cap.ebs_all
+        for cid, mat in ebs_all.items():
+            ds = getattr(coords[cid], "inner", coords[cid]).dataset
+            cached = ds.__dict__.get("_device_blocks")
+            if cached:
+                object.__setattr__(ds, "_device_blocks", tuple(
+                    w if c is g else c for c, g, w in zip(
+                        cached, mat["ebs"], warm_ebs[cid]["ebs"])))
+            if ds.__dict__.get("_score_inv") is mat["score_inv"]:
+                object.__setattr__(ds, "_score_inv",
+                                   warm_ebs[cid]["score_inv"])
+        cap.adopted = True
+        self._graphs[statics] = cap
+        self._aot = art
+        return warm_ebs
+
+    def slab_nbytes(self) -> int:
+        """Device bytes of this generation's materialized design slabs
+        (``x_values``; half the f32 bytes under bf16), 0 before the
+        first run."""
+        share = self._mat_shared
+        ebs_all = (share.get("ebs") if share is not None
+                   else self._mat_cache)
+        if not ebs_all:
+            return 0
+        return sum(eb.x_values.numel() * eb.x_values.element_size()
+                   for mat in ebs_all.values() for eb in mat["ebs"])
 
     # ------------------------------------------------------------------
     # telemetry
@@ -848,6 +1015,7 @@ class FusedFit:
             statics = self._statics(coords, initial_models)
             if self.device is None:
                 self.device = _device_of(ops)
+            aot = self._consume_aot()
             mat_window = None
             share = self._mat_shared
             ebs_all = (share.get("ebs") if share is not None
@@ -855,11 +1023,16 @@ class FusedFit:
             if ebs_all is None:
                 t_m0 = time.perf_counter()
                 ebs_all = self._mat_fn(coords)
+                if aot is not None:
+                    ebs_all = self._adopt(aot, coords, ops, ebs_all, statics)
                 mat_window = (t_m0, time.perf_counter())
                 if share is not None:
                     share["ebs"] = ebs_all
                 else:
                     self._mat_cache = ebs_all
+            elif aot is not None:
+                self._adopt(aot, coords, ops, ebs_all, statics)
+            del aot
             t_fit0 = time.perf_counter()
             fit_window_pure = True
 

@@ -17,8 +17,13 @@ per-entity convergence through the reference's cascade:
   holds (f32; R * S <= 16384, or up to S = 128 slots any bucket whose
   slab fits in the kernel's shared memory): one ``newton_step`` per
   iteration, the CUDA kernel on the card;
-- the plain route otherwise (f64, larger buckets): the same iteration as
-  PyTorch tensor code with an S-step CG per entity (``_spd_solve_cg_sb``).
+- the plain route otherwise (f64, a bf16 slab, larger buckets): the same
+  iteration as PyTorch tensor code with an S-step CG per entity
+  (``_spd_solve_cg_sb``).
+
+Under ``precision="bfloat16"`` (``ops/precision.py``) every slab is stored
+bf16 and read bf16 with f32 accumulators; the solver state stays in the
+labels' dtype.
 
 Each iteration of either loop is a ``utils.device_loop`` loop: eagerly
 it makes one host sync, to test whether any entity is still running
@@ -251,21 +256,22 @@ def _entity_variances(x, curvature, factors, shifts, l2_diag, valid_mask,
     F (H_raw - s a^T - a s^T + (sum c) s s^T) F + diag(l2_diag). Slots
     with no curvature get inf, padded slots 0; original space."""
     c = curvature
+    cs = precision_mod.like_storage(c, x)
     normalized = factors is not None or shifts is not None
     sh = torch.zeros_like(l2_diag) if shifts is None else shifts
     fa = torch.ones_like(l2_diag) if factors is None else factors
     if variance_computation == VarianceComputationType.SIMPLE:
-        diag = torch.einsum("brs,br->bs", x * x, c)
+        diag = precision_mod.acc_einsum("brs,br->bs", x * x, cs)
         if normalized:
-            d1 = torch.einsum("brs,br->bs", x, c)
+            d1 = precision_mod.acc_einsum("brs,br->bs", x, cs)
             tot = torch.sum(c, dim=-1)[:, None]
             diag = fa * fa * (diag - 2.0 * sh * d1 + sh * sh * tot)
         diag = diag + l2_diag
         var_t = 1.0 / torch.where(diag == 0.0, torch.inf, diag)
     else:
-        h = torch.einsum("brs,brt->bst", x * c[:, :, None], x)
+        h = precision_mod.acc_einsum("brs,brt->bst", x * cs[:, :, None], x)
         if normalized:
-            a = torch.einsum("brs,br->bs", x, c)
+            a = precision_mod.acc_einsum("brs,br->bs", x, cs)
             tot = torch.sum(c, dim=-1)[:, None, None]
             h = (h - sh[:, :, None] * a[:, None, :]
                  - a[:, :, None] * sh[:, None, :]
@@ -287,17 +293,19 @@ def _batched_variances(x_t, labels, offsets, weights, w_t, l2_diag,
     transformed (the Newton route; reference :767-813): SIMPLE inverts
     the Hessian's diagonal, FULL solves for each basis vector by one
     refined S-step CG. Slots with no curvature get inf, padded slots
-    0; original space."""
-    z = torch.einsum("brs,bs->br", x_t, w_t) + offsets
+    0; original space. A bf16 design is read with f32 accumulators."""
+    z = precision_mod.acc_einsum(
+        "brs,bs->br", x_t, precision_mod.like_storage(w_t, x_t)) + offsets
     curv = weights * loss.dzz(z, labels)
     f_sq = 1.0 if factors is None else factors * factors
     if variance_computation == VarianceComputationType.SIMPLE:
         return f_sq * _entity_variances(x_t, curv, None, None, l2_diag,
                                         valid_mask, variance_computation)
-    h_diag = torch.einsum("brs,br->bs", x_t * x_t, curv) + l2_diag
+    cs = precision_mod.like_storage(curv, x_t)
+    h_diag = precision_mod.acc_einsum("brs,br->bs", x_t * x_t, cs) + l2_diag
     dead = h_diag == 0.0
     s = w_t.shape[-1]
-    h = torch.einsum("brs,brt->bst", x_t * curv[:, :, None], x_t)
+    h = precision_mod.acc_einsum("brs,brt->bst", x_t * cs[:, :, None], x_t)
     h = h + torch.diag_embed(l2_diag + dead.to(h.dtype))
     active = torch.ones(w_t.shape[0], dtype=torch.bool, device=w_t.device)
     var_t = torch.zeros_like(w_t)
@@ -417,15 +425,18 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
                           variance_computation: VarianceComputationType,
                           l2_weight: float, incremental_weight: float):
     """Damped Newton/IRLS for a whole dense bucket x [B, R, S]. Returns
-    (w [B, S] original space, variances, iterations [B], reasons [B])."""
+    (w [B, S] original space, variances, iterations [B], reasons [B]).
+    Solver state is in the labels' dtype; a bf16 slab is read bf16 with
+    f32 accumulators (reference :579-587, :690-717) and takes the plain
+    route, as the Newton kernel takes f32 only."""
     global plain_route_solves
     dtype = labels.dtype
     dev = labels.device
     b = x.shape[0]
     if shifts is not None:
-        x = x - shifts[:, None, :]
+        x = x - precision_mod.like_storage(shifts, x)[:, None, :]
     if factors is not None:
-        x = x * factors[:, None, :]
+        x = x * precision_mod.like_storage(factors, x)[:, None, :]
     loss = losses_mod.get_loss(task)
     int_onehot = (None if shifts is None
                   else _onehot_slots(intercept_slots, sub_dim, dtype))
@@ -436,11 +447,17 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
         m_t = torch.zeros((b, sub_dim), dtype=dtype, device=dev)
         l2_diag = l2_weight * penalty_mask
 
+    def margins(w):
+        return precision_mod.acc_einsum(
+            "brs,bs->br", x, precision_mod.like_storage(w, x))
+
     def objective(w):
-        z = torch.einsum("brs,bs->br", x, w) + offsets
+        z = margins(w) + offsets
         f = torch.sum(weights * loss.loss(z, labels), dim=-1) + 0.5 * (
             torch.sum(l2_diag * (w - m_t) ** 2, dim=-1))
-        g = torch.einsum("brs,br->bs", x, weights * loss.dz(z, labels))
+        g = precision_mod.acc_einsum(
+            "brs,br->bs", x,
+            precision_mod.like_storage(weights * loss.dz(z, labels), x))
         g = g + l2_diag * (w - m_t)
         return f, g * valid_mask
 
@@ -482,16 +499,18 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
                 trials=trials)
             w_n = torch.where(active[:, None], w_n, w)
         else:
-            z = torch.einsum("brs,bs->br", x, w) + offsets
+            z = margins(w) + offsets
             curvature = weights * loss.dzz(z, labels)
-            h = torch.einsum("brs,brt->bst", x * curvature[:, :, None], x)
+            h = precision_mod.acc_einsum(
+                "brs,brt->bst",
+                x * precision_mod.like_storage(curvature, x)[:, :, None], x)
             h = h + diag
             d = _spd_solve_cg_sb(h, -g, sub_dim, active) * valid_mask
             gd = torch.sum(g * d, dim=-1)
             bad = gd >= 0.0
             d = torch.where(bad[:, None], -g, d)
             gd = torch.where(bad, -torch.sum(g * g, dim=-1), gd)
-            zd = torch.einsum("brs,bs->br", x, d)
+            zd = margins(d)
             z_t = z[None] + trial_ts[:, None, None] * zd[None]
             w_tr = w[None] + trial_ts[:, None, None] * d[None]
             f_t = torch.sum(weights[None] * loss.loss(z_t, labels[None]),
@@ -670,12 +689,15 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
                  variance_computation: VarianceComputationType,
                  direct: bool, newton: bool,
                  gram_mults: tuple | None = None,
-                 use_owlqn: bool | None = None):
+                 use_owlqn: bool | None = None,
+                 precision: str = "float32"):
     """One bucket's batched per-entity solve, scattered into the
     [E, Smax] tables. A lazy ``BlockPlan`` gathers its slab here; an
     ELL block takes the route ``block_route`` names. The fused fit
     passes the weights as 0-d tensors and ``use_owlqn``, the static
-    L1 route."""
+    L1 route. Under ``precision="bfloat16"`` the slab is stored bf16
+    while the solver state stays in the labels' dtype (reference
+    :1129-1136); the quasi-Newton route reads it back in f32."""
     if isinstance(block, BlockPlan):
         block = block.materialize(residuals)
         offsets = block.offsets
@@ -685,6 +707,10 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
             offsets = offsets + torch.where(
                 block.weights > 0, residuals[block.row_ids.long()],
                 torch.zeros((), dtype=offsets.dtype, device=offsets.device))
+    if precision_mod.is_mixed(precision):
+        block = dataclasses.replace(
+            block, x_values=precision_mod.in_storage(block.x_values,
+                                                     precision))
     dtype = block.labels.dtype
     route = block_route(
         block, sub_dim, direct=direct, newton=newton, gram_mults=gram_mults,
@@ -701,6 +727,12 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
                                     x_values=segment_reduce.densify_ell_blocks(
                                         block.x_indices, block.x_values,
                                         sub_dim))
+    if (block.x_values.dtype == torch.bfloat16 and not direct
+            and not (newton and block.x_indices is None)):
+        # The per-entity quasi-Newton route runs f32 end to end: the
+        # stored slab is upcast once (reference :1194-1203).
+        block = dataclasses.replace(block,
+                                    x_values=block.x_values.to(dtype))
     s = sub_dim
     proj = block.proj
     safe = proj.clamp(min=0).long()
@@ -802,8 +834,6 @@ class RandomEffectCoordinate:
     def train(self, residuals: torch.Tensor | None = None,
               initial_model: RandomEffectModel | None = None, *,
               seed: int = 0):
-        if precision_mod.is_mixed(self.precision):
-            raise optim.not_ported("bf16 random-effect training")
         ds = self.dataset
         dev, dtype = ds.device, ds.dtype
         shape = (ds.num_entities, ds.max_sub_dim)
@@ -831,7 +861,8 @@ class RandomEffectCoordinate:
                 w_all, v_all, sub_dim=block.sub_dim, task=self.task,
                 opt_config=self.config.optimizer,
                 variance_computation=self.config.variance_computation,
-                direct=direct, newton=newton, gram_mults=gram_mults)
+                direct=direct, newton=newton, gram_mults=gram_mults,
+                precision=self.precision)
             reasons.append(reason)
             iters.append(it)
         model = RandomEffectModel(

@@ -14,8 +14,8 @@ overlaps them:
   BIT-IDENTICAL to the serial path; the deterministic reservoir hash
   order is the contract). Two separate pools: coordinate tasks block on
   their own chunk tasks, so running both levels on one bounded pool could
-  deadlock (every worker waiting on queued chunks). No pool thread makes
-  a CUDA call: device work stays on the calling thread.
+  deadlock (every worker waiting on queued chunks). No planning thread
+  makes a CUDA call: device work stays on the calling thread.
 - **One packed, chunked, double-buffered transfer**
   (``packed_to_device``): every plan array of a build goes to the device
   as one int32 buffer, allocated up front on the device; the host fills
@@ -24,16 +24,22 @@ overlaps them:
   written into its slice of the final buffer (no concatenate, so peak
   device memory is 1x). Below one chunk it is one copy. The layout is
   byte-identical either way.
-- **PIPELINE_STATS**: per-stage seconds (plan / pack / transfer and the
-  streaming stages), reset per prepare.
+- **The compile pool** (``compile_executor``, two workers): the fused
+  fit's warm capture (``GameEstimator._warm_capture``) runs there while
+  the planner works, as the reference's ahead-of-time compile does. Its
+  ``compile`` stage is the capture; the first fit's ``compile_wait`` is
+  the part the planning did not hide. It is the one pool thread that
+  makes CUDA calls (allocations, kernels and the capture itself, never
+  a copy from the host).
+- **PIPELINE_STATS**: per-stage seconds (plan / pack / transfer /
+  compile / compile_wait and the streaming stages), reset per prepare.
 
 ``PHOTON_TPU_SERIAL_INGEST=1`` forces everything back to the serial
 in-line path (the determinism tests diff the two);
 ``PHOTON_TPU_INGEST_THREADS`` bounds the chunk pool;
 ``PHOTON_TPU_TRANSFER_CHUNK_MB`` sets the transfer chunk (default 64).
-The reference's third pool, for its ahead-of-time compile, has no
-counterpart here (ROADMAP Queue A item 8). With telemetry on, every
-stage is also a ``pipeline/<stage>`` span and a histogram sample.
+With telemetry on, every stage is also a ``pipeline/<stage>`` span and
+a histogram sample.
 """
 
 from __future__ import annotations
@@ -131,15 +137,20 @@ class _Pool:
 # tasks, hence the separate pool).
 plan_executor = _Pool("photon-plan", 4)
 chunk_executor = _Pool("photon-chunk", ingest_threads)
+# The warm capture during prepare.
+compile_executor = _Pool("photon-compile", 2)
 
 
 def reset_executors() -> None:
     """Drop the pools so the next use re-reads the environment; a
-    failing shutdown still shuts the other pool down."""
+    failing shutdown still shuts the remaining pools down."""
     try:
         plan_executor.shutdown()
     finally:
-        chunk_executor.shutdown()
+        try:
+            chunk_executor.shutdown()
+        finally:
+            compile_executor.shutdown()
 
 
 def consume_futures(futs) -> list:
@@ -250,9 +261,10 @@ class PipelineStats:
             return [dict(t) for t in self._transfers]
 
     def report(self) -> dict:
-        """The JSON-ready stage breakdown. The compile keys stay for the
-        reference's report shape; nothing compiles ahead of time here, so
-        they read 0 and None unless a caller adds those stages."""
+        """The JSON-ready stage breakdown. ``compile_overlap_fraction``
+        is measured: the warm capture's seconds less the seconds the
+        first fit waited for it, over the capture's seconds (None when
+        no warm capture ran)."""
         with self._stats_lock:
             seconds = dict(self._seconds)
             spans = {k: tuple(v) for k, v in self._spans.items()}

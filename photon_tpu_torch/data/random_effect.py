@@ -354,6 +354,13 @@ class RandomEffectDataset:
                 self.covered_np,
                 np.nonzero(~self.covered_np)[0].astype(np.int32)))
 
+    def passive_rows_device(self) -> torch.Tensor:
+        """The passive rows (``covered_row_partition``'s) as an int64
+        tensor on the device (cached)."""
+        return self._cached("_passive_dev", lambda: torch.from_numpy(
+            self.covered_row_partition()[1].astype(np.int64)).to(
+                self.device))
+
     def real_entity_mask(self, block_index: int) -> np.ndarray:
         return self.block_codes_np[block_index] < self.num_entities
 
@@ -683,6 +690,132 @@ def _compact_left(slot: np.ndarray, val: np.ndarray, found: np.ndarray,
         slot_c = np.pad(slot_c, ((0, 0), (0, k_out - k)))
         val_c = np.pad(val_c, ((0, 0), (0, k_out - k)))
     return slot_c[:, :k_out].astype(np.int32), val_c[:, :k_out]
+
+
+def predict_plan_shapes(game_data: GameDataset,
+                        config: RandomEffectDataConfiguration
+                        ) -> dict | None:
+    """Every padded plan shape of a lazy build from the entity counts
+    alone: the ingest pipeline's shape oracle (reference :1441-1505).
+
+    A fully dense shard's active entities all span the whole feature
+    set, so every bucket's projector width is ``d``, and the buckets
+    follow from the capped row counts (one chunked bincount) through
+    ``_assign_buckets``. None where the shapes cannot be predicted
+    without planning, as the reference declines: a shard that is not
+    dense, ``features_to_samples_ratio``, ``score_table_width_cap``, or
+    ``d > DENSE_SUB_DIM_MAX``. A wrong prediction (a dense shard with
+    exact zeros) only wastes the warm capture."""
+    feats = game_data.feature_shards.get(config.feature_shard_id)
+    if not isinstance(feats, DenseFeatures):
+        return None
+    if config.features_to_samples_ratio is not None:
+        return None
+    if config.score_table_width_cap is not None:
+        return None
+    d = int(feats.x.shape[1])
+    if d > DENSE_SUB_DIM_MAX:
+        return None
+    tag = game_data.id_tags[config.random_effect_type]
+    codes = tag.host_codes()
+    num_entities = tag.num_groups
+    n = int(codes.shape[0])
+    counts_full = bincount_chunked(codes, num_entities).astype(
+        np.int64, copy=False)
+    upper = config.active_data_upper_bound
+    lower = config.active_data_lower_bound
+    counts = (counts_full if upper is None
+              else np.minimum(counts_full, upper))
+    active = counts >= (lower or 1)
+    bucket_members = _assign_buckets(counts, active, config.bucket_caps,
+                                     config.min_bucket_entities)
+    max_sub_dim = d if bool(active.any()) else 1
+    buckets = [(cap, int(bucket_members[cap].size), d)
+               for cap in sorted(bucket_members)]
+    shapes: list = []
+    for cap, b, s in buckets:
+        shapes += [(b,), (b, cap), (b,), (b, s), (b,)]
+    shapes.append((num_entities, max_sub_dim))  # projector table
+    shapes.append((n,))  # inverse score map
+    return dict(
+        num_entities=num_entities,
+        num_rows=n,
+        num_features=d,
+        max_sub_dim=max_sub_dim,
+        buckets=buckets,
+        packed_shapes=tuple(shapes),
+        kept_total=int(counts[active].sum()),
+    )
+
+
+def skeleton_random_effect_dataset(game_data: GameDataset,
+                                   config: RandomEffectDataConfiguration
+                                   ) -> RandomEffectDataset | None:
+    """A shape-faithful stand-in for one coordinate's lazy dataset
+    (reference :1508-), or None where ``predict_plan_shapes`` declines.
+
+    Its plan leaves are zeros at the predicted shapes: one int32 buffer
+    allocated on the dataset's device in place, viewed as the packed
+    arrays, and zero host arrays for the host plan. Its raw feature,
+    label, offset and weight leaves are the dataset's own device
+    tensors, and its passive rows (the rows past the kept total) are
+    made on the device: the skeleton copies nothing from the host. Never
+    trained on: the fused fit's warm capture runs on it and is adopted
+    only where the built dataset's shapes match."""
+    from photon_tpu_torch.data.pipeline import padded_len
+
+    pred = predict_plan_shapes(game_data, config)
+    if pred is None:
+        return None
+    tag = game_data.id_tags[config.random_effect_type]
+    feats = game_data.feature_shards[config.feature_shard_id]
+    dev = game_data.device
+    e, n = pred["num_entities"], pred["num_rows"]
+    shapes = pred["packed_shapes"]
+    total = sum(int(np.prod(sh)) if sh else 1 for sh in shapes)
+    packed = PackedPlanArrays(
+        torch.zeros(padded_len(total), dtype=torch.int32, device=dev),
+        shapes, (torch.int32,) * len(shapes))
+    blocks = tuple(
+        BlockPlan(
+            entity_codes=np.zeros(b, np.int32),
+            row_ids=np.zeros((b, cap), np.int32),
+            row_counts=np.zeros(b, np.int32),
+            proj=np.zeros((b, s), np.int32),
+            intercept_slots=np.zeros(b, np.int32),
+            raw=feats,
+            raw_labels=game_data.labels,
+            raw_offsets=game_data.offsets,
+            raw_weights=game_data.weights,
+        )
+        for cap, b, s in pred["buckets"])
+    kept = pred["kept_total"]
+    covered = np.zeros(n, dtype=bool)
+    covered[:kept] = True
+    ds = RandomEffectDataset(
+        config=config,
+        num_entities=e,
+        entity_keys=tag.inverse,
+        blocks=blocks,
+        max_sub_dim=pred["max_sub_dim"],
+        sub_dims=np.full(e, pred["num_features"], dtype=np.int64),
+        proj_all=np.full((e, pred["max_sub_dim"]), -1, dtype=np.int64),
+        num_features=pred["num_features"],
+        dtype=game_data.dtype,
+        score_codes=tag.codes,
+        raw=feats,
+        block_codes_np=tuple(np.zeros(b, np.int32)
+                             for _, b, _ in pred["buckets"]),
+        block_intercepts_np=tuple(np.zeros(b, np.int32)
+                                  for _, b, _ in pred["buckets"]),
+        covered_np=covered,
+        score_inv_np=None,
+        packed_view=packed,
+    )
+    if kept < n:
+        object.__setattr__(ds, "_passive_dev", torch.arange(
+            kept, n, dtype=torch.int64, device=dev))
+    return ds
 
 
 def _score_table_arrays(codes: np.ndarray, ell_idx: np.ndarray,

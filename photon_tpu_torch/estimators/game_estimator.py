@@ -41,13 +41,31 @@ candidate) on validation data through the same scorers and metrics a
 fit records; its ``score_sink`` hands the evaluated scores and labels
 to a host consumer such as ``obs.health.calibration_sink``.
 
-Waiting (ROADMAP Queue A): mesh execution (item 12); of item 8, the
-shape oracle, the warm capture during ingest and skipping converged
-entities.
+``precision="bfloat16"`` trains with the reference's mixed-precision
+policy (``ops/precision.py``, reference :311-319): random-effect slabs
+stored bf16, solver state in the labels' dtype, f32 accumulators, and in
+the fused fit bf16 score carries; it is part of the fused static key.
+
+An eligible ``prepare`` (no validation, initial model, incremental
+training or listener, the pipelined ingest) starts the fused fit's warm
+capture before it plans (``_warm_capture``, on the ingest pipeline's
+compile pool): the graph of a skeleton generation whose plan shapes the
+shape oracle predicts, which the first fused fit adopts when the built
+shapes match (``FusedFit._consume_aot``). ``prepare`` waits for the
+stage at its end, inside the ``compile_wait`` stage (the part its
+planning did not hide): a capture in flight breaks if any thread
+synchronizes the whole device or flushes the allocator's cache, so none
+outlives the call. A failing warm stage is logged and counted
+(``compile_cache.cache_stats()["aot_failures"]``); the fit then captures
+at its first run. A fit that does not take the fused program drops the
+artifact first.
+
+Waiting (ROADMAP Queue A): mesh execution (item 12).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import logging
 import os
@@ -60,7 +78,6 @@ import torch
 
 from photon_tpu_torch import device as device_mod
 from photon_tpu_torch import obs
-from photon_tpu_torch import optim
 from photon_tpu_torch.algorithm.coordinate import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
@@ -235,8 +252,6 @@ class GameEstimator:
         self.incremental_training = incremental_training
         self.non_finite_guard = bool(non_finite_guard)
         self.precision = precision_mod.resolve(precision)
-        if precision_mod.is_mixed(self.precision):
-            raise optim.not_ported("bf16 training")
         # Training-event fan-out (EventEmitter.scala:24 for the GAME
         # path): None without listeners.
         self.emitter = None
@@ -247,6 +262,7 @@ class GameEstimator:
         self._fit_cache = None
         self._fused_cache = None
         self._fused_mat_share = None
+        self._aot_future = None
 
     def _shard_norm(self, shard: str) -> NormalizationContext:
         return self.normalization.get(shard, NormalizationContext())
@@ -496,15 +512,27 @@ class GameEstimator:
         # are stale together (and would pin the old device arrays).
         self._fused_cache = None
         self._fused_mat_share = None
+        from photon_tpu_torch.data import pipeline
+
+        # A superseded warm artifact is dropped here, on the calling
+        # thread (its graph frees memory, which no capture may meet).
+        self._drop_warm()
         # The raw data's transfer (and a streamed dataset's window
         # copies and assembly) were recorded when the dataset was built,
         # before this prepare: they survive the reset.
         PIPELINE_STATS.reset(keep=("raw_transfer", "stream_transfer",
                                    "stream_assemble"))
+        if self._warm_capture_eligible(validation, initial_model):
+            self._aot_future = pipeline.compile_executor.submit(
+                self._warm_capture, data)
         with obs.span("prepare"):
             datasets = self._build_datasets(data, initial_model)
             val_ctx = (self._build_validation(datasets, validation)
                        if validation is not None else None)
+            if self._aot_future is not None:
+                # The warm stage's remainder, past the planning.
+                with PIPELINE_STATS.stage("compile_wait"):
+                    concurrent.futures.wait([self._aot_future])
         self._fit_cache = (key, (datasets, val_ctx))
         return datasets, val_ctx
 
@@ -533,7 +561,7 @@ class GameEstimator:
         fused = cache.get(key)
         if fused is not None:
             cache.move_to_end(key)
-            return fused
+            return self._attach_aot(fused)
         fused = FusedFit(coords, self.update_sequence, self.num_iterations,
                          self.locked_coordinates, mat_share=share,
                          precision=self.precision)
@@ -541,7 +569,91 @@ class GameEstimator:
         cache[key] = fused
         while len(cache) > _FUSED_CACHE_SIZE:
             cache.popitem(last=False)
+        return self._attach_aot(fused)
+
+    def _attach_aot(self, fused):
+        """Hand prepare's pending warm capture to the fused program,
+        whose first run takes it (``FusedFit._consume_aot``)."""
+        if self._aot_future is not None and fused._aot_future is None:
+            fused._aot_future, self._aot_future = self._aot_future, None
         return fused
+
+    def _drop_warm(self) -> None:
+        """Drop a warm artifact no fused fit will take, on this thread
+        (waiting for it, if a caller cut a prepare short)."""
+        fut, self._aot_future = self._aot_future, None
+        if fut is not None and not fut.cancel():
+            fut.result()
+
+    def _warm_capture_eligible(self, validation, initial_model) -> bool:
+        """Whether ``prepare`` starts the warm capture: exactly the
+        reference's reasons (:698-718). It targets the first fit of a
+        validation-free ``fit``; a listener, an initial model (whose
+        support changes the subspace shapes) or incremental training
+        make it useless by construction, and the serial ingest has no
+        pool to run it on. The port has no mesh (ROADMAP item 12)."""
+        from photon_tpu_torch.data import pipeline
+
+        return (validation is None and initial_model is None
+                and not self.incremental_training
+                and self.emitter is None
+                and not pipeline.serial_ingest())
+
+    def _warm_capture(self, data: GameDataset) -> dict | None:
+        """The warm stage, on the compile pool (reference
+        ``_warm_compile``, :720-803): skeleton datasets at the shapes the
+        oracle predicts stand in for the coordinates, and inside the
+        ``compile`` stage the fused program of their static key is
+        built and, on the card, its graph captured
+        (``FusedFit.warm``, through ``compile_cache.aot_capture``).
+        Returns ``{"key", "statics", "captured"}``, or None where the
+        oracle or the fused path declines or the stage failed (logged
+        and counted; the first fit then captures)."""
+        from photon_tpu_torch.algorithm.fused_fit import (
+            FusedFit,
+            fuse_ineligibility_reasons,
+            fused_static_key,
+        )
+        from photon_tpu_torch.data.random_effect import (
+            skeleton_random_effect_dataset,
+        )
+        from photon_tpu_torch.utils import compile_cache
+
+        # The skeletons and the eligibility come before the ``compile``
+        # stage: a declined prediction leaves compile_seconds at 0.
+        try:
+            skeleton: dict = {}
+            for cid, cfg in self.coordinate_configs.items():
+                if isinstance(cfg, RandomEffectCoordinateConfiguration):
+                    ds = skeleton_random_effect_dataset(data, cfg.data)
+                    if ds is None:
+                        return None
+                    skeleton[cid] = ds
+                else:
+                    skeleton[cid] = data.shard_batch(cfg.feature_shard_id)
+            coords = self._build_coordinates(skeleton, {}, {})
+            if fuse_ineligibility_reasons(coords, emitter=self.emitter):
+                return None
+            fused = FusedFit(coords, self.update_sequence,
+                             self.num_iterations, self.locked_coordinates,
+                             precision=self.precision)
+            key = fused_static_key(coords, self.update_sequence,
+                                   self.num_iterations,
+                                   self.locked_coordinates, self.precision)
+        except Exception as exc:  # noqa: BLE001 — the stage is best-effort
+            compile_cache.record_failure()
+            logger.warning("warm capture skipped: %r", exc, exc_info=True)
+            return None
+        try:
+            with PIPELINE_STATS.stage("compile"):
+                built = compile_cache.aot_capture(
+                    lambda: fused.warm(coords, self.device),
+                    ledger_key="fused_fit/fit")
+        except Exception as exc:  # noqa: BLE001 — counted by aot_capture
+            logger.warning("warm capture failed; the first fit captures: "
+                           "%r", exc, exc_info=True)
+            return None
+        return {"key": key, **built}
 
     def _on_layout(self, model, ds):
         """``model`` re-laid onto ``ds`` unless it already shares its
@@ -656,6 +768,8 @@ class GameEstimator:
             fused = (self._fused_for(coords, datasets)
                      if val_ctx is None and not needs_host_boundary
                      else None)
+            if fused is None:
+                self._drop_warm()
             cd = CoordinateDescent(
                 self.update_sequence, self.num_iterations,
                 locked_coordinates=self.locked_coordinates,

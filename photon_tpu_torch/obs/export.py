@@ -27,12 +27,13 @@ JSONL SCHEMA (version 1): one JSON object per line, discriminated by
   {"type": "request", "id", "outcome", "submit_ts", "done_ts",
    ...segment timestamps for served requests}   # obs/trace.py
 
-The port has no XLA compile cache: its ``compile_cache`` report holds
-the counterparts under the JAX package's key names where they mean the
-same thing (``aot_compiles`` and ``aot_compile_seconds``: the serving
-ladders' CUDA graph captures), and the kernel library that
-``ops/_build.py`` built or loaded (``dir``, ``kernel_library``,
-``kernel_build_seconds``). With the health layer armed, the snapshot
+The port has no XLA compile cache: its ``compile_cache`` report is
+``utils.compile_cache.cache_stats()`` (the JAX package's key names:
+``aot_compiles`` and ``aot_compile_seconds`` count the ahead-of-time
+captures, the serving ladders' rungs and the fused fit's warm capture,
+``aot_failures`` the failed ones; ``persistent_hits`` /
+``persistent_misses`` the kernel library loaded or built), plus the
+library itself (``kernel_library``, ``kernel_build_seconds``). With the health layer armed, the snapshot
 carries a ``health`` section and the stream a ``health`` report
 (``obs.health.snapshot()``: by export time every fit completed, so
 copying a parked sentinel to the host there is a plain copy).
@@ -41,7 +42,6 @@ copying a parked sentinel to the host there is a plain copy).
 from __future__ import annotations
 
 import json
-import os
 
 
 def _absorbed_reports() -> tuple[dict, dict]:
@@ -73,24 +73,20 @@ def _absorbed_reports() -> tuple[dict, dict]:
 
 
 def compile_report() -> dict:
-    """The port's counterpart of the JAX package's compile-cache stats:
-    the serving ladders' graph captures (count and seconds, over every
-    ``ScorePrograms`` of the process) and the CUDA kernel library, read
-    without building or loading anything."""
+    """The compile-cache report: ``compile_cache.cache_stats()`` and the
+    CUDA kernel library, read without building or loading anything."""
     from photon_tpu_torch.ops import _build
-    from photon_tpu_torch.serve import programs
+    from photon_tpu_torch.utils import compile_cache
 
-    captures = programs.capture_totals()
     lib = _build.loaded_library()
     return {
-        "dir": None if lib is None else os.path.dirname(lib),
+        **compile_cache.cache_stats(),
         "kernel_library": lib,
         "kernel_build_seconds": (
             None if _build.build_seconds is None
             else round(_build.build_seconds, 4)),
-        "aot_compiles": captures["captures"],
-        "aot_compile_seconds": round(captures["seconds"], 4),
     }
+
 
 def snapshot() -> dict:
     """Everything the telemetry layer knows, as one JSON-ready dict —

@@ -10,7 +10,8 @@ A failed build raises with nvcc's stderr: there is no fallback.
 
 The library is loaded with ``ctypes``; each kernel module declares the
 ``argtypes`` of the functions it calls (every pointer and the stream as
-``c_void_p``).
+``c_void_p``). ``utils.compile_cache`` counts a library found in its
+build directory as a hit and one built as a miss.
 
 ``kernel_off`` reads a kernel's environment switch
 (``PHOTON_SERVE_KERNEL``, ``PHOTON_NEWTON_KERNEL``,
@@ -145,5 +146,10 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
+            from photon_tpu_torch.utils import compile_cache
+
+            built = not (BUILD_ROOT / source_hash() / LIB_NAME).is_file()
+            path = build()
+            _lib = ctypes.CDLL(str(path))
+            compile_cache.note_library(str(path), built=built)
         return _lib

@@ -37,9 +37,10 @@ point               boundary
 ``pilot.rollback``  before a rollback loads its target generation
 ==================  ======================================================
 
-The reference's other point, ``compile.aot`` (the ahead-of-time compile
-during ingest), is accepted in a plan, so one plan serves both
-packages, and fires once the port grows that boundary (ROADMAP item 8).
+``compile.aot`` fires inside every ahead-of-time capture's retried call
+(``utils.compile_cache.aot_capture``): the fused fit's warm capture
+during ``prepare`` and each serving rung's capture, the two places the
+reference fires it.
 
 Fault kinds (``FaultSpec.error``): ``"transient"`` raises
 ``TransientError``, ``"poison"`` raises ``PoisonError``, ``"crash"``

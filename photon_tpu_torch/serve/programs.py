@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import threading
 import time
 
 import numpy as np
@@ -52,20 +51,6 @@ from photon_tpu_torch.ops import serve_kernel
 from photon_tpu_torch.serve.tables import CoefficientTables
 
 log = logging.getLogger(__name__)
-
-# Graph captures of every ladder in the process (the compile report of
-# ``obs/export.py``), guarded by ``_capture_lock``: a structure reload
-# captures its ladder on the reloading thread while others serve.
-_capture_lock = threading.Lock()
-_capture_totals = {"captures": 0, "seconds": 0.0}
-
-
-def capture_totals() -> dict:
-    """{captures, seconds}: the CUDA graphs every ``ScorePrograms`` of
-    the process captured, and their capture seconds."""
-    with _capture_lock:
-        return dict(_capture_totals)
-
 
 def _ledger_key(batch: int) -> str:
     return f"serve/score@{batch}"
@@ -420,8 +405,28 @@ class ScorePrograms:
         g = self._graphs.get(batch)
         if g is not None:
             return g
+        from photon_tpu_torch.utils import compile_cache
+
         t0 = time.perf_counter()
         mem0 = torch.cuda.memory_allocated(self.device)
+        # The capture is the rung's compile: a retried ``compile.aot``
+        # site, booked under its program's key.
+        g = compile_cache.aot_capture(lambda: self._capture_rung(batch),
+                                      ledger_key=_ledger_key(batch))
+        self._graphs[batch] = g
+        self.stats["programs_compiled"] += 1
+        self.stats["aot_compile_seconds"] += time.perf_counter() - t0
+        self._register_rung(batch)
+        self.stats["graph_device_bytes"] += (
+            torch.cuda.memory_allocated(self.device) - mem0)
+        self.stats["graph_host_bytes"] += sum(
+            h.numel() * h.element_size() for h in g.keep[0]) + 4 * batch
+        return g
+
+    def _capture_rung(self, batch: int) -> _RungGraph:
+        """One attempt at rung ``batch``'s graph, from fresh buffers."""
+        from photon_tpu_torch.utils import device_loop
+
         layout = self._flat_layout(batch)
         host = [torch.zeros(shape, dtype=dt, pin_memory=True)
                 for shape, dt in layout]
@@ -434,12 +439,14 @@ class ScorePrograms:
                 d.fill_(-1)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
+            # A stream no other thread's work can share (device_loop).
+            self._capture_stream = torch.cuda.Stream(
+                self.device, priority=device_loop.CAPTURE_PRIORITY)
         side = self._capture_stream
         side.wait_stream(torch.cuda.current_stream(self.device))
         ops = self._device_operands(*self._unflat(dev))
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
+        with device_loop.exclusive(), torch.cuda.stream(side):
             self._score(**ops)
             side.synchronize()
             before = serve_kernel.captured
@@ -457,7 +464,7 @@ class ScorePrograms:
                     pass  # the capture is already broken; raise its cause
                 raise
             graph.capture_end()
-        g = _RungGraph(
+        return _RungGraph(
             graph=graph,
             host_in=tuple(h.numpy() for h in host),
             host_out=host_out.numpy(),
@@ -465,23 +472,6 @@ class ScorePrograms:
             launches=serve_kernel.captured - before,
             keep=(host, dev, host_out, out),
         )
-        self._graphs[batch] = g
-        seconds = time.perf_counter() - t0
-        self.stats["programs_compiled"] += 1
-        self.stats["aot_compile_seconds"] += seconds
-        with _capture_lock:
-            _capture_totals["captures"] += 1
-            _capture_totals["seconds"] += seconds
-        from photon_tpu_torch.obs import ledger
-
-        # The capture is the rung's compile, under its program's key.
-        ledger.record_compile(_ledger_key(batch), seconds)
-        self._register_rung(batch)
-        self.stats["graph_device_bytes"] += (
-            torch.cuda.memory_allocated(self.device) - mem0)
-        self.stats["graph_host_bytes"] += sum(
-            h.numel() * h.element_size() for h in host) + 4 * batch
-        return g
 
     def compile_all(self) -> None:
         """Capture every rung's graph (server start); the request loop

@@ -27,7 +27,13 @@ attribute or by writing into its tensor in place.
 
 ``capture`` wraps ``torch.cuda.graph``: it sets up the pool the loop
 bodies allocate from and counts the nodes of every body graph
-(``Capture.body_nodes``).
+(``Capture.body_nodes``). One capture runs at a time in the process,
+whatever its thread (the ingest pipeline's compile pool captures the
+fused fit while the main thread plans): ``capture`` holds the module's
+capture lock from its entry, where torch synchronizes and empties the
+allocator's cache, to its end. ``torch.cuda.empty_cache()`` fails while
+any thread captures; ``empty_cache`` here waits for the capture to end
+first, and ``exclusive`` keeps any other capture out.
 
 A kernel wrapper's Python launch counter sees a captured launch once,
 at its capture, however many times the replays run it (a WHILE body
@@ -53,6 +59,8 @@ SOURCE = "photon_tpu_torch/csrc/graph_loop.cu"
 _WHILE, _IF = 0, 1
 
 _local = threading.local()
+# Held for the whole of a capture (``capture``, ``exclusive``).
+_capture_lock = threading.Lock()
 # Device launch counters by kernel name (``count_graph_launches``).
 _GRAPH_KERNELS = ("newton_step", "segment_sum")
 _graph_counts: dict = {}
@@ -103,21 +111,29 @@ def _check(rc: int, what: str) -> None:
 
 
 _STREAMS: dict = {}
+# Captures run on streams of the high-priority pool, which nothing else
+# in the process draws from: ``torch.cuda.Stream()`` hands out a pool's
+# streams round robin, so a default-priority capture stream can be the
+# very stream another thread is enqueuing work on (a transfer, an eager
+# pass), and that work would land in the capture.
+CAPTURE_PRIORITY = -1
 # Nesting depth the body streams cover (a solver's outer loop, its line
 # search, and the fixed effect's loops nested in nothing deeper).
 _MAX_DEPTH = 4
 
 
 def _body_streams(device: torch.device) -> list:
-    """Per device, one stream per nesting depth, each warmed once by a
-    small matmul so its cuBLAS workspace exists before any capture."""
-    key = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    """Per device and thread, the capture stream and one stream per
+    nesting depth (``CAPTURE_PRIORITY``), each warmed once by a small
+    matmul so the thread's cuBLAS workspace for it exists before any
+    capture."""
+    key = (device.index if device.index is not None else
+           torch.cuda.current_device(), threading.get_ident())
     streams = _STREAMS.get(key)
     if streams is None:
         streams = []
-        for _ in range(_MAX_DEPTH):
-            s = torch.cuda.Stream(device=device)
+        for _ in range(_MAX_DEPTH + 1):
+            s = torch.cuda.Stream(device=device, priority=CAPTURE_PRIORITY)
             s.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(s):
                 a = torch.ones((2, 2), device=device)
@@ -181,6 +197,20 @@ def new_graph():
 
 
 @contextlib.contextmanager
+def exclusive():
+    """Hold the capture lock: no ``capture`` runs meanwhile, in any
+    thread (a serving ladder's capture takes it too)."""
+    with _capture_lock:
+        yield
+
+
+def empty_cache() -> None:
+    """``torch.cuda.empty_cache()`` once no capture is in progress."""
+    with _capture_lock:
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
 def capture(graph, device, stream=None):
     """Capture ``graph`` (``torch.cuda.graph``) with device loops
     enabled; yields the ``Capture``.
@@ -197,32 +227,39 @@ def capture(graph, device, stream=None):
     releases it when the graph is collected."""
     device = torch.device(device)
     _load()
-    streams = _body_streams(device)
-    cap = Capture(graph, device)
-    cap.streams = streams
-    cap.pool = torch.cuda.graph_pool_handle()
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    prev = getattr(_local, "capture", None)
-    _local.capture = cap
-    # No collection may run inside the capture: a collected graph or
-    # pool frees device memory, which invalidates a capture.
-    gc.collect()
-    gc_was_on = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
-            torch._C._cuda_beginAllocateCurrentThreadToPool(idx, cap.pool)
-            try:
-                yield cap
-            finally:
-                torch._C._cuda_endAllocateToPool(idx, cap.pool)
-    finally:
-        _local.capture = prev
-        if gc_was_on:
-            gc.enable()
-        weakref.finalize(graph, torch._C._cuda_releasePool, idx, cap.pool)
+    with _capture_lock:
+        streams = _body_streams(device)
+        cap = Capture(graph, device)
+        # The last stream is this thread's capture stream (torch's default
+        # one is shared by every thread).
+        cap.streams = streams[:-1]
+        if stream is None:
+            stream = streams[-1]
+        cap.pool = torch.cuda.graph_pool_handle()
+        idx = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        prev = getattr(_local, "capture", None)
+        _local.capture = cap
+        # No collection may run inside the capture: a collected graph or
+        # pool frees device memory, which invalidates a capture.
+        gc.collect()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                torch._C._cuda_beginAllocateCurrentThreadToPool(idx,
+                                                                cap.pool)
+                try:
+                    yield cap
+                finally:
+                    torch._C._cuda_endAllocateToPool(idx, cap.pool)
+        finally:
+            _local.capture = prev
+            if gc_was_on:
+                gc.enable()
+            weakref.finalize(graph, torch._C._cuda_releasePool, idx,
+                             cap.pool)
 
 
 def graph_nodes(cap: Capture) -> int | None:

@@ -1,13 +1,16 @@
 """The port's ingest pipeline (``photon_tpu_torch.data.pipeline``) and the
 planner's packed transfer, on the CPU.
 
-The JAX package's ``tests/test_ingest_pipeline.py`` cases that do not
-belong to its ahead-of-time compile (the shape oracle, the skeletons and
-the program contracts wait for ROADMAP Queue A items 8 and 13): the
-pipelined planner byte-identical to the serial path, ``_bucket_rows``
-against its full-scan form, the chunked packed transfer byte-identical
-to one copy, the stage accounting, and a killed-and-resumed streaming
-ingest giving byte-identical packed plan buffers. Then the port's own:
+The JAX package's ``tests/test_ingest_pipeline.py`` cases (its program
+contracts wait for ROADMAP Queue A item 13): the pipelined planner
+byte-identical to the serial path, ``_bucket_rows`` against its
+full-scan form, the chunked packed transfer byte-identical to one copy,
+the stage accounting, a killed-and-resumed streaming ingest giving
+byte-identical packed plan buffers, and the shape oracle and the warm
+stage (:261-400; the port's warm capture stands for the reference's
+ahead-of-time compile, and on the CPU builds only the static key, so
+its first fit equals the serial-ingest fit as the reference's does).
+Then the port's own:
 the packed buffer equal to the reference's, byte for byte, on the lazy
 layout and the materialized arrays equal on the wide one; the
 estimator's one packed transfer for every coordinate, pipelined against
@@ -33,6 +36,8 @@ from photon_tpu_torch.data.random_effect import (
     _bucket_rows,
     _plan_random_effect,
     build_random_effect_dataset,
+    predict_plan_shapes,
+    skeleton_random_effect_dataset,
 )
 from photon_tpu_torch.resilience import (
     FaultPlan,
@@ -42,6 +47,7 @@ from photon_tpu_torch.resilience import (
     reset_retry_stats,
     retry_stats,
 )
+from photon_tpu_torch.utils import compile_cache
 
 
 @pytest.fixture(autouse=True)
@@ -519,6 +525,307 @@ def test_ingest_plan_fault_propagates_from_the_plan_pool():
 
 
 # ---------------------------------------------------------------------------
+# the shape oracle and the warm stage
+# ---------------------------------------------------------------------------
+
+# The fixtures whose shard is dense with no exact zero: the oracle's
+# prediction is the built layout there.
+PREDICTABLE = ("dense_cap", "dense_nocap", "dense_empty_entities")
+
+
+def _jax_fixture(kind: str):
+    from photon_tpu.data import dataset as jax_dataset
+    from photon_tpu.data import game_data as jax_game_data
+    from photon_tpu.data import random_effect as jax_re
+
+    return _fixture(kind, package=(jax_dataset, jax_game_data, jax_re))
+
+
+def _same_prediction(got, want):
+    if want is None:
+        assert got is None
+        return
+    assert got is not None
+    assert set(got) == set(want)
+    for key, value in want.items():
+        ref = value
+        if key == "buckets":
+            ref = [tuple(int(v) for v in b) for b in value]
+        elif key == "packed_shapes":
+            ref = tuple(tuple(int(v) for v in sh) for sh in value)
+        else:
+            ref = int(value)
+        assert got[key] == ref, key
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_shape_oracle_equals_the_references(kind):
+    """The oracle's dict is the reference's on the same data; where the
+    shard is fully dense it is the built layout (packed shapes, widest
+    subspace, kept rows), the warm capture's precondition."""
+    from photon_tpu.data import random_effect as jax_re
+
+    with ingest_mode(serial=True):
+        data, cfg = _fixture(kind)
+        pred = predict_plan_shapes(data, cfg)
+        jdata, jcfg = _jax_fixture(kind)
+        _same_prediction(pred, jax_re.predict_plan_shapes(jdata, jcfg))
+        ds = build_random_effect_dataset(data, cfg, intercept_index=None)
+    if kind in PREDICTABLE:
+        assert pred["packed_shapes"] == ds.packed_view.shapes
+        assert pred["max_sub_dim"] == ds.max_sub_dim
+        assert pred["kept_total"] == int(ds.covered_np.sum())
+
+
+@pytest.mark.parametrize("change", [
+    "sparse", "score_table_width_cap", "features_to_samples_ratio",
+    "wide"])
+def test_shape_oracle_declines_what_the_reference_declines(change):
+    import dataclasses
+
+    from photon_tpu.data import random_effect as jax_re
+
+    kind = "sparse" if change == "sparse" else "dense_cap"
+    kw = {"d": 130} if change == "wide" else {}
+    extra = {"score_table_width_cap": 3,
+             "features_to_samples_ratio": 0.5}.get(change)
+    with ingest_mode(serial=True):
+        data, cfg = _fixture(kind, **kw)
+        jdata, jcfg = _fixture(kind, package=_jax_modules(), **kw)
+        if extra is not None:
+            cfg = dataclasses.replace(cfg, **{change: extra})
+            jcfg = dataclasses.replace(jcfg, **{change: extra})
+        assert jax_re.predict_plan_shapes(jdata, jcfg) is None
+        assert predict_plan_shapes(data, cfg) is None
+        assert skeleton_random_effect_dataset(data, cfg) is None
+
+
+def _jax_modules():
+    from photon_tpu.data import dataset as jax_dataset
+    from photon_tpu.data import game_data as jax_game_data
+    from photon_tpu.data import random_effect as jax_re
+
+    return jax_dataset, jax_game_data, jax_re
+
+
+def test_skeleton_is_shape_faithful_and_copies_nothing(monkeypatch):
+    """The skeleton's plan arrays are zeros at the predicted shapes, its
+    raw leaves the dataset's own tensors, and building it calls no
+    ``Tensor.to``."""
+    with ingest_mode(serial=True):
+        data, cfg = _fixture("dense_cap")
+        ds = build_random_effect_dataset(data, cfg, intercept_index=None)
+    calls = []
+    to = torch.Tensor.to
+    monkeypatch.setattr(torch.Tensor, "to",
+                        lambda self, *a, **k: calls.append(1) or to(
+                            self, *a, **k))
+    skel = skeleton_random_effect_dataset(data, cfg)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    assert not calls
+    assert skel.packed_view.shapes == ds.packed_view.shapes
+    assert skel.packed_view.buffer.shape == ds.packed_view.buffer.shape
+    assert not skel.packed_view.buffer.any()
+    assert skel.score_codes is data.id_tags["g"].codes
+    assert skel.blocks[0].raw is data.feature_shards["s"]
+    assert skel.blocks[0].raw_labels is data.labels
+    assert [tuple(b.row_ids.shape) for b in skel.blocks] == [
+        tuple(b.row_ids.shape) for b in ds.blocks]
+    np.testing.assert_array_equal(
+        skel.passive_rows_device().numpy(),
+        np.arange(int(ds.covered_np.sum()), data.num_samples))
+
+
+def _tiny():
+    import test_torch_fused_fit_cuda as tf
+
+    return tf.tiny_glmix()
+
+
+def _model_tables(result) -> dict:
+    out = {}
+    for cid, m in result.model.items():
+        c = (m.coefficients if hasattr(m, "coefficients")
+             else m.model.coefficients.means)
+        out[cid] = c.numpy()
+    return out
+
+
+def test_warm_stage_first_fit_identical_to_serial():
+    """The warm stage changes which program runs the first fit, never
+    what it computes: the pipelined estimator's first fused fit equals
+    the serial-ingest fit bit for bit, took the warm artifact, and the
+    report has the compile stages."""
+    with ingest_mode(serial=True):
+        est_s, data_s = _tiny()
+        want = _model_tables(est_s.fit(data_s)[0])
+        assert est_s._aot_future is None
+    before = compile_cache.cache_stats()
+    with ingest_mode(serial=False):
+        est_p, data_p = _tiny()
+        got = _model_tables(est_p.fit(data_p)[0])
+        fused = next(reversed(est_p._fused_cache.values()))
+        report = pipeline.PIPELINE_STATS.report()
+        compile_s = pipeline.PIPELINE_STATS.seconds("compile")
+    after = compile_cache.cache_stats()
+    assert fused._aot is not None and fused._aot["captured"] is None
+    for cid in want:
+        np.testing.assert_array_equal(want[cid], got[cid], cid)
+    # The report rounds to 0.1 ms; on the CPU the stage is shorter.
+    assert compile_s > 0.0
+    assert "compile_wait" in report["stages"]
+    assert 0.0 <= report["compile_overlap_fraction"] <= 1.0
+    assert after["aot_compiles"] == before["aot_compiles"] + 1
+    assert after["aot_failures"] == before["aot_failures"]
+
+
+def _stale_pair(device="cpu"):
+    """A dense shard with a dead column: every real subspace drops it,
+    so the oracle's fully dense prediction is wrong for every entity."""
+    from photon_tpu_torch.data.dataset import DenseFeatures
+    from photon_tpu_torch.estimators.game_estimator import (
+        FixedEffectCoordinateConfiguration,
+        GameEstimator,
+        RandomEffectCoordinateConfiguration,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    rng = np.random.default_rng(11)
+    n, e, d, du = 120, 9, 5, 4
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:, -1] = 1.0
+    xu = rng.normal(size=(n, du)).astype(np.float32)
+    xu[:, 0] = 0.0
+    xu[:, -1] = 1.0
+    users = rng.integers(0, e, size=n)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    data = make_game_dataset(
+        y, {"global": DenseFeatures(x), "userShard": DenseFeatures(xu)},
+        id_tags={"userId": users}, device=device)
+    est = GameEstimator(
+        TaskType.LINEAR_REGRESSION,
+        {"global": FixedEffectCoordinateConfiguration("global"),
+         "per-user": RandomEffectCoordinateConfiguration(
+             RandomEffectDataConfiguration("userId", "userShard"))},
+        intercept_indices={"global": d - 1, "userShard": du - 1},
+        num_iterations=2, device=device)
+    return est, data
+
+
+def test_stale_shape_prediction_is_discarded():
+    """A wrong prediction's artifact is dropped (its static key is not
+    the built generation's) and the fit equals the serial run's."""
+    with ingest_mode(serial=True):
+        est_s, data_s = _stale_pair()
+        skel = skeleton_random_effect_dataset(
+            data_s, est_s.coordinate_configs["per-user"].data)
+        built = est_s.prepare(data_s)[0]["per-user"]
+        assert skel is not None
+        assert skel.packed_view.shapes != built.packed_view.shapes
+        want = _model_tables(est_s.fit(data_s)[0])
+    with ingest_mode(serial=False):
+        est_p, data_p = _stale_pair()
+        got = _model_tables(est_p.fit(data_p)[0])
+        fused = next(reversed(est_p._fused_cache.values()))
+        compile_s = pipeline.PIPELINE_STATS.seconds("compile")
+    assert fused._aot is None, "a stale artifact was taken"
+    assert compile_s > 0.0
+    for cid in want:
+        np.testing.assert_array_equal(want[cid], got[cid], cid)
+
+
+def test_declined_warm_stage_records_no_compile_stage():
+    """A declined prediction (a sparse shard) leaves compile_seconds at
+    0 and the overlap fraction None."""
+    from photon_tpu_torch.estimators.game_estimator import (
+        GameEstimator,
+        RandomEffectCoordinateConfiguration,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    with ingest_mode(serial=True):
+        data, cfg = _fixture("sparse")
+        est = GameEstimator(
+            TaskType.LINEAR_REGRESSION,
+            {"per-g": RandomEffectCoordinateConfiguration(cfg)},
+            device="cpu")
+        pipeline.PIPELINE_STATS.reset()
+        assert est._warm_capture(data) is None
+        rep = pipeline.PIPELINE_STATS.report()
+    assert rep["compile_seconds"] == 0.0
+    assert rep["compile_overlap_fraction"] is None
+
+
+def test_warm_stage_eligibility_follows_the_reference():
+    """No warm stage with validation, an initial model, incremental
+    training, a listener, or the serial ingest."""
+    est, data = _tiny()
+    with ingest_mode(serial=False):
+        assert est._warm_capture_eligible(None, None)
+        assert not est._warm_capture_eligible(data, None)
+        assert not est._warm_capture_eligible(None, object())
+        est.incremental_training = True
+        assert not est._warm_capture_eligible(None, None)
+        est.incremental_training = False
+        est.emitter = object()
+        assert not est._warm_capture_eligible(None, None)
+        est.emitter = None
+    with ingest_mode(serial=True):
+        assert not est._warm_capture_eligible(None, None)
+
+
+def test_compile_aot_fault_is_retried_and_recovers():
+    """``compile.aot``: a transient fault at the warm stage's first
+    attempt is retried, the stage recovers and its artifact is taken."""
+    before = compile_cache.cache_stats()
+    with ingest_mode(serial=False):
+        est, data = _tiny()
+        with faults.injected(FaultPlan([dict(point="compile.aot",
+                                             nth=1)])):
+            est.prepare(data)
+            est._aot_future.result()
+            fired = faults.fired()
+        est.fit(data)
+        fused = next(reversed(est._fused_cache.values()))
+    assert fired == [{"point": "compile.aot", "call": 1,
+                      "error": "transient"}]
+    assert retry_stats()["retries"] == 1 and retry_stats()["recovered"] == 1
+    assert fused._aot is not None
+    after = compile_cache.cache_stats()
+    assert after["aot_compiles"] == before["aot_compiles"] + 1
+    assert after["aot_failures"] == before["aot_failures"]
+
+
+def test_failed_warm_stage_is_counted_and_the_fit_still_runs():
+    """A warm stage that fails past its retries is logged and counted in
+    ``aot_failures``; the first fit then builds its program itself."""
+    with ingest_mode(serial=True):
+        est_s, data_s = _tiny()
+        want = _model_tables(est_s.fit(data_s)[0])
+    before = compile_cache.cache_stats()
+    with ingest_mode(serial=False):
+        est, data = _tiny()
+        with faults.injected(FaultPlan([dict(point="compile.aot",
+                                             error="poison", nth=1)])):
+            got = _model_tables(est.fit(data)[0])
+        fused = next(reversed(est._fused_cache.values()))
+    assert fused._aot is None
+    assert compile_cache.cache_stats()["aot_failures"] == (
+        before["aot_failures"] + 1)
+    for cid in want:
+        np.testing.assert_array_equal(want[cid], got[cid], cid)
+
+
+def test_compile_pool_shuts_down_with_the_others():
+    with ingest_mode(serial=False):
+        fut = pipeline.compile_executor.submit(lambda: 7)
+        assert fut.result() == 7
+        assert pipeline.compile_executor._pool is not None
+        pipeline.reset_executors()
+        assert pipeline.compile_executor._pool is None
+
+
+# ---------------------------------------------------------------------------
 # streaming kill-and-resume determinism
 # ---------------------------------------------------------------------------
 
@@ -697,3 +1004,96 @@ def test_cuda_streamed_dataset_and_plans_equal_the_cpu_run(cuda_device,
     ref = build_random_effect_dataset(cpu, cfg, intercept_index=None)
     assert builds[False].packed_view.buffer.cpu().numpy().tobytes() == \
         ref.packed_view.buffer.numpy().tobytes()
+
+
+def _cuda_tiny():
+    import test_torch_fused_fit_cuda as tf
+
+    return tf.tiny_glmix(device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_warm_capture_is_adopted_bit_for_bit(cuda_device):
+    """On the card an eligible prepare captures the fused graph on the
+    compile pool's thread; the first fit adopts it (no capture inside
+    its window, which is attributed) and equals bit for bit the fit of
+    an estimator that captured at first use."""
+    with ingest_mode(serial=True):
+        est_s, data_s = _cuda_tiny()
+        want = _model_tables_cuda(est_s.fit(data_s)[0])
+    before = compile_cache.cache_stats()
+    with ingest_mode(serial=False):
+        est, data = _cuda_tiny()
+        est.prepare(data)
+        art = est._aot_future.result()
+        assert art is not None and art["captured"] is not None
+        cap = art["captured"]
+        del art
+        got = _model_tables_cuda(est.fit(data)[0])
+        fused = next(reversed(est._fused_cache.values()))
+        report = pipeline.PIPELINE_STATS.report()
+    assert fused.captured() is cap and cap.adopted
+    assert len(fused._graphs) == 1
+    assert report["compile_seconds"] > 0.0
+    assert 0.0 <= report["compile_overlap_fraction"] <= 1.0
+    after = compile_cache.cache_stats()
+    assert after["aot_compiles"] == before["aot_compiles"] + 1
+    assert after["aot_failures"] == before["aot_failures"]
+    for cid in want:
+        np.testing.assert_array_equal(want[cid], got[cid], cid)
+
+
+def _model_tables_cuda(result) -> dict:
+    torch.cuda.synchronize()
+    out = {}
+    for cid, m in result.model.items():
+        c = (m.coefficients if hasattr(m, "coefficients")
+             else m.model.coefficients.means)
+        out[cid] = c.cpu().numpy()
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_stale_warm_capture_is_dropped(cuda_device):
+    """A wrong prediction's graph is dropped on the calling thread and
+    the first fit captures its own, equal to the serial run's."""
+    with ingest_mode(serial=True):
+        est_s, data_s = _stale_pair("cuda")
+        want = _model_tables_cuda(est_s.fit(data_s)[0])
+    with ingest_mode(serial=False):
+        est, data = _stale_pair("cuda")
+        got = _model_tables_cuda(est.fit(data)[0])
+        fused = next(reversed(est._fused_cache.values()))
+    assert fused._aot is None
+    assert len(fused._graphs) == 1
+    assert not fused.captured().adopted
+    for cid in want:
+        np.testing.assert_array_equal(want[cid], got[cid], cid)
+
+
+@pytest.mark.cuda
+def test_cuda_warm_capture_copies_nothing_from_the_host(cuda_device,
+                                                        monkeypatch):
+    """No host-to-device copy runs off the calling thread during a warm
+    capture: the compile pool's thread allocates, launches and captures
+    only."""
+    off_thread = []
+    to = torch.Tensor.to
+    main = threading.current_thread().name
+
+    def spy(self, *a, **kw):
+        out = to(self, *a, **kw)
+        if (threading.current_thread().name != main
+                and self.device.type == "cpu" and out.device.type == "cuda"):
+            off_thread.append(threading.current_thread().name)
+        return out
+
+    with ingest_mode(serial=False):
+        est, data = _cuda_tiny()
+        monkeypatch.setattr(torch.Tensor, "to", spy)
+        est.prepare(data)
+        art = est._aot_future.result()
+        monkeypatch.setattr(torch.Tensor, "to", to)
+    assert art is not None and art["captured"] is not None
+    assert off_thread == []
+

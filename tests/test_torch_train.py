@@ -508,7 +508,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu():
 
 
 def test_unported_routes_raise_not_implemented():
-    """bf16 training still raises with its name. The L1 fixed effect
+    """The lazy layout's ELL slab for a subspace wider than
+    ``DENSE_SUB_DIM_MAX`` still raises with its name (bf16 training,
+    which raised here before, now trains: tests/test_torch_precision.py).
+    The L1 fixed effect
     (OWL-QN) and the smoothed hinge's per-entity quasi-Newton solve,
     which raised here before, run and match the reference in float64:
     coefficients within rtol 1e-6 / atol 1e-8 (the fit's tolerance),
@@ -537,9 +540,18 @@ def test_unported_routes_raise_not_implemented():
     np.testing.assert_allclose(pw, jw, rtol=1e-6, atol=1e-8)
     np.testing.assert_array_equal(pw == 0.0, jw == 0.0)
     assert (pw == 0.0).any()
-    with pytest.raises(NotImplementedError, match="bf16"):
-        pt_est.GameEstimator(TaskType.LOGISTIC_REGRESSION, {}, device=CPU,
-                             precision="bfloat16")
+    rng = np.random.default_rng(5)
+    wide = pt_re.DENSE_SUB_DIM_MAX + 2
+    wide_data = pt_game_data.make_game_dataset(
+        rng.normal(size=64).astype(np.float32),
+        {"w": pt_dataset.DenseFeatures(
+            rng.normal(size=(64, wide)).astype(np.float32))},
+        id_tags={"g": rng.integers(0, 4, size=64)}, device=CPU)
+    lazy_wide = pt_re.build_random_effect_dataset(
+        wide_data, pt_re.RandomEffectDataConfiguration("g", "w"), lazy=True)
+    assert lazy_wide.is_lazy and lazy_wide.max_sub_dim == wide
+    with pytest.raises(NotImplementedError, match="ELL slab layout"):
+        lazy_wide.device_blocks()
     # The smoothed hinge on the materialized layout takes the
     # per-entity quasi-Newton route in both packages.
     spec = dict(random_effect_type="userId", feature_shard_id="userShard",
