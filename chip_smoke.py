@@ -204,7 +204,7 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
 9a. fit_bf16      - the bf16 estimator of 7a on the same data
                      (``phase_fit_bf16``): its first fused fit adopts
                      the warm graph (compile and wait seconds, overlap
-                     fraction, nodes), 3 warm replays under
+                     fraction, nodes), BF16_WARM warm replays under
                      ``set_sync_debug_mode("error")``, the eager twin,
                      one unfused fit (a no-op listener); a warm start
                      at a tenth of the rows and entities.
@@ -303,7 +303,8 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      the same slots and its bound (``fixed_effect_site``);
                      the run's peak device memory is printed with it.
 
-14b. train_cli_routes - phase 14a's files through ``cli.train`` on the
+14b. train_cli_routes - in a process of its own (``phase_child``), beside
+                     14c-14h: phase 14a's files through ``cli.train`` on the
                      optimizer routes (``train_cli_routes_config``:
                      ``global`` TRON with FULL variances and
                      down-sampling 0.5, ``per-user`` L2 [1, 10] with
@@ -359,7 +360,10 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      (``train_routes_fused``). Both fits of (a)-(d) keep
                      a no-op listener: their per-update records need the
                      unfused loop.
-14d. stream_cli    - run right after 14a, on its configuration and its
+14d. stream_cli    - run once 14a is done, in a process of its own
+                     (``phase_child``; ``cli_phases`` runs 14c in this
+                     process beside 14b and 14d-14h's processes), on
+                     14a's configuration and its
                      training rows, which 14a writes as 16 part files
                      (the in-memory runs read the directory): the
                      in-memory ``cli.train`` and (a) ``--stream-dir
@@ -369,9 +373,12 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      of VmHWM, where the kernel reports it, and VmRSS
                      sampled every 10 ms from this process), beside the
                      RSS after the imports and the CUDA context;
-                     then in this process, each with
+                     then, each with
                      a lighter config (one lambda, one iteration, the
-                     best model only): (b) shard 5 truncated: the default
+                     best model only; (b)'s completing run and (e)'s
+                     training each in a subprocess of its own, beside
+                     (b)'s refusal and (c) in the phase's process):
+                     (b) shard 5 truncated: the default
                      policy raises ``CorruptShardError`` naming it;
                      ``--max-bad-shards 1`` completes, under (d)
                      transient faults at ``io.shard_read`` calls 2, 4, 6
@@ -453,7 +460,9 @@ float32 (``bench.py`` ``build_estimator("logistic")`` and
                      serve launch a chunk. It prints each run's seconds
                      by stage and per configuration.
 14f. glm_cli       - the legacy ``cli.glm`` on 14a's files (the global
-                     bag), lambdas GLM_LAMBDAS, on the card in float32
+                     bag), in a process of its own beside 14b
+                     (``phase_child``), lambdas GLM_LAMBDAS, on the card
+                     in float32
                      and on the CPU in float64 (the port's readers
                      switched to float64: ``float64_readers``). Gates:
                      the same selected lambda, the card's best model
@@ -594,9 +603,7 @@ nothing cut:
                        load_checkpoint and ScorePrograms (the tag shard
                        as ELL rows) on 512 rows: the trainer's scores
                        within 1e-5;
-22. wide_profile     - one per-movie update under torch.profiler: device
-                       ms by operator and the device's busy share; then
-                       the Newton kernel's wide design on the per-movie
+22. wide_newton      - the Newton kernel's wide design on the per-movie
                        gram bucket densified (logistic operands over the
                        same data): newton_parity's three-step check and
                        newton_timing's columns;
@@ -611,6 +618,56 @@ nothing cut:
                        Newton loop on the wide design) is captured and
                        replayed before the fit as in 18
                        (``wide_logistic_graph``).
+
+24. ell_routes       - the routes of ROADMAP Queue A item 6, between 22
+                       and 23 (a) and after 23 (b, c), each part's
+                       seconds printed (``t``):
+    (a) ell_routes_full - 22's 4,000,000-row arrays as they are, the
+                       tag shard folded onto 127 ids plus the intercept
+                       (``ell_fold``: S <= 128) and logistic labels from
+                       the generator's margin; the logistic bench
+                       estimator with ``per-movie`` on that shard, no
+                       width cap, f32. Gates: the auto layout is lazy;
+                       some bucket is over ``ONE_HOT_ELEMENT_BUDGET``
+                       and exactly those materialize ELL (each bucket's
+                       [B, R, k, S], B R k S beside the budget, and
+                       route printed); the fit captures the fused graph,
+                       whose capture recorded ``segment_reduce/densify``;
+                       two warm replays under
+                       ``set_sync_debug_mode("error")`` with no solver
+                       sync, each launching segment sums and Newton
+                       steps (device counters), bit-identical models
+                       equal to the unfused fit's, bit for bit or within
+                       ``FUSED_FE_ATOL`` / ``FUSED_RE_ATOL`` (an entity
+                       past the latter only where both fits stopped on
+                       its objective and the two objectives agree within
+                       ``ROUND_OFF``: ``entity_gaps``);
+                       ``entity_optimality`` on 256 entities of every
+                       bucket; every densified bucket's segment-sum
+                       densify against ``densify_ell_plain`` within
+                       ``SEGMENT_REL``, and, where the Newton kernel
+                       takes the dense slab, newton_parity's three
+                       steps on it (the STEP bounds). Printed: capture
+                       and instantiate seconds,
+                       the warm fits' seconds beside the unfused fit's,
+                       peak memory;
+    (b) ell_routes_f64 - 23's arrays in float64: ``per-movie`` on the
+                       wide tag shard solved once at fixed residuals,
+                       every bucket on the ``ell`` route; a second solve
+                       bit-identical; 64 entities of every bucket solved
+                       on the CPU by the same route: iterations and
+                       reasons equal, coefficients within rtol 1e-9 /
+                       atol 1e-11;
+    (c) ell_routes_dual - 23's arrays with the tag shard as
+                       ``ell_to_dual_ell(width_cap=4)``: a fixed effect
+                       and ``per-movie`` (score table capped at 6) over
+                       it, fitted twice: launches at the ``fixed_effect``
+                       and ``segment_reduce/score_tail`` sites, the two
+                       fits bit-identical; ``GameTransformer``'s scores
+                       within 1e-5 (relative to 1 + |score|) of a
+                       float64 numpy score of the rows, and
+                       ``cli.score.score_game_dataset`` (its
+                       ``GameTransformer`` fallback) equal to them.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -628,7 +685,9 @@ commit, unpack its package into a git-ignored directory, copy this
 script beside it, and run parent, change, change, parent in one call.
 
 ``python3 chip_smoke.py --train-cli`` runs only the device and build
-phases and then phases 14a and 14b, ``--train-routes`` phase 14c,
+phases and then phases 14a and 14b, ``--cli`` phase 14a and then
+14b-14h as the whole run runs them (``cli_phases``), ``--train-routes``
+phase 14c,
 ``--serve`` the serving phases 1-6c, ``--stream`` phases 14a, 14d, 7a
 (on its own logistic data) and 15, ``--tuning`` phases 14a, 14e and
 14f, ``--pilot`` 14a's files (not its runs) and phase 14g, and
@@ -637,6 +696,10 @@ phases and then phases 14a and 14b, ``--train-routes`` phase 14c,
 (A/A) and three times as it runs, each read by its own estimator (the
 median paired ratio) and by the JAX package's (the best on over
 the best off), with no gate.
+
+``python3 chip_smoke.py --ell-routes`` runs only the device and build
+phases and then phase 24 on its own arrays (22's and 23's generators),
+printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -678,6 +741,8 @@ ELL_K = {"global": 8, "userShard": 6, "movieShard": 4}
 # package (photon_tpu_torch/analysis/costmodel.py): the bounds printed
 # here and the cost ledger's rows read one count.
 TIMING_RUNS, TIMING_INNER = 50, 20
+# ``event_ms`` stops early once this many runs took this much device time.
+TIMING_MIN_RUNS, TIMING_BUDGET_S = 10, 2.0
 PLAIN_INNER = 4
 REPLACES = "photon_tpu/ops/serve_kernel.py:291"
 
@@ -1236,9 +1301,14 @@ def flood_monitor(programs, requests) -> list:
 
 def event_ms(torch, run, inner: int) -> float:
     """Median over TIMING_RUNS of CUDA-event time of ``run()`` divided
-    by the ``inner`` calls it makes."""
+    by the ``inner`` calls it makes; once TIMING_MIN_RUNS runs have
+    taken TIMING_BUDGET_S of device time, over those runs (a call of
+    tens of ms, as a plain version at full width takes, needs no 50)."""
     runs = []
+    spent = 0.0
     for _ in range(TIMING_RUNS):
+        if len(runs) >= TIMING_MIN_RUNS and spent >= TIMING_BUDGET_S:
+            break
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1246,6 +1316,7 @@ def event_ms(torch, run, inner: int) -> float:
         end.record()
         end.synchronize()
         runs.append(start.elapsed_time(end) / inner)
+        spent += runs[-1] * inner / 1e3
     return float(np.median(runs))
 
 
@@ -2731,14 +2802,18 @@ def newton_parity_steps(torch, cid, eb, l2w, phase="newton_parity"):
                     > ROUND_OFF * (f_prev.abs() + 1.0))
 
         keep = moved(got[1]) | moved(want[1])
-        imp_agree = (float((got[3] == want[3])[keep].float().mean())
-                     if bool(keep.any()) else 1.0)
+        # Counted in integers: a float32 mean of B ones on the card
+        # (a sum times 1/B) need not be exactly 1.
+        n_keep = int(keep.sum())
+        disagree = int((got[3] != want[3])[keep].sum())
         row = {"phase": phase, "coordinate": cid,
                "bucket": list(eb.x_values.shape), "step": k + 1,
                "near_optimum_entities": int((~keep).sum()),
-               "improved_agreement": imp_agree,
-               "improved_fraction": float(want[3].float().mean())}
-        ok = imp_agree == 1.0
+               "improved_agreement": (1.0 - disagree / n_keep
+                                      if n_keep else 1.0),
+               "improved_disagreements": disagree,
+               "improved_fraction": int(want[3].sum()) / want[3].numel()}
+        ok = disagree == 0
         for name, a, b, c in zip(("w", "f", "g"), got[:3], want[:3],
                                  ref[:3]):
             a, b, c = a[keep], b[keep], c[keep]
@@ -2864,8 +2939,10 @@ def unfused(est):
         est.emitter = saved
 
 
-# Warm replays of the fused fit in phase ``fit``.
-FUSED_WARM = 3
+# Warm replays of the fused fit in phase ``fit``, and in ``fit_bf16``,
+# whose fits run 100 Newton iterations (8.7 s each at full width on an
+# H100 80GB HBM3 at 700 W).
+FUSED_WARM, BF16_WARM = 3, 1
 # The fused fit against the unfused one on the card, f32: the fixed
 # effect's L-BFGS runs as batched.lbfgs in the fused fit and as the
 # host-branching lbfgs.py in the unfused one (two designs, the same
@@ -3147,7 +3224,7 @@ def phase_fit_bf16(torch, arrays, data, est16, est32, fit32,
     graphs_first = len(ff._graphs)
     warm = []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(FUSED_WARM):
+    for _ in range(BF16_WARM):
         device_loop.reset_graph_launches()
         before = (ra.host_syncs, batched.host_syncs, lbfgs.host_syncs)
         torch.cuda.synchronize()
@@ -3400,6 +3477,19 @@ def fit_telemetry(torch, est, data, off: dict, off_result) -> dict:
     return row
 
 
+def entity_subset(eb, sel, device=None):
+    """The entities ``sel`` (indices or a mask) of bucket ``eb``, each
+    array moved to ``device`` when one is given."""
+    import dataclasses
+
+    def take(a):
+        return a[sel] if device is None else a[sel].to(device)
+
+    return type(eb)(**{
+        f.name: None if getattr(eb, f.name) is None else take(
+            getattr(eb, f.name)) for f in dataclasses.fields(eb)})
+
+
 def dense_x(torch, eb):
     """A bucket's design as a float64 [B, R, S] slab: the dense slab as
     it is, an ELL block scattered out (duplicate slots add)."""
@@ -3442,19 +3532,20 @@ def pseudo_gradient(torch, w, g, l1):
 
 
 def entity_optimality(torch, ds, residuals, model, reasons, l2, *, phase,
-                      cid, l1=0.0) -> dict:
+                      cid, l1=0.0, blocks=None) -> dict:
     """Each entity's logistic objective (L2 ``l2`` on the penalized
     slots, L1 ``l1`` on every slot) in float64 at its fitted
     coefficients, its rows' offsets plus ``residuals``: the norm of its
     minimum-norm subgradient (the gradient when l1 = 0) against the
     cascade's tolerance, 1e-7 of that norm at zero; where it is above,
     the entity's convergence code (``reasons``, in bucket order) must
-    say why. Emits the row, with the count of exact zeros."""
+    say why. Emits the row, with the count of exact zeros. ``blocks``
+    replaces ``ds.device_blocks()`` (a sample of them)."""
     from photon_tpu_torch.optim import ConvergenceReason
 
     w_all = model.coefficients.double()
     gn, g0n, zeros = [], [], 0
-    for eb in ds.device_blocks():
+    for eb in (ds.device_blocks() if blocks is None else blocks):
         x = dense_x(torch, eb)
         off = coordinate_offsets(eb, residuals)
         wt = eb.weights.double()
@@ -4897,13 +4988,15 @@ def _vm_status(key: str, pid="self") -> int | None:
 
 
 def cli_child(spec_path: str) -> int:
-    """``--cli-child SPEC``: one ``stream_run`` in this process (or, for
-    a spec of kind ``pilot``, one ``cli.pilot`` run: ``pilot_child``;
-    of kind ``profile``, one ``cli.profile`` run: ``profile_child``),
-    its result and its memory written to ``spec["out"]``: VmHWM, its own
-    address space's high-water mark, where the kernel reports it (the
-    rusage maximum would carry the parent's over the exec), and the RSS
-    after the imports and the CUDA context, before the run."""
+    """``--cli-child SPEC``: one ``stream_run`` in this process, under
+    ``spec["env"]`` (or, for a spec of kind ``pilot``, one ``cli.pilot``
+    run: ``pilot_child``; of kind ``profile``, one ``cli.profile`` run:
+    ``profile_child``; of kind ``phase``, one phase of this script:
+    ``phase_child``), its result and its memory written to
+    ``spec["out"]``: VmHWM, its own address space's high-water mark,
+    where the kernel reports it (the rusage maximum would carry the
+    parent's over the exec), and the RSS after the imports and the CUDA
+    context, before the run."""
     import torch
 
     from photon_tpu_torch.cli import train  # noqa: F401 — the imports
@@ -4922,7 +5015,10 @@ def cli_child(spec_path: str) -> int:
         result = pilot_child(torch, spec)
     elif spec.get("kind") == "profile":
         result = profile_child(torch, spec)
+    elif spec.get("kind") == "phase":
+        result = run_phase_child(torch, spec)
     else:
+        os.environ.update(spec.get("env") or {})
         with timed_ship() as ship:
             out = stream_run(torch, spec["cfg"], spec["root"],
                              *spec["extra"])
@@ -4992,15 +5088,55 @@ def _child_result(c: dict) -> dict:
     return result
 
 
-def train_child(cfg: dict, root: str, extra=(), health: bool = False
-                ) -> dict:
+def train_child(cfg: dict, root: str, extra=(), health: bool = False,
+                env: dict | None = None) -> dict:
     """A ``cli_children`` spec for one ``stream_run`` (``health`` arms
-    ``obs.health`` in the child)."""
+    ``obs.health`` in the child; ``env`` is added to its environment)."""
     return {"cfg": cfg, "root": root, "extra": list(extra),
-            "health": health}
+            "health": health, "env": env or {}}
 
 
-def cli_children(jobs: list, stop: threading.Event | None = None) -> list:
+def phase_child(name: str, root: str, *args) -> dict:
+    """A ``cli_children`` spec that runs ``name(torch, *args)``, one
+    phase of this script, in a process of its own (``run_phase_child``):
+    the arguments go to ``<root>/phase-args.pickle``; the phase's JSON
+    lines go to the child's log, which ``phase_result`` prints."""
+    import pickle
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "phase-args.pickle")
+    with open(path, "wb") as f:
+        pickle.dump(args, f)
+    return {"kind": "phase", "name": name, "args": path, "root": root}
+
+
+def run_phase_child(torch, spec: dict) -> dict:
+    """A ``phase_child`` spec's phase, set up as ``main`` sets up this
+    process for it: TF32 off and graph replays' launches counted."""
+    import pickle
+
+    from photon_tpu_torch.utils import device_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device_loop.count_graph_launches("cuda")
+    with open(spec["args"], "rb") as f:
+        args = pickle.load(f)
+    return {"result": globals()[spec["name"]](torch, *args),
+            "root": spec["root"]}
+
+
+def phase_result(child: dict) -> dict:
+    """A phase child's return value, after its log (its JSON lines) is
+    printed here."""
+    with open(os.path.join(child["root"], "child.log")) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    return child["result"]
+
+
+def cli_children(jobs: list, stop: threading.Event | None = None,
+                 env: dict | None = None) -> list:
     """Each job in a subprocess of its own, all jobs at once, for their
     peak RSS: a job is a child spec (``train_child``'s, or
     ``pilot_child``'s) or a list of specs, a chain, each child started
@@ -5008,9 +5144,10 @@ def cli_children(jobs: list, stop: threading.Event | None = None) -> list:
     wrote it, with the process's seconds and the peak of its RSS sampled
     from here; a chain's results as a list. Every child gets the
     environment of the call, also one started later in a chain while
-    this process runs other phases. Setting ``stop`` kills the children
-    still running and raises."""
-    env = dict(os.environ)
+    this process runs other phases (``env``, when given, in place of
+    it). Setting ``stop`` kills the children still running and
+    raises."""
+    env = dict(os.environ) if env is None else env
     is_chain = [isinstance(job, list) for job in jobs]
     chains = [list(job) if chain else [job]
               for job, chain in zip(jobs, is_chain)]
@@ -5058,8 +5195,8 @@ def cli_children(jobs: list, stop: threading.Event | None = None) -> list:
     return results
 
 
-def in_background(fn, *args):
-    """``fn(*args, stop=event)`` on a thread of its own; returns a
+def in_background(fn, *args, **kwargs):
+    """``fn(*args, stop=event, **kwargs)`` on a thread of its own; returns a
     ``join(cancel=False)`` that waits for it and gives its result, or
     raises what it raised (a ``fail`` in it included). ``cancel`` sets
     the event first."""
@@ -5068,7 +5205,7 @@ def in_background(fn, *args):
 
     def run():
         try:
-            out["result"] = fn(*args, stop=stop)
+            out["result"] = fn(*args, stop=stop, **kwargs)
         except BaseException as exc:  # noqa: BLE001 - raised by join
             out["error"] = exc
 
@@ -5123,22 +5260,17 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
     """The streaming training CLI on ``train_cli``'s configuration and
     rows (module docstring, phase 14d): the in-memory run and (a) in
     subprocesses of their own, side by side, for their peak RSS, then
-    (b)-(e). (a) and (c) run with ``obs.health`` armed; ``cli.health``
+    (b)-(e), (b)'s completing run with (d) and (e)'s training each in a
+    subprocess of its own beside the others in this process. (a) and
+    (c) run with ``obs.health`` armed; ``cli.health``
     then compares (a)'s ingest sketch with ``serve_sketch`` (serve_ops'
     ``--health-sketch``; without one, with (c)'s)."""
     import shutil
 
     from photon_tpu_torch.cli import score as score_cli
-    from photon_tpu_torch.cli import train as train_cli
     from photon_tpu_torch.data import pipeline
-    from photon_tpu_torch.obs import health
     from photon_tpu_torch.io import avro
     from photon_tpu_torch.ops import serve_kernel
-    from photon_tpu_torch.resilience import faults, reset_retry_stats
-    from photon_tpu_torch.resilience.errors import (
-        CorruptShardError,
-        InjectedCrash,
-    )
     from photon_tpu_torch.serve.programs import ShapeLadder
 
     files, cfg = cli["files"], cli["cfg"]
@@ -5186,7 +5318,9 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
     # (b) one shard truncated: the default policy stops naming it; a
     # budget of one completes without it. (d) rides the same run:
     # transient faults at io.shard_read, each followed by a clean attempt
-    # (three in a row would exhaust the 3-attempt policy).
+    # (three in a row would exhaust the 3-attempt policy). That run and
+    # (e) run in subprocesses of their own, beside the refusal and (c)
+    # here.
     bad_dir = os.path.join(root, "shards-truncated")
     shutil.copytree(shard_dir, bad_dir)
     bad = os.path.join(bad_dir, "part-00005.avro")
@@ -5194,80 +5328,36 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
         raw = f.read()
     with open(bad, "wb") as f:
         f.write(raw[: len(raw) // 2])
-    _, path = write_cli_config(light, os.path.join(root, "b-default"))
-    refused = None
+    # (e) day 2: stream again, warm-started from (a)'s model.
+    e_root = os.path.join(root, "e")
+    side = in_background(cli_children, [
+        train_child(light, os.path.join(root, "bd"),
+                    ("--stream-dir", bad_dir, *window,
+                     "--max-bad-shards", "1"),
+                    env={"PHOTON_TPU_FAULT_PLAN": json.dumps({"faults": [
+                        {"point": "io.shard_read", "nth": n}
+                        for n in (2, 4, 6, 8)]})}),
+        train_child(light, e_root, (*stream, "--init-model", os.path.join(
+            a_out, "models", "best", "checkpoint.npz")))],
+        env=dict(os.environ))
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_cli.main(["--config", path, "--device", "cuda",
-                            "--stream-dir", bad_dir, *window])
-    except CorruptShardError as exc:
-        refused = str(exc)
-    reset_retry_stats()
-    with env_switch("PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
-            {"point": "io.shard_read", "nth": n} for n in (2, 4, 6, 8)]})):
-        try:
-            run_b = stream_run(torch, light, os.path.join(root, "bd"),
-                               "--stream-dir", bad_dir, *window,
-                               "--max-bad-shards", "1")
-        finally:
-            faults.disarm()
-    reset_retry_stats()
-
-    # (c) a crash at io.shard_decode on shard 9 (serial decode, so the
-    # count is exact: 16 scan calls, then one a shard), then a resume.
-    crash_at = STREAM_SHARDS + 9 + 1
-    c_root = os.path.join(root, "c")
-    _, path = write_cli_config(light, c_root)
-    crashed = None
-    c_flight = os.path.join(c_root, "flight")
-    # (a) and (c) fold the ingest's health sketch (ingest-sketch.json).
-    health.reset()
-    health.enable()
-    with env_switch("PHOTON_TPU_SERIAL_INGEST", "1"), env_switch(
-            "PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
-                {"point": "io.shard_decode", "nth": crash_at,
-                 "error": "crash"}]})):
-        pipeline.reset_executors()
-        try:
-            with contextlib.redirect_stdout(io.StringIO()):
-                train_cli.main(["--config", path, "--device", "cuda",
-                                "--checkpoint-dir",
-                                os.path.join(c_root, "ckpt"),
-                                "--flight-dir", c_flight, *stream])
-        except InjectedCrash as exc:
-            crashed = str(exc)
-        finally:
-            faults.disarm()
-            pipeline.reset_executors()
-    c_dumps = sorted(os.listdir(c_flight)) if os.path.isdir(
-        c_flight) else []
-    c_dump = {}
-    if len(c_dumps) == 1:
-        with open(os.path.join(c_flight, c_dumps[0])) as f:
-            c_dump = json.load(f)
-    cursor_path = os.path.join(c_root, "ckpt", "ingest-work",
-                               "ingest-cursor.json")
-    with open(cursor_path) as f:
-        cursor = json.load(f)
-    c_work = os.path.join(c_root, "ckpt", "ingest-work")
-    partial_rows = health.DataSketch.load(
-        os.path.join(c_work, "ingest-sketch.json")).rows
-    try:
-        run_c = stream_run(torch, light, c_root, *stream, "--resume-ingest")
-    finally:
-        health.disable()
-        health.reset()
+        here = stream_refusal_and_resume(torch, light, root, bad_dir,
+                                         stream)
+    except BaseException:
+        with contextlib.suppress(BaseException):
+            side(cancel=True)
+        raise
+    run_b, run_e = side()
+    run_c, crash_at, crashed = here["run"], here["crash_at"], here["crash"]
+    c_dumps, c_dump, cursor = here["dumps"], here["dump"], here["cursor"]
+    refused, partial_rows = here["refused"], here["partial_rows"]
     sketch_check = stream_sketch_check(
-        os.path.join(root, "a", "ckpt", "ingest-work"), c_work,
+        os.path.join(root, "a", "ckpt", "ingest-work"), here["work"],
         partial_rows, serve_sketch)
 
-    # (e) day 2: stream again, warm-started from (a)'s model, then score.
-    e_root = os.path.join(root, "e")
-    run_e = stream_run(torch, light, e_root, *stream, "--init-model",
-                       os.path.join(a_out, "models", "best",
-                                    "checkpoint.npz"))
     with open(os.path.join(e_root, "ckpt", "manifest.json")) as f:
         run_meta = json.load(f).get("run", {})
+
     val = files["validation"]
     score_out = os.path.join(e_root, "scores")
     best_dir = os.path.join(run_e["out"], "models", "best")
@@ -5428,6 +5518,76 @@ def phase_stream_cli(torch, cli: dict, serve_sketch: str | None = None
     return {"newton_launches": newton, "segment_launches": segment,
             "fixed_effect_launches": fixed_effect,
             "serve_launches": score_launches, "row": row}
+
+
+def stream_refusal_and_resume(torch, light: dict, root: str, bad_dir: str,
+                              stream: tuple) -> dict:
+    """Phase 14d's runs in this process: (b) the default policy's
+    refusal of the truncated shard, then (c) a crash at io.shard_decode
+    on shard 9 (serial decode, so the count is exact: 16 scan calls,
+    then one a shard) and the resume, with ``obs.health`` armed, as (a)
+    folds the ingest's health sketch (ingest-sketch.json)."""
+    from photon_tpu_torch.cli import train as train_cli
+    from photon_tpu_torch.data import pipeline
+    from photon_tpu_torch.obs import health
+    from photon_tpu_torch.resilience import faults, reset_retry_stats
+    from photon_tpu_torch.resilience.errors import (
+        CorruptShardError,
+        InjectedCrash,
+    )
+
+    window = stream[2:]
+    _, path = write_cli_config(light, os.path.join(root, "b-default"))
+    refused = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(["--config", path, "--device", "cuda",
+                            "--stream-dir", bad_dir, *window])
+    except CorruptShardError as exc:
+        refused = str(exc)
+    reset_retry_stats()
+    crash_at = STREAM_SHARDS + 9 + 1
+    c_root = os.path.join(root, "c")
+    _, path = write_cli_config(light, c_root)
+    crashed = None
+    c_flight = os.path.join(c_root, "flight")
+    health.reset()
+    health.enable()
+    with env_switch("PHOTON_TPU_SERIAL_INGEST", "1"), env_switch(
+            "PHOTON_TPU_FAULT_PLAN", json.dumps({"faults": [
+                {"point": "io.shard_decode", "nth": crash_at,
+                 "error": "crash"}]})):
+        pipeline.reset_executors()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_cli.main(["--config", path, "--device", "cuda",
+                                "--checkpoint-dir",
+                                os.path.join(c_root, "ckpt"),
+                                "--flight-dir", c_flight, *stream])
+        except InjectedCrash as exc:
+            crashed = str(exc)
+        finally:
+            faults.disarm()
+            pipeline.reset_executors()
+    c_dumps = sorted(os.listdir(c_flight)) if os.path.isdir(
+        c_flight) else []
+    c_dump = {}
+    if len(c_dumps) == 1:
+        with open(os.path.join(c_flight, c_dumps[0])) as f:
+            c_dump = json.load(f)
+    c_work = os.path.join(c_root, "ckpt", "ingest-work")
+    with open(os.path.join(c_work, "ingest-cursor.json")) as f:
+        cursor = json.load(f)
+    partial_rows = health.DataSketch.load(
+        os.path.join(c_work, "ingest-sketch.json")).rows
+    try:
+        run_c = stream_run(torch, light, c_root, *stream, "--resume-ingest")
+    finally:
+        health.disable()
+        health.reset()
+    return {"refused": refused, "crash_at": crash_at, "crash": crashed,
+            "dumps": c_dumps, "dump": c_dump, "cursor": cursor,
+            "work": c_work, "partial_rows": partial_rows, "run": run_c}
 
 
 def stream_sketch_check(a_work: str, c_work: str, partial_rows: int,
@@ -7497,7 +7657,7 @@ def segment_bound(vals, n) -> dict:
 
 def phase_segment_timing(torch, ops) -> list:
     """Per site at its full-width shape: the kernel's and the plain
-    version's device ms (CUDA-graph replay, median of 50), the whole
+    version's device ms (CUDA-graph replay, ``event_ms``), the whole
     wrapper's ms (operands, sort and kernel, issued back to back), one
     ``index_add_`` on the same ids (a yardstick only) and the bound."""
     from photon_tpu_torch.ops import segment_reduce as sr
@@ -7743,11 +7903,7 @@ def phase_wide_optimality(torch, wide, fit) -> list:
         sel_np = np.sort(rng.choice(b, size=min(OPT_SAMPLE, b),
                                     replace=False))
         sel = torch.from_numpy(sel_np).to(WIDE_DEVICE)
-        sub = type(eb)(**{
-            f: (getattr(eb, f)[sel] if getattr(eb, f) is not None else None)
-            for f in ("entity_codes", "x_indices", "x_values", "labels",
-                      "offsets", "weights", "row_ids", "proj",
-                      "penalty_mask", "valid_mask", "intercept_slots")})
+        sub = entity_subset(eb, sel)
         x = dense_x(torch, sub).cpu().numpy()
         wt = sub.weights.double().cpu().numpy()
         off = (sub.offsets.double() + torch.where(
@@ -7937,7 +8093,7 @@ def phase_wide_logistic(torch) -> dict:
     timing = wide_newton_check(torch, "wide_logistic", cid, eb,
                                l2_weight(est, cid))
 
-    return dict(row, timing=timing)
+    return dict(row, timing=timing, arrays=arrays)
 
 
 def wide_newton_check(torch, group, cid, eb, l2w) -> dict:
@@ -7973,47 +8129,632 @@ def wide_newton_check(torch, group, cid, eb, l2w) -> dict:
     return timing
 
 
-def phase_wide_profile(torch, wide, fit) -> dict:
-    """One per-movie update (train and score at the residuals of its last
-    solve) under ``torch.profiler``: device time by operator, and the
-    device's busy share of the update's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+# ell_routes: the tag shard folded onto ELL_FOLD ids (a pool of at most
+# 127 a movie) plus the intercept id ELL_FOLD, so every per-movie
+# subspace has at most 128 slots and the auto layout is lazy.
+ELL_FOLD = 127
+ELL_SHARD = "tagFold"
+ELL_WARM = 2
+ELL_SAMPLE = 256
+ELL_DUAL_CAP = 4
+ELL_DUAL_SHARD = "tagDual"
+ELL_SCORE_REL = 1e-5
+# The ell route on the card against the CPU in float64.
+ELL_EXACT64 = dict(rtol=1e-9, atol=1e-11)
+ELL_CPU_SAMPLE = 64
 
-    coord = fit["coords"]["per-movie"]
-    residuals = fit["residuals"][id(wide["datasets"]["per-movie"])]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model, _ = coord.train(residuals)
-        coord.score(model)
+
+def ell_fold(arrays) -> np.ndarray:
+    """The wide tag ids folded onto ELL_FOLD ids (two tags of a row may
+    meet: their values add), the intercept moved to ELL_FOLD."""
+    idx = arrays["idx"]
+    return np.where(idx == WIDE_TAGS, ELL_FOLD,
+                    idx % ELL_FOLD).astype(np.int32)
+
+
+def ell_labels(arrays, seed=TRAIN_SEED + 19) -> np.ndarray:
+    """Logistic labels drawn from the wide generator's margin, as
+    ``wide_arrays(task="logistic")`` draws them."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / (1.0 + np.exp(-0.5 * arrays["z"]))
+    return (rng.uniform(size=p.shape) < p).astype(np.float32)
+
+
+def ell_estimator(device=WIDE_DEVICE):
+    """The bench's logistic estimator with ``per-movie`` on the folded
+    tag shard and no score-table width cap."""
+    from photon_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+    )
+
+    return build_estimator(
+        "logistic",
+        movie=RandomEffectDataConfiguration(
+            "movieId", ELL_SHARD, active_data_upper_bound=2048,
+            min_bucket_entities=128),
+        intercepts={"global": TRAIN_FEATURES - 1, "userShard": USER_FEATURES,
+                    ELL_SHARD: ELL_FOLD},
+        device=device)
+
+
+def ell_sampled_optimality(torch, est, datasets, data, res, *, phase,
+                           sample=ELL_SAMPLE) -> list:
+    """``entity_optimality`` on ``sample`` entities drawn from every
+    bucket the fused fit solved, each entity's reason read from the
+    fused diagnostics (entity-code order)."""
+    ff = next(iter(est._fused_cache.values()))
+    mats = est._fused_mat_share["ebs"]
+    hist = res.descent.history
+    last = {r.coordinate_id: r for r in hist
+            if r.iteration == CD_ITERATIONS - 1}
+    total, parts = total_scores(torch, res.model, datasets, data)
+    rng = np.random.default_rng(23)
+    rows = []
+    for cid in RE_IDS:
+        keep = ff._re_meta[cid]["keep"]
+        by_code = np.zeros(keep.shape[0], dtype=np.int64)
+        by_code[np.nonzero(keep)[0]] = last[cid].diagnostics.reasons
+        subs, reasons = [], []
+        for eb in mats[cid]["ebs"]:
+            b = eb.num_entities
+            pick = np.sort(rng.choice(b, size=min(sample, b), replace=False))
+            sel = torch.from_numpy(pick).to(eb.labels.device)
+            subs.append(entity_subset(eb, sel))
+            reasons.append(by_code[eb.entity_codes[sel].long().cpu()
+                                   .numpy()])
+        rows.append(entity_optimality(
+            torch, None, total - parts[cid], res.model[cid],
+            np.concatenate(reasons), l2_weight(est, cid), phase=phase,
+            cid=cid, blocks=subs))
+    return rows
+
+
+def ell_densify_parity(torch, ebs, routes, cid, l2w) -> list:
+    """Every ELL bucket of ``ebs`` on the ``densify`` route at the shapes
+    the fit gave it: the segment-sum kernel's densify against
+    ``densify_ell_plain`` (duplicate slots of a row summed) within
+    SEGMENT_REL of 1 + the densified magnitudes, then, where the Newton
+    kernel takes the dense slab, ``newton_parity_steps`` on it (its
+    entities with rows: a padded entity has no objective to move)."""
+    import dataclasses
+
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.types import TaskType
+
+    rows = []
+    for eb, route in zip(ebs, routes):
+        if route != "densify":
+            continue
+        b, r, k = eb.x_indices.shape
+        got = sr.densify_ell_blocks(eb.x_indices, eb.x_values, eb.sub_dim)
+        if got is None:
+            fail(f"ell_routes: the densify route refused [{b} x {r} x {k}]")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        plain = sr.densify_ell_plain(eb.x_indices, eb.x_values, eb.sub_dim)
+        mag = sr.densify_ell_plain(eb.x_indices, eb.x_values.abs(),
+                                   eb.sub_dim)
+        diff = (got - plain).abs()
+        newton = nk.kernel_supported(TaskType.LOGISTIC_REGRESSION,
+                                     got.dtype, r, eb.sub_dim)
+        row = {"phase": "ell_densify_parity", "coordinate": cid,
+               "bucket": [b, r, k, eb.sub_dim],
+               "max_abs_err": float(diff.max()),
+               "max_err_over_bound": float(
+                   (diff / (SEGMENT_REL * (1.0 + mag))).max()),
+               "newton_kernel": newton}
+        del plain, mag, diff
+        emit(row)
+        if not row["max_err_over_bound"] <= 1.0:
+            fail(f"ell_routes: the densify kernel disagrees with its plain "
+                 f"version: {row}")
+        if newton:
+            dense = dataclasses.replace(eb, x_indices=None, x_values=got)
+            real = dense.weights.sum(dim=1) > 0
+            if not bool(real.all()):
+                dense = entity_subset(dense, real)
+            row["newton_max_abs_diff"], _ = newton_parity_steps(
+                torch, cid, dense, l2w, phase="ell_newton_parity")
+            del dense
+        rows.append(row)
+        del got
+    return rows
 
-    def self_device_us(evt):
-        return float(getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0.0)))
 
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    # Device time is the sum over the kernels (CUDA events); each
-    # operator's self device time is that of the kernels it launched.
-    kernels = [e for e in events if e.device_type == cuda]
-    device_ms = sum(self_device_us(e) for e in kernels) / 1e3
+def reasons_by_code(res, ds, cid, fused) -> np.ndarray:
+    """Each entity's convergence code at the last CD iteration of
+    ``res``, indexed by entity code (-1 where no bucket holds it): a
+    fused fit reports entity-code order, an unfused one bucket order."""
+    hist = res.descent.history
+    last = [r for r in hist if r.coordinate_id == cid][-1]
+    n = ds.num_entities
+    if fused:
+        codes = np.unique(np.concatenate(
+            [c[c < n] for c in ds.block_codes_np]))
+    else:
+        codes = np.concatenate([c[c < n] for c in ds.block_codes_np])
+    out = np.full(n, -1, dtype=np.int64)
+    out[codes] = last.diagnostics.reasons
+    return out
 
-    def top(evts):
-        ranked = sorted(((self_device_us(e), e.key[:90], e.count)
-                         for e in evts), reverse=True)
-        return [{"name": k, "device_ms": us / 1e3, "calls": c}
-                for us, k, c in ranked[:10] if us > 0]
 
-    row = {"phase": "wide_profile", "coordinate": "per-movie",
-           "wall_ms": wall * 1e3, "device_ms": device_ms,
-           "device_busy_share": device_ms / (wall * 1e3),
-           "top_operators": top(e for e in events if e.device_type != cuda),
-           "top_kernels": top(kernels)}
+def entity_gaps(torch, est, datasets, data, fused, unfused, *,
+                phase) -> dict:
+    """Per random-effect coordinate, the entities whose coefficients in
+    the ``fused`` and ``unfused`` fit results lie more than
+    FUSED_RE_ATOL apart. Such an entity passes only where both fits
+    stopped on its objective (FUNCTION_VALUES_CONVERGED or
+    OBJECTIVE_NOT_IMPROVING: an f32 solve in a flat valley) and the two
+    models' float64 objectives on its rows (logistic loss at each
+    model's own total scores plus the entity's L2 term) agree within
+    ROUND_OFF of 1 + |objective|. Emits their count, both fits' codes
+    for them and the largest objective gap; returns the failures."""
+    from photon_tpu_torch.optim import ConvergenceReason
+
+    flat = (int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+            int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING))
+    mats = est._fused_mat_share["ebs"]
+    scores = [total_scores(torch, r.model, datasets, data)
+              for r in (fused, unfused)]
+    out, bad = {}, {}
+    for cid in RE_IDS:
+        ds = datasets[cid]
+        wf = fused.model[cid].coefficients.double()
+        wu = unfused.model[cid].coefficients.double()
+        diff = (wf - wu).abs().amax(dim=1)
+        beyond = np.nonzero((diff > FUSED_RE_ATOL).cpu().numpy())[0]
+        codes = {name: reasons_by_code(res, ds, cid, is_fused)[beyond]
+                 for name, res, is_fused in (("fused", fused, True),
+                                             ("unfused", unfused, False))}
+        want = torch.zeros(diff.shape[0], dtype=torch.bool,
+                           device=diff.device)
+        want[torch.from_numpy(beyond).to(diff.device)] = True
+        gap = torch.full((diff.shape[0],), float("nan"),
+                         dtype=torch.float64, device=diff.device)
+        l2 = l2_weight(est, cid)
+        for eb in mats[cid]["ebs"] if beyond.size else ():
+            sel = want[eb.entity_codes.long()]
+            if not bool(sel.any()):
+                continue
+            sub = entity_subset(eb, sel)
+            x = dense_x(torch, sub)
+            ind = (sub.labels > 0.5).double()
+            objs = []
+            for (total, parts), w_all in zip(scores, (wf, wu)):
+                w = w_all[sub.entity_codes.long()][:, :x.shape[-1]]
+                z = (torch.einsum("brs,bs->br", x, w)
+                     + coordinate_offsets(sub, total - parts[cid]))
+                loss = (torch.log1p(torch.exp(-z.abs())) + z.clamp(min=0.0)
+                        - z * ind)
+                objs.append((sub.weights.double() * loss).sum(dim=1)
+                            + 0.5 * l2 * (sub.penalty_mask.double()
+                                          * w * w).sum(dim=1))
+            gap[sub.entity_codes.long()] = (
+                (objs[0] - objs[1]).abs() / (1.0 + objs[1].abs()))
+        gaps = gap[torch.from_numpy(beyond).to(gap.device)].cpu().numpy()
+        ok = (np.isin(codes["fused"], flat) & np.isin(codes["unfused"], flat)
+              & (gaps <= ROUND_OFF))
+        row = {"entities": int(diff.shape[0]),
+               "max_coefficient_diff": float(diff.max()),
+               "entities_beyond": int(beyond.size),
+               "objective_rel_gap_max": (float(np.nanmax(gaps))
+                                         if beyond.size else None),
+               "failing": int((~ok).sum())}
+        for name, c in codes.items():
+            row[f"reasons_{name}"] = {
+                ConvergenceReason(int(v)).name if v >= 0 else "none":
+                    int((c == v).sum()) for v in np.unique(c)}
+        out[cid] = row
+        if not ok.all():
+            bad[cid] = row
+    emit({"phase": phase, "bound": FUSED_RE_ATOL, "round_off": ROUND_OFF,
+          "coordinates": out})
+    return bad
+
+
+def phase_ell_routes_full(torch, arrays) -> dict:
+    """(a) The lazy per-movie coordinate past the one-hot budget, at full
+    width inside the fused fit (module docstring, phase 24a)."""
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.data import random_effect as re_data
+    from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
+    from photon_tpu_torch.data.game_data import make_game_dataset
+    from photon_tpu_torch.optim import batched, lbfgs
+    from photon_tpu_torch.utils import device_loop
+
+    t_phase = time.perf_counter()
+    data = make_game_dataset(
+        ell_labels(arrays),
+        {"global": DenseFeatures(arrays["x"]),
+         "userShard": DenseFeatures(arrays["xu"]),
+         ELL_SHARD: SparseFeatures(ell_fold(arrays), arrays["val"],
+                                   ELL_FOLD + 1)},
+        id_tags={"userId": arrays["users"], "movieId": arrays["movies"]},
+        device=WIDE_DEVICE)
+    est = ell_estimator()
+    datasets, plan_row = timed_prepare(torch, est, data)
+    movie = datasets["per-movie"]
+    budget = re_data.ONE_HOT_ELEMENT_BUDGET
+    buckets = []
+    for p in movie.device_plans():
+        b, r = p.row_ids.shape
+        k, s = p.raw.indices.shape[1], p.sub_dim
+        buckets.append({"shape": [b, r, k, s], "elements": b * r * k * s,
+                        "budget": budget,
+                        "over_budget": b * r * k * s > budget,
+                        "ell_width": p.ell_width()})
+    with unfused(est):
+        unfused_row, unfused_res = fit_trajectory(torch, est, data)
+    device_loop.reset_graph_launches()
+    cold, _ = fit_trajectory(torch, est, data)
+    cold_launches = {n: device_loop.graph_launches(n)
+                     for n in ("segment_sum", "newton_step")}
+    ff = next(iter(est._fused_cache.values())) if est._fused_cache else None
+    cap = None if ff is None else ff.captured()
+    warm, results = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(ELL_WARM):
+        device_loop.reset_graph_launches()
+        before = (ra.host_syncs, batched.host_syncs, lbfgs.host_syncs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = est.fit(data)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        warm.append({"seconds": time.perf_counter() - t0,
+                     "solver_syncs": [a - b for a, b in zip(
+                         (ra.host_syncs, batched.host_syncs,
+                          lbfgs.host_syncs), before)],
+                     "segment_launches": device_loop.graph_launches(
+                         "segment_sum"),
+                     "newton_launches": device_loop.graph_launches(
+                         "newton_step")})
+        results.append(res)
+    peak = torch.cuda.max_memory_allocated()
+    mats = est._fused_mat_share["ebs"]["per-movie"]["ebs"]
+    for info, eb in zip(buckets, mats):
+        info["materialized_ell"] = eb.x_indices is not None
+    routes = est._build_coordinates(datasets, {}, {})[
+        "per-movie"].bucket_routes()
+    for info, route in zip(buckets, routes):
+        info["route"] = route
+    bit_equal = model_arrays_equal(results[0].model, results[1].model)
+    diffs = model_diffs(torch, results[-1].model, unfused_res.model)
+    unfused_equal = model_arrays_equal(results[-1].model, unfused_res.model)
+    row = {"phase": "ell_routes_full", "rows": int(arrays["y"].shape[0]),
+           "layout": "lazy" if movie.is_lazy else "materialized",
+           "movie_max_sub_dim": movie.max_sub_dim,
+           "planner_host_seconds": plan_row["seconds"],
+           "buckets": buckets,
+           "fused": cold["fused"],
+           "capture_seconds": None if cap is None else cap.seconds,
+           "instantiate_seconds": (None if cap is None
+                                   else cap.instantiate_seconds),
+           "graph_nodes": None if cap is None else cap.nodes,
+           "conditional_nodes": (None if cap is None
+                                 else cap.conditional_nodes),
+           "captured_segment_sites": None if cap is None else cap.segment,
+           "captured_newton_buckets": (None if cap is None else {
+               "x".join(map(str, k)) if isinstance(k, tuple) else str(k): v
+               for k, v in cap.newton.items()}),
+           "cold_seconds": cold["fit_seconds"],
+           "cold_replay_launches": cold_launches,
+           "warm": warm,
+           "warm_seconds": [w["seconds"] for w in warm],
+           "unfused_seconds": unfused_row["fit_seconds"],
+           "unfused_host_syncs": unfused_row["newton_host_syncs"],
+           "max_memory_allocated_bytes_warm": peak,
+           "max_memory_allocated_bytes_unfused":
+               unfused_row["max_memory_allocated_bytes"],
+           "fused_fits_bit_identical": bit_equal,
+           "unfused_bit_identical": unfused_equal,
+           "max_abs_coefficient_diff_unfused": diffs,
+           "bounds": {"global": FUSED_FE_ATOL, "random": FUSED_RE_ATOL}}
     emit(row)
+    gaps = entity_gaps(torch, est, datasets, data, results[-1],
+                       unfused_res, phase="ell_routes_unfused_entities")
+    if not movie.is_lazy:
+        fail("ell_routes: the folded per-movie coordinate is not lazy")
+    if not any(b["over_budget"] for b in buckets):
+        fail(f"ell_routes: no per-movie bucket is over the one-hot budget: "
+             f"{buckets}")
+    if any(b["over_budget"] != b["materialized_ell"]
+           or b["materialized_ell"] != (b["ell_width"] is not None)
+           for b in buckets):
+        fail(f"ell_routes: the over-budget buckets and the ELL slabs "
+             f"disagree: {buckets}")
+    if not cold["fused"] or cap is None:
+        fail("ell_routes: the fit did not capture the fused graph")
+    if any(any(w["solver_syncs"]) for w in warm):
+        fail(f"ell_routes: a warm fused fit made a host sync: {warm}")
+    captured = {} if cap is None else cap.segment
+    if captured.get("segment_reduce/densify", 0) <= 0:
+        fail(f"ell_routes: the graph captured no densify: {captured}")
+    if any(w["segment_launches"] <= 0 or w["newton_launches"] <= 0
+           for w in warm):
+        fail(f"ell_routes: a replay launched no segment sum or no Newton "
+             f"step: {warm}")
+    if not bit_equal:
+        fail("ell_routes: two fused fits differ")
+    ell_sampled_optimality(torch, est, datasets, data, results[-1],
+                           phase="ell_routes_optimality")
+    ell_densify_parity(torch, mats, routes, "per-movie",
+                       l2_weight(est, "per-movie"))
+    if not unfused_equal and (diffs["global"] > FUSED_FE_ATOL or gaps):
+        fail(f"ell_routes: the fused and unfused models differ beyond "
+             f"{FUSED_FE_ATOL} (global) or, for an entity, beyond "
+             f"{FUSED_RE_ATOL} with no objective stop in both fits or an "
+             f"objective gap past {ROUND_OFF}: {diffs} {gaps}")
+    launches = {"segment_sum": cold_launches["segment_sum"] + sum(
+        w["segment_launches"] for w in warm),
+        "newton_step": cold_launches["newton_step"] + sum(
+            w["newton_launches"] for w in warm)}
+    emit({"phase": "ell_routes_full_done",
+          "seconds": time.perf_counter() - t_phase, "launches": launches})
+    del data, est, datasets, results, mats
+    empty_cache()
+    return launches
+
+
+def phase_ell_routes_f64(torch, arrays) -> dict:
+    """(b) The ``ell`` route at a tenth of the rows in float64 (phase
+    24b): ``per-movie`` on the wide tag shard, every bucket ELL and wide
+    (densify takes no float64), solved at fixed residuals on the card,
+    twice; then ELL_CPU_SAMPLE entities of every bucket solved on the
+    CPU by the same route (each entity's solve is its own: its
+    iterations, reason and coefficients do not depend on its bucket's
+    other entities)."""
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.algorithm import random_effect as ra
+    from photon_tpu_torch.algorithm.problems import (
+        GLMOptimizationConfiguration,
+        VarianceComputationType,
+    )
+    from photon_tpu_torch.data import random_effect as re_data
+    from photon_tpu_torch.data.dataset import SparseFeatures
+    from photon_tpu_torch.data.game_data import make_game_dataset
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    cfg = GLMOptimizationConfiguration(
+        regularization=optim.RegularizationContext(
+            optim.RegularizationType.L2), regularization_weight=1.0)
+    data = make_game_dataset(
+        arrays["y"], {WIDE_SHARD: SparseFeatures(
+            arrays["idx"], arrays["val"], WIDE_TAGS + 1)},
+        id_tags={"movieId": arrays["movies"]}, dtype=torch.float64,
+        device=WIDE_DEVICE)
+    ds = re_data.build_random_effect_dataset(
+        data, re_data.RandomEffectDataConfiguration(
+            "movieId", WIDE_SHARD, active_data_upper_bound=2048,
+            score_table_width_cap=WIDE_TABLE_CAP, min_bucket_entities=128),
+        intercept_index=WIDE_TAGS)
+    coord = ra.RandomEffectCoordinate(ds, task, cfg)
+    residuals = torch.from_numpy(np.random.default_rng(29).normal(
+        size=ds.num_rows) * 0.1).to(WIDE_DEVICE)
+    sr.reset_counts()
+    ra.route_solves.clear()
+    sync(torch, WIDE_DEVICE)
+    t0 = time.perf_counter()
+    model, stats = coord.train(residuals)
+    sync(torch, WIDE_DEVICE)
+    card_s = time.perf_counter() - t0
+    routes = dict(ra.route_solves)
+    again, _ = coord.train(residuals)
+    rerun_equal = bool(torch.equal(model.coefficients, again.coefficients))
+    # The card's per-entity results; ``stats`` is in bucket order.
+    w_card = model.coefficients.cpu().numpy()
+    its_card, rs_card = stats.iterations, stats.reasons
+    rng = np.random.default_rng(31)
+    res_cpu = residuals.cpu()
+    e, smax = ds.num_entities, ds.max_sub_dim
+    worst_excess, worst_diff, its_equal, rs_equal = -np.inf, 0.0, True, True
+    base = 0
+    cpu_routes: dict = {}
+    t0 = time.perf_counter()
+    for eb in ds.blocks:
+        b = eb.num_entities
+        pick = np.sort(rng.choice(b, size=min(ELL_CPU_SAMPLE, b),
+                                  replace=False))
+        sel = torch.from_numpy(pick).to(eb.labels.device)
+        sub = entity_subset(eb, sel, "cpu")
+        ra.route_solves.clear()
+        w_all, _, it, reason = ra._solve_block(
+            sub, res_cpu, None, None,
+            torch.zeros((e, smax), dtype=torch.float64), 0.0,
+            cfg.l2_weight, 1.0, None,
+            torch.zeros((e, smax), dtype=torch.float64), None,
+            sub_dim=eb.sub_dim, task=task, opt_config=cfg.optimizer,
+            variance_computation=VarianceComputationType.NONE,
+            direct=False, newton=True)
+        for k, v in ra.route_solves.items():
+            cpu_routes[k] = cpu_routes.get(k, 0) + v
+        codes = sub.entity_codes.long().numpy()
+        w_cpu = w_all.numpy()[codes]
+        diff = np.abs(w_card[codes] - w_cpu)
+        worst_diff = max(worst_diff, float(diff.max()))
+        worst_excess = max(worst_excess, float((diff - (
+            ELL_EXACT64["atol"] + ELL_EXACT64["rtol"] * np.abs(w_cpu))
+        ).max()))
+        its_equal &= bool(np.array_equal(its_card[base + pick],
+                                         it.numpy()))
+        rs_equal &= bool(np.array_equal(rs_card[base + pick],
+                                        reason.numpy()))
+        base += b
+    cpu_s = time.perf_counter() - t0
+    buckets = [list(b.x_indices.shape) + [b.sub_dim] for b in ds.blocks]
+    row = {"phase": "ell_routes_f64", **WIDE_REDUCED, "buckets": buckets,
+           "routes": routes, "routes_cpu_sample": cpu_routes,
+           "card_seconds": card_s, "cpu_sample_seconds": cpu_s,
+           "cpu_sample_per_bucket": ELL_CPU_SAMPLE,
+           "iterations_max": int(its_card.max()),
+           "iterations_equal": its_equal, "reasons_equal": rs_equal,
+           "max_abs_diff": worst_diff, "max_excess": worst_excess,
+           "bit_identical_rerun": rerun_equal,
+           "segment_launches": sr.launches}
+    emit(row)
+    if routes != {"ell": len(buckets)} or cpu_routes != routes:
+        fail(f"ell_routes_f64: the wide buckets took {routes} on the card "
+             f"and {cpu_routes} on the CPU, expected the ell route")
+    if not (its_equal and rs_equal):
+        fail(f"ell_routes_f64: iterations or reasons differ from the "
+             f"CPU's: {row}")
+    if not worst_excess <= 0.0:
+        fail(f"ell_routes_f64: coefficients beyond rtol 1e-9 / atol 1e-11 "
+             f"of the CPU's: {row}")
+    if not rerun_equal:
+        fail("ell_routes_f64: two solves on the card differ")
+    del data, ds, coord
     return row
+
+
+def numpy_dual_scores(model, arrays) -> np.ndarray:
+    """Float64 numpy scores of the rows (their whole ELL rows, slab and
+    tail) under ``model``: the fixed effect's dot plus each row's
+    movie's coefficients at the row's ids in its subspace."""
+    fe = model["tags"].model.coefficients.means.double().cpu().numpy()
+    idx, val = arrays["idx"].astype(np.int64), arrays["val"].astype(
+        np.float64)
+    z = np.sum(val * fe[idx], axis=1)
+    re = model["per-movie"]
+    w = re.coefficients.double().cpu().numpy()
+    proj = re.proj_all
+    code_of = {k: i for i, k in enumerate(re.entity_keys)}
+    codes = np.array([code_of.get(str(m), -1)
+                      for m in np.unique(arrays["movies"])])
+    row_codes = codes[np.searchsorted(np.unique(arrays["movies"]),
+                                      arrays["movies"])]
+    stride = WIDE_TAGS + 1
+    valid = proj >= 0
+    ent = np.broadcast_to(np.arange(proj.shape[0])[:, None], proj.shape)
+    keys = ent[valid] * stride + proj[valid]
+    order = np.argsort(keys)
+    keys, wv = keys[order], w[valid][order]
+    q = np.maximum(row_codes, 0)[:, None] * stride + idx
+    pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+    hit = (keys[pos] == q) & (row_codes[:, None] >= 0)
+    return z + np.sum(np.where(hit, val * wv[pos], 0.0), axis=1)
+
+
+def phase_ell_routes_dual(torch, arrays) -> dict:
+    """(c) The tag shard as a dual-ELL shard at a tenth of the rows: a
+    fixed effect and ``per-movie`` over it (phase 24c)."""
+    from photon_tpu_torch.algorithm.problems import (
+        GLMOptimizationConfiguration,
+    )
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.cli import score as score_cli
+    from photon_tpu_torch.data.dataset import ell_to_dual_ell
+    from photon_tpu_torch.data.game_data import make_game_dataset
+    from photon_tpu_torch.data.random_effect import (
+        RandomEffectDataConfiguration,
+    )
+    from photon_tpu_torch.estimators.game_estimator import (
+        FixedEffectCoordinateConfiguration,
+        GameEstimator,
+        RandomEffectCoordinateConfiguration,
+    )
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.transformers import GameTransformer
+    from photon_tpu_torch.types import TaskType
+
+    def l2(weight):
+        return GLMOptimizationConfiguration(
+            regularization=optim.RegularizationContext(
+                optim.RegularizationType.L2),
+            regularization_weight=weight)
+
+    dual = ell_to_dual_ell(arrays["idx"], arrays["val"], WIDE_TAGS + 1,
+                           ELL_DUAL_CAP, device=WIDE_DEVICE)
+    data = make_game_dataset(arrays["y"], {ELL_DUAL_SHARD: dual},
+                             id_tags={"movieId": arrays["movies"]},
+                             device=WIDE_DEVICE)
+    est = GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"tags": FixedEffectCoordinateConfiguration(ELL_DUAL_SHARD,
+                                                    l2(1e-3)),
+         "per-movie": RandomEffectCoordinateConfiguration(
+             RandomEffectDataConfiguration(
+                 "movieId", ELL_DUAL_SHARD, active_data_upper_bound=2048,
+                 score_table_width_cap=WIDE_TABLE_CAP,
+                 min_bucket_entities=128), l2(1.0))},
+        intercept_indices={ELL_DUAL_SHARD: WIDE_TAGS},
+        num_iterations=CD_ITERATIONS, device=WIDE_DEVICE)
+    est.prepare(data)
+    fits, seconds, launches = [], [], []
+    for _ in range(2):
+        sr.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append(est.fit(data)[0])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(dict(sr.launches_by_site))
+    bit_equal = model_arrays_equal(fits[0].model, fits[1].model)
+    sr.reset_counts()
+    scores = GameTransformer(fits[0].model).score(data).double().cpu().numpy()
+    transformer_launches = dict(sr.launches_by_site)
+    want = numpy_dual_scores(fits[0].model, arrays)
+    rel = float(np.max(np.abs(scores - want) / (1.0 + np.abs(want))))
+    report: dict = {}
+    cli_scores, _ = score_cli.score_game_dataset(fits[0].model, data,
+                                                 report=report)
+    cli_equal = bool(np.array_equal(np.asarray(cli_scores, np.float64),
+                                    scores))
+    row = {"phase": "ell_routes_dual", **WIDE_REDUCED,
+           "width_cap": ELL_DUAL_CAP,
+           "tail_entries": int(dual.tail_rows.shape[0]),
+           "fused": bool(est._fused_cache) and est.emitter is None,
+           "fit_seconds": seconds,
+           "launches_by_site": launches,
+           "transformer_launches_by_site": transformer_launches,
+           "fits_bit_identical": bit_equal,
+           "score_max_rel_err": rel,
+           "cli_route": report.get("serve_kernel"),
+           "cli_scores_equal": cli_equal}
+    emit(row)
+    for site in ("fixed_effect", "segment_reduce/score_tail"):
+        if any(n.get(site, 0) <= 0 for n in launches):
+            fail(f"ell_routes_dual: no launch at the {site} site: {row}")
+    if not bit_equal:
+        fail("ell_routes_dual: two fits on the dual shard differ")
+    if not rel <= ELL_SCORE_REL:
+        fail(f"ell_routes_dual: GameTransformer's scores are {rel} from "
+             f"the float64 numpy score (bound {ELL_SCORE_REL})")
+    if report.get("serve_kernel") != "transformer" or not cli_equal:
+        fail(f"ell_routes_dual: cli.score's fallback route disagrees: "
+             f"{row}")
+    return row
+
+
+def phase_ell_routes(torch, arrays) -> dict:
+    """Phase 24a on the wide group's full-width arrays: the launches it
+    counted on the card (``segment_launches``, ``newton_launches``)."""
+    t0 = time.perf_counter()
+    full = phase_ell_routes_full(torch, arrays)
+    emit({"phase": "ell_routes", "part": "a",
+          "t": time.perf_counter() - t0})
+    return {"segment_launches": full["segment_sum"],
+            "newton_launches": full["newton_step"]}
+
+
+def phase_ell_routes_small(torch, arrays) -> dict:
+    """Phases 24b and 24c on ``wide_logistic``'s arrays (a tenth of the
+    rows): the segment-sum launches they counted."""
+    t0 = time.perf_counter()
+    f64 = phase_ell_routes_f64(torch, arrays)
+    emit({"phase": "ell_routes", "part": "b",
+          "t": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    dual = phase_ell_routes_dual(torch, arrays)
+    emit({"phase": "ell_routes", "part": "c",
+          "t": time.perf_counter() - t0})
+    return {"segment_launches_small": f64["segment_launches"] + sum(
+        sum(d.values()) for d in dual["launches_by_site"])}
 
 
 def phase_wide(torch) -> dict:
@@ -8031,7 +8772,6 @@ def phase_wide(torch) -> dict:
     phase_wide_optimality(torch, wide, fit)
     phase_wide_route_agreement(torch, wide, fit)
     phase_wide_train_serve(torch, wide, fit)
-    phase_wide_profile(torch, wide, fit)
     # The Newton kernel's wide design at full width: the per-movie gram
     # bucket, on logistic operands over the same data.
     cid, _, eb, _, _ = next(b for b in bucket_routes(wide["datasets"])
@@ -8047,16 +8787,24 @@ def phase_wide(torch) -> dict:
     top = max((r for r in timing if r["site"] in FIT_SITES),
               key=lambda r: launches.get(r["site"], 0) * r["ms"]
               / len(by_site[r["site"]]))
+    arrays = wide["arrays"]
     del wide, fit
     empty_cache()
-    phase_wide_logistic(torch)
+    ell = phase_ell_routes(torch, arrays)
+    del arrays
+    empty_cache()
+    logistic = phase_wide_logistic(torch)
+    ell.update(phase_ell_routes_small(torch, logistic.pop("arrays")))
     return {
         "name": "segment_sum",
         "route": "cuda",
         "source": sr.SOURCE,
         "replaces": SEGMENT_REPLACES,
         "launches": sum(launches.values()),
-        "launches_by_path": {"wide_fit": sum(launches.values())},
+        "launches_by_path": {"wide_fit": sum(launches.values()),
+                             "ell_routes": ell["segment_launches"]
+                             + ell["segment_launches_small"]},
+        "ell_routes_newton_launches": ell["newton_launches"],
         "max_abs_err": worst,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -8113,6 +8861,38 @@ def fits_only(torch, n: int) -> int:
     return 0
 
 
+def cli_phases(torch, train_cli: dict, serve_sketch: str | None) -> tuple:
+    """Phases 14b-14h once 14a has written its files: the phases that
+    only read them (14b train_cli_routes, 14d stream_cli and 14f
+    glm_cli, each through ``phase_child``; 14e's tuned runs, 14g's
+    pilot and 14h's cli.profile, through their ``--cli-child`` specs)
+    run at once, each in a process of its own that counts its launches,
+    beside 14c in this process. Returns the results of 14d, 14b, 14f,
+    14c, 14e, 14g and 14h."""
+    root = train_cli["root"]
+    children = in_background(cli_children, [
+        phase_child(name, os.path.join(root, f"phase-{tag}"), *args)
+        for name, tag, args in (
+            ("phase_stream_cli", "stream", (train_cli, serve_sketch)),
+            ("phase_train_cli_routes", "routes", (train_cli,)),
+            ("phase_glm_cli", "glm", (train_cli,)))]
+        + tuning_jobs(train_cli) + pilot_jobs(train_cli)
+        + profile_jobs(train_cli), env=dict(os.environ))
+    try:
+        routes = phase_train_routes(torch)
+    except BaseException:
+        with contextlib.suppress(BaseException):
+            children(cancel=True)
+        raise
+    empty_cache()
+    stream, cli_routes, glm, *tuned, piloted, profiled = children()
+    stream, cli_routes, glm = map(phase_result, (stream, cli_routes, glm))
+    return (stream, cli_routes, glm, routes,
+            phase_tuning_cli(torch, train_cli, tuned),
+            phase_pilot_cli(torch, train_cli, piloted),
+            phase_profile_cli(torch, profiled))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description="Smoke run of photon_tpu_torch on one NVIDIA GPU.")
@@ -8122,6 +8902,9 @@ def main() -> int:
                     help="run only the full-width fits, N warm times each")
     ap.add_argument("--train-cli", action="store_true",
                     help="run only the training CLI phases")
+    ap.add_argument("--cli", action="store_true",
+                    help="run only phase 14a and then 14b-14h as the "
+                         "whole run runs them")
     ap.add_argument("--train-routes", action="store_true",
                     help="run only the optimizer-routes phase")
     ap.add_argument("--serve", action="store_true",
@@ -8137,6 +8920,8 @@ def main() -> int:
                          "files")
     ap.add_argument("--profile", action="store_true",
                     help="run only the cli.profile phase (14h)")
+    ap.add_argument("--ell-routes", action="store_true",
+                    help="run only the ell_routes phase (24)")
     ap.add_argument("--cli-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -8188,6 +8973,13 @@ def main() -> int:
     phase_graph_loops(torch)
     if args.fits > 0:
         return fits_only(torch, args.fits)
+    if args.ell_routes:
+        phase_ell_routes(torch, wide_arrays())
+        empty_cache()
+        phase_ell_routes_small(
+            torch, wide_arrays(**WIDE_REDUCED, task="logistic"))
+        print(smi, flush=True)
+        return 0
     if args.tuning:
         cli = phase_train_cli(torch, *serving_arrays())
         phase_tuning_cli(torch, cli, cli_children(tuning_jobs(cli)))
@@ -8208,6 +9000,10 @@ def main() -> int:
     if args.train_cli:
         phase_train_cli_routes(torch, phase_train_cli(torch,
                                                       *serving_arrays()))
+        print(smi, flush=True)
+        return 0
+    if args.cli:
+        cli_phases(torch, phase_train_cli(torch, *serving_arrays()), None)
         print(smi, flush=True)
         return 0
     if args.train_routes:
@@ -8261,28 +9057,10 @@ def main() -> int:
     newton = phase_train(torch)
     empty_cache()
     train_cli = phase_train_cli(torch, arrays, manifest)
-    stream = phase_stream_cli(torch, train_cli, ops["health_sketch"])
     empty_cache()
-    # The pilot's and cli.profile's children start beside the tuned
-    # runs', and all beside 14b (they only read train_cli's files, or
-    # none; the children count their launches in their own processes).
-    children = in_background(cli_children, tuning_jobs(train_cli)
-                             + pilot_jobs(train_cli)
-                             + profile_jobs(train_cli))
-    try:
-        cli_routes = phase_train_cli_routes(torch, train_cli)
-    except BaseException:
-        with contextlib.suppress(BaseException):
-            children(cancel=True)
-        raise
+    stream, cli_routes, glm, routes, tuning, pilot, profiles = cli_phases(
+        torch, train_cli, ops["health_sketch"])
     empty_cache()
-    *tuned, piloted, profiled = children()
-    tuning = phase_tuning_cli(torch, train_cli, tuned)
-    pilot = phase_pilot_cli(torch, train_cli, piloted)
-    profiles = phase_profile_cli(torch, profiled)
-    glm = phase_glm_cli(torch, train_cli)
-    empty_cache()
-    routes = phase_train_routes(torch)
     newton["launches_by_path"] = {
         "fit": newton["launches"], "train_cli": train_cli["newton_launches"],
         "stream_cli": stream["newton_launches"],
@@ -8296,6 +9074,9 @@ def main() -> int:
                                 train_cli["newton_parity_max_abs_diff"])
     empty_cache()
     segment = phase_wide(torch)
+    newton["launches_by_path"]["ell_routes"] = segment.pop(
+        "ell_routes_newton_launches")
+    newton["launches"] = sum(newton["launches_by_path"].values())
     segment["launches_by_path"]["score_cli_evaluation"] = batch[
         "evaluation_launches"]
     segment["launches_by_path"]["stream_cli_evaluation"] = stream[

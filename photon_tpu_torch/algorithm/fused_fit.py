@@ -80,6 +80,7 @@ from photon_tpu_torch.models.game import (
     GameModel,
     RandomEffectModel,
     bucket_score_parts,
+    bucket_slab,
     passive_raw_scores,
     score_raw_features,
 )
@@ -188,10 +189,14 @@ def fuse_eligible(coords: dict) -> bool:
 
 def _re_statics(coord: RandomEffectCoordinate) -> dict:
     """Static solver routing for one random-effect coordinate
-    (``RandomEffectCoordinate._routes``)."""
+    (``RandomEffectCoordinate._routes``), with each bucket's route
+    (``RandomEffectCoordinate.bucket_routes``: a lazy bucket past the
+    one-hot budget replays the densify kernel, then the Newton kernel
+    or the batch-minor loop; a float64 one the ``ell`` route)."""
     cfg = coord.config
     direct, newton = coord._routes()
     return dict(
+        routes=coord.bucket_routes(),
         task=coord.task,
         opt_config=cfg.optimizer,
         use_owlqn=cfg.l1_weight != 0.0,
@@ -237,6 +242,7 @@ def fused_static_key(coords: dict, seq: list, num_iterations: int,
                 ds.num_entities, ds.max_sub_dim,
                 tuple((tuple(b.row_ids.shape), tuple(b.proj.shape))
                       for b in ds.blocks),
+                st["routes"],
             ))
     return tuple(parts)
 
@@ -525,16 +531,15 @@ class FusedFit:
         """Model contribution per canonical row (active and passive):
         the bucket slabs' scores and the passive rows' raw-feature
         scores concatenated, put in row order by one gather (the unfused
-        ``_score_via_buckets``); off the raw shard when a bucket is
-        ELL."""
+        ``_score_via_buckets``; an ELL bucket scores from its slots and
+        values)."""
         n = op["score_codes"].shape[0]
         proj_dev = mat["proj_dev"]
-        if (any(eb.x_indices is not None for eb in mat["ebs"])
-                or mat["score_inv"] is None):
+        if mat["score_inv"] is None:
             return score_raw_features(w, op["score_codes"], op["raw"],
                                       proj_dev)
         parts = bucket_score_parts(
-            w, tuple(eb.x_values for eb in mat["ebs"]), mat["codes"])
+            w, tuple(bucket_slab(eb) for eb in mat["ebs"]), mat["codes"])
         if op["passive"] is not None:
             parts.append(passive_raw_scores(
                 w, op["passive"], op["score_codes"], op["raw"], proj_dev))

@@ -10,8 +10,9 @@ gram route, ``_solve_direct_gram``) where the planner's window bounds
 allow, else from a dense slab (``_solve_direct_batched``). A wide ELL
 bucket is densified for it by the same kernel (``densify_ell_blocks``).
 For a well-posed logistic or Poisson bucket the bucket runs damped
-Newton/IRLS (``_solve_newton_batched``) on a dense slab, with
-per-entity convergence through the reference's cascade:
+Newton/IRLS (``_solve_newton_batched``) on a dense slab (a wide ELL
+bucket densified by the segment-sum kernel first), with per-entity
+convergence through the reference's cascade:
 
 - the Newton-step route, taken when ``newton_kernel.kernel_supported``
   holds (f32; R * S <= 16384, or up to S = 128 slots any bucket whose
@@ -39,14 +40,20 @@ its solo solve, as the reference's ``jax.vmap`` gives), on the
 effective-coefficient objective with the masked L2 or the Gaussian
 prior. An ELL bucket is densified for it (``segment_reduce.densify_ell``).
 
+A well-posed logistic or Poisson ELL bucket that densify does not take
+(float64, or more than 1,024 slots) takes the ``ell`` route,
+``_solve_newton_ell``: the reference's per-entity Newton solve
+(``_solve_one_entity_newton``, vmapped) batched over the bucket, each
+entity's transformed design densified column by column (no float
+atomics), the same damped steps with one-pass Armijo trials, each
+direction by unrefined S-step CG, and each entity's variances from its
+own design.
+
 Coefficients are solved in the transformed (normalized) space and
 reported in the original one; the per-entity intercept slot carries the
 shift mass. SIMPLE and FULL variances come at the optimum on every
 route but the gram route, which ``block_route`` refuses when they are
 asked for: padded slots report 0 and valid slots with no curvature inf.
-The per-entity Newton solve of an ELL bucket that densify does not take
-(f64 logistic on a wide bucket) is not ported (ROADMAP Queue A) and
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,9 +70,9 @@ from photon_tpu_torch.algorithm.problems import (
     VarianceComputationType,
     cholesky_inverse_diagonal,
 )
+from photon_tpu_torch.data import random_effect as re_data
 from photon_tpu_torch.data.random_effect import (
     DENSE_SUB_DIM_MAX,
-    ONE_HOT_ELEMENT_BUDGET,
     BlockPlan,
     RandomEffectDataset,
 )
@@ -247,21 +254,25 @@ def _direct_result(w: torch.Tensor, variances: torch.Tensor):
 
 
 def _entity_variances(x, curvature, factors, shifts, l2_diag, valid_mask,
-                      variance_computation: VarianceComputationType):
+                      variance_computation: VarianceComputationType,
+                      x_sq=None):
     """Each entity's variances from its RAW design x [B, R, S] and
     curvature ``weights * d2l/dz2`` [B, R], through its projected
     normalization (the reference's ``variances_in_transformed_space``
     per entity): SIMPLE inverts f^2 (sum c x^2 - 2 s sum c x + s^2 sum
     c) + l2_diag, FULL takes the Cholesky inverse's diagonal of
     F (H_raw - s a^T - a s^T + (sum c) s s^T) F + diag(l2_diag). Slots
-    with no curvature get inf, padded slots 0; original space."""
+    with no curvature get inf, padded slots 0; original space. ``x_sq``
+    replaces ``x * x`` in SIMPLE: an ELL bucket's squares taken entry by
+    entry (the reference's ELL ``rmatvec_sq``)."""
     c = curvature
     cs = precision_mod.like_storage(c, x)
     normalized = factors is not None or shifts is not None
     sh = torch.zeros_like(l2_diag) if shifts is None else shifts
     fa = torch.ones_like(l2_diag) if factors is None else factors
     if variance_computation == VarianceComputationType.SIMPLE:
-        diag = precision_mod.acc_einsum("brs,br->bs", x * x, cs)
+        diag = precision_mod.acc_einsum(
+            "brs,br->bs", x * x if x_sq is None else x_sq, cs)
         if normalized:
             d1 = precision_mod.acc_einsum("brs,br->bs", x, cs)
             tot = torch.sum(c, dim=-1)[:, None]
@@ -423,16 +434,22 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
                           w0_orig, prior, *, sub_dim: int, task: TaskType,
                           opt_config: optim.OptimizerConfig,
                           variance_computation: VarianceComputationType,
-                          l2_weight: float, incremental_weight: float):
+                          l2_weight: float, incremental_weight: float,
+                          per_entity: bool = False, x_sq=None):
     """Damped Newton/IRLS for a whole dense bucket x [B, R, S]. Returns
     (w [B, S] original space, variances, iterations [B], reasons [B]).
     Solver state is in the labels' dtype; a bf16 slab is read bf16 with
     f32 accumulators (reference :579-587, :690-717) and takes the plain
-    route, as the Newton kernel takes f32 only."""
+    route, as the Newton kernel takes f32 only. ``per_entity`` is the
+    ``ell`` route's arithmetic (reference :815-969): never the kernel,
+    each direction by ``_spd_solve_cg(refine=False)`` and each entity's
+    variances from its own raw design (``_entity_variances``, with the
+    entry-by-entry squares ``x_sq``)."""
     global plain_route_solves
     dtype = labels.dtype
     dev = labels.device
     b = x.shape[0]
+    x_raw = x
     if shifts is not None:
         x = x - precision_mod.like_storage(shifts, x)[:, None, :]
     if factors is not None:
@@ -475,14 +492,16 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
     code = torch.zeros(b, dtype=torch.int32, device=dev)
     trials = _NEWTON_LINE_SEARCH_HALVINGS + 1
     r = x.shape[1]
-    kernel_route = nk.kernel_supported(task, x.dtype, r, sub_dim)
+    kernel_route = (not per_entity
+                    and nk.kernel_supported(task, x.dtype, r, sub_dim))
     if kernel_route:
         x = x.contiguous()
         step_args = [t.contiguous() for t in (
             labels, weights, offsets, l2_diag.expand(b, sub_dim),
             m_t.expand(b, sub_dim), valid_mask)]
     else:
-        plain_route_solves += 1
+        if not per_entity:
+            plain_route_solves += 1
         trial_ts = 0.5 ** torch.arange(trials, dtype=dtype, device=dev)
         eye = torch.eye(sub_dim, dtype=dtype, device=dev)[None]
         diag = (l2_diag[:, :, None] * eye
@@ -505,7 +524,10 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
                 "brs,brt->bst",
                 x * precision_mod.like_storage(curvature, x)[:, :, None], x)
             h = h + diag
-            d = _spd_solve_cg_sb(h, -g, sub_dim, active) * valid_mask
+            if per_entity:
+                d = _spd_solve_cg(h, -g, sub_dim, refine=False) * valid_mask
+            else:
+                d = _spd_solve_cg_sb(h, -g, sub_dim, active) * valid_mask
             gd = torch.sum(g * d, dim=-1)
             bad = gd >= 0.0
             d = torch.where(bad[:, None], -g, d)
@@ -541,12 +563,45 @@ def _solve_newton_batched(x, labels, offsets, weights, penalty_mask,
     w_t = w * valid_mask
     if variance_computation == VarianceComputationType.NONE:
         variances = torch.zeros_like(w_t)
+    elif per_entity:
+        curvature = weights * loss.dzz(margins(w_t) + offsets, labels)
+        variances = _entity_variances(
+            x_raw, curvature, factors, shifts, l2_diag, valid_mask,
+            variance_computation, x_sq=x_sq)
     else:
         variances = _batched_variances(
             x, labels, offsets, weights, w_t, l2_diag, valid_mask, factors,
             loss, variance_computation)
     w_orig = _coef_to_original(w_t, factors, shifts, int_onehot) * valid_mask
     return w_orig, variances, it, code
+
+
+def _solve_newton_ell(x_indices, x_values, labels, offsets, weights,
+                      penalty_mask, valid_mask, factors, shifts,
+                      intercept_slots, w0_orig, prior, *, sub_dim: int,
+                      task: TaskType, opt_config: optim.OptimizerConfig,
+                      variance_computation: VarianceComputationType,
+                      l2_weight: float, incremental_weight: float):
+    """The ``ell`` route: the reference's per-entity Newton solve of an
+    ELL bucket (``_solve_one_entity_newton`` under ``jax.vmap``) for the
+    whole bucket at once. Each entity's design is densified in the
+    values' dtype (``_materialize_transformed_design``'s ``.at[].add``,
+    one scatter per ELL column, so duplicates sum in a fixed order);
+    then the damped Newton loop of ``_solve_newton_batched`` with the
+    per-entity arithmetic, a ``device_loop`` loop without host syncs
+    inside a CUDA graph. SIMPLE variances square a duplicate slot's
+    entries one by one, as the reference's ELL ``rmatvec_sq`` does."""
+    x = segment_reduce.densify_ell_plain(x_indices, x_values, sub_dim)
+    x_sq = None
+    if variance_computation == VarianceComputationType.SIMPLE:
+        x_sq = segment_reduce.densify_ell_plain(
+            x_indices, x_values * x_values, sub_dim)
+    return _solve_newton_batched(
+        x, labels, offsets, weights, penalty_mask, valid_mask, factors,
+        shifts, intercept_slots, w0_orig, prior, sub_dim=sub_dim, task=task,
+        opt_config=opt_config, variance_computation=variance_computation,
+        l2_weight=l2_weight, incremental_weight=incremental_weight,
+        per_entity=True, x_sq=x_sq)
 
 
 def _solve_quasi_newton_batched(x, labels, offsets, weights, penalty_mask,
@@ -663,20 +718,36 @@ def block_route(block, sub_dim: int, *, direct: bool, newton: bool,
     - ``one_hot``: a narrow ELL bucket densified by a one-hot product;
     - ``gram``: a direct solve straight from the ELL blocks;
     - ``densify``: a wide ELL bucket densified by the segment-sum kernel;
-    - ``ell``: the bucket stays ELL (a shape densify does not take).
+    - ``ell``: the bucket stays ELL (a shape or dtype densify does not
+      take): a Newton bucket takes ``_solve_newton_ell``, the
+      per-entity Newton solve; a quasi-Newton or direct one densifies
+      in its solver (``segment_reduce.densify_ell``).
     """
-    if block.x_indices is None:
+    shape = None if block.x_indices is None else tuple(
+        block.x_indices.shape)
+    return route_of(shape, block.x_values.dtype, sub_dim, direct=direct,
+                    newton=newton, gram_mults=gram_mults, shifts=shifts,
+                    variances=variances)
+
+
+def route_of(ell_shape: tuple | None, dtype, sub_dim: int, *, direct: bool,
+             newton: bool, gram_mults: tuple | None, shifts: bool,
+             variances: bool) -> str:
+    """``block_route`` from a bucket's ELL shape ``[B, R, k]`` (None for
+    a subspace-dense slab) and its slab dtype."""
+    if ell_shape is None:
         return "dense"
+    b, r, k = ell_shape
     if (sub_dim <= DENSE_SUB_DIM_MAX
-            and block.x_indices.numel() * sub_dim <= ONE_HOT_ELEMENT_BUDGET):
+            and b * r * k * sub_dim <= re_data.ONE_HOT_ELEMENT_BUDGET):
         return "one_hot"
     if (direct and gram_mults is not None and not shifts and not variances
             and segment_reduce.ell_gram_supported(
-                *block.x_indices.shape, sub_dim, grad_mult=gram_mults[0],
+                b, r, k, sub_dim, grad_mult=gram_mults[0],
                 hess_mult=gram_mults[1])):
         return "gram"
     if (direct or newton) and segment_reduce.densify_supported(
-            *block.x_indices.shape, sub_dim, block.x_values.dtype):
+            b, r, k, sub_dim, dtype):
         return "densify"
     return "ell"
 
@@ -764,7 +835,14 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
             variance_computation=variance_computation, l2_weight=l2_weight,
             incremental_weight=incremental_weight)
     elif newton and block.x_indices is not None:
-        raise optim.not_ported("the per-entity Newton solve of an ELL bucket")
+        w0 = w0_full.to(dtype)[take][:, :s]
+        w, v, it, reason = _solve_newton_ell(
+            block.x_indices, block.x_values, block.labels, offsets,
+            block.weights, block.penalty_mask, block.valid_mask, factors_sub,
+            shifts_sub, block.intercept_slots, w0, prior, sub_dim=s,
+            task=task, opt_config=opt_config,
+            variance_computation=variance_computation, l2_weight=l2_weight,
+            incremental_weight=incremental_weight)
     else:
         w0 = w0_full.to(dtype)[take][:, :s]
         solver = (_solve_newton_batched if newton
@@ -811,6 +889,32 @@ class RandomEffectCoordinate:
         newton = well_posed and self.task in (
             TaskType.LOGISTIC_REGRESSION, TaskType.POISSON_REGRESSION)
         return direct, newton
+
+    def bucket_routes(self) -> tuple:
+        """Each bucket's ``block_route``, from the shapes alone (a lazy
+        bucket's ELL width by ``BlockPlan.ell_width``): what the fused
+        fit's static key records."""
+        ds = self.dataset
+        direct, newton = self._routes()
+        dtype = (torch.bfloat16 if precision_mod.is_mixed(self.precision)
+                 else ds.dtype)
+        out = []
+        for i, b in enumerate(ds.blocks):
+            if isinstance(b, BlockPlan):
+                k = b.ell_width()
+                bb, r = b.row_ids.shape
+                shape = None if k is None else (bb, r, k)
+            else:
+                shape = (None if b.x_indices is None
+                         else tuple(b.x_indices.shape))
+            out.append(route_of(
+                shape, dtype, b.proj.shape[-1], direct=direct, newton=newton,
+                gram_mults=(ds.block_gram_mults[i]
+                            if i < len(ds.block_gram_mults) else None),
+                shifts=self.normalization.shifts is not None,
+                variances=(self.config.variance_computation
+                           != VarianceComputationType.NONE)))
+        return tuple(out)
 
     def check_trainable(self) -> list:
         """The host checks a solve needs (numpy, never the card): shifts

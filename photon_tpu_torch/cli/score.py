@@ -256,11 +256,13 @@ def score_game_dataset(model, data, *, mesh=None, evaluators=None,
     coefficient tables and the ``BATCH_RUNGS`` ladder's
     ``score_dataset`` (one serve-kernel launch per chunk on the card),
     so a score computed offline and one served online for the same row
-    come from one scorer. A shard with no fixed row layout raises
-    (``specs_from_dataset``). Returns ([n] f32 numpy scores, the
-    evaluation or None); ``report``, when given, receives the seconds of
-    the table build, the scoring and the evaluation and the ladder's
-    route and dispatch counts."""
+    come from one scorer. A dataset with a shard of no fixed row layout
+    (a ``DualEllFeatures`` shard: ``specs_from_dataset`` raises
+    ``TypeError``) scores through ``GameTransformer`` instead, as the
+    reference's does (its ``serve_kernel`` is then ``"transformer"``).
+    Returns ([n] numpy scores, the evaluation or None); ``report``, when
+    given, receives the seconds of the table build, the scoring and the
+    evaluation and the ladder's route and dispatch counts."""
     import numpy as np
 
     from photon_tpu_torch.device import MESH_NOT_PORTED
@@ -277,7 +279,16 @@ def score_game_dataset(model, data, *, mesh=None, evaluators=None,
     report = {} if report is None else report
     seconds = report.setdefault("seconds", {})
     t0 = time.perf_counter()
-    specs = specs_from_dataset(data)
+    try:
+        specs = specs_from_dataset(data)
+    except TypeError:
+        from photon_tpu_torch.transformers import GameTransformer
+
+        scores, evaluation = GameTransformer(model).transform(
+            data, evaluators)
+        seconds["score"] = time.perf_counter() - t0
+        report["serve_kernel"] = "transformer"
+        return scores.detach().cpu().numpy(), evaluation
     tables = CoefficientTables.from_game_model(model, "float32", data.device)
     # score_dataset runs its own chunk loop: no rung graph is captured.
     programs = ScorePrograms(tables, ladder=ShapeLadder(BATCH_RUNGS),
@@ -307,6 +318,8 @@ def _alias_shards(data, shard_names):
     for s in missing:
         shards[s] = data.feature_shards["features"]
         host[("shard", s)] = data.host[("shard", "features")]
+        if ("tail", "features") in data.host:
+            host[("tail", s)] = data.host[("tail", "features")]
     return dataclasses.replace(data, feature_shards=shards, host=host)
 
 

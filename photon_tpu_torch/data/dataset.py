@@ -80,10 +80,38 @@ class _TransposePlan:
     feature id): their int32 keys ``block * d + id``, values and int32
     rows, and the number of row blocks."""
 
-    ids: torch.Tensor  # [n k] int32, sorted
-    values: torch.Tensor  # [n k]
-    rows: torch.Tensor  # [n k] int32
+    ids: torch.Tensor  # [m] int32, sorted
+    values: torch.Tensor  # [m]
+    rows: torch.Tensor  # [m] int32
     parts: int
+
+
+def _sorted_transpose(rows: torch.Tensor, ids: torch.Tensor,
+                      values: torch.Tensor, num_rows: int,
+                      d: int) -> _TransposePlan:
+    """The transpose plan of entries given in row order (``rows``
+    ascending): one stable sort by (row block, feature id), so each
+    feature's entries keep their row order within a block."""
+    m = int(rows.shape[0])
+    k = -(-m // max(num_rows, 1))
+    block_rows = transpose_block_rows(num_rows, max(k, 1), d)
+    parts = max(-(-num_rows // block_rows), 1)
+    keys = (rows // block_rows) * d + ids.long()
+    keys, order = torch.sort(keys, stable=True)
+    return _TransposePlan(keys.to(torch.int32),
+                          values[order].contiguous(),
+                          rows[order].to(torch.int32), parts)
+
+
+def _transpose_reduce(plan: _TransposePlan, slots: torch.Tensor,
+                      d: int) -> torch.Tensor:
+    """``[d]`` sums of the plan's weighted slots at the ``fixed_effect``
+    site, the row blocks' partial sums added per feature."""
+    out = segment_reduce.sorted_segment_sum(
+        slots, plan.ids, plan.parts * d, site="fixed_effect")
+    if plan.parts > 1:
+        out = out.view(plan.parts, d).sum(0)
+    return out.to(slots.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,36 +141,125 @@ class SparseFeatures:
         slot ids never change while the features live."""
         if self._plan is None:
             n, k = self.indices.shape
-            block_rows = transpose_block_rows(n, k, self.d)
-            parts = -(-n // block_rows)
             rows = torch.arange(n * k, device=self.indices.device) // k
-            keys = (rows // block_rows) * self.d + self.indices.reshape(-1)
-            keys, order = torch.sort(keys, stable=True)
-            object.__setattr__(self, "_plan", _TransposePlan(
-                keys.to(torch.int32),
-                self.values.reshape(-1)[order].contiguous(),
-                rows[order].to(torch.int32), parts))
+            object.__setattr__(self, "_plan", _sorted_transpose(
+                rows, self.indices.reshape(-1), self.values.reshape(-1),
+                n, self.d))
         return self._plan
-
-    def _reduce(self, plan: _TransposePlan,
-                slots: torch.Tensor) -> torch.Tensor:
-        out = segment_reduce.sorted_segment_sum(
-            slots, plan.ids, plan.parts * self.d, site="fixed_effect")
-        if plan.parts > 1:
-            out = out.view(plan.parts, self.d).sum(0)
-        return out.to(slots.dtype)
 
     def rmatvec(self, g: torch.Tensor) -> torch.Tensor:
         plan = self.transpose_plan()
-        return self._reduce(plan, plan.values * g.index_select(0, plan.rows))
+        return _transpose_reduce(
+            plan, plan.values * g.index_select(0, plan.rows), self.d)
 
     def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
         plan = self.transpose_plan()
-        return self._reduce(plan, plan.values * plan.values
-                            * g.index_select(0, plan.rows))
+        return _transpose_reduce(
+            plan, plan.values * plan.values * g.index_select(0, plan.rows),
+            self.d)
 
 
-Features = Union[DenseFeatures, SparseFeatures]
+@dataclasses.dataclass(frozen=True)
+class DualEllFeatures:
+    """A bounded-width ELL slab plus a COO tail of the entries past its
+    width cap (``tail_rows`` ascending), so one wide row does not widen
+    every row. The tail's per-row sums in ``matvec`` run over its sorted
+    rows through ``segment_reduce.sorted_segment_sum`` (site
+    ``dual_ell_tail``); the transposes reduce the slab's and the tail's
+    entries together through one plan sorted by (row block, feature id),
+    as ``SparseFeatures``' do, at the ``fixed_effect`` site. No float
+    atomics: two fits are equal bit for bit."""
+
+    indices: torch.Tensor  # [n, cap] int32; padding -> (0, value 0)
+    values: torch.Tensor  # [n, cap]
+    tail_rows: torch.Tensor  # [t] int32, ascending
+    tail_indices: torch.Tensor  # [t] int32
+    tail_values: torch.Tensor  # [t]
+    d: int
+    _plan: _TransposePlan | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    @property
+    def num_features(self) -> int:
+        return self.d
+
+    @property
+    def num_rows(self) -> int:
+        return self.indices.shape[0]
+
+    def matvec(self, w: torch.Tensor) -> torch.Tensor:
+        base = torch.sum(self.values * w[self.indices.long()], dim=-1)
+        tail = self.tail_values * w[self.tail_indices.long()]
+        summed = segment_reduce.sorted_segment_sum(
+            tail, self.tail_rows, self.num_rows, site="dual_ell_tail")
+        return base + summed.to(base.dtype)
+
+    def transpose_plan(self) -> _TransposePlan:
+        """The slab's and the tail's entries in row order (a row's slab
+        entries before its tail entries), then sorted as
+        ``SparseFeatures.transpose_plan`` sorts; built once."""
+        if self._plan is None:
+            n, cap = self.indices.shape
+            dev = self.indices.device
+            rows = torch.cat([
+                torch.arange(n * cap, device=dev) // cap,
+                self.tail_rows.long()])
+            ids = torch.cat([self.indices.reshape(-1).long(),
+                             self.tail_indices.long()])
+            vals = torch.cat([self.values.reshape(-1), self.tail_values])
+            rows, order = torch.sort(rows, stable=True)
+            object.__setattr__(self, "_plan", _sorted_transpose(
+                rows, ids[order], vals[order], n, self.d))
+        return self._plan
+
+    def rmatvec(self, g: torch.Tensor) -> torch.Tensor:
+        plan = self.transpose_plan()
+        return _transpose_reduce(
+            plan, plan.values * g.index_select(0, plan.rows), self.d)
+
+    def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
+        plan = self.transpose_plan()
+        return _transpose_reduce(
+            plan, plan.values * plan.values * g.index_select(0, plan.rows),
+            self.d)
+
+
+def ell_to_dual_ell(indices, values, num_features: int, width_cap: int,
+                    dtype: torch.dtype = torch.float32,
+                    device=None) -> DualEllFeatures:
+    """Split a host ELL slab at ``width_cap``: each row's nonzero
+    entries are compacted left, the first ``width_cap`` stay in the
+    slab and the rest spill to the tail, on ``device`` (default
+    ``cuda``)."""
+    dev = device_mod.resolve(device)
+    indices = np.asarray(indices)
+    values = np.asarray(values)
+    n, k = indices.shape
+    cap = max(min(width_cap, k), 1)
+    present = values != 0.0
+    order = np.argsort(~present, axis=1, kind="stable")
+    idx_c = np.take_along_axis(np.where(present, indices, 0), order, axis=1)
+    val_c = np.take_along_axis(np.where(present, values, 0.0), order,
+                               axis=1)
+    tail_mask = val_c[:, cap:] != 0.0
+    rows = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None],
+                           tail_mask.shape)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
+    def put(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+
+    return DualEllFeatures(
+        indices=put(idx_c[:, :cap], np.int32),
+        values=put(val_c[:, :cap], np_dtype),
+        tail_rows=put(rows[tail_mask], np.int32),
+        tail_indices=put(idx_c[:, cap:][tail_mask], np.int32),
+        tail_values=put(val_c[:, cap:][tail_mask], np_dtype),
+        d=num_features,
+    )
+
+
+Features = Union[DenseFeatures, SparseFeatures, DualEllFeatures]
 
 
 @dataclasses.dataclass(frozen=True)

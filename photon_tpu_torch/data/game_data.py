@@ -17,6 +17,7 @@ import torch
 from photon_tpu_torch import device as device_mod
 from photon_tpu_torch.data.dataset import (
     DenseFeatures,
+    DualEllFeatures,
     Features,
     GLMBatch,
     SparseFeatures,
@@ -90,16 +91,18 @@ class GameDataset:
 
     def host_shard_coo(self, shard_id: str):
         """Host ``(indices [n, k], values [n, k], d)`` ELL view of a
-        feature shard (a dense shard broadcasts ``arange(d)``)."""
+        feature shard (a dense shard broadcasts ``arange(d)``). For a
+        ``DualEllFeatures`` shard it is the bounded-width slab only: the
+        overflow is ``host_shard_tail``'s."""
         return self.host[("shard", shard_id)]
 
     def host_shard_tail(self, shard_id: str):
-        """COO overflow of a shard past its ELL width: None, as every
-        shard the port builds is rectangular (the dual-ELL layout is not
-        ported, ROADMAP Queue A)."""
+        """Host ``(rows, indices, values)`` COO overflow of a
+        ``DualEllFeatures`` shard (rows ascending), or None for a
+        rectangular shard or an empty tail."""
         if shard_id not in self.feature_shards:
             raise KeyError(shard_id)
-        return None
+        return self.host.get(("tail", shard_id))
 
     def shard_batch(self, shard_id: str) -> GLMBatch:
         return GLMBatch(self.feature_shards[shard_id], self.labels,
@@ -110,6 +113,25 @@ class GameDataset:
         groups)."""
         t = self.id_tags[tag]
         return t.codes, t.num_groups
+
+
+def _host_array(a, dtype) -> np.ndarray:
+    """A numpy copy (or view) of a host array or a tensor on any
+    device."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=dtype)
+
+
+def _device_shard(spec: tuple, put) -> Features:
+    """The device features of one shard's host spec: ``(x,)``,
+    ``(idx, val, d)`` or ``(idx, val, d, tail)``."""
+    if len(spec) == 1:
+        return DenseFeatures(put(spec[0]))
+    if len(spec) == 3:
+        return SparseFeatures(put(spec[0]), put(spec[1]), spec[2])
+    idx, val, d, (tr, ti, tv) = spec
+    return DualEllFeatures(put(idx), put(val), put(tr), put(ti), put(tv), d)
 
 
 def make_game_dataset(
@@ -125,7 +147,8 @@ def make_game_dataset(
 ) -> GameDataset:
     """Build a GameDataset from numpy arrays. ``feature_shards`` maps a
     shard id to ``DenseFeatures(x)`` or ``SparseFeatures(idx, val, d)``
-    holding numpy arrays; everything is copied to ``device`` (default
+    holding numpy arrays, or to a ``DualEllFeatures`` (its tensors on
+    any device); everything is copied to ``device`` (default
     ``cuda``) once, in the ``raw_transfer`` stage of ``PIPELINE_STATS``,
     and the numpy inputs stay as the host mirror."""
     dev = device_mod.resolve(device)
@@ -159,9 +182,23 @@ def make_game_dataset(
                                  f"{idx.shape[0]} rows, expected {n}")
             host[("shard", name)] = (idx, val, feats.d)
             specs[name] = (idx, val, feats.d)
+        elif isinstance(feats, DualEllFeatures):
+            idx = _host_array(feats.indices, np.int32)
+            val = _host_array(feats.values, np_dtype)
+            if idx.shape[0] != n:
+                raise ValueError(f"feature shard {name!r} has "
+                                 f"{idx.shape[0]} rows, expected {n}")
+            tail = (_host_array(feats.tail_rows, np.int32),
+                    _host_array(feats.tail_indices, np.int32),
+                    _host_array(feats.tail_values, np_dtype))
+            host[("shard", name)] = (idx, val, feats.d)
+            if tail[0].size:
+                host[("tail", name)] = tail
+            specs[name] = (idx, val, feats.d, tail)
         else:
-            raise TypeError(f"feature shard {name!r}: expected Dense or "
-                            f"Sparse features, got {type(feats).__name__}")
+            raise TypeError(f"feature shard {name!r}: expected Dense, "
+                            f"Sparse or DualEll features, got "
+                            f"{type(feats).__name__}")
 
     pinned: list = []
 
@@ -178,9 +215,7 @@ def make_game_dataset(
     # Every device copy of the raw data, timed as one stage.
     with PIPELINE_STATS.stage("raw_transfer"):
         shards: dict[str, Features] = {
-            name: (DenseFeatures(put(spec[0])) if len(spec) == 1 else
-                   SparseFeatures(put(spec[0]), put(spec[1]), spec[2]))
-            for name, spec in specs.items()}
+            name: _device_shard(spec, put) for name, spec in specs.items()}
         columns = [put(a) for a in (labels_np, offsets_np, weights_np)]
         if pinned:
             torch.cuda.current_stream(dev).synchronize()

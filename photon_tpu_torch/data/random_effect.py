@@ -20,7 +20,13 @@ Two stages, as in the reference (RandomEffectDataset.scala:264-354):
    ``[B, R, S]`` design slab is gathered on the device from the raw
    feature tensors: once per dataset into a cache (``device_blocks``)
    while the slabs fit ``_DEVICE_SLAB_BUDGET_BYTES``, else inside every
-   solve (``BlockPlan.materialize``).
+   solve (``BlockPlan.materialize``). Where the one-hot operand that
+   densifies it would pass ``ONE_HOT_ELEMENT_BUDGET`` elements, or the
+   subspace is wider than ``DENSE_SUB_DIM_MAX``, the bucket stays ELL
+   ``[B, R, k]`` of subspace slots, as the reference's gather fallback
+   keeps it: a lookup table of slots for a dense shard, a binary search
+   of the sorted projector for a sparse one. Every step is a tensor op
+   without a host sync, so it runs inside a CUDA-graph capture.
 
 Scoring is scatter-free: ``score_inv`` maps each canonical row to its
 position in the concatenation of every bucket's ``[B, cap]`` score block
@@ -34,9 +40,10 @@ slots, with the gram route's window bounds (``block_gram_mults``), and
 every row scores through a remapped ``[n, k]`` score table whose rows
 past the width cap spill into a COO tail. Its blocks and table reach the
 device in one packed transfer too (float32 arrays by their bits; a
-float64 build copies array by array, ``_ListPlanArrays``). The lazy
-layout's ELL slab for wide subspaces is not ported: a wide lazy bucket
-raises ``NotImplementedError``.
+float64 build copies array by array, ``_ListPlanArrays``). A
+``DualEllFeatures`` shard always takes the materialized layout: its COO
+tail widens each bucket's rows (``_subset_rows_widened``) and the
+projectors, and stays a COO tail in a capped score table.
 """
 
 from __future__ import annotations
@@ -71,11 +78,6 @@ DENSE_SUB_DIM_MAX = 128
 ONE_HOT_ELEMENT_BUDGET = 1 << 28
 # Total device bytes of cached materialized slabs (device_blocks).
 _DEVICE_SLAB_BUDGET_BYTES = 2 << 30
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to photon_tpu_torch yet (ROADMAP Queue A)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +153,21 @@ class BlockPlan:
     def sub_dim(self) -> int:
         return self.proj.shape[-1]
 
+    def ell_width(self) -> int | None:
+        """The ELL width ``k`` of the slab ``materialize`` gathers, or
+        None where it is subspace-dense: decided by the shapes alone, so
+        the fused fit's static routing knows it before any gather."""
+        b, r = self.row_ids.shape
+        s = self.proj.shape[-1]
+        if isinstance(self.raw, DenseFeatures):
+            d = self.raw.x.shape[1]
+            dense = b * d * s <= ONE_HOT_ELEMENT_BUDGET
+            k = d
+        else:
+            k = self.raw.indices.shape[1]
+            dense = b * r * k * s <= ONE_HOT_ELEMENT_BUDGET
+        return None if dense and s <= DENSE_SUB_DIM_MAX else k
+
     def materialize(self, residuals: torch.Tensor | None = None
                     ) -> EntityBlocks:
         """Gather the bucket's training slabs on the device. ``offsets``
@@ -174,32 +191,57 @@ class BlockPlan:
         iota_s = torch.arange(s, device=dev)[None, :]
         penalty = torch.where(iota_s == self.intercept_slots[:, None],
                               zero, valid)
-        if s > DENSE_SUB_DIM_MAX:
-            raise _not_ported(f"the ELL slab layout (sub_dim {s} > "
-                              f"{DENSE_SUB_DIM_MAX})")
+        x_indices = None
+        dense_slab = self.ell_width() is None
         if isinstance(self.raw, DenseFeatures):
             d = self.raw.x.shape[1]
-            if b * d * s > ONE_HOT_ELEMENT_BUDGET:
-                raise _not_ported("the ELL slab layout (over-budget "
-                                  "dense bucket)")
-            # x[row, proj[slot]]; -1 pad slots and padding rows give 0.
-            xv = self.raw.x[rows[:, :, None],
-                            proj.clamp(min=0).long()[:, None, :]]
-            keep = row_mask[:, :, None] & (proj >= 0)[:, None, :]
-            x_values = torch.where(keep, xv, zero)
+            if dense_slab:
+                # x[row, proj[slot]]; -1 pad slots and padding rows give 0.
+                xv = self.raw.x[rows[:, :, None],
+                                proj.clamp(min=0).long()[:, None, :]]
+                keep = row_mask[:, :, None] & (proj >= 0)[:, None, :]
+                x_values = torch.where(keep, xv, zero)
+            else:
+                # A [B, d] table of each feature's slot (-1 outside the
+                # subspace), by one scatter; pad slots write to a column
+                # that is cut off. The ELL width is d.
+                pr = torch.where(proj >= 0, proj,
+                                 torch.full_like(proj, d)).long()
+                lut = torch.full((b, d + 1), -1, dtype=torch.int32,
+                                 device=dev)
+                lut.scatter_(1, pr, iota_s.expand(b, s).to(torch.int32))
+                lut = lut[:, :d]
+                x_indices = lut.clamp(min=0)[:, None, :].expand(b, r, d)
+                keep = (lut >= 0)[:, None, :] & row_mask[:, :, None]
+                x_values = torch.where(keep, self.raw.x[rows], zero)
         else:
             idx = self.raw.indices[rows]  # [B, R, k]
             val = torch.where(row_mask[:, :, None], self.raw.values[rows],
                               zero)
             k = idx.shape[-1]
-            if b * r * k * s > ONE_HOT_ELEMENT_BUDGET:
-                raise _not_ported("the ELL slab layout (over-budget sparse "
-                                  "bucket)")
-            onehot = (idx[:, :, :, None] == proj[:, None, None, :]).to(dtype)
-            x_values = torch.einsum("brk,brks->brs", val, onehot)
+            if dense_slab:
+                onehot = (idx[:, :, :, None]
+                          == proj[:, None, None, :]).to(dtype)
+                x_values = torch.einsum("brk,brks->brs", val, onehot)
+            else:
+                # Each id's slot by a binary search of the entity's
+                # sorted projector (pads last, as the int32 maximum);
+                # ids outside the subspace and zero values drop.
+                sentinel = torch.iinfo(torch.int32).max
+                psort = torch.where(proj >= 0, proj.to(torch.int32),
+                                    torch.full_like(proj, sentinel,
+                                                    dtype=torch.int32))
+                flat = idx.reshape(b, r * k).to(torch.int32).contiguous()
+                slot = torch.searchsorted(psort, flat).clamp(max=s - 1)
+                hit = torch.gather(psort, 1, slot) == flat
+                ok = hit.reshape(b, r, k) & (val != 0)
+                x_indices = torch.where(
+                    ok, slot.reshape(b, r, k).to(torch.int32),
+                    torch.zeros((), dtype=torch.int32, device=dev))
+                x_values = torch.where(ok, val, zero)
         return EntityBlocks(
             entity_codes=self.entity_codes,
-            x_indices=None,
+            x_indices=x_indices,
             x_values=x_values,
             labels=labels,
             offsets=offs,
@@ -536,12 +578,13 @@ def _plan_random_effect(game_data: GameDataset,
         a = np.asarray(arr)
         if a.size:
             stride = max(stride, int(a.max()) + 1)
+    tail = game_data.host_shard_tail(config.feature_shard_id)
     proj_mask = keep_sorted & active[sorted_codes]
     rows_p = perm[proj_mask]
     pair_codes = sorted_codes[proj_mask]
     dense_view = isinstance(
         game_data.feature_shards[config.feature_shard_id], DenseFeatures)
-    if rows_p.size and dense_view:
+    if rows_p.size and dense_view and tail is None:
         # Dense shards: the active-feature union is a [E, d] presence
         # matrix, one segment-OR over the entity-grouped kept rows.
         if rows_p.size * 2 > ell_val.shape[0]:
@@ -567,6 +610,16 @@ def _plan_random_effect(game_data: GameDataset,
         pair_keys = (
             np.broadcast_to(pair_codes[:, None], iv.shape)[present]
             * np.int64(stride) + iv[present].astype(np.int64))
+        if tail is not None:
+            # A DualEll shard's overflow entries join the subspaces too.
+            mask_rows = np.zeros(n, dtype=bool)
+            mask_rows[rows_p] = True
+            tr, ti, tv = tail
+            sel = mask_rows[tr] & (tv != 0.0)
+            if sel.any():
+                pair_keys = np.concatenate([
+                    pair_keys, codes[tr[sel]] * np.int64(stride)
+                    + ti[sel].astype(np.int64)])
         uniq = np.unique(pair_keys)
     else:
         uniq = np.empty(0, dtype=np.int64)
@@ -583,8 +636,10 @@ def _plan_random_effect(game_data: GameDataset,
             if ratio is not None:
                 rows_e = perm[starts[e]:starts[e] + counts[e]]
                 keep = max(int(ratio * rows_e.size), 1)
+                pe_i, pe_v = _subset_rows_widened(ell_idx, ell_val, tail,
+                                                  rows_e)
                 act = _pearson_select(
-                    ell_val[rows_e], ell_idx[rows_e], labels_np[rows_e],
+                    pe_v, pe_i, labels_np[rows_e],
                     act, keep, intercept_index, num_features)
             # A warm-start model's support stays in the subspace.
             if extra_features and e in extra_features:
@@ -676,6 +731,37 @@ def _bucket_rows(plan: _Plan, members: np.ndarray):
     r_of = np.arange(total, dtype=np.int64) - span_base[t_of]
     rows_flat = plan.perm[m_starts[t_of] + r_of]
     return rows_flat, t_of, r_of, m_counts
+
+
+def _subset_rows_widened(ell_idx: np.ndarray, ell_val: np.ndarray, tail,
+                         rows: np.ndarray):
+    """The ELL view of the (unique) ``rows`` with their COO ``tail``
+    entries (rows ascending, or None) appended as extra columns, as wide
+    as the widest row of the subset needs (reference :700)."""
+    si = ell_idx[rows]
+    sv = ell_val[rows]
+    if tail is None:
+        return si, sv
+    tr, ti, tv = tail
+    n = ell_idx.shape[0]
+    m = rows.shape[0]
+    inv = np.full(n, -1, dtype=np.int64)
+    inv[rows] = np.arange(m)
+    sel = inv[tr] >= 0
+    if not sel.any():
+        return si, sv
+    g_starts = np.searchsorted(tr, np.arange(n))
+    g_rank = np.arange(tr.size) - g_starts[tr]
+    r_of = inv[tr[sel]]
+    kx = int(g_rank[sel].max()) + 1
+    k0 = si.shape[1]
+    out_i = np.zeros((m, k0 + kx), dtype=si.dtype)
+    out_v = np.zeros((m, k0 + kx), dtype=sv.dtype)
+    out_i[:, :k0] = si
+    out_v[:, :k0] = sv
+    out_i[r_of, k0 + g_rank[sel]] = ti[sel]
+    out_v[r_of, k0 + g_rank[sel]] = tv[sel]
+    return out_i, out_v
 
 
 def _compact_left(slot: np.ndarray, val: np.ndarray, found: np.ndarray,
@@ -820,12 +906,17 @@ def skeleton_random_effect_dataset(game_data: GameDataset,
 
 def _score_table_arrays(codes: np.ndarray, ell_idx: np.ndarray,
                         ell_val: np.ndarray, table: _ProjectorTable,
-                        width_cap: int | None):
+                        width_cap: int | None, tail_in=None):
     """The materialized score table of every row: (si, sv, tail). Each
     row's entries inside its entity's subspace, remapped to slots and
     left-compacted; with ``width_cap`` the entries past the cap go to a
     COO tail ``(rows, slots, values)`` sorted by row (None when
-    uncapped)."""
+    uncapped). A DualEll shard's own tail ``tail_in`` stays COO under a
+    cap and widens the rows without one (reference :1262-1300)."""
+    if tail_in is not None and width_cap is None:
+        ell_idx, ell_val = _subset_rows_widened(
+            ell_idx, ell_val, tail_in, np.arange(codes.shape[0]))
+        tail_in = None
     slot, found = table.lookup(codes[:, None], ell_idx)
     found = found & (ell_val != 0.0)
     k_comp = max(int(found.sum(axis=1).max(initial=0)), 1)
@@ -837,12 +928,25 @@ def _score_table_arrays(codes: np.ndarray, ell_idx: np.ndarray,
     si, sv = si_f[:, :k_slab], sv_f[:, :k_slab]
     over_i, over_v = si_f[:, k_slab:], sv_f[:, k_slab:]
     mask = over_v != 0.0
+    parts_r, parts_i, parts_v = [], [], []
     if mask.any():
         row_of = np.broadcast_to(
             np.arange(codes.shape[0], dtype=np.int64)[:, None], mask.shape)
-        tr = row_of[mask]
-        ti = over_i[mask].astype(np.int64)
-        tv = over_v[mask]
+        parts_r.append(row_of[mask])
+        parts_i.append(over_i[mask].astype(np.int64))
+        parts_v.append(over_v[mask])
+    if tail_in is not None:
+        tr_in, ti_in, tv_in = tail_in
+        slot_t, found_t = table.lookup(codes[tr_in], ti_in)
+        ok = found_t & (tv_in != 0.0)
+        if ok.any():
+            parts_r.append(tr_in[ok].astype(np.int64))
+            parts_i.append(slot_t[ok].astype(np.int64))
+            parts_v.append(tv_in[ok])
+    if parts_r:
+        tr = np.concatenate(parts_r)
+        ti = np.concatenate(parts_i)
+        tv = np.concatenate(parts_v)
         o = np.argsort(tr, kind="stable")  # the tail reduce wants sorted rows
         tail = (tr[o], ti[o], tv[o])
     else:
@@ -1014,9 +1118,12 @@ def build_random_effect_dataset(
     model's support, RandomEffectDataset.scala:390-426). ``lazy`` picks
     the layout; by default it is lazy unless the configuration sets
     ``score_table_width_cap`` or a subspace is wider than
-    ``DENSE_SUB_DIM_MAX``. With ``defer_transfer`` it makes no CUDA call
-    and returns a ``PendingRandomEffectDataset``."""
+    ``DENSE_SUB_DIM_MAX``; a ``DualEllFeatures`` shard is always
+    materialized (``lazy=True`` on one raises ``TypeError``). With
+    ``defer_transfer`` it makes no CUDA call and returns a
+    ``PendingRandomEffectDataset``."""
     feats = game_data.feature_shards[config.feature_shard_id]
+    lazy_capable = isinstance(feats, (DenseFeatures, SparseFeatures))
     with PIPELINE_STATS.stage("plan"):
         plan = _plan_random_effect(game_data, config,
                                    intercept_index=intercept_index,
@@ -1025,8 +1132,13 @@ def build_random_effect_dataset(
         # A width cap says heavy entities dominate max_sub_dim: the lazy
         # scorer's [n, S] gathers would bring back what the cap bounds.
         # Wide subspaces stay materialized too.
-        lazy = (config.score_table_width_cap is None
+        lazy = (lazy_capable
+                and config.score_table_width_cap is None
                 and plan.max_sub_dim <= DENSE_SUB_DIM_MAX)
+    if lazy and not lazy_capable:
+        raise TypeError(
+            "lazy random-effect layout requires Dense or Sparse (ELL) "
+            f"features, got {type(feats).__name__}")
     tag = game_data.id_tags[config.random_effect_type]
     n = plan.codes.shape[0]
 
@@ -1140,6 +1252,7 @@ def _materialized_host(game_data: GameDataset,
     blocks remapped to subspace slots on the host (concurrently, on the
     chunk pool), the score table with its tail, all in ``flat``."""
     ell_idx, ell_val, _ = game_data.host_shard_coo(config.feature_shard_id)
+    ell_tail = game_data.host_shard_tail(config.feature_shard_id)
     labels_np = game_data.host_column("labels")
     offsets_np = game_data.host_column("offsets")
     weights_np = game_data.host_column("weights")
@@ -1150,7 +1263,8 @@ def _materialized_host(game_data: GameDataset,
         b, cap = bh["brow"].shape
         rows_flat, t_of, r_of = bh["rows_flat"], bh["t_of"], bh["r_of"]
         s = bh["proj"].shape[1]
-        wi, wv = ell_idx[rows_flat], ell_val[rows_flat]
+        # A DualEll tail widens only to this bucket's own widest row.
+        wi, wv = _subset_rows_widened(ell_idx, ell_val, ell_tail, rows_flat)
         slot, found = plan.table.lookup(plan.codes[rows_flat][:, None], wi)
         found = found & (wv != 0.0)
         k = max(int(found.sum(axis=1).max(initial=0)), 1)
@@ -1185,7 +1299,7 @@ def _materialized_host(game_data: GameDataset,
     with PIPELINE_STATS.stage("pack"):
         table = chunk_executor.submit(
             _score_table_arrays, plan.codes, ell_idx, ell_val, plan.table,
-            config.score_table_width_cap)
+            config.score_table_width_cap, ell_tail)
         blocks_host = consume_futures([
             chunk_executor.submit(host_block, bh) for bh in bucket_host])
         si, sv, tail = consume_futures([table])[0]
@@ -1283,8 +1397,9 @@ def remap_for_scoring(game_data: GameDataset, *, re_type: str,
     ell_idx, ell_val, num_features = game_data.host_shard_coo(
         feature_shard_id)
     table = projector_table_from_proj_all(proj_all, num_features)
-    si, sv, tail = _score_table_arrays(codes, ell_idx, ell_val, table,
-                                       width_cap)
+    si, sv, tail = _score_table_arrays(
+        codes, ell_idx, ell_val, table, width_cap,
+        tail_in=game_data.host_shard_tail(feature_shard_id))
     np_dtype = _np_dtype(dtype)
     sv = np.array(sv, dtype=np_dtype)
     sv[codes < 0] = 0.0

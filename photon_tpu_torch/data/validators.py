@@ -111,8 +111,15 @@ def sanity_check_data(
             continue
         seen_tables.add(id(feats))
         _, values, _ = data.host_shard_coo(shard_id)
+        finite = np.isfinite(values[rows]).all(axis=1)
+        tail = data.host_shard_tail(shard_id)
+        if tail is not None:
+            # A DualEll shard's overflow entries belong to their rows.
+            bad = np.zeros(n, dtype=bool)
+            bad[tail[0][~np.isfinite(tail[2])]] = True
+            finite = finite & ~bad[rows]
         check(
-            np.isfinite(values[rows]).all(axis=1),
+            finite,
             "Data contains row(s) with invalid (+/- Inf or NaN) "
             f"feature(s): {shard_id}",
         )

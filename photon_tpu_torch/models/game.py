@@ -9,8 +9,10 @@ and projector row by the row's entity code; code -1 (an entity the model
 never trained) contributes nothing.
 
 On a lazy training dataset (``RandomEffectModel.score_dataset``) the
-rows kept into buckets score from the cached bucket slabs, one batched
-product per bucket, and the passive rest from the raw features; one
+rows kept into buckets score from the cached bucket slabs (a bucket
+past the slab budget gathered for it), one batched product per bucket
+(a gather of each entry's weight for a bucket that stayed ELL), and the
+passive rest from the raw features; one
 gather through the dataset's inverse score map puts every score in
 canonical row order. On a materialized dataset every row scores through
 its remapped score table, and the rows past the table's width cap add
@@ -78,11 +80,7 @@ class RandomEffectModel:
                 self.coefficients, dataset.score_codes,
                 dataset.score_indices, dataset.score_values, tail,
                 tail_multiplicity=dataset.score_tail_mult)
-        z = _score_via_buckets(self.coefficients, dataset)
-        if z is not None:
-            return z
-        return score_raw_features(self.coefficients, dataset.score_codes,
-                                  dataset.raw, dataset.proj_device())
+        return _score_via_buckets(self.coefficients, dataset)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,14 +244,30 @@ def score_entity_table_with_tail(w: torch.Tensor, codes: torch.Tensor,
     return base + summed.to(base.dtype)
 
 
+def bucket_slab(eb: EntityBlocks):
+    """What ``bucket_score_parts`` reads of one materialized bucket: its
+    dense [B, R, S] slab, or an ELL bucket's (slots, values)."""
+    return eb.x_values if eb.is_dense else (eb.x_indices, eb.x_values)
+
+
 def bucket_score_parts(w: torch.Tensor, slabs, codes) -> list:
-    """Per bucket, the flat [B * cap] scores of its slab rows."""
+    """Per bucket, the flat [B * cap] scores of its slab rows: a dense
+    slab by one batched product, an ELL slab (``(slots, values)``) by
+    gathering each entry's weight, each product in the slab's dtype
+    summed with an f32 accumulator for bf16."""
     parts = []
-    for xv, cd in zip(slabs, codes):
+    for slab, cd in zip(slabs, codes):
         idx = cd.long().clamp(0, w.shape[0] - 1)
-        we = w[idx][:, :xv.shape[-1]].to(xv.dtype)
+        if isinstance(slab, tuple):
+            xi, xv = slab
+            flat = idx[:, None, None] * w.shape[1] + xi.long()
+            picked = w.reshape(-1)[flat].to(xv.dtype)
+            parts.append(precision_mod.acc_sum(xv * picked,
+                                               dim=-1).reshape(-1))
+            continue
+        we = w[idx][:, :slab.shape[-1]].to(slab.dtype)
         parts.append(
-            precision_mod.acc_einsum("brs,bs->br", xv, we).reshape(-1))
+            precision_mod.acc_einsum("brs,bs->br", slab, we).reshape(-1))
     return parts
 
 
@@ -268,31 +282,25 @@ def passive_raw_scores(w, pr, score_codes, feats, proj_dev) -> torch.Tensor:
     return score_raw_features(w, codes_p, sub, proj_dev).to(w.dtype)
 
 
-def _gather_score(w, slabs, codes, inv, pr, score_codes, feats, proj_dev):
-    """One gather puts the concatenated bucket and passive scores in
-    canonical row order."""
-    parts = bucket_score_parts(w, slabs, codes)
-    if pr is not None:
-        parts.append(passive_raw_scores(w, pr, score_codes, feats, proj_dev))
-    return torch.cat(parts)[inv].to(w.dtype)
-
-
 def _score_via_buckets(w: torch.Tensor, ds: RandomEffectDataset):
-    """Bucket-slab scoring, or None when a bucket's slab is not cached
-    (then every row scores from the raw features)."""
-    blocks = ds.device_blocks()
-    if not all(isinstance(eb, EntityBlocks) for eb in blocks):
-        return None
+    """Scores of a lazy dataset's rows: each bucket's rows from its
+    cached slab (a bucket past the slab budget gathered for its product
+    and dropped, one at a time), the passive rows from the raw features;
+    one gather puts them in canonical row order."""
     _, passive = ds.covered_row_partition()
+    blocks = ds.device_blocks()
     if not blocks and not passive.size:
         return torch.zeros(ds.num_rows, dtype=w.dtype, device=w.device)
-    pr = (torch.from_numpy(passive.astype(np.int64)).to(w.device)
-          if passive.size else None)
-    return _gather_score(
-        w, tuple(eb.x_values for eb in blocks),
-        tuple(p.entity_codes for p in ds.device_plans()),
-        ds.score_inv_device(), pr, ds.score_codes, ds.raw,
-        ds.proj_device())
+    parts = []
+    for b, plan in zip(blocks, ds.device_plans()):
+        eb = b if isinstance(b, EntityBlocks) else b.materialize(None)
+        parts += bucket_score_parts(w, (bucket_slab(eb),),
+                                    (plan.entity_codes,))
+    if passive.size:
+        parts.append(passive_raw_scores(
+            w, ds.passive_rows_device(), ds.score_codes, ds.raw,
+            ds.proj_device()))
+    return torch.cat(parts)[ds.score_inv_device()].to(w.dtype)
 
 
 def remap_random_effect_model(model: RandomEffectModel, *,

@@ -389,11 +389,16 @@ def densify_ell_plain(x_indices: torch.Tensor, x_values: torch.Tensor,
                       sub_dim: int) -> torch.Tensor:
     """[B, R, k] slot-ELL to [B, R, S] dense by a scatter-add in the
     values' dtype, as the reference densifies an ELL bucket per entity
-    in its direct solve."""
-    b, r, _ = x_indices.shape
+    in its direct solve. One scatter per ELL column: within one no two
+    entries meet, so a duplicate slot sums in column order on any
+    device, with no float atomics racing."""
+    b, r, k = x_indices.shape
     x = torch.zeros((b, r, int(sub_dim)), dtype=x_values.dtype,
                     device=x_values.device)
-    return x.scatter_add_(2, x_indices.long(), x_values)
+    idx = x_indices.long()
+    for j in range(k):
+        x.scatter_add_(2, idx[:, :, j:j + 1], x_values[:, :, j:j + 1])
+    return x
 
 
 def densify_ell(x_indices: torch.Tensor, x_values: torch.Tensor,

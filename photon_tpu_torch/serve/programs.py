@@ -181,10 +181,10 @@ def specs_from_dataset(data) -> dict[str, FeatureSpec]:
                 "sparse", int(feats.d), k=int(feats.indices.shape[1])
             )
         else:
-            raise NotImplementedError(
+            raise TypeError(
                 f"shard {name!r}: {type(feats).__name__} has no fixed "
-                "per-row serving layout (DualEllFeatures scoring: ROADMAP "
-                "Queue A item 6)"
+                "per-row serving layout (DualEll tails span rows); "
+                "score it through GameTransformer"
             )
     return specs
 

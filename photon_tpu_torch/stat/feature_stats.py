@@ -10,7 +10,8 @@ artifact (GameTrainingDriver.calculateAndSaveFeatureShardStats
 :616-647).
 
 Everything runs in host numpy float64, as the reference's does, over
-dense or ELL features whose arrays are numpy or tensors on any device.
+dense, ELL or DualEll features (the tail folded back into its rows)
+whose arrays are numpy or tensors on any device.
 The variance is Spark's unbiased weighted estimator,
 var_j = (sumW / (sumW - 1)) * (E[x^2] - E[x]^2).
 """
@@ -22,7 +23,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
+from photon_tpu_torch.data.dataset import (
+    DenseFeatures,
+    DualEllFeatures,
+    SparseFeatures,
+)
+from photon_tpu_torch.data.random_effect import _subset_rows_widened
 
 
 def _host(a, dtype=None) -> np.ndarray:
@@ -70,9 +76,15 @@ class FeatureDataStatistics:
             else:
                 mn, mx = xw.min(axis=0), xw.max(axis=0)
             nnz = (w[:, None] * (x != 0.0)).sum(axis=0)
-        elif isinstance(features, SparseFeatures):
+        elif isinstance(features, (SparseFeatures, DualEllFeatures)):
             idx = _host(features.indices)
             val = _host(features.values, np.float64)
+            if isinstance(features, DualEllFeatures):
+                tail = (_host(features.tail_rows).astype(np.int64),
+                        _host(features.tail_indices),
+                        _host(features.tail_values, np.float64))
+                idx, val = _subset_rows_widened(idx, val, tail,
+                                                np.arange(idx.shape[0]))
             n, d = idx.shape[0], features.d
             w = np.ones(n) if weights is None else _host(weights, np.float64)
             sum_w = float(w.sum())
@@ -104,8 +116,8 @@ class FeatureDataStatistics:
             mn = np.where(np.isinf(mn), 0.0, mn)
             mx = np.where(np.isinf(mx), 0.0, mx)
         else:
-            raise TypeError(f"expected Dense or Sparse features, got "
-                            f"{type(features).__name__}")
+            raise TypeError(f"expected Dense, Sparse or DualEll features, "
+                            f"got {type(features).__name__}")
         correction = sum_w / max(sum_w - 1.0, 1.0)
         variance = np.maximum(correction * (ex2 - mean * mean), 0.0)
         return FeatureDataStatistics(

@@ -6,8 +6,10 @@ plus dataset to per-row scores, optionally evaluated. The fixed effects
 score by a gather-dot against the dataset's feature tensors; a random
 effect joins its entities by key (rows of unseen entities score 0) and
 scores straight off the raw shard (dense and ELL shards, subspaces up to
-``DENSE_SUB_DIM_MAX`` slots) or through a remapped score table. All on
-the dataset's one device: multi-device scoring is not ported.
+``DENSE_SUB_DIM_MAX`` slots) or through a remapped score table (a
+``DualEllFeatures`` shard's tail widens its rows, or rides the table's
+COO tail under a width cap). All on the dataset's one device:
+multi-device scoring is not ported.
 """
 
 from __future__ import annotations

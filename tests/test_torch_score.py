@@ -312,15 +312,29 @@ def test_score_cli_refusals(tmp_path, files):
 
 
 def test_batch_scoring_raises_for_a_shard_with_no_row_layout():
-    """A shard that is neither dense nor ELL (the reference's DualEll)
-    raises with its roadmap item: there is no second scoring route."""
+    """A shard that is neither dense nor ELL (the dual-ELL layout) has
+    no per-row serving layout: ``specs_from_dataset`` raises
+    ``TypeError`` with the reference's words, and the batch scorer
+    scores such a dataset through ``GameTransformer``, as the
+    reference's does."""
     import types
 
+    from test_torch_dual_ell import _dual_estimators, dual_games
+
     data = types.SimpleNamespace(feature_shards={"features": object()})
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(TypeError, match="no fixed per-row serving layout"):
         specs_from_dataset(data)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        score_cli.score_game_dataset(None, data)
+    game_dual, game_sparse, _ = dual_games(np.random.default_rng(17))
+    model = _dual_estimators(listener=True)[1].fit(game_sparse)[0].model
+    with pytest.raises(TypeError, match="DualEll tails span rows"):
+        specs_from_dataset(game_dual)
+    report: dict = {}
+    scores, _ = score_cli.score_game_dataset(model, game_dual,
+                                             report=report)
+    assert report["serve_kernel"] == "transformer"
+    np.testing.assert_allclose(
+        scores, GameTransformer(model).score(game_sparse).numpy(),
+        rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -390,8 +390,8 @@ def test_game_estimator_fit_matches_reference_f64(task, coords):
 
 def test_fit_without_cached_slabs_matches_cached(monkeypatch):
     """Past the slab budget a bucket stays a plan: its slab is gathered
-    inside every solve and its rows score from the raw features. The
-    fit is the same as with cached slabs."""
+    inside every solve and again for its rows' scores. The fit is the
+    same as with cached slabs."""
     arrays = synth(seed=27)
     _, pdata = both_datasets(arrays)
     _, cached = both_estimators("logistic", FE_2RE)
@@ -508,10 +508,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_gpu():
 
 
 def test_unported_routes_raise_not_implemented():
-    """The lazy layout's ELL slab for a subspace wider than
-    ``DENSE_SUB_DIM_MAX`` still raises with its name (bf16 training,
-    which raised here before, now trains: tests/test_torch_precision.py).
-    The L1 fixed effect
+    """The routes that raised here before run: the lazy layout's ELL
+    slab for a subspace wider than ``DENSE_SUB_DIM_MAX`` gathers the
+    reference's indices and values (bf16 training now trains:
+    tests/test_torch_precision.py). The L1 fixed effect
     (OWL-QN) and the smoothed hinge's per-entity quasi-Newton solve,
     which raised here before, run and match the reference in float64:
     coefficients within rtol 1e-6 / atol 1e-8 (the fit's tolerance),
@@ -540,18 +540,31 @@ def test_unported_routes_raise_not_implemented():
     np.testing.assert_allclose(pw, jw, rtol=1e-6, atol=1e-8)
     np.testing.assert_array_equal(pw == 0.0, jw == 0.0)
     assert (pw == 0.0).any()
+    # A lazy bucket wider than DENSE_SUB_DIM_MAX gathers the ELL slab
+    # layout (the lookup-table gather of a dense shard), as the
+    # reference's materialize does.
     rng = np.random.default_rng(5)
     wide = pt_re.DENSE_SUB_DIM_MAX + 2
+    y_w = rng.normal(size=64).astype(np.float32)
+    x_w = rng.normal(size=(64, wide)).astype(np.float32)
+    g_w = {"g": rng.integers(0, 4, size=64)}
     wide_data = pt_game_data.make_game_dataset(
-        rng.normal(size=64).astype(np.float32),
-        {"w": pt_dataset.DenseFeatures(
-            rng.normal(size=(64, wide)).astype(np.float32))},
-        id_tags={"g": rng.integers(0, 4, size=64)}, device=CPU)
+        y_w, {"w": pt_dataset.DenseFeatures(x_w)}, id_tags=g_w, device=CPU)
     lazy_wide = pt_re.build_random_effect_dataset(
         wide_data, pt_re.RandomEffectDataConfiguration("g", "w"), lazy=True)
     assert lazy_wide.is_lazy and lazy_wide.max_sub_dim == wide
-    with pytest.raises(NotImplementedError, match="ELL slab layout"):
-        lazy_wide.device_blocks()
+    jwide = jax_re.build_random_effect_dataset(
+        jax_game_data.make_game_dataset(
+            y_w, {"w": jax_dataset.DenseFeatures(x_w)}, id_tags=g_w),
+        jax_re.RandomEffectDataConfiguration("g", "w"), lazy=True)
+    for pb, jp in zip(lazy_wide.device_blocks(), jwide.device_plans(),
+                      strict=True):
+        jb = jp.materialize()
+        assert not pb.is_dense and pb.x_indices.shape[-1] == wide
+        np.testing.assert_array_equal(pb.x_indices.numpy(),
+                                      np.asarray(jb.x_indices))
+        np.testing.assert_array_equal(pb.x_values.numpy(),
+                                      np.asarray(jb.x_values))
     # The smoothed hinge on the materialized layout takes the
     # per-entity quasi-Newton route in both packages.
     spec = dict(random_effect_type="userId", feature_shard_id="userShard",

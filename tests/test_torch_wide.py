@@ -583,11 +583,12 @@ def test_newton_gate_takes_a_wide_bucket_to_the_newton_step(monkeypatch):
 
 
 def test_unported_wide_routes_raise_with_their_names(forced):
-    """The f64 logistic ELL bucket still raises with its name; the
-    routes that raised here before this slice (a direct solve with
-    variances, the quasi-Newton route of the smoothed hinge on the wide
-    ELL buckets) run and match the reference in float64: iterations
-    and reasons equal, coefficients and variances within EXACT64."""
+    """The routes that raised here before the port had them run and
+    match the reference in float64: the f64 logistic ELL bucket on the
+    per-entity Newton route (``ell``: densify takes no f64), a direct
+    solve with variances, and the quasi-Newton route of the smoothed
+    hinge on the wide ELL buckets. Iterations and reasons equal,
+    coefficients and variances within EXACT64."""
     from photon_tpu.algorithm import random_effect as jax_ra
     from photon_tpu.algorithm.problems import VarianceComputationType as JV
     from photon_tpu.types import TaskType as JaxTask
@@ -595,12 +596,17 @@ def test_unported_wide_routes_raise_with_their_names(forced):
     jdata, pdata = both_datasets(synth(seed=7))
     jds, pds = both_re_datasets(jdata, pdata, MOVIE)
     cfg = l2(1.0)["pt"]
-    # f64 logistic: densify does not take f64, and the per-entity ELL
-    # Newton solve is not ported.
-    coord = pt_ra.RandomEffectCoordinate(pds, TaskType.LOGISTIC_REGRESSION,
-                                         cfg)
-    with pytest.raises(NotImplementedError, match="ELL bucket"):
-        coord.train()
+    pt_ra.route_solves.clear()
+    pm, ps = pt_ra.RandomEffectCoordinate(
+        pds, TaskType.LOGISTIC_REGRESSION, cfg).train()
+    assert pt_ra.route_solves.get("ell", 0) == len(pds.blocks)
+    jm, js = jax_ra.RandomEffectCoordinate(
+        jds, JaxTask.LOGISTIC_REGRESSION, l2(1.0)["jax"]).train()
+    reasons, iters = js._materialize()
+    np.testing.assert_array_equal(ps.iterations, np.asarray(iters))
+    np.testing.assert_array_equal(ps.reasons, np.asarray(reasons))
+    np.testing.assert_allclose(pm.coefficients.numpy(),
+                               np.asarray(jm.coefficients), **EXACT64)
     jcfg = l2(1.0)["jax"]
     for task, variance in (("LINEAR_REGRESSION", "SIMPLE"),
                            ("SMOOTHED_HINGE_LOSS_LINEAR_SVM", "NONE")):
