@@ -565,9 +565,13 @@ table capped at 6 entries a row with a COO tail); 4,000,000 rows,
 nothing cut:
 
 15. wide_data        - generation, the copy to the card, the planner's
-                       host seconds and ``planner_wide`` (as 7a),
                        host seconds, every bucket's shape, S, route and
-                       gram bounds, the tail's size and multiplicity;
+                       gram bounds, the tail's size and multiplicity
+                       (``planner_wide``, 7a's serial and repeated
+                       pipelined prepares of these arrays, ~50 s, is cut
+                       to keep the script inside its time with phase
+                       25: the serial planner's plans stay held against
+                       the pipelined ones byte for byte in 7a);
 16. segment_parity   - the segment-sum kernel against its plain version
                        on integer fixtures (exact: duplicates, empty
                        segments, dropped ids, one long run), random f32
@@ -668,6 +672,46 @@ nothing cut:
                        float64 numpy score of the rows, and
                        ``cli.score.score_game_dataset`` (its
                        ``GameTransformer`` fallback) equal to them.
+25. mesh             - data- and entity-parallel training and scoring
+                       (``parallel/mesh.py``) in two ranks of one
+                       ``torch.distributed`` group on the one card: gloo,
+                       since NCCL refuses two ranks on one device. Each
+                       rank is ``chip_smoke.py --cli-child`` with the
+                       variables ``torchrun --standalone --nproc-per-node
+                       2`` exports (``mesh_ranks``);
+    (a) mesh_fit     - right after 7-14: phase ``fit``'s logistic
+                       estimator at full width (4,000,000 rows, f32) with
+                       ``mesh="auto"``, each rank generating the arrays
+                       from the seed, prepared and fitted twice. Gates:
+                       each rank holds ceil(rows / 2) fixed-effect rows
+                       and half of every bucket's padded entities; the
+                       fit unfused with the reference's reason;
+                       Newton-kernel launches in each rank; the two fits
+                       bit-identical in each rank, and rank 1's model
+                       rank 0's bit for bit; the model within
+                       ``MESH_FE_ATOL`` / ``MESH_RE_ATOL`` of phase
+                       ``fit``'s unfused model (saved by phase 7-14 as
+                       ``build/smoke/mesh/single.npz``), an entity past
+                       the latter only where both fits stopped on its
+                       objective (``mesh_gaps``, as ``entity_gaps``).
+                       Printed: the backend, each rank's prepare and fit
+                       seconds, collectives per fit and their seconds,
+                       peak memory and Newton launches;
+    (b) mesh_cli     - in a process of its own once 14f's ends, beside
+                       14b and 14d (``cli_phases``),
+                       on 14a's files: ``cli.train`` in two ranks with
+                       ``--distributed --fleet-dir`` (14a's
+                       configuration, ``model_output_mode`` BEST), then
+                       ``cli.fleetview``, then ``cli.score --mesh auto``
+                       in two ranks on 14a's best model. Gates: exit 0;
+                       one model and one summary; 14a's configuration
+                       and validation AUC (within 1e-4); the coefficients
+                       within 1e-3 / 4e-3 of 14a's best model, twice
+                       Queue C's f32 split (one-label entities left out,
+                       as 14a's own agreement does; the excess past the
+                       reference's rtol 1e-4 / atol 2e-5 is printed);
+                       two bundles and no rank missing; one scores file
+                       within 1e-5 of 14a's ``cli.score`` and its AUC.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -700,6 +744,10 @@ the best off), with no gate.
 ``python3 chip_smoke.py --ell-routes`` runs only the device and build
 phases and then phase 24 on its own arrays (22's and 23's generators),
 printing no ``ok`` line.
+
+``python3 chip_smoke.py --mesh`` runs only the device and build phases,
+phase ``fit``'s unfused fit (saved for 25 (a)), phase 25 (a), phase 14a
+and phase 25 (b), printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -3899,6 +3947,8 @@ def phase_train(torch) -> dict:
     parity = phase_newton_parity(torch, datasets, est)
 
     fit = phase_fit(torch, arrays, data, est)
+    save_single_fit(os.path.join(mesh_root(), "single.npz"), fit["result"],
+                    datasets)
     model = fit["result"].model
     hist = fit["result"].descent.history
     last = {r.coordinate_id: r for r in hist if r.iteration == CD_ITERATIONS - 1}
@@ -5017,6 +5067,8 @@ def cli_child(spec_path: str) -> int:
         result = profile_child(torch, spec)
     elif spec.get("kind") == "phase":
         result = run_phase_child(torch, spec)
+    elif spec.get("kind") == "mesh_rank":
+        result = mesh_rank(torch, spec)
     else:
         os.environ.update(spec.get("env") or {})
         with timed_ship() as ship:
@@ -7482,8 +7534,6 @@ def phase_wide_data(torch) -> dict:
            "tail_mult": movie.score_tail_mult,
            "buckets": buckets}
     emit(row)
-    planner_comparison(torch, "wide", wide_estimator, data, datasets,
-                       plan_row)
     routes = {b["route"] for b in buckets if b["coordinate"] == "per-movie"}
     if movie.is_lazy or not {"gram", "densify"} <= routes:
         fail(f"per-movie buckets took the routes {sorted(routes)}; the "
@@ -8816,6 +8866,558 @@ def phase_wide(torch) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the mesh, two ranks on the one card (gloo)
+# ---------------------------------------------------------------------------
+
+# Ranks of phase 25's process group. The machine has one card, so both
+# ranks share it and the group runs gloo (NCCL refuses two ranks on one
+# device); the NCCL route waits for a machine with more than one card.
+MESH_RANKS = 2
+# Seconds phase 25 waits for a group of ranks; a collective fails after
+# MESH_TIMEOUT_S, so a rank that dies ends the others' waits.
+MESH_LIMIT_S, MESH_TIMEOUT_S = 600, 300
+# The mesh fit against the single-process fit, f32: the sums cross the
+# ranks in another order, so the two f32 solves stop apart by at most
+# the bounds of an f32 solve against float64 (ROADMAP Queue C's split,
+# FUSED_FE_ATOL / FUSED_RE_ATOL); an entity past them passes only where
+# both fits stopped on its objective (``mesh_gaps``, as ``entity_gaps``).
+MESH_FE_ATOL, MESH_RE_ATOL = FUSED_FE_ATOL, FUSED_RE_ATOL
+# The mesh cli.train against 14a's single-process run: reported against
+# the reference's f32 CLI tolerance (tests/test_estimator_mesh.py:
+# 399-425, a 203-row linear fit), gated at twice Queue C's f32 split
+# (MESH_CLI_FE_ATOL, MESH_CLI_RE_ATOL: two f32 logistic fits, each
+# within the split of float64, whose sums differ in order; the bounds
+# tests/test_torch_train_cli.py holds two f32 CLI fits to). The CPU
+# rehearsal at 8,192 rows read 7.3e-4 on the fixed effect, past the
+# former. The mesh cli.score against 14a's cli.score of the same model.
+MESH_CLI_RTOL, MESH_CLI_ATOL, MESH_SCORE_ATOL = 1e-4, 2e-5, 1e-5
+MESH_CLI_FE_ATOL, MESH_CLI_RE_ATOL = 2 * FUSED_FE_ATOL, 2 * FUSED_RE_ATOL
+
+
+def mesh_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke", "mesh")
+
+
+def save_single_fit(path: str, res, datasets) -> str:
+    """The single-process unfused fit that phase 25 (a) holds the mesh
+    fit against: its coefficients, each random effect's projectors and
+    each entity's last convergence code, as an ``.npz``."""
+    out = {"global": res.model["global"].model.coefficients.means.cpu(
+        ).numpy()}
+    for cid in RE_IDS:
+        m = res.model[cid]
+        out[cid] = m.coefficients.cpu().numpy()
+        out[f"{cid}/proj_all"] = np.asarray(m.proj_all)
+        out[f"{cid}/reasons"] = reasons_by_code(res, datasets[cid], cid,
+                                                False)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **out)
+    return path
+
+
+def single_fit_npz(torch) -> str:
+    """``--mesh``: phase ``fit``'s unfused fit alone, saved for (a)."""
+    arrays = synth_arrays()
+    data = train_dataset(arrays)
+    est = build_estimator()
+    with unfused(est):
+        res = est.fit(data)[0]
+    datasets, _ = est.prepare(data)
+    path = save_single_fit(os.path.join(mesh_root(), "single.npz"), res,
+                           datasets)
+    del arrays, data, est, datasets, res
+    empty_cache()
+    return path
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_ranks(what: str, root: str, **spec) -> list:
+    """``mesh_rank(what)`` in MESH_RANKS processes of one gloo group on
+    this card (``chip_smoke.py --cli-child``, each with the variables
+    ``torchrun --standalone --nproc-per-node 2`` exports); every rank's
+    result, in rank order. A rank that exits non-zero, or a group past
+    MESH_LIMIT_S (every rank killed), fails the run."""
+    port = _free_port()
+    ranks = []
+    for r in range(MESH_RANKS):
+        rroot = os.path.join(root, f"rank{r}")
+        os.makedirs(rroot, exist_ok=True)
+        path = os.path.join(rroot, "child.json")
+        out = os.path.join(rroot, "child-result.json")
+        with open(path, "w") as f:
+            json.dump(dict(spec, kind="mesh_rank", what=what, root=rroot,
+                           out=out), f)
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(MESH_RANKS),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(MESH_RANKS),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PHOTON_DIST_TIMEOUT_SECONDS=str(MESH_TIMEOUT_S))
+        log = open(os.path.join(rroot, "child.log"), "w")
+        ranks.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cli-child", path],
+            stdout=log, stderr=subprocess.STDOUT, env=env, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__))), log, rroot, out))
+    deadline = time.perf_counter() + MESH_LIMIT_S
+    try:
+        for proc, _, _, _ in ranks:
+            proc.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log, _, _ in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    results = []
+    for r, (proc, _, rroot, out) in enumerate(ranks):
+        if proc.returncode != 0 or not os.path.exists(out):
+            with open(os.path.join(rroot, "child.log")) as f:
+                fail(f"mesh {what}: rank {r} exited {proc.returncode}: "
+                     f"{f.read()[-3000:]}")
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def mesh_rank(torch, spec: dict) -> dict:
+    """A ``--cli-child`` spec of kind ``mesh_rank``: one rank of phase
+    25's group, (a) the fit (``mesh_fit_rank``) or (b) a CLI run in this
+    process (``cli.train`` or ``cli.score``: ``spec["argv"]``), the
+    kernels' counts zeroed just before it and read just after."""
+    if spec["what"] == "fit":
+        return mesh_fit_rank(torch, spec)
+    from photon_tpu_torch.cli import score as score_cli
+    from photon_tpu_torch.cli import train as train_cli
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.ops import serve_kernel
+
+    main = train_cli.main if spec["what"] == "train" else score_cli.main
+    nk.launches = serve_kernel.launches = 0
+    sr.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(spec["argv"])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    return {"rank": int(os.environ["RANK"]), "rc": rc,
+            "wall_seconds": time.perf_counter() - t0,
+            "newton_launches": nk.launches,
+            "serve_launches": serve_kernel.launches,
+            "segment_launches_by_site": dict(sr.launches_by_site),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "line": json.loads(lines[-1]) if lines else None}
+
+
+def mesh_gaps(torch, est, datasets, data, res, single) -> dict:
+    """This rank's share of (a)'s model check: the fixed effect's
+    largest difference to the single-process fit, and per random effect
+    the entities of this rank's buckets more than MESH_RE_ATOL apart;
+    such an entity passes only where both fits stopped on its objective
+    (FUNCTION_VALUES_CONVERGED or OBJECTIVE_NOT_IMPROVING) and the two
+    models' float64 objectives on its rows (logistic loss at each
+    model's own total scores, plus its L2 term) agree within ROUND_OFF
+    of 1 + |objective|, as ``entity_gaps`` judges. The scores come
+    from every row on this rank (no collective)."""
+    from photon_tpu_torch.data.random_effect import EntityBlocks
+    from photon_tpu_torch.optim import ConvergenceReason
+    from photon_tpu_torch.transformers import make_submodel_scorer
+
+    flat = (int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+            int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING))
+    dev = data.device
+    weights = {"mesh": {"global": res.model["global"].model.coefficients
+                        .means},
+               "single": {"global": torch.from_numpy(single["global"]).to(
+                   dev)}}
+    for cid in RE_IDS:
+        if not np.array_equal(np.asarray(res.model[cid].proj_all),
+                              single[f"{cid}/proj_all"]):
+            fail(f"mesh_fit: {cid}'s projectors differ from the single "
+                 "process's")
+        weights["mesh"][cid] = res.model[cid].coefficients
+        weights["single"][cid] = torch.from_numpy(single[cid]).to(dev)
+    parts = {}
+    for name, ws in weights.items():
+        parts[name] = {}
+        for cid, m in res.model.items():
+            if cid == "global":
+                m = dataclasses.replace(m, model=dataclasses.replace(
+                    m.model, coefficients=dataclasses.replace(
+                        m.model.coefficients, means=ws[cid])))
+            else:
+                m = dataclasses.replace(m, coefficients=ws[cid])
+            parts[name][cid] = make_submodel_scorer(m, data)(m).double()
+    totals = {name: sum(p.values()) for name, p in parts.items()}
+    fe = float((weights["mesh"]["global"].double()
+                - weights["single"]["global"].double()).abs().max())
+    out = {"global_max_coefficient_diff": fe}
+    for cid in RE_IDS:
+        ds = datasets[cid]
+        n = ds.num_entities
+        wm = weights["mesh"][cid].double()
+        ws = weights["single"][cid].double()
+        diff = (wm - ws).abs().amax(dim=1)
+        beyond = diff > MESH_RE_ATOL
+        codes = {"mesh": reasons_by_code(res, ds, cid, False),
+                 "single": single[f"{cid}/reasons"]}
+        l2 = l2_weight(est, cid)
+        row = {"entities": n, "max_coefficient_diff": float(diff.max()),
+               "entities_beyond_here": 0, "failing_here": 0,
+               "objective_rel_gap_max": None}
+        for b in ds.device_blocks():
+            eb = b if isinstance(b, EntityBlocks) else b.materialize(None)
+            ec = eb.entity_codes.long()
+            sel = (ec < n) & beyond[ec.clamp(max=n - 1)]
+            if not bool(sel.any()):
+                continue
+            sub = entity_subset(eb, sel)
+            x = dense_x(torch, sub)
+            ind = (sub.labels > 0.5).double()
+            objs = []
+            for name, w_all in (("mesh", wm), ("single", ws)):
+                w = w_all[sub.entity_codes.long()][:, :x.shape[-1]]
+                z = (torch.einsum("brs,bs->br", x, w)
+                     + coordinate_offsets(
+                         sub, totals[name] - parts[name][cid]))
+                loss = (torch.log1p(torch.exp(-z.abs())) + z.clamp(min=0.0)
+                        - z * ind)
+                objs.append((sub.weights.double() * loss).sum(dim=1)
+                            + 0.5 * l2 * (sub.penalty_mask.double()
+                                          * w * w).sum(dim=1))
+            gaps = ((objs[0] - objs[1]).abs()
+                    / (1.0 + objs[1].abs())).cpu().numpy()
+            got = sub.entity_codes.long().cpu().numpy()
+            ok = (np.isin(codes["mesh"][got], flat)
+                  & np.isin(codes["single"][got], flat)
+                  & (gaps <= ROUND_OFF))
+            row["entities_beyond_here"] += int(got.size)
+            row["failing_here"] += int((~ok).sum())
+            row["objective_rel_gap_max"] = max(
+                row["objective_rel_gap_max"] or 0.0, float(gaps.max()))
+        out[cid] = row
+    return out
+
+
+def mesh_fit_rank(torch, spec: dict) -> dict:
+    """One rank of (a): the arrays generated from the seed, the
+    estimator on the group's mesh (``mesh="auto"``), prepared (this
+    rank's shares checked) and fitted twice, the counts zeroed before
+    each fit and read after it; the model saved for the parent, and
+    ``mesh_gaps`` against the single-process fit."""
+    from photon_tpu_torch.algorithm import fused_fit as ff
+    from photon_tpu_torch.ops import newton_kernel as nk
+    from photon_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.init_from_env("cuda")
+    try:
+        t0 = time.perf_counter()
+        arrays = synth_arrays()
+        gen_s = time.perf_counter() - t0
+        data = train_dataset(arrays)
+        n = int(arrays["y"].shape[0])
+        del arrays
+        est = build_estimator()
+        datasets, plan_row = timed_prepare(torch, est, data)
+        em = est.resolve_mesh()
+        fe = datasets["global"]
+        shares = {"global": [fe.num_samples, fe.logical_rows]}
+        for cid in RE_IDS:
+            ds = datasets[cid]
+            shares[cid] = [[b.num_entities, len(c)]
+                           for b, c in zip(ds.blocks, ds.block_codes_np)]
+        coords = est._build_coordinates(datasets, {}, {})
+        reasons = ff.fuse_ineligibility_reasons(coords, mesh=em,
+                                                emitter=est.emitter)
+        fits, models = [], []
+        for k in range(2):
+            c0 = em.stats.snapshot()
+            nk.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = est.fit(data)[0]
+            torch.cuda.synchronize()
+            c1 = em.stats.snapshot()
+            fits.append({"fit": k, "fit_seconds": time.perf_counter() - t0,
+                         "newton_launches": nk.launches,
+                         "collectives": c1["count"] - c0["count"],
+                         "collective_seconds": c1["seconds"] - c0["seconds"],
+                         "collective_bytes": c1["bytes"] - c0["bytes"],
+                         "peak_device_bytes":
+                             torch.cuda.max_memory_allocated(),
+                         "fused": est._fused_cache is not None})
+            models.append({cid: (m.model.coefficients.means
+                                 if cid == "global" else m.coefficients)
+                           for cid, m in res.model.items()})
+        repeat = all(torch.equal(models[0][c], models[1][c])
+                     for c in models[0])
+        np.savez(os.path.join(spec["root"], "model.npz"),
+                 **{c: t.cpu().numpy() for c, t in models[1].items()})
+        gaps = mesh_gaps(torch, est, datasets, data, res,
+                         np.load(spec["single"]))
+        return {"rank": mesh.rank, "size": mesh.size,
+                "backend": mesh.backend, "rows": n,
+                "generate_seconds": gen_s,
+                "prepare_seconds": plan_row["seconds"], "shares": shares,
+                "fuse_reasons": reasons, "fits": fits,
+                "repeat_bit_identical": repeat, "gaps": gaps,
+                "model": os.path.join(spec["root"], "model.npz")}
+    finally:
+        mesh_mod.shutdown()
+
+
+def phase_mesh_fit(torch, single: str) -> dict:
+    """Phase 25 (a): phase ``fit``'s full-width logistic fit (4,000,000
+    rows, f32, caps 512 / 2048, 4 CD iterations) by
+    ``GameEstimator(mesh="auto")`` in MESH_RANKS ranks on this card
+    (gloo), each generating the arrays from the seed, fitted twice.
+    Gates: each rank holds ceil(rows / ranks) fixed-effect rows and its
+    share of every bucket's padded entities; the fit unfused with the
+    reference's reason; Newton-kernel launches in each rank (the
+    wrapper's count: an unfused fit replays no graph); the two fits
+    bit-identical in each rank and rank 1's model rank 0's bit for bit;
+    the model within MESH_FE_ATOL / MESH_RE_ATOL of the single-process
+    unfused fit (``single``, the ``.npz`` ``save_single_fit`` wrote), an
+    entity past them only where both fits stopped on its objective."""
+    t0 = time.perf_counter()
+    ranks = mesh_ranks("fit", os.path.join(mesh_root(), "fit"),
+                       single=single)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        emit({"phase": "mesh_fit", "rank": r["rank"],
+              "backend": r["backend"], "generate_seconds":
+                  r["generate_seconds"],
+              "prepare_seconds": r["prepare_seconds"],
+              "shares": r["shares"], "fits": r["fits"],
+              "repeat_bit_identical": r["repeat_bit_identical"],
+              "gaps": r["gaps"]})
+    models = [np.load(r["model"]) for r in ranks]
+    across = all(np.array_equal(models[0][c], m[c])
+                 for m in models[1:] for c in models[0].files)
+    gaps = ranks[0]["gaps"]
+    failing = {cid: sum(r["gaps"][cid]["failing_here"] for r in ranks)
+               for cid in RE_IDS}
+    beyond = {cid: sum(r["gaps"][cid]["entities_beyond_here"]
+                       for r in ranks) for cid in RE_IDS}
+    row = {"phase": "mesh_fit", "ranks": len(ranks),
+           "backend": ranks[0]["backend"], "wall_seconds": wall,
+           "fit_seconds": [[f["fit_seconds"] for f in r["fits"]]
+                           for r in ranks],
+           "prepare_seconds": [r["prepare_seconds"] for r in ranks],
+           "collectives_per_fit": [r["fits"][-1]["collectives"]
+                                   for r in ranks],
+           "collective_seconds_per_fit": [
+               r["fits"][-1]["collective_seconds"] for r in ranks],
+           "peak_device_bytes": [max(f["peak_device_bytes"]
+                                     for f in r["fits"]) for r in ranks],
+           "newton_launches": [[f["newton_launches"] for f in r["fits"]]
+                               for r in ranks],
+           "ranks_bit_identical": across,
+           "global_max_coefficient_diff":
+               gaps["global_max_coefficient_diff"],
+           "re_max_coefficient_diff": {
+               cid: gaps[cid]["max_coefficient_diff"] for cid in RE_IDS},
+           "re_entities_beyond": beyond, "re_failing": failing,
+           "bounds": [MESH_FE_ATOL, MESH_RE_ATOL]}
+    emit(row)
+    for r in ranks:
+        n = r["rows"]
+        fe_rows, logical = r["shares"]["global"]
+        if fe_rows != -(-n // MESH_RANKS) or logical != n:
+            fail(f"mesh_fit: rank {r['rank']} holds {fe_rows} of {logical} "
+                 f"fixed-effect rows")
+        for cid in RE_IDS:
+            if any(b * MESH_RANKS != padded
+                   for b, padded in r["shares"][cid]):
+                fail(f"mesh_fit: rank {r['rank']}'s {cid} shares "
+                     f"{r['shares'][cid]}")
+        if r["backend"] != "gloo" or r["size"] != MESH_RANKS:
+            fail(f"mesh_fit: rank {r['rank']} on {r['backend']} of "
+                 f"{r['size']}")
+        if (not r["fuse_reasons"]
+                or not r["fuse_reasons"][0].startswith("mesh execution")
+                or any(f["fused"] for f in r["fits"])):
+            fail(f"mesh_fit: rank {r['rank']} fused: {r['fuse_reasons']}")
+        if not all(f["newton_launches"] > 0 and f["collectives"] > 0
+                   for f in r["fits"]):
+            fail(f"mesh_fit: rank {r['rank']}'s fits {r['fits']}")
+        if not r["repeat_bit_identical"]:
+            fail(f"mesh_fit: rank {r['rank']}'s two fits differ")
+    if not across:
+        fail("mesh_fit: the ranks' models differ")
+    if not gaps["global_max_coefficient_diff"] <= MESH_FE_ATOL:
+        fail(f"mesh_fit: the fixed effect is "
+             f"{gaps['global_max_coefficient_diff']} from the single "
+             "process's")
+    if any(failing.values()):
+        fail(f"mesh_fit: entities past {MESH_RE_ATOL} without an objective "
+             f"stop in both fits: {failing}")
+    return {"newton_launches": sum(f["newton_launches"] for r in ranks
+                                   for f in r["fits"])}
+
+
+def phase_mesh_cli(torch, cli: dict) -> dict:
+    """Phase 25 (b), on 14a's files: ``cli.train`` in MESH_RANKS ranks
+    (14a's configuration, one model: ``model_output_mode`` BEST, no
+    feature statistics) with ``--distributed --fleet-dir``, then
+    ``cli.fleetview`` on the bundles, then ``cli.score --mesh auto`` in
+    MESH_RANKS ranks on 14a's best model and validation file. Gates:
+    every rank exits 0; one model and one summary; the configuration
+    14a chose and its validation AUC within 1e-4; the coefficients
+    within MESH_CLI_FE_ATOL / MESH_CLI_RE_ATOL of 14a's single-process
+    best model (the entities whose rows hold one label left out, as
+    14a's own agreement leaves them: they have no finite optimum), and
+    how far past MESH_CLI_RTOL / MESH_CLI_ATOL they lie reported; fleetview merges MESH_RANKS bundles
+    with no rank missing; one scores file within MESH_SCORE_ATOL of
+    14a's ``cli.score``, and its AUC."""
+    from photon_tpu_torch.io import avro
+
+    root = mesh_root()
+    cfg = dict(cli["cfg"], model_output_mode="BEST")
+    cfg.pop("data_summary_dir", None)
+    cfg, path = write_cli_config(cfg, os.path.join(root, "train"))
+    fleet_dir = os.path.join(root, "fleet")
+    t0 = time.perf_counter()
+    train = mesh_ranks("train", os.path.join(root, "train"), argv=[
+        "--config", path, "--device", "cuda", "--no-flight",
+        "--distributed", "--fleet-dir", fleet_dir])
+    train_s = time.perf_counter() - t0
+    out = cfg["output_dir"]
+    written = sorted(os.path.relpath(p, out) for p in glob.glob(
+        os.path.join(out, "**", "*"), recursive=True) if os.path.isfile(p)
+        and os.path.basename(p) in ("checkpoint.npz",
+                                    "training-summary.json"))
+    mesh_a, _ = checkpoint_arrays(os.path.join(out, "models", "best",
+                                               "checkpoint.npz"))
+    single_a, sman = checkpoint_arrays(os.path.join(
+        cli["root"], "kernel", "out", "models", "best", "checkpoint.npz"))
+    train_rows = cli["files"]["train"]
+    excess, ref_excess, one_label = {}, {}, {}
+    for key, a in single_a.items():
+        if key.endswith("/proj_all"):
+            excess[key] = 0.0 if np.array_equal(a, mesh_a[key]) else 1.0
+            continue
+        a = a.astype(np.float64)
+        diff = np.abs(mesh_a[key].astype(np.float64) - a)
+        room = diff - (MESH_CLI_FE_ATOL if key.startswith("global/")
+                       else MESH_CLI_RE_ATOL)
+        ref = diff - (MESH_CLI_ATOL + MESH_CLI_RTOL * np.abs(a))
+        if not key.startswith("global/"):
+            cid = key.split("/")[0]
+            ids = train_rows["users" if cid == "per-user" else "movies"]
+            pos = np.bincount(ids, weights=train_rows["labels"])
+            mixed = (pos > 0) & (pos < np.bincount(ids))
+            keep = mixed[np.array([int(k)
+                                   for k in sman[cid]["entity_keys"]])]
+            one_label[cid] = int((~keep).sum())
+            room, ref = room[keep], ref[keep]
+        excess[key] = float(np.max(room)) if room.size else 0.0
+        ref_excess[key] = float(np.max(ref)) if ref.size else 0.0
+    with open(os.path.join(out, "training-summary.json")) as f:
+        ms = json.load(f)
+    with open(os.path.join(cli["root"], "kernel", "out",
+                           "training-summary.json")) as f:
+        ks = json.load(f)
+    best = [ms["best_configuration_index"], ks["best_configuration_index"]]
+    val_auc = [s_["configurations"][b]["evaluation"]["AUC"]
+               for s_, b in zip((ms, ks), best)]
+    t0 = time.perf_counter()
+    view = subprocess.run(
+        [sys.executable, "-m", "photon_tpu_torch.cli.fleetview",
+         "--run-dir", fleet_dir, "--json", os.path.join(root, "fleet.json"),
+         "--expect-ranks", str(MESH_RANKS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=MESH_LIMIT_S)
+    view_s = time.perf_counter() - t0
+    report = {}
+    if os.path.exists(os.path.join(root, "fleet.json")):
+        with open(os.path.join(root, "fleet.json")) as f:
+            report = json.load(f)
+    val = cli["files"]["validation"]
+    score_out = os.path.join(root, "scores")
+    t0 = time.perf_counter()
+    score = mesh_ranks("score", os.path.join(root, "score"), argv=[
+        "--model-dir", os.path.join(cli["root"], "kernel", "out", "models",
+                                    "best"),
+        "--input", val["data"], "--output", score_out, "--feature-shards",
+        *[f"{s}={b[0]}" for s, b in CLI_SHARDS.items()],
+        "--id-tags", "userId", "movieId", "--device", "cuda",
+        "--evaluators", *CLI_EVALUATORS, "--mesh", "auto"])
+    score_s = time.perf_counter() - t0
+
+    def read(d):
+        recs = avro.read_container_dir(os.path.join(d, "part-00000.avro"))
+        with open(os.path.join(d, "evaluation.json")) as f:
+            return np.array([r["predictionScore"] for r in recs]), json.load(f)
+
+    got, got_ev = read(score_out)
+    want, want_ev = read(os.path.join(cli["root"], "scores"))
+    score_err = float(np.max(np.abs(got - want)))
+    files = sorted(os.listdir(score_out))
+    row = {"phase": "mesh_cli", "ranks": MESH_RANKS,
+           "train_seconds": train_s,
+           "train_rank_seconds": [r["wall_seconds"] for r in train],
+           "train_stage_seconds": [r["line"] and r["line"].get(
+               "wall_clock_seconds") for r in train],
+           "newton_launches": [r["newton_launches"] for r in train],
+           "segment_launches_by_site": [r["segment_launches_by_site"]
+                                        for r in train + score],
+           "peak_device_bytes": [r["peak_device_bytes"]
+                                 for r in train + score],
+           "written": written, "model_max_excess": excess,
+           "model_max_excess_at_reference_bound": ref_excess,
+           "one_label_entities_left_out": one_label,
+           "best_configuration": best, "validation_auc": val_auc,
+           "fleetview_rc": view.returncode, "fleetview_seconds": view_s,
+           "fleet_bundles": report.get("bundles"),
+           "fleet_missing_ranks": report.get("missing_ranks"),
+           "score_seconds": score_s, "score_files": files,
+           "score_max_abs_diff": score_err,
+           "score_serve_launches": [r["serve_launches"] for r in score],
+           "auc": [got_ev.get("AUC"), want_ev.get("AUC")]}
+    emit(row)
+    if any(r["rc"] != 0 for r in train + score):
+        fail("mesh_cli: a rank's CLI exited non-zero")
+    if written != ["models/best/checkpoint.npz", "training-summary.json"]:
+        fail(f"mesh_cli: cli.train wrote {written}")
+    if best[0] != best[1] or not abs(val_auc[0] - val_auc[1]) <= 1e-4:
+        fail(f"mesh_cli: configuration {best} and validation AUC {val_auc} "
+             "against 14a's")
+    if not all(v <= 0.0 for v in excess.values()):
+        fail(f"mesh_cli: the mesh model is past the bounds: {excess}")
+    if any(r["newton_launches"] <= 0 for r in train):
+        fail("mesh_cli: a rank launched the Newton kernel no time")
+    if (view.returncode != 0 or report.get("bundles") != MESH_RANKS
+            or report.get("missing_ranks")):
+        fail(f"mesh_cli: fleetview exited {view.returncode} with "
+             f"{report.get('bundles')} bundles: {view.stderr[-2000:]}")
+    if files != ["evaluation.json", "part-00000.avro"]:
+        fail(f"mesh_cli: cli.score wrote {files}")
+    if len(got) != CLI_VALIDATION_ROWS or not score_err <= MESH_SCORE_ATOL:
+        fail(f"mesh_cli: scores {score_err} from the single process's")
+    if not abs(got_ev["AUC"] - want_ev["AUC"]) <= 1e-6:
+        fail(f"mesh_cli: AUC {got_ev['AUC']} against {want_ev['AUC']}")
+    sites = {}
+    for r in train + score:
+        for site, k in r["segment_launches_by_site"].items():
+            sites[site] = sites.get(site, 0) + k
+    return {"newton_launches": sum(r["newton_launches"] for r in train),
+            "fixed_effect_launches": sites.get("fixed_effect", 0),
+            "evaluation_launches": sites.get("evaluation", 0)}
+
+
 def fits_only(torch, n: int) -> int:
     """``--fits N``: the full-width fits alone (module docstring)."""
     from photon_tpu_torch.ops import newton_kernel as nk
@@ -8867,15 +9469,20 @@ def cli_phases(torch, train_cli: dict, serve_sketch: str | None) -> tuple:
     glm_cli, each through ``phase_child``; 14e's tuned runs, 14g's
     pilot and 14h's cli.profile, through their ``--cli-child`` specs)
     run at once, each in a process of its own that counts its launches,
-    beside 14c in this process. Returns the results of 14d, 14b, 14f,
-    14c, 14e, 14g and 14h."""
+    beside 14c in this process; 25 (b) ``phase_mesh_cli`` starts when
+    14f's child ends (a chain: the block's CPU is its bound, and 14d's
+    child, the longest, then has fewer beside it). Returns the results
+    of 14d, 14b, 14f, 25 (b), 14c, 14e, 14g and 14h."""
     root = train_cli["root"]
+
+    def child(name, tag, *args):
+        return phase_child(name, os.path.join(root, f"phase-{tag}"), *args)
+
     children = in_background(cli_children, [
-        phase_child(name, os.path.join(root, f"phase-{tag}"), *args)
-        for name, tag, args in (
-            ("phase_stream_cli", "stream", (train_cli, serve_sketch)),
-            ("phase_train_cli_routes", "routes", (train_cli,)),
-            ("phase_glm_cli", "glm", (train_cli,)))]
+        child("phase_stream_cli", "stream", train_cli, serve_sketch),
+        child("phase_train_cli_routes", "routes", train_cli),
+        [child("phase_glm_cli", "glm", train_cli),
+         child("phase_mesh_cli", "mesh", train_cli)]]
         + tuning_jobs(train_cli) + pilot_jobs(train_cli)
         + profile_jobs(train_cli), env=dict(os.environ))
     try:
@@ -8885,9 +9492,11 @@ def cli_phases(torch, train_cli: dict, serve_sketch: str | None) -> tuple:
             children(cancel=True)
         raise
     empty_cache()
-    stream, cli_routes, glm, *tuned, piloted, profiled = children()
-    stream, cli_routes, glm = map(phase_result, (stream, cli_routes, glm))
-    return (stream, cli_routes, glm, routes,
+    stream, cli_routes, (glm, mesh_cli), *tuned, piloted, profiled = (
+        children())
+    stream, cli_routes, glm, mesh_cli = map(
+        phase_result, (stream, cli_routes, glm, mesh_cli))
+    return (stream, cli_routes, glm, mesh_cli, routes,
             phase_tuning_cli(torch, train_cli, tuned),
             phase_pilot_cli(torch, train_cli, piloted),
             phase_profile_cli(torch, profiled))
@@ -8911,7 +9520,7 @@ def main() -> int:
                     help="run only the serving phases (1-6c)")
     ap.add_argument("--stream", action="store_true",
                     help="run only the ingest phases: train_cli, "
-                         "stream_cli and the planner comparisons")
+                         "stream_cli and the planner comparison")
     ap.add_argument("--tuning", action="store_true",
                     help="run only train_cli, the tuned cli.train runs "
                          "and cli.glm")
@@ -8922,6 +9531,8 @@ def main() -> int:
                     help="run only the cli.profile phase (14h)")
     ap.add_argument("--ell-routes", action="store_true",
                     help="run only the ell_routes phase (24)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run only the mesh phase (25) and what it reads")
     ap.add_argument("--cli-child", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -8978,6 +9589,11 @@ def main() -> int:
         empty_cache()
         phase_ell_routes_small(
             torch, wide_arrays(**WIDE_REDUCED, task="logistic"))
+        print(smi, flush=True)
+        return 0
+    if args.mesh:
+        phase_mesh_fit(torch, single_fit_npz(torch))
+        phase_mesh_cli(torch, phase_train_cli(torch, *serving_arrays()))
         print(smi, flush=True)
         return 0
     if args.tuning:
@@ -9056,10 +9672,11 @@ def main() -> int:
         return 0
     newton = phase_train(torch)
     empty_cache()
+    mesh_fit = phase_mesh_fit(torch, os.path.join(mesh_root(), "single.npz"))
     train_cli = phase_train_cli(torch, arrays, manifest)
     empty_cache()
-    stream, cli_routes, glm, routes, tuning, pilot, profiles = cli_phases(
-        torch, train_cli, ops["health_sketch"])
+    (stream, cli_routes, glm, mesh_cli, routes, tuning, pilot,
+     profiles) = cli_phases(torch, train_cli, ops["health_sketch"])
     empty_cache()
     newton["launches_by_path"] = {
         "fit": newton["launches"], "train_cli": train_cli["newton_launches"],
@@ -9068,7 +9685,9 @@ def main() -> int:
         "train_cli_routes": cli_routes["newton_launches"],
         "tuning_cli": tuning["newton_launches"],
         "pilot_cli": pilot["newton_launches"],
-        "profile_cli": profiles["newton_launches"]}
+        "profile_cli": profiles["newton_launches"],
+        "mesh_fit": mesh_fit["newton_launches"],
+        "mesh_cli": mesh_cli["newton_launches"]}
     newton["launches"] = sum(newton["launches_by_path"].values())
     newton["max_abs_err"] = max(newton["max_abs_err"],
                                 train_cli["newton_parity_max_abs_diff"])
@@ -9085,6 +9704,10 @@ def main() -> int:
         "evaluation_launches"]
     segment["launches_by_path"]["profile_cli"] = profiles[
         "segment_launches"]
+    segment["launches_by_path"]["mesh_cli_fixed_effect"] = mesh_cli[
+        "fixed_effect_launches"]
+    segment["launches_by_path"]["mesh_cli_evaluation"] = mesh_cli[
+        "evaluation_launches"]
     # The fixed effect's sparse transpose on every CLI training path.
     fixed_effect = {"train_cli": train_cli["fixed_effect_launches"],
                     "stream_cli": stream["fixed_effect_launches"],

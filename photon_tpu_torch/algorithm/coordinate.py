@@ -7,6 +7,12 @@ scores of every other coordinate (Coordinate.scala:52-53), and its
 ``down_sampling_rate`` under 1 masks rows per train call with draws
 seeded by the call's seed (FixedEffectCoordinate.trainModel ->
 DistributedOptimizationProblem.runWithSampling :141-167).
+
+On a row-sharded batch (``batch.mesh``) the coordinate trains on this
+rank's share of the rows against its share of the replicated residual
+vector, and ``score`` gathers every rank's share into the replicated
+``[n]`` scores, cut back to the logical rows (reference
+``algorithm/coordinate.py:66``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from photon_tpu_torch.algorithm.problems import (
 from photon_tpu_torch.data import sampling
 from photon_tpu_torch.data.dataset import GLMBatch
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.parallel.mesh import maybe_row_shard
 from photon_tpu_torch.types import TaskType
 
 
@@ -42,6 +49,8 @@ class FixedEffectCoordinate:
               seed: int = 0):
         batch = self.batch
         if residuals is not None:
+            if batch.mesh is not None:
+                (residuals,) = maybe_row_shard(batch.mesh, residuals)
             batch = batch.with_offsets(batch.offsets + residuals)
         rate = self.config.down_sampling_rate
         if 0.0 < rate < 1.0:
@@ -55,4 +64,7 @@ class FixedEffectCoordinate:
         return solution.model, solution.result
 
     def score(self, model: GeneralizedLinearModel) -> torch.Tensor:
-        return model.coefficients.compute_score(self.batch.features)
+        s = model.coefficients.compute_score(self.batch.features)
+        if self.batch.mesh is not None:
+            s = self.batch.mesh.gather_rows(s, self.batch.logical_rows)
+        return s

@@ -170,6 +170,11 @@ def fuse_ineligibility_reasons(coords: dict, *, mesh=None,
                     f"coordinate {cid!r}: box constraints run the "
                     "untraced solver path (constraint arrays would bake "
                     "in as trace constants)")
+            rows = inner.batch.logical_rows
+            if rows is not None and inner.batch.num_samples != rows:
+                reasons.append(
+                    f"coordinate {cid!r}: padded mesh batch "
+                    "(num_samples != logical_rows) stays unfused")
         elif isinstance(inner, RandomEffectCoordinate):
             if not inner.dataset.is_lazy:
                 reasons.append(

@@ -755,20 +755,36 @@ def route_of(ell_shape: tuple | None, dtype, sub_dim: int, *, direct: bool,
 def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
                  l1_weight: float, l2_weight: float,
                  incremental_weight: float, prior_full,
-                 w_all, v_all, *, sub_dim: int, task: TaskType,
-                 opt_config: optim.OptimizerConfig,
-                 variance_computation: VarianceComputationType,
-                 direct: bool, newton: bool,
-                 gram_mults: tuple | None = None,
-                 use_owlqn: bool | None = None,
-                 precision: str = "float32"):
-    """One bucket's batched per-entity solve, scattered into the
-    [E, Smax] tables. A lazy ``BlockPlan`` gathers its slab here; an
-    ELL block takes the route ``block_route`` names. The fused fit
-    passes the weights as 0-d tensors and ``use_owlqn``, the static
-    L1 route. Under ``precision="bfloat16"`` the slab is stored bf16
-    while the solver state stays in the labels' dtype (reference
-    :1129-1136); the quasi-Newton route reads it back in f32."""
+                 w_all, v_all, **kw):
+    """One bucket's batched per-entity solve (``_solve_bucket``),
+    scattered into the [E, Smax] tables."""
+    codes, w, v, it, reason = _solve_bucket(
+        block, residuals, factors_full, shifts_full, w0_full, l1_weight,
+        l2_weight, incremental_weight, prior_full,
+        num_entities=w_all.shape[0], **kw)
+    return _scatter_results(w_all, v_all, codes, w, v, it, reason)
+
+
+def _solve_bucket(block, residuals, factors_full, shifts_full, w0_full,
+                  l1_weight: float, l2_weight: float,
+                  incremental_weight: float, prior_full, *,
+                  num_entities: int, sub_dim: int, task: TaskType,
+                  opt_config: optim.OptimizerConfig,
+                  variance_computation: VarianceComputationType,
+                  direct: bool, newton: bool,
+                  gram_mults: tuple | None = None,
+                  use_owlqn: bool | None = None,
+                  precision: str = "float32"):
+    """One bucket's batched per-entity solve: ``(entity codes, w [B, S],
+    variances [B, S], iterations [B], reasons [B])``. A lazy
+    ``BlockPlan`` gathers its slab here; an ELL block takes the route
+    ``block_route`` names. The fused fit passes the weights as 0-d
+    tensors and ``use_owlqn``, the static L1 route. Under
+    ``precision="bfloat16"`` the slab is stored bf16 while the solver
+    state stays in the labels' dtype (reference :1129-1136); the
+    quasi-Newton route reads it back in f32. Sentinel codes (a mesh's
+    entity padding) read the last entity's initial and prior rows;
+    their results are dropped on the way back."""
     if isinstance(block, BlockPlan):
         block = block.materialize(residuals)
         offsets = block.offsets
@@ -816,8 +832,7 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
         shifts_sub = torch.where(proj >= 0, shifts_full.to(dtype)[safe],
                                  torch.zeros((), dtype=dtype,
                                              device=proj.device))
-    n_ent = w_all.shape[0]
-    take = block.entity_codes.long().clamp(0, n_ent - 1)
+    take = block.entity_codes.long().clamp(0, num_entities - 1)
     prior = None
     if prior_full is not None:
         prior = (prior_full[0].to(dtype)[take][:, :s],
@@ -859,8 +874,44 @@ def _solve_block(block, residuals, factors_full, shifts_full, w0_full,
             opt_config=opt_config, variance_computation=variance_computation,
             l2_weight=l2_weight, incremental_weight=incremental_weight,
             **extra)
-    return _scatter_results(w_all, v_all, block.entity_codes, w, v, it,
-                            reason)
+    return block.entity_codes, w, v, it, reason
+
+
+def _gather_buckets(ds: RandomEffectDataset, solved: list,
+                    variances: bool) -> list:
+    """Every rank's share of every bucket's results (``_solve_bucket``'s
+    tuples on an entity-sharded dataset), gathered in ONE collective and
+    concatenated in rank order: each bucket's results over its whole
+    padded entity axis, beside the padded codes of the host mirror. The
+    ranks' shares have one shape, so one flat buffer of the solution
+    dtype carries them (iterations and reasons are small integers, exact
+    in it)."""
+    mesh = ds.mesh
+    dtype = solved[0][1].dtype if solved else ds.dtype
+    pieces, layout = [], []
+    for _, w, v, it, reason in solved:
+        parts = [w] + ([v] if variances else []) + [it, reason]
+        layout.append([(tuple(p.shape), p.dtype) for p in parts])
+        pieces += [p.reshape(-1).to(dtype) for p in parts]
+    if not pieces:
+        return []
+    ranks = mesh.all_gather(torch.cat(pieces))
+    out = []
+    at = 0
+    for i, shapes in enumerate(layout):
+        whole = []
+        for shape, pdtype in shapes:
+            size = int(np.prod(shape))
+            whole.append(torch.cat([
+                r[at:at + size].reshape(shape) for r in ranks]).to(pdtype))
+            at += size
+        w, *rest = whole
+        v = rest[0] if variances else None
+        it, reason = rest[-2:]
+        codes = torch.from_numpy(np.asarray(ds.block_codes_np[i])).to(
+            w.device)
+        out.append((codes, w, v, it, reason))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -951,24 +1002,37 @@ class RandomEffectCoordinate:
                  else torch.zeros(shape, dtype=dtype, device=dev))
         real_masks = self.check_trainable()
         direct, newton = self._routes()
-        reasons, iters = [], []
+        solved = []
         for i, block in enumerate(ds.device_blocks()):
             gram_mults = (ds.block_gram_mults[i]
                           if i < len(ds.block_gram_mults) else None)
-            w_all, v_all, it, reason = _solve_block(
+            solved.append(_solve_bucket(
                 block, residuals, self.normalization.factors,
                 self.normalization.shifts, w0_full, self.config.l1_weight,
                 self.config.l2_weight,
                 self.config.incremental_weight,
                 None if self.prior is None
                 else (self.prior.coefficients, self.prior.variances),
-                w_all, v_all, sub_dim=block.sub_dim, task=self.task,
-                opt_config=self.config.optimizer,
+                num_entities=shape[0], sub_dim=block.sub_dim,
+                task=self.task, opt_config=self.config.optimizer,
                 variance_computation=self.config.variance_computation,
                 direct=direct, newton=newton, gram_mults=gram_mults,
-                precision=self.precision)
+                precision=self.precision))
+        if ds.mesh is not None:
+            solved = _gather_buckets(ds, solved, v_all is not None)
+            # Sentinel codes scatter into a spare last row, cut off.
+            w_all = torch.zeros((shape[0] + 1, shape[1]), dtype=dtype,
+                                device=dev)
+            v_all = None if v_all is None else torch.zeros_like(w_all)
+        reasons, iters = [], []
+        for codes, w, v, it, reason in solved:
+            w_all, v_all, it, reason = _scatter_results(
+                w_all, v_all, codes, w, v, it, reason)
             reasons.append(reason)
             iters.append(it)
+        if ds.mesh is not None:
+            w_all = w_all[:shape[0]]
+            v_all = None if v_all is None else v_all[:shape[0]]
         model = RandomEffectModel(
             coefficients=w_all,
             random_effect_type=ds.config.random_effect_type,

@@ -1,11 +1,16 @@
 """Shared CLI plumbing (port of ``photon_tpu/cli/common.py``): logging
-set-up, and the single-process answers of the multi-host hooks.
+set-up, and the multi-process hooks.
 
-The port runs on one device in one process: ``maybe_init_distributed``
-starts nothing (it marks the init half of the fleet clock handshake),
-``fetch_global`` returns its argument as numpy, and this process is the
-coordinator. ``resolve_mesh`` accepts only the mesh settings that mean
-one device.
+Every process of a run executes the same program on the same data, as
+every host does in the reference. ``maybe_init_distributed`` starts the
+``torch.distributed`` group under a launcher (``parallel.mesh.
+init_from_env``: ``torchrun`` or the variables it exports) and marks
+the init half of the fleet clock handshake; ``fetch_global`` brings a
+tensor (the port's gathered scores are whole on every rank) to numpy;
+``is_coordinator`` is rank 0, the one process that writes artifacts.
+``distributed_session`` tears the group down when the CLI returns or
+raises, so a rank that fails ends its peers' collectives instead of
+leaving them waiting.
 """
 
 from __future__ import annotations
@@ -16,39 +21,70 @@ import logging
 import numpy as np
 import torch
 
-from photon_tpu_torch.device import MESH_NOT_PORTED
 
+def maybe_init_distributed(device=None) -> bool:
+    """Start the process group when a launcher exported a
+    ``WORLD_SIZE`` above 1 (this rank on ``device``: ``cuda`` is
+    ``cuda:{LOCAL_RANK mod device_count}``); returns True when this call
+    started it. Marks the init half of the fleet clock-alignment
+    handshake (``obs.fleet.mark_init``) on every call, so a bundle
+    committed later bounds how far this host's clock mapping drifted
+    over the run."""
+    import torch.distributed as dist
 
-def maybe_init_distributed() -> bool:
-    """No multi-host runtime to start; returns False. Marks the init
-    half of the fleet clock-alignment handshake (``obs.fleet.mark_init``)
-    on every call, so a bundle committed later bounds how far this
-    host's clock mapping drifted over the run."""
     from photon_tpu_torch.obs import fleet
+    from photon_tpu_torch.parallel import mesh as mesh_mod
 
+    started = False
+    if not dist.is_initialized():
+        started = mesh_mod.init_from_env(device) is not None
     fleet.mark_init()
-    return False
+    if started:
+        logging.getLogger("photon.cli").info(
+            "process group up: rank %d/%d, backend %s", dist.get_rank(),
+            dist.get_world_size(), dist.get_backend())
+    return started
+
+
+@contextlib.contextmanager
+def distributed_session(device=None):
+    """``maybe_init_distributed`` for one CLI run. Yields a dict whose
+    ``"clean"`` the run sets False for a non-zero exit code. The group
+    this call started is torn down on the way out: after a barrier when
+    the run ended cleanly, at once when it raised or failed (the other
+    ranks' collectives then fail instead of waiting)."""
+    from photon_tpu_torch.parallel import mesh as mesh_mod
+
+    started = maybe_init_distributed(device)
+    session = {"clean": True}
+    try:
+        yield session
+    except BaseException:
+        session["clean"] = False
+        raise
+    finally:
+        if started:
+            if session["clean"]:
+                import torch.distributed as dist
+
+                dist.barrier()
+            mesh_mod.shutdown()
 
 
 def fetch_global(x) -> np.ndarray:
-    """The whole array on this host, as numpy."""
+    """The whole array on this host, as numpy (the port's mesh scores
+    are gathered whole on every rank)."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
 def is_coordinator() -> bool:
-    """True: the single process writes the artifacts."""
-    return True
+    """True on the process that writes the artifacts: rank 0 of the
+    process group, or the single process."""
+    import torch.distributed as dist
 
-
-def resolve_mesh(spec: str | None) -> None:
-    """``--mesh``: ``auto`` resolves to no mesh on one card, as do
-    ``off`` and ``1``; anything else asks for multi-device scoring and
-    raises."""
-    if spec is None or str(spec).strip().lower() in ("auto", "off", "1"):
-        return None
-    raise NotImplementedError(f"--mesh {spec}: {MESH_NOT_PORTED}")
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 @contextlib.contextmanager

@@ -18,7 +18,10 @@ file reader leaves that key unread. A regularization's
 and ``hyperparameter_tuning`` (``mode`` NONE, RANDOM or BAYESIAN,
 ``iterations``, ``seed``) runs the tuner after the lambda grid. An
 option the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item when the file is loaded: multi-device (item 12).
+its ROADMAP item when the file is loaded: ``feature_sharding``
+``column`` (item 12's second part). ``mesh`` (default ``auto``) is the
+estimator's ``parallel.mesh.resolve_mesh`` setting; a count other than
+the process group's size raises when the estimator resolves it.
 ``profile_dir`` runs the fit under ``torch.profiler``
 (``obs.trace.profile_session``) and writes its Chrome trace there.
 """
@@ -35,6 +38,7 @@ from photon_tpu_torch.algorithm.problems import (
     VarianceComputationType,
 )
 from photon_tpu_torch.data.random_effect import RandomEffectDataConfiguration
+from photon_tpu_torch.device import COLUMN_SHARDING_NOT_PORTED
 from photon_tpu_torch.estimators.game_estimator import (
     FixedEffectCoordinateConfiguration,
     GameEstimator,
@@ -121,11 +125,12 @@ def parse_coordinate(cid: str, d: dict) -> CoordinateSpec:
     kind = d.get("type", "fixed").lower()
     if kind in ("fixed", "fixed_effect", "fixed-effect"):
         sharding = str(d.get("feature_sharding", "replicated")).lower()
-        if sharding != "replicated":
+        if sharding == "column":
             raise optim.not_ported(
-                f"coordinate {cid!r}: feature_sharding {sharding!r}",
-                MULTI_DEVICE_ITEM)
-        cfg = FixedEffectCoordinateConfiguration(shard, opt_cfg)
+                f"coordinate {cid!r}: feature_sharding 'column' "
+                f"({COLUMN_SHARDING_NOT_PORTED})", MULTI_DEVICE_ITEM)
+        cfg = FixedEffectCoordinateConfiguration(shard, opt_cfg,
+                                                 feature_sharding=sharding)
     elif kind in ("random", "random_effect", "random-effect"):
         cfg = RandomEffectCoordinateConfiguration(
             RandomEffectDataConfiguration(
@@ -181,6 +186,8 @@ class TrainingConfig:
     # {mode: NONE | RANDOM | BAYESIAN, iterations, seed}
     # (runHyperparameterTuning, GameTrainingDriver.scala:677-719).
     hyperparameter_tuning: dict | None = None
+    # The estimator's mesh setting (parallel.mesh.resolve_mesh).
+    mesh: str | int = "auto"
 
     def shard_bags(self) -> dict[str, list[str]] | None:
         if self.feature_shards is None:
@@ -213,10 +220,6 @@ class TrainingConfig:
     @staticmethod
     def load(path: str) -> "TrainingConfig":
         raw = _read_config_file(path)
-        mesh = str(raw.get("mesh", "auto")).strip().lower()
-        if mesh not in ("auto", "off", "1"):
-            raise optim.not_ported(f"mesh {mesh!r} (multi-device training)",
-                                   MULTI_DEVICE_ITEM)
         coords = {cid: parse_coordinate(cid, c)
                   for cid, c in raw["coordinates"].items()}
         inp = raw.get("input", {})
@@ -249,6 +252,7 @@ class TrainingConfig:
             profile_dir=raw.get("profile_dir"),
             input_columns=inp.get("input_columns"),
             hyperparameter_tuning=raw.get("hyperparameter_tuning"),
+            mesh=raw.get("mesh", "auto"),
         )
 
     def opt_config_sequence(self) -> list[dict]:
@@ -273,6 +277,7 @@ class TrainingConfig:
             locked_coordinates=self.locked_coordinates,
             incremental_training=self.incremental_training,
             device=device,
+            mesh=self.mesh,
         )
 
 

@@ -131,16 +131,12 @@ def _load_config(args) -> dict:
 def _build_pilot_config(raw: dict, device: str = "cuda"):
     import torch
 
-    from photon_tpu_torch import optim
-    from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM, parse_coordinate
+    from photon_tpu_torch.cli.config import parse_coordinate
     from photon_tpu_torch.estimators.game_estimator import GameEstimator
     from photon_tpu_torch.pilot import ObservePolicy, PilotConfig, PromotionGate
     from photon_tpu_torch.types import TaskType
 
-    mesh = str(raw.get("mesh", "off")).strip().lower()
-    if mesh not in ("auto", "off", "1"):
-        raise optim.not_ported(f"mesh {mesh!r} (multi-device training)",
-                               MULTI_DEVICE_ITEM)
+    mesh = raw.get("mesh", "off")
     task = TaskType(raw["task"].upper())
     coords = {
         cid: parse_coordinate(cid, c)
@@ -158,6 +154,7 @@ def _build_pilot_config(raw: dict, device: str = "cuda"):
             num_iterations=num_iterations,
             evaluators=evaluators or None,
             device=device,
+            mesh=mesh,
         )
 
     promo = raw.get("promotion", {})

@@ -10,11 +10,17 @@ card), written as ScoringResultAvro ``part-00000.avro`` beside an
 optional ``evaluation.json``. It runs on ``cuda`` unless ``--device cpu``
 is given, and prints one JSON line with the seconds of every stage.
 
+Under a launcher (``torchrun --nproc-per-node N``) ``--mesh auto`` (the
+default) scores on every rank of the process group through
+``GameTransformer``, as the reference does: each rank scores its share
+of the rows, the shares are gathered, and rank 0 alone writes the
+scores and the evaluation.
+
 Usage:
     python -m photon_tpu_torch.cli.score --model-dir out/models/best \
         --input data.avro --output scores/ [--evaluators AUC RMSE AUC:userId] \
         [--feature-shards global=features user=userFeatures ...] \
-        [--id-tags userId ...] [--device cuda|cpu]
+        [--id-tags userId ...] [--mesh auto|off|N] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -61,8 +67,8 @@ def main(argv=None) -> int:
                              "e.g. weight=sampleWeight "
                              "(InputColumnsNames.scala:80-88)")
     parser.add_argument("--mesh", default="auto",
-                        help="auto, off or 1 (one device); multi-device "
-                             "scoring is not ported")
+                        help="auto (every rank of a launcher's process "
+                             "group), off, or the group's size")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--verbose", action="store_true")
@@ -73,27 +79,26 @@ def main(argv=None) -> int:
 
     from photon_tpu_torch.cli.common import (
         cli_logging,
-        maybe_init_distributed,
+        distributed_session,
     )
 
     with cli_logging(args.verbose, args.log_file):
-        maybe_init_distributed()
-        return _run(args)
+        with distributed_session(args.device) as session:
+            rc = _run(args)
+            session["clean"] = rc == 0
+        return rc
 
 
 def _run(args) -> int:
     from photon_tpu_torch import device as device_mod
-    from photon_tpu_torch.cli.common import (
-        fetch_global,
-        is_coordinator,
-        resolve_mesh,
-    )
+    from photon_tpu_torch.cli.common import fetch_global, is_coordinator
     from photon_tpu_torch.data.validators import sanity_check_data
     from photon_tpu_torch.io import avro
     from photon_tpu_torch.io.model_io import save_scores
+    from photon_tpu_torch.parallel.mesh import resolve_mesh
 
     dev = device_mod.resolve(args.device)
-    mesh = resolve_mesh(args.mesh)
+    mesh = resolve_mesh(args.mesh, device=dev)
     seconds: dict[str, float] = {}
     t0 = time.perf_counter()
 
@@ -256,16 +261,16 @@ def score_game_dataset(model, data, *, mesh=None, evaluators=None,
     coefficient tables and the ``BATCH_RUNGS`` ladder's
     ``score_dataset`` (one serve-kernel launch per chunk on the card),
     so a score computed offline and one served online for the same row
-    come from one scorer. A dataset with a shard of no fixed row layout
-    (a ``DualEllFeatures`` shard: ``specs_from_dataset`` raises
-    ``TypeError``) scores through ``GameTransformer`` instead, as the
-    reference's does (its ``serve_kernel`` is then ``"transformer"``).
+    come from one scorer. A ``mesh`` (row-shared scores) and a dataset
+    with a shard of no fixed row layout (a ``DualEllFeatures`` shard:
+    ``specs_from_dataset`` raises ``TypeError``) score through
+    ``GameTransformer`` instead, as the reference's do (``serve_kernel``
+    is then ``"transformer"``).
     Returns ([n] numpy scores, the evaluation or None); ``report``, when
     given, receives the seconds of the table build, the scoring and the
     evaluation and the ladder's route and dispatch counts."""
     import numpy as np
 
-    from photon_tpu_torch.device import MESH_NOT_PORTED
     from photon_tpu_torch.serve.programs import (
         ScorePrograms,
         ShapeLadder,
@@ -274,17 +279,19 @@ def score_game_dataset(model, data, *, mesh=None, evaluators=None,
     from photon_tpu_torch.serve.tables import CoefficientTables
     from photon_tpu_torch.transformers import evaluate_scores
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     report = {} if report is None else report
     seconds = report.setdefault("seconds", {})
     t0 = time.perf_counter()
-    try:
-        specs = specs_from_dataset(data)
-    except TypeError:
+    specs = None
+    if mesh is None:
+        try:
+            specs = specs_from_dataset(data)
+        except TypeError:  # a DualEll shard: no fixed row layout
+            pass
+    if specs is None:
         from photon_tpu_torch.transformers import GameTransformer
 
-        scores, evaluation = GameTransformer(model).transform(
+        scores, evaluation = GameTransformer(model, mesh=mesh).transform(
             data, evaluators)
         seconds["score"] = time.perf_counter() - t0
         report["serve_kernel"] = "transformer"

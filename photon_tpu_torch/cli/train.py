@@ -52,10 +52,19 @@ photon_tpu_torch.cli.fleetview`` merges. A single process ships a
 1-rank fleet. The run id every artifact carries is derived from the
 fleet directory's path unless ``PHOTON_RUN_ID`` sets it.
 
-Options the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP Queue A item: a ``WORLD_SIZE`` above 1 (multi-process
-training: item 12), besides the config options ``cli/config.py``
-lists. The JAX package's ``--backend`` is ``--device`` here.
+Under a launcher (``torchrun --nproc-per-node N``, or ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set for every
+process) the processes form a ``torch.distributed`` group and the
+config's ``mesh`` (default ``auto``) trains data- and entity-parallel
+over it (``parallel/mesh.py``): every rank reads all the data and holds
+its share, and only rank 0 writes the models, the summary, the
+per-group evaluations, the feature statistics and the checkpoints.
+With ``--distributed`` every rank ships its own bundle. A rank that
+raises tears the group down and exits non-zero, which ends its peers'
+collectives. Options the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP Queue A item (the config
+options ``cli/config.py`` lists). The JAX package's ``--backend`` is
+``--device`` here.
 
 Usage:
     python -m photon_tpu_torch.cli.train --config train.json \
@@ -168,15 +177,10 @@ def main(argv=None) -> int:
                              "else <output_dir>/fleet)")
     args = parser.parse_args(argv)
 
-    from photon_tpu_torch import optim
-    from photon_tpu_torch.cli.config import MULTI_DEVICE_ITEM
     from photon_tpu_torch.obs import fleet
 
-    # The process count a torch.distributed launcher exported.
-    world = fleet.host_identity(refresh=True)["process_count"]
-    if world > 1:
-        raise optim.not_ported(f"multi-process training (WORLD_SIZE={world})",
-                               MULTI_DEVICE_ITEM)
+    # The rank and process count a torch.distributed launcher exported.
+    fleet.host_identity(refresh=True)
     if (args.resume and args.checkpoint_dir
             and os.path.abspath(args.resume)
             != os.path.abspath(args.checkpoint_dir)):
@@ -189,7 +193,7 @@ def main(argv=None) -> int:
 
     from photon_tpu_torch.cli.common import (
         cli_logging,
-        maybe_init_distributed,
+        distributed_session,
     )
     from photon_tpu_torch.resilience import faults
 
@@ -197,8 +201,10 @@ def main(argv=None) -> int:
         # PHOTON_TPU_FAULT_PLAN arms a seeded fault plan in this process
         # (nothing when unset): how tests inject a crash or a signal.
         faults.arm_from_env()
-        maybe_init_distributed()
-        return _main_instrumented(args)
+        with distributed_session(args.device) as session:
+            rc = _main_instrumented(args)
+            session["clean"] = rc == 0
+        return rc
 
 
 def fleet_dir(args) -> str:
@@ -328,6 +334,7 @@ def _main_instrumented(args) -> int:
 def _run(args) -> int:
     from photon_tpu_torch import device as device_mod
     from photon_tpu_torch import obs
+    from photon_tpu_torch.cli.common import is_coordinator
     from photon_tpu_torch.cli.config import TrainingConfig
     from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
     from photon_tpu_torch.data.pipeline import PIPELINE_STATS
@@ -593,7 +600,7 @@ def _run(args) -> int:
             stats = FeatureDataStatistics.from_features(
                 feats, train.host_column("weights"),
                 intercept_index=intercept_indices.get(s))
-            if cfg.data_summary_dir:
+            if cfg.data_summary_dir and is_coordinator():
                 # calculateAndSaveFeatureShardStats :616-627: one
                 # FeatureSummarizationResultAvro dir per shard.
                 from photon_tpu_torch.io.model_io import save_feature_stats
@@ -754,7 +761,9 @@ def _run(args) -> int:
     # Model output modes (io/ModelOutputMode.scala:47): NONE saves
     # nothing, BEST the selected model, EXPLICIT adds the lambda grid's,
     # TUNED the tuner's, ALL everything. The best model always lands in
-    # "best/".
+    # "best/". A mesh run computes on every rank and writes from rank 0
+    # alone (reference :896-898).
+    write_outputs = is_coordinator()
     num_grid = len(results) - num_tuned
     mode = cfg.model_output_mode
     if mode == "NONE":
@@ -773,14 +782,18 @@ def _run(args) -> int:
         to_save = list(enumerate(results))
     else:
         raise ValueError(f"unknown model_output_mode {mode!r}")
-    for i, r in to_save:
+    for i, r in to_save if write_outputs else ():
         out = os.path.join(cfg.output_dir, "models",
                            "best" if r is best else f"config_{i}")
         save_game_model(r.model, out, index_maps, task=cfg.task,
                         optimization_configurations=config_json(r))
         save_checkpoint(r.model, os.path.join(out, "checkpoint.npz"))
-    log.info("saved %d model(s) to %s", len(to_save),
-             os.path.join(cfg.output_dir, "models"))
+    if write_outputs:
+        log.info("saved %d model(s) to %s", len(to_save),
+                 os.path.join(cfg.output_dir, "models"))
+    else:
+        log.info("not the coordinator: rank 0 writes the models and the "
+                 "summary")
     lap("save_models")
 
     # ------------------------------------------------------------------
@@ -788,7 +801,8 @@ def _run(args) -> int:
     # ------------------------------------------------------------------
     grouped_specs = [e for e in cfg.evaluators if ":" in e]
     if mode != "NONE" and validation is not None and grouped_specs:
-        _write_group_evaluations(cfg, validation, grouped_specs, to_save)
+        _write_group_evaluations(cfg, validation, grouped_specs, to_save,
+                                 estimator.resolve_mesh(), write_outputs)
         log.info("wrote per-group evaluations for %d model(s)",
                  len(to_save))
     lap("group_evaluation")
@@ -822,9 +836,10 @@ def _run(args) -> int:
         # The telemetry snapshot rides the summary; the full stream
         # goes to the --telemetry JSONL.
         summary["telemetry"] = obs.snapshot()
-    with open(os.path.join(cfg.output_dir, "training-summary.json"),
-              "w") as f:
-        json.dump(summary, f, indent=2)
+    if write_outputs:
+        with open(os.path.join(cfg.output_dir, "training-summary.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=2)
     print(json.dumps({
         "best_configuration": config_json(best),
         "evaluation": None if best.evaluation is None
@@ -892,10 +907,13 @@ def _daily_records(cfg, log):
             else None)
 
 
-def _write_group_evaluations(cfg, validation, grouped_specs, to_save):
+def _write_group_evaluations(cfg, validation, grouped_specs, to_save,
+                             mesh=None, write=True):
     """One JSON per grouped evaluator and saved model under
     group-evaluation/<i>/: group key -> metric, groups where it is
-    undefined left out. The suite runs in the labels' dtype."""
+    undefined left out. The suite runs in the labels' dtype. On a mesh
+    every rank scores (a share of the rows each) and only a ``write``
+    rank writes."""
     import numpy as np
 
     from photon_tpu_torch.transformers import (
@@ -906,7 +924,9 @@ def _write_group_evaluations(cfg, validation, grouped_specs, to_save):
     suite = evaluation_suite(validation, grouped_specs)
     for i, r in to_save:
         per_group = suite.evaluate_per_group(
-            GameTransformer(r.model).score(validation))
+            GameTransformer(r.model, mesh=mesh).score(validation))
+        if not write:
+            continue
         out_dir = os.path.join(cfg.output_dir, "group-evaluation", str(i))
         os.makedirs(out_dir, exist_ok=True)
         for metric, values in per_group.items():

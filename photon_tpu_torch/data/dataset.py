@@ -265,12 +265,17 @@ Features = Union[DenseFeatures, SparseFeatures, DualEllFeatures]
 @dataclasses.dataclass(frozen=True)
 class GLMBatch:
     """One coordinate's training rows: features plus (label, offset,
-    weight)."""
+    weight). A row-sharded batch (``parallel.mesh.shard_batch``) holds
+    this rank's share of the padded rows and carries its ``mesh`` and
+    the ``logical_rows`` of the whole batch; the objective's sums then
+    cross the ranks (``ops/glm.py``)."""
 
     features: Features
     labels: torch.Tensor  # [n]
     offsets: torch.Tensor  # [n]
     weights: torch.Tensor  # [n]
+    mesh: object = None  # parallel.mesh.Mesh of a row-sharded batch
+    logical_rows: int | None = None  # rows of the whole, unpadded batch
 
     @property
     def num_samples(self) -> int:
@@ -285,6 +290,46 @@ class GLMBatch:
 
     def with_weights(self, weights: torch.Tensor) -> "GLMBatch":
         return dataclasses.replace(self, weights=weights)
+
+
+def pad_rows(feats: Features, rows: int) -> Features:
+    """Dense or ELL features padded with zero rows to ``rows`` rows. A
+    ``DualEllFeatures`` tail is not row-aligned and is refused."""
+    short = rows - feats.num_rows
+
+    def pad1(a):
+        if short == 0:
+            return a
+        return torch.cat([a, a.new_zeros((short,) + tuple(a.shape[1:]))])
+
+    if isinstance(feats, DenseFeatures):
+        return DenseFeatures(pad1(feats.x))
+    if isinstance(feats, SparseFeatures):
+        return SparseFeatures(pad1(feats.indices), pad1(feats.values),
+                              feats.d)
+    raise TypeError(
+        "pad_batch/shard_batch do not support DualEllFeatures: the COO "
+        "tail is not row-aligned, so row sharding would misroute it. "
+        "Use plain SparseFeatures for data-axis sharding, or "
+        "FeatureShardedSparse for the feature axis.")
+
+
+def pad_batch(batch: GLMBatch, multiple: int) -> GLMBatch:
+    """Pad the sample axis to a multiple (for even device sharding) with
+    weight-0 rows; padding rows contribute exactly zero to every
+    aggregate."""
+    n = batch.num_samples
+    rows = n + (-n) % multiple
+    if rows == n:
+        return batch
+
+    def pad1(a):
+        return torch.cat([a, a.new_zeros(rows - n)])
+
+    return dataclasses.replace(
+        batch, features=pad_rows(batch.features, rows),
+        labels=pad1(batch.labels), offsets=pad1(batch.offsets),
+        weights=pad1(batch.weights))  # zeros: inert rows
 
 
 def rows_to_ell(rows: list, num_features: int, *, capacity: int | None = None,

@@ -299,6 +299,11 @@ class RandomEffectDataset:
     # packed buffer (5 arrays a bucket, then proj_all, then score_inv),
     # or a ``_ListPlanArrays``.
     packed_view: object = None
+    # The mesh of an entity-sharded dataset
+    # (``parallel.mesh.shard_random_effect_dataset``): ``blocks`` are
+    # then this rank's share of every bucket, on the device, and the
+    # host mirrors cover every rank's entities, padded.
+    mesh: object = None
 
     @property
     def num_rows(self) -> int:
@@ -321,8 +326,8 @@ class RandomEffectDataset:
 
     def device_plans(self) -> tuple:
         """``blocks`` with device plan tensors (cached); a materialized
-        dataset's blocks as they are."""
-        if not self.is_lazy:
+        or entity-sharded dataset's blocks as they are."""
+        if not self.is_lazy or self.mesh is not None:
             return self.blocks
 
         def build():

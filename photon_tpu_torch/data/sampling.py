@@ -58,7 +58,15 @@ def downsample_uniform(batch: GLMBatch, rate: float,
 
 def downsample(batch: GLMBatch, rate: float, seed: int, *,
                binary: bool) -> GLMBatch:
-    u = draw_uniforms(batch.num_samples, seed, batch.labels)
+    """Mask ``batch`` by draws seeded with ``seed``. A row-sharded batch
+    takes its rank's share of the draws over every rank's rows, so the
+    mask is the one the whole padded batch would get."""
+    n = batch.num_samples
+    if batch.mesh is None:
+        u = draw_uniforms(n, seed, batch.labels)
+    else:
+        lo = batch.mesh.rank * n
+        u = draw_uniforms(n * batch.mesh.size, seed, batch.labels)[lo:lo + n]
     if binary:
         return downsample_binary_negatives(batch, rate, u)
     return downsample_uniform(batch, rate, u)

@@ -1,4 +1,4 @@
-"""GameEstimator: the fit() API of GAME training on one device (port of
+"""GameEstimator: the fit() API of GAME training (port of
 ``photon_tpu/estimators/game_estimator.py``).
 
 ``fit`` builds the per-coordinate datasets once (the random-effect plan
@@ -60,7 +60,20 @@ outlives the call. A failing warm stage is logged and counted
 at its first run. A fit that does not take the fused program drops the
 artifact first.
 
-Waiting (ROADMAP Queue A): mesh execution (item 12).
+``mesh`` (default ``"auto"``: every rank of the ``torch.distributed``
+process group when one is up with more than one rank, as the
+reference's default spans every device) trains data- and
+entity-parallel (``parallel/mesh.py``): ``prepare`` gives each rank its
+share of every fixed-effect batch's rows and of every random-effect
+bucket's entities, validation scorers score a share of the rows each,
+and every model, score and evaluation is the same, bit for bit, on
+every rank. A mesh fit runs the unfused loop with the reference's
+reason, and no warm capture. Only rank 0 writes a checkpoint; the
+others wait for it at a barrier. A ``DualEllFeatures`` fixed effect
+stays whole on every rank. The column-sharded fixed effect
+(``feature_sharding`` ``"column"``, or ``"auto"`` above
+``AUTO_COLUMN_SHARDING_THRESHOLD`` features on a mesh) raises until it
+is ported (ROADMAP Queue A item 12, second part).
 """
 
 from __future__ import annotations
@@ -77,7 +90,8 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import device as device_mod
-from photon_tpu_torch import obs
+from photon_tpu_torch import obs, optim
+from photon_tpu_torch.device import COLUMN_SHARDING_NOT_PORTED
 from photon_tpu_torch.algorithm.coordinate import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
@@ -90,6 +104,7 @@ from photon_tpu_torch.algorithm.problems import (
     GLMOptimizationProblem,
 )
 from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
+from photon_tpu_torch.data.dataset import DualEllFeatures
 from photon_tpu_torch.data.game_data import GameDataset
 from photon_tpu_torch.data.pipeline import PIPELINE_STATS, packable
 from photon_tpu_torch.data.random_effect import (
@@ -109,6 +124,11 @@ from photon_tpu_torch.models.game import (
 )
 from photon_tpu_torch.ops import precision as precision_mod
 from photon_tpu_torch.ops.normalization import NormalizationContext
+from photon_tpu_torch.parallel.mesh import (
+    resolve_mesh,
+    shard_batch,
+    shard_random_effect_dataset,
+)
 from photon_tpu_torch.resilience import checkpoint as ckpt_mod
 from photon_tpu_torch.resilience.errors import ResumeMismatchError
 from photon_tpu_torch.transformers import (
@@ -119,6 +139,10 @@ from photon_tpu_torch.transformers import (
 from photon_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
+
+# Feature count above which "auto" feature sharding goes column-wise on a
+# mesh (the reference's threshold, index/FeatureIndexingDriver.scala:40-41).
+AUTO_COLUMN_SHARDING_THRESHOLD = 200_000
 
 # Fused whole-fit programs kept per estimator. Each pins its captured
 # graphs (and their memory pools); the slabs are shared across entries
@@ -138,11 +162,23 @@ _DEFAULT_EVALUATOR = {
 
 @dataclasses.dataclass(frozen=True)
 class FixedEffectCoordinateConfiguration:
-    """FixedEffectDataConfiguration plus its optimization config."""
+    """FixedEffectDataConfiguration plus its optimization config.
+    ``feature_sharding`` is the coefficients' placement on a mesh, as
+    the reference names it: ``"replicated"`` (rows sharded, the
+    coefficients on every rank), ``"column"`` or ``"auto"`` (column
+    above ``AUTO_COLUMN_SHARDING_THRESHOLD`` features); without a mesh
+    every mode is replicated."""
 
     feature_shard_id: str
     optimization: GLMOptimizationConfiguration = dataclasses.field(
         default_factory=GLMOptimizationConfiguration)
+    feature_sharding: str = "replicated"
+
+    def __post_init__(self):
+        if self.feature_sharding not in ("replicated", "column", "auto"):
+            raise ValueError(
+                f"feature_sharding must be 'replicated', 'column' or "
+                f"'auto', got {self.feature_sharding!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,8 +251,9 @@ class GameFitResult:
 class GameEstimator:
     """Reference: estimators/GameEstimator.scala:55. ``coordinate_configs``
     is ordered; its key order is the default update sequence. Training
-    runs on ``device`` (default ``cuda``), which must be the device of
-    the ``GameDataset`` passed to ``fit``."""
+    runs on ``device`` (default ``cuda``: this rank's card under a
+    launcher), which must be the device of the ``GameDataset`` passed
+    to ``fit``; ``mesh`` is a ``parallel.mesh.resolve_mesh`` setting."""
 
     def __init__(
         self,
@@ -234,8 +271,10 @@ class GameEstimator:
         precision: str = "float32",
         device=None,
         listeners=None,
+        mesh="auto",
     ):
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
         self.task = task
         self.coordinate_configs = dict(coordinate_configs)
         self.update_sequence = (list(update_sequence)
@@ -264,8 +303,41 @@ class GameEstimator:
         self._fused_mat_share = None
         self._aot_future = None
 
+    def resolve_mesh(self):
+        """The ``mesh`` setting as a ``Mesh`` or None (resolved once)."""
+        if not hasattr(self, "_resolved_mesh"):
+            self._resolved_mesh = resolve_mesh(self.mesh, device=self.device)
+        return self._resolved_mesh
+
     def _shard_norm(self, shard: str) -> NormalizationContext:
         return self.normalization.get(shard, NormalizationContext())
+
+    def _fixed_effect_batch(self, data: GameDataset, cid: str, cfg, mesh):
+        """A fixed-effect coordinate's batch: on a mesh, this rank's
+        share of its rows (``shard_batch``), or the whole batch for a
+        ``DualEllFeatures`` shard, which is not row-aligned (reference
+        :401-410)."""
+        batch = data.shard_batch(cfg.feature_shard_id)
+        if mesh is None:
+            return batch
+        if self._wants_column_sharding(data, cfg):
+            raise optim.not_ported(
+                f"coordinate {cid!r}: {COLUMN_SHARDING_NOT_PORTED}", 12)
+        if isinstance(batch.features, DualEllFeatures):
+            logger.info("coordinate %s: DualEll features are not "
+                        "row-shardable; leaving replicated", cid)
+            return batch
+        return shard_batch(batch, mesh)
+
+    @staticmethod
+    def _wants_column_sharding(data: GameDataset, cfg) -> bool:
+        """``feature_sharding`` on a mesh: ``column`` always, ``auto``
+        above ``AUTO_COLUMN_SHARDING_THRESHOLD`` features."""
+        if cfg.feature_sharding == "column":
+            return True
+        return (cfg.feature_sharding == "auto"
+                and data.feature_shards[cfg.feature_shard_id].num_features
+                > AUTO_COLUMN_SHARDING_THRESHOLD)
 
     def _build_datasets(self, data: GameDataset,
                         initial_model: GameModel | None) -> dict:
@@ -281,16 +353,22 @@ class GameEstimator:
         path. No pool thread makes a CUDA call: every build defers its
         placement, and all of them reach the device afterwards in one
         packed transfer. ``PHOTON_TPU_SERIAL_INGEST=1`` restores the
-        in-line path."""
+        in-line path.
+
+        On a mesh each fixed-effect batch is this rank's share of the
+        rows and each random-effect dataset this rank's share of every
+        bucket's entities, once placed (``parallel/mesh.py``)."""
         from photon_tpu_torch.data import pipeline
         from photon_tpu_torch.resilience import faults
+
+        mesh = self.resolve_mesh()
 
         def build_one(cid: str, cfg):
             # A planner thunk dying on the plan pool propagates through
             # consume_futures.
             faults.check("ingest.plan")
             if not isinstance(cfg, RandomEffectCoordinateConfiguration):
-                return data.shard_batch(cfg.feature_shard_id)
+                return self._fixed_effect_batch(data, cid, cfg, mesh)
             extra = None
             if initial_model is not None and cid in initial_model:
                 prior = initial_model[cid]
@@ -318,7 +396,12 @@ class GameEstimator:
         planned = dict(zip(futs, pipeline.consume_futures(futs.values())))
         out = {cid: planned[cid] if cid in planned else build_one(cid, cfg)
                for cid, cfg in self.coordinate_configs.items()}
-        return _resolve_pending(out, self.device)
+        out = _resolve_pending(out, self.device)
+        if mesh is not None:
+            for cid, ds in out.items():
+                if isinstance(ds, RandomEffectDataset):
+                    out[cid] = shard_random_effect_dataset(ds, mesh)
+        return out
 
     def _build_coordinates(self, datasets: dict, opt_configs: dict,
                            priors: dict) -> dict:
@@ -347,7 +430,10 @@ class GameEstimator:
                           validation: GameDataset) -> ValidationContext:
         """The validation suite in the labels' dtype and one scorer per
         coordinate over the training datasets' entity layouts
-        (prepareValidationDatasetAndEvaluators, :649-673)."""
+        (prepareValidationDatasetAndEvaluators, :649-673). On a mesh
+        each scorer scores a share of the rows a rank and gathers them
+        (reference :805-845)."""
+        mesh = self.resolve_mesh()
         suite = evaluation_suite(
             validation, self.evaluators or [_DEFAULT_EVALUATOR[self.task]])
         scorers = {}
@@ -361,10 +447,11 @@ class GameEstimator:
                     entity_keys=ds.entity_keys,
                     proj_all=ds.proj_all,
                     width_cap=cfg.data.score_table_width_cap,
+                    mesh=mesh,
                 )
             else:
-                scorers[cid] = fixed_effect_scorer(validation,
-                                                   cfg.feature_shard_id)
+                scorers[cid] = fixed_effect_scorer(
+                    validation, cfg.feature_shard_id, mesh)
         return ValidationContext(suite=suite, scorers=scorers)
 
     @staticmethod
@@ -485,8 +572,19 @@ class GameEstimator:
                         if val_ctx is not None else None),
             descent=None)
         if checkpointer is not None:
-            checkpointer.save_config_final(best_model, config_index=i)
+            self._coordinated_write(lambda: checkpointer.save_config_final(
+                best_model, config_index=i))
         return result
+
+    def _coordinated_write(self, write) -> None:
+        """A checkpoint write, on rank 0 alone on a mesh (the models are
+        the same on every rank); the other ranks wait for it at a
+        barrier, so none reads a checkpoint before it is committed."""
+        mesh = self.resolve_mesh()
+        if mesh is None or mesh.is_coordinator:
+            write()
+        if mesh is not None:
+            mesh.barrier()
 
     @staticmethod
     def _checkpoint_directory(checkpointer, resume) -> str:
@@ -548,7 +646,8 @@ class GameEstimator:
             fused_static_key,
         )
 
-        if fuse_ineligibility_reasons(coords, emitter=self.emitter):
+        if fuse_ineligibility_reasons(coords, mesh=self.resolve_mesh(),
+                                      emitter=self.emitter):
             return None
         key = fused_static_key(coords, self.update_sequence,
                                self.num_iterations,
@@ -590,14 +689,15 @@ class GameEstimator:
         reference's reasons (:698-718). It targets the first fit of a
         validation-free ``fit``; a listener, an initial model (whose
         support changes the subspace shapes) or incremental training
-        make it useless by construction, and the serial ingest has no
-        pool to run it on. The port has no mesh (ROADMAP item 12)."""
+        make it useless by construction, the serial ingest has no pool
+        to run it on, and a mesh fit runs unfused."""
         from photon_tpu_torch.data import pipeline
 
         return (validation is None and initial_model is None
                 and not self.incremental_training
                 and self.emitter is None
-                and not pipeline.serial_ingest())
+                and not pipeline.serial_ingest()
+                and self.resolve_mesh() is None)
 
     def _warm_capture(self, data: GameDataset) -> dict | None:
         """The warm stage, on the compile pool (reference
@@ -801,11 +901,15 @@ class GameEstimator:
                 saved_best = [initial_best[0] if initial_best else None]
 
                 def on_iteration(it, model, best, _ci=i):
-                    if best is not None and best is not saved_best[0]:
-                        checkpointer.save_best(best, config_index=_ci)
+                    def write():
+                        if best is not None and best is not saved_best[0]:
+                            checkpointer.save_best(best, config_index=_ci)
+                        checkpointer.save(model, config_index=_ci,
+                                          iteration=it)
+
+                    self._coordinated_write(write)
+                    if best is not None:
                         saved_best[0] = best
-                    checkpointer.save(model, config_index=_ci,
-                                      iteration=it)
             from photon_tpu_torch.obs import ledger
 
             # The unfused loop's cost-ledger feed, only with telemetry and
@@ -839,8 +943,9 @@ class GameEstimator:
             )
             results.append(result)
             if checkpointer is not None:
-                checkpointer.save_config_final(descent.best_model,
-                                               config_index=i)
+                self._coordinated_write(
+                    lambda: checkpointer.save_config_final(
+                        descent.best_model, config_index=i))
             if self.emitter is not None:
                 from photon_tpu_torch.events import FitEndEvent
 

@@ -17,7 +17,9 @@ gather through the dataset's inverse score map puts every score in
 canonical row order. On a materialized dataset every row scores through
 its remapped score table, and the rows past the table's width cap add
 their COO tail through the segment-sum kernel
-(``score_entity_table_with_tail``).
+(``score_entity_table_with_tail``). On an entity-sharded dataset each
+rank scores its share of the rows and the shares are gathered
+(``_score_on_mesh``).
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ class RandomEffectModel:
 
     def score_dataset(self, dataset: RandomEffectDataset) -> torch.Tensor:
         """Model contribution per canonical row of ``dataset``."""
+        if dataset.mesh is not None:
+            return _score_on_mesh(self.coefficients, dataset)
         if not dataset.is_lazy:
             tail = None
             if dataset.score_tail_rows is not None:
@@ -301,6 +305,30 @@ def _score_via_buckets(w: torch.Tensor, ds: RandomEffectDataset):
             w, ds.passive_rows_device(), ds.score_codes, ds.raw,
             ds.proj_device()))
     return torch.cat(parts)[ds.score_inv_device()].to(w.dtype)
+
+
+def _score_on_mesh(w: torch.Tensor, ds: RandomEffectDataset):
+    """Scores of an entity-sharded dataset's rows, the same on every
+    rank: each rank scores its share of the rows (a lazy dataset's from
+    the raw features it holds whole, a materialized one's from its score
+    table) and the shares are gathered (``Mesh.gather_rows``). A table
+    with a COO tail is not row-aligned: every rank scores every row."""
+    from photon_tpu_torch.parallel.mesh import maybe_row_shard, shard_features
+
+    mesh, n = ds.mesh, ds.num_rows
+    if ds.is_lazy:
+        (codes,) = maybe_row_shard(mesh, ds.score_codes)
+        local = score_raw_features(w, codes, shard_features(ds.raw, mesh),
+                                   ds.proj_device()).to(w.dtype)
+        return mesh.gather_rows(local, n)
+    if ds.score_tail_rows is not None:
+        return score_entity_table_with_tail(
+            w, ds.score_codes, ds.score_indices, ds.score_values,
+            (ds.score_tail_rows, ds.score_tail_indices,
+             ds.score_tail_values), tail_multiplicity=ds.score_tail_mult)
+    codes, idx, vals = maybe_row_shard(mesh, ds.score_codes,
+                                       ds.score_indices, ds.score_values)
+    return mesh.gather_rows(score_entity_table(w, codes, idx, vals), n)
 
 
 def remap_random_effect_model(model: RandomEffectModel, *,

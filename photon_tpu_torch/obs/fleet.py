@@ -32,8 +32,10 @@ rank; ``trace.validate_chrome_trace`` passes it), and
 per-program window skew, the slowest rank and the collective wait. A
 torn ``spans.jsonl``, an uncommitted bundle or a missing rank is a
 named gap in both, never an exception. ``cli.train --distributed``
-ships a 1-rank fleet on one card; ``WORLD_SIZE`` above 1 waits for ROADMAP
-Queue A item 12.
+ships one bundle a rank: a 1-rank fleet from a single process, one
+bundle from each rank of a mesh run under a launcher
+(``parallel/mesh.py``). ``global_device_count`` counts cards, so ranks
+that share a card count it once.
 
 Everything here is host work: no function launches, copies or syncs.
 
@@ -71,6 +73,17 @@ def _env_int(name: str, default: int) -> int:
     return int(raw) if raw.isdigit() else default
 
 
+def _global_cards(local_cards: int, world: int) -> int:
+    """The cards a run of ``world`` processes holds: on each host
+    (``LOCAL_WORLD_SIZE`` processes, default all of them) as many of its
+    ``local_cards`` as it has processes, so ranks that share a card
+    count it once."""
+    if world <= 1:
+        return local_cards
+    local_world = max(_env_int("LOCAL_WORLD_SIZE", world), 1)
+    return max(world // local_world, 1) * min(local_cards, local_world)
+
+
 def _probe_identity() -> dict:
     """The provenance block of this process; a CUDA query that fails
     leaves nulls, never a failed snapshot or dump."""
@@ -91,7 +104,8 @@ def _probe_identity() -> dict:
             if torch.cuda.is_initialized():
                 n = torch.cuda.device_count()
                 ident["local_device_count"] = n
-                ident["global_device_count"] = n * ident["process_count"]
+                ident["global_device_count"] = _global_cards(
+                    n, ident["process_count"])
                 if n:
                     ident["device_kind"] = torch.cuda.get_device_name(
                         torch.cuda.current_device())
@@ -718,8 +732,9 @@ def crosscheck_collective_census(report: dict, census_ops) -> dict:
 
     ``census_ops`` is the ordered collective op list an SPMD audit
     extracted from the program (the JAX package's ``analysis.spmd
-    .collective_sequence`` op names; the port has no such audit until
-    ROADMAP Queue A item 12 runs a mesh). The runtime
+    .collective_sequence`` op names; the port's mesh issues
+    ``all_gather`` only, and has no static audit of its order, ROADMAP
+    Queue A item 13). The runtime
     ledger observes collective *waits*; the static census says which
     collectives every rank is contractually issuing — joining the two
     makes a mismatched-collective hang attributable: a fleet whose

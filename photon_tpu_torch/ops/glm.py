@@ -8,6 +8,13 @@ diagonal and full Hessian as matvecs (port of ``photon_tpu/ops/glm.py``).
 
 with (ew, es) the normalization's effective coefficients, so the raw
 data is never transformed in memory.
+
+On a row-sharded batch (``batch.mesh``: ``parallel.mesh.shard_batch``)
+every row sum above is this rank's partial sum; the partial sums of one
+evaluation cross the ranks in ONE collective (``Mesh.sum_parts``: an
+all-gather added in rank order, so every rank holds the same bits),
+where the reference's XLA inserts an all-reduce
+(``photon_tpu/ops/glm.py:23``, :56).
 """
 
 from __future__ import annotations
@@ -22,6 +29,13 @@ from photon_tpu_torch.ops.normalization import NormalizationContext
 
 ValueAndGrad = Callable[[torch.Tensor], tuple]
 HessianVectorProduct = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _across_ranks(batch: GLMBatch, *parts: torch.Tensor) -> tuple:
+    """The sums of ``parts`` over every rank of a row-sharded batch."""
+    if batch.mesh is None:
+        return parts
+    return batch.mesh.sum_parts(*parts)
 
 
 def margins(batch: GLMBatch, coef: torch.Tensor,
@@ -40,9 +54,9 @@ def make_value_and_grad(batch: GLMBatch, loss: PointwiseLoss,
         z = margins(batch, w, norm)
         value = torch.sum(batch.weights * loss.loss(z, batch.labels))
         c = batch.weights * loss.dz(z, batch.labels)
-        grad = norm.effective_gradient(batch.features.rmatvec(c),
-                                       torch.sum(c))
-        return value, grad
+        value, raw, total = _across_ranks(
+            batch, value, batch.features.rmatvec(c), torch.sum(c))
+        return value, norm.effective_gradient(raw, total)
 
     return fun
 
@@ -58,8 +72,8 @@ def make_hvp(batch: GLMBatch, loss: PointwiseLoss,
         ev, es_v = norm.effective_coefficients(v)
         zv = batch.features.matvec(ev) - es_v
         h = batch.weights * loss.dzz(z, batch.labels) * zv
-        return norm.effective_gradient(batch.features.rmatvec(h),
-                                       torch.sum(h))
+        return norm.effective_gradient(*_across_ranks(
+            batch, batch.features.rmatvec(h), torch.sum(h)))
 
     return hvp
 
@@ -73,13 +87,14 @@ def hessian_diagonal(batch: GLMBatch, loss: PointwiseLoss,
     norm = norm or NormalizationContext()
     z = margins(batch, coef, norm)
     c = batch.weights * loss.dzz(z, batch.labels)
-    d_sq = batch.features.rmatvec_sq(c)
     if norm.is_identity:
-        return d_sq
-    d1 = batch.features.rmatvec(c)
+        return _across_ranks(batch, batch.features.rmatvec_sq(c))[0]
+    d_sq, d1, c_sum = _across_ranks(
+        batch, batch.features.rmatvec_sq(c), batch.features.rmatvec(c),
+        torch.sum(c))
     s = norm.shifts if norm.shifts is not None else torch.zeros_like(d_sq)
     f = norm.factors if norm.factors is not None else torch.ones_like(d_sq)
-    return f * f * (d_sq - 2.0 * s * d1 + s * s * torch.sum(c))
+    return f * f * (d_sq - 2.0 * s * d1 + s * s * c_sum)
 
 
 def hessian_matrix(batch: GLMBatch, loss: PointwiseLoss, coef: torch.Tensor,
@@ -100,13 +115,14 @@ def hessian_matrix(batch: GLMBatch, loss: PointwiseLoss, coef: torch.Tensor,
         h_raw = torch.stack([feats.rmatvec(c * feats.matvec(e))
                              for e in eye]).T
     if norm.is_identity:
-        return h_raw
+        return _across_ranks(batch, h_raw)[0]
+    h_raw, a, c_sum = _across_ranks(batch, h_raw, feats.rmatvec(c),
+                                    torch.sum(c))
     d = h_raw.shape[0]
     s = (norm.shifts if norm.shifts is not None
          else torch.zeros(d, dtype=c.dtype, device=c.device))
     f = (norm.factors if norm.factors is not None
          else torch.ones(d, dtype=c.dtype, device=c.device))
-    a = feats.rmatvec(c)
     h = (h_raw - torch.outer(s, a) - torch.outer(a, s)
-         + torch.sum(c) * torch.outer(s, s))
+         + c_sum * torch.outer(s, s))
     return f[:, None] * h * f[None, :]

@@ -352,8 +352,8 @@ class TestFusedLockedCoordinates:
 
 class TestFusedFallbacks:
     def test_mesh_estimator_stays_unfused(self):
-        """The port has no mesh execution; the mesh reason is the
-        reference's word for word, and a mesh keeps a fit unfused."""
+        """The mesh reason is the reference's word for word, and a mesh
+        keeps a fit unfused (a real one in tests/test_torch_mesh.py)."""
         jdata, pdata = both_datasets(game_arrays(7))
         jest, pest = both_estimators()
         jdatasets, _ = jest.prepare(jdata)

@@ -297,7 +297,11 @@ def test_score_cli_matches_the_reference(tmp_path, files, capsys, layout):
 def test_score_cli_refusals(tmp_path, files):
     data, model_dir = files[0], files[1]
     out = tmp_path / "o"
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+    # A mesh larger than the process group (one process here) raises
+    # with the reference's words; mesh scoring runs on spawned ranks in
+    # tests/test_torch_mesh_ranks.py.
+    with pytest.raises(ValueError, match="mesh setting requests 4 devices "
+                                         "but only 1 are visible"):
         _run_cli(score_cli, model_dir, data, out, "--device", "cpu",
                  "--mesh", "4", "--feature-shards", *SHARD_SPEC)
     with pytest.raises(ValueError, match="multiple feature shards"):
@@ -361,7 +365,15 @@ def test_game_transformer_matches_the_reference(tmp_path, files, dtype):
     for k in EVALUATORS:
         assert evaluation.evaluations[k] == pytest.approx(
             jevaluation.evaluations[k], rel=EVAL_REL)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+    # On a mesh (here one rank) the scores are the same; a mesh that is
+    # not a parallel.mesh.Mesh is refused.
+    from photon_tpu_torch.parallel.mesh import Mesh
+
+    np.testing.assert_allclose(
+        GameTransformer(model, mesh=Mesh(0, 1, torch.device("cpu"))).score(
+            data).numpy(),
+        scores.numpy(), rtol=1e-12, atol=1e-12)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh or None"):
         GameTransformer(model, mesh=object())
 
 

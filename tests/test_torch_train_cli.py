@@ -902,12 +902,16 @@ def test_train_then_score_round_trip(tmp_path, glmix):
                                                 abs=EVAL_TOL)
 
 
-# (args, config overrides, environment, item).
+# (args, config overrides, environment, the error and its message).
 UNPORTED = [
-    (["--distributed", "--fleet-dir", "f"], {}, {"WORLD_SIZE": "2"}, 12),
-    (["--distributed"], {}, {"WORLD_SIZE": "2"}, 12),
-    ([], {"mesh": 4}, {}, 12),
-    ([], {"global": {"feature_sharding": "column"}}, {}, 12),
+    (["--distributed", "--fleet-dir", "f"], {}, {"WORLD_SIZE": "2"},
+     ValueError, "WORLD_SIZE=2 but RANK, MASTER_ADDR, MASTER_PORT not set"),
+    (["--distributed"], {}, {"WORLD_SIZE": "2", "RANK": "0"},
+     ValueError, "WORLD_SIZE=2 but MASTER_ADDR, MASTER_PORT not set"),
+    ([], {"mesh": 4}, {}, ValueError,
+     "mesh setting requests 4 devices but only 1 are visible"),
+    ([], {"global": {"feature_sharding": "column"}}, {}, NotImplementedError,
+     r"second part of item 12\) is not ported .*ROADMAP Queue A item 12\)"),
 ]
 
 
@@ -918,29 +922,34 @@ UNPORTED = [
 # the tuning tests below, and the item-10 telemetry cases (3-5, 9 and
 # 20: --telemetry, --trace, --flight-dir, profile_dir, --no-flight; and
 # 6, --monitor-port) to tests/test_torch_obs_cli.py. Cases 7 and 8 were
-# --fleet-dir (item 10) and --distributed alone; with fleet bundles
-# ported both run on one process, and the cases, under their old ids,
-# hold that a launcher's WORLD_SIZE of 2 still raises for item 12.
+# --fleet-dir (item 10) and --distributed alone; with item 12's mesh
+# ported, a launcher's WORLD_SIZE of 2 starts a process group, and the
+# cases, under their old ids, hold that one without its rendezvous
+# variables is refused before anything is read. Cases 11 and 12 hold the
+# refusals that stay: a mesh larger than the process group, and the
+# column-sharded fixed effect (item 12's second part). Mesh training on
+# real ranks is tests/test_torch_mesh_ranks.py's.
 UNPORTED_IDS = ["7-item10", "8-item12", "11-item12", "12-item12"]
 
 
-@pytest.mark.parametrize("args,overrides,env,item", UNPORTED,
+@pytest.mark.parametrize("args,overrides,env,error,match", UNPORTED,
                          ids=UNPORTED_IDS)
 def test_unported_options_raise_naming_their_item(tmp_path, glmix, args,
-                                                  overrides, env, item,
-                                                  monkeypatch):
+                                                  overrides, env, error,
+                                                  match, monkeypatch):
     train, val = glmix
-    cfg = make_config(tmp_path, train, val,
-                      output_dir=str(tmp_path / "out"))
+    out = tmp_path / "out"
+    cfg = make_config(tmp_path, train, val, output_dir=str(out))
     for key, value in overrides.items():
         if key in cfg["coordinates"]:
             cfg["coordinates"][key] = {**cfg["coordinates"][key], **value}
         else:
             cfg[key] = value
+    for key in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {item}\\)"):
+    with pytest.raises(error, match=match):
         run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device", "cpu",
                 *args)
 
@@ -1067,13 +1076,18 @@ def test_fleet_dir_resolves_as_the_reference_does(tmp_path, glmix,
 
 def test_world_size_above_one_raises_naming_item_12(tmp_path, glmix,
                                                     monkeypatch):
+    """A launcher's WORLD_SIZE of 2 starts a process group (item 12): one
+    without its rendezvous variables is refused before anything is read
+    or written; WORLD_SIZE 1 runs as one process."""
     train, val = glmix
     out = tmp_path / "out"
     cfg = make_config(tmp_path, train, val, output_dir=str(out))
+    for key in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError,
-                       match=r"multi-process training \(WORLD_SIZE=2\) is "
-                             r"not ported .*ROADMAP Queue A item 12\)"):
+    with pytest.raises(ValueError,
+                       match=r"WORLD_SIZE=2 but RANK, MASTER_ADDR, "
+                             r"MASTER_PORT not set: launch with torchrun"):
         run_cli(pt_train.main, cfg, tmp_path / "c.json", "--device", "cpu")
     # Refused before anything was read or written.
     assert not out.exists()
