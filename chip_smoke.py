@@ -9011,7 +9011,12 @@ def mesh_rank(torch, spec: dict) -> dict:
         rc = main(spec["argv"])
     torch.cuda.synchronize()
     lines = buf.getvalue().strip().splitlines()
+    from photon_tpu_torch.parallel import mesh as mesh_mod
+
+    stats = mesh_mod.group_stats()
     return {"rank": int(os.environ["RANK"]), "rc": rc,
+            "census": compact_census(stats.census),
+            "collectives_by_site": stats.snapshot()["by_site"],
             "wall_seconds": time.perf_counter() - t0,
             "newton_launches": nk.launches,
             "serve_launches": serve_kernel.launches,
@@ -9140,9 +9145,10 @@ def mesh_fit_rank(torch, spec: dict) -> dict:
         coords = est._build_coordinates(datasets, {}, {})
         reasons = ff.fuse_ineligibility_reasons(coords, mesh=em,
                                                 emitter=est.emitter)
-        fits, models = [], []
+        fits, models, census = [], [], []
         for k in range(2):
             c0 = em.stats.snapshot()
+            at = len(em.stats.census)
             nk.launches = 0
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
@@ -9155,9 +9161,11 @@ def mesh_fit_rank(torch, spec: dict) -> dict:
                          "collectives": c1["count"] - c0["count"],
                          "collective_seconds": c1["seconds"] - c0["seconds"],
                          "collective_bytes": c1["bytes"] - c0["bytes"],
+                         "collectives_by_site": mesh_mod.site_delta(c0, c1),
                          "peak_device_bytes":
                              torch.cuda.max_memory_allocated(),
                          "fused": est._fused_cache is not None})
+            census.append(compact_census(em.stats.census[at:]))
             models.append({cid: (m.model.coefficients.means
                                  if cid == "global" else m.coefficients)
                            for cid, m in res.model.items()})
@@ -9167,18 +9175,22 @@ def mesh_fit_rank(torch, spec: dict) -> dict:
                  **{c: t.cpu().numpy() for c, t in models[1].items()})
         gaps = mesh_gaps(torch, est, datasets, data, res,
                          np.load(spec["single"]))
+        del est, datasets, data, res, models, coords
+        empty_cache()
+        column = column_rank(torch, spec, mesh)
         return {"rank": mesh.rank, "size": mesh.size,
                 "backend": mesh.backend, "rows": n,
                 "generate_seconds": gen_s,
                 "prepare_seconds": plan_row["seconds"], "shares": shares,
-                "fuse_reasons": reasons, "fits": fits,
+                "fuse_reasons": reasons, "fits": fits, "census": census,
                 "repeat_bit_identical": repeat, "gaps": gaps,
-                "model": os.path.join(spec["root"], "model.npz")}
+                "model": os.path.join(spec["root"], "model.npz"),
+                "column": column}
     finally:
         mesh_mod.shutdown()
 
 
-def phase_mesh_fit(torch, single: str) -> dict:
+def phase_mesh_fit(torch, single: str, column_single: str) -> dict:
     """Phase 25 (a): phase ``fit``'s full-width logistic fit (4,000,000
     rows, f32, caps 512 / 2048, 4 CD iterations) by
     ``GameEstimator(mesh="auto")`` in MESH_RANKS ranks on this card
@@ -9190,10 +9202,13 @@ def phase_mesh_fit(torch, single: str) -> dict:
     bit-identical in each rank and rank 1's model rank 0's bit for bit;
     the model within MESH_FE_ATOL / MESH_RE_ATOL of the single-process
     unfused fit (``single``, the ``.npz`` ``save_single_fit`` wrote), an
-    entity past them only where both fits stopped on its objective."""
+    entity past them only where both fits stopped on its objective.
+    Every rank's census of each fit equal to rank 0's and fully declared
+    (``census_gate``). Then 25 (c) in the same ranks
+    (``phase_mesh_column``)."""
     t0 = time.perf_counter()
     ranks = mesh_ranks("fit", os.path.join(mesh_root(), "fit"),
-                       single=single)
+                       single=single, column_single=column_single)
     wall = time.perf_counter() - t0
     for r in ranks:
         emit({"phase": "mesh_fit", "rank": r["rank"],
@@ -9203,6 +9218,8 @@ def phase_mesh_fit(torch, single: str) -> dict:
               "shares": r["shares"], "fits": r["fits"],
               "repeat_bit_identical": r["repeat_bit_identical"],
               "gaps": r["gaps"]})
+    for k in range(2):
+        census_gate("mesh_fit", f"fit {k}", [r["census"][k] for r in ranks])
     models = [np.load(r["model"]) for r in ranks]
     across = all(np.array_equal(models[0][c], m[c])
                  for m in models[1:] for c in models[0].files)
@@ -9220,6 +9237,8 @@ def phase_mesh_fit(torch, single: str) -> dict:
                                    for r in ranks],
            "collective_seconds_per_fit": [
                r["fits"][-1]["collective_seconds"] for r in ranks],
+           "collectives_by_site_per_fit": [
+               r["fits"][-1]["collectives_by_site"] for r in ranks],
            "peak_device_bytes": [max(f["peak_device_bytes"]
                                      for f in r["fits"]) for r in ranks],
            "newton_launches": [[f["newton_launches"] for f in r["fits"]]
@@ -9265,7 +9284,421 @@ def phase_mesh_fit(torch, single: str) -> dict:
         fail(f"mesh_fit: entities past {MESH_RE_ATOL} without an objective "
              f"stop in both fits: {failing}")
     return {"newton_launches": sum(f["newton_launches"] for r in ranks
-                                   for f in r["fits"])}
+                                   for f in r["fits"]),
+            "column": phase_mesh_column(torch, [r["column"] for r in ranks],
+                                        np.load(column_single))}
+
+
+def compact_census(census) -> list:
+    """A census (``CollectiveStats.census``) as ``[op, site, dtype,
+    shape]`` lists, the fields the ranks must agree on."""
+    return [[c["op"], c["site"], c["dtype"], c["shape"]] for c in census]
+
+
+def census_gate(phase: str, what: str, censuses: list) -> dict:
+    """Every rank's census equal to rank 0's, position by position, and
+    every site one that ``parallel.mesh.SPMD_AUDIT`` declares (the SPMD
+    tier's collective-order, trace-divergence and implicit-reshard
+    rules, on the card's ranks)."""
+    from photon_tpu_torch.parallel.mesh import SPMD_AUDIT
+
+    declared = set(SPMD_AUDIT["ordered_collectives"])
+    sites = {}
+    for c in censuses[0]:
+        sites[c[1]] = sites.get(c[1], 0) + 1
+    row = {"phase": f"{phase}_census", "what": what,
+           "collectives": [len(c) for c in censuses], "sites": sites,
+           "undeclared": sorted(set(sites) - declared)}
+    for r, c in enumerate(censuses[1:], 1):
+        if c != censuses[0]:
+            at = next((i for i, (a, b) in enumerate(zip(censuses[0], c))
+                       if a != b), min(len(c), len(censuses[0])))
+            row["divergent_rank"], row["divergent_position"] = r, at
+            break
+    emit(row)
+    if not censuses[0] or "divergent_rank" in row or row["undeclared"]:
+        fail(f"{phase}: the ranks' censuses of {what}: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 25 (c): the column-sharded fixed effect at the reference's d = 10^7
+# ---------------------------------------------------------------------------
+
+# The JAX package's wide fixed effect (bench.py run_wide_d): 10^7
+# features drawn as d * u^2.2 (a power law: ~73% of the entries below
+# d / 2), 100,000 rows of 20, weights planted on the first 100,000 ids,
+# logistic, L2 1.0, f32; the libsvm reader's intercept appended as the
+# last feature, as that run reads it (so the last rank owns it).
+COLUMN_D, COLUMN_ROWS, COLUMN_K = 10_000_000, 100_000, 20
+COLUMN_PLANTED, COLUMN_SEED, COLUMN_L2 = 100_000, 7, 1.0
+# The column route against the replicated one. Two f32 L-BFGS solves of
+# this problem do not stay within Queue C's f32 fixed-effect split
+# (5e-4): the rounding of their sums, taken in another order, grows
+# about 10^5 times in 20 iterations (CPU, 10^6 features: the two routes
+# 1.8e-11 apart in float64 after 20 iterations, 0.20 apart in f32, the
+# replicated f32 solve 1.3e-3 from its float64 twin), and a whole fit
+# stops where rounding puts it (the stop threshold, 6.9e-3, is about 3x
+# the objective's own f32 rounding): the H100 read 5.4e-2 between the
+# two routes' whole fits, their float64 objectives 1.2e-5 apart. So the
+# routes are held against each other where no solve intervenes: the
+# column route's margins, objective and gradient at the replicated
+# fit's coefficients, on every rank, against a float64 evaluation,
+# within ROUND_OFF of 1 + the magnitude of their terms (the replicated
+# route's errors printed beside them); each whole fit must stop on a
+# convergence rule with its held-in AUC within COLUMN_AUC_ATOL of the
+# other's, and their distance is printed.
+COLUMN_AUC_ATOL = 1e-4
+
+
+def column_arrays() -> dict:
+    """25 (c)'s arrays from COLUMN_SEED (bench.py run_wide_d's draws),
+    the intercept column at index COLUMN_D."""
+    rng = np.random.default_rng(COLUMN_SEED)
+    d, rows, k = COLUMN_D, COLUMN_ROWS, COLUMN_K
+    idx = np.minimum((d * rng.uniform(size=(rows, k)) ** 2.2).astype(
+        np.int64), d - 1)
+    val = rng.normal(size=(rows, k)).astype(np.float32)
+    w_true = (rng.normal(size=COLUMN_PLANTED) * 0.5).astype(np.float32)
+    planted = np.where(idx < COLUMN_PLANTED,
+                       w_true[np.minimum(idx, COLUMN_PLANTED - 1)], 0.0)
+    z = (val * planted).sum(axis=1)
+    y = (rng.uniform(size=rows) < 1.0 / (1.0 + np.exp(-z))).astype(
+        np.float32)
+    idx = np.concatenate([idx.astype(np.int32),
+                          np.full((rows, 1), d, np.int32)], axis=1)
+    val = np.concatenate([val, np.ones((rows, 1), np.float32)], axis=1)
+    return {"idx": idx, "val": val, "y": y}
+
+
+def column_dataset(arrays, device="cuda"):
+    import torch
+
+    from photon_tpu_torch.data.dataset import SparseFeatures
+    from photon_tpu_torch.data.game_data import make_game_dataset
+
+    return make_game_dataset(
+        arrays["y"], {"features": SparseFeatures(
+            arrays["idx"], arrays["val"], COLUMN_D + 1)},
+        dtype=torch.float32, device=device)
+
+
+def column_estimator(device="cuda"):
+    """The fixed effect alone, ``feature_sharding: auto`` (column on a
+    mesh above 200,000 features, replicated without one), L-BFGS, L2
+    COLUMN_L2 with the intercept exempt, a no-op listener so that the
+    single process also fits on the unfused loop."""
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.algorithm.problems import (
+        GLMOptimizationConfiguration,
+    )
+    from photon_tpu_torch.estimators.game_estimator import (
+        FixedEffectCoordinateConfiguration,
+        GameEstimator,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    opt = GLMOptimizationConfiguration(
+        regularization=optim.RegularizationContext(
+            optim.RegularizationType.L2), regularization_weight=COLUMN_L2)
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"global": FixedEffectCoordinateConfiguration(
+            "features", opt, feature_sharding="auto")},
+        num_iterations=1, intercept_indices={"features": COLUMN_D},
+        mesh="auto", device=device, listeners=[lambda e: None])
+
+
+def column_fit(torch, est, data) -> tuple[dict, object]:
+    """One fit with the counts zeroed just before it and read after."""
+    from photon_tpu_torch.ops import segment_reduce as sr
+    from photon_tpu_torch.optim import lbfgs
+
+    sr.reset_counts()
+    lbfgs.host_syncs = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = est.fit(data)[0]
+    torch.cuda.synchronize()
+    hist = res.descent.history
+    return {"fit_seconds": time.perf_counter() - t0,
+            "lbfgs_iterations": [int(r.diagnostics.iterations)
+                                 for r in hist],
+            "convergence_reason": int(hist[-1].diagnostics
+                                      .convergence_reason),
+            "lbfgs_host_syncs": lbfgs.host_syncs,
+            "fixed_effect_launches": sr.launches_by_site.get(
+                "fixed_effect", 0),
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}, res
+
+
+def column_single_npz(torch) -> str:
+    """25 (c)'s replicated fit of its arrays in this process (no
+    process group: ``auto`` stays replicated), saved for the ranks'
+    comparison: the coefficients, the held-in AUC and the stop
+    reason."""
+    from photon_tpu_torch.evaluation import evaluators
+
+    t0 = time.perf_counter()
+    arrays = column_arrays()
+    gen_s = time.perf_counter() - t0
+    data = column_dataset(arrays)
+    est = column_estimator()
+    row, res = column_fit(torch, est, data)
+    means = res.model["global"].model.coefficients.means
+    scores = data.feature_shards["features"].matvec(means)
+    auc = float(evaluators.auc_roc(scores, data.labels))
+    emit({"phase": "mesh_column_single", "generate_seconds": gen_s,
+          "features": COLUMN_D + 1, "rows": COLUMN_ROWS, "auc": auc, **row})
+    path = os.path.join(mesh_root(), "column_single.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, means=means.cpu().numpy(), auc=auc,
+             reason=row["convergence_reason"])
+    del arrays, data, est, res, scores
+    empty_cache()
+    return path
+
+
+def column_objective(torch, data, w) -> float:
+    """The logistic loss plus the L2 term (intercept exempt) of a whole
+    ``[d]`` model on every row, in float64."""
+    feats = data.feature_shards["features"]
+    w = w.double()
+    z = (feats.values.double() * w[feats.indices.long()]).sum(1)
+    y = data.labels.double()
+    loss = (torch.nn.functional.softplus(z) - y * z).sum()
+    wm = w.clone()
+    wm.narrow(0, COLUMN_D, 1).zero_()
+    return float(loss + 0.5 * COLUMN_L2 * (wm * wm).sum())
+
+
+def column_route_check(torch, data, fs, w) -> dict:
+    """Both routes' margins, objective and gradient (the solver's own
+    ``fun``: the GLM objective with L2, the intercept exempt) at the
+    whole model ``w``, this rank's slice of the column route's and the
+    replicated route's, each against a float64 evaluation by plain
+    PyTorch: the error of each over ROUND_OFF of 1 + the magnitude of
+    its terms (a margin's sum of |x w|, a gradient entry's sum of
+    |x c|, the objective itself)."""
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.data.dataset import GLMBatch
+    from photon_tpu_torch.ops import glm as glm_ops
+    from photon_tpu_torch.ops import losses as losses_mod
+    from photon_tpu_torch.types import TaskType
+
+    loss = losses_mod.get_loss(TaskType.LOGISTIC_REGRESSION)
+    whole = data.shard_batch("features")
+    col = GLMBatch(fs, data.labels, data.offsets, data.weights)
+    w = w.to(data.labels.device, torch.float32)
+    feats = whole.features
+    idx = feats.indices.long()
+    x = feats.values.double()
+    w64 = w.double()
+    z64 = (x * w64[idx]).sum(1)
+    zmag = (x * w64[idx]).abs().sum(1)
+    y = data.labels.double()
+    c = torch.sigmoid(z64) - y
+    wm = w64.clone()
+    wm.narrow(0, COLUMN_D, 1).zero_()
+    f64 = float((torch.nn.functional.softplus(z64) - y * z64).sum()
+                + 0.5 * COLUMN_L2 * (wm * wm).sum())
+    d = feats.d
+    g64 = torch.zeros(d, dtype=torch.float64, device=w.device).index_add_(
+        0, idx.reshape(-1), (x * c[:, None]).reshape(-1)) + COLUMN_L2 * wm
+    gmag = torch.zeros(d, dtype=torch.float64, device=w.device).index_add_(
+        0, idx.reshape(-1), (x.abs() * c.abs()[:, None]).reshape(-1))
+    rep_fun = optim.with_l2(glm_ops.make_value_and_grad(whole, loss),
+                            COLUMN_L2, COLUMN_D)
+    col_fun = optim.with_l2(glm_ops.make_value_and_grad(col, loss),
+                            COLUMN_L2, fs.local_index(COLUMN_D))
+    f_rep, g_rep = rep_fun(w)
+    with optim.sharded_over(fs.mesh):
+        f_col, g_col = col_fun(fs.local_slice(w))
+    z_col, z_rep = fs.matvec(w), feats.matvec(w)
+    g_ref, g_bound = fs.local_slice(g64), 1.0 + fs.local_slice(gmag)
+
+    def over(err, bound):
+        return float((err / (ROUND_OFF * bound)).max())
+
+    return {
+        "column": {
+            "margin": over((z_col.double() - z64).abs(), 1.0 + zmag),
+            "objective": abs(float(f_col) - f64) / (
+                ROUND_OFF * (1.0 + abs(f64))),
+            "gradient": over((g_col.double() - g_ref).abs(), g_bound)},
+        "replicated": {
+            "margin": over((z_rep.double() - z64).abs(), 1.0 + zmag),
+            "objective": abs(float(f_rep) - f64) / (
+                ROUND_OFF * (1.0 + abs(f64))),
+            "gradient": over((fs.local_slice(g_rep).double()
+                              - g_ref).abs(), g_bound)}}
+
+
+def column_rank(torch, spec: dict, mesh) -> dict:
+    """One rank of 25 (c), after (a)'s fits in the same group: the
+    arrays from the seed, ``column_estimator`` on the mesh (column:
+    this rank's feature range), prepared and fitted twice, the counts
+    zeroed before each fit and read after it; each fit's census; the
+    held-in AUC by the column ``matvec``; the rank's local ``rmatvec``
+    at the ``fixed_effect`` site held against its plain version and
+    timed (``fixed_effect_site``); both routes at the replicated fit's
+    coefficients against float64 (``column_route_check``); the float64
+    objectives of both routes' models; the model saved for the
+    parent."""
+    from photon_tpu_torch.evaluation import evaluators
+    from photon_tpu_torch.parallel.mesh import (
+        FeatureShardedSparse,
+        site_delta,
+    )
+
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    arrays = column_arrays()
+    gen_s = time.perf_counter() - t0
+    data = column_dataset(arrays)
+    del arrays
+    est = column_estimator()
+    t0 = time.perf_counter()
+    datasets, _ = est.prepare(data)
+    prepare_s = time.perf_counter() - t0
+    fs = datasets["global"].features
+    if not isinstance(fs, FeatureShardedSparse):
+        fail(f"mesh_column: rank {mesh.rank}'s fixed effect is "
+             f"{type(fs).__name__}, not column-sharded")
+    stats = mesh.stats
+    fits, census, models = [], [], []
+    for k in range(2):
+        c0, at = stats.snapshot(), len(stats.census)
+        row, res = column_fit(torch, est, data)
+        c1 = stats.snapshot()
+        fits.append({"fit": k, **row,
+                     "collectives": c1["count"] - c0["count"],
+                     "collective_seconds": c1["seconds"] - c0["seconds"],
+                     "collective_bytes": c1["bytes"] - c0["bytes"],
+                     "collectives_by_site": site_delta(c0, c1)})
+        census.append(compact_census(stats.census[at:]))
+        models.append(res.model["global"].model.coefficients.means)
+    repeat = bool(torch.equal(models[0], models[1]))
+    scores = fs.matvec(models[1])
+    auc = float(evaluators.auc_roc(scores, data.labels))
+    g = data.weights * (torch.sigmoid(scores) - data.labels)
+    site = fixed_effect_site(torch, fs.local, g)
+    single = torch.from_numpy(np.load(spec["column_single"])["means"]).to(
+        models[1].device)
+    route = column_route_check(torch, data, fs, single)
+    objectives = [column_objective(torch, data, w)
+                  for w in (models[1], single)]
+    path = os.path.join(spec["root"], "column_model.npy")
+    np.save(path, models[1].cpu().numpy())
+    return {"rank": mesh.rank, "d": fs.d, "logical_d": fs.logical_d,
+            "d_local": fs.d_local, "lo": fs.lo,
+            "nnz": int((fs.local_values != 0).sum()),
+            "k_loc": int(fs.local_indices.shape[1]),
+            "generate_seconds": gen_s, "prepare_seconds": prepare_s,
+            "resident_bytes_before": resident,
+            "fits": fits, "census": census, "repeat_bit_identical": repeat,
+            "route_check": route,
+            "auc": auc, "model": path, "objectives": objectives,
+            "site": {k: site[k] for k in (
+                "shape", "values", "features", "parts", "segments", "ms",
+                "plain_ms", "library_ms", "rmatvec_ms", "bound_ms",
+                "bound_by", "max_abs_err")}}
+
+
+def phase_mesh_column(torch, ranks: list, single) -> dict:
+    """Phase 25 (c): the column-sharded fixed effect at the JAX package's
+    d = 10^7 configuration in (a)'s ranks (``column_rank``). Gates: each
+    rank column-sharded over its own feature range; both ranks' models
+    equal bit for bit, and each rank's two fits; on every rank the
+    column route's margins, objective and gradient at the replicated
+    fit's coefficients within ROUND_OFF of a float64 evaluation
+    (``column_route_check``); each whole fit stopped on a convergence
+    rule, the column fit's held-in AUC within COLUMN_AUC_ATOL of the
+    replicated fit's (``single``); segment-sum launches at
+    ``fixed_effect`` in every fit; every rank's census of each fit equal
+    to rank 0's and declared.
+    Printed: each rank's nnz and slab width, L-BFGS iterations, fit
+    seconds, peak memory, collectives by site with seconds and bytes,
+    the kernel's device ms and bound on the rank's shard, and the whole
+    fits' distance to the replicated fit."""
+    from photon_tpu_torch.optim import ConvergenceReason
+
+    stops = (int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+             int(ConvergenceReason.GRADIENT_CONVERGED),
+             int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING))
+    models = [np.load(r["model"]) for r in ranks]
+    across = all(np.array_equal(models[0], m) for m in models[1:])
+    diff = float(np.abs(models[0].astype(np.float64)
+                        - single["means"].astype(np.float64)).max())
+    obj_col, obj_single = ranks[0]["objectives"]
+    route = max(v for r in ranks for v in r["route_check"]["column"].values())
+    reasons = [ranks[0]["fits"][-1]["convergence_reason"],
+               int(single["reason"])]
+    auc_gap = abs(ranks[0]["auc"] - float(single["auc"]))
+    for r in ranks:
+        emit({"phase": "mesh_column", "rank": r["rank"], "d": r["d"],
+              "logical_d": r["logical_d"], "d_local": r["d_local"],
+              "lo": r["lo"], "nnz": r["nnz"], "k_loc": r["k_loc"],
+              "generate_seconds": r["generate_seconds"],
+              "prepare_seconds": r["prepare_seconds"],
+              "resident_bytes_before": r["resident_bytes_before"],
+              "fits": r["fits"], "route_check": r["route_check"],
+              "repeat_bit_identical": r["repeat_bit_identical"],
+              "auc": r["auc"], "fixed_effect_site": r["site"]})
+    for k in range(2):
+        census_gate("mesh_column", f"fit {k}", [r["census"][k] for r in ranks])
+    launches = sum(f["fixed_effect_launches"] for r in ranks
+                   for f in r["fits"])
+    row = {"phase": "mesh_column", "ranks": len(ranks),
+           "features": ranks[0]["logical_d"], "rows": COLUMN_ROWS,
+           "nnz": [r["nnz"] for r in ranks],
+           "k_loc": [r["k_loc"] for r in ranks],
+           "nnz_share_rank0": ranks[0]["nnz"] / sum(r["nnz"] for r in ranks),
+           "lbfgs_iterations": [r["fits"][-1]["lbfgs_iterations"]
+                                for r in ranks],
+           "fit_seconds": [[f["fit_seconds"] for f in r["fits"]]
+                           for r in ranks],
+           "peak_device_bytes": [max(f["peak_device_bytes"]
+                                     for f in r["fits"]) for r in ranks],
+           "collectives_per_fit": [r["fits"][-1]["collectives"]
+                                   for r in ranks],
+           "collective_seconds_per_fit": [
+               r["fits"][-1]["collective_seconds"] for r in ranks],
+           "collectives_by_site_per_fit": [
+               r["fits"][-1]["collectives_by_site"] for r in ranks],
+           "fixed_effect_launches": launches,
+           "ranks_bit_identical": across,
+           "route_check_worst_over_bound": route,
+           "max_coefficient_diff_vs_replicated": diff,
+           "objective_float64": [obj_col, obj_single],
+           "objective_rel_gap": abs(obj_col - obj_single) / (
+               1.0 + abs(obj_single)),
+           "convergence_reasons": reasons,
+           "auc": ranks[0]["auc"], "auc_replicated": float(single["auc"]),
+           "bounds": [ROUND_OFF, COLUMN_AUC_ATOL]}
+    emit(row)
+    for r in ranks:
+        if not r["repeat_bit_identical"]:
+            fail(f"mesh_column: rank {r['rank']}'s two fits differ")
+        if not all(f["fixed_effect_launches"] > 0 for f in r["fits"]):
+            fail(f"mesh_column: rank {r['rank']} launched the segment-sum "
+                 "kernel no time at fixed_effect")
+        if r["d_local"] * len(ranks) != r["d"] or r["lo"] != (
+                r["rank"] * r["d_local"]):
+            fail(f"mesh_column: rank {r['rank']} holds [{r['lo']}, "
+                 f"{r['lo'] + r['d_local']}) of {r['d']}")
+    if not across:
+        fail("mesh_column: the ranks' models differ")
+    if not route <= 1.0:
+        fail("mesh_column: the column route at the replicated fit's "
+             f"coefficients against float64: {[r['route_check'] for r in ranks]}")
+    if not all(r in stops for r in reasons) or not auc_gap <= COLUMN_AUC_ATOL:
+        fail(f"mesh_column: stop reasons {reasons}, AUC {ranks[0]['auc']} "
+             f"against {float(single['auc'])}")
+    site = max((r["site"] for r in ranks), key=lambda s: s["values"])
+    return {"fixed_effect_launches": launches,
+            "site": dict(site, launches=launches, ranks=len(ranks))}
 
 
 def phase_mesh_cli(torch, cli: dict) -> dict:
@@ -9345,6 +9778,11 @@ def phase_mesh_cli(torch, cli: dict) -> dict:
     if os.path.exists(os.path.join(root, "fleet.json")):
         with open(os.path.join(root, "fleet.json")) as f:
             report = json.load(f)
+    from photon_tpu_torch.obs import fleet
+
+    census_gate("mesh_cli", "cli.train", [r["census"] for r in train])
+    join = fleet.crosscheck_collective_census(
+        report, [dict(zip(("op", "site"), c[:2])) for c in train[0]["census"]])
     val = cli["files"]["validation"]
     score_out = os.path.join(root, "scores")
     t0 = time.perf_counter()
@@ -9356,6 +9794,7 @@ def phase_mesh_cli(torch, cli: dict) -> dict:
         "--id-tags", "userId", "movieId", "--device", "cuda",
         "--evaluators", *CLI_EVALUATORS, "--mesh", "auto"])
     score_s = time.perf_counter() - t0
+    census_gate("mesh_cli", "cli.score", [r["census"] for r in score])
 
     def read(d):
         recs = avro.read_container_dir(os.path.join(d, "part-00000.avro"))
@@ -9383,6 +9822,9 @@ def phase_mesh_cli(torch, cli: dict) -> dict:
            "fleetview_rc": view.returncode, "fleetview_seconds": view_s,
            "fleet_bundles": report.get("bundles"),
            "fleet_missing_ranks": report.get("missing_ranks"),
+           "census_join": {k: join[k] for k in ("count", "mismatches")},
+           "train_collectives_by_site": [r["collectives_by_site"]
+                                         for r in train],
            "score_seconds": score_s, "score_files": files,
            "score_max_abs_diff": score_err,
            "score_serve_launches": [r["serve_launches"] for r in score],
@@ -9403,6 +9845,8 @@ def phase_mesh_cli(torch, cli: dict) -> dict:
             or report.get("missing_ranks")):
         fail(f"mesh_cli: fleetview exited {view.returncode} with "
              f"{report.get('bundles')} bundles: {view.stderr[-2000:]}")
+    if join["mismatches"] or not join["count"]:
+        fail(f"mesh_cli: the fleet report against the census: {join}")
     if files != ["evaluation.json", "part-00000.avro"]:
         fail(f"mesh_cli: cli.score wrote {files}")
     if len(got) != CLI_VALIDATION_ROWS or not score_err <= MESH_SCORE_ATOL:
@@ -9592,7 +10036,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     if args.mesh:
-        phase_mesh_fit(torch, single_fit_npz(torch))
+        phase_mesh_fit(torch, single_fit_npz(torch), column_single_npz(torch))
         phase_mesh_cli(torch, phase_train_cli(torch, *serving_arrays()))
         print(smi, flush=True)
         return 0
@@ -9672,7 +10116,8 @@ def main() -> int:
         return 0
     newton = phase_train(torch)
     empty_cache()
-    mesh_fit = phase_mesh_fit(torch, os.path.join(mesh_root(), "single.npz"))
+    mesh_fit = phase_mesh_fit(torch, os.path.join(mesh_root(), "single.npz"),
+                              column_single_npz(torch))
     train_cli = phase_train_cli(torch, arrays, manifest)
     empty_cache()
     (stream, cli_routes, glm, mesh_cli, routes, tuning, pilot,
@@ -9708,6 +10153,8 @@ def main() -> int:
         "fixed_effect_launches"]
     segment["launches_by_path"]["mesh_cli_evaluation"] = mesh_cli[
         "evaluation_launches"]
+    segment["launches_by_path"]["mesh_column_fixed_effect"] = mesh_fit[
+        "column"]["fixed_effect_launches"]
     # The fixed effect's sparse transpose on every CLI training path.
     fixed_effect = {"train_cli": train_cli["fixed_effect_launches"],
                     "stream_cli": stream["fixed_effect_launches"],
@@ -9721,7 +10168,8 @@ def main() -> int:
     site = train_cli["fixed_effect_site"]
     segment["max_abs_err"] = max(segment["max_abs_err"],
                                  batch["evaluation_max_abs_err"],
-                                 site["max_abs_err"])
+                                 site["max_abs_err"],
+                                 mesh_fit["column"]["site"]["max_abs_err"])
     segment["fixed_effect"] = {
         k: site[k] for k in ("shape", "values", "features", "parts",
                              "segments", "ms", "reduce_ms", "plain_ms",
@@ -9730,6 +10178,8 @@ def main() -> int:
                              "bound_ms", "bound_by", "max_abs_err")}
     segment["fixed_effect"]["launches_per_train_cli_run"] = train_cli[
         "fixed_effect_launches"]
+    # 25 (c): a rank's column shard of the d = 10^7 fixed effect.
+    segment["fixed_effect_column"] = mesh_fit["column"]["site"]
 
     top = next(r for r in rows
                if r["precision"] == SERVE_PRECISION and r["rung"] == 512)

@@ -13,6 +13,12 @@ rank's share of the rows against its share of the replicated residual
 vector, and ``score`` gathers every rank's share into the replicated
 ``[n]`` scores, cut back to the logical rows (reference
 ``algorithm/coordinate.py:66``).
+
+On a column-sharded batch (``parallel.mesh.FeatureShardedSparse``) the
+rows are whole, the solve runs on each rank's feature slice, and the
+gathered model is trimmed to the logical feature count, so every rank
+returns the same whole model (reference :97-116); ``score`` is the
+column ``matvec``, which sums the ranks' partial margins.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from photon_tpu_torch.algorithm.problems import (
 )
 from photon_tpu_torch.data import sampling
 from photon_tpu_torch.data.dataset import GLMBatch
-from photon_tpu_torch.models.glm import GeneralizedLinearModel
+from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.parallel.mesh import maybe_row_shard
 from photon_tpu_torch.types import TaskType
 
@@ -61,7 +67,15 @@ class FixedEffectCoordinate:
         initial = (initial_model.coefficients if initial_model is not None
                    else None)
         solution = self.problem.run(batch, initial)
-        return solution.model, solution.result
+        model = solution.model
+        logical_d = getattr(batch.features, "logical_d", None)
+        if logical_d is not None and logical_d != batch.features.d:
+            coefs = model.coefficients
+            model = dataclasses.replace(model, coefficients=Coefficients(
+                coefs.means[:logical_d],
+                None if coefs.variances is None
+                else coefs.variances[:logical_d]))
+        return model, solution.result
 
     def score(self, model: GeneralizedLinearModel) -> torch.Tensor:
         s = model.coefficients.compute_score(self.batch.features)

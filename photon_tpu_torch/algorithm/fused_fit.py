@@ -175,6 +175,10 @@ def fuse_ineligibility_reasons(coords: dict, *, mesh=None,
                 reasons.append(
                     f"coordinate {cid!r}: padded mesh batch "
                     "(num_samples != logical_rows) stays unfused")
+            if getattr(inner.batch.features, "logical_d", None) is not None:
+                reasons.append(
+                    f"coordinate {cid!r}: column-sharded features solve "
+                    "on the mesh path")
         elif isinstance(inner, RandomEffectCoordinate):
             if not inner.dataset.is_lazy:
                 reasons.append(

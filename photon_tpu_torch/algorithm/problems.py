@@ -87,28 +87,71 @@ class GLMOptimizationProblem:
 
     def run(self, batch: GLMBatch,
             initial: Coefficients | None = None) -> GLMSolution:
+        """The fit. On column-sharded features (``parallel.mesh
+        .FeatureShardedSparse``) each rank solves its slice of the
+        coefficients: the initial and prior vectors (whole, as models
+        are) are sliced to its feature range, the intercept's L2
+        exemption applies on its owner, every inner product crosses the
+        ranks (``optim.sharded_over``), and the solved slices are
+        gathered into the whole padded ``[d]`` model, the same on every
+        rank."""
         cfg = self.config
         dtype = batch.labels.dtype
         dev = batch.labels.device
+        feats = batch.features
+        column = hasattr(feats, "local_slice")
+        local = feats.local_slice if column else (lambda v: v)
+        if column:
+            _check_column_route(cfg)
         w0 = (torch.zeros(batch.num_features, dtype=dtype, device=dev)
-              if initial is None else initial.means.to(dtype))
+              if initial is None else local(initial.means.to(dtype)))
         prior = None
         if self.prior is not None:
             if self.prior.variances is None:
                 raise ValueError(
                     "incremental training requires prior variances "
                     "(GameEstimator.scala:241-382 invariants)")
-            prior = (self.prior.means.to(dtype),
-                     self.prior.variances.to(dtype))
-        means, variances, result = run_impl(
-            batch, w0, cfg.l1_weight, cfg.l2_weight, self.normalization,
-            prior, cfg.incremental_weight, task=self.task,
-            opt_config=cfg.optimizer, intercept_index=self.intercept_index,
-            variance_computation=cfg.variance_computation,
-        )
+            # Padded slots take variance 0: "absent from the prior".
+            prior = (local(self.prior.means.to(dtype)),
+                     local(self.prior.variances.to(dtype)))
+        with optim.sharded_over(feats.mesh if column else None):
+            means, variances, result = run_impl(
+                batch, w0, cfg.l1_weight, cfg.l2_weight, self.normalization,
+                prior, cfg.incremental_weight, task=self.task,
+                opt_config=cfg.optimizer,
+                intercept_index=(feats.local_index(self.intercept_index)
+                                 if column else self.intercept_index),
+                variance_computation=cfg.variance_computation,
+            )
+        if column:
+            if variances is None:
+                (means,) = feats.gather(means)
+            else:
+                means, variances = feats.gather(means, variances)
+            result = result._replace(coefficients=means)
         model = GeneralizedLinearModel(Coefficients(means, variances),
                                        self.task)
         return GLMSolution(model=model, result=result)
+
+
+# The ROADMAP Queue A item of the solver routes a column-sharded fixed
+# effect does not take yet.
+COLUMN_ROUTES_ITEM = 14
+
+
+def _check_column_route(cfg: GLMOptimizationConfiguration) -> None:
+    """Raise for a route the column-sharded solve does not port: L-BFGS
+    and TRON with no or SIMPLE variances are ported."""
+    what = None
+    if cfg.l1_weight != 0.0:
+        what = "OWL-QN (an L1 part)"
+    elif cfg.optimizer.box_constraints is not None:
+        what = "L-BFGS-B (box constraints)"
+    elif cfg.variance_computation == VarianceComputationType.FULL:
+        what = "FULL variances"
+    if what is not None:
+        raise optim.not_ported(
+            f"{what} on a column-sharded fixed effect", COLUMN_ROUTES_ITEM)
 
 
 def variances_in_transformed_space(batch: GLMBatch,

@@ -83,6 +83,7 @@ from photon_tpu_torch.ops import precision as precision_mod
 from photon_tpu_torch.ops import segment_reduce
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optim import batched, owlqn, tron
+from photon_tpu_torch.parallel.mesh import SITE_BUCKET_GATHER
 from photon_tpu_torch.types import TaskType
 from photon_tpu_torch.utils import device_loop
 
@@ -895,7 +896,7 @@ def _gather_buckets(ds: RandomEffectDataset, solved: list,
         pieces += [p.reshape(-1).to(dtype) for p in parts]
     if not pieces:
         return []
-    ranks = mesh.all_gather(torch.cat(pieces))
+    ranks = mesh.all_gather(torch.cat(pieces), site=SITE_BUCKET_GATHER)
     out = []
     at = 0
     for i, shapes in enumerate(layout):

@@ -13,11 +13,15 @@ them, so the two read one count.
 
 A cost is ``{"flops", "hbm_bytes"}`` (plus ``"transcendentals"`` where
 a kernel's special functions can bound it).
+
+``collective_transfer`` prices an ordered census of collectives (the
+mesh's ``CollectiveStats.census``) in bytes, and at the card's link
+peak where one is given.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Iterable, Mapping
 
 H100_SXM = "h100_sxm"
 
@@ -32,7 +36,19 @@ CHIP_PEAKS = {
         # Programming Guide, arithmetic instruction throughput, compute
         # capability 9.0) x 132 SMs x 1.98 GHz boost clock.
         "transcendentals_per_sec": 16 * 132 * 1.98e9,
+        # NVLink (fourth generation, 18 links): 900 GB/s, NVIDIA's H100
+        # SXM data sheet at the 700 W power limit. Ranks that share one
+        # card (the gloo route) move their operands through host memory
+        # instead, which this figure does not bound.
+        "link_bytes_per_sec": 900e9,
     },
+}
+
+# Bytes of an element of each dtype a census names.
+_DTYPE_BYTES = {
+    "float64": 8, "float32": 4, "float16": 2, "bfloat16": 2, "int64": 8,
+    "int32": 4, "int16": 2, "int8": 1, "uint8": 1, "bool": 1,
+    "complex64": 8, "complex128": 16,
 }
 DEFAULT_CHIP = H100_SXM
 
@@ -138,3 +154,39 @@ def segment_sum_cost(n_values: int, value_bytes: int,
     return {"flops": float(n_values),
             "hbm_bytes": float(n_values * (4 + value_bytes)
                                + n_segments * 4)}
+
+
+def census_bytes(step: Mapping) -> float:
+    """Bytes one rank contributes to one collective of a census: its
+    ``bytes`` where recorded, else its operand ``shape`` times the
+    size of its ``dtype`` (unknown dtypes at 1 byte: an undercount,
+    never a silent zero)."""
+    if step.get("bytes") is not None:
+        return float(step["bytes"])
+    size = 1
+    for d in step.get("shape") or ():
+        size *= int(d)
+    return float(size * _DTYPE_BYTES.get(str(step.get("dtype")), 1))
+
+
+def collective_transfer(sequence: Iterable[Mapping],
+                        chip: str = DEFAULT_CHIP) -> dict[str, Any]:
+    """Price an ordered collective census as bytes over the link
+    (reference ``costmodel.py:186-208``). ``sequence`` is census records
+    (``{"op", "site", "dtype", "shape", "bytes"}``). Returns per-op
+    bytes, the total, and the link-bandwidth lower bound: what an
+    undeclared collective adds to every fit."""
+    ops: list[dict[str, Any]] = []
+    total = 0.0
+    for step in sequence:
+        b = census_bytes(step)
+        total += b
+        ops.append({"op": step.get("op", "?"), "site": step.get("site"),
+                    "bytes": b})
+    peak = CHIP_PEAKS[chip].get("link_bytes_per_sec")
+    return {
+        "chip": chip,
+        "ops": ops,
+        "total_bytes": total,
+        "min_seconds_link": (total / peak) if peak else None,
+    }

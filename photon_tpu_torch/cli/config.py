@@ -16,10 +16,9 @@ of numbers or of per-feature lists, goes to L-BFGS-B; the reference's
 file reader leaves that key unread. A regularization's
 ``weight_range`` and ``alpha_range`` are the tuner's search intervals,
 and ``hyperparameter_tuning`` (``mode`` NONE, RANDOM or BAYESIAN,
-``iterations``, ``seed``) runs the tuner after the lambda grid. An
-option the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item when the file is loaded: ``feature_sharding``
-``column`` (item 12's second part). ``mesh`` (default ``auto``) is the
+``iterations``, ``seed``) runs the tuner after the lambda grid. A fixed
+effect's ``feature_sharding`` (``replicated``, ``column`` or ``auto``)
+places its coefficients on a mesh. ``mesh`` (default ``auto``) is the
 estimator's ``parallel.mesh.resolve_mesh`` setting; a count other than
 the process group's size raises when the estimator resolves it.
 ``profile_dir`` runs the fit under ``torch.profiler``
@@ -38,7 +37,6 @@ from photon_tpu_torch.algorithm.problems import (
     VarianceComputationType,
 )
 from photon_tpu_torch.data.random_effect import RandomEffectDataConfiguration
-from photon_tpu_torch.device import COLUMN_SHARDING_NOT_PORTED
 from photon_tpu_torch.estimators.game_estimator import (
     FixedEffectCoordinateConfiguration,
     GameEstimator,
@@ -46,9 +44,6 @@ from photon_tpu_torch.estimators.game_estimator import (
 )
 from photon_tpu_torch.ops.normalization import NormalizationType
 from photon_tpu_torch.types import TaskType
-
-# The ROADMAP Queue A item of each unported option.
-MULTI_DEVICE_ITEM = 12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,13 +119,9 @@ def parse_coordinate(cid: str, d: dict) -> CoordinateSpec:
     shard = d.get("feature_shard", "features")
     kind = d.get("type", "fixed").lower()
     if kind in ("fixed", "fixed_effect", "fixed-effect"):
-        sharding = str(d.get("feature_sharding", "replicated")).lower()
-        if sharding == "column":
-            raise optim.not_ported(
-                f"coordinate {cid!r}: feature_sharding 'column' "
-                f"({COLUMN_SHARDING_NOT_PORTED})", MULTI_DEVICE_ITEM)
-        cfg = FixedEffectCoordinateConfiguration(shard, opt_cfg,
-                                                 feature_sharding=sharding)
+        cfg = FixedEffectCoordinateConfiguration(
+            shard, opt_cfg, feature_sharding=str(
+                d.get("feature_sharding", "replicated")).lower())
     elif kind in ("random", "random_effect", "random-effect"):
         cfg = RandomEffectCoordinateConfiguration(
             RandomEffectDataConfiguration(

@@ -15,14 +15,6 @@ import os
 
 import torch
 
-# The column-sharded fixed effect, which raises until it is ported.
-COLUMN_SHARDING_NOT_PORTED = (
-    "the column-sharded fixed effect (feature_sharding 'column', or "
-    "'auto' above AUTO_COLUMN_SHARDING_THRESHOLD features on a mesh: "
-    "FeatureShardedSparse, shard_features_by_column), the second part of "
-    "item 12")
-
-
 def resolve(device: str | torch.device | None = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":

@@ -70,10 +70,13 @@ and every model, score and evaluation is the same, bit for bit, on
 every rank. A mesh fit runs the unfused loop with the reference's
 reason, and no warm capture. Only rank 0 writes a checkpoint; the
 others wait for it at a barrier. A ``DualEllFeatures`` fixed effect
-stays whole on every rank. The column-sharded fixed effect
-(``feature_sharding`` ``"column"``, or ``"auto"`` above
-``AUTO_COLUMN_SHARDING_THRESHOLD`` features on a mesh) raises until it
-is ported (ROADMAP Queue A item 12, second part).
+stays whole on every rank. A fixed effect with ``feature_sharding``
+``"column"`` (or ``"auto"`` above ``AUTO_COLUMN_SHARDING_THRESHOLD``
+features, where normalization or a DualEll tail does not block it) is
+sharded over its FEATURE axis on a mesh instead
+(``parallel.mesh.FeatureShardedSparse``): each rank holds its feature
+range of the features, the coefficients and the optimizer's state, the
+rows whole, and the solved slices are gathered into one whole model.
 """
 
 from __future__ import annotations
@@ -90,8 +93,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import device as device_mod
-from photon_tpu_torch import obs, optim
-from photon_tpu_torch.device import COLUMN_SHARDING_NOT_PORTED
+from photon_tpu_torch import obs
 from photon_tpu_torch.algorithm.coordinate import FixedEffectCoordinate
 from photon_tpu_torch.algorithm.coordinate_descent import (
     CoordinateDescent,
@@ -104,7 +106,7 @@ from photon_tpu_torch.algorithm.problems import (
     GLMOptimizationProblem,
 )
 from photon_tpu_torch.algorithm.random_effect import RandomEffectCoordinate
-from photon_tpu_torch.data.dataset import DualEllFeatures
+from photon_tpu_torch.data.dataset import DualEllFeatures, GLMBatch
 from photon_tpu_torch.data.game_data import GameDataset
 from photon_tpu_torch.data.pipeline import PIPELINE_STATS, packable
 from photon_tpu_torch.data.random_effect import (
@@ -125,8 +127,10 @@ from photon_tpu_torch.models.game import (
 from photon_tpu_torch.ops import precision as precision_mod
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.parallel.mesh import (
+    SITE_CHECKPOINT_BARRIER,
     resolve_mesh,
     shard_batch,
+    shard_features_by_column,
     shard_random_effect_dataset,
 )
 from photon_tpu_torch.resilience import checkpoint as ckpt_mod
@@ -317,27 +321,64 @@ class GameEstimator:
         share of its rows (``shard_batch``), or the whole batch for a
         ``DualEllFeatures`` shard, which is not row-aligned (reference
         :401-410)."""
+        if mesh is not None and self._wants_column_sharding(data, cfg):
+            return self._build_column_sharded_batch(data, cfg, mesh)
         batch = data.shard_batch(cfg.feature_shard_id)
         if mesh is None:
             return batch
-        if self._wants_column_sharding(data, cfg):
-            raise optim.not_ported(
-                f"coordinate {cid!r}: {COLUMN_SHARDING_NOT_PORTED}", 12)
         if isinstance(batch.features, DualEllFeatures):
             logger.info("coordinate %s: DualEll features are not "
                         "row-shardable; leaving replicated", cid)
             return batch
         return shard_batch(batch, mesh)
 
-    @staticmethod
-    def _wants_column_sharding(data: GameDataset, cfg) -> bool:
-        """``feature_sharding`` on a mesh: ``column`` always, ``auto``
-        above ``AUTO_COLUMN_SHARDING_THRESHOLD`` features."""
-        if cfg.feature_sharding == "column":
+    def _wants_column_sharding(self, data: GameDataset, cfg) -> bool:
+        """``feature_sharding`` on a mesh: ``column`` always; ``auto``
+        above ``AUTO_COLUMN_SHARDING_THRESHOLD`` features unless a
+        blocker keeps it replicated (logged; an explicit ``column``
+        raises at the blocker instead). Reference :470-489."""
+        mode = cfg.feature_sharding
+        if mode == "column":
             return True
-        return (cfg.feature_sharding == "auto"
-                and data.feature_shards[cfg.feature_shard_id].num_features
-                > AUTO_COLUMN_SHARDING_THRESHOLD)
+        if mode == "auto":
+            feats = data.feature_shards[cfg.feature_shard_id]
+            if feats.num_features <= AUTO_COLUMN_SHARDING_THRESHOLD:
+                return False
+            why = self._column_sharding_blocker(data, cfg.feature_shard_id)
+            if why is not None:
+                logger.info(
+                    "shard %s: auto feature sharding staying replicated "
+                    "(%s)", cfg.feature_shard_id, why)
+                return False
+            return True
+        return False
+
+    def _column_sharding_blocker(self, data: GameDataset,
+                                 shard: str) -> str | None:
+        """Why ``shard`` can't go column-sharded, or None if it can."""
+        norm = self.normalization.get(shard)
+        if norm is not None and not norm.is_identity:
+            return "feature normalization is active"
+        if data.host_shard_tail(shard) is not None:
+            return "DualEll overflow tail present"
+        return None
+
+    def _build_column_sharded_batch(self, data: GameDataset, cfg, mesh):
+        """The feature-axis-sharded (tp) fixed-effect batch: this rank's
+        feature range of the shard's entries (``shard_features_by_column``,
+        built from the host ELL view), the rows whole, with no row mesh:
+        the row sums stay local (reference :502-530)."""
+        shard = cfg.feature_shard_id
+        why = self._column_sharding_blocker(data, shard)
+        if why is not None:
+            raise ValueError(
+                f"coordinate shard {shard!r}: column feature sharding is "
+                f"unsupported here ({why}); normalize at ingest / raise the "
+                "DualEll slab width cap, or use replicated sharding")
+        idx, val, d = data.host_shard_coo(shard)
+        feats = shard_features_by_column(idx, val, d, mesh,
+                                         dtype=data.labels.dtype)
+        return GLMBatch(feats, data.labels, data.offsets, data.weights)
 
     def _build_datasets(self, data: GameDataset,
                         initial_model: GameModel | None) -> dict:
@@ -581,10 +622,10 @@ class GameEstimator:
         the same on every rank); the other ranks wait for it at a
         barrier, so none reads a checkpoint before it is committed."""
         mesh = self.resolve_mesh()
-        if mesh is None or mesh.is_coordinator:
+        if mesh is None or mesh.is_coordinator:  # photon: ignore[spmd-host-divergence] -- rank 0 writes the file alone; every rank then meets the same barrier
             write()
         if mesh is not None:
-            mesh.barrier()
+            mesh.barrier(site=SITE_CHECKPOINT_BARRIER)
 
     @staticmethod
     def _checkpoint_directory(checkpointer, resume) -> str:
@@ -730,6 +771,8 @@ class GameEstimator:
                         return None
                     skeleton[cid] = ds
                 else:
+                    if self._wants_column_sharding(data, cfg):
+                        return None  # reference :762-763
                     skeleton[cid] = data.shard_batch(cfg.feature_shard_id)
             coords = self._build_coordinates(skeleton, {}, {})
             if fuse_ineligibility_reasons(coords, emitter=self.emitter):

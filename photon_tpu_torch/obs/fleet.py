@@ -728,23 +728,24 @@ def merge_run(
 
 
 def crosscheck_collective_census(report: dict, census_ops) -> dict:
-    """Join a STATIC collective census onto a merged fleet report.
+    """Join a collective census onto a merged fleet report.
 
-    ``census_ops`` is the ordered collective op list an SPMD audit
-    extracted from the program (the JAX package's ``analysis.spmd
-    .collective_sequence`` op names; the port's mesh issues
-    ``all_gather`` only, and has no static audit of its order, ROADMAP
-    Queue A item 13). The runtime
-    ledger observes collective *waits*; the static census says which
-    collectives every rank is contractually issuing — joining the two
-    makes a mismatched-collective hang attributable: a fleet whose
-    static census is non-empty but whose merged run is missing ranks is
+    ``census_ops`` is an ordered census of the collectives every rank
+    issues: the port's (``parallel.mesh.CollectiveStats.census`` records,
+    each named ``op@site``, the records the SPMD tier compares across
+    ranks: ``python -m photon_tpu_torch.analysis --spmd``) or op names
+    as strings (the JAX package's ``analysis.spmd.collective_sequence``
+    op names). The runtime ledger observes collective *waits*; the
+    census says which collectives every rank is issuing — joining the
+    two makes a mismatched-collective hang attributable: a fleet whose
+    census is non-empty but whose merged run is missing ranks is
     presenting exactly the deadlock signature the ``--spmd``
     collective-order rule proves against. The entry is stored under
     ``report["collective_census"]`` (read by :func:`multichip_row` for
     the benchtrend ``multichip_collective_count`` gauge) and returned.
     """
-    ops = [str(o) for o in census_ops]
+    ops = [f"{o.get('op')}@{o.get('site')}" if isinstance(o, dict)
+           else str(o) for o in census_ops]
     mismatches: list[str] = []
     if ops:
         for k in report.get("missing_ranks", ()):

@@ -26,16 +26,20 @@ import torch
 from photon_tpu_torch.data.dataset import DenseFeatures, GLMBatch
 from photon_tpu_torch.ops.losses import PointwiseLoss
 from photon_tpu_torch.ops.normalization import NormalizationContext
+from photon_tpu_torch.parallel.mesh import SITE_ROW_SUMS
 
 ValueAndGrad = Callable[[torch.Tensor], tuple]
 HessianVectorProduct = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def _across_ranks(batch: GLMBatch, *parts: torch.Tensor) -> tuple:
-    """The sums of ``parts`` over every rank of a row-sharded batch."""
+    """The sums of ``parts`` over every rank of a row-sharded batch. A
+    column-sharded batch (``parallel.mesh.FeatureShardedSparse``) keeps
+    its rows whole and carries no mesh: its row sums stay local, and
+    only its margins cross the ranks (in ``matvec``)."""
     if batch.mesh is None:
         return parts
-    return batch.mesh.sum_parts(*parts)
+    return batch.mesh.sum_parts(*parts, site=SITE_ROW_SUMS)
 
 
 def margins(batch: GLMBatch, coef: torch.Tensor,

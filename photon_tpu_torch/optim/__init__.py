@@ -20,6 +20,7 @@ from photon_tpu_torch.optim.base import (
     Tolerances,
     absolute_tolerances,
     convergence_code,
+    sharded_over,
 )
 from photon_tpu_torch.optim.base import project_box
 from photon_tpu_torch.optim.lbfgs import lbfgs_solve
@@ -53,6 +54,7 @@ __all__ = [
     "lbfgsb_solve",
     "owlqn_solve",
     "project_box",
+    "sharded_over",
     "solve",
     "tron_solve",
     "with_gaussian_prior",

@@ -7,12 +7,22 @@ reference's: MAX_ITERATIONS, then OBJECTIVE_NOT_IMPROVING, then
 FUNCTION_VALUES_CONVERGED, then GRADIENT_CONVERGED (Optimizer.scala:
 126-139). ``convergence_code`` works elementwise, so one call serves a
 single solve and a whole bucket of per-entity solves.
+
+A solve over a column-sharded fixed effect (``parallel.mesh
+.FeatureShardedSparse``) runs on each rank's slice of every vector
+inside ``sharded_over(mesh)``: ``l2norm``, ``dot`` and the batched
+solvers' inner products are then this rank's partial sums added over
+the ranks (``across_shards``: ``Mesh.sum_parts``, the same bits on every
+rank), where the reference's XLA inserts the psum of a sharded
+``jnp.dot``. Outside it the vectors are whole and nothing crosses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
+import threading
 from typing import NamedTuple
 
 import torch
@@ -74,8 +84,41 @@ class Tolerances(NamedTuple):
     gradient_abs: torch.Tensor
 
 
+_SHARDS = threading.local()
+
+
+@contextlib.contextmanager
+def sharded_over(mesh):
+    """Solve on this rank's slices of vectors sharded over ``mesh`` (a
+    ``parallel.mesh.Mesh``; None: whole vectors) in this thread."""
+    prev = getattr(_SHARDS, "mesh", None)
+    _SHARDS.mesh = mesh
+    try:
+        yield
+    finally:
+        _SHARDS.mesh = prev
+
+
+def across_shards(*partials: torch.Tensor) -> tuple:
+    """The sums over the ranks of a sharded solve's partial inner
+    products (one collective for all of them), or the partials as they
+    are outside ``sharded_over``."""
+    mesh = getattr(_SHARDS, "mesh", None)
+    if mesh is None:
+        return partials
+    from photon_tpu_torch.parallel.mesh import SITE_INNER_PRODUCTS
+
+    return mesh.sum_parts(*partials, site=SITE_INNER_PRODUCTS)
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.dot`` of two vectors, summed over the ranks of a sharded
+    solve."""
+    return across_shards(torch.dot(a, b))[0]
+
+
 def l2norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(x * x, dim=-1))
+    return torch.sqrt(across_shards(torch.sum(x * x, dim=-1))[0])
 
 
 def absolute_tolerances(fun, template: torch.Tensor,

@@ -37,6 +37,7 @@ from photon_tpu_torch.optim.base import (
     OptResult,
     Tolerances,
     absolute_tolerances,
+    across_shards,
     convergence_code,
     l2norm,
 )
@@ -59,7 +60,7 @@ def any_running(mask: torch.Tensor) -> bool:
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b, dim=-1)
+    return across_shards(torch.sum(a * b, dim=-1))[0]
 
 
 def sel(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor):

@@ -11,6 +11,10 @@ host syncs: one per line-search probe and two per iteration, counted in
 
 The history keeps the last ``num_corrections`` accepted pairs whose
 curvature ``s.y`` is sufficiently positive (LBFGS.scala:148-154).
+
+On a column-sharded fixed effect (``base.sharded_over``) the vectors are
+this rank's slices: each inner product is summed over the ranks, and
+the scalars an iteration fetches together cross in one collective.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ from photon_tpu_torch.optim.base import (
     OptResult,
     Tolerances,
     absolute_tolerances,
+    across_shards,
     convergence_code,
+    dot,
     l2norm,
 )
 
@@ -69,7 +75,7 @@ class _History:
         alphas: dict[int, torch.Tensor] = {}
         for j in range(nvalid):
             idx = (k - 1 - j) % m
-            a = torch.dot(self.s[idx], q) * self.rho[idx]
+            a = dot(self.s[idx], q) * self.rho[idx]
             q = q - a * self.y[idx]
             alphas[idx] = a
         gamma = None
@@ -82,7 +88,7 @@ class _History:
         r = q if gamma is None else q * gamma
         for j in range(nvalid):
             idx = (k - nvalid + j) % m
-            beta = torch.dot(self.y[idx], r) * self.rho[idx]
+            beta = dot(self.y[idx], r) * self.rho[idx]
             r = r + (alphas[idx] - beta) * self.s[idx]
         return -r
 
@@ -100,7 +106,7 @@ def _wolfe_line_search(fun, w, f0, g0, d, dderiv, t0, max_iters):
         if bracketed:
             t = dt(0.5) * (t_lo + t_hi)
         f_dev, g_t = fun(w + d * t)
-        f_t, dphi = _host(f_dev, torch.dot(g_t, d))
+        f_t, dphi = _host(f_dev, dot(g_t, d))
         armijo = f_t <= f0 + _C1 * t * dderiv
         curv = abs(dphi) <= -_C2 * dderiv
         shrink = (not armijo) or (bracketed and f_t >= f_lo)
@@ -151,8 +157,9 @@ def lbfgs_solve(fun, w0: torch.Tensor, config: OptimizerConfig | None = None,
     iteration, code = 0, 0
     while code == 0:
         direction = hist.direction(g)
-        dderiv, gg, gnorm = _host(torch.dot(g, direction), torch.dot(g, g),
-                                  l2norm(g))
+        gd, gg, gsq = across_shards(torch.dot(g, direction),
+                                    torch.dot(g, g), torch.sum(g * g, dim=-1))
+        dderiv, gg, gnorm = _host(gd, gg, torch.sqrt(gsq))
         if dderiv >= 0:
             direction, dderiv = -g, -gg
         t0 = dt(1.0)
@@ -165,8 +172,13 @@ def lbfgs_solve(fun, w0: torch.Tensor, config: OptimizerConfig | None = None,
         if accept:
             w_acc = w + direction * t
             s, y = w_acc - w, g_new - g
-            sy, sn, yn, yy, gn = _host(torch.dot(s, y), l2norm(s), l2norm(y),
-                                       torch.dot(y, y), l2norm(g_new))
+            sums = across_shards(
+                torch.dot(s, y), torch.sum(s * s, dim=-1),
+                torch.sum(y * y, dim=-1), torch.dot(y, y),
+                torch.sum(g_new * g_new, dim=-1))
+            sy, sn, yn, yy, gn = _host(
+                sums[0], torch.sqrt(sums[1]), torch.sqrt(sums[2]), sums[3],
+                torch.sqrt(sums[4]))
             if sy > _CURVATURE_EPS * sn * yn:
                 hist.push(s, y, dt(1.0) / sy, yy)
             f_acc, g_acc = f_new, g_new

@@ -14,6 +14,8 @@ import enum
 
 import torch
 
+from photon_tpu_torch.optim.base import dot
+
 
 class RegularizationType(enum.Enum):
     NONE = "NONE"
@@ -75,7 +77,7 @@ def with_l2(fun, l2_weight, intercept_index: int | None = None):
     def wrapped(w):
         f, g = fun(w)
         wm = _l2_mask(w, intercept_index)
-        return f + 0.5 * l2_weight * torch.dot(wm, wm), g + l2_weight * wm
+        return f + 0.5 * l2_weight * dot(wm, wm), g + l2_weight * wm
 
     return wrapped
 
@@ -93,7 +95,7 @@ def with_l2_masked(fun, l2_weight, penalty_mask: torch.Tensor):
     def wrapped(w):
         f, g = fun(w)
         wm = w * penalty_mask
-        return f + 0.5 * l2_weight * torch.dot(wm, wm), g + l2_weight * wm
+        return f + 0.5 * l2_weight * dot(wm, wm), g + l2_weight * wm
 
     return wrapped
 
@@ -126,7 +128,7 @@ def with_gaussian_prior(fun, incremental_weight, prior_means, inv_prior_var):
     def wrapped(w):
         f, g = fun(w)
         dw = (w - prior_means) * inv_prior_var
-        val = 0.5 * incremental_weight * torch.dot(w - prior_means, dw)
+        val = 0.5 * incremental_weight * dot(w - prior_means, dw)
         return f + val, g + incremental_weight * dw
 
     return wrapped

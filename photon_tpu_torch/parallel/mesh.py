@@ -18,7 +18,12 @@ shardings say, each rank does for its share:
   gather from stay whole on every rank, as the reference replicates
   them;
 - coefficients, residual scores and validation scores are replicated:
-  a rank scores its share of the rows and the shares are gathered.
+  a rank scores its share of the rows and the shares are gathered;
+- or, for a fixed effect too wide to replicate (``feature_sharding:
+  column``), the FEATURE axis is sharded instead: each rank holds the
+  ELL entries of its own feature range and the matching slice of the
+  coefficients and of the optimizer's state, while the rows stay whole
+  on every rank (``FeatureShardedSparse``, ``shard_features_by_column``).
 
 **Every cross-rank sum is an ``all_gather`` followed by a sum in rank
 order** (``Mesh.sum``), never the backend's ``all_reduce``, whose
@@ -37,6 +42,13 @@ stays on the card.
 
 ``PARTITION_RULES`` keeps the reference's record of what each placement
 does, leaf name by leaf name (``match_partition_rules``).
+
+Every collective names its call site. ``CollectiveStats`` keeps, beside
+the totals, the seconds and bytes of each site and the ordered census of
+every collective this rank issued (op, site, dtype, operand shape,
+bytes); ``SPMD_AUDIT`` declares the sites the port issues from, and the
+SPMD tier (``python -m photon_tpu_torch.analysis --spmd``) holds the
+ranks' censuses against each other and against that declaration.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from photon_tpu_torch.data.dataset import (
     DenseFeatures,
     GLMBatch,
     SparseFeatures,
+    _sorted_transpose,
     pad_batch,  # noqa: F401 - the reference's mesh module exports it
     pad_rows,
 )
@@ -64,6 +77,43 @@ from photon_tpu_torch.data.dataset import (
 logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+# Call sites of the port's collectives, each an ordered all_gather
+# (``Mesh.sum`` / ``sum_parts`` / ``gather_rows``) or a barrier.
+SITE_ROW_SUMS = "glm.row_sums"  # a row-sharded objective's partial sums
+SITE_BUCKET_GATHER = "random_effect.bucket_gather"  # entity shares
+SITE_ROW_GATHER = "score.row_gather"  # the scorers' row shares
+SITE_COLUMN_MARGINS = "column.margins"  # a column shard's partial margins
+SITE_INNER_PRODUCTS = "column.inner_products"  # the optimizer's sums
+SITE_COEFFICIENT_GATHER = "column.coefficient_gather"  # slices -> whole
+SITE_CHECKPOINT_BARRIER = "estimator.checkpoint_barrier"
+
+# SPMD contract (audited by ``python -m photon_tpu_torch.analysis
+# --spmd``; machinery in analysis/spmd.py). The port has no jaxpr or
+# HLO: the builder runs ``hosts`` gloo ranks on the CPU through a GLMix
+# fit with a row-sharded fixed effect and a random effect, then a
+# column-sharded fixed-effect fit, and every rank's ordered census of
+# collectives must equal rank 0's position by position, each site one
+# declared here; every leaf the mesh places is covered by exactly one
+# PARTITION_RULES entry.
+SPMD_AUDIT = dict(
+    name="mesh-spmd",
+    entry="parallel.mesh.shard_batch / shard_random_effect_dataset / "
+    "shard_features_by_column + GameEstimator(mesh='auto').fit",
+    builder="build_mesh_spmd",
+    hosts=2,
+    ordered_collectives=(
+        SITE_ROW_SUMS,
+        SITE_BUCKET_GATHER,
+        SITE_ROW_GATHER,
+        SITE_COLUMN_MARGINS,
+        SITE_INNER_PRODUCTS,
+        SITE_COEFFICIENT_GATHER,
+        SITE_CHECKPOINT_BARRIER,
+    ),
+    partition_rules="PARTITION_RULES",
+)
 
 # Seconds a collective waits for the other ranks before it fails; a rank
 # that died leaves the others a failed collective, not a hang.
@@ -137,15 +187,58 @@ def match_partition_rules(rules, leaves: dict):
 @dataclasses.dataclass
 class CollectiveStats:
     """The collectives a mesh issued: how many, their host seconds and
-    the bytes each rank contributed."""
+    the bytes each rank contributed, in total and by call site
+    (``by_site``), and the ordered ``census`` of every one: ``{"op",
+    "site", "dtype", "shape", "bytes"}``."""
 
     count: int = 0
     seconds: float = 0.0
     bytes: int = 0
+    by_site: dict = dataclasses.field(default_factory=dict)
+    census: list = dataclasses.field(default_factory=list)
+
+    def record(self, op: str, site: str, t: torch.Tensor | None,
+               seconds: float) -> None:
+        nbytes = 0 if t is None else t.numel() * t.element_size()
+        self.count += 1
+        self.bytes += nbytes
+        self.seconds += seconds
+        row = self.by_site.setdefault(
+            site, {"count": 0, "seconds": 0.0, "bytes": 0})
+        row["count"] += 1
+        row["seconds"] += seconds
+        row["bytes"] += nbytes
+        self.census.append({
+            "op": op, "site": site,
+            "dtype": None if t is None else str(t.dtype).replace(
+                "torch.", ""),
+            "shape": [] if t is None else list(t.shape),
+            "bytes": nbytes})
 
     def snapshot(self) -> dict:
         return {"count": self.count, "seconds": self.seconds,
-                "bytes": self.bytes}
+                "bytes": self.bytes,
+                "by_site": {k: dict(v) for k, v in self.by_site.items()},
+                "census_length": len(self.census)}
+
+
+def site_delta(before: dict, after: dict) -> dict:
+    """Per-site ``{"count", "seconds", "bytes"}`` issued between two
+    ``CollectiveStats.snapshot()``s."""
+    out = {}
+    for site, row in after["by_site"].items():
+        was = before["by_site"].get(site, {})
+        d = {k: row[k] - was.get(k, 0) for k in row}
+        if d["count"]:
+            out[site] = d
+    return out
+
+
+def _caller_site(depth: int) -> str:
+    """``module:function`` of the frame ``depth`` levels up: the site
+    of a collective issued without one (an undeclared site)."""
+    f = sys._getframe(depth + 1)
+    return f"{f.f_globals.get('__name__', '?')}:{f.f_code.co_name}"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -175,11 +268,14 @@ class Mesh:
         lo = min(self.rank * per, n)
         return lo, min(lo + per, n), per
 
-    def all_gather(self, t: torch.Tensor) -> list:
+    def all_gather(self, t: torch.Tensor, *, site: str | None = None
+                   ) -> list:
         """Every rank's ``t`` (same shape on every rank), in rank
-        order."""
+        order, recorded at ``site`` (default: the caller's
+        ``module:function``, which no contract declares)."""
         if self.size == 1:
             return [t]
+        site = site or _caller_site(1)
         import torch.distributed as dist
 
         t0 = time.perf_counter()
@@ -198,47 +294,52 @@ class Mesh:
         dist.all_gather(parts, src, group=self.group)
         if staged:
             parts = [p.to(t.device, non_blocking=True) for p in parts]
-        self.stats.count += 1
-        self.stats.bytes += src.numel() * src.element_size()
-        self.stats.seconds += time.perf_counter() - t0
+        self.stats.record("all_gather", site, src, time.perf_counter() - t0)
         return parts
 
-    def sum(self, t: torch.Tensor) -> torch.Tensor:
+    def sum(self, t: torch.Tensor, *, site: str | None = None
+            ) -> torch.Tensor:
         """The sum of every rank's ``t``, the same bits on every rank:
         gathered, then added in rank order."""
-        parts = self.all_gather(t)
+        parts = self.all_gather(t, site=site or _caller_site(1))
         acc = parts[0]
         for p in parts[1:]:
             acc = acc + p
         return acc
 
-    def sum_parts(self, *ts: torch.Tensor) -> tuple:
+    def sum_parts(self, *ts: torch.Tensor, site: str | None = None
+                  ) -> tuple:
         """``sum`` of several tensors of one dtype in one collective."""
         if self.size == 1:
             return ts
-        flat = self.sum(torch.cat([t.reshape(-1) for t in ts]))
+        flat = self.sum(torch.cat([t.reshape(-1) for t in ts]),
+                        site=site or _caller_site(1))
         out, at = [], 0
         for t in ts:
             out.append(flat[at:at + t.numel()].reshape(t.shape))
             at += t.numel()
         return tuple(out)
 
-    def gather_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
+    def gather_rows(self, local: torch.Tensor, n: int, *,
+                    site: str = SITE_ROW_GATHER) -> torch.Tensor:
         """The whole ``[n, ...]`` from every rank's ``[per, ...]`` share
         of rows (``local_rows``), cut back to ``n`` rows."""
         if self.size == 1:
             return local[:n]
-        return torch.cat(self.all_gather(local))[:n]
+        return torch.cat(self.all_gather(local, site=site))[:n]
 
-    def barrier(self) -> None:
+    def barrier(self, *, site: str | None = None) -> None:
         if self.size == 1:
             return
         import torch.distributed as dist
 
+        site = site or _caller_site(1)
+        t0 = time.perf_counter()
         if self.backend == "nccl":
             dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
             dist.barrier(group=self.group)
+        self.stats.record("barrier", site, None, time.perf_counter() - t0)
 
 
 def _group_world() -> int:
@@ -249,9 +350,23 @@ def _group_world() -> int:
     return 1
 
 
+# The CollectiveStats of each process group (None: the default group),
+# shared by every Mesh made of it: one ordered census a process.
+_GROUP_STATS: dict = {}
+
+
+def group_stats(group=None) -> CollectiveStats:
+    """The collectives this process issued on ``group``'s meshes (every
+    ``make_mesh`` of it shares them); they stay readable after
+    ``shutdown``, and ``init_from_env`` starts a new default group's
+    afresh."""
+    return _GROUP_STATS.setdefault(group, CollectiveStats())
+
+
 def make_mesh(group=None, *, device=None) -> Mesh:
     """The mesh of every rank of ``group`` (default: the default
-    process group), this process on ``device`` (default ``cuda``)."""
+    process group), this process on ``device`` (default ``cuda``); its
+    ``stats`` are the group's (``group_stats``)."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
@@ -261,7 +376,8 @@ def make_mesh(group=None, *, device=None) -> Mesh:
             "call parallel.mesh.init_from_env")
     return Mesh(rank=dist.get_rank(group), size=dist.get_world_size(group),
                 device=device_mod.resolve(device),
-                backend=str(dist.get_backend(group)), group=group)
+                backend=str(dist.get_backend(group)), group=group,
+                stats=group_stats(group))
 
 
 def resolve_mesh(setting, device=None) -> Mesh | None:
@@ -354,6 +470,7 @@ def init_from_env(device=None) -> Mesh | None:
     dist.init_process_group(
         backend, init_method="env://", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
+    _GROUP_STATS.pop(None, None)  # a new default group: a new census
     return make_mesh(device=dev)
 
 
@@ -441,7 +558,7 @@ def shard_random_effect_dataset(ds, mesh: Mesh):
         part = leaf[lo:min(lo + per, b)]
         short = per - int(part.shape[0])
         if short:
-            part = torch.cat([part, torch.full(
+            part = torch.cat([part, torch.full(  # photon: ignore[spmd-host-divergence] -- inert entities fill every rank's share to the same per
                 (short,) + tuple(leaf.shape[1:]), fills.get(name, 0),
                 dtype=leaf.dtype, device=leaf.device)])
         return part
@@ -460,3 +577,143 @@ def shard_random_effect_dataset(ds, mesh: Mesh):
     return dataclasses.replace(
         ds, blocks=tuple(blocks), block_codes_np=tuple(codes_np),
         block_intercepts_np=tuple(ints_np), mesh=mesh)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FeatureShardedSparse:
+    """ELL features sharded over the FEATURE axis (tensor-parallel GLM;
+    the reference's ``FeatureShardedSparse``, ``parallel/mesh.py:
+    367-385``).
+
+    For a ``d`` too large to replicate comfortably, this rank owns the
+    contiguous feature range ``[lo, lo + d_local)`` of the padded ``d``
+    and holds only the ELL entries whose feature falls in it, with
+    LOCAL ids (``local``: a ``SparseFeatures`` of ``d_local`` features,
+    its entries compacted left per row). Rows, labels, offsets and
+    weights stay whole on every rank. The coefficient vector, and with
+    it every vector of the optimizer's state, is sharded the same way:
+    the solve runs on this rank's ``[d_local]`` slice.
+
+    - ``matvec``: this rank's partial margins summed over the ranks, one
+      collective (``Mesh.sum`` at ``column.margins``);
+    - ``rmatvec`` / ``rmatvec_sq``: local, no collective: each feature
+      belongs to one rank. They reduce through the local slab's sorted
+      transpose at the ``fixed_effect`` site, as ``SparseFeatures``'
+      do (the segment-sum kernel on the card), where the reference
+      scatters with ``.at[idx].add``.
+
+    ``d`` is padded up to a multiple of the ranks; the padded
+    coefficients receive no data gradient (L2 pins them at zero).
+    ``logical_d`` is the caller's true feature count."""
+
+    local: SparseFeatures  # [n, k_loc], local ids, d = d_local
+    d: int  # padded to a multiple of the ranks
+    logical_d: int
+    mesh: Mesh
+    lo: int  # this rank's first feature
+
+    @property
+    def d_local(self) -> int:
+        return self.d // self.mesh.size
+
+    @property
+    def num_features(self) -> int:
+        """The length of this rank's coefficient slice: every vector of
+        the solve on this rank has it."""
+        return self.d_local
+
+    @property
+    def num_rows(self) -> int:
+        return self.local.num_rows
+
+    @property
+    def local_indices(self) -> torch.Tensor:
+        return self.local.indices
+
+    @property
+    def local_values(self) -> torch.Tensor:
+        return self.local.values
+
+    def local_slice(self, w: torch.Tensor) -> torch.Tensor:
+        """This rank's ``[d_local]`` slice of a whole vector (``[d]``, or
+        ``[logical_d]`` as trained models are trimmed: re-padded with
+        zeros first)."""
+        if w.shape[0] < self.d:
+            w = torch.cat([w, w.new_zeros(self.d - w.shape[0])])
+        return w[self.lo:self.lo + self.d_local]
+
+    def local_index(self, i: int | None) -> int | None:
+        """Feature ``i``'s local index if this rank owns it, else None
+        (the intercept's L2 exemption applies on its owner only)."""
+        if i is None or not self.lo <= i < self.lo + self.d_local:
+            return None
+        return i - self.lo
+
+    def matvec(self, w: torch.Tensor) -> torch.Tensor:
+        """``X @ w`` over every rank's features. ``w`` is this rank's
+        slice, or a whole vector (a trained model, ``[logical_d]`` or
+        ``[d]``), whose slice is taken."""
+        if w.shape[0] != self.d_local:
+            w = self.local_slice(w)
+        return self.mesh.sum(self.local.matvec(w), site=SITE_COLUMN_MARGINS)
+
+    def rmatvec(self, g: torch.Tensor) -> torch.Tensor:
+        return self.local.rmatvec(g)
+
+    def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
+        return self.local.rmatvec_sq(g)
+
+    def gather(self, *slices: torch.Tensor) -> tuple:
+        """The whole ``[d]`` vectors from every rank's slices of them, in
+        one collective (``column.coefficient_gather``): the same bits on
+        every rank."""
+        parts = self.mesh.all_gather(torch.cat(slices),
+                                     site=SITE_COEFFICIENT_GATHER)
+        k = self.d_local
+        return tuple(torch.cat([p[i * k:(i + 1) * k] for p in parts])
+                     for i in range(len(slices)))
+
+
+def shard_features_by_column(indices: np.ndarray, values: np.ndarray,
+                             num_features: int, mesh: Mesh, *,
+                             dtype: torch.dtype | None = None,
+                             device=None) -> FeatureShardedSparse:
+    """This rank's column shard of a host ELL slab ``[n, k]`` of global
+    ids: the entries of its feature range ``[rank * d_local, (rank + 1)
+    * d_local)`` with local ids, compacted left per row (reference
+    :465-476), ``k_loc`` wide (this rank's longest row), on ``device``
+    (default: the mesh's). Only this rank's range is built, and no
+    collective is issued. The transpose plan holds this rank's entries
+    alone, in the slab's row order: the pad slots a compacted row leaves
+    (id 0, value 0) add nothing, and as one segment of up to ``n * k_loc``
+    values they would be the segment sum's longest run."""
+    if num_features < mesh.size:
+        raise ValueError(
+            f"column sharding needs at least one feature a rank: "
+            f"{num_features} features over {mesh.size} ranks")
+    indices = np.asarray(indices)
+    values = np.asarray(values)
+    d_pad = -(-num_features // mesh.size) * mesh.size
+    d_local = d_pad // mesh.size
+    lo = mesh.rank * d_local
+    sel = (values != 0.0) & (indices // d_local == mesh.rank)
+    k_loc = max(int(sel.sum(axis=1).max(initial=0)), 1)
+    order = np.argsort(~sel, axis=1, kind="stable")[:, :k_loc]
+    li = np.take_along_axis(np.where(sel, indices - lo, 0), order, axis=1)
+    lv = np.take_along_axis(np.where(sel, values, 0.0), order, axis=1)
+    dev = mesh.device if device is None else device_mod.resolve(device)
+    if dtype is None:
+        dtype = torch.from_numpy(values[:0]).dtype
+    local = SparseFeatures(
+        torch.from_numpy(np.ascontiguousarray(li, dtype=np.int32)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(lv)).to(dev, dtype),
+        d_local)
+    rows, slots = np.nonzero(sel)  # row-major: the slab's order
+    object.__setattr__(local, "_plan", _sorted_transpose(
+        torch.from_numpy(rows.astype(np.int64)).to(dev),
+        torch.from_numpy((indices[rows, slots] - lo).astype(np.int32)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(values[rows, slots])).to(
+            dev, dtype),
+        int(indices.shape[0]), d_local))
+    return FeatureShardedSparse(local=local, d=d_pad,
+                                logical_d=num_features, mesh=mesh, lo=lo)

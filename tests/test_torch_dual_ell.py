@@ -1,8 +1,8 @@
 """The dual-ELL layout (a bounded-width ELL slab plus a COO tail): the
 port's ``DualEllFeatures`` against the JAX package's, on the cases of the
 reference's ``tests/test_sparse_scale.py`` (its two feature-sharding
-cases wait for the column-sharded fixed effect, ROADMAP item 12's second
-part; ``pad_batch``'s refusal is ``tests/test_torch_mesh.py``'s).
+cases are ``tests/test_torch_column.py``'s, on real ranks;
+``pad_batch``'s refusal is ``tests/test_torch_mesh.py``'s).
 
 The same seeded numpy rows go through both packages in float64:
 - the slab and tail ``ell_to_dual_ell`` makes: equal, element for

@@ -17,7 +17,8 @@ reference's ``photon_tpu/parallel/mesh.py`` on the same inputs.
   mesh to 1e-12 (its scores come from the raw features, not the slabs:
   sums in another order);
 - the DualEll fixed effect stays whole on a mesh, and the column route
-  raises naming item 12's second part.
+  (``feature_sharding`` ``column``, or ``auto`` past the threshold)
+  gives a rank its feature range of the features, the rows whole.
 The mesh on real ranks is ``tests/test_torch_mesh_ranks.py``'s.
 """
 
@@ -371,14 +372,20 @@ def test_dual_ell_fixed_effect_stays_whole_and_column_route_raises(
     assert dense.mesh is mesh and dense.num_samples == -(
         -pdata.num_samples // 2)
     column = dataclasses.replace(cfg, feature_sharding="column")
-    with pytest.raises(NotImplementedError,
-                       match=r"second part of item 12 .*item 12\)"):
-        pest._fixed_effect_batch(pdata, "global", column, mesh)
+    d = pdata.feature_shards[cfg.feature_shard_id].num_features
+    d_local = -(-d // 2)
+    col = pest._fixed_effect_batch(pdata, "global", column, mesh)
+    # Rank 1 of 2 holds the second half of the features, the rows whole.
+    assert isinstance(col.features, pt_mesh.FeatureShardedSparse)
+    assert col.mesh is None and col.num_samples == pdata.num_samples
+    assert (col.features.d, col.features.logical_d) == (2 * d_local, d)
+    assert col.features.lo == d_local and col.num_features == d_local
     auto = dataclasses.replace(cfg, feature_sharding="auto")
     assert pest._fixed_effect_batch(pdata, "global", auto, mesh).mesh is mesh
     monkeypatch.setattr(pt_est, "AUTO_COLUMN_SHARDING_THRESHOLD", 2)
-    with pytest.raises(NotImplementedError, match="second part of item 12"):
-        pest._fixed_effect_batch(pdata, "global", auto, mesh)
+    assert isinstance(
+        pest._fixed_effect_batch(pdata, "global", auto, mesh).features,
+        pt_mesh.FeatureShardedSparse)
     # Without a mesh every mode is the replicated batch.
     assert pest._fixed_effect_batch(pdata, "global", column, None).mesh is None
     with pytest.raises(ValueError, match="feature_sharding"):

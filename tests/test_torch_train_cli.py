@@ -910,8 +910,9 @@ UNPORTED = [
      ValueError, "WORLD_SIZE=2 but MASTER_ADDR, MASTER_PORT not set"),
     ([], {"mesh": 4}, {}, ValueError,
      "mesh setting requests 4 devices but only 1 are visible"),
-    ([], {"global": {"feature_sharding": "column"}}, {}, NotImplementedError,
-     r"second part of item 12\) is not ported .*ROADMAP Queue A item 12\)"),
+    ([], {"global": {"feature_sharding": "rows"}}, {}, ValueError,
+     "feature_sharding must be 'replicated', 'column' or 'auto', got "
+     "'rows'"),
 ]
 
 
@@ -925,10 +926,13 @@ UNPORTED = [
 # --fleet-dir (item 10) and --distributed alone; with item 12's mesh
 # ported, a launcher's WORLD_SIZE of 2 starts a process group, and the
 # cases, under their old ids, hold that one without its rendezvous
-# variables is refused before anything is read. Cases 11 and 12 hold the
-# refusals that stay: a mesh larger than the process group, and the
-# column-sharded fixed effect (item 12's second part). Mesh training on
-# real ranks is tests/test_torch_mesh_ranks.py's.
+# variables is refused before anything is read. Case 11 holds a refusal
+# that stays: a mesh larger than the process group. Case 12 was the
+# column-sharded fixed effect (item 12's second part): ported, it trains
+# through both CLIs (FORMERLY_UNPORTED below, and on real ranks in
+# tests/test_torch_column.py), and the case holds the refusal of a
+# feature_sharding that is none of the three. Mesh training on real
+# ranks is tests/test_torch_mesh_ranks.py's.
 UNPORTED_IDS = ["7-item10", "8-item12", "11-item12", "12-item12"]
 
 
@@ -1097,8 +1101,10 @@ def test_world_size_above_one_raises_naming_item_12(tmp_path, glmix,
     assert rc == 0 and (out / "fleet" / "obs-host-0" / "bundle.json").exists()
 
 
-# The options of ROADMAP Queue A item 6 that raised until they were
-# ported; each now trains through both CLIs.
+# The options of ROADMAP Queue A items 6 and 12 that raised until they
+# were ported; each now trains through both CLIs (``feature_sharding:
+# column`` in one process, where both packages place the coefficients
+# replicated).
 FORMERLY_UNPORTED = [
     {"global": {"optimizer": {"type": "TRON"}}},
     {"global": {"optimizer": {"box_constraints": [-1, 1]}}},
@@ -1106,6 +1112,7 @@ FORMERLY_UNPORTED = [
     {"global": {"regularization": {"type": "ELASTIC_NET", "weights": [1]}}},
     {"per-user": {"variance_computation": "SIMPLE"}},
     {"global": {"down_sampling_rate": 0.5}},
+    {"global": {"feature_sharding": "column"}},
 ]
 
 
@@ -1142,7 +1149,7 @@ def reference_draws(monkeypatch):
 
 @pytest.mark.parametrize("overrides", FORMERLY_UNPORTED,
                          ids=["tron", "box", "l1", "elastic_net",
-                              "variances", "down_sampling"])
+                              "variances", "down_sampling", "column"])
 def test_formerly_unported_options_match_the_reference(tmp_path, glmix,
                                                        overrides,
                                                        monkeypatch):
