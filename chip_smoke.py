@@ -19,6 +19,15 @@ JSON lines:
              into 100 and 2,500 IF nodes (``csrc/graph_loop.cu``):
              capture and instantiate seconds, nodes, replay ms, each
              equal to the eager loop;
+2b. program_contracts - the program tier (``python -m
+             photon_tpu_torch.analysis --semantic``) on the card
+             (``phase_program_contracts``): the fused-fit, newton-kernel,
+             segment-reduce-kernel, serve-kernel and serving contracts
+             built on CUDA tensors, each program a real CUDA-graph
+             capture or a kernel wrapper's dispatch under
+             ``set_sync_debug_mode("error")``. Gates: no unsuppressed
+             finding; the captures and the kernels' launches each
+             contract's programs must hold;
 3. parity  - the serve kernel against its plain PyTorch version at every
              rung 1/8/64/512, f32 and bf16 tables, dense features and an
              ELL-sparse layout, 5% cold lookups plus padding rows;
@@ -711,7 +720,24 @@ nothing cut:
                        as 14a's own agreement does; the excess past the
                        reference's rtol 1e-4 / atol 2e-5 is printed);
                        two bundles and no rank missing; one scores file
-                       within 1e-5 of 14a's ``cli.score`` and its AUC.
+                       within 1e-5 of 14a's ``cli.score`` and its AUC;
+    (c) mesh_column  - in (a)'s ranks after its fits: the column-sharded
+                       fixed effect at the JAX package's d = 10^7 + 1
+                       (``column_rank``) by L-BFGS, then (i) an elastic
+                       net by OWL-QN, (ii) L-BFGS-B with binding scalar
+                       bounds on the same shards, (iii) FULL variances at
+                       1,025 features of the same generator, each fitted
+                       twice and against the parent's replicated fit of
+                       the same route (``phase_mesh_column``,
+                       ``phase_mesh_column_routes``). Gates: the route
+                       check at the replicated coefficients within
+                       ``ROUND_OFF``; fits and ranks bit-identical; each
+                       whole fit on a stop rule, float64 objectives
+                       within ``ROUND_OFF``; (i)'s padded slots 0, (ii)
+                       inside its bounds, (iii)'s variances within
+                       ``COLUMN_VAR_ROUTE_RTOL`` / ``COLUMN_VAR_RTOL``;
+                       every census declared; segment-sum launches at
+                       ``fixed_effect`` in every fit.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero.
@@ -746,8 +772,8 @@ phases and then phase 24 on its own arrays (22's and 23's generators),
 printing no ``ok`` line.
 
 ``python3 chip_smoke.py --mesh`` runs only the device and build phases,
-phase ``fit``'s unfused fit (saved for 25 (a)), phase 25 (a), phase 14a
-and phase 25 (b), printing no ``ok`` line.
+phase ``fit``'s unfused fit (saved for 25 (a)), phase 25 (a) with (c),
+phase 14a and phase 25 (b), printing no ``ok`` line.
 
 ``python3 chip_smoke.py --timing N`` runs only the device and build
 phases and then the serve kernel's timing phase (phase 5) N times on the
@@ -4082,6 +4108,79 @@ def phase_graph_loops(torch) -> dict:
     if not all(r["equal"] for r in rows):
         fail(f"graph_loops: a captured loop differs from the eager loop: "
              f"{row}")
+    return row
+
+
+# The program tier's contracts audited on the card (``analysis/program.py``
+# with ``device="cuda"``): the captured fused fit, the three kernels'
+# wrappers and the serving ladder.
+PROGRAM_CONTRACTS_ON_CARD = ("fused-fit", "newton-kernel",
+                             "segment-reduce-kernel", "serve-kernel",
+                             "serving")
+
+
+def phase_program_contracts(torch) -> dict:
+    """The program tier (``python -m photon_tpu_torch.analysis
+    --semantic``) on the card, in this process: each of
+    PROGRAM_CONTRACTS_ON_CARD built on CUDA tensors, where a program is
+    what a real CUDA-graph capture recorded (the fused fit's cold and
+    warm graphs, one serving rung each) or what a kernel wrapper
+    dispatched under ``set_sync_debug_mode("error")`` (the fused fit's
+    replays too), with the kernels' launches marked in it. Gates: no
+    unsuppressed finding (census, recompile keys, host boundary,
+    float64); the fused fit captured 2 graphs for its base and lambda
+    grid, its fit program launches the Newton kernel; each kernel
+    contract's program launched its kernel once (the wrapper's own
+    counter agreeing); the serve kernel's rung one graph and the serving
+    ladder three, each launching the serve kernel."""
+    from photon_tpu_torch.analysis import program
+
+    t0 = time.perf_counter()
+    findings, report = program.audit(
+        program.collect_contracts(PROGRAM_CONTRACTS_ON_CARD), device="cuda")
+    seconds = time.perf_counter() - t0
+    contracts = report["contracts"]
+    row = {"phase": "program_contracts", "seconds": seconds,
+           "findings": [f.format() for f in findings],
+           "contracts": {
+               name: {"captures": e.get("captures"), "programs": {
+                   n: {k: p[k] for k in ("signature", "ops", "syncs",
+                                         "launches")}
+                   for n, p in e["programs"].items()}, "notes": e["notes"]}
+               for name, e in contracts.items()}}
+    emit(row)
+    if any(not f.suppressed for f in findings):
+        fail(f"program_contracts: {row['findings']}")
+
+    def launched(contract, prog, name):
+        return contracts[contract]["programs"][prog]["launches"].get(name, 0)
+
+    problems = []
+    if "fused-fit" in contracts:
+        if contracts["fused-fit"].get("captures") != 2:
+            problems.append("fused-fit captures")
+        if not launched("fused-fit", "fit", "newton_step") >= 1:
+            problems.append("fused-fit's graph launches no Newton kernel")
+    for contract, prog, kernel in (
+            ("newton-kernel", "newton_step", "newton_step"),
+            ("segment-reduce-kernel", "segment_sum", "segment_sum")):
+        if contract in contracts and not (
+                launched(contract, prog, kernel) == 1
+                and launched(contract, prog, f"{kernel}(counter)") == 1):
+            problems.append(f"{contract} launches")
+    if "serve-kernel" in contracts and not (
+            contracts["serve-kernel"].get("captures") == 1
+            and launched("serve-kernel", "serve_kernel_b8",
+                         "serve_score") >= 1):
+        problems.append("serve-kernel capture")
+    if "serving" in contracts and not (
+            contracts["serving"].get("captures") == 3
+            and all(p["launches"].get("serve_score", 0) >= 1
+                    for p in contracts["serving"]["programs"].values())):
+        problems.append("serving captures")
+    if problems:
+        fail(f"program_contracts: {problems}: {row}")
+    empty_cache()
     return row
 
 
@@ -9349,13 +9448,36 @@ COLUMN_PLANTED, COLUMN_SEED, COLUMN_L2 = 100_000, 7, 1.0
 # convergence rule with its held-in AUC within COLUMN_AUC_ATOL of the
 # other's, and their distance is printed.
 COLUMN_AUC_ATOL = 1e-4
+# 25 (c)'s further solver routes on the same ranks and shards: (i) an
+# elastic net by OWL-QN (lambda, alpha: L1 and L2 both 1.0), (ii)
+# L-BFGS-B with the scalar bounds +-COLUMN_BOX (the reference's column
+# route takes scalar bounds; many coefficients bind), (iii) FULL
+# variances at COLUMN_FULL_D + 1 features of the same generator and
+# rows. Each route's column fits against the replicated f32 fit of the
+# same route in the parent: the route check at the replicated fit's
+# coefficients (the pseudo-, projected or plain gradient), the two whole
+# fits' float64 objectives within ROUND_OFF of 1 + the replicated one's;
+# (iii)'s variances at the replicated fit's coefficients through the
+# column route within COLUMN_VAR_ROUTE_RTOL of the replicated route's,
+# relative, and the whole column fit's within COLUMN_VAR_RTOL of the
+# replicated fit's. The CPU rehearsal (10^6 + 1 features for (i) and
+# (ii), 100,000 rows) read 4.7e-7 for the first (two f32 Hessians summed
+# in another order, one Cholesky of 1,025) and 1.5e-4 for the second
+# (the two f32 solves stop 38 and 39 iterations in, at slightly other
+# coefficients); the bounds are about 20 and 13 times those.
+COLUMN_ENET = (2.0, 0.5)
+COLUMN_BOX = 0.05
+COLUMN_FULL_D = 1024
+COLUMN_VAR_ROUTE_RTOL = 1e-5
+COLUMN_VAR_RTOL = 2e-3
+COLUMN_ROUTES = ("enet", "box", "full")
 
 
-def column_arrays() -> dict:
-    """25 (c)'s arrays from COLUMN_SEED (bench.py run_wide_d's draws),
-    the intercept column at index COLUMN_D."""
+def column_arrays(d: int = COLUMN_D) -> dict:
+    """25 (c)'s arrays from COLUMN_SEED (bench.py run_wide_d's draws) over
+    ``d`` features, the intercept column at index ``d``."""
     rng = np.random.default_rng(COLUMN_SEED)
-    d, rows, k = COLUMN_D, COLUMN_ROWS, COLUMN_K
+    rows, k = COLUMN_ROWS, COLUMN_K
     idx = np.minimum((d * rng.uniform(size=(rows, k)) ** 2.2).astype(
         np.int64), d - 1)
     val = rng.normal(size=(rows, k)).astype(np.float32)
@@ -9371,7 +9493,7 @@ def column_arrays() -> dict:
     return {"idx": idx, "val": val, "y": y}
 
 
-def column_dataset(arrays, device="cuda"):
+def column_dataset(arrays, device="cuda", d: int = COLUMN_D):
     import torch
 
     from photon_tpu_torch.data.dataset import SparseFeatures
@@ -9379,18 +9501,23 @@ def column_dataset(arrays, device="cuda"):
 
     return make_game_dataset(
         arrays["y"], {"features": SparseFeatures(
-            arrays["idx"], arrays["val"], COLUMN_D + 1)},
+            arrays["idx"], arrays["val"], d + 1)},
         dtype=torch.float32, device=device)
 
 
-def column_estimator(device="cuda"):
+def column_estimator(device="cuda", route: str = "lbfgs",
+                     d: int = COLUMN_D):
     """The fixed effect alone, ``feature_sharding: auto`` (column on a
-    mesh above 200,000 features, replicated without one), L-BFGS, L2
-    COLUMN_L2 with the intercept exempt, a no-op listener so that the
-    single process also fits on the unfused loop."""
+    mesh above 200,000 features, replicated without one; ``column`` for
+    route ``full``, whose width is below that), a no-op listener so
+    that the single process also fits on the unfused loop. Routes:
+    ``lbfgs`` (L2 COLUMN_L2, the intercept exempt), ``enet`` (OWL-QN,
+    COLUMN_ENET), ``box`` (L-BFGS-B, +-COLUMN_BOX), ``full`` (L2, FULL
+    variances)."""
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
+        VarianceComputationType,
     )
     from photon_tpu_torch.estimators.game_estimator import (
         FixedEffectCoordinateConfiguration,
@@ -9398,14 +9525,24 @@ def column_estimator(device="cuda"):
     )
     from photon_tpu_torch.types import TaskType
 
-    opt = GLMOptimizationConfiguration(
-        regularization=optim.RegularizationContext(
-            optim.RegularizationType.L2), regularization_weight=COLUMN_L2)
+    l2 = optim.RegularizationContext(optim.RegularizationType.L2)
+    kw = {"regularization": l2, "regularization_weight": COLUMN_L2}
+    if route == "enet":
+        kw = {"regularization": optim.RegularizationContext(
+            optim.RegularizationType.ELASTIC_NET, COLUMN_ENET[1]),
+            "regularization_weight": COLUMN_ENET[0]}
+    elif route == "box":
+        kw["optimizer"] = optim.OptimizerConfig(
+            box_constraints=(-COLUMN_BOX, COLUMN_BOX))
+    elif route == "full":
+        kw["variance_computation"] = VarianceComputationType.FULL
+    opt = GLMOptimizationConfiguration(**kw)
+    sharding = "column" if route == "full" else "auto"
     return GameEstimator(
         TaskType.LOGISTIC_REGRESSION,
         {"global": FixedEffectCoordinateConfiguration(
-            "features", opt, feature_sharding="auto")},
-        num_iterations=1, intercept_indices={"features": COLUMN_D},
+            "features", opt, feature_sharding=sharding)},
+        num_iterations=1, intercept_indices={"features": d},
         mesh="auto", device=device, listeners=[lambda e: None])
 
 
@@ -9434,10 +9571,10 @@ def column_fit(torch, est, data) -> tuple[dict, object]:
 
 
 def column_single_npz(torch) -> str:
-    """25 (c)'s replicated fit of its arrays in this process (no
-    process group: ``auto`` stays replicated), saved for the ranks'
-    comparison: the coefficients, the held-in AUC and the stop
-    reason."""
+    """25 (c)'s replicated fits in this process (no process group:
+    ``auto`` stays replicated), saved for the ranks' comparison: the
+    L-BFGS fit of its arrays (the coefficients, the held-in AUC and the
+    stop reason), then each further route's (``column_route_single``)."""
     from photon_tpu_torch.evaluation import evaluators
 
     t0 = time.perf_counter()
@@ -9451,42 +9588,93 @@ def column_single_npz(torch) -> str:
     auc = float(evaluators.auc_roc(scores, data.labels))
     emit({"phase": "mesh_column_single", "generate_seconds": gen_s,
           "features": COLUMN_D + 1, "rows": COLUMN_ROWS, "auc": auc, **row})
+    out = {"means": means.cpu().numpy(), "auc": auc,
+           "reason": row["convergence_reason"]}
+    del est, res, scores
+    for route in ("enet", "box"):
+        out.update(column_route_single(torch, route, data))
+    del arrays, data
+    empty_cache()
+    small = column_dataset(column_arrays(COLUMN_FULL_D), d=COLUMN_FULL_D)
+    out.update(column_route_single(torch, "full", small))
+    del small
     path = os.path.join(mesh_root(), "column_single.npz")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez(path, means=means.cpu().numpy(), auc=auc,
-             reason=row["convergence_reason"])
-    del arrays, data, est, res, scores
+    np.savez(path, **out)
     empty_cache()
     return path
 
 
-def column_objective(torch, data, w) -> float:
-    """The logistic loss plus the L2 term (intercept exempt) of a whole
-    ``[d]`` model on every row, in float64."""
+def column_route_single(torch, route: str, data) -> dict:
+    """One further route's replicated f32 fit (``column_estimator``'s
+    ``route``) on ``data``: its coefficients, stop reason, float64
+    objective, count of nonzeros and (FULL) variances, keyed
+    ``<route>_<field>``."""
+    d = data.feature_shards["features"].num_features - 1
+    est = column_estimator(route=route, d=d)
+    row, res = column_fit(torch, est, data)
+    coefs = res.model["global"].model.coefficients
+    obj = column_objective(torch, data, coefs.means, route=route, d=d)
+    nnz = int((coefs.means != 0).sum())
+    emit({"phase": "mesh_column_single", "route": route, "features": d + 1,
+          "rows": COLUMN_ROWS, "objective_float64": obj, "nnz": nnz, **row})
+    out = {f"{route}_means": coefs.means.cpu().numpy(),
+           f"{route}_reason": row["convergence_reason"],
+           f"{route}_objective": obj, f"{route}_nnz": nnz}
+    if coefs.variances is not None:
+        out[f"{route}_variances"] = coefs.variances.cpu().numpy()
+    del est, res
+    return out
+
+
+def column_l1(route: str) -> float:
+    """A route's L1 weight: the elastic net's share of its lambda."""
+    lam, alpha = COLUMN_ENET
+    return lam * alpha if route == "enet" else 0.0
+
+
+def column_l2(route: str) -> float:
+    lam, alpha = COLUMN_ENET
+    return lam * (1.0 - alpha) if route == "enet" else COLUMN_L2
+
+
+def column_objective(torch, data, w, *, route: str = "lbfgs",
+                     d: int = COLUMN_D) -> float:
+    """``route``'s objective of a whole ``[d + 1]`` model on every row in
+    float64: the logistic loss plus the L2 term (intercept exempt) and,
+    for ``enet``, the L1 term (every coefficient, as OWL-QN's)."""
     feats = data.feature_shards["features"]
+    l1, l2 = column_l1(route), column_l2(route)
     w = w.double()
     z = (feats.values.double() * w[feats.indices.long()]).sum(1)
     y = data.labels.double()
     loss = (torch.nn.functional.softplus(z) - y * z).sum()
     wm = w.clone()
-    wm.narrow(0, COLUMN_D, 1).zero_()
-    return float(loss + 0.5 * COLUMN_L2 * (wm * wm).sum())
+    wm.narrow(0, d, 1).zero_()
+    return float(loss + 0.5 * l2 * (wm * wm).sum() + l1 * w.abs().sum())
 
 
-def column_route_check(torch, data, fs, w) -> dict:
+def column_route_check(torch, data, fs, w, *, route: str = "lbfgs",
+                       d: int = COLUMN_D) -> dict:
     """Both routes' margins, objective and gradient (the solver's own
-    ``fun``: the GLM objective with L2, the intercept exempt) at the
-    whole model ``w``, this rank's slice of the column route's and the
-    replicated route's, each against a float64 evaluation by plain
-    PyTorch: the error of each over ROUND_OFF of 1 + the magnitude of
-    its terms (a margin's sum of |x w|, a gradient entry's sum of
-    |x c|, the objective itself)."""
+    ``fun``: the GLM objective with L2, the intercept exempt, plus
+    OWL-QN's L1 term for ``enet``) at the whole model ``w``, this rank's
+    slice of the column route's and the replicated route's, each against
+    a float64 evaluation by plain PyTorch: the error of each over
+    ROUND_OFF of 1 + the magnitude of its terms (a margin's sum of |x w|,
+    a gradient entry's sum of |x c|, the objective itself). The gradient
+    held is the one the route's solver reads: OWL-QN's pseudo-gradient
+    for ``enet``, L-BFGS-B's projected gradient P(w - g) - w for
+    ``box``."""
     from photon_tpu_torch import optim
     from photon_tpu_torch.data.dataset import GLMBatch
     from photon_tpu_torch.ops import glm as glm_ops
     from photon_tpu_torch.ops import losses as losses_mod
+    from photon_tpu_torch.optim.base import across_shards_later
+    from photon_tpu_torch.optim.owlqn import _pseudo_gradient
     from photon_tpu_torch.types import TaskType
 
+    l1, l2 = column_l1(route), column_l2(route)
     loss = losses_mod.get_loss(TaskType.LOGISTIC_REGRESSION)
     whole = data.shard_batch("features")
     col = GLMBatch(fs, data.labels, data.offsets, data.weights)
@@ -9500,23 +9688,36 @@ def column_route_check(torch, data, fs, w) -> dict:
     y = data.labels.double()
     c = torch.sigmoid(z64) - y
     wm = w64.clone()
-    wm.narrow(0, COLUMN_D, 1).zero_()
+    wm.narrow(0, d, 1).zero_()
     f64 = float((torch.nn.functional.softplus(z64) - y * z64).sum()
-                + 0.5 * COLUMN_L2 * (wm * wm).sum())
-    d = feats.d
-    g64 = torch.zeros(d, dtype=torch.float64, device=w.device).index_add_(
-        0, idx.reshape(-1), (x * c[:, None]).reshape(-1)) + COLUMN_L2 * wm
-    gmag = torch.zeros(d, dtype=torch.float64, device=w.device).index_add_(
+                + 0.5 * l2 * (wm * wm).sum() + l1 * w64.abs().sum())
+    g64 = torch.zeros(feats.d, dtype=torch.float64,
+                      device=w.device).index_add_(
+        0, idx.reshape(-1), (x * c[:, None]).reshape(-1)) + l2 * wm
+    gmag = torch.zeros(feats.d, dtype=torch.float64,
+                       device=w.device).index_add_(
         0, idx.reshape(-1), (x.abs() * c.abs()[:, None]).reshape(-1))
-    rep_fun = optim.with_l2(glm_ops.make_value_and_grad(whole, loss),
-                            COLUMN_L2, COLUMN_D)
-    col_fun = optim.with_l2(glm_ops.make_value_and_grad(col, loss),
-                            COLUMN_L2, fs.local_index(COLUMN_D))
+    rep_fun = optim.with_l2(glm_ops.make_value_and_grad(whole, loss), l2, d)
+    col_fun = optim.with_l2(glm_ops.make_value_and_grad(col, loss), l2,
+                            fs.local_index(d))
     f_rep, g_rep = rep_fun(w)
+    f_rep = f_rep + l1 * w.abs().sum()
+    w_loc = fs.local_slice(w)
     with optim.sharded_over(fs.mesh):
-        f_col, g_col = col_fun(fs.local_slice(w))
+        pen = across_shards_later(torch.sum(l1 * torch.abs(w_loc)))
+        f_col, g_col = col_fun(w_loc)
+        f_col = f_col + pen()
     z_col, z_rep = fs.matvec(w), feats.matvec(w)
-    g_ref, g_bound = fs.local_slice(g64), 1.0 + fs.local_slice(gmag)
+
+    def solver_gradient(wv, g):
+        if route == "enet":
+            return _pseudo_gradient(wv, g, l1)
+        if route == "box":
+            return torch.clamp(wv - g, -COLUMN_BOX, COLUMN_BOX) - wv
+        return g
+
+    g_ref = solver_gradient(fs.local_slice(w64), fs.local_slice(g64))
+    g_bound = 1.0 + fs.local_slice(gmag)
 
     def over(err, bound):
         return float((err / (ROUND_OFF * bound)).max())
@@ -9526,13 +9727,15 @@ def column_route_check(torch, data, fs, w) -> dict:
             "margin": over((z_col.double() - z64).abs(), 1.0 + zmag),
             "objective": abs(float(f_col) - f64) / (
                 ROUND_OFF * (1.0 + abs(f64))),
-            "gradient": over((g_col.double() - g_ref).abs(), g_bound)},
+            "gradient": over((solver_gradient(w_loc, g_col).double()
+                              - g_ref).abs(), g_bound)},
         "replicated": {
             "margin": over((z_rep.double() - z64).abs(), 1.0 + zmag),
             "objective": abs(float(f_rep) - f64) / (
                 ROUND_OFF * (1.0 + abs(f64))),
-            "gradient": over((fs.local_slice(g_rep).double()
-                              - g_ref).abs(), g_bound)}}
+            "gradient": over((solver_gradient(
+                w_loc, fs.local_slice(g_rep)).double() - g_ref).abs(),
+                g_bound)}}
 
 
 def column_rank(torch, spec: dict, mesh) -> dict:
@@ -9591,7 +9794,7 @@ def column_rank(torch, spec: dict, mesh) -> dict:
                   for w in (models[1], single)]
     path = os.path.join(spec["root"], "column_model.npy")
     np.save(path, models[1].cpu().numpy())
-    return {"rank": mesh.rank, "d": fs.d, "logical_d": fs.logical_d,
+    out = {"rank": mesh.rank, "d": fs.d, "logical_d": fs.logical_d,
             "d_local": fs.d_local, "lo": fs.lo,
             "nnz": int((fs.local_values != 0).sum()),
             "k_loc": int(fs.local_indices.shape[1]),
@@ -9604,6 +9807,236 @@ def column_rank(torch, spec: dict, mesh) -> dict:
                 "shape", "values", "features", "parts", "segments", "ms",
                 "plain_ms", "library_ms", "rmatvec_ms", "bound_ms",
                 "bound_by", "max_abs_err")}}
+    del est, datasets, models, fs, scores, g
+    out["routes"] = {route: column_route_rank(torch, spec, mesh, route, data)
+                     for route in ("enet", "box")}
+    del data
+    empty_cache()
+    out["routes"]["full"] = column_route_rank(torch, spec, mesh, "full", None)
+    return out
+
+
+def column_route_rank(torch, spec: dict, mesh, route: str, data) -> dict:
+    """One further route of 25 (c) on this rank (``column_estimator``'s
+    ``route``; ``data``: 25 (c)'s dataset, or None for ``full``, which
+    builds its own at COLUMN_FULL_D + 1 features): prepared, fitted
+    twice with the counts zeroed before each fit and read after it, each
+    fit's census; the route check at the replicated fit's coefficients
+    (``column_route_check``); both fits' float64 objectives; the padded
+    slots of the whole model (the solver's gathered ``[d]``), the count
+    of nonzeros, the bounds, or the variances; for ``full`` the
+    segment-sum kernel at ``fixed_effect`` on this rank's shard, held
+    against its plain version and timed."""
+    from photon_tpu_torch.parallel.mesh import (
+        FeatureShardedSparse,
+        site_delta,
+    )
+
+    d = COLUMN_D if data is not None else COLUMN_FULL_D
+    if data is None:
+        data = column_dataset(column_arrays(d), d=d)
+    single = np.load(spec["column_single"])
+    est = column_estimator(route=route, d=d)
+    t0 = time.perf_counter()
+    datasets, _ = est.prepare(data)
+    prepare_s = time.perf_counter() - t0
+    fs = datasets["global"].features
+    if not isinstance(fs, FeatureShardedSparse):
+        fail(f"mesh_column: rank {mesh.rank}'s {route} fixed effect is "
+             f"{type(fs).__name__}, not column-sharded")
+    stats = mesh.stats
+    fits, census, models, whole, variances = [], [], [], [], []
+    for k in range(2):
+        c0, at = stats.snapshot(), len(stats.census)
+        row, res = column_fit(torch, est, data)
+        c1 = stats.snapshot()
+        fits.append({"fit": k, **row,
+                     "collectives": c1["count"] - c0["count"],
+                     "collective_seconds": c1["seconds"] - c0["seconds"],
+                     "collective_bytes": c1["bytes"] - c0["bytes"],
+                     "collectives_by_site": site_delta(c0, c1)})
+        census.append(compact_census(stats.census[at:]))
+        coefs = res.model["global"].model.coefficients
+        models.append(coefs.means)
+        whole.append(res.descent.history[-1].diagnostics.coefficients)
+        if coefs.variances is not None:
+            variances.append(coefs.variances)
+    repeat = bool(torch.equal(models[0], models[1])
+                  and torch.equal(whole[0], whole[1])
+                  and all(torch.equal(variances[0], v)
+                          for v in variances[1:]))
+    rep = torch.from_numpy(single[f"{route}_means"]).to(models[1].device)
+    out = {"route": route, "d": fs.d, "logical_d": fs.logical_d,
+           "d_local": fs.d_local, "lo": fs.lo,
+           "nnz_entries": int((fs.local_values != 0).sum()),
+           "prepare_seconds": prepare_s, "fits": fits, "census": census,
+           "repeat_bit_identical": repeat,
+           "route_check": column_route_check(torch, data, fs, rep,
+                                             route=route, d=d),
+           "objectives": [column_objective(torch, data, models[1],
+                                           route=route, d=d),
+                          float(single[f"{route}_objective"])],
+           "reasons": [fits[-1]["convergence_reason"],
+                       int(single[f"{route}_reason"])],
+           "padded": whole[1][fs.logical_d:].cpu().numpy().tolist(),
+           "nnz": [int((models[1] != 0).sum()),
+                   int(single[f"{route}_nnz"])]}
+    if route == "box":
+        w = models[1]
+        out["outside_bounds"] = int(((w < -COLUMN_BOX)
+                                     | (w > COLUMN_BOX)).sum())
+        out["at_bounds"] = int(((w == -COLUMN_BOX)
+                                | (w == COLUMN_BOX)).sum())
+    if route == "full":
+        want = torch.from_numpy(single["full_variances"]).to(
+            models[1].device).double()
+
+        def rel(v):
+            return float(((v.double() - want).abs() / want.abs()).max())
+
+        out["variance_max_rel"] = rel(variances[1])
+        out["variances_finite"] = bool(torch.isfinite(variances[1]).all())
+        out["variance_route_rel"] = rel(column_route_variances(
+            torch, data, fs, rep, d)[:d + 1])
+        scores = fs.matvec(models[1])
+        g = data.weights * (torch.sigmoid(scores) - data.labels)
+        site = fixed_effect_site(torch, fs.local, g)
+        out["site"] = {k: site[k] for k in (
+            "shape", "values", "features", "segments", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    path = os.path.join(spec["root"], f"column_{route}_model.npz")
+    np.savez(path, means=models[1].cpu().numpy(), **(
+        {"variances": variances[1].cpu().numpy()} if variances else {}))
+    out["model"] = path
+    del est, datasets, models, whole, variances, res
+    return out
+
+
+def column_route_variances(torch, data, fs, w, d: int):
+    """The column route's FULL variances (this rank's row block of the
+    Hessian, gathered; one Cholesky) at the whole model ``w``, gathered
+    whole: the variances the replicated route computed at ``w``, through
+    the column route."""
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.algorithm import problems
+    from photon_tpu_torch.data.dataset import GLMBatch
+    from photon_tpu_torch.ops import losses as losses_mod
+    from photon_tpu_torch.ops.normalization import NormalizationContext
+    from photon_tpu_torch.types import TaskType
+
+    batch = GLMBatch(fs, data.labels, data.offsets, data.weights)
+    coef = fs.local_slice(w.to(data.labels.device, torch.float32))
+    with optim.sharded_over(fs.mesh):
+        local = problems.variances_in_transformed_space(
+            batch, losses_mod.get_loss(TaskType.LOGISTIC_REGRESSION), coef,
+            NormalizationContext(),
+            problems._l2_diagonal(coef, COLUMN_L2, fs.local_index(d)),
+            problems.VarianceComputationType.FULL)
+    return fs.gather(local)[0]
+
+
+def phase_mesh_column_routes(torch, ranks: list) -> dict:
+    """25 (c) (i)-(iii) from the ranks' ``column_route_rank`` results.
+    Gates, for each route: every rank's census of each fit equal to rank
+    0's and declared; both fits bit-identical on every rank and the
+    ranks' models equal; segment-sum launches at ``fixed_effect`` in
+    every fit; the route check at the replicated fit's coefficients
+    within ROUND_OFF on every rank; both whole fits (column and
+    replicated) stopped by a stop rule, their float64 objectives within
+    ROUND_OFF of 1 + the replicated one's. (i): the padded slots exactly
+    0 (its count of nonzeros printed beside the replicated fit's). (ii):
+    every coefficient inside +-COLUMN_BOX, some on a bound. (iii): the
+    variances finite; at the replicated fit's coefficients within
+    COLUMN_VAR_ROUTE_RTOL of the replicated route's, and the whole fit's
+    within COLUMN_VAR_RTOL of the replicated fit's."""
+    from photon_tpu_torch.optim import ConvergenceReason
+
+    stops = (int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+             int(ConvergenceReason.GRADIENT_CONVERGED),
+             int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING))
+    out = {}
+    for route in COLUMN_ROUTES:
+        rs = [r["routes"][route] for r in ranks]
+        for k in range(2):
+            census_gate("mesh_column", f"{route} fit {k}",
+                        [r["census"][k] for r in rs])
+        obj_col, obj_rep = rs[0]["objectives"]
+        gap = abs(obj_col - obj_rep) / (1.0 + abs(obj_rep))
+        route_worst = max(v for r in rs
+                          for v in r["route_check"]["column"].values())
+        launches = [f["fixed_effect_launches"] for r in rs
+                    for f in r["fits"]]
+        row = {"phase": "mesh_column_route", "route": route,
+               "ranks": len(rs), "features": rs[0]["logical_d"],
+               "rows": COLUMN_ROWS, "d_local": rs[0]["d_local"],
+               "nnz_entries": [r["nnz_entries"] for r in rs],
+               "iterations": [r["fits"][-1]["lbfgs_iterations"]
+                              for r in rs],
+               "fit_seconds": [[f["fit_seconds"] for f in r["fits"]]
+                               for r in rs],
+               "peak_device_bytes": [max(f["peak_device_bytes"]
+                                         for f in r["fits"]) for r in rs],
+               "collectives_per_fit": [r["fits"][-1]["collectives"]
+                                       for r in rs],
+               "collective_seconds_per_fit": [
+                   r["fits"][-1]["collective_seconds"] for r in rs],
+               "collectives_by_site_per_fit": [
+                   r["fits"][-1]["collectives_by_site"] for r in rs],
+               "fixed_effect_launches": launches,
+               "route_check": [r["route_check"] for r in rs],
+               "route_check_worst_over_bound": route_worst,
+               "repeat_bit_identical": [r["repeat_bit_identical"]
+                                        for r in rs],
+               "objective_float64": [obj_col, obj_rep],
+               "objective_rel_gap": gap,
+               "convergence_reasons": rs[0]["reasons"],
+               "padded": rs[0]["padded"], "nnz": rs[0]["nnz"],
+               "bounds": [ROUND_OFF, COLUMN_VAR_ROUTE_RTOL,
+                          COLUMN_VAR_RTOL]}
+        for key in ("outside_bounds", "at_bounds", "variance_max_rel",
+                    "variance_route_rel", "variances_finite", "site"):
+            if key in rs[0]:
+                row[key] = ([r[key] for r in rs] if key != "site"
+                            else rs[0][key])
+        emit(row)
+        if not all(r["repeat_bit_identical"] for r in rs):
+            fail(f"mesh_column: {route}'s two fits differ on a rank")
+        models = [np.load(r["model"]) for r in rs]
+        if not all(r["padded"] == rs[0]["padded"] for r in rs) or not all(
+                np.array_equal(models[0][f], m[f]) for m in models[1:]
+                for f in models[0].files):
+            fail(f"mesh_column: {route}'s ranks disagree")
+        if not all(n > 0 for n in launches):
+            fail(f"mesh_column: {route} launched the segment-sum kernel "
+                 "no time at fixed_effect in a fit")
+        if not route_worst <= 1.0:
+            fail(f"mesh_column: {route}'s route check {row['route_check']}")
+        if not all(r in stops for r in rs[0]["reasons"]) or not (
+                gap <= ROUND_OFF):
+            fail(f"mesh_column: {route} stopped {rs[0]['reasons']}, "
+                 f"objectives {obj_col} against {obj_rep}")
+        if route == "enet" and any(v != 0.0 for v in rs[0]["padded"]):
+            fail(f"mesh_column: enet's padded slots {rs[0]['padded']}")
+        if route == "box" and (any(r["outside_bounds"] for r in rs)
+                               or not rs[0]["at_bounds"]):
+            fail(f"mesh_column: box: {row['outside_bounds']} outside, "
+                 f"{row['at_bounds']} on the bounds")
+        if route == "full" and not (
+                all(r["variances_finite"] for r in rs)
+                and max(r["variance_route_rel"] for r in rs)
+                <= COLUMN_VAR_ROUTE_RTOL
+                and max(r["variance_max_rel"] for r in rs)
+                <= COLUMN_VAR_RTOL):
+            fail(f"mesh_column: full variances {row['variance_max_rel']} "
+                 f"from the replicated fit's, {row['variance_route_rel']} "
+                 "at its coefficients")
+        out[route] = {"fixed_effect_launches": sum(launches),
+                      "fit_seconds": row["fit_seconds"][0],
+                      "iterations": row["iterations"][0],
+                      "max_abs_err": max(r["site"]["max_abs_err"]
+                                         for r in rs) if "site" in rs[0]
+                      else 0.0}
+    return out
 
 
 def phase_mesh_column(torch, ranks: list, single) -> dict:
@@ -9698,7 +10131,8 @@ def phase_mesh_column(torch, ranks: list, single) -> dict:
              f"against {float(single['auc'])}")
     site = max((r["site"] for r in ranks), key=lambda s: s["values"])
     return {"fixed_effect_launches": launches,
-            "site": dict(site, launches=launches, ranks=len(ranks))}
+            "site": dict(site, launches=launches, ranks=len(ranks)),
+            "routes": phase_mesh_column_routes(torch, ranks)}
 
 
 def phase_mesh_cli(torch, cli: dict) -> dict:
@@ -10026,6 +10460,7 @@ def main() -> int:
 
     device_loop.count_graph_launches("cuda")
     phase_graph_loops(torch)
+    phase_program_contracts(torch)
     if args.fits > 0:
         return fits_only(torch, args.fits)
     if args.ell_routes:
@@ -10155,6 +10590,9 @@ def main() -> int:
         "evaluation_launches"]
     segment["launches_by_path"]["mesh_column_fixed_effect"] = mesh_fit[
         "column"]["fixed_effect_launches"]
+    for route, r in mesh_fit["column"]["routes"].items():
+        segment["launches_by_path"][f"mesh_column_{route}_fixed_effect"] = (
+            r["fixed_effect_launches"])
     # The fixed effect's sparse transpose on every CLI training path.
     fixed_effect = {"train_cli": train_cli["fixed_effect_launches"],
                     "stream_cli": stream["fixed_effect_launches"],
@@ -10169,7 +10607,9 @@ def main() -> int:
     segment["max_abs_err"] = max(segment["max_abs_err"],
                                  batch["evaluation_max_abs_err"],
                                  site["max_abs_err"],
-                                 mesh_fit["column"]["site"]["max_abs_err"])
+                                 mesh_fit["column"]["site"]["max_abs_err"],
+                                 *(r["max_abs_err"] for r in mesh_fit[
+                                     "column"]["routes"].values()))
     segment["fixed_effect"] = {
         k: site[k] for k in ("shape", "values", "features", "parts",
                              "segments", "ms", "reduce_ms", "plain_ms",

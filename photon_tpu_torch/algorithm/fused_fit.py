@@ -87,6 +87,23 @@ from photon_tpu_torch.models.game import (
 from photon_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_tpu_torch.utils import device_loop
 
+# Program contract (``python -m photon_tpu_torch.analysis --semantic``,
+# machinery in analysis/program.py): a generation is the materialize and
+# one CUDA graph per static structure and warm-start twin (cold and warm
+# fit); a lambda sweep replays them with new weights, while an optimizer
+# swap, an iteration-count change or a precision switch is a new
+# structure by design. Nothing inside a captured fit syncs, and nothing
+# in it is float64.
+PROGRAM_AUDIT = dict(
+    name="fused-fit",
+    entry="algorithm.fused_fit.FusedFit (_mat_fn + the captured _fit_fn)",
+    builder="build_fused_fit",
+    max_programs=3,
+    stable_under=("lambda_grid",),
+    recompiles_on=("optimizer_swap", "iteration_count", "precision"),
+    hot_loop=True,
+)
+
 # The cost ledger's names for the fit's two programs.
 FIT_PROGRAM = "fused_fit"
 MATERIALIZE_PROGRAM = "materialize"

@@ -90,19 +90,24 @@ class GLMOptimizationProblem:
         """The fit. On column-sharded features (``parallel.mesh
         .FeatureShardedSparse``) each rank solves its slice of the
         coefficients: the initial and prior vectors (whole, as models
-        are) are sliced to its feature range, the intercept's L2
-        exemption applies on its owner, every inner product crosses the
-        ranks (``optim.sharded_over``), and the solved slices are
-        gathered into the whole padded ``[d]`` model, the same on every
-        rank."""
+        are) and any per-feature box bounds are sliced to its feature
+        range, the intercept's L2 exemption applies on its owner, every
+        inner product and OWL-QN's L1 term cross the ranks
+        (``optim.sharded_over``), FULL variances come from the gathered
+        Hessian (``variances_in_transformed_space``), and the solved
+        slices are gathered into the whole padded ``[d]`` model, the
+        same on every rank."""
         cfg = self.config
         dtype = batch.labels.dtype
         dev = batch.labels.device
         feats = batch.features
         column = hasattr(feats, "local_slice")
         local = feats.local_slice if column else (lambda v: v)
-        if column:
-            _check_column_route(cfg)
+        opt_config = cfg.optimizer
+        if column and opt_config.box_constraints is not None:
+            opt_config = dataclasses.replace(
+                opt_config, box_constraints=feats.local_bounds(
+                    opt_config.box_constraints))
         w0 = (torch.zeros(batch.num_features, dtype=dtype, device=dev)
               if initial is None else local(initial.means.to(dtype)))
         prior = None
@@ -118,7 +123,7 @@ class GLMOptimizationProblem:
             means, variances, result = run_impl(
                 batch, w0, cfg.l1_weight, cfg.l2_weight, self.normalization,
                 prior, cfg.incremental_weight, task=self.task,
-                opt_config=cfg.optimizer,
+                opt_config=opt_config,
                 intercept_index=(feats.local_index(self.intercept_index)
                                  if column else self.intercept_index),
                 variance_computation=cfg.variance_computation,
@@ -132,26 +137,6 @@ class GLMOptimizationProblem:
         model = GeneralizedLinearModel(Coefficients(means, variances),
                                        self.task)
         return GLMSolution(model=model, result=result)
-
-
-# The ROADMAP Queue A item of the solver routes a column-sharded fixed
-# effect does not take yet.
-COLUMN_ROUTES_ITEM = 14
-
-
-def _check_column_route(cfg: GLMOptimizationConfiguration) -> None:
-    """Raise for a route the column-sharded solve does not port: L-BFGS
-    and TRON with no or SIMPLE variances are ported."""
-    what = None
-    if cfg.l1_weight != 0.0:
-        what = "OWL-QN (an L1 part)"
-    elif cfg.optimizer.box_constraints is not None:
-        what = "L-BFGS-B (box constraints)"
-    elif cfg.variance_computation == VarianceComputationType.FULL:
-        what = "FULL variances"
-    if what is not None:
-        raise optim.not_ported(
-            f"{what} on a column-sharded fixed effect", COLUMN_ROUTES_ITEM)
 
 
 def variances_in_transformed_space(batch: GLMBatch,
@@ -170,11 +155,23 @@ def variances_in_transformed_space(batch: GLMBatch,
         diag = glm_ops.hessian_diagonal(batch, loss, coef_transformed,
                                         norm) + l2_diag
         return 1.0 / torch.where(diag == 0.0, torch.inf, diag)
-    h = glm_ops.hessian_matrix(batch, loss, coef_transformed, norm)
-    h = h + torch.diag(l2_diag)
+    feats = batch.features
+    column = hasattr(feats, "local_slice")
+    if column:
+        # Column-sharded: this rank's row block with its own penalty on
+        # the diagonal, gathered whole; every rank factors the same bits
+        # and keeps its slice.
+        rows = glm_ops.hessian_rows(batch, loss, coef_transformed, norm)
+        cols = torch.arange(feats.d_local, device=rows.device)
+        rows[cols, feats.lo + cols] += l2_diag
+        h = feats.gather_hessian(rows)
+    else:
+        h = glm_ops.hessian_matrix(batch, loss, coef_transformed, norm)
+        h = h + torch.diag(l2_diag)
     dead = torch.diagonal(h) == 0.0
     h = h + torch.diag(dead.to(h.dtype))
-    return torch.where(dead, torch.inf, cholesky_inverse_diagonal(h))
+    var = torch.where(dead, torch.inf, cholesky_inverse_diagonal(h))
+    return feats.local_slice(var) if column else var
 
 
 def cholesky_inverse_diagonal(h: torch.Tensor) -> torch.Tensor:

@@ -10,15 +10,21 @@ Ported so far:
   registry;
 - the SPMD tier (``spmd``; ``--spmd``): the ranks' censuses of
   collectives held against each other and against the mesh's declared
-  ``SPMD_AUDIT``, partition-rule coverage, and the host-divergence lint.
+  ``SPMD_AUDIT``, partition-rule coverage, and the host-divergence lint;
+- the program tier (``program``; ``--semantic``): the ``PROGRAM_AUDIT``
+  contracts declared next to the code, each program the aten ops and
+  kernel launches one call dispatches (census, recompile keys, host
+  boundary, float64).
 
-The reference's other tiers (tier-1 rules, ``--semantic``,
-``--concurrency``, ``--memory``, ``--numerics``) are ROADMAP Queue A
-item 13's later parts; their CLI flags raise naming it.
+The reference's other tiers (tier-1 rules, ``--concurrency``,
+``--memory``, ``--numerics``) and the program tier's observability,
+resilience, ingest and pilot contracts are ROADMAP Queue A item 13's
+later parts; their CLI flags raise naming it.
 
 Usage::
 
     python -m photon_tpu_torch.analysis --spmd [--hosts N] [--json]
+    python -m photon_tpu_torch.analysis --semantic [--json] [--device cuda]
     python -m photon_tpu_torch.analysis --spmd --list-rules
 """
 

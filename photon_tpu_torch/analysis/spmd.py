@@ -15,8 +15,8 @@ reads what real ranks actually issue:
   CPU (``tests/test_torch_mesh_ranks.py``'s launch: a time limit, every
   rank killed past it), and each runs the contract's fits at a tiny
   size: a GLMix fit through ``GameEstimator(mesh="auto")`` with a
-  row-sharded fixed effect and a random effect, then a column-sharded
-  fixed-effect fit. Each rank returns its ordered census
+  row-sharded fixed effect and a random effect, then two column-sharded
+  fixed-effect fits (L-BFGS; OWL-QN with FULL variances). Each rank returns its ordered census
   (``parallel.mesh.CollectiveStats.census``: op, call site, dtype,
   operand shape, bytes) of each fit;
 - ``spmd-collective-order``: site and op, position by position, against
@@ -262,7 +262,7 @@ def _named_mesh_leaves(mesh, batch, re_ds, w) -> dict[str, dict]:
 def rank_build(out_path: str) -> None:
     """One rank of ``build_mesh_spmd`` (``python -m
     photon_tpu_torch.analysis.spmd --rank OUT``, under the launcher's
-    variables): the GLMix fit on the mesh, then the column fit, each
+    variables): the GLMix fit on the mesh, then the two column fits, each
     fit's slice of this rank's census and the GLMix fit's placed leaves
     written to ``OUT`` as JSON."""
     import torch
@@ -270,6 +270,7 @@ def rank_build(out_path: str) -> None:
     from photon_tpu_torch import optim
     from photon_tpu_torch.algorithm.problems import (
         GLMOptimizationConfiguration,
+        VarianceComputationType,
     )
     from photon_tpu_torch.data.dataset import DenseFeatures, SparseFeatures
     from photon_tpu_torch.data.game_data import make_game_dataset
@@ -323,10 +324,26 @@ def rank_build(out_path: str) -> None:
         at = len(census)
         col.fit(wide)
         column = census[at:]
+        # OWL-QN (elastic net) with FULL variances on the column shard:
+        # the L1 term's sums and the gathered Hessian.
+        enet = GLMOptimizationConfiguration(
+            regularization=optim.RegularizationContext(
+                optim.RegularizationType.ELASTIC_NET, 0.5),
+            regularization_weight=1.0,
+            variance_computation=VarianceComputationType.FULL)
+        col_l1 = GameEstimator(
+            TaskType.LINEAR_REGRESSION,
+            {"global": FixedEffectCoordinateConfiguration(
+                "wide", enet, feature_sharding="column")},
+            num_iterations=1, mesh="auto", device="cpu")
+        at = len(census)
+        col_l1.fit(wide)
+        column_l1 = census[at:]
         with open(out_path, "w") as f:
             json.dump({"rank": mesh.rank, "size": mesh.size,
                        "sequences": {"glmix_fit": glmix,
-                                     "column_fit": column},
+                                     "column_fit": column,
+                                     "column_l1_fit": column_l1},
                        "leaves": leaves}, f)
     finally:
         mesh_mod.shutdown()
@@ -402,7 +419,7 @@ def _leaf_stub(row: dict):
 
 def build_mesh_spmd(hosts: int) -> SpmdTrace:
     """The mesh contract: ``hosts`` gloo ranks run the GLMix fit and the
-    column fit; each rank's ordered census of each, and the coverage of
+    two column fits; each rank's ordered census of each, and the coverage of
     rank 0's placed leaves by ``PARTITION_RULES``."""
     from photon_tpu_torch.parallel import mesh as mesh_mod
 

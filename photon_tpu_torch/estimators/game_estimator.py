@@ -144,6 +144,49 @@ from photon_tpu_torch.types import TaskType
 
 logger = logging.getLogger(__name__)
 
+# Program contracts (``python -m photon_tpu_torch.analysis --semantic``):
+# the fused cache's static key (a lambda grid is one entry; an optimizer
+# swap or a precision switch another), and the unfused coordinate update,
+# whose ops are the same set for any lambda and warm start. The unfused
+# solvers branch on the host by design; each sync is one their counters
+# count, and the check holds the syncs it sees to those counters.
+PROGRAM_AUDIT = [
+    dict(
+        name="fused-cache-key",
+        entry="estimators.game_estimator.GameEstimator._fused_for "
+        "(fused_static_key discipline)",
+        builder="build_fused_cache_keys",
+        max_programs=1,
+        stable_under=("lambda_grid",),
+        recompiles_on=("optimizer_swap", "precision"),
+    ),
+    dict(
+        name="unfused-coordinate-update",
+        entry="algorithm.problems.run_impl (via GLMOptimizationProblem.run)",
+        builder="build_unfused_update",
+        max_programs=1,
+        stable_under=("lambda_grid", "warm_start"),
+        recompiles_on=("optimizer_swap",),
+        hot_loop=True,
+        host_syncs=(
+            "photon_tpu_torch.optim.lbfgs:host_syncs",
+            "photon_tpu_torch.optim.batched:host_syncs",
+            "photon_tpu_torch.algorithm.random_effect:host_syncs",
+        ),
+        host_sync_reason=(
+            "the unfused loop's L-BFGS branches on the host (one fetch a "
+            "line-search probe and two an iteration) and its batched "
+            "solvers ask whether a lane still runs once a step: the "
+            "fused fit's graph is the sync-free route"),
+        port_differs={
+            "program": "an eager program (its set of distinct ops): "
+            "eager dispatch compiles nothing per call",
+            "host_syncs": "declared: the reference's jitted update has "
+            "no host boundary",
+        },
+    ),
+]
+
 # Feature count above which "auto" feature sharding goes column-wise on a
 # mesh (the reference's threshold, index/FeatureIndexingDriver.scala:40-41).
 AUTO_COLUMN_SHARDING_THRESHOLD = 200_000

@@ -130,3 +130,18 @@ def hessian_matrix(batch: GLMBatch, loss: PointwiseLoss, coef: torch.Tensor,
     h = (h_raw - torch.outer(s, a) - torch.outer(a, s)
          + c_sum * torch.outer(s, s))
     return f[:, None] * h * f[None, :]
+
+
+def hessian_rows(batch: GLMBatch, loss: PointwiseLoss, coef: torch.Tensor,
+                 norm: NormalizationContext | None = None) -> torch.Tensor:
+    """This rank's row block ``H[lo:lo + d_local, :]`` of a
+    column-sharded batch's (``parallel.mesh.FeatureShardedSparse``)
+    Hessian, the rows of ``hessian_matrix`` it owns. The column route
+    takes no normalization (the estimator keeps a normalized shard
+    replicated)."""
+    norm = norm or NormalizationContext()
+    if not norm.is_identity:
+        raise ValueError("a column-sharded Hessian takes no normalization")
+    z = margins(batch, coef, norm)
+    c = batch.weights * loss.dzz(z, batch.labels)
+    return batch.features.hessian_rows(c)

@@ -53,6 +53,18 @@ SMEM_FLOATS = 232_448 // 4  # H100: 227 KB of shared memory per block
 MAX_TRIALS = 16
 _TASK_CODE = {TaskType.LOGISTIC_REGRESSION: 0, TaskType.POISSON_REGRESSION: 1}
 
+# Program contract (``--semantic``): one program; the bucket shape and
+# the line search's trial count are its statics. No sync, no float64:
+# the kernel runs inside the fused fit's loop.
+PROGRAM_AUDIT = dict(
+    name="newton-kernel",
+    entry="ops.newton_kernel.newton_step",
+    builder="build_newton_kernel",
+    max_programs=1,
+    recompiles_on=("bucket_shape", "line_search_trials"),
+    hot_loop=True,
+)
+
 # Kernel launches made by ``newton_step`` (never by the plain version),
 # those of them on a bucket wider than NARROW_SUB_DIM, and all of them by
 # bucket shape (B, R, S).
@@ -243,7 +255,9 @@ def _launch(x, w, y, wt, off, l2, mt, vm, f, *, task, trials):
     )
     if rc != 0:
         raise RuntimeError(f"newton_step launch failed with CUDA error {rc}")
-    device_loop.note_launch("newton_step", dev)
+    device_loop.note_launch("newton_step", dev,
+                            f"[{b}, {r}, {s}] task={task.name} "
+                            f"trials={trials}")
     launches += 1
     launches_by_shape[(b, r, s)] = launches_by_shape.get((b, r, s), 0) + 1
     if s > NARROW_SUB_DIM:

@@ -63,6 +63,18 @@ _MAX_K_TILES = 64
 GRAM_ELEMENT_BUDGET = 1 << 26
 _VALUE_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
+# Program contract (``--semantic``): values and ids are operands; only the
+# reduce's shape keys a new program. No sync, no float64: the kernel runs
+# inside the fused fit's sweep and inside score programs.
+PROGRAM_AUDIT = dict(
+    name="segment-reduce-kernel",
+    entry="ops.segment_reduce.sorted_segment_sum",
+    builder="build_segment_reduce",
+    max_programs=1,
+    recompiles_on=("reduce_shape",),
+    hot_loop=True,
+)
+
 # Kernel launches made by ``segment_sum`` (never by the plain version),
 # in all and by call site, and each site's last launch's (values, value
 # bytes, segments): what ``site_cost`` counts.
@@ -226,7 +238,8 @@ def _launch(values, ids, n: int, site: str) -> torch.Tensor:
                     ids.data_ptr(), m, n, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum launch failed with CUDA error {rc}")
-    device_loop.note_launch("segment_sum", values.device)
+    device_loop.note_launch("segment_sum", values.device,
+                            f"m={m} n={n} {values.dtype} site={site}")
     launches += 1
     launches_by_site[site] = launches_by_site.get(site, 0) + 1
     shapes_by_site[site] = (m, values.element_size(), n)

@@ -45,11 +45,24 @@ import torch
 from photon_tpu_torch.models.game import _score_raw_dense, _score_raw_sparse
 from photon_tpu_torch.ops import _build
 from photon_tpu_torch.ops import precision as precision_mod
+from photon_tpu_torch.utils import device_loop
 
 # Coordinates per launch: ``ServeParams`` in csrc/serve_score.cu holds
 # this many; a model with more takes one launch per group.
 GROUP_COORDS = 8
 SOURCE = "photon_tpu_torch/csrc/serve_score.cu"
+
+# Program contract (``--semantic``): tables, features and codes are
+# operands; only the rung and the model's structure are statics. No
+# sync, no float64: this kernel is the request loop.
+PROGRAM_AUDIT = dict(
+    name="serve-kernel",
+    entry="ops.serve_kernel.fused_score",
+    builder="build_serve_kernel",
+    max_programs=1,
+    recompiles_on=("rung", "model_structure"),
+    hot_loop=True,
+)
 
 # Kernel launches made by ``fused_score`` from Python (never by the
 # plain version, never during a capture).
@@ -305,6 +318,9 @@ def _launch(
         if rc != 0:
             raise RuntimeError(
                 f"serve_score launch failed with CUDA error {rc}")
+        device_loop.note_launch(
+            "serve_score", dev, f"rung={rung} coords={params.n_coords} "
+            f"pairs={params.n_pairs} {wdtype}")
         if capturing:
             captured += 1
         else:

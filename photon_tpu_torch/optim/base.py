@@ -23,7 +23,7 @@ import contextlib
 import dataclasses
 import enum
 import threading
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -91,24 +91,61 @@ _SHARDS = threading.local()
 def sharded_over(mesh):
     """Solve on this rank's slices of vectors sharded over ``mesh`` (a
     ``parallel.mesh.Mesh``; None: whole vectors) in this thread."""
-    prev = getattr(_SHARDS, "mesh", None)
-    _SHARDS.mesh = mesh
+    prev = getattr(_SHARDS, "mesh", None), getattr(_SHARDS, "riders", [])
+    _SHARDS.mesh, _SHARDS.riders = mesh, []
     try:
         yield
     finally:
-        _SHARDS.mesh = prev
+        _SHARDS.mesh, _SHARDS.riders = prev
+
+
+class _Rider:
+    """A partial waiting for the next ``across_shards`` of its thread."""
+
+    __slots__ = ("partial", "total")
+
+    def __init__(self, partial: torch.Tensor):
+        self.partial, self.total = partial, None
 
 
 def across_shards(*partials: torch.Tensor) -> tuple:
     """The sums over the ranks of a sharded solve's partial inner
-    products (one collective for all of them), or the partials as they
-    are outside ``sharded_over``."""
+    products (one collective for all of them, the waiting
+    ``across_shards_later`` partials of their dtype included), or the
+    partials as they are outside ``sharded_over``."""
     mesh = getattr(_SHARDS, "mesh", None)
     if mesh is None:
         return partials
     from photon_tpu_torch.parallel.mesh import SITE_INNER_PRODUCTS
 
-    return mesh.sum_parts(*partials, site=SITE_INNER_PRODUCTS)
+    riders = [r for r in _SHARDS.riders
+              if r.partial.dtype == partials[0].dtype]
+    _SHARDS.riders = [r for r in _SHARDS.riders if r not in riders]
+    sums = mesh.sum_parts(*partials, *(r.partial for r in riders),
+                          site=SITE_INNER_PRODUCTS)
+    for r, total in zip(riders, sums[len(partials):]):
+        r.total = total
+    return sums[:len(partials)]
+
+
+def across_shards_later(partial: torch.Tensor) -> Callable[[], torch.Tensor]:
+    """``partial`` summed over the ranks inside the next ``across_shards``
+    of this thread, with no collective of its own: returns a function
+    that gives the sum once that call has run (or, if none has, makes
+    the collective itself). Every rank runs the same calls, so every
+    rank packs the same partials."""
+    if getattr(_SHARDS, "mesh", None) is None:
+        return lambda: partial
+    rider = _Rider(partial)
+    _SHARDS.riders.append(rider)
+
+    def total() -> torch.Tensor:
+        if rider.total is None:
+            _SHARDS.riders = [r for r in _SHARDS.riders if r is not rider]
+            (rider.total,) = across_shards(rider.partial)
+        return rider.total
+
+    return total
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,13 @@ search probe is projected onto the orthant of the current point (a
 coordinate that would cross zero is set to exactly 0). The history
 takes smooth-gradient differences. Absolute tolerances come from the
 zero state of F: |f(0)| and the pseudo-gradient's norm at 0.
+
+On a column-sharded fixed effect (``base.sharded_over``) the
+pseudo-gradient, the orthant and the projection are elementwise on this
+rank's slice; the L1 term of F is summed over the ranks inside the
+objective's own sum of inner products (``base.across_shards_later``),
+so it adds no collective. The padded slots get no data gradient, so
+they stay at 0.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from photon_tpu_torch.optim.base import (
     OptimizerConfig,
     OptResult,
     Tolerances,
+    across_shards_later,
     convergence_code,
     l2norm,
 )
@@ -46,8 +54,11 @@ def owlqn(fun, w0: torch.Tensor, l1_weight, config: OptimizerConfig, *,
     l1 = torch.as_tensor(l1_weight, dtype=w0.dtype, device=w0.device)
 
     def total(w):
+        # On a column shard the L1 partial rides in the first sum over
+        # the ranks that ``fun`` makes (the L2 or prior term's).
+        pen = across_shards_later(torch.sum(l1 * torch.abs(w), dim=-1))
         f, g = fun(w)
-        return f + torch.sum(l1 * torch.abs(w), dim=-1), g
+        return f + pen(), g
 
     if tolerances is None:
         zero = torch.zeros_like(w0)

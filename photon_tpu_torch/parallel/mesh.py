@@ -87,13 +87,15 @@ SITE_ROW_GATHER = "score.row_gather"  # the scorers' row shares
 SITE_COLUMN_MARGINS = "column.margins"  # a column shard's partial margins
 SITE_INNER_PRODUCTS = "column.inner_products"  # the optimizer's sums
 SITE_COEFFICIENT_GATHER = "column.coefficient_gather"  # slices -> whole
+SITE_HESSIAN_GATHER = "column.hessian_gather"  # row blocks -> whole [d, d]
 SITE_CHECKPOINT_BARRIER = "estimator.checkpoint_barrier"
 
 # SPMD contract (audited by ``python -m photon_tpu_torch.analysis
 # --spmd``; machinery in analysis/spmd.py). The port has no jaxpr or
 # HLO: the builder runs ``hosts`` gloo ranks on the CPU through a GLMix
-# fit with a row-sharded fixed effect and a random effect, then a
-# column-sharded fixed-effect fit, and every rank's ordered census of
+# fit with a row-sharded fixed effect and a random effect, then two
+# column-sharded fixed-effect fits (L-BFGS; OWL-QN with FULL variances),
+# and every rank's ordered census of
 # collectives must equal rank 0's position by position, each site one
 # declared here; every leaf the mesh places is covered by exactly one
 # PARTITION_RULES entry.
@@ -110,6 +112,7 @@ SPMD_AUDIT = dict(
         SITE_COLUMN_MARGINS,
         SITE_INNER_PRODUCTS,
         SITE_COEFFICIENT_GATHER,
+        SITE_HESSIAN_GATHER,
         SITE_CHECKPOINT_BARRIER,
     ),
     partition_rules="PARTITION_RULES",
@@ -611,6 +614,10 @@ class FeatureShardedSparse:
     logical_d: int
     mesh: Mesh
     lo: int  # this rank's first feature
+    # local_bounds' results by id of the caller's bounds, each entry
+    # keeping those bounds alive so no id is reused.
+    _bounds: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False)
 
     @property
     def d_local(self) -> int:
@@ -662,6 +669,59 @@ class FeatureShardedSparse:
 
     def rmatvec_sq(self, g: torch.Tensor) -> torch.Tensor:
         return self.local.rmatvec_sq(g)
+
+    def local_bounds(self, box_constraints: tuple) -> tuple:
+        """This rank's ``(lower, upper)`` of an L-BFGS-B box: a scalar
+        bound holds on every slot, the padded ones too (as the
+        reference's column route applies it); a per-feature bound of
+        ``[d]`` is sliced; one of ``[logical_d]`` is sliced after its
+        padded tail is left unbounded (-inf, +inf), where no data and
+        no penalty moves a coefficient from 0. Made once per bounds
+        object: the same tuple comes back on every fit, so
+        ``optim.box_bounds`` copies it to the device once."""
+        hit = self._bounds.get(id(box_constraints))
+        if hit is not None:
+            return hit[1]
+        out = []
+        for b, fill in zip(box_constraints, (-np.inf, np.inf)):
+            a = np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b)
+            if a.ndim == 0:
+                out.append(a)
+                continue
+            if a.shape[0] not in (self.d, self.logical_d):
+                raise ValueError(
+                    f"box bound of length {a.shape[0]} for "
+                    f"{self.logical_d} features (padded {self.d})")
+            if a.shape[0] < self.d:
+                a = np.concatenate([a, np.full(self.d - a.shape[0], fill,
+                                               dtype=a.dtype)])
+            out.append(a[self.lo:self.lo + self.d_local])
+        self._bounds[id(box_constraints)] = (box_constraints, tuple(out))
+        return self._bounds[id(box_constraints)][1]
+
+    def hessian_rows(self, c: torch.Tensor) -> torch.Tensor:
+        """This rank's row block ``H[lo:lo + d_local, :]`` of X^T diag(c)
+        X over the padded ``[d]`` features (FULL variances; the
+        reference's identity sweep of ``hessian_matrix``): the dense
+        columns of this rank's features (one scatter of its ELL
+        entries; padding adds 0 to column 0), gathered whole
+        (``column.margins``, one collective); each of the ``d`` columns
+        of ``c * X`` then goes through this rank's transpose (the
+        segment sum at ``fixed_effect``)."""
+        mine = torch.zeros(self.num_rows, self.d_local, dtype=c.dtype,
+                           device=c.device).scatter_add_(
+            1, self.local_indices.long(), self.local_values.to(c.dtype))
+        cols = torch.cat(self.mesh.all_gather(mine, site=SITE_COLUMN_MARGINS),
+                         dim=1)
+        cx = c[:, None] * cols
+        return torch.stack([self.local.rmatvec(cx[:, i])
+                            for i in range(self.d)], dim=1)
+
+    def gather_hessian(self, rows: torch.Tensor) -> torch.Tensor:
+        """The whole ``[d, d]`` from every rank's row block, in one
+        collective (``column.hessian_gather``): the same bits on every
+        rank, so every rank's Cholesky agrees."""
+        return torch.cat(self.mesh.all_gather(rows, site=SITE_HESSIAN_GATHER))
 
     def gather(self, *slices: torch.Tensor) -> tuple:
         """The whole ``[d]`` vectors from every rank's slices of them, in

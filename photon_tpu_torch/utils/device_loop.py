@@ -42,6 +42,13 @@ counts exact: from then on a wrapper that launches under a capture
 (``note_launch``) also captures an add into a device counter of its
 kernel, so each replay counts on the card what it launched
 (``graph_launches``). Off, the default, it adds nothing to a graph.
+
+``observing(observer)`` hands this thread's loops and launches to the
+program tier (``analysis/program.py``): each loop's body is bracketed by
+``observer.mark`` calls and each kernel launch is marked with its
+statics. With ``unroll=True`` (the tier's CPU trace) an eager loop runs
+its body exactly once and never asks its condition on the host, as a
+capture records it; the values it leaves are not a solve's.
 """
 
 from __future__ import annotations
@@ -161,10 +168,35 @@ def count_graph_launches(device) -> None:
                 (), dtype=torch.int64, device=torch.device("cuda", idx))
 
 
-def note_launch(name: str, device: torch.device) -> None:
-    """A wrapper's hook, right after it launches ``name`` on ``device``:
-    under a capture with counting on, capture one add into the kernel's
-    device counter."""
+@contextlib.contextmanager
+def observing(observer, *, unroll: bool = False):
+    """Report this thread's loops and launches to ``observer`` (its
+    ``mark(text)``); ``unroll``: run each eager loop body once."""
+    prev = getattr(_local, "observer", None)
+    _local.observer = (observer, unroll)
+    try:
+        yield observer
+    finally:
+        _local.observer = prev
+
+
+def _mark(text: str) -> None:
+    obs = getattr(_local, "observer", None)
+    if obs is not None:
+        obs[0].mark(text)
+
+
+def _unrolled() -> bool:
+    obs = getattr(_local, "observer", None)
+    return obs is not None and obs[1]
+
+
+def note_launch(name: str, device: torch.device, detail: str = "") -> None:
+    """A wrapper's hook, right after it launches ``name`` on ``device``
+    (``detail``: the launch's statics, for an observer): under a capture
+    with counting on, capture one add into the kernel's device
+    counter."""
+    _mark(f"launch {name} {detail}".rstrip())
     if (not _graph_counts or device.type != "cuda"
             or not torch.cuda.is_current_stream_capturing()):
         return
@@ -352,11 +384,13 @@ def _conditional(cap: Capture, kind: int, mask: torch.Tensor,
     ended = False
     try:
         with torch.cuda.stream(body_stream):
+            _mark("while {" if kind == _WHILE else "if {")
             run_body()
             if cond is not None:
                 again = cond()
                 mask.copy_(again)
                 torch.any(again, out=flag)
+            _mark("}")
             ended = True
             _check(_end_fn(ctypes.c_void_p(body_stream.cuda_stream),
                            handle, ctypes.c_void_p(flag.data_ptr()), kind,
@@ -380,6 +414,12 @@ def while_loop(cond: Callable[[], torch.Tensor],
     state = tuple(state)
     mask = cond()
     cap = _capturing(mask)
+    if cap is None and _unrolled():
+        _mark("while {")
+        body(mask)
+        cond()
+        _mark("}")
+        return
     if cap is None:
         while any_running(mask):
             body(mask)
@@ -403,6 +443,11 @@ def cond_apply(mask: torch.Tensor, body: Callable[[], None],
     buffers."""
     state = tuple(state)
     cap = _capturing(mask)
+    if cap is None and _unrolled():
+        _mark("if {")
+        body()
+        _mark("}")
+        return
     if cap is None:
         if any_running(mask):
             body()

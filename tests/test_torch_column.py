@@ -12,8 +12,14 @@ TestFeatureAxisSharding``'s, float64:
 - matvec / rmatvec / rmatvec_sq against the plain ELL matrix, rtol 1e-10,
   the padded range receiving nothing;
 - column fits (SIMPLE variances, a random effect, warm starts across
-  configurations, incremental training, TRON) against the reference's
-  column fits: rtol 1e-7 / atol 1e-9, the reference's own tolerance;
+  configurations, incremental training, TRON, OWL-QN for L1 and elastic
+  net, L-BFGS-B with scalar bounds, FULL variances) against the
+  reference's column fits: rtol 1e-7 / atol 1e-9, the reference's own
+  tolerance;
+- the same routes through ``GLMOptimizationProblem`` on the whole padded
+  ``[d]`` (per-feature bounds of the logical length too, which the
+  reference's column route refuses): the padded slots exactly 0, against
+  the single process;
 - the 1,048,576-feature L-BFGS fit against the replicated fit, rtol
   1e-5 / atol 1e-7 (reference ``test_million_feature_fit_over_mesh``);
 - ``cli.train`` with ``feature_sharding: column`` (float32) against the
@@ -118,7 +124,8 @@ def game(pkg, path, *, dual_cap=None):
 
 
 def estimator(pkg, mesh, sharding, *, with_re=False, variance="NONE",
-              optimizer="LBFGS", weight=0.5, reg="L2", **extra):
+              optimizer="LBFGS", weight=0.5, reg="L2", alpha=None, box=None,
+              **extra):
     """``TestColumnFeatureSharding._estimator`` in either package."""
     if pkg == "pt":
         from photon_tpu_torch import optim
@@ -145,11 +152,11 @@ def estimator(pkg, mesh, sharding, *, with_re=False, variance="NONE",
         from photon_tpu.estimators import game_estimator as est
         from photon_tpu.types import TaskType
     opt = (optim.OptimizerConfig.tron() if optimizer == "TRON"
-           else optim.OptimizerConfig())
+           else optim.OptimizerConfig(box_constraints=box))
     l2 = GLMOptimizationConfiguration(
         optimizer=opt,
         regularization=optim.RegularizationContext(
-            optim.RegularizationType(reg)),
+            optim.RegularizationType(reg), alpha),
         regularization_weight=weight,
         variance_computation=VarianceComputationType(variance))
     coords = {"global": est.FixedEffectCoordinateConfiguration(
@@ -200,7 +207,22 @@ def fit_cases(pkg, root, mesh, sharding):
     put("incremental", fe_arrays(inc.fit(data, initial_model=prior)[0]))
     put("tron", fe_arrays(estimator(pkg, mesh, sharding, variance="SIMPLE",
                                     optimizer="TRON").fit(data, val)[0]))
+    for case, kw in ROUTE_CASES.items():
+        put(case, fe_arrays(estimator(pkg, mesh, sharding, **kw).fit(
+            data, val)[0]))
     return out
+
+
+# The solver routes a column shard takes beside L-BFGS and TRON: OWL-QN
+# (L1, elastic net), L-BFGS-B (scalar bounds, which bind on some
+# coefficients) and FULL variances.
+ROUTE_CASES = {
+    "l1": dict(reg="L1", weight=5.0),
+    "elastic": dict(reg="ELASTIC_NET", weight=5.0, alpha=0.5,
+                    variance="SIMPLE"),
+    "box": dict(box=(-0.3, 0.3)),
+    "full": dict(variance="FULL"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +291,74 @@ def rank_million(root, mesh) -> dict:
     return {"million/sharded": fit(sharded), "million/plain": fit(plain)}
 
 
+def rank_routes(root, mesh) -> dict:
+    """OWL-QN, L-BFGS-B with per-feature bounds of the logical length
+    and FULL variances through ``GLMOptimizationProblem`` on this rank's
+    column shard (the whole padded ``[d]`` model back) and on the plain
+    ELL matrix."""
+    import torch
+
+    from photon_tpu_torch import optim
+    from photon_tpu_torch.algorithm.problems import (
+        GLMOptimizationConfiguration,
+        GLMOptimizationProblem,
+        VarianceComputationType,
+    )
+    from photon_tpu_torch.data.dataset import GLMBatch, SparseFeatures
+    from photon_tpu_torch.parallel.mesh import shard_features_by_column
+    from photon_tpu_torch.types import TaskType
+
+    a = np.load(os.path.join(root, "wide.npz"))
+    n = a["y"].shape[0]
+    y = torch.from_numpy(a["y"])
+    lower = np.linspace(-0.5, -0.1, D_WIDE)
+    configs = {
+        "l1": GLMOptimizationConfiguration(
+            regularization=optim.RegularizationContext(
+                optim.RegularizationType.ELASTIC_NET, 0.7),
+            regularization_weight=4.0),
+        "box": GLMOptimizationConfiguration(
+            optimizer=optim.OptimizerConfig(
+                box_constraints=(lower, -lower)),
+            regularization=optim.RegularizationContext(
+                optim.RegularizationType.L2),
+            regularization_weight=0.5),
+        "full": GLMOptimizationConfiguration(
+            regularization=optim.RegularizationContext(
+                optim.RegularizationType.L2),
+            regularization_weight=0.5,
+            variance_computation=VarianceComputationType.FULL),
+    }
+    sharded = shard_features_by_column(a["idx"], a["val"], D_WIDE, mesh,
+                                       dtype=torch.float64, device="cpu")
+    plain = SparseFeatures(torch.from_numpy(a["idx"]),
+                           torch.from_numpy(a["val"]), D_WIDE)
+    out = {}
+    for case, cfg in configs.items():
+        prob = GLMOptimizationProblem(TaskType.LINEAR_REGRESSION, cfg,
+                                      intercept_index=3)
+        for side, feats in (("sharded", sharded), ("plain", plain)):
+            batch = GLMBatch(feats, y, torch.zeros(n, dtype=torch.float64),
+                             torch.ones(n, dtype=torch.float64))
+            sol = prob.run(batch)
+            c = sol.model.coefficients
+            if case == "box" and side == "sharded":
+                # A second fit finds the rank's bounds on the device.
+                held = len(optim.base._BOUNDS)
+                again = prob.run(batch).model.coefficients.means
+                out["routes/box/bounds_held"] = np.asarray(
+                    [held, len(optim.base._BOUNDS), optim.base._MAX_BOUNDS])
+                out["routes/box/again_equal"] = np.asarray(
+                    torch.equal(again, c.means))
+            out[f"routes/{case}/{side}/means"] = c.means.numpy()
+            out[f"routes/{case}/{side}/iterations"] = np.asarray(
+                int(sol.result.iterations))
+            if c.variances is not None:
+                out[f"routes/{case}/{side}/variances"] = c.variances.numpy()
+    out["routes/lower"] = lower
+    return out
+
+
 def rank_blockers(root) -> dict:
     """``auto`` above a lowered threshold goes column, and stays
     replicated (``column`` raises) under normalization or a DualEll
@@ -297,6 +387,10 @@ def rank_blockers(root) -> dict:
         out["auto/normalized"] = kind(
             estimator("pt", "auto", "auto", normalization=norm), data)
         out["auto/dual"] = kind(estimator("pt", "auto", "auto"), dual)
+        l1 = estimator("pt", "auto", "auto", **ROUTE_CASES["l1"])
+        out["auto/l1"] = kind(l1, data)
+        out.update({f"auto/l1/{k}": v
+                    for k, v in fe_arrays(l1.fit(data)[0]).items()})
     finally:
         est_mod.AUTO_COLUMN_SHARDING_THRESHOLD = saved
     msgs = []
@@ -307,11 +401,6 @@ def rank_blockers(root) -> dict:
             msgs.append("no error")
         except ValueError as exc:
             msgs.append(str(exc))
-    try:
-        estimator("pt", "auto", "column", reg="L1").fit(data)
-        msgs.append("no error")
-    except NotImplementedError as exc:
-        msgs.append(str(exc))
     out["blocker_messages"] = np.asarray(msgs)
     return out
 
@@ -339,6 +428,7 @@ def rank_cases(spec_path: str) -> None:
             out.update(rank_blockers(root))
             single = fit_cases("pt", root, "off", "replicated")
             out.update({f"single/{k}": v for k, v in single.items()})
+        out.update(rank_routes(root, mesh))
         census = [[c["op"], c["site"], c["dtype"], c["shape"]]
                   for c in mesh.stats.census]
         out["census"] = np.asarray(json.dumps(census))
@@ -386,7 +476,8 @@ def column_runs(tmp_path_factory):
     return {"root": root, "ref": ref, 2: two, 3: three}
 
 
-FIT_CASES = ("parity", "with_re", "warm0", "warm1", "incremental", "tron")
+FIT_CASES = ("parity", "with_re", "warm0", "warm1", "incremental", "tron",
+             *ROUTE_CASES)
 
 
 @pytest.mark.parametrize("world", [2, 3])
@@ -435,7 +526,8 @@ def test_column_fit_matches_reference_column_fit(column_runs, world, case):
             np.testing.assert_array_equal(got[key], ranks[0][key])
 
 
-@pytest.mark.parametrize("case", ["parity", "with_re", "incremental"])
+@pytest.mark.parametrize("case", ["parity", "with_re", "incremental",
+                                  *ROUTE_CASES])
 def test_column_fit_matches_single_process(column_runs, case):
     ranks = column_runs[2]
     for key in ranks[0]:
@@ -448,6 +540,55 @@ def test_column_fit_matches_single_process(column_runs, case):
 def test_two_column_fits_are_bit_identical(column_runs):
     for got in column_runs[2]:
         assert bool(got["repeat_equal"])
+    # The L1 fit has exact zeros, and the same ones on both sides.
+    l1 = column_runs[2][0]["l1/means"]
+    assert 0 < np.count_nonzero(l1) < l1.size
+    np.testing.assert_array_equal(l1 == 0.0, column_runs["ref"]["l1/means"]
+                                  == 0.0)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("case", ["l1", "box", "full"])
+def test_column_routes_on_the_padded_model(column_runs, world, case):
+    """OWL-QN, L-BFGS-B with per-feature bounds and FULL variances on the
+    whole padded ``[d]``: the padded slots exactly 0, the logical ones
+    against the single process; every rank equal to rank 0."""
+    ranks = column_runs[world]
+    lower = ranks[0]["routes/lower"]
+    for r, got in enumerate(ranks):
+        pre = f"routes/{case}"
+        means = got[f"{pre}/sharded/means"]
+        assert means.shape[0] % world == 0 and means.shape[0] >= D_WIDE
+        assert np.all(means[D_WIDE:] == 0.0)
+        np.testing.assert_allclose(means[:D_WIDE], got[f"{pre}/plain/means"],
+                                   rtol=RTOL, atol=ATOL, err_msg=f"rank {r}")
+        assert (got[f"{pre}/sharded/iterations"]
+                == got[f"{pre}/plain/iterations"])
+        np.testing.assert_array_equal(means, ranks[0][f"{pre}/sharded/means"])
+        if case == "box":
+            w = means[:D_WIDE]
+            assert np.all(w >= lower) and np.all(w <= -lower)
+            assert np.any(w == lower) or np.any(w == -lower)
+        if case == "l1":
+            assert 0 < np.count_nonzero(means) < D_WIDE
+        if case == "full":
+            var = got[f"{pre}/sharded/variances"]
+            np.testing.assert_allclose(
+                var[:D_WIDE], got[f"{pre}/plain/variances"], rtol=RTOL,
+                atol=ATOL)
+            np.testing.assert_array_equal(
+                var, ranks[0][f"{pre}/sharded/variances"])
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_column_box_bounds_reach_the_device_once(column_runs, world):
+    """A column coordinate's second fit reuses its rank's bounds: the
+    device cache of box bounds does not grow, and the fit repeats."""
+    for got in column_runs[world]:
+        before, after, cap = got["routes/box/bounds_held"]
+        assert 0 < before < cap
+        assert after == before
+        assert bool(got["routes/box/again_equal"])
 
 
 def test_million_feature_fit_matches_replicated(column_runs):
@@ -466,10 +607,15 @@ def test_auto_threshold_and_blockers(column_runs):
         assert bool(got["auto/above"])
         assert not bool(got["auto/normalized"])
         assert not bool(got["auto/dual"])
-        norm, dual, l1 = got["blocker_messages"]
+        norm, dual = got["blocker_messages"]
         assert "feature normalization is active" in norm
         assert "DualEll overflow tail present" in dual
-        assert "OWL-QN" in l1 and "item 14" in l1
+        # An L1 part above the threshold goes column and fits, as the
+        # reference's column route does.
+        assert bool(got["auto/l1"])
+        np.testing.assert_allclose(got["auto/l1/means"],
+                                   column_runs["ref"]["l1/means"],
+                                   rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("world", [2, 3])
@@ -483,7 +629,7 @@ def test_every_rank_issues_rank0s_census(column_runs, world):
     sites = {c[1] for c in censuses[0]}
     assert sites <= set(SPMD_AUDIT["ordered_collectives"])
     assert {"column.margins", "column.inner_products",
-            "column.coefficient_gather"} <= sites
+            "column.coefficient_gather", "column.hessian_gather"} <= sites
 
 
 def test_cli_config_key():

@@ -499,7 +499,9 @@ class TestAuditGate:
         out = capsys.readouterr().out
         assert "contract mesh-spmd (2 hosts)" in out
         assert "glmix_fit@ok" in out and "column_fit@ok" in out
+        assert "column_l1_fit@ok" in out
         assert "column.margins" in out and "glm.row_sums" in out
+        assert "column.hessian_gather" in out
         assert "12 leaves / 5 rules" in out
 
     def test_cli_arg_validation(self):
@@ -510,12 +512,11 @@ class TestAuditGate:
         assert cli_main(["--spmd", "--numerics"]) == 2
 
     def test_unported_tiers_name_the_item(self, capsys):
-        for flag in ("--semantic", "--concurrency", "--memory",
-                     "--numerics"):
+        for flag in ("--concurrency", "--memory", "--numerics"):
             assert cli_main([flag]) == 2
         assert cli_main(["photon_tpu_torch"]) == 2
         err = capsys.readouterr().err
-        assert err.count("ROADMAP Queue A item 13") == 5
+        assert err.count("ROADMAP Queue A item 13") == 4
 
     def test_list_rules(self, capsys):
         assert cli_main(["--spmd", "--list-rules"]) == 0
